@@ -2,22 +2,32 @@
 
     python3 chip_smoke.py            # every phase, one card
 
-Phases, each printing one JSON line (any failed check raises, so the script
+Phases, each printing JSON lines (any failed check raises, so the script
 exits non-zero and never prints the final line):
 
 1. build   - compiles the CUDA kernels from mlrun_tpu_torch/csrc (nvcc,
              sm_90a) and reports the build time, torch/CUDA versions and
              the card's name and power limit.
 2. kernels - holds each hand-written kernel against its plain PyTorch
-             version at the serving path's shapes, in bf16 and f32, with
-             the stated tolerances; times kernel, plain version and (flash
-             only) scaled_dot_product_attention with CUDA events; checks
-             that chunked and unchunked flash prefill agree bit for bit.
+             version at its main path's shapes, in bf16 and f32, with the
+             stated tolerances; times kernel, plain version and, where one
+             PyTorch call computes the same function,
+             scaled_dot_product_attention, with CUDA events; checks that
+             chunked and unchunked flash prefill agree bit for bit and
+             that two flash backward launches give the same bits.
 3. serve   - serves Llama-3-8B (random weights from a seed, bf16, all 32
              layers) through LLMModelServer -> PagedContinuousBatchingEngine
-             with the kernels, shows every kernel launched on that path,
-             then reruns the same requests on a reference-attention engine
-             and compares first-token logits and greedy tokens.
+             with the kernels, shows every serving kernel launched on that
+             path, then reruns the same requests on a reference-attention
+             engine and compares first-token logits and greedy tokens.
+4. train   - trains Llama-3.2-1B (random weights from a seed, bf16, all 16
+             layers, full width) through Trainer.fit for a few steps on a
+             repeated synthetic batch (4 x 2048 tokens, loss chunks of
+             512, per-layer remat), shows the flash forward and backward
+             kernels launched once per layer per pass, checks that the
+             loss is finite and falls, reports the Trainer's own
+             tokens/s and MFU, and holds step 1's loss, gradient norm and
+             attention-weight gradients against the reference attention.
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 ``--phases build,kernels`` runs a subset (for bring-up); the final lines are
@@ -47,10 +57,40 @@ PEAK_OPS_PER_S = {"bf16": 989e12,   # dense tensor-core bf16
 # summation-order round-off
 TOL = {"bf16": {"o": 1.6e-2, "lse": 1e-4},
        "f32": {"o": 2e-5, "lse": 1e-4}}
+# flash backward gradients, kernel vs plain version on the same inputs.
+# float32: sums of thousands of terms of both signs, added in another
+# order; the bound is 1e-4 of the largest gradient (or of 1, if larger).
+# bf16: the kernel and the plain version both compute one float32 sum from
+# the same bf16 inputs, and the kernel rounds it to bf16 once. So each
+# element is held against the plain version's unrounded float32 value: at
+# most half a bf16 ulp of it (2**-8 of its own magnitude), plus a floor of
+# 2e-5 of the largest gradient for the two float32 sums' different order
+# (the float32 rows read up to ~4e-6 of it)
+GRAD_RTOL_F32 = 1e-4
+BF16_HALF_ULP = 2.0 ** -8
+BF16_GRAD_FLOOR = 2e-5
 # end to end: first-token logits of the kernel engine vs the reference
 # engine (both bf16, 32 layers) — bf16 rounds at different points in the
 # two attention paths, and the difference compounds over the layers
 LOGIT_REL_TOL = 5e-2
+# train step 1, kernel path vs reference attention (16 layers, same params
+# and batch). In bf16, the main path's dtype, the two agree to ~2e-6
+# (loss) and ~1e-4 (grad norm); the limits sit 10-60x above. The global
+# norm is dominated by the non-attention leaves, so the attention weights'
+# gradients are held one by one: in bf16 their norms (within 1e-2); their
+# elements differ there by ~3% (||g_kernel - g_ref|| / ||g_ref||), because
+# the reference's backward rounds dP to bf16 before the softmax backward
+# subtracts two nearly equal numbers — noise that would hide a faulty
+# dq, dk or dv. So the same gradients are also compared in float32, where
+# the two paths differ only in summation order: within 2e-3 per leaf (a
+# zeroed dk reads 1 on wk; a dropped 64-key tile ~0.2)
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_GRAD_NORM_REL_TOL = 1e-3
+TRAIN_LEAF_NORM_REL_TOL = 1e-2
+TRAIN_F32_LEAF_REL_TOL = 2e-3
+ATTENTION_LEAVES = ("layers.wq", "layers.wk", "layers.wv", "layers.wo")
+SERVING_KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill")
+TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
 
 
 def emit(obj):
@@ -290,6 +330,118 @@ def kernel_prefill(gen, kind, dtype, record):
     emit({"phase": "kernels", **row})
 
 
+# Llama-3.2-1B's attention at the train phase's batch: B 4, S 2048, 32
+# query heads over 8 kv heads, head_dim 64
+TB, TS, TH, THKV, TD = 4, 2048, 32, 8, 64
+
+
+def _train_pairs(causal: bool) -> int:
+    """Unmasked (query, key) pairs of self-attention over all heads."""
+    per_head = TS * (TS + 1) // 2 if causal else TS * TS
+    return TB * TH * per_head
+
+
+def kernel_train_flash(gen, kind, dtype, record):
+    import torch
+    import torch.nn.functional as F
+
+    from mlrun_tpu_torch.ops import attention as at
+
+    dev = "cuda"
+    q = torch.randn((TB, TS, TH, TD), generator=gen, device=dev).to(dtype)
+    k = torch.randn((TB, TS, THKV, TD), generator=gen, device=dev).to(dtype)
+    v = torch.randn((TB, TS, THKV, TD), generator=gen, device=dev).to(dtype)
+    do = torch.randn((TB, TS, TH, TD), generator=gen, device=dev).to(dtype)
+    item = q.element_size()
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    shape = {"B": TB, "S": TS, "H": TH, "Hkv": THKV, "D": TD}
+    fwd_rows, bwd_rows = [], []
+    for causal in (True, False):
+        # forward: the Pallas _flash_fwd_kernel_v2 on the main path
+        o, lse = at.flash_fwd(q, k, v, causal)
+        o_ref, lse_ref = at.flash_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
+        del o_ref, lse_ref
+        _check(f"flash_fwd causal={causal}", kind, errs)
+        ms = time_ms(lambda: at.flash_fwd(q, k, v, causal), iters=10)
+        plain = time_ms(lambda: at.flash_fwd_plain(q, k, v, causal),
+                        iters=3, warmup=1)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=10)
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * item + lse.numel() * 4
+        bound, by = bound_ms(n_bytes, 4 * TD * _train_pairs(causal), kind)
+        row = {"name": "flash_fwd", "dtype": kind, "causal": causal,
+               **shape, "max_abs_err": max(errs.values()), "errs": errs,
+               "tol": TOL[kind], "ms": ms, "plain_ms": plain,
+               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        fwd_rows.append(row)
+        emit({"phase": "kernels", **row})
+
+        # backward: the counterpart of the reference's _blockwise_bwd
+        grads = at.flash_bwd(q, k, v, o, lse, do, causal)
+        if kind == "f32":
+            refs = at.flash_bwd_plain(q, k, v, o, lse, do, causal)
+        else:   # float32 on the same bf16 values, not rounded at the end
+            refs = at.flash_bwd_plain(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float(), causal)
+        torch.cuda.synchronize()
+        errs, tols, worst = {}, {}, {}
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            errs[name] = _err(got, ref)
+            top = float(ref.abs().max())
+            if kind == "f32":
+                tols[name] = GRAD_RTOL_F32 * max(top, 1.0)
+                worst[name] = errs[name] / tols[name]
+            else:
+                tols[name] = {"rel": BF16_HALF_ULP,
+                              "floor": BF16_GRAD_FLOOR * top}
+                bound = ref.abs() * BF16_HALF_ULP + BF16_GRAD_FLOOR * top
+                worst[name] = float(((got.float() - ref).abs()
+                                     / bound).max())
+            if not worst[name] <= 1.0:
+                fail(f"flash_bwd causal={causal} {kind} {name}: error "
+                     f"{worst[name]} x its bound (max_abs_err {errs[name]}, "
+                     f"tol {tols[name]})")
+        del grads, refs
+        ms = time_ms(lambda: at.flash_bwd(q, k, v, o, lse, do, causal),
+                     iters=5)
+        plain = time_ms(lambda: at.flash_bwd_plain(q, k, v, o, lse, do,
+                                                   causal), iters=2,
+                        warmup=1)
+        leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, enable_gqa=True)
+            torch.autograd.grad(out, leaves, dot)
+
+        lib_ms = time_ms(sdpa_fwd_bwd, iters=5)
+        # read q, k, v, o, dO and lse once; write dq, dk, dv
+        n_bytes = (4 * q.numel() + 4 * k.numel()) * item + lse.numel() * 4
+        bound, by = bound_ms(n_bytes, 10 * TD * _train_pairs(causal), kind)
+        row = {"name": "flash_bwd", "dtype": kind, "causal": causal,
+               **shape, "max_abs_err": max(errs.values()), "errs": errs,
+               "tol": tols, "err_over_bound": worst, "ms": ms,
+               "plain_ms": plain, "bound_ms": bound,
+               "bound_by": by, "library_ms": lib_ms,
+               "library_is": "scaled_dot_product_attention forward + "
+                             "backward"}
+        bwd_rows.append(row)
+        emit({"phase": "kernels", **row})
+    record.extend([fwd_rows[0], bwd_rows[0]])  # causal: the main path's
+    # no atomics: two launches on the same inputs give the same bits
+    o, lse = at.flash_fwd(q, k, v, True)
+    first = at.flash_bwd(q, k, v, o, lse, do, True)
+    second = at.flash_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    emit({"phase": "kernels", "name": "flash_bwd", "dtype": kind,
+          "bit_identical_runs": same})
+    if not same:
+        fail(f"flash_bwd {kind}: two runs on the same inputs differ")
+
+
 def phase_kernels(seed: int) -> list:
     import torch
 
@@ -300,6 +452,8 @@ def phase_kernels(seed: int) -> list:
         kernel_decode(gen, kind, dtype, record)
         kernel_flash(gen, kind, dtype, record)
         kernel_prefill(gen, kind, dtype, record)
+        kernel_train_flash(gen, kind, dtype, record)
+        torch.cuda.empty_cache()
     return [r for r in record if r["dtype"] == "bf16"]
 
 
@@ -388,9 +542,12 @@ def phase_serve(seed: int, card: str) -> dict:
     params = server.engine.params
     server.close()
 
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the serving path")
+    for name in TRAINING_KERNELS:
+        if launches[name] != 0:
+            fail(f"training kernel {name} was launched on the serving path")
     if not stats["attn_kernel_ticks"] > 0:
         fail("no decode tick ran on the paged decode kernel")
     if not stats["prefill_kernel_chunks"] > 0:
@@ -464,12 +621,208 @@ def phase_serve(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4: train Llama-3.2-1B through the port's Trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ, LOSS_CHUNK = 4, 2048, 512
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """Dotted names of a param tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [name for key in sorted(tree)
+                for name in _leaf_names(tree[key], f"{prefix}{key}.")]
+    return [prefix[:-1]]
+
+
+def _attention_grads(trainer, tokens, targets) -> tuple[dict, dict]:
+    """Step 1's gradient on ``trainer``'s params through the step's own
+    gradient function: the attention weights' gradients by name, and the
+    loss and pre-clip global norm the step reports as metrics."""
+    import torch
+
+    from mlrun_tpu_torch.training.train import global_norm
+
+    grads, metrics = trainer.step_fn.compute_grads(trainer.state.params,
+                                                   tokens, targets)
+    step = {"loss": float(metrics["loss"]),
+            "grad_norm": float(global_norm(grads))}
+    named = dict(zip(_leaf_names(trainer.state.params), grads))
+    kept = {name: named[name] for name in ATTENTION_LEAVES}
+    del grads, named
+    torch.cuda.synchronize()
+    return kept, step
+
+
+def phase_train(seed: int, card: str) -> dict:
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training import TrainConfig, Trainer
+    from mlrun_tpu_torch.training.data import synthetic_token_stream, to_device
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    tokens, targets = next(synthetic_token_stream(
+        TRAIN_BATCH, TRAIN_SEQ, config.vocab_size, seed=seed))
+    tokens_dev, targets_dev = to_device((tokens, targets), "cuda")
+
+    def repeated():
+        while True:
+            yield tokens, targets
+
+    train_config = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                               total_steps=TRAIN_STEPS,
+                               loss_chunk=LOSS_CHUNK)
+
+    def step1(model_config):
+        """Step 1's gradient of a fresh Trainer on the seeded params."""
+        other = Trainer(model_config, train_config, device="cuda")
+        other.init(seed)
+        started = time.perf_counter()
+        out = _attention_grads(other, tokens_dev, targets_dev)
+        seconds = time.perf_counter() - started
+        del other
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (*out, seconds)
+
+    def rel_diff(got, ref):
+        got, ref = got.float(), ref.float()
+        return float(torch.linalg.vector_norm(got - ref)
+                     / torch.linalg.vector_norm(ref))
+
+    # step 1 on the reference attention, bf16 and float32 (no kernel)
+    before = _build.launch_counts()
+    ref_grads, ref_step, ref_step_s = step1(
+        dataclasses.replace(config, attention_impl="reference"))
+    ref32_grads, ref32_step, _ = step1(dataclasses.replace(
+        config, attention_impl="reference", dtype=torch.float32))
+    if _build.launch_counts() != before:
+        fail("the reference-attention train step launched a kernel")
+    # the kernel path in float32 (uncounted: before the reset)
+    k32_grads, k32_step, _ = step1(
+        dataclasses.replace(config, dtype=torch.float32))
+    f32_leaf_rel = {name: rel_diff(k32_grads[name], ref32_grads[name])
+                    for name in ATTENTION_LEAVES}
+    f32_loss_rel = abs(k32_step["loss"] - ref32_step["loss"]) \
+        / abs(ref32_step["loss"])
+    del k32_grads, ref32_grads
+
+    trainer = Trainer(config, train_config, device="cuda")
+    trainer.init(seed)
+    warm = trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
+    # the bf16 kernel path's gradient (uncounted: before the reset)
+    kernel_grads, kernel_step = _attention_grads(trainer, tokens_dev,
+                                                 targets_dev)
+    leaf_norm_rel, leaf_rel = {}, {}
+    for name in ATTENTION_LEAVES:
+        got, want_g = kernel_grads[name].float(), ref_grads[name].float()
+        norm = torch.linalg.vector_norm
+        leaf_norm_rel[name] = float(abs(norm(got) - norm(want_g))
+                                    / norm(want_g))
+        leaf_rel[name] = rel_diff(got, want_g)
+    del kernel_grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the main path, counted: every count reset right before it ---------
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    trainer.fit(repeated(), TRAIN_STEPS, log_every=1, prefetch=2)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    history = trainer.metrics_history
+
+    # throughput: the Trainer's own steady window (steps after the first),
+    # as read at each log point
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    for view in history:
+        emit({"phase": "train", "step": view["step"], "loss": view["loss"],
+              "grad_norm": view["grad_norm"],
+              "window_step_ms": tokens_per_step / view["tokens_per_sec"]
+              * 1e3,
+              "tokens_per_sec": view["tokens_per_sec"], "mfu": view["mfu"],
+              "card": card})
+    losses = [view["loss"] for view in history]
+    norms = [view["grad_norm"] for view in history]
+    loss_rel = abs(losses[0] - ref_step["loss"]) / abs(ref_step["loss"])
+    norm_rel = abs(norms[0] - ref_step["grad_norm"]) / ref_step["grad_norm"]
+    per_pass = config.n_layers * TRAIN_STEPS
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    last = history[-1]
+    result = {
+        "phase": "train", "model": "llama3-1b", "layers": config.n_layers,
+        "embed_dim": config.embed_dim, "card": card,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_chunk": LOSS_CHUNK,
+        "remat_policy": config.remat_policy, "steps": TRAIN_STEPS,
+        "losses": losses, "grad_norms": norms,
+        "step_ms": tokens_per_step / last["tokens_per_sec"] * 1e3,
+        "tokens_per_sec": last["tokens_per_sec"], "mfu": last["mfu"],
+        "goodput_fraction": last["goodput_fraction"],
+        "compile_seconds": warm["compile_seconds"],
+        "peak_memory_gib": peak_gb, "launches": launches,
+        "expected_launches": want,
+        "reference_step1": ref_step, "reference_step_s": ref_step_s,
+        "kernel_step1_gradient": kernel_step,
+        "step1_loss_rel_err": loss_rel,
+        "step1_loss_rel_tol": TRAIN_LOSS_REL_TOL,
+        "step1_grad_norm_rel_err": norm_rel,
+        "step1_grad_norm_rel_tol": TRAIN_GRAD_NORM_REL_TOL,
+        "step1_leaf_grad_norm_rel_err": leaf_norm_rel,
+        "step1_leaf_grad_norm_rel_tol": TRAIN_LEAF_NORM_REL_TOL,
+        "step1_leaf_grad_rel_diff_bf16": leaf_rel,
+        "step1_f32_loss_rel_err": f32_loss_rel,
+        "step1_f32_leaf_grad_rel_err": f32_leaf_rel,
+        "step1_f32_leaf_grad_rel_tol": TRAIN_F32_LEAF_REL_TOL,
+        "reference_step1_f32": ref32_step, "kernel_step1_f32": k32_step,
+    }
+    emit(result)
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses}")
+    for name, count in want.items():
+        if launches[name] != count:
+            fail(f"kernel {name} launched {launches[name]} times on the "
+                 f"train path, expected {count}")
+    for name in SERVING_KERNELS:
+        if launches[name] != 0:
+            fail(f"serving kernel {name} was launched on the train path")
+    if not loss_rel <= TRAIN_LOSS_REL_TOL:
+        fail(f"step 1 loss: kernel vs reference attention relative error "
+             f"{loss_rel} > {TRAIN_LOSS_REL_TOL}")
+    if not norm_rel <= TRAIN_GRAD_NORM_REL_TOL:
+        fail(f"step 1 grad norm: kernel vs reference attention relative "
+             f"error {norm_rel} > {TRAIN_GRAD_NORM_REL_TOL}")
+    for name in ATTENTION_LEAVES:
+        if not leaf_norm_rel[name] <= TRAIN_LEAF_NORM_REL_TOL:
+            fail(f"step 1 gradient norm of {name}: kernel vs reference "
+                 f"attention relative error {leaf_norm_rel[name]} > "
+                 f"{TRAIN_LEAF_NORM_REL_TOL}")
+        if not f32_leaf_rel[name] <= TRAIN_F32_LEAF_REL_TOL:
+            fail(f"step 1 float32 gradient of {name}: kernel vs reference "
+                 f"attention relative error {f32_leaf_rel[name]} > "
+                 f"{TRAIN_F32_LEAF_REL_TOL}")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
+ALL_PHASES = ("build", "kernels", "serve", "train")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="build,kernels,serve")
+    parser.add_argument("--phases", default=",".join(ALL_PHASES))
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
@@ -495,28 +848,44 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = gpu_name_and_limit()
-    kernels, served = [], None
+    kernels, launches = [], {}
     if "build" in phases:
         phase_build(card)
     if "kernels" in phases:
         kernels = phase_kernels(args.seed)
     if "serve" in phases:
         served = phase_serve(args.seed, card)
-    if set(phases) != {"build", "kernels", "serve"}:
+        launches.update({name: served["launches"][name]
+                         for name in SERVING_KERNELS})
+        del served
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        trained = phase_train(args.seed, card)
+        launches.update({name: trained["launches"][name]
+                         for name in TRAINING_KERNELS})
+    if set(phases) != set(ALL_PHASES):
         return 0
     replaces = {
         "paged_decode": "mlrun_tpu/ops/paged_attention.py:163",
         "flash_fwd_cached": "mlrun_tpu/ops/attention.py:230",
         "paged_prefill": "mlrun_tpu/ops/paged_attention.py:305",
+        "flash_fwd": "mlrun_tpu/ops/attention.py:223",
+        # the reference's backward is XLA (_blockwise_bwd), not Pallas
+        "flash_bwd": "mlrun_tpu/ops/attention.py:447",
     }
     sources = {
         "paged_decode": "mlrun_tpu_torch/csrc/paged_decode.cu",
         "flash_fwd_cached": "mlrun_tpu_torch/csrc/flash_fwd_cached.cu",
         "paged_prefill": "mlrun_tpu_torch/csrc/paged_prefill.cu",
+        "flash_fwd": "mlrun_tpu_torch/csrc/flash_fwd_cached.cu",
+        "flash_bwd": "mlrun_tpu_torch/csrc/flash_bwd.cu",
     }
     line = [{"name": k["name"], "route": "cuda", "source": sources[k["name"]],
              "replaces": replaces[k["name"]],
-             "launches": served["launches"][k["name"]],
+             "launches": launches[k["name"]],
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
              "bound_by": k["bound_by"], "library_ms": k["library_ms"]}

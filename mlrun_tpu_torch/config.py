@@ -1,7 +1,7 @@
-"""Configuration defaults the port reads — a copy of the
-``serving.llm`` block of ``mlrun_tpu/config.py`` (the knobs the paged
-engine's main path consults; the rest of that block belongs to features
-not ported yet)."""
+"""Configuration defaults the port reads — copies of the ``serving.llm``
+and ``training`` blocks of ``mlrun_tpu/config.py`` (the knobs the paged
+engine's and the trainer's main paths consult; the rest of those blocks
+belongs to features not ported yet)."""
 
 from __future__ import annotations
 
@@ -17,4 +17,18 @@ SERVING_LLM_DEFAULTS = {
     # attention dispatch: auto picks the CUDA kernels for a CUDA device
     # and the plain paths on the CPU; flash | kernel | reference override
     "attention_impl": "auto",
+}
+
+TRAINING_DEFAULTS = {
+    # device-prefetch depth: host batches pulled + copied ahead of the
+    # consuming step so the H2D copy overlaps compute (0 = off)
+    "prefetch": 2,
+    # defer log-point metric reads via non-blocking device->host copies,
+    # read one log interval later (callbacks force the synchronous path —
+    # they are handed same-step host values)
+    "defer_metrics": True,
+    # steps excluded from the steady-state tokens_per_sec/MFU window
+    # (first-step kernel build + ramp); the build time is reported
+    # separately as compile_seconds
+    "warmup_steps_excluded": 1,
 }

@@ -37,7 +37,8 @@ LIB_NAME = "libmlt_kernels.so"
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 # kernel names, one counter each
-KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill")
+KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill", "flash_fwd",
+           "flash_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,10 @@ _SIGNATURES = {
                              _I, _I, _F, _P],
     "mlt_paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _P],
+    "mlt_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                      _P],
+    "mlt_flash_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -60,6 +60,8 @@ PORT_QUEUE = {
     4: "KV handoff and the host KV tier",
     5: "speculative decoding",
     6: "the serving graph and engine fleet",
+    7: "training on many GPUs, LoRA training and elastic training",
+    9: "other model families",
     10: "glue",
 }
 

@@ -1,6 +1,7 @@
 """The port package stands alone: nothing under mlrun_tpu_torch/ (nor the
-chip smoke script) imports JAX or the reference package, and importing the
-serving path pulls neither into the process."""
+chip smoke script and the port's profile scripts) imports JAX or the
+reference package, and importing the serving and training paths pulls
+neither into the process."""
 
 import ast
 import os
@@ -14,7 +15,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlrun_tpu")
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "mlrun_tpu_torch").rglob("*.py")) \
-    + ["chip_smoke.py"]
+    + ["chip_smoke.py", "scripts/profile_torch_serving.py",
+       "scripts/profile_torch_training.py"]
 
 
 def _imported_roots(tree):
@@ -38,6 +40,8 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import sys\n"
         "import mlrun_tpu_torch.serving.paged, mlrun_tpu_torch.serving.llm\n"
         "import mlrun_tpu_torch.models.convert\n"
+        "import mlrun_tpu_torch.training.train\n"
+        "import mlrun_tpu_torch.frameworks.torch.auto_trainer\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN,))

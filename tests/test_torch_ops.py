@@ -235,3 +235,104 @@ def test_resolve_impls_follow_the_device():
             tattn.resolve_prefill_impl(impl, "cpu")
     with pytest.raises(ValueError):
         tpaged.resolve_paged_impl("bogus", "cpu")
+
+
+# -- training flash: forward and backward vs flash_attention_mlt --------------
+
+TRAIN_FLASH_CASES = [
+    # (S, H, Hkv, causal) — S 70 and 40 are not multiples of the port's
+    # 64-row tiles
+    (70, 4, 2, True),
+    (70, 4, 2, False),
+    (40, 4, 1, True),
+    (64, 2, 2, False),
+]
+
+
+@pytest.mark.parametrize("s,h,hkv,causal", TRAIN_FLASH_CASES)
+def test_flash_fwd_plain_matches_pallas(s, h, hkv, causal):
+    """The training forward (``_flash_fwd_v2``, the Pallas
+    ``_flash_fwd_kernel_v2`` in interpret mode) against the port's plain
+    version, o and lse; the port takes kv at the kv head count."""
+    rng = np.random.default_rng(8)
+    b, d = 2, 16
+    q_j, q_t = _pair(rng.standard_normal((b, s, h, d), np.float32))
+    k_np = rng.standard_normal((b, s, hkv, d), np.float32)
+    v_np = rng.standard_normal((b, s, hkv, d), np.float32)
+    k_j = jnp.asarray(np.repeat(k_np, h // hkv, axis=2))
+    v_j = jnp.asarray(np.repeat(v_np, h // hkv, axis=2))
+    o_j, lse_j = jattn._flash_fwd_v2(q_j, k_j, v_j, causal=causal,
+                                     interpret=True)
+    o_t, lse_t = tattn.flash_fwd(q_t, torch.from_numpy(k_np),
+                                 torch.from_numpy(v_np), causal)
+    assert o_t.shape == (b, s, h, d) and lse_t.shape == (b, h, s)
+    _close(o_j, o_t)
+    _close(lse_j, lse_t)
+
+
+@pytest.mark.parametrize("s,h,hkv,causal", TRAIN_FLASH_CASES)
+def test_flash_attention_grads_match_jax(s, h, hkv, causal):
+    """Autograd through the port's ``flash_attention_mlt`` (its plain
+    forward and backward on the CPU) against ``jax.grad`` through the
+    reference's ``_repeat_kv`` + ``flash_attention_mlt`` (Pallas forward in
+    interpret mode, ``_blockwise_bwd``): dq, and dk/dv at the kv head
+    count. Tolerance 1e-5 absolute in float32 (O(1) inputs and
+    cotangent; only the summation order differs)."""
+    import jax
+
+    rng = np.random.default_rng(9)
+    b, d = 1, 16
+    q_np = rng.standard_normal((b, s, h, d), np.float32)
+    k_np = rng.standard_normal((b, s, hkv, d), np.float32)
+    v_np = rng.standard_normal((b, s, hkv, d), np.float32)
+    w_np = rng.standard_normal((b, s, h, d), np.float32)
+    n_rep = h // hkv
+
+    def loss_j(q, k, v):
+        o = jattn.flash_attention_mlt(q, jattn._repeat_kv(k, n_rep),
+                                      jattn._repeat_kv(v, n_rep), causal)
+        return jnp.sum(o * jnp.asarray(w_np))
+
+    grads_j = jax.grad(loss_j, argnums=(0, 1, 2))(
+        jnp.asarray(q_np), jnp.asarray(k_np), jnp.asarray(v_np))
+    q_t, k_t, v_t = (torch.from_numpy(a.copy()).requires_grad_(True)
+                     for a in (q_np, k_np, v_np))
+    o_t = tattn.flash_attention_mlt(q_t, k_t, v_t, causal)
+    (o_t * torch.from_numpy(w_np)).sum().backward()
+    for gj, gt, shape in zip(grads_j, (q_t.grad, k_t.grad, v_t.grad),
+                             (q_np.shape, k_np.shape, v_np.shape)):
+        assert tuple(gt.shape) == shape
+        _close(gj, gt)
+
+
+def test_flash_bwd_plain_masks_padded_keys():
+    """``kv_len`` masks a padded key tail in both directions: the padded
+    rows get zero dk/dv and leave o, lse and dq as without them."""
+    rng = np.random.default_rng(10)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                  for shape in ((1, 6, 2, 8), (1, 9, 1, 8), (1, 9, 1, 8),
+                                (1, 6, 2, 8)))
+    o, lse = tattn.flash_fwd_plain(q, k, v, causal=False, kv_len=6)
+    o6, lse6 = tattn.flash_fwd_plain(q, k[:, :6], v[:, :6], causal=False)
+    _close(o6.numpy(), o)
+    _close(lse6.numpy(), lse)
+    dq, dk, dv = tattn.flash_bwd_plain(q, k, v, o, lse, g, causal=False,
+                                       kv_len=6)
+    dq6, dk6, dv6 = tattn.flash_bwd_plain(q, k[:, :6], v[:, :6], o6, lse6,
+                                          g, causal=False)
+    _close(dq6.numpy(), dq)
+    _close(dk6.numpy(), dk[:, :6])
+    _close(dv6.numpy(), dv[:, :6])
+    assert not dk[:, 6:].any() and not dv[:, 6:].any()
+
+
+def test_attention_dispatch_impls():
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((1, 10, 4, 8), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 10, 2, 8), np.float32))
+    ref = tattn.attention_reference(q, k, k, causal=True)
+    for impl in ("auto", "flash", "mlt_flash", "reference"):
+        out = tattn.attention(q, k, k, causal=True, impl=impl)
+        assert float((out - ref).abs().max()) <= TOL
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tattn.attention(q, k, k, impl="bogus")
