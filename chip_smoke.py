@@ -8,7 +8,8 @@ exits non-zero and never prints the final line):
 1. build   - compiles the CUDA kernels from mlrun_tpu_torch/csrc (nvcc,
              sm_90a) and reports the build time, torch/CUDA versions and
              the card's name and power limit.
-2. kernels - holds each hand-written kernel against its plain PyTorch
+2. kernels - holds each hand-written kernel (int8 and verify variants
+             included) against its plain PyTorch
              version at its main path's shapes, in bf16 and f32, with the
              stated tolerances; times kernel, plain version and, where one
              PyTorch call computes the same function,
@@ -20,7 +21,17 @@ exits non-zero and never prints the final line):
              with the kernels, shows every serving kernel launched on that
              path, then reruns the same requests on a reference-attention
              engine and compares first-token logits and greedy tokens.
-4. train   - trains Llama-3.2-1B (random weights from a seed, bf16, all 16
+4. serve_int8 - the same on an int8 KV pool (the int8 decode and prefill
+             kernels), against an int8 reference-attention engine, and
+             against the native pool (the quantization's own error).
+5. spec    - speculative decoding on the paged engine: the permutation
+             pair at 8B width (depth cut, zero weights), native and int8
+             pools, spec on == spec off exactly; then LLMModelServer at
+             Llama-3-8B on an int8 pool with a random Llama-3.2-1B draft
+             (k 4) against the spec-off engine: identical until a
+             near-tie of the target's logits, every emitted token a
+             near-argmax; the verify kernels launched on both paths.
+6. train   - trains Llama-3.2-1B (random weights from a seed, bf16, all 16
              layers, full width) through Trainer.fit for a few steps on a
              repeated synthetic batch (4 x 2048 tokens, loss chunks of
              512, per-layer remat), shows the flash forward and backward
@@ -90,6 +101,7 @@ TRAIN_LEAF_NORM_REL_TOL = 1e-2
 TRAIN_F32_LEAF_REL_TOL = 2e-3
 ATTENTION_LEAVES = ("layers.wq", "layers.wk", "layers.wv", "layers.wo")
 SERVING_KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill")
+INT8_KERNELS = ("paged_decode_int8", "flash_fwd_cached", "paged_prefill_int8")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
 
 
@@ -330,6 +342,176 @@ def kernel_prefill(gen, kind, dtype, record):
     emit({"phase": "kernels", **row})
 
 
+# the serve phase's decode positions (prompts 600/436/200/700); the
+# speculative verify chunk is k 4 + 1 tokens
+SERVE_POS = (600, 436, 200, 700)
+VERIFY_S = 5
+
+
+def _int8_pool(gen, n_pages):
+    """Random k/v pages quantized by the port's own quantizer: (k, k_scale,
+    v, v_scale) on the card."""
+    import torch
+
+    from mlrun_tpu_torch.serving.llm import _quantize_kv
+
+    out = []
+    for _ in ("k", "v"):
+        x = torch.randn((n_pages + 1, PAGE, HKV, D), generator=gen,
+                        device="cuda")
+        out.extend(_quantize_kv(x))
+    return out
+
+
+def _page_table(gen, lengths, pps, n_pages):
+    """[len(lengths), pps] int32 table mapping each row's first
+    ceil(length / PAGE) pages to distinct random pages, -1 elsewhere."""
+    import torch
+
+    perm = torch.randperm(n_pages, generator=gen, device="cuda").to(
+        torch.int32)
+    table = torch.full((len(lengths), pps), -1, dtype=torch.int32,
+                       device="cuda")
+    for r, n in enumerate(lengths):
+        live = -(-n // PAGE)
+        table[r, :live] = perm[r * pps:r * pps + live]
+    return table
+
+
+def _kv_bytes(tokens: int, item) -> int:
+    """Bytes of the k and v vectors of ``tokens`` positions: ``item``
+    bytes an element, or "int8": 1 byte an element plus a 4-byte float32
+    scale a (position, kv head)."""
+    per_head = D + 4 if item == "int8" else D * item
+    return 2 * tokens * HKV * per_head
+
+
+def kernel_decode_int8(gen, kind, dtype, record):
+    import torch
+
+    from mlrun_tpu_torch.ops import paged_attention as pa
+
+    pps = MAX_LEN // PAGE
+    n_pages = SLOTS * pps
+    k, ks, v, vs = _int8_pool(gen, n_pages)
+    q = torch.randn((SLOTS, H, D), generator=gen, device="cuda").to(dtype)
+    pos = torch.tensor(SERVE_POS, dtype=torch.int32, device="cuda")
+    table = _page_table(gen, [p + 1 for p in SERVE_POS], pps, n_pages)
+    scales = {"k_scale": ks, "v_scale": vs}
+    out = pa._paged_decode_call(q, k, v, table, pos, PAGE, **scales)
+    ref = pa.paged_decode_reference(q, k, v, table, pos, PAGE, **scales)
+    torch.cuda.synchronize()
+    err = _err(out, ref)
+    _check("paged_decode_int8", kind, {"o": err})
+    ms = time_ms(lambda: pa._paged_decode_call(q, k, v, table, pos, PAGE,
+                                               **scales))
+    plain = time_ms(lambda: pa.paged_decode_reference(
+        q, k, v, table, pos, PAGE, **scales), iters=5)
+    live_tokens = int((pos.long() + 1).sum())
+    n_bytes = (_kv_bytes(live_tokens, "int8") + 2 * q.numel()
+               * q.element_size() + table.numel() * 4 + pos.numel() * 4)
+    bound, by = bound_ms(n_bytes, 4 * D * H * live_tokens, kind)
+    row = {"name": "paged_decode_int8", "dtype": kind, "slots": SLOTS,
+           "pos": list(SERVE_POS), "max_abs_err": err, "tol": TOL[kind]["o"],
+           "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+           "library_ms": None}
+    record.append(row)
+    emit({"phase": "kernels", **row})
+
+
+def kernel_prefill_int8(gen, kind, dtype, record):
+    import torch
+
+    from mlrun_tpu_torch.ops import paged_attention as pa
+
+    pps = MAX_LEN // PAGE
+    n_pages = SLOTS * pps
+    base, s = 256, 512
+    k, ks, v, vs = _int8_pool(gen, n_pages)
+    q = torch.randn((s, H, D), generator=gen, device="cuda").to(dtype)
+    ids = _page_table(gen, [base], pps, n_pages)[0]
+    scales = {"k_scale": ks, "v_scale": vs}
+    o, lse = pa._paged_prefill_call(q, k, v, ids, base, PAGE, **scales)
+    o_ref, lse_ref = pa.paged_prefill_reference(q, k, v, ids, base, PAGE,
+                                                **scales)
+    torch.cuda.synchronize()
+    errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
+    _check("paged_prefill_int8", "f32", errs)
+    ms = time_ms(lambda: pa._paged_prefill_call(q, k, v, ids, base, PAGE,
+                                                **scales))
+    plain = time_ms(lambda: pa.paged_prefill_reference(
+        q, k, v, ids, base, PAGE, **scales), iters=5)
+    n_bytes = (q.numel() * q.element_size() + _kv_bytes(base, "int8")
+               + o.numel() * 4 + lse.numel() * 4 + ids.numel() * 4)
+    bound, by = bound_ms(n_bytes, 4 * D * H * s * base, kind)
+    row = {"name": "paged_prefill_int8", "dtype": kind, "S": s,
+           "base": base, "max_abs_err": max(errs.values()), "errs": errs,
+           "tol": TOL["f32"], "ms": ms, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": by, "library_ms": None}
+    record.append(row)
+    emit({"phase": "kernels", **row})
+
+
+def kernel_verify(gen, kind, dtype, record):
+    """The verify kernel, native and int8 pages, at 4 slots x S 5 over the
+    serve positions; the single-slot launch against the prefill kernel's
+    bits."""
+    import torch
+
+    from mlrun_tpu_torch.ops import paged_attention as pa
+
+    pps = MAX_LEN // PAGE
+    n_pages = SLOTS * pps
+    base = torch.tensor(SERVE_POS, dtype=torch.int32, device="cuda")
+    table = _page_table(gen, [p + VERIFY_S for p in SERVE_POS], pps,
+                        n_pages)
+    q = torch.randn((SLOTS, VERIFY_S, H, D), generator=gen,
+                    device="cuda").to(dtype)
+    native_k = (torch.randn((n_pages + 1, PAGE, HKV, D), generator=gen,
+                            device="cuda") * 0.5).to(dtype)
+    native_v = torch.randn(native_k.shape, generator=gen,
+                           device="cuda").to(dtype)
+    k8, ks, v8, vs = _int8_pool(gen, n_pages)
+    for name, k, v, scales, item in (
+            ("paged_verify", native_k, native_v, {}, q.element_size()),
+            ("paged_verify_int8", k8, v8, {"k_scale": ks, "v_scale": vs},
+             "int8")):
+        o, lse = pa._paged_verify_call(q, k, v, table, base, PAGE, **scales)
+        o_ref, lse_ref = pa.paged_verify_prefix_reference(
+            q, k, v, table, base, PAGE, **scales)
+        # one slot through the verify entry = the prefill kernel, bit for
+        # bit (one block body)
+        o1, lse1 = pa._paged_verify_call(q[2:3].contiguous(), k, v,
+                                         table[2:3].contiguous(),
+                                         base[2:3].contiguous(), PAGE,
+                                         **scales)
+        o2, lse2 = pa._paged_prefill_call(q[2], k, v, table[2],
+                                          SERVE_POS[2], PAGE, **scales)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(o1[0], o2) and torch.equal(lse1[0], lse2.T))
+        errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
+        _check(name, "f32", errs)
+        if not same:
+            fail(f"{name} {kind}: a one-slot verify launch differs from the "
+                 "prefill kernel's bits")
+        ms = time_ms(lambda: pa._paged_verify_call(q, k, v, table, base,
+                                                   PAGE, **scales))
+        plain = time_ms(lambda: pa.paged_verify_prefix_reference(
+            q, k, v, table, base, PAGE, **scales), iters=5)
+        prefix = int(base.long().sum())
+        n_bytes = (q.numel() * q.element_size() + _kv_bytes(prefix, item)
+                   + o.numel() * 4 + lse.numel() * 4 + table.numel() * 4
+                   + base.numel() * 4)
+        bound, by = bound_ms(n_bytes, 4 * D * H * VERIFY_S * prefix, kind)
+        row = {"name": name, "dtype": kind, "slots": SLOTS, "S": VERIFY_S,
+               "base": list(SERVE_POS), "max_abs_err": max(errs.values()),
+               "errs": errs, "tol": TOL["f32"], "single_slot_is_prefill": same,
+               "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+               "library_ms": None}
+        record.append(row)
+        emit({"phase": "kernels", **row})
+
+
 # Llama-3.2-1B's attention at the train phase's batch: B 4, S 2048, 32
 # query heads over 8 kv heads, head_dim 64
 TB, TS, TH, THKV, TD = 4, 2048, 32, 8, 64
@@ -452,6 +634,9 @@ def phase_kernels(seed: int) -> list:
         kernel_decode(gen, kind, dtype, record)
         kernel_flash(gen, kind, dtype, record)
         kernel_prefill(gen, kind, dtype, record)
+        kernel_decode_int8(gen, kind, dtype, record)
+        kernel_prefill_int8(gen, kind, dtype, record)
+        kernel_verify(gen, kind, dtype, record)
         kernel_train_flash(gen, kind, dtype, record)
         torch.cuda.empty_cache()
     return [r for r in record if r["dtype"] == "bf16"]
@@ -504,7 +689,31 @@ def _serve_events(submit_event, prompts):
     return outputs
 
 
-def phase_serve(seed: int, card: str) -> dict:
+def _check_launches(launches: dict, expected, path: str):
+    """Every kernel of ``expected`` launched on the path, no other kernel
+    launched at all."""
+    for name, count in launches.items():
+        if name in expected and count <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+        if name not in expected and count != 0:
+            fail(f"kernel {name} was launched {count} times on the {path} "
+                 "path")
+
+
+def _submit_engine(engine):
+    def submit(batch):
+        futures = [engine.submit(p, max_new_tokens=MAX_NEW) for p in batch]
+        return [f.result(timeout=600)[0] for f in futures]
+
+    return submit
+
+
+def phase_serve(seed: int, card: str, kv_dtype: str = "native",
+                native: dict | None = None) -> dict:
+    """Serve the five requests through LLMModelServer on a ``kv_dtype``
+    pool with the kernels, then on a reference-attention engine with the
+    same weights and pool type. On the int8 pool, ``native`` (the native
+    serve phase's result) gives the quantization's own error."""
     import torch
 
     from mlrun_tpu_torch.models.llama import MODEL_PRESETS
@@ -512,6 +721,8 @@ def phase_serve(seed: int, card: str) -> dict:
     from mlrun_tpu_torch.serving.llm import LLMModelServer
     from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
 
+    phase = "serve" if kv_dtype == "native" else "serve_int8"
+    kernels = SERVING_KERNELS if kv_dtype == "native" else INT8_KERNELS
     config = MODEL_PRESETS["llama3-8b"]()
     prompts = _prompts(seed, config.vocab_size)
 
@@ -521,7 +732,7 @@ def phase_serve(seed: int, card: str) -> dict:
     server = LLMModelServer(
         name="llama3-8b", model_preset="llama3-8b", continuous_batching=True,
         paged=True, slots=4, max_len=MAX_LEN, page_size=PAGE,
-        max_new_tokens=MAX_NEW, seed=seed)
+        max_new_tokens=MAX_NEW, kv_dtype=kv_dtype, seed=seed)
     server.post_init()
     if not server.ready:
         fail(f"LLMModelServer failed to load: {server.error}")
@@ -542,12 +753,7 @@ def phase_serve(seed: int, card: str) -> dict:
     params = server.engine.params
     server.close()
 
-    for name in SERVING_KERNELS:
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the serving path")
-    for name in TRAINING_KERNELS:
-        if launches[name] != 0:
-            fail(f"training kernel {name} was launched on the serving path")
+    _check_launches(launches, kernels, phase)
     if not stats["attn_kernel_ticks"] > 0:
         fail("no decode tick ran on the paged decode kernel")
     if not stats["prefill_kernel_chunks"] > 0:
@@ -566,35 +772,35 @@ def phase_serve(seed: int, card: str) -> dict:
     # -- the same traffic on a reference-attention engine, same weights ----
     ref_engine = PagedContinuousBatchingEngine(
         config, params, max_len=MAX_LEN, slots=4, page_size=PAGE,
-        attention_impl="reference", seed=seed, device="cuda")
+        kv_dtype=kv_dtype, attention_impl="reference", seed=seed,
+        device="cuda")
     ref_logits: list = []
     _record_first_logits(ref_engine, ref_logits)
-
-    def submit_ref(batch):
-        futures = [ref_engine.submit(p, max_new_tokens=MAX_NEW)
-                   for p in batch]
-        return [f.result(timeout=600)[0] for f in futures]
-
-    ref_out = _serve_events(submit_ref, prompts)
+    ref_out = _serve_events(_submit_engine(ref_engine), prompts)
     ref_stats = ref_engine.stats
     ref_engine.stop()
     if _build.launch_counts() != launches:
         fail("the reference engine launched a kernel")
 
-    if len(kernel_logits) != len(ref_logits):
-        fail("engines admitted different request counts")
-    rel_errs = []
-    for a, b in zip(kernel_logits, ref_logits):
-        if not bool(torch.isfinite(a).all()):
-            fail("non-finite first-token logits")
-        rel_errs.append(float((a - b).abs().max() / b.abs().max()))
-    same = sum(x == y for ka, ra in zip(kernel_out, ref_out)
-               for x, y in zip(ka, ra))
-    total = sum(len(t) for t in kernel_out)
-    first_same = sum(ka[0] == ra[0] for ka, ra in zip(kernel_out, ref_out))
+    def compare(logits_a, out_a, logits_b, out_b):
+        if len(logits_a) != len(logits_b):
+            fail("engines admitted different request counts")
+        rel = []
+        for x, y in zip(logits_a, logits_b):
+            if not bool(torch.isfinite(x).all()):
+                fail("non-finite first-token logits")
+            rel.append(float((x - y).abs().max() / y.abs().max()))
+        same = sum(x == y for ka, ra in zip(out_a, out_b)
+                   for x, y in zip(ka, ra))
+        first = sum(ka[0] == ra[0] for ka, ra in zip(out_a, out_b))
+        return (max(rel), f"{first}/{len(out_a)}",
+                same / sum(len(t) for t in out_a))
+
+    rel_err, first_same, share = compare(kernel_logits, kernel_out,
+                                         ref_logits, ref_out)
     result = {
-        "phase": "serve", "model": "llama3-8b", "layers": config.n_layers,
-        "card": card, "requests": len(kernel_out),
+        "phase": phase, "model": "llama3-8b", "layers": config.n_layers,
+        "kv_dtype": kv_dtype, "card": card, "requests": len(kernel_out),
         "prompt_lens": [len(p) for p in prompts] + [len(prompts[0])],
         "max_new_tokens": MAX_NEW, "load_s": load_s, "serve_s": serve_s,
         "launches": launches,
@@ -608,16 +814,222 @@ def phase_serve(seed: int, card: str) -> dict:
         "decode_tps": metrics.get("decode_tps"),
         "reference_ttft_p50_s": ref_stats.get("ttft_p50_s"),
         "reference_decode_tick_p50_s": ref_stats.get("decode_tick_p50_s"),
-        "first_logits_max_rel_err": max(rel_errs),
+        "first_logits_max_rel_err": rel_err,
         "first_logits_rel_tol": LOGIT_REL_TOL,
-        "first_tokens_identical": f"{first_same}/{len(kernel_out)}",
-        "greedy_token_share_identical": same / total,
+        "first_tokens_identical": first_same,
+        "greedy_token_share_identical": share,
     }
+    if native is not None:
+        # the quantization's own error: the int8 pool against the native
+        # pool, both on the kernels, same weights and traffic
+        q_err, q_first, q_share = compare(kernel_logits, kernel_out,
+                                          native["first_logits"],
+                                          native["outputs"])
+        result.update({"vs_native_first_logits_max_rel_diff": q_err,
+                       "vs_native_first_tokens_identical": q_first,
+                       "vs_native_greedy_token_share_identical": q_share})
     emit(result)
-    if not max(rel_errs) <= LOGIT_REL_TOL:
-        fail(f"first-token logits: kernel vs reference max relative error "
-             f"{max(rel_errs)} > {LOGIT_REL_TOL}")
-    return result
+    if not rel_err <= LOGIT_REL_TOL:
+        fail(f"first-token logits ({kv_dtype} pool): kernel vs reference max "
+             f"relative error {rel_err} > {LOGIT_REL_TOL}")
+    return {**result, "first_logits": kernel_logits, "outputs": kernel_out}
+
+
+# speculative phase: the permutation pair at Llama-3-8B width, depth cut to
+# PERM_LAYERS (every transformer weight is zero: the layers add time and
+# nothing else); the draft proposes SPEC_K tokens a round
+PERM_LAYERS = 4
+PERM_OVERLAP = 0.7
+SPEC_K = 4
+# spec-on vs spec-off on random weights (bf16, 32 layers): the verify
+# forward and the decode forward round differently, by about the serve
+# phase's first-token logit error (LOGIT_REL_TOL of the largest logit). So
+# the two streams must agree until the first position where the two
+# tokens are a near-tie of the target's teacher-forced float32 logits
+# (within SPEC_REL_TOL of the position's largest |logit|), and every token
+# the speculative server emitted must be such a near-argmax of the target
+SPEC_REL_TOL = LOGIT_REL_TOL
+
+
+def _teacher_logits(config, params, prompt, tokens):
+    """The target's float32 logits at each generated position of
+    ``prompt + tokens``, from one teacher-forced forward: [len(tokens),
+    vocab]."""
+    import torch
+
+    from mlrun_tpu_torch.models.llama import forward
+
+    seq = torch.tensor([prompt + tokens[:-1]], device="cuda")
+    with torch.no_grad():
+        return forward(config, params, seq)[0, len(prompt) - 1:].float()
+
+
+def _stream_check(config, params, prompt, spec, plain) -> dict:
+    """Where the speculative stream ``spec`` departs from ``plain`` and how
+    close to a tie that was; the worst near-argmax gap over ``spec``; the
+    first position of ``plain`` whose top-2 margin is within the noise."""
+    import torch
+
+    def tol(row):
+        return SPEC_REL_TOL * float(row.abs().max())
+
+    plain_logits = _teacher_logits(config, params, prompt, plain)
+    top2 = torch.topk(plain_logits, 2, dim=-1).values
+    low = [i for i, row in enumerate(plain_logits)
+           if float(top2[i, 0] - top2[i, 1]) < tol(row)]
+    depart = next((i for i, (a, b) in enumerate(zip(spec, plain))
+                   if a != b), len(plain))
+    tie = None
+    if depart < len(plain):
+        row = plain_logits[depart]
+        tie = float((row[plain[depart]] - row[spec[depart]]).abs()) \
+            / float(row.abs().max())
+    spec_logits = _teacher_logits(config, params, prompt, spec)
+    gaps = [float(row.max() - row[t]) / float(row.abs().max())
+            for row, t in zip(spec_logits, spec)]
+    return {"identical_prefix": depart,
+            "first_low_margin": low[0] if low else len(plain),
+            "tie_at_departure_rel": tie, "worst_argmax_gap_rel": max(gaps)}
+
+
+def phase_spec(seed: int, card: str) -> dict:
+    """In-engine speculative decoding on the paged engine: (1) the port's
+    own permutation pair at 8B width, native and int8 pools, spec on ==
+    spec off exactly; (2) LLMModelServer at Llama-3-8B on an int8 pool with
+    a random Llama-3.2-1B draft, against the spec-off engine on the same
+    weights."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import (
+        MODEL_PRESETS,
+        init_permutation_params,
+        permutation_pair,
+    )
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.llm import LLMModelServer
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    config = dataclasses.replace(MODEL_PRESETS["llama3-8b"](),
+                                 n_layers=PERM_LAYERS)
+    prompts = _prompts(seed, config.vocab_size)
+    target_perm, draft_perm = permutation_pair(config.vocab_size,
+                                               PERM_OVERLAP, seed=seed)
+    target = init_permutation_params(config, target_perm, device="cuda")
+    draft = init_permutation_params(config, draft_perm, device="cuda")
+    perm_rows, launches = [], {}
+    for kv_dtype in ("native", "int8"):
+        outs = []
+        for spec in (None, {"enabled": True, "k": SPEC_K,
+                            "draft_config": config, "draft_params": draft}):
+            engine = PagedContinuousBatchingEngine(
+                config, target, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+                kv_dtype=kv_dtype, speculative=spec, seed=seed,
+                device="cuda")
+            # the main path of the native verify kernel, counted
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs.append(_serve_events(_submit_engine(engine), prompts))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            stats = engine.stats
+            engine.stop()
+        verify = "paged_verify" if kv_dtype == "native" else \
+            "paged_verify_int8"
+        if kv_dtype == "native":
+            launches["paged_verify"] = counts["paged_verify"]
+        if outs[0] != outs[1]:
+            fail(f"permutation pair ({kv_dtype} pool): spec-on streams "
+                 "differ from spec-off streams")
+        if not counts[verify] > 0 or stats["attn_gather_ticks"]:
+            fail(f"permutation pair ({kv_dtype} pool): the verify kernel "
+                 "did not run every round")
+        row = {"phase": "spec", "leg": "permutation", "model":
+               f"llama3-8b width, {PERM_LAYERS} zero layers",
+               "kv_dtype": kv_dtype, "overlap": PERM_OVERLAP, "k": SPEC_K,
+               "spec_equals_plain": True, "serve_s": seconds,
+               "verify_launches": counts[verify],
+               "spec_rounds": stats["spec_rounds"],
+               "acceptance_rate": stats["acceptance_rate"],
+               "spec_tokens_per_round": stats["spec_tokens_per_round"],
+               "card": card}
+        perm_rows.append(row)
+        emit(row)
+        if not (0 < stats["acceptance_rate"] < 1
+                and stats["spec_tokens_per_round"] > 1):
+            fail(f"permutation pair ({kv_dtype} pool): acceptance "
+                 f"{stats['acceptance_rate']}, tokens per round "
+                 f"{stats['spec_tokens_per_round']}")
+    del target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the server with a draft preset, int8 pool, counted ----------------
+    config = MODEL_PRESETS["llama3-8b"]()
+    prompts = _prompts(seed, config.vocab_size)
+    _build.reset_launch_counts()
+    started = time.perf_counter()
+    server = LLMModelServer(
+        name="llama3-8b", model_preset="llama3-8b", continuous_batching=True,
+        paged=True, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        max_new_tokens=MAX_NEW, kv_dtype="int8", seed=seed,
+        speculative={"draft": "llama3-1b", "k": SPEC_K})
+    server.post_init()
+    if not server.ready:
+        fail(f"LLMModelServer (speculative) failed to load: {server.error}")
+    load_s = time.perf_counter() - started
+
+    def submit_server(batch):
+        return server.do_event(_Event({"inputs": batch})).body["outputs"]
+
+    t0 = time.perf_counter()
+    spec_out = _serve_events(submit_server, prompts)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    stats = server.engine.stats
+    params = server.engine.params
+    server.close()
+    launches["paged_verify_int8"] = counts["paged_verify_int8"]
+    _check_launches(counts, INT8_KERNELS + ("paged_verify_int8",),
+                    "speculative int8 serving")
+    if stats["attn_gather_ticks"] != 0:
+        fail("a speculative tick fell back to the gather path")
+
+    engine = PagedContinuousBatchingEngine(
+        config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+        kv_dtype="int8", seed=seed, device="cuda")
+    plain_out = _serve_events(_submit_engine(engine), prompts)
+    engine.stop()
+    agree = [_stream_check(config, params, prompt, got, want)
+             for prompt, got, want in zip(prompts + [prompts[0]], spec_out,
+                                          plain_out)]
+    result = {"phase": "spec", "leg": "server", "model": "llama3-8b",
+              "draft": "llama3-1b", "kv_dtype": "int8", "k": SPEC_K,
+              "card": card, "load_s": load_s, "serve_s": serve_s,
+              "launches": counts, "spec_rounds": stats["spec_rounds"],
+              "acceptance_rate": stats["acceptance_rate"],
+              "spec_tokens_per_round": stats["spec_tokens_per_round"],
+              "spec_resyncs": stats["spec_resyncs"],
+              "attn_kernel_ticks": stats["attn_kernel_ticks"],
+              "ttft_p50_s": stats.get("ttft_p50_s"),
+              "itl_p50_s": stats.get("itl_p50_s"),
+              "rel_tol": SPEC_REL_TOL, "streams": agree}
+    emit(result)
+    for i, row in enumerate(agree):
+        if row["tie_at_departure_rel"] is not None \
+                and not row["tie_at_departure_rel"] <= SPEC_REL_TOL:
+            fail(f"speculative server, stream {i}: departs from spec-off at "
+                 f"token {row['identical_prefix']} where the target's two "
+                 f"tokens are {row['tie_at_departure_rel']} apart")
+        if not row["worst_argmax_gap_rel"] <= SPEC_REL_TOL:
+            fail(f"speculative server, stream {i}: emitted a token "
+                 f"{row['worst_argmax_gap_rel']} below the target's argmax")
+    return {"launches": launches, "permutation": perm_rows,
+            "server": result}
 
 
 # ---------------------------------------------------------------------------
@@ -792,8 +1204,8 @@ def phase_train(seed: int, card: str) -> dict:
         if launches[name] != count:
             fail(f"kernel {name} launched {launches[name]} times on the "
                  f"train path, expected {count}")
-    for name in SERVING_KERNELS:
-        if launches[name] != 0:
+    for name, count in launches.items():
+        if name not in TRAINING_KERNELS and count != 0:
             fail(f"serving kernel {name} was launched on the train path")
     if not loss_rel <= TRAIN_LOSS_REL_TOL:
         fail(f"step 1 loss: kernel vs reference attention relative error "
@@ -817,7 +1229,7 @@ def phase_train(seed: int, card: str) -> dict:
 # main
 # ---------------------------------------------------------------------------
 
-ALL_PHASES = ("build", "kernels", "serve", "train")
+ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec", "train")
 
 
 def main(argv=None) -> int:
@@ -847,8 +1259,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    import gc
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
     card = gpu_name_and_limit()
-    kernels, launches = [], {}
+    kernels, launches, served = [], {}, None
     if "build" in phases:
         phase_build(card)
     if "kernels" in phases:
@@ -857,11 +1275,17 @@ def main(argv=None) -> int:
         served = phase_serve(args.seed, card)
         launches.update({name: served["launches"][name]
                          for name in SERVING_KERNELS})
-        del served
-        import gc
-
-        gc.collect()
-        torch.cuda.empty_cache()
+        release()
+    if "serve_int8" in phases:
+        served = phase_serve(args.seed, card, "int8", native=served)
+        launches.update({name: served["launches"][name]
+                         for name in ("paged_decode_int8",
+                                      "paged_prefill_int8")})
+    served = None
+    release()
+    if "spec" in phases:
+        launches.update(phase_spec(args.seed, card)["launches"])
+        release()
     if "train" in phases:
         trained = phase_train(args.seed, card)
         launches.update({name: trained["launches"][name]
@@ -872,14 +1296,23 @@ def main(argv=None) -> int:
         "paged_decode": "mlrun_tpu/ops/paged_attention.py:163",
         "flash_fwd_cached": "mlrun_tpu/ops/attention.py:230",
         "paged_prefill": "mlrun_tpu/ops/paged_attention.py:305",
+        # the quantized=True variants of the same two Pallas kernels
+        "paged_decode_int8": "mlrun_tpu/ops/paged_attention.py:163",
+        "paged_prefill_int8": "mlrun_tpu/ops/paged_attention.py:305",
+        "paged_verify": "mlrun_tpu/ops/paged_attention.py:494",
+        "paged_verify_int8": "mlrun_tpu/ops/paged_attention.py:494",
         "flash_fwd": "mlrun_tpu/ops/attention.py:223",
         # the reference's backward is XLA (_blockwise_bwd), not Pallas
         "flash_bwd": "mlrun_tpu/ops/attention.py:447",
     }
     sources = {
         "paged_decode": "mlrun_tpu_torch/csrc/paged_decode.cu",
+        "paged_decode_int8": "mlrun_tpu_torch/csrc/paged_decode.cu",
         "flash_fwd_cached": "mlrun_tpu_torch/csrc/flash_fwd_cached.cu",
         "paged_prefill": "mlrun_tpu_torch/csrc/paged_prefill.cu",
+        "paged_prefill_int8": "mlrun_tpu_torch/csrc/paged_prefill.cu",
+        "paged_verify": "mlrun_tpu_torch/csrc/paged_prefill.cu",
+        "paged_verify_int8": "mlrun_tpu_torch/csrc/paged_prefill.cu",
         "flash_fwd": "mlrun_tpu_torch/csrc/flash_fwd_cached.cu",
         "flash_bwd": "mlrun_tpu_torch/csrc/flash_bwd.cu",
     }

@@ -17,6 +17,27 @@ SERVING_LLM_DEFAULTS = {
     # attention dispatch: auto picks the CUDA kernels for a CUDA device
     # and the plain paths on the CPU; flash | kernel | reference override
     "attention_impl": "auto",
+    # in-engine speculative decoding: a resident draft model proposes k
+    # tokens per scheduler tick and one multi-token verify dispatch commits
+    # the accepted prefix. Off by default — it needs a draft model;
+    # LLMModelServer's ``speculative`` arg / the engines' ``speculative``
+    # dict override these
+    "speculative": {
+        "enabled": False,
+        # max draft tokens proposed per row per round; per-row k adapts
+        # below this from the acceptance window
+        "k": 4,
+        # draft model preset name (models/llama MODEL_PRESETS) for
+        # LLMModelServer; engines take draft_config/draft_params directly
+        "draft": "",
+        # rows whose windowed acceptance rate falls below this park to
+        # plain decode (re-probed at k=1 periodically)
+        "min_acceptance": 0.35,
+        # acceptance window (verify rounds)
+        "window": 32,
+        # parked rows re-probe every N consulted rounds
+        "probe_every": 16,
+    },
 }
 
 TRAINING_DEFAULTS = {

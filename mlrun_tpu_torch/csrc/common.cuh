@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace mlt {
 
 constexpr float kNegInf = -1073741824.0f;  // -2**30
@@ -56,6 +58,24 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// 16 int8 values (one 16-byte load) times their vector's float32 scale,
+// stored as float32: one multiply per element, so the result equals the
+// plain version's ``q.float() * scale`` bit for bit
+__device__ __forceinline__ void dequant16(int4 raw, float scale,
+                                          float* dst) {
+  const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      // sign-extend byte b of the word
+      const int v = static_cast<int>(static_cast<unsigned>(words[w])
+                                     << (24 - 8 * b)) >> 24;
+      dst[4 * w + b] = static_cast<float>(v) * scale;
+    }
+  }
+}
+
 // Dynamic shared memory above 48 KB has to be allowed per kernel.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -63,6 +83,33 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
+
+// fn(TypeTag<T>{}, std::integral_constant<int, D>{}) for the storage type
+// (dtype code) and head dim the kernels are instantiated for; anything
+// else is refused
+template <typename Fn>
+int dispatch_dtype_dim(int dtype, int head_dim, Fn&& fn) {
+  auto by_dim = [&](auto tag) -> int {
+    switch (head_dim) {
+      case 32:
+        return fn(tag, std::integral_constant<int, 32>{});
+      case 64:
+        return fn(tag, std::integral_constant<int, 64>{});
+      case 128:
+        return fn(tag, std::integral_constant<int, 128>{});
+      default:
+        return kBadArgument;
+    }
+  };
+  if (dtype == kFloat32) return by_dim(TypeTag<float>{});
+  if (dtype == kBFloat16) return by_dim(TypeTag<__nv_bfloat16>{});
+  return kBadArgument;
 }
 
 }  // namespace mlt

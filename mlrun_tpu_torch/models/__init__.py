@@ -6,7 +6,9 @@ from .llama import (  # noqa: F401
     LlamaConfig,
     forward,
     init_params,
+    init_permutation_params,
     llama3_1b,
     llama3_8b,
+    permutation_pair,
     tiny_llama,
 )

@@ -170,6 +170,77 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     return params
 
 
+def init_permutation_params(config: LlamaConfig, perm, scale: float = 50.0,
+                            seed: int = 0,
+                            device: torch.device | str = "cpu") -> Params:
+    """Deterministic "permutation-following" params: the greedy next token
+    after ``t`` is the unique ``v`` with ``perm[v] == t``. Every transformer
+    weight is zero (the residual carries the embedding through untouched)
+    and the untied head is ``scale * E[perm]^T``, so the argmax gaps are
+    O(scale), far above float noise between differently shaped forwards.
+    The embedding rows are unit-norm normal draws from a generator seeded
+    ``seed + 1`` (the reference draws them from ``PRNGKey(seed + 1)``, so
+    the two packages' rows differ; tests convert the reference's pair).
+    Requires ``tie_embeddings=False``."""
+    import numpy as np
+
+    if config.tie_embeddings:
+        raise ValueError("permutation params need an untied lm_head "
+                         "(tie_embeddings=False)")
+    dtype = config.dtype
+    e, h, kv, m, L = (config.embed_dim, config.qkv_dim, config.kv_dim,
+                      config.mlp_dim, config.n_layers)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed + 1)
+    emb = torch.randn((config.vocab_size, e), generator=generator,
+                      device=device, dtype=torch.float32)
+    emb = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+    perm = torch.as_tensor(np.asarray(perm), device=device).long()
+    return {
+        "embedding": emb.to(dtype),
+        "layers": {
+            "attn_norm_scale": ones(L, e), "wq": zeros(L, e, h),
+            "wk": zeros(L, e, kv), "wv": zeros(L, e, kv),
+            "wo": zeros(L, h, e), "mlp_norm_scale": ones(L, e),
+            "w_gate": zeros(L, e, m), "w_up": zeros(L, e, m),
+            "w_down": zeros(L, m, e),
+        },
+        "final_norm_scale": ones(e),
+        "lm_head": (scale * emb[perm].T).to(dtype).contiguous(),
+    }
+
+
+def permutation_pair(vocab_size: int, overlap: float, seed: int = 0):
+    """A target permutation plus a draft permutation agreeing on
+    ``overlap`` of tokens, for :func:`init_permutation_params` model pairs
+    (overlap 1.0: every draft proposal accepted). The target is one
+    full-length cycle with the disagreements spaced evenly along it, so
+    ``overlap`` is a uniform per-row acceptance dial. numpy's generator
+    makes it, so it equals the reference's pair for the same seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(vocab_size)           # cycle walk order
+    target = np.empty(vocab_size, dtype=order.dtype)
+    target[order] = np.roll(order, -1)            # single n-cycle
+    draft = target.copy()
+    n_diff = int(round(vocab_size * (1 - overlap)))
+    n_diff -= n_diff % 2                          # swaps corrupt in pairs
+    if n_diff >= 2:
+        pos = np.linspace(0, vocab_size, n_diff,
+                          endpoint=False).astype(np.int64)
+        a, b = order[pos[0::2]], order[pos[1::2]]
+        draft[a], draft[b] = target[b], target[a]
+    return target, draft
+
+
 def lm_head(params: Params) -> torch.Tensor:
     """[E, vocab] output projection (the transposed embedding when tied)."""
     head = params.get("lm_head")

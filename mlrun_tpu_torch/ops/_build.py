@@ -38,7 +38,8 @@ LIB_NAME = "libmlt_kernels.so"
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 # kernel names, one counter each
 KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill", "flash_fwd",
-           "flash_bwd")
+           "flash_bwd", "paged_decode_int8", "paged_prefill_int8",
+           "paged_verify", "paged_verify_int8")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +51,12 @@ _SIGNATURES = {
                              _I, _I, _F, _P],
     "mlt_paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _P],
+    "mlt_paged_decode_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _F, _P],
+    "mlt_paged_prefill_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _P],
+    "mlt_paged_verify": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _P],
     "mlt_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                       _P],
     "mlt_flash_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

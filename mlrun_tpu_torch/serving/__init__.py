@@ -1,4 +1,5 @@
 """LLM serving of the port: the paged continuous-batching engine
 (``paged``), its scheduler core (``llm_batch``), the prefill forward and
-``LLMModelServer`` (``llm``), sampling, the V2 model server, and copies of
-the reference's prefix cache and typed errors."""
+``LLMModelServer`` (``llm``), batch-1 speculative decoding
+(``speculative``), sampling, the V2 model server, and copies of the
+reference's prefix cache and typed errors."""

@@ -9,8 +9,13 @@ softmax. On a paged prefix-cache hit (``prefix_kv``) the cached prefix is
 attended in place in the pool's pages by the paged prefill kernel and
 LSE-merged with the bounded flash over the suffix.
 
+The int8 KV cache (``kv_dtype="int8"``) stores k/v per vector as int8
+with float32 scales, quantized by :func:`_quantize_kv` to the reference's
+bits.
+
 ``LLMModelServer`` serves through the paged continuous-batching engine
-(serving/paged.py); its other engines are not ported yet (ROADMAP.md).
+(serving/paged.py), with an int8 pool and a speculative draft model when
+asked; its other engines are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..config import SERVING_LLM_DEFAULTS
 from ..models.llama import LlamaConfig, Params, lm_head, logits_f32
 from ..ops.attention import NEG_INF
 from ..ops.norms import rms_norm
@@ -48,19 +54,40 @@ def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
                   dtype=None, kv_dtype: str = "native",
                   device: torch.device | str = "cpu") -> dict:
     """KV cache dict: k/v [L, batch, max_len, Hkv, D] and pos [batch]
-    int32, on ``device``."""
-    if kv_dtype != "native":
-        if kv_dtype == "int8":
-            raise not_ported("kv_dtype='int8'", 1)
+    int32, on ``device``. ``kv_dtype="int8"`` stores k/v as per-vector
+    symmetric int8 with float32 scales ``k_scale``/``v_scale`` [L, batch,
+    max_len, Hkv] (see :func:`_quantize_kv`)."""
+    if kv_dtype not in ("native", "int8"):
         raise ValueError(f"unknown kv_dtype '{kv_dtype}' (native | int8)")
-    dtype = dtype or config.dtype
     shape = (config.n_layers, batch, max_len, config.n_kv_heads,
              config.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-    }
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if kv_dtype == "int8":
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[f"{name}_scale"] = torch.zeros(
+                shape[:-1], dtype=torch.float32, device=device)
+        return cache
+    dtype = dtype or config.dtype
+    cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] -> (int8 values, float32 scale over the last dim): the
+    reference's bits — ``amax / 127``, a true division by ``max(scale,
+    1e-8)`` (not a reciprocal multiply) and round-half-to-even
+    (``torch.round``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / scale.clamp_min(1e-8)[..., None]).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def _cached_attention(config, q, k_cache, v_cache, q_positions, cache_len):
@@ -126,9 +153,14 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
     kernel (CUDA; the plain version for CPU tensors) for S > 1; ``dense``
     (and every 1-token dispatch) uses the masked softmax.
 
+    An int8 cache (``k_scale`` in ``cache``) takes the chunk quantized
+    per vector and attends the cache's dequantized view in
+    ``config.dtype``, as the reference does.
+
     ``prefix_kv`` is the paged engine's prefix-hit form (batch 1):
     ``{"k"/"v": the pool [L, P+1, ps, Hkv, D], "page_ids": [pps] int32
-    tensor, "base": int}``. Cache rows below ``base`` are zeros — the
+    tensor, "base": int[, "k_scale"/"v_scale": [L, P+1, ps, Hkv] float32
+    on int8 pools]}``. Cache rows below ``base`` are zeros — the
     cached prefix is attended in place through the page ids by the paged
     prefill kernel and LSE-merged with the local attention over the suffix
     rows, so a hit never gathers the prefix densely (``page_size`` is the
@@ -148,6 +180,11 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
     # one rope table from row 0: the engines keep pos uniform per batch
     cos, sin = rope_table(positions[0], config.head_dim, config.rope_theta)
     base = int(prefix_kv["base"]) if prefix_kv is not None else 0
+    quantized = "k_scale" in cache
+    # an int8 pool's per-vector scales ride the prefix-hit form
+    pool_scales = (("k_scale", "v_scale")
+                   if prefix_kv is not None and "k_scale" in prefix_kv
+                   else ())
 
     for layer in range(config.n_layers):
         lp = {name: w[layer] for name, w in params["layers"].items()}
@@ -157,10 +194,23 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
         v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        k_attn = cache["k"][layer]
-        v_attn = cache["v"][layer]
-        k_attn[:, start:start + s] = k.to(k_attn.dtype)
-        v_attn[:, start:start + s] = v.to(v_attn.dtype)
+        if quantized:
+            # the chunk is quantized into the int8 slot cache, and the
+            # attention reads the cache's dequantized view in config.dtype
+            # — it sees what later reads of the cache will see
+            for name, t in (("k", k), ("v", v)):
+                values, scales = _quantize_kv(t)
+                cache[name][layer][:, start:start + s] = values
+                cache[f"{name}_scale"][layer][:, start:start + s] = scales
+            k_attn = _dequantize_kv(cache["k"][layer],
+                                    cache["k_scale"][layer], config.dtype)
+            v_attn = _dequantize_kv(cache["v"][layer],
+                                    cache["v_scale"][layer], config.dtype)
+        else:
+            k_attn = cache["k"][layer]
+            v_attn = cache["v"][layer]
+            k_attn[:, start:start + s] = k.to(k_attn.dtype)
+            v_attn[:, start:start + s] = v.to(v_attn.dtype)
         if prefix_kv is not None:
             # paged prefix-hit suffix prefill: local rows (>= base) via the
             # bounded flash (s > 1) or the bounded dense form (the 1-token
@@ -176,7 +226,8 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
                     config, q, k_attn, v_attn, positions, base)
             o_pre, lse_pre = paged_prefix_part(
                 q, prefix_kv["k"][layer], prefix_kv["v"][layer],
-                prefix_kv["page_ids"], base, page_size=page_size)
+                prefix_kv["page_ids"], base, page_size=page_size,
+                **{name: prefix_kv[name][layer] for name in pool_scales})
             attn = merge_softmax_states(o_pre, lse_pre, o_loc,
                                         lse_loc).to(x.dtype)
         elif attn_impl == "flash" and s > 1:
@@ -198,11 +249,13 @@ class LLMModelServer:
     """Serving-graph step: generation on the GPU through the paged
     continuous-batching engine.
 
-    class args: model_preset, max_len, max_new_tokens, slots, page_size,
-    n_pages, prefill_chunk, prefix_cache, attention_impl, temperature,
-    top_k, top_p, warmup, seed, device (default: the GPU; ``"cpu"`` runs
-    the plain paths). The reference's other engines and features raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
+    class args: model_preset, max_len, max_new_tokens, slots, kv_dtype
+    (native | int8), page_size, n_pages, prefill_chunk, prefix_cache,
+    attention_impl, speculative (True | {"draft": preset, "k": ...} |
+    None), temperature, top_k, top_p, warmup, seed, device (default: the
+    GPU; ``"cpu"`` runs the plain paths). The reference's other engines
+    and features raise ``NotImplementedError`` naming their ROADMAP.md
+    item.
     """
 
     def __new__(cls, *args, **kwargs):
@@ -237,7 +290,6 @@ class LLMModelServer:
                     "replicas/prefill_replicas/routing": (
                         replicas >= 2 or prefill_replicas or routing, 6),
                     "adapters": (adapters, 3),
-                    "speculative": (speculative, 5),
                 }
                 for what, (value, item) in unported.items():
                     if value:
@@ -263,6 +315,10 @@ class LLMModelServer:
                 self.prefill_chunk = prefill_chunk
                 self.prefix_cache = prefix_cache
                 self.attention_impl = attention_impl
+                # in-engine speculative decoding: True / {"draft": preset,
+                # "k": ...} enables a resident draft model; None leaves it
+                # to the config defaults (off)
+                self.speculative = speculative
                 self.seed = seed
                 self.device = default_device(device)
                 self.engine = None
@@ -283,11 +339,38 @@ class LLMModelServer:
                     prefill_chunk=self.prefill_chunk,
                     prefix_cache=self.prefix_cache,
                     attention_impl=self.attention_impl, seed=self.seed,
-                    device=self.device)
+                    speculative=self._speculative_conf(), device=self.device)
                 if self._warmup:
                     self.engine.warmup()
                 self.engine.start()
                 self.model = self.engine
+
+            def _speculative_conf(self) -> dict | None:
+                """The engine's draft-carrying speculative dict from the
+                class arg over the config defaults: the named draft preset
+                is built resident beside the target, its random weights
+                drawn from a generator seeded 1 (the reference draws them
+                from PRNGKey(1)). A dict enables speculation unless it says
+                ``"enabled": False`` (the reference's docstring; its code
+                leaves such a dict off, ROADMAP.md queue 3)."""
+                from ..models.llama import MODEL_PRESETS, init_params
+
+                conf = dict(SERVING_LLM_DEFAULTS["speculative"])
+                arg = self.speculative
+                if isinstance(arg, bool):
+                    arg = {"enabled": arg}
+                if isinstance(arg, dict):
+                    conf.update(arg)
+                    conf["enabled"] = bool(arg.get("enabled", True))
+                if not (conf["enabled"] and conf.get("draft")):
+                    return None
+                draft_config = MODEL_PRESETS[conf["draft"]]()
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(1)
+                conf["draft_config"] = draft_config
+                conf["draft_params"] = init_params(draft_config, generator,
+                                                   self.device)
+                return conf
 
             def predict(self, request):
                 id_lists = []

@@ -10,9 +10,13 @@ This module ports the scheduler core — ``submit``, ``start``/``stop``,
 ``_loop``, the admission tick with chunked prefill, ``_run_prefill``,
 ``_prefill_dispatch``, ``_activate_slot``, ``_finish``, ``warmup``,
 ``generate`` and ``stats`` — which the paged engine (serving/paged.py)
-runs on. The dense engine's own slot storage and decode step, the
-request ledger, adapters, speculative decoding, KV handoff and the
-degradation ladder are not ported yet (ROADMAP.md).
+runs on, and the engines' speculative decoding policy: a resident draft
+model (on the dense slot cache, through ``_decode_rowwise``) proposes up
+to k tokens per row per tick, one multi-token verify dispatch (the paged
+engine's hook) checks them, and each row commits its accepted prefix. The
+dense engine's own slot storage, decode and verify steps, the request
+ledger, adapters, KV handoff and the degradation ladder are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,17 +32,92 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import SERVING_LLM_DEFAULTS
-from ..models.llama import LlamaConfig, Params
+from ..models.llama import LlamaConfig, Params, lm_head, logits_f32
+from ..ops.norms import rms_norm
+from ..ops.rotary import apply_rope, rope_table
 from ..utils import logger
-from .llm import _forward_with_cache, default_device, init_kv_cache
+from .llm import (
+    _cached_attention,
+    _forward_with_cache,
+    default_device,
+    init_kv_cache,
+)
 from .resilience import (
     EngineStoppedError,
     PromptTooLongError,
     QueueFullError,
     not_ported,
 )
+
+
+def _write_rows(dst: torch.Tensor, rows, index, inside, values):
+    """``dst[rows, index] = values`` for the rows where ``inside`` holds;
+    the other rows keep their entry. The reference's scatter drops a write
+    past the cache's end; here those rows are clamped onto the last entry
+    and rewrite it with its own value, so nothing syncs the host."""
+    old = dst[rows, index]
+    keep = inside.reshape(-1, *([1] * (values.dim() - 1)))
+    dst[rows, index] = torch.where(keep, values.to(dst.dtype), old)
+
+
+def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+                    cache: dict, generator=None, temperature=None,
+                    top_k=None, top_p=None):
+    """One decode token per row of a dense native slot cache (the draft
+    model's) with PER-ROW positions ``cache['pos']`` (rows at different
+    generation depths): tokens [B, 1]. Each row's KV is written at its own
+    position, then every row attends its cache up to that position. Greedy
+    rows take the argmax; with a ``generator`` the per-row sampling
+    settings apply (serving/sampling.py). The cache is updated IN PLACE
+    and ``pos`` advances by one. Returns (next_token [B] int32, cache).
+    (The reference's int8 branch serves its dense engine, not ported.)"""
+    from .sampling import sample_logits
+
+    b = tokens.shape[0]
+    m = cache["k"].shape[2]
+    start = cache["pos"].long()                           # [B]
+    positions = start[:, None]                            # [B, 1]
+    rows = torch.arange(b, device=tokens.device)
+    index, inside = start.clamp_max(m - 1), start < m
+    x = params["embedding"][tokens].to(config.dtype)
+    cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+    for layer in range(config.n_layers):
+        lp = {name: w[layer] for name, w in params["layers"].items()}
+        h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
+        q = (h @ lp["wq"]).reshape(b, 1, config.n_heads, config.head_dim)
+        k = (h @ lp["wk"]).reshape(b, 1, config.n_kv_heads, config.head_dim)
+        v = (h @ lp["wv"]).reshape(b, 1, config.n_kv_heads, config.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        _write_rows(cache["k"][layer], rows, index, inside, k[:, 0])
+        _write_rows(cache["v"][layer], rows, index, inside, v[:, 0])
+        attn = _cached_attention(config, q, cache["k"][layer],
+                                 cache["v"][layer], positions, m)
+        x = x + attn.reshape(b, 1, config.qkv_dim) @ lp["wo"]
+        h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
+        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+    x = rms_norm(x, params["final_norm_scale"], config.norm_eps)
+    logits = logits_f32(x[:, 0], lm_head(params))
+    if generator is None:
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+    else:
+        next_token = sample_logits(logits, generator, temperature, top_k,
+                                   top_p)
+    cache["pos"] = cache["pos"] + 1
+    return next_token, cache
+
+
+def _insert(big_cache: dict, small: dict, slot: int, pos: int) -> dict:
+    """Copy a prefilled batch-1 cache into row ``slot`` of a dense native
+    slot cache (the same max_len) and set that row's position. In
+    place."""
+    for name in ("k", "v"):
+        big_cache[name][:, slot] = small[name][:, 0].to(big_cache[name].dtype)
+    big_cache["pos"][slot] = pos
+    return big_cache
 
 
 def _percentile(sorted_samples: list, q: float) -> float:
@@ -105,11 +184,19 @@ class ContinuousBatchingEngine:
     """Admission + decode loop over a fixed slot batch.
 
     ``submit()`` is thread-safe and returns a Future resolving to (tokens,
-    stats). The slot storage and the decode step are hooks
+    stats). The slot storage and the decode and verify steps are hooks
     (``_make_cache``, ``_complete_storage``, ``_plain_decode_tick``,
-    ``_release_slot_storage``): the paged engine implements them over its
+    ``_release_slot_storage``, ``_make_verify_fn``,
+    ``_spec_verify_dispatch``, ``_spec_apply_positions``,
+    ``_spec_warmup_verify``): the paged engine implements them over its
     page pool; the dense engine's versions are not ported yet, so this
     class is used through :class:`~.paged.PagedContinuousBatchingEngine`.
+
+    ``speculative`` (``{"enabled": True, "k": ..., "draft_config": ...,
+    "draft_params": ...}`` over the config defaults) keeps a draft model
+    resident: each tick whose rows are all greedy runs up to k draft steps
+    per row and one verify forward, and commits each row's accepted
+    prefix (per-row k adapts to a bounded acceptance window).
     """
 
     def __init__(self, config: LlamaConfig, params: Params,
@@ -119,7 +206,8 @@ class ContinuousBatchingEngine:
                  max_queue_size: int = 0,
                  prefill_chunk: int | None = None,
                  latency_window: int | None = None,
-                 attention_impl: str | None = None, device=None):
+                 attention_impl: str | None = None,
+                 speculative: dict | None = None, device=None):
         from ..ops.attention import resolve_prefill_impl
 
         self.config = config
@@ -175,6 +263,11 @@ class ContinuousBatchingEngine:
         self._stats = {"requests": 0, "completed": 0, "ttft_sum": 0.0,
                        "tokens_out": 0, "shed": 0, "rejected_too_long": 0,
                        "prefill_chunks": 0, "prefill_tokens_tick_max": 0}
+        # the reference's degradation ladder flips this; the port has no
+        # ladder yet (ROADMAP.md item 2), so it stays on
+        self.speculative_enabled = True
+        # in-engine speculative decoding: off unless a draft model is given
+        self._init_speculative(speculative)
 
     # -- storage hooks (dense versions not ported) ---------------------------
     def _make_cache(self):
@@ -191,6 +284,263 @@ class ContinuousBatchingEngine:
 
     def _abort_admission(self, adm: _Admission):
         """Release admission-held storage (stop mid-prefill)."""
+
+    # -- speculative decoding (the policy; the verify step is a hook) -------
+    def _init_speculative(self, speculative: dict | None):
+        conf = dict(SERVING_LLM_DEFAULTS["speculative"])
+        draft_config = draft_params = None
+        enabled = bool(conf["enabled"])
+        if isinstance(speculative, dict):
+            draft_config = speculative.get("draft_config")
+            draft_params = speculative.get("draft_params")
+            conf.update({k: v for k, v in speculative.items()
+                         if k not in ("draft_config", "draft_params")})
+            enabled = bool(conf.get("enabled", True))
+        self.spec_k = max(1, int(conf.get("k", 4) or 4))
+        self.spec_min_acceptance = float(conf.get("min_acceptance", 0.35))
+        self.spec_window = max(1, int(conf.get("window", 32) or 32))
+        self.spec_probe_every = max(1, int(conf.get("probe_every", 16)
+                                           or 16))
+        self.spec_enabled = bool(enabled and draft_config is not None
+                                 and draft_params is not None)
+        if not self.spec_enabled:
+            return
+        if draft_config.vocab_size != self.config.vocab_size:
+            raise ValueError("draft and target must share a vocabulary")
+        if draft_params["embedding"].device.type != self.device.type:
+            raise ValueError(
+                f"draft params live on {draft_params['embedding'].device}, "
+                f"the engine on {self.device}")
+        self._spec_draft_config = draft_config
+        self._spec_draft_params = draft_params
+        # the draft's KV is always the dense slot layout (a small model:
+        # the page pool exists for the target's memory, not the draft's)
+        self._spec_dcache = init_kv_cache(draft_config, self.slots,
+                                          self.max_len, device=self.device)
+        # entries behind each slot's last committed token in the draft
+        # cache (the same invariant as the target's position)
+        self._spec_dpos = np.zeros((self.slots,), np.int32)
+        # prompt tokens per slot: the draft's resync source after plain
+        # ticks advanced the target without the draft
+        self._spec_prompts: dict = {}
+        self._spec_stale: set = set()
+        # the bounded acceptance window: (proposed, accepted) per verify
+        # round, and the probation count of a parked engine (one window:
+        # the reference keeps one per adapter, and adapters are not ported,
+        # ROADMAP.md item 3)
+        self._spec_history: deque = deque(maxlen=self.spec_window)
+        self._spec_probe = 0
+        self._stats.update({"spec_rounds": 0, "spec_proposed": 0,
+                            "spec_accepted": 0, "spec_rejected": 0,
+                            "spec_tokens": 0, "spec_parked_ticks": 0,
+                            "spec_resyncs": 0})
+        # the engine's verify step, made on first use (the paged engine
+        # resolves its attention route after this constructor runs)
+        self._spec_verify = None
+
+    def _make_verify_fn(self):
+        """The multi-token verify step ``fn(params, chunk, storage, ...)``
+        (hook: the paged engine's page-pool verify)."""
+        raise not_ported("the dense engine's speculative verify", 2)
+
+    def _spec_verify_fn(self):
+        if self._spec_verify is None:
+            self._spec_verify = self._make_verify_fn()
+        return self._spec_verify
+
+    def _spec_draft_steps(self, tokens: torch.Tensor) -> np.ndarray:
+        """``spec_k`` greedy draft steps over the full slot batch from each
+        row's draft position (the reference's ``lax.scan``, here a loop of
+        ``_decode_rowwise`` dispatches) and one host read of the
+        proposals [slots, spec_k]."""
+        cache = self._spec_dcache
+        cache["pos"] = torch.as_tensor(self._spec_dpos, device=self.device)
+        proposals = []
+        for _ in range(self.spec_k):
+            nxt, cache = _decode_rowwise(self._spec_draft_config,
+                                         self._spec_draft_params, tokens,
+                                         cache)
+            proposals.append(nxt)
+            tokens = nxt[:, None].long()
+        return torch.stack(proposals, dim=1).cpu().numpy()
+
+    def _spec_prefill_slot(self, index: int, tokens_seq):
+        """(Re)build one slot's draft KV by prefilling ``tokens_seq``;
+        afterwards ``_spec_dpos[index] == len(tokens_seq)``."""
+        total = len(tokens_seq)
+        if total <= 0 or total > self.max_len:
+            self._spec_dpos[index] = max(0, min(total, self.max_len))
+            return
+        small = init_kv_cache(self._spec_draft_config, 1, self.max_len,
+                              device=self.device)
+        padded = np.zeros((1, self._bucket_for(total)), np.int64)
+        padded[0, :total] = tokens_seq
+        _forward_with_cache(self._spec_draft_config, self._spec_draft_params,
+                            torch.as_tensor(padded, device=self.device),
+                            small)
+        # garbage KV at the padded tail is masked by position until real
+        # writes land there (the target's bucket-pad argument)
+        _insert(self._spec_dcache, small, index, total)
+        self._spec_dpos[index] = total
+
+    def _spec_admit_slot(self, adm: _Admission):
+        """Draft prefill of a fresh admission: the draft always takes the
+        full prompt, whether the target prefilled cold or through a
+        prefix-cache hit (the draft has no prefix cache)."""
+        self._spec_prompts[adm.slot] = list(adm.prompt)
+        self._spec_stale.discard(adm.slot)
+        self._spec_prefill_slot(adm.slot, adm.prompt)
+
+    def _spec_resync_row(self, index: int):
+        """Rebuild a stale draft row (plain ticks advanced the target
+        without the draft): re-prefill prompt + committed tokens minus the
+        last. Draft-side only — the target's output never depends on the
+        draft's KV, so a resync cannot change the stream."""
+        slot = self._slot_state[index]
+        stream = list(self._spec_prompts.get(index, ())) + slot.tokens
+        if len(stream) > 1:
+            self._spec_prefill_slot(index, stream[:-1])
+        else:
+            self._spec_dpos[index] = 0
+        self._spec_stale.discard(index)
+        with self._lock:
+            self._stats["spec_resyncs"] += 1
+
+    def _spec_release_slot(self, index: int):
+        if not self.spec_enabled:
+            return
+        self._spec_prompts.pop(index, None)
+        self._spec_stale.discard(index)
+        self._spec_dpos[index] = 0
+
+    def _spec_row_k(self) -> int:
+        """Adaptive per-row proposal length from the bounded acceptance
+        window: a cold window gives the full k; a paying one k scaled to
+        the expected acceptance; under ``spec_min_acceptance`` the row
+        parks at 0 (plain decode) with a k=1 probe every
+        ``spec_probe_every`` consulted rounds. Round counts, never the
+        clock."""
+        proposed = sum(p for p, _ in self._spec_history)
+        if proposed < 8:
+            return self.spec_k
+        acc = sum(a for _, a in self._spec_history) / proposed
+        if acc < self.spec_min_acceptance:
+            self._spec_probe += 1
+            return 1 if self._spec_probe % self.spec_probe_every == 0 else 0
+        self._spec_probe = 0
+        return max(1, min(self.spec_k,
+                          int(round(acc * (self.spec_k + 1)))))
+
+    def _spec_tick_viable(self, active) -> bool:
+        if not self.spec_enabled or not self.speculative_enabled:
+            return False
+        # mixed greedy/sampled batches tick plain: the verify chunk's
+        # argmax equivalence is a greedy contract
+        return all(self._slot_state[i].temperature == 0.0 for i in active)
+
+    def _spec_apply_positions(self, committed: dict):
+        """Commit accepted positions on the target's KV (hook: the paged
+        engine writes its host-side positions). Rewinding is the whole
+        rollback: rejected entries are overwritten before any read."""
+        raise not_ported("the dense engine's speculative verify", 2)
+
+    def _spec_verify_dispatch(self, chunk: np.ndarray, active) -> np.ndarray:
+        """One multi-token verify forward over every slot -> the target's
+        argmax at each chunk position [slots, k+1] on the host (hook)."""
+        raise not_ported("the dense engine's speculative verify", 2)
+
+    def _spec_decode_tick(self, active) -> Optional[int]:
+        """One speculative tick: ``spec_k`` batched draft steps, ONE
+        multi-token verify dispatch, then per-row accept / rollback.
+        Returns None to fall through to the plain tick (every row's gate
+        parked this round)."""
+        from .speculative import accept_tokens
+
+        k_max = self.spec_k
+        k_effs = np.zeros((self.slots,), np.int32)
+        any_spec = False
+        for i in active:
+            slot = self._slot_state[i]
+            if slot.remaining < 1:
+                continue
+            # gate consult before resync: a parked row's stale draft cache
+            # is never read (its k_eff is 0, its writes are discarded)
+            k_row = min(self._spec_row_k(), slot.remaining, k_max)
+            k_effs[i] = max(0, k_row)
+            if k_row > 0:
+                any_spec = True
+                if i in self._spec_stale:
+                    self._spec_resync_row(i)
+        if not any_spec:
+            return None
+
+        last = np.zeros((self.slots, 1), np.int64)
+        for i in active:
+            last[i, 0] = self._slot_state[i].tokens[-1]
+        proposals = self._spec_draft_steps(
+            torch.as_tensor(last, device=self.device))    # [slots, k_max]
+        chunk = np.zeros((self.slots, k_max + 1), np.int64)
+        chunk[:, 0] = last[:, 0]
+        chunk[:, 1:] = proposals
+        verified = self._spec_verify_dispatch(chunk, active)
+
+        finished = []
+        committed = {}
+        rounds = proposed_total = accepted_total = tokens_total = 0
+        for i in active:
+            slot = self._slot_state[i]
+            k_eff = int(k_effs[i])
+            emitted, n_accept = accept_tokens(proposals[i, :k_eff],
+                                              verified[i], k_eff)
+            if k_eff > 0:
+                rounds += 1
+                proposed_total += k_eff
+                accepted_total += n_accept
+                self._spec_history.append((k_eff, n_accept))
+            if slot.eos_id is not None and slot.eos_id in emitted:
+                emitted = emitted[:emitted.index(slot.eos_id) + 1]
+            emitted = emitted[:max(0, slot.remaining)]
+            slot.tokens.extend(int(t) for t in emitted)
+            slot.remaining -= len(emitted)
+            if k_eff > 0:
+                tokens_total += len(emitted)
+            pos_i = slot.prompt_len + len(slot.tokens) - 1
+            committed[i] = pos_i
+            self._spec_dpos[i] = pos_i
+            capacity = slot.prompt_len + len(slot.tokens) >= self.max_len
+            if ((slot.eos_id is not None and slot.tokens[-1] == slot.eos_id)
+                    or slot.remaining <= 0 or capacity):
+                finished.append(i)
+        self._spec_apply_positions(committed)
+        with self._lock:
+            self._stats["spec_rounds"] += rounds
+            self._stats["spec_proposed"] += proposed_total
+            self._stats["spec_accepted"] += accepted_total
+            self._stats["spec_rejected"] += proposed_total - accepted_total
+            self._stats["spec_tokens"] += tokens_total
+        for i in finished:
+            self._finish(i)
+        return len(active)
+
+    def _spec_warmup(self):
+        """One draft prefill, one round of draft steps and one verify
+        ahead of traffic. The garbage KV they write sits behind position 0
+        or on the scratch page and is overwritten before any read."""
+        if not self.spec_enabled:
+            return
+        small = init_kv_cache(self._spec_draft_config, 1, self.max_len,
+                              device=self.device)
+        _forward_with_cache(
+            self._spec_draft_config, self._spec_draft_params,
+            torch.zeros((1, self.prefill_buckets[0]), dtype=torch.long,
+                        device=self.device), small)
+        self._spec_draft_steps(torch.zeros((self.slots, 1), dtype=torch.long,
+                                           device=self.device))
+        self._spec_warmup_verify()
+
+    def _spec_warmup_verify(self):
+        """Warm the verify step (hook)."""
+        raise not_ported("the dense engine's speculative verify", 2)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self):
@@ -234,6 +584,7 @@ class ContinuousBatchingEngine:
         _forward_with_cache(self.config, self.params, tokens, small,
                             attn_impl=self.prefill_impl)
         self._warmup_storage()
+        self._spec_warmup()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         logger.info("continuous batching engine warm", slots=self.slots,
@@ -319,6 +670,14 @@ class ContinuousBatchingEngine:
         out["attention_impl"] = self.attention_impl
         out["prefill_impl"] = self.prefill_impl
         out["queue_depth"] = self._queue_depth()
+        out["speculative_enabled"] = self.speculative_enabled
+        if "spec_rounds" in out:
+            out["acceptance_rate"] = (
+                out["spec_accepted"] / out["spec_proposed"]
+                if out["spec_proposed"] else 0.0)
+            out["spec_tokens_per_round"] = (
+                out["spec_tokens"] / out["spec_rounds"]
+                if out["spec_rounds"] else 0.0)
         return out
 
     # -- scheduler ----------------------------------------------------------
@@ -432,6 +791,8 @@ class ContinuousBatchingEngine:
 
     def _finish_admission(self, adm: _Admission):
         self._complete_storage(adm)
+        if self.spec_enabled:
+            self._spec_admit_slot(adm)
         self._activate_slot(adm)
 
     def _admit_one(self) -> bool:
@@ -487,6 +848,14 @@ class ContinuousBatchingEngine:
         active = [i for i, s in enumerate(self._slot_state) if s.active]
         if not active:
             return 0
+        if self._spec_tick_viable(active):
+            done = self._spec_decode_tick(active)
+            if done is not None:
+                return done
+        if self.spec_enabled:
+            # a plain tick advances the target without the draft: those
+            # rows' draft caches go stale and resync on the next spec tick
+            self._spec_stale.update(active)
         return self._plain_decode_tick(active)
 
     def _loop(self):

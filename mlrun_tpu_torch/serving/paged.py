@@ -9,11 +9,16 @@ slots x max_len:
   head_dim]; the LAST physical page is a scratch page, where writes for
   unmapped slots (-1 page ids) land;
 - page_table: [slots, pages_per_slot] int32 (host numpy; -1 = unmapped);
+- int8 pools: k/v as per-vector int8 with float32 scales ``k_scale`` /
+  ``v_scale`` [layers, n_pages + 1, page_size, kv_heads];
 - attention:  the kernel path reads the pool through the page table in
   place (decode: ``csrc/paged_decode.cu``; a prefix-cache hit's suffix
   prefill: ``csrc/paged_prefill.cu`` LSE-merged with the bounded
-  ``csrc/flash_fwd_cached.cu``). The reference path gathers the slot's
-  pages into a dense view per layer and runs the dense masked attention.
+  ``csrc/flash_fwd_cached.cu``; a speculative round's verify chunk: the
+  verify entry of ``csrc/paged_prefill.cu`` LSE-merged with the chunk's
+  causal part; int8 pages dequantized in float32). The reference path
+  gathers the slot's pages into a dense view per layer and runs the dense
+  masked attention.
 - page allocation is host-side bookkeeping on the scheduler thread.
 
 Pages for prompt + max_new_tokens are reserved at admission, so decode can
@@ -28,6 +33,7 @@ updates the pool tensors in place.
 
 from __future__ import annotations
 
+import functools
 import queue
 from collections import deque
 
@@ -37,7 +43,13 @@ import torch.nn.functional as F
 
 from ..config import SERVING_LLM_DEFAULTS
 from ..models.llama import LlamaConfig, lm_head, logits_f32
-from .llm import _cached_attention, _forward_with_cache, init_kv_cache
+from .llm import (
+    _cached_attention,
+    _dequantize_kv,
+    _forward_with_cache,
+    _quantize_kv,
+    init_kv_cache,
+)
 from .llm_batch import ContinuousBatchingEngine, _Admission
 from .prefix import PrefixCache
 from .resilience import not_ported
@@ -48,15 +60,24 @@ def init_paged_pool(config: LlamaConfig, n_pages: int, page_size: int,
                     device: torch.device | str = "cpu") -> dict:
     """Page pool with ``n_pages`` physical pages (callers that need a
     scratch page pass n_pages + 1 and keep the last id off the free
-    list)."""
-    if kv_dtype != "native":
-        if kv_dtype == "int8":
-            raise not_ported("kv_dtype='int8' page pools", 1)
+    list). The int8 pool carries per-vector float32 scales ``k_scale`` /
+    ``v_scale`` [L, n_pages, page_size, Hkv]."""
+    if kv_dtype not in ("native", "int8"):
         raise ValueError(f"unknown kv_dtype '{kv_dtype}' (native | int8)")
     shape = (config.n_layers, n_pages, page_size, config.n_kv_heads,
              config.head_dim)
+    if kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=config.dtype, device=device),
             "v": torch.zeros(shape, dtype=config.dtype, device=device)}
+
+
+_POOL_NAMES = ("k", "v", "k_scale", "v_scale")
 
 
 def _live_pages(page_ids):
@@ -72,15 +93,17 @@ def insert_prompt_pages(pool: dict, small: dict, page_ids,
                         page_size: int) -> dict:
     """Scatter a prefilled batch-1 slot cache (``small``, max_len a
     multiple of page_size) into the pool at ``page_ids`` ([pages_per_slot],
-    host ints). Pages with id < 0 are skipped. In place; returns
-    ``pool``."""
+    host ints), scales included on int8 pools. Pages with id < 0 are
+    skipped. In place; returns ``pool``."""
     idx, pid = _live_pages(page_ids)
     if idx.numel() == 0:
         return pool
     dev = pool["k"].device
     idx, pid = idx.to(dev), pid.to(dev)
-    for name in ("k", "v"):
-        src = small[name][:, 0]                       # [L, M, Hkv, D]
+    for name in _POOL_NAMES:
+        if name not in pool:
+            continue
+        src = small[name][:, 0]                       # [L, M, Hkv(, D)]
         pages = src.reshape(src.shape[0], -1, page_size, *src.shape[2:])
         pool[name][:, pid] = pages[:, idx].to(pool[name].dtype)
     return pool
@@ -89,33 +112,40 @@ def insert_prompt_pages(pool: dict, small: dict, page_ids,
 def gather_prefix_pages(pool: dict, small: dict, page_ids,
                         page_size: int) -> dict:
     """Inverse of :func:`insert_prompt_pages`: copy cached prefix pages
-    from the pool into a batch-1 slot cache so a suffix-only prefill can
-    attend over them. Ids < 0 leave the rows untouched. In place; returns
-    ``small``."""
+    (and their scales) from the pool into a batch-1 slot cache so a
+    suffix-only prefill can attend over them. Ids < 0 leave the rows
+    untouched. In place; returns ``small``."""
     idx, pid = _live_pages(page_ids)
     if idx.numel() == 0:
         return small
     dev = small["k"].device
     idx, pid = idx.to(dev), pid.to(dev)
-    for name in ("k", "v"):
-        dst = small[name][:, 0]                       # [L, M, Hkv, D]
+    for name in _POOL_NAMES:
+        if name not in pool or name not in small:
+            continue
+        dst = small[name][:, 0]                       # [L, M, Hkv(, D)]
         pages = dst.view(dst.shape[0], -1, page_size, *dst.shape[2:])
         pages[:, idx] = pool[name][:, pid].to(dst.dtype)
     return small
 
 
 def _write_token_all_layers(pool: dict, k_tok, v_tok, page_table, pos,
-                            page_size: int) -> dict:
-    """k_tok/v_tok: [L, slots, Hkv, D]; write each slot's token into its
-    current page at pos % page_size (unmapped slots write to the scratch
-    page, which is never read). In place; returns ``pool``."""
+                            page_size: int, scales=None) -> dict:
+    """k_tok/v_tok: [L, slots, Hkv, D] (int8 pools: the quantized values,
+    with ``scales`` = (k_scale, v_scale) [L, slots, Hkv]); write each
+    slot's token into its current page at pos % page_size (unmapped slots
+    write to the scratch page, which is never read). In place; returns
+    ``pool``."""
     scratch = pool["k"].shape[1] - 1
     pos = pos.long()
     pid = torch.gather(page_table.long(), 1, (pos // page_size)[:, None])[:, 0]
     pid_safe = torch.where(pid >= 0, pid, torch.full_like(pid, scratch))
     offset = pos % page_size
-    pool["k"][:, pid_safe, offset] = k_tok.to(pool["k"].dtype)
-    pool["v"][:, pid_safe, offset] = v_tok.to(pool["v"].dtype)
+    rows = {"k": k_tok, "v": v_tok}
+    if scales is not None:
+        rows["k_scale"], rows["v_scale"] = scales
+    for name, row in rows.items():
+        pool[name][:, pid_safe, offset] = row.to(pool[name].dtype)
     return pool
 
 
@@ -127,14 +157,17 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
     """One decode token per slot against the page pool.
 
     ``attn_impl="reference"``: per layer, gather the slot's pages into a
-    dense [slots, max_len] view, splice the just-computed token into it,
-    and run the dense masked attention; the tokens' KV is written to the
-    pool once, for all layers, at the end.
+    dense [slots, max_len] view (int8 pools: dequantized, then rounded to
+    ``config.dtype``), splice the just-computed token into it, and run the
+    dense masked attention; the tokens' KV is written to the pool once,
+    for all layers, at the end.
 
     ``attn_impl="kernel"``: per layer, write the token's KV into the pool
-    FIRST, then run the paged-decode kernel, which reads the pool through
-    the page table (CPU tensors take its plain version). Both paths store
-    and read identical bits at identical positions.
+    FIRST (int8 pools quantize it per vector on the way in), then run the
+    paged-decode kernel, which reads the pool through the page table and
+    dequantizes int8 pages in float32 (CPU tensors take its plain
+    version). Both paths store identical bits at identical positions
+    (they share one ``_quantize_kv``).
 
     tokens [slots, 1]; page_table [slots, pages_per_slot] int32; pos
     [slots] int32 absolute positions (all on the pool's device). The pool
@@ -149,6 +182,7 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
     positions = pos.long()[:, None]
     x = params["embedding"][tokens].to(config.dtype)
     cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+    quantized = "k_scale" in pool
     use_kernel = attn_impl == "kernel"
     rows = torch.arange(b, device=tokens.device)
     if use_kernel:
@@ -173,18 +207,31 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
             # token KV lands in the pool first (unmapped slots route to
             # the never-read scratch page), then the kernel attends
             # pool-side through the page table — no dense view, no gather
-            pool["k"][layer, pid_safe, offset] = k[:, 0].to(pool["k"].dtype)
-            pool["v"][layer, pid_safe, offset] = v[:, 0].to(pool["v"].dtype)
+            for name, t in (("k", k[:, 0]), ("v", v[:, 0])):
+                if quantized:
+                    t, scales = _quantize_kv(t)
+                    pool[f"{name}_scale"][layer, pid_safe, offset] = scales
+                pool[name][layer, pid_safe, offset] = t.to(pool[name].dtype)
+            scales_kw = ({"k_scale": pool["k_scale"][layer],
+                          "v_scale": pool["v_scale"][layer]}
+                         if quantized else {})
             attn = _paged_decode_call(
                 q[:, 0].contiguous(), pool["k"][layer], pool["v"][layer],
-                page_table, pos, page_size)[:, None]
+                page_table, pos, page_size, **scales_kw)[:, None]
         else:
             # dense per-layer view of each slot's pages, with the new token
             # spliced in at each slot's position
-            kd = pool["k"][layer][safe_table]   # [slots, pps, ps, Hkv, D]
-            vd = pool["v"][layer][safe_table]
-            kd = kd.reshape(b, -1, *kd.shape[3:]).to(config.dtype)
-            vd = vd.reshape(b, -1, *vd.shape[3:]).to(config.dtype)
+            views = []
+            for name in ("k", "v"):
+                view = pool[name][layer][safe_table]  # [slots, pps, ps, ...]
+                view = view.reshape(b, -1, *view.shape[3:])
+                if quantized:
+                    scale = pool[f"{name}_scale"][layer][safe_table]
+                    view = _dequantize_kv(
+                        view, scale.reshape(b, -1, scale.shape[-1]),
+                        config.dtype)
+                views.append(view.to(config.dtype))
+            kd, vd = views
             kd[rows, positions[:, 0]] = k[:, 0]
             vd[rows, positions[:, 0]] = v[:, 0]
             attn = _cached_attention(config, q, kd, vd, positions,
@@ -204,9 +251,94 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
                                    top_p)
     if not use_kernel:
         # one pooled write for all layers: [L, slots, Hkv, D]
-        _write_token_all_layers(pool, torch.stack(k_new), torch.stack(v_new),
-                                page_table, pos, page_size)
+        k_tok, v_tok = torch.stack(k_new), torch.stack(v_new)
+        scales = None
+        if quantized:
+            (k_tok, k_scale), (v_tok, v_scale) = (_quantize_kv(k_tok),
+                                                  _quantize_kv(v_tok))
+            scales = (k_scale, v_scale)
+        _write_token_all_layers(pool, k_tok, v_tok, page_table, pos,
+                                page_size, scales=scales)
     return next_token, pool, pos + 1
+
+
+def _verify_rowwise_paged(config: LlamaConfig, page_size: int,
+                          attn_impl: str, params, chunk: torch.Tensor,
+                          pool: dict, page_table: torch.Tensor,
+                          pos: torch.Tensor):
+    """Batched multi-token speculative verify against the page pool:
+    ``chunk`` [slots, S] is each slot's committed last token plus its
+    draft proposals at positions ``pos[r]..pos[r]+S-1``; ONE forward gives
+    the target's argmax at all S positions of every slot.
+
+    Per layer the chunk's KV is written into the pool through the page
+    table first (int8 pools quantize it per vector). ``attn_impl=
+    "kernel"``: the verify kernel attends each slot's prefix pages in
+    place, LSE-merged with the chunk's causal part over itself — which
+    on int8 pools sees the chunk's dequantized values, the bits a later
+    decode tick reads back. ``"reference"``: the dense-view verify, which
+    splices the raw chunk KV into the dequantized view, as the reference
+    decode path does.
+
+    Rollback is the host's position rewind: chunk lanes inside a slot's
+    reservation overwrite entries past its committed position, which no
+    query reads before they are written again; lanes past the
+    reservation (rows speculating fewer tokens this round) go to the
+    scratch page. ``pos`` is not advanced here. The pool is updated IN
+    PLACE. Returns (verified [slots, S] int32, pool)."""
+    from ..ops.norms import rms_norm
+    from ..ops.paged_attention import (
+        paged_verify_merged,
+        paged_verify_reference,
+    )
+    from ..ops.rotary import apply_rope, rope_table
+
+    b, s = chunk.shape
+    pps = page_table.shape[1]
+    positions = pos.long()[:, None] + torch.arange(
+        s, device=chunk.device)[None, :]                    # [slots, S]
+    x = params["embedding"][chunk].to(config.dtype)
+    cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+    quantized = "k_scale" in pool
+    use_kernel = attn_impl == "kernel"
+    scratch = pool["k"].shape[1] - 1
+    page_idx = positions // page_size
+    offset = positions % page_size
+    # torch.gather raises past the table where jnp.take_along_axis clamps:
+    # clamp first, then route every lane past the reservation to scratch
+    pid = torch.gather(page_table.long(), 1, page_idx.clamp_max(pps - 1))
+    pid_safe = torch.where((pid >= 0) & (page_idx < pps), pid,
+                           torch.full_like(pid, scratch))
+    verify = paged_verify_merged if use_kernel else paged_verify_reference
+
+    for layer in range(config.n_layers):
+        lp = {name: w[layer] for name, w in params["layers"].items()}
+        h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
+        q = (h @ lp["wq"]).reshape(b, s, config.n_heads, config.head_dim)
+        k = (h @ lp["wk"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        chunk_kv = [k, v]
+        for i, (name, t) in enumerate((("k", k), ("v", v))):
+            if quantized:
+                t, scales = _quantize_kv(t)
+                pool[f"{name}_scale"][layer, pid_safe, offset] = scales
+                if use_kernel:
+                    chunk_kv[i] = _dequantize_kv(t, scales, config.dtype)
+            pool[name][layer, pid_safe, offset] = t.to(pool[name].dtype)
+        scales_kw = ({"k_scale": pool["k_scale"][layer],
+                      "v_scale": pool["v_scale"][layer]}
+                     if quantized else {})
+        attn = verify(q, *chunk_kv, pool["k"][layer], pool["v"][layer],
+                      page_table, pos, page_size=page_size, **scales_kw)
+        x = x + attn.to(x.dtype).reshape(b, s, config.qkv_dim) @ lp["wo"]
+        h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
+        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+
+    x = rms_norm(x, params["final_norm_scale"], config.norm_eps)
+    logits = logits_f32(x, lm_head(params))
+    return torch.argmax(logits, dim=-1).to(torch.int32), pool
 
 
 class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
@@ -219,10 +351,17 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     reserved at admission; requests wait, in order, until enough pages are
     free.
 
+    ``kv_dtype="int8"`` keeps the pool as per-vector int8 with float32
+    scales (about half the bytes a page); the kernels dequantize in
+    float32. ``speculative`` (a dict with ``draft_config`` /
+    ``draft_params`` and the config keys) turns on in-engine speculative
+    decoding: each greedy tick runs the draft's k steps and one verify
+    forward over the pool (``_verify_rowwise_paged``).
+
     ``device`` defaults to the GPU (and raises without one); pass
     ``device="cpu"`` for the plain paths. The reference's degradation
-    ladder, adapters, speculative decoding, host KV tier and KV handoff
-    are not ported yet (ROADMAP.md).
+    ladder, adapters, host KV tier and KV handoff are not ported yet
+    (ROADMAP.md).
     """
 
     def __init__(self, config: LlamaConfig, params, max_len: int = 2048,
@@ -233,7 +372,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                  prefill_chunk: int | None = None,
                  latency_window: int | None = None,
                  prefix_cache: bool | None = None,
-                 attention_impl: str | None = None, device=None):
+                 attention_impl: str | None = None,
+                 speculative: dict | None = None, device=None):
         from ..ops.paged_attention import resolve_paged_impl
 
         if max_len % page_size:
@@ -256,7 +396,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                          kv_dtype=kv_dtype, max_queue_size=max_queue_size,
                          prefill_chunk=prefill_chunk,
                          latency_window=latency_window,
-                         attention_impl=attention_impl, device=device)
+                         attention_impl=attention_impl,
+                         speculative=speculative, device=device)
         # decode: the paged kernel or the gather+dense reference, resolved
         # from the same knob as the prefill path; an explicit kernel
         # request on the CPU raised KernelUnavailableError inside
@@ -298,10 +439,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if self._prefix is not None and self.paged_prefill_impl == "kernel":
             ids = torch.full((self.pages_per_slot,), -1, dtype=torch.int32,
                              device=self.device)
-            prefix_kv = {"k": self._pool["k"], "v": self._pool["v"],
-                         "page_ids": ids, "base": self.page_size}
+            prefix_kv = self._prefix_kv(ids, self.page_size)
             small = init_kv_cache(self.config, 1, self.max_len,
-                                  device=self.device)
+                                  kv_dtype=self.kv_dtype, device=self.device)
             small["pos"].fill_(self.page_size)
             tokens = torch.zeros((1, self.prefill_buckets[0]),
                                  dtype=torch.long, device=self.device)
@@ -393,6 +533,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 adm.pages = fresh
                 adm.prefix_nodes = matched_nodes
                 adm.small = init_kv_cache(self.config, 1, self.max_len,
+                                          kv_dtype=self.kv_dtype,
                                           device=self.device)
                 if k:
                     prefix_ids = ids.copy()
@@ -430,14 +571,21 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         attention over the suffix rows."""
         if not adm.kernel_prefix:
             return super()._prefill_dispatch(adm, tokens)
-        prefix_kv = {"k": self._pool["k"], "v": self._pool["v"],
-                     "page_ids": adm.prefix_ids, "base": adm.base}
+        prefix_kv = self._prefix_kv(adm.prefix_ids, adm.base)
         with self._lock:
             self._stats["prefill_kernel_chunks"] += 1
         return _forward_with_cache(self.config, self.params, tokens,
                                    adm.small, prefix_kv=prefix_kv,
                                    attn_impl=self.prefill_impl,
                                    page_size=self.page_size)
+
+    def _prefix_kv(self, page_ids, base: int) -> dict:
+        """The prefix-hit form of ``_forward_with_cache``: the pool (with
+        its scales on int8 pools), the prefix's page ids and length."""
+        prefix_kv = {name: self._pool[name] for name in _POOL_NAMES
+                     if name in self._pool}
+        prefix_kv.update(page_ids=page_ids, base=base)
+        return prefix_kv
 
     def _complete_storage(self, adm: _Admission):
         k = adm.base // self.page_size
@@ -485,6 +633,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._prefix.release(self._slot_prefix_nodes.pop(index, []))
         self._page_table[index] = -1
         self._pos[index] = 0
+        self._spec_release_slot(index)
 
     @property
     def stats(self) -> dict:
@@ -502,6 +651,50 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             out["prefix_evictions"] = self._prefix.evictions
             out["prefix_cached_pages"] = self._prefix.cached_pages()
         return out
+
+    # -- speculative decoding: the paged hooks (the policy is the base's) --
+    def _make_verify_fn(self):
+        return functools.partial(_verify_rowwise_paged, self.config,
+                                 self.page_size, self.attn_impl)
+
+    def _spec_apply_positions(self, committed: dict):
+        # the pool-side rollback: rejected draft positions are simply not
+        # committed, and their entries are overwritten before any read.
+        # Pages were reserved at admission for prompt + max_new, and
+        # k_eff <= remaining keeps every accepted lane inside that
+        # reservation, so nothing moves on the free list mid-round
+        for index, value in committed.items():
+            self._pos[index] = value
+
+    def _spec_verify_dispatch(self, chunk: np.ndarray, active) -> np.ndarray:
+        table = torch.as_tensor(self._page_table, device=self.device)
+        pos = torch.as_tensor(self._pos, device=self.device)
+        verified, self._pool = self._spec_verify_fn()(
+            self.params, torch.as_tensor(chunk, device=self.device),
+            self._pool, table, pos)
+        verified = verified.cpu().numpy()
+        with self._lock:
+            # a verify dispatch is one attention tick like a decode tick:
+            # on the kernel path it never gathers a dense view
+            if self.attn_impl == "kernel":
+                self._stats["attn_kernel_ticks"] += 1
+                self._stats["attn_hbm_bytes_avoided"] += \
+                    self._gather_bytes_per_tick
+            else:
+                self._stats["attn_gather_ticks"] += 1
+        return verified
+
+    def _spec_warmup_verify(self):
+        # an all-(-1) table routes every chunk write to the scratch page;
+        # called directly (not through _spec_verify_dispatch) so warmup
+        # counts no attention tick
+        chunk = torch.zeros((self.slots, self.spec_k + 1), dtype=torch.long,
+                            device=self.device)
+        table = torch.full((self.slots, self.pages_per_slot), -1,
+                           dtype=torch.int32, device=self.device)
+        pos = torch.zeros((self.slots,), dtype=torch.int32,
+                          device=self.device)
+        self._spec_verify_fn()(self.params, chunk, self._pool, table, pos)
 
     def _plain_decode_tick(self, active) -> int:
         last = np.zeros((self.slots, 1), np.int64)

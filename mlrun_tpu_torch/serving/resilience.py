@@ -52,13 +52,11 @@ class EngineStoppedError(ResilienceError):
     status_code = 503
 
 
-# ROADMAP.md "Modules still to port", by item number
+# ROADMAP.md "Modules still to port", by item number (1 and 5 landed)
 PORT_QUEUE = {
-    1: "int8 KV pools",
     2: "the dense engines and LLMEngine",
     3: "multi-tenant LoRA adapters",
     4: "KV handoff and the host KV tier",
-    5: "speculative decoding",
     6: "the serving graph and engine fleet",
     7: "training on many GPUs, LoRA training and elastic training",
     9: "other model families",

@@ -16,6 +16,9 @@ class _Logger:
                 f"{k}={v}" for k, v in fields.items())
         self._log.log(level, message)
 
+    def debug(self, message: str, **fields):
+        self._emit(logging.DEBUG, message, **fields)
+
     def info(self, message: str, **fields):
         self._emit(logging.INFO, message, **fields)
 

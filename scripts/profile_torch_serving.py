@@ -1,6 +1,6 @@
 """Where the time goes on the port's serving path (mlrun_tpu_torch), on one
-GPU: the three device steps of the paged engine at Llama-3-8B width, each
-traced with torch.profiler.
+GPU: the device steps of the paged engine at Llama-3-8B width, each traced
+with torch.profiler.
 
     python3 scripts/profile_torch_serving.py [--seed 0] [--out DIR]
 
@@ -13,12 +13,19 @@ max_len 2048, the chip smoke test's prompt lengths):
                its 1024 bucket (cached flash kernel);
 - hit prefill:  the 180-token suffix (512 bucket) of a prompt whose
                256-token prefix sits in two pool pages (paged prefill +
-               bounded flash, LSE-merged).
+               bounded flash, LSE-merged);
+- int8 decode: the decode tick on an int8 pool (int8 paged decode);
+- verify:      ``_verify_rowwise_paged`` of a 5-token chunk per slot (the
+               last token + 4 draft tokens) at the decode positions (the
+               verify kernel LSE-merged with the chunk's causal part);
+- spec tick:   one speculative round as the engine runs it: 4 greedy steps
+               of a Llama-3.2-1B draft (random weights) over its dense slot
+               cache, one host read of the proposals, then the verify.
 
 For each step it prints one JSON line: wall ms per step (host clock around
 synchronised runs), device busy ms (sum of CUDA kernel times in the
 trace), the idle share (1 - busy / wall), and the kernels grouped by name
-(our three attention kernels, matrix products, everything else). The full
+(our attention kernels, matrix products, everything else). The full
 tables go to DIR/profile_<step>.txt.
 """
 
@@ -37,7 +44,8 @@ sys.path.insert(0, os.path.dirname(HERE))
 ITERS = 5  # traced runs per step (after 2 untimed warm-up runs)
 OURS = {"paged_decode_kernel": "paged_decode",
         "flash_fwd_cached_kernel": "flash_fwd_cached",
-        "paged_prefill_kernel": "paged_prefill"}
+        "paged_prefill_kernel": "paged_prefill",
+        "paged_verify_kernel": "paged_verify"}
 
 
 def _group(name: str) -> str:
@@ -105,9 +113,15 @@ def main(argv=None) -> int:
         print("profile_torch_serving: needs a CUDA device", file=sys.stderr)
         return 1
     from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
-    from mlrun_tpu_torch.serving.llm import _forward_with_cache, init_kv_cache
+    from mlrun_tpu_torch.serving.llm import (
+        _forward_with_cache,
+        _quantize_kv,
+        init_kv_cache,
+    )
+    from mlrun_tpu_torch.serving.llm_batch import _decode_rowwise
     from mlrun_tpu_torch.serving.paged import (
         _decode_rowwise_paged,
+        _verify_rowwise_paged,
         init_paged_pool,
     )
 
@@ -160,8 +174,47 @@ def main(argv=None) -> int:
                             prefix_kv=prefix_kv, attn_impl="flash",
                             page_size=page)
 
+    pool8 = init_paged_pool(config, slots * pps + 1, page, kv_dtype="int8",
+                            device=dev)
+    for name in ("k", "v"):
+        pool8[name], pool8[f"{name}_scale"] = _quantize_kv(
+            torch.randn(pool[name].shape, generator=gen, device=dev))
+
+    def int8_decode():
+        _decode_rowwise_paged(config, page, "kernel", params, tokens, pool8,
+                              table_t, pos)
+
+    k_draft = 4
+    chunk = torch.as_tensor(
+        rng.integers(1, config.vocab_size, (slots, k_draft + 1)), device=dev)
+
+    def verify():
+        _verify_rowwise_paged(config, page, "kernel", params, chunk, pool,
+                              table_t, pos)
+
+    draft_config = MODEL_PRESETS["llama3-1b"]()
+    draft = init_params(draft_config, gen, dev)
+    dcache = init_kv_cache(draft_config, slots, max_len, device=dev)
+    for name in ("k", "v"):
+        dcache[name].normal_(generator=gen)
+
+    def spec_tick():
+        dcache["pos"] = pos.clone()
+        step = tokens
+        proposals = []
+        for _ in range(k_draft):
+            nxt, _ = _decode_rowwise(draft_config, draft, step, dcache)
+            proposals.append(nxt)
+            step = nxt[:, None].long()
+        proposals = torch.stack(proposals, dim=1).cpu()
+        spec_chunk = torch.cat([tokens.cpu(), proposals.long()], dim=1)
+        _verify_rowwise_paged(config, page, "kernel", params,
+                              spec_chunk.to(dev), pool, table_t, pos)
+
     for name, fn in (("decode", decode), ("cold_prefill", cold_prefill),
-                     ("hit_prefill", hit_prefill)):
+                     ("hit_prefill", hit_prefill),
+                     ("int8_decode", int8_decode), ("verify", verify),
+                     ("spec_tick", spec_tick)):
         row = profile_step(name, fn, ITERS, args.out)
         row.update({"layers": config.n_layers, "card": card})
         print(json.dumps(row), flush=True)

@@ -39,6 +39,7 @@ def test_serving_import_pulls_in_no_jax_or_reference():
     code = (
         "import sys\n"
         "import mlrun_tpu_torch.serving.paged, mlrun_tpu_torch.serving.llm\n"
+        "import mlrun_tpu_torch.serving.speculative\n"
         "import mlrun_tpu_torch.models.convert\n"
         "import mlrun_tpu_torch.training.train\n"
         "import mlrun_tpu_torch.frameworks.torch.auto_trainer\n"

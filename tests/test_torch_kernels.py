@@ -9,7 +9,9 @@ Run on a GPU machine (JAX need not be installed there, hence no conftest):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Tolerances (max abs error, kernel vs plain version on the same inputs):
-float32 outputs and every lse 2e-5 — only the summation order differs;
+float32 outputs and every lse 2e-5 — only the summation order differs
+(int8 pages included: kernel and plain version dequantize with the same
+one float32 multiply per element);
 bf16 outputs 1.6e-2 — about two bf16 ulps at magnitude 1, since the two
 round a differently ordered float32 sum. Flash backward gradients are
 sums over up to thousands of O(1) terms of both signs, so their bound is
@@ -127,6 +129,211 @@ def test_paged_prefill_kernel_matches_plain(dev, dtype, s, base, page_size):
     # float32 outputs computed from the same input bits in both versions
     assert _err(o, o_ref) <= TOL[torch.float32]
     assert _err(lse, lse_ref) <= LSE_TOL
+
+
+def _int8_pages(g, n_pages, page_size, hkv, d, dev):
+    from mlrun_tpu_torch.serving.llm import _quantize_kv
+
+    out = []
+    for _ in ("k", "v"):
+        x = torch.randn((n_pages, page_size, hkv, d), generator=g,
+                        device=dev)
+        out.extend(_quantize_kv(x))
+    return out                                   # k, k_scale, v, v_scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rep,hkv,head_dim,page_size",
+                         [(4, 1, 64, 16), (4, 8, 128, 128), (1, 8, 64, 16),
+                          (8, 1, 128, 128)])
+def test_paged_decode_int8_kernel_matches_plain(dev, dtype, n_rep, hkv,
+                                                head_dim, page_size):
+    g = _gen(20)
+    slots, pps = 4, 6
+    n_pages = slots * pps
+    k, ks, v, vs = _int8_pages(g, n_pages + 1, page_size, hkv, head_dim, dev)
+    q = torch.randn((slots, hkv * n_rep, head_dim), generator=g,
+                    device=dev).to(dtype)
+    table = torch.full((slots, pps), -1, dtype=torch.int32, device=dev)
+    pos = torch.tensor([0, page_size - 1, page_size, pps * page_size - 1],
+                       dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pages, generator=g, device=dev).to(torch.int32)
+    for s in range(slots):
+        live = int(pos[s]) // page_size + 1
+        table[s, :live] = perm[s * pps:s * pps + live]
+    before = _build.launch_counts()["paged_decode_int8"]
+    out = pa._paged_decode_call(q, k, v, table, pos, page_size, k_scale=ks,
+                                v_scale=vs)
+    assert _build.launch_counts()["paged_decode_int8"] == before + 1
+    ref = pa.paged_decode_reference(q, k, v, table, pos, page_size,
+                                    k_scale=ks, v_scale=vs)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _err(out, ref) <= TOL[dtype]
+    with pytest.raises(TypeError):       # int8 pages need their scales
+        pa._paged_decode_call(q, k, v, table, pos, page_size)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,base,page_size,hkv,d", [
+    (1, 16, 16, 1, 64), (37, 48, 16, 8, 128), (300, 256, 128, 8, 128),
+    (64, 200, 128, 1, 64)])
+def test_paged_prefill_int8_kernel_matches_plain(dev, dtype, s, base,
+                                                 page_size, hkv, d):
+    g = _gen(21)
+    h, pps = hkv * 4, 4
+    k, ks, v, vs = _int8_pages(g, 9, page_size, hkv, d, dev)
+    q = torch.randn((s, h, d), generator=g, device=dev).to(dtype)
+    ids = torch.full((pps,), -1, dtype=torch.int32, device=dev)
+    n = -(-base // page_size)
+    ids[:n] = torch.tensor([5, 0, 7, 2][:n], dtype=torch.int32)
+    o, lse = pa._paged_prefill_call(q, k, v, ids, base, page_size,
+                                    k_scale=ks, v_scale=vs)
+    o_ref, lse_ref = pa.paged_prefill_reference(q, k, v, ids, base,
+                                                page_size, ks, vs)
+    assert o.dtype == torch.float32 and lse.shape == (s, h)
+    assert _err(o, o_ref) <= TOL[torch.float32]
+    assert _err(lse, lse_ref) <= LSE_TOL
+
+
+def _verify_inputs(seed, dtype, int8, page_size=16, hkv=8, d=128):
+    g = _gen(seed)
+    slots, s, pps = 4, 5, 8
+    h = hkv * 4
+    n_pages = slots * pps
+    if int8:
+        k, ks, v, vs = _int8_pages(g, n_pages + 1, page_size, hkv, d, "cuda")
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        k = torch.randn((n_pages + 1, page_size, hkv, d), generator=g,
+                        device="cuda").to(dtype)
+        v = torch.randn(k.shape, generator=g, device="cuda").to(dtype)
+        scales = {}
+    q = torch.randn((slots, s, h, d), generator=g, device="cuda").to(dtype)
+    # base 0 (nothing behind the chunk), mid-page, a page boundary, deep
+    base = torch.tensor([0, 21, 48, 8 * page_size - 5], dtype=torch.int32,
+                        device="cuda")
+    table = torch.full((slots, pps), -1, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n_pages, generator=g, device="cuda").to(
+        torch.int32)
+    for r in range(slots):
+        live = -(-int(base[r]) // page_size)
+        table[r, :live] = perm[r * pps:r * pps + live]
+    return q, k, v, table, base, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page_size,hkv,d", [(16, 8, 128), (128, 1, 64)])
+def test_paged_verify_kernel_matches_plain(dev, dtype, int8, page_size, hkv,
+                                           d):
+    q, k, v, table, base, scales = _verify_inputs(22, dtype, int8,
+                                                  page_size, hkv, d)
+    name = "paged_verify_int8" if int8 else "paged_verify"
+    before = _build.launch_counts()[name]
+    o, lse = pa._paged_verify_call(q, k, v, table, base, page_size,
+                                   **scales)
+    assert _build.launch_counts()[name] == before + 1
+    o_ref, lse_ref = pa.paged_verify_prefix_reference(q, k, v, table, base,
+                                                      page_size, **scales)
+    assert o.dtype == torch.float32 and lse.shape == (4, q.shape[2], 5)
+    assert _err(o, o_ref) <= TOL[torch.float32]
+    assert _err(lse, lse_ref) <= LSE_TOL
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_single_slot_verify_equals_prefill_bitwise(dev, int8):
+    """One verify block body serves both entry points: a one-slot verify
+    over that slot's ids and base gives the prefill kernel's bits."""
+    q, k, v, table, base, scales = _verify_inputs(23, torch.bfloat16, int8)
+    for r in (1, 3):
+        o, lse = pa._paged_verify_call(q[r:r + 1].contiguous(), k, v,
+                                       table[r:r + 1].contiguous(),
+                                       base[r:r + 1].contiguous(), 16,
+                                       **scales)
+        o1, lse1 = pa._paged_prefill_call(q[r], k, v, table[r],
+                                          int(base[r]), 16, **scales)
+        assert torch.equal(o[0], o1)
+        assert torch.equal(lse[0], lse1.T)
+
+
+def test_paged_engine_int8_kernels_match_reference_engine(dev):
+    """A tiny float32 model on an int8 pool, kernel engine vs reference
+    engine: identical greedy tokens (cold and through a prefix hit), the
+    int8 kernels launched and no gather tick on the kernel path."""
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    cfg = llama.tiny_llama(dtype=torch.float32)
+    params = llama.init_params(cfg, _gen(24), dev)
+    shared = torch.randint(1, 512, (32,), generator=torch.Generator()
+                           .manual_seed(25)).tolist()
+    prompts = [shared + [7, 8, 9], shared + [11] * 12, list(range(1, 21))]
+    outs = []
+    for impl in ("kernel", "reference"):
+        eng = PagedContinuousBatchingEngine(
+            cfg, params, max_len=128, slots=2, page_size=16,
+            prefill_buckets=(16, 32, 64), attention_impl=impl,
+            kv_dtype="int8", device=dev)
+        _build.reset_launch_counts()
+        try:
+            outs.append([eng.generate(p, 6)[0] for p in prompts])
+            stats = eng.stats
+        finally:
+            eng.stop()
+        counts = _build.launch_counts()
+        if impl == "kernel":
+            assert counts["paged_decode_int8"] > 0
+            assert counts["paged_prefill_int8"] > 0
+            assert counts["paged_decode"] == counts["paged_prefill"] == 0
+            assert stats["attn_gather_ticks"] == 0
+        else:
+            assert not any(counts.values())
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_spec_engine_verify_kernel_on_and_off_identical(dev, kv_dtype):
+    """Speculation on the kernel path: the verify kernel runs every round
+    and the streams equal the spec-off streams, with a permutation pair
+    (exact by construction) and with random weights (the tiny model's
+    top-2 margins are far above the float32 noise)."""
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    perm_cfg = llama.tiny_llama(dtype=torch.float32, vocab_size=64,
+                                tie_embeddings=False)
+    target_perm, draft_perm = llama.permutation_pair(64, overlap=0.7)
+    rand_cfg = llama.tiny_llama(dtype=torch.float32)
+    pairs = [
+        (perm_cfg, llama.init_permutation_params(perm_cfg, target_perm,
+                                                 device=dev),
+         llama.init_permutation_params(perm_cfg, draft_perm, device=dev)),
+        (rand_cfg, llama.init_params(rand_cfg, _gen(26), dev),
+         llama.init_params(rand_cfg, _gen(27), dev)),
+    ]
+    verify = "paged_verify_int8" if kv_dtype == "int8" else "paged_verify"
+    for cfg, target, draft in pairs:
+        prompts = [[1, 7, 3, 9, 2, 4, 6, 8, 5, 3, 1, 2, 9, 9, 4, 1, 2],
+                   [5, 3, 2]]
+        outs = []
+        for spec in (None, {"enabled": True, "k": 4, "draft_config": cfg,
+                            "draft_params": draft}):
+            eng = PagedContinuousBatchingEngine(
+                cfg, target, max_len=64, slots=2, page_size=16,
+                prefill_buckets=(16, 32), kv_dtype=kv_dtype,
+                speculative=spec, device=dev)
+            _build.reset_launch_counts()
+            try:
+                outs.append([eng.generate(p, 12)[0] for p in prompts])
+                stats = eng.stats
+            finally:
+                eng.stop()
+        # one row at a time: one verify dispatch (one launch a layer) per
+        # speculative round
+        assert stats["spec_rounds"] > 0 and stats["attn_gather_ticks"] == 0
+        assert _build.launch_counts()[verify] == \
+            cfg.n_layers * stats["spec_rounds"]
+        assert outs[0] == outs[1]
 
 
 def test_launches_are_counted_and_bad_inputs_refused(dev):

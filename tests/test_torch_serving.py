@@ -344,7 +344,7 @@ def test_explicit_kernel_on_cpu_raises(models, impl):
     {"paged": False},
     {"continuous_batching": False},
     {"adapters": {"t1": "path"}},
-    {"speculative": True},
+    {"max_wait": 1.0},
     {"replicas": 2},
 ])
 def test_unported_server_features_raise(kwargs):
@@ -355,7 +355,17 @@ def test_unported_server_features_raise(kwargs):
 
 
 def test_int8_pool_is_not_ported_yet(models):
+    """The int8 pool is ported now (tests/test_torch_int8.py holds it
+    against the reference): the engine builds one; an unknown kv_dtype
+    still raises, as the reference's does."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="int8"):
+    eng = tpaged.PagedContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                               kv_dtype="int8", **ENGINE_KW)
+    try:
+        assert eng._pool["k"].dtype == torch.int8
+        assert eng._pool["k_scale"].shape == eng._pool["k"].shape[:-1]
+    finally:
+        eng.stop()
+    with pytest.raises(ValueError, match="kv_dtype"):
         tpaged.PagedContinuousBatchingEngine(tcfg, tparams, device="cpu",
-                                             kv_dtype="int8", **ENGINE_KW)
+                                             kv_dtype="fp8", **ENGINE_KW)
