@@ -8,14 +8,19 @@ exits non-zero and never prints the final line):
 1. build   - compiles the CUDA kernels from mlrun_tpu_torch/csrc (nvcc,
              sm_90a) and reports the build time, torch/CUDA versions and
              the card's name and power limit.
-2. kernels - holds each hand-written kernel (int8 and verify variants
-             included) against its plain PyTorch
+2. kernels - holds each hand-written kernel (int8 and verify variants,
+             the v1 flash entry point and RMSNorm included) against its
+             plain PyTorch
              version at its main path's shapes, in bf16 and f32, with the
              stated tolerances; times kernel, plain version and, where one
-             PyTorch call computes the same function,
-             scaled_dot_product_attention, with CUDA events; checks that
+             PyTorch call computes the same function
+             (scaled_dot_product_attention, torch.nn.functional.rms_norm),
+             with CUDA events; checks that
              chunked and unchunked flash prefill agree bit for bit and
-             that two flash backward launches give the same bits.
+             that two flash backward launches give the same bits; then
+             drives the op entry points ``_flash_fwd`` and
+             ``rms_norm_pallas`` (no engine reaches them) once at each of
+             their shapes, counted.
 3. serve   - serves Llama-3-8B (random weights from a seed, bf16, all 32
              layers) through LLMModelServer -> PagedContinuousBatchingEngine
              with the kernels, shows every serving kernel launched on that
@@ -31,7 +36,16 @@ exits non-zero and never prints the final line):
              (k 4) against the spec-off engine: identical until a
              near-tie of the target's logits, every emitted token a
              near-argmax; the verify kernels launched on both paths.
-6. train   - trains Llama-3.2-1B (random weights from a seed, bf16, all 16
+6. serve_dense - LLMModelServer's two non-paged configurations at
+             Llama-3-8B: its defaults (an LLMEngine: bucket-padded flash
+             prefill, greedy decode in chunks of 32 dense steps) and
+             continuous_batching=True (the dense engine, chunked prefill of
+             256 tokens, so long prompts resume across ticks), each with
+             the cached flash kernel launched once a layer on every prefill
+             chunk and against a reference-attention engine; then the
+             permutation pair on the dense engine (native and int8 caches,
+             the dense verify): spec on == spec off.
+7. train   - trains Llama-3.2-1B (random weights from a seed, bf16, all 16
              layers, full width) through Trainer.fit for a few steps on a
              repeated synthetic batch (4 x 2048 tokens, loss chunks of
              512, per-layer remat), shows the flash forward and backward
@@ -41,8 +55,9 @@ exits non-zero and never prints the final line):
              attention-weight gradients against the reference attention.
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
-``--phases build,kernels`` runs a subset (for bring-up); the final lines are
-printed only when every phase ran. nvcc's build log (registers, shared
+``--phases build,kernels`` runs a subset (for bring-up;
+``--phases build,kernels,serve_dense`` checks the dense serving path); the
+final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
 
@@ -624,7 +639,173 @@ def kernel_train_flash(gen, kind, dtype, record):
         fail(f"flash_bwd {kind}: two runs on the same inputs differ")
 
 
-def phase_kernels(seed: int) -> list:
+# the v1 flash entry point's shapes: (name, B, Sq, Sk, H, D, causal) —
+# Llama-3-8B's prefill width, BERT-base's encoder (mlrun_tpu/models/bert.py
+# :29-31), and ragged lengths that are not multiples of the 64-row tiles
+V1_SHAPES = (("llama3-8b", 1, 2048, 2048, 32, 128, True),
+             ("bert-base", 8, 512, 512, 12, 64, False),
+             ("ragged", 1, 1000, 777, 32, 128, True),
+             ("ragged", 1, 1000, 777, 32, 128, False))
+# rms_norm_pallas's shapes: Llama-3-8B's and Llama-3.2-1B's hidden states
+# at a 4 x 2048 batch, and a ragged row count and width
+RMS_SHAPES = (("llama3-8b", (4, 2048, 4096)), ("llama3-1b", (4, 2048, 2048)),
+              ("ragged", (1000, 4100)))
+RMS_EPS = 1e-5
+# rms_norm_pallas vs its plain version: float32 out within RMS_F32_RTOL of
+# the plain value, bf16 out within one bf16 ulp of it (rsqrtf may sit an
+# ulp from torch.rsqrt, and the two sum the squares in another order)
+RMS_F32_RTOL = 2e-6
+
+
+def _v1_pairs(sq: int, sk: int, causal: bool) -> int:
+    """Unmasked (query, key) pairs of one head, top-left causal."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+def kernel_flash_v1(gen, kind, dtype, record):
+    """The v1 flash entry point ``_flash_fwd`` (the Pallas
+    ``_flash_fwd_kernel``; the port launches ``mlt_flash_fwd``) at its
+    shapes, against ``flash_fwd_plain``; the library call is SDPA with
+    ``is_causal`` (top-left, as v1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlrun_tpu_torch.ops import attention as at
+
+    dev = "cuda"
+    rows = []
+    for name, b, sq, sk, h, d, causal in V1_SHAPES:
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, sk, h, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sk, h, d), generator=gen, device=dev).to(dtype)
+        o, lse = at._flash_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = at.flash_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
+        del o_ref, lse_ref
+        _check(f"flash_v1 {name} Sq={sq} Sk={sk} causal={causal}", kind,
+               errs)
+        ms = time_ms(lambda: at._flash_fwd(q, k, v, causal=causal),
+                     iters=10)
+        plain = time_ms(lambda: at.flash_fwd_plain(q, k, v, causal),
+                        iters=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), iters=10)
+        item = q.element_size()
+        n_bytes = 2 * (q.numel() + k.numel()) * item + lse.numel() * 4
+        n_ops = 4 * d * b * h * _v1_pairs(sq, sk, causal)
+        bound, by = bound_ms(n_bytes, n_ops, kind)
+        row = {"name": "flash_v1", "dtype": kind, "shape": name, "B": b,
+               "Sq": sq, "Sk": sk, "H": h, "D": d, "causal": causal,
+               "max_abs_err": max(errs.values()), "errs": errs,
+               "tol": TOL[kind], "ms": ms, "plain_ms": plain,
+               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        rows.append(row)
+        emit({"phase": "kernels", **row})
+    record.append(rows[0])  # the 8B prefill width
+
+
+def _bf16_ulp(x):
+    import torch
+
+    mag = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def kernel_rms_norm(gen, kind, dtype, record):
+    """``rms_norm_pallas`` (the Pallas ``_rms_norm_kernel``; the port
+    launches ``csrc/rms_norm.cu``) with a float32 scale at its shapes,
+    against ``rms_norm_pallas_plain``; the library call is
+    ``torch.nn.functional.rms_norm`` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlrun_tpu_torch.ops import norms
+
+    dev = "cuda"
+    rows = []
+    for name, shape in RMS_SHAPES:
+        x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+        scale = torch.randn(shape[-1:], generator=gen, device=dev)
+        out = norms.rms_norm_pallas(x, scale, RMS_EPS)
+        ref = norms.rms_norm_pallas_plain(x, scale, RMS_EPS)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        if kind == "f32":
+            limit = RMS_F32_RTOL * ref.float().abs()
+            tol = {"rel": RMS_F32_RTOL}
+        else:
+            limit = _bf16_ulp(ref)
+            tol = {"ulp": 1}
+        worst = float((diff / limit.clamp_min(1e-30)).max())
+        if not bool((diff <= limit).all()):
+            fail(f"rms_norm {name} {kind}: max error {float(diff.max())}, "
+                 f"{worst} x its bound {tol}")
+        ms = time_ms(lambda: norms.rms_norm_pallas(x, scale, RMS_EPS))
+        plain = time_ms(lambda: norms.rms_norm_pallas_plain(x, scale,
+                                                            RMS_EPS), iters=5)
+        features = shape[-1]
+        lib_ms = time_ms(lambda: F.rms_norm(x, (features,), weight=scale,
+                                            eps=RMS_EPS))
+        # the same call with the scale in x's dtype (PyTorch's fused path)
+        scale_x = scale.to(dtype)
+        lib_x_ms = time_ms(lambda: F.rms_norm(x, (features,), weight=scale_x,
+                                              eps=RMS_EPS))
+        n_bytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
+        bound, by = bound_ms(n_bytes, 4 * x.numel(), kind)
+        row = {"name": "rms_norm", "dtype": kind, "shape": name,
+               "x": list(shape), "scale_dtype": "f32",
+               "max_abs_err": float(diff.max()), "err_over_bound": worst,
+               "tol": tol, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": by, "library_ms": lib_ms,
+               "library_x_dtype_scale_ms": lib_x_ms}
+        rows.append(row)
+        emit({"phase": "kernels", **row})
+    record.append(rows[0])  # the 8B hidden state
+
+
+def op_paths(gen) -> dict:
+    """The path of the two kernels no engine or trainer reaches: their op
+    entry points, driven once at each main-path shape in bf16 with the
+    counts reset just before. Returns the launch counts."""
+    import torch
+
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.ops import attention as at
+    from mlrun_tpu_torch.ops import norms
+
+    dev, dtype = "cuda", torch.bfloat16
+    inputs = []
+    for _, b, sq, sk, h, d, causal in V1_SHAPES:
+        inputs.append([torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, sq, h, d), (b, sk, h, d),
+                                     (b, sk, h, d))] + [causal])
+    rms_inputs = [(torch.randn(shape, generator=gen, device=dev).to(dtype),
+                   torch.randn(shape[-1:], generator=gen, device=dev))
+                  for _, shape in RMS_SHAPES]
+    _build.reset_launch_counts()
+    outs = [at._flash_fwd(q, k, v, causal=c)[0] for q, k, v, c in inputs]
+    outs += [norms.rms_norm_pallas(x, s, RMS_EPS) for x, s in rms_inputs]
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    _check_launches(launches, ("flash_v1", "rms_norm"), "op entry point")
+    if launches["flash_v1"] != len(V1_SHAPES) \
+            or launches["rms_norm"] != len(RMS_SHAPES):
+        fail(f"op entry points: launches {launches}")
+    for out in outs:
+        if not bool(torch.isfinite(out).all()):
+            fail("op entry points: non-finite output")
+    emit({"phase": "kernels", "path": "op entry points",
+          "launches": {k: launches[k] for k in ("flash_v1", "rms_norm")}})
+    return {k: launches[k] for k in ("flash_v1", "rms_norm")}
+
+
+def phase_kernels(seed: int) -> tuple[list, dict]:
+    """Every kernel against its plain version in bf16 and f32 (the bf16
+    rows go on the final line), then the op entry points' path."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -638,8 +819,11 @@ def phase_kernels(seed: int) -> list:
         kernel_prefill_int8(gen, kind, dtype, record)
         kernel_verify(gen, kind, dtype, record)
         kernel_train_flash(gen, kind, dtype, record)
+        kernel_flash_v1(gen, kind, dtype, record)
+        kernel_rms_norm(gen, kind, dtype, record)
         torch.cuda.empty_cache()
-    return [r for r in record if r["dtype"] == "bf16"]
+    launches = op_paths(gen)
+    return [r for r in record if r["dtype"] == "bf16"], launches
 
 
 # ---------------------------------------------------------------------------
@@ -706,6 +890,26 @@ def _submit_engine(engine):
         return [f.result(timeout=600)[0] for f in futures]
 
     return submit
+
+
+def _compare(logits_a, out_a, logits_b, out_b):
+    """(max relative first-token logit error, first tokens identical,
+    share of greedy tokens identical) of two engines on the same
+    traffic."""
+    import torch
+
+    if len(logits_a) != len(logits_b):
+        fail("engines admitted different request counts")
+    rel = []
+    for x, y in zip(logits_a, logits_b):
+        if not bool(torch.isfinite(x).all()):
+            fail("non-finite first-token logits")
+        rel.append(float((x - y).abs().max() / y.abs().max()))
+    same = sum(x == y for ka, ra in zip(out_a, out_b)
+               for x, y in zip(ka, ra))
+    first = sum(ka[0] == ra[0] for ka, ra in zip(out_a, out_b))
+    return (max(rel), f"{first}/{len(out_a)}",
+            same / sum(len(t) for t in out_a))
 
 
 def phase_serve(seed: int, card: str, kv_dtype: str = "native",
@@ -782,22 +986,8 @@ def phase_serve(seed: int, card: str, kv_dtype: str = "native",
     if _build.launch_counts() != launches:
         fail("the reference engine launched a kernel")
 
-    def compare(logits_a, out_a, logits_b, out_b):
-        if len(logits_a) != len(logits_b):
-            fail("engines admitted different request counts")
-        rel = []
-        for x, y in zip(logits_a, logits_b):
-            if not bool(torch.isfinite(x).all()):
-                fail("non-finite first-token logits")
-            rel.append(float((x - y).abs().max() / y.abs().max()))
-        same = sum(x == y for ka, ra in zip(out_a, out_b)
-                   for x, y in zip(ka, ra))
-        first = sum(ka[0] == ra[0] for ka, ra in zip(out_a, out_b))
-        return (max(rel), f"{first}/{len(out_a)}",
-                same / sum(len(t) for t in out_a))
-
-    rel_err, first_same, share = compare(kernel_logits, kernel_out,
-                                         ref_logits, ref_out)
+    rel_err, first_same, share = _compare(kernel_logits, kernel_out,
+                                          ref_logits, ref_out)
     result = {
         "phase": phase, "model": "llama3-8b", "layers": config.n_layers,
         "kv_dtype": kv_dtype, "card": card, "requests": len(kernel_out),
@@ -822,9 +1012,9 @@ def phase_serve(seed: int, card: str, kv_dtype: str = "native",
     if native is not None:
         # the quantization's own error: the int8 pool against the native
         # pool, both on the kernels, same weights and traffic
-        q_err, q_first, q_share = compare(kernel_logits, kernel_out,
-                                          native["first_logits"],
-                                          native["outputs"])
+        q_err, q_first, q_share = _compare(kernel_logits, kernel_out,
+                                           native["first_logits"],
+                                           native["outputs"])
         result.update({"vs_native_first_logits_max_rel_diff": q_err,
                        "vs_native_first_tokens_identical": q_first,
                        "vs_native_greedy_token_share_identical": q_share})
@@ -1033,7 +1223,228 @@ def phase_spec(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: train Llama-3.2-1B through the port's Trainer
+# phase 6: serve_dense — LLMModelServer's default engine (LLMEngine) and the
+# dense ContinuousBatchingEngine at Llama-3-8B
+# ---------------------------------------------------------------------------
+
+# the dense engine's chunked prefill: the 600- and 700-token prompts resume
+# across ticks at q_offset 256 and 512
+DENSE_CHUNK = 256
+
+
+def _record_sampled_logits(engine, sink: list):
+    """LLMEngine: keep each request's first-token logits (a greedy request
+    samples only its first token; its decode chunks take the argmax on the
+    card)."""
+    sample = engine._sample
+
+    def wrapped(logits):
+        sink.append(logits[0].float().cpu())
+        return sample(logits)
+
+    engine._sample = wrapped
+
+
+def _serve_dense_leg(seed: int, card: str, leg: str, config,
+                     prompts) -> dict:
+    """One of the two non-paged LLMModelServer configurations at Llama-3-8B
+    (random weights from ``seed``, all 32 layers), counted from its
+    construction, then the same traffic on a reference-attention engine
+    with the same weights."""
+    import torch
+
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.llm import LLMEngine, LLMModelServer
+    from mlrun_tpu_torch.serving.llm_batch import ContinuousBatchingEngine
+
+    default = leg == "llm_engine"
+    kwargs = {} if default else {"continuous_batching": True,
+                                 "slots": SLOTS,
+                                 "prefill_chunk": DENSE_CHUNK}
+    _build.reset_launch_counts()
+    started = time.perf_counter()
+    server = LLMModelServer(name="llama3-8b", model_preset="llama3-8b",
+                            max_len=MAX_LEN, max_new_tokens=MAX_NEW,
+                            seed=seed, **kwargs)
+    server.post_init()
+    if not server.ready:
+        fail(f"LLMModelServer ({leg}) failed to load: {server.error}")
+    load_s = time.perf_counter() - started
+    engine = server.engine
+    expected = LLMEngine if default else ContinuousBatchingEngine
+    if type(engine) is not expected:
+        fail(f"LLMModelServer ({leg}) built a {type(engine).__name__}")
+    logits: list = []
+    per_request: list = []
+    if default:
+        _record_sampled_logits(engine, logits)
+        generate = engine.generate
+
+        def timed(*args, **kw):
+            tokens, stats = generate(*args, **kw)
+            per_request.append(stats)
+            return tokens, stats
+
+        engine.generate = timed
+    else:
+        _record_first_logits(engine, logits)
+
+    def submit_server(batch):
+        return server.do_event(_Event({"inputs": batch})).body["outputs"]
+
+    t0 = time.perf_counter()
+    out = _serve_events(submit_server, prompts)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    stats = {} if default else engine.stats
+    metrics = dict(server.metrics)
+    params = engine.params
+    buckets = engine.prefill_buckets
+    server.close()
+    del server, engine
+
+    traffic = prompts + [prompts[0]]
+    # prefill dispatches of S > 1, one flash launch a layer each: LLMEngine
+    # warms every bucket and prefills each request once; the dense engine
+    # warms one bucket and runs every chunk it counts
+    prefills = (len(buckets) + len(traffic) if default
+                else 1 + stats["prefill_chunks"])
+    _check_launches(launches, ("flash_fwd_cached",), f"serve_dense {leg}")
+    if launches["flash_fwd_cached"] != config.n_layers * prefills:
+        fail(f"serve_dense {leg}: flash_fwd_cached launched "
+             f"{launches['flash_fwd_cached']} times for {prefills} prefill "
+             f"dispatches of {config.n_layers} layers")
+    for tokens in out:
+        if len(tokens) != MAX_NEW or not all(
+                0 <= t < config.vocab_size for t in tokens):
+            fail(f"bad output tokens: {tokens[:8]}... ({len(tokens)})")
+
+    ref_logits: list = []
+    if default:
+        ref = LLMEngine(config, params, max_len=MAX_LEN,
+                        attention_impl="reference", seed=seed, device="cuda")
+        _record_sampled_logits(ref, ref_logits)
+        ref_out = [ref.generate(p, max_new_tokens=MAX_NEW)[0]
+                   for p in traffic]
+    else:
+        ref = ContinuousBatchingEngine(
+            config, params, max_len=MAX_LEN, slots=SLOTS,
+            prefill_chunk=DENSE_CHUNK, attention_impl="reference", seed=seed,
+            device="cuda")
+        _record_first_logits(ref, ref_logits)
+        ref_out = _serve_events(_submit_engine(ref), prompts)
+        ref.stop()
+    del ref, params
+    if _build.launch_counts() != launches:
+        fail(f"serve_dense {leg}: the reference engine launched a kernel")
+    rel_err, first_same, share = _compare(logits, out, ref_logits, ref_out)
+    if default:
+        ttfts = sorted(r["ttft_s"] for r in per_request)
+        ttft_p50 = ttfts[(len(ttfts) - 1) // 2]
+        decode_tps = [r["decode_tokens_per_sec"] for r in per_request]
+    else:
+        ttft_p50 = stats.get("ttft_p50_s")
+        decode_tps = metrics.get("decode_tps")
+    result = {
+        "phase": "serve_dense", "leg": leg, "model": "llama3-8b",
+        "layers": config.n_layers, "card": card,
+        "engine": expected.__name__, "requests": len(out),
+        "prompt_lens": [len(p) for p in traffic],
+        "max_new_tokens": MAX_NEW, "load_s": load_s, "serve_s": serve_s,
+        "prefill_chunk": None if default else DENSE_CHUNK,
+        "prefill_dispatches": prefills, "launches": launches,
+        "ttft_p50_s": ttft_p50, "decode_tps": decode_tps,
+        "itl_p50_s": stats.get("itl_p50_s"),
+        "decode_tick_p50_s": stats.get("decode_tick_p50_s"),
+        "first_logits_max_rel_err": rel_err,
+        "first_logits_rel_tol": LOGIT_REL_TOL,
+        "first_tokens_identical": first_same,
+        "greedy_token_share_identical": share,
+    }
+    emit(result)
+    if not rel_err <= LOGIT_REL_TOL:
+        fail(f"serve_dense {leg}: first-token logits, kernel vs reference "
+             f"max relative error {rel_err} > {LOGIT_REL_TOL}")
+    return result
+
+
+def phase_serve_dense(seed: int, card: str) -> dict:
+    """LLMModelServer's two non-paged configurations at Llama-3-8B: (a) its
+    defaults (an LLMEngine), (b) ``continuous_batching=True`` (the dense
+    engine, chunked prefill); each against a reference-attention engine.
+    (c) The permutation pair at 8B width on the dense engine, native and
+    int8 caches: spec on == spec off."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import (
+        MODEL_PRESETS,
+        init_permutation_params,
+        permutation_pair,
+    )
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.llm_batch import ContinuousBatchingEngine
+
+    config = MODEL_PRESETS["llama3-8b"]()
+    prompts = _prompts(seed, config.vocab_size)
+    legs = {}
+    for leg in ("llm_engine", "dense_engine"):
+        legs[leg] = _serve_dense_leg(seed, card, leg, config, prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    config = dataclasses.replace(config, n_layers=PERM_LAYERS)
+    target_perm, draft_perm = permutation_pair(config.vocab_size,
+                                               PERM_OVERLAP, seed=seed)
+    target = init_permutation_params(config, target_perm, device="cuda")
+    draft = init_permutation_params(config, draft_perm, device="cuda")
+    perm_rows = []
+    for kv_dtype in ("native", "int8"):
+        outs = []
+        for spec in (None, {"enabled": True, "k": SPEC_K,
+                            "draft_config": config, "draft_params": draft}):
+            engine = ContinuousBatchingEngine(
+                config, target, max_len=MAX_LEN, slots=SLOTS,
+                kv_dtype=kv_dtype, speculative=spec, seed=seed,
+                device="cuda")
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs.append(_serve_events(_submit_engine(engine), prompts))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            stats = engine.stats
+            engine.stop()
+            _check_launches(counts, ("flash_fwd_cached",),
+                            f"dense permutation pair ({kv_dtype})")
+        if outs[0] != outs[1]:
+            fail(f"dense permutation pair ({kv_dtype} cache): spec-on "
+                 "streams differ from spec-off streams")
+        row = {"phase": "serve_dense", "leg": "permutation",
+               "model": f"llama3-8b width, {PERM_LAYERS} zero layers",
+               "engine": "ContinuousBatchingEngine", "kv_dtype": kv_dtype,
+               "overlap": PERM_OVERLAP, "k": SPEC_K,
+               "spec_equals_plain": True, "serve_s": seconds,
+               "spec_rounds": stats["spec_rounds"],
+               "acceptance_rate": stats["acceptance_rate"],
+               "spec_tokens_per_round": stats["spec_tokens_per_round"],
+               "card": card}
+        perm_rows.append(row)
+        emit(row)
+        if not (0 < stats["acceptance_rate"] < 1
+                and stats["spec_tokens_per_round"] > 1):
+            fail(f"dense permutation pair ({kv_dtype} cache): acceptance "
+                 f"{stats['acceptance_rate']}, tokens per round "
+                 f"{stats['spec_tokens_per_round']}")
+    del target, draft
+    return {**legs, "permutation": perm_rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train Llama-3.2-1B through the port's Trainer
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 6
@@ -1229,7 +1640,8 @@ def phase_train(seed: int, card: str) -> dict:
 # main
 # ---------------------------------------------------------------------------
 
-ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec", "train")
+ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
+              "serve_dense", "train")
 
 
 def main(argv=None) -> int:
@@ -1270,7 +1682,8 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build(card)
     if "kernels" in phases:
-        kernels = phase_kernels(args.seed)
+        kernels, op_launches = phase_kernels(args.seed)
+        launches.update(op_launches)
     if "serve" in phases:
         served = phase_serve(args.seed, card)
         launches.update({name: served["launches"][name]
@@ -1285,6 +1698,9 @@ def main(argv=None) -> int:
     release()
     if "spec" in phases:
         launches.update(phase_spec(args.seed, card)["launches"])
+        release()
+    if "serve_dense" in phases:
+        phase_serve_dense(args.seed, card)
         release()
     if "train" in phases:
         trained = phase_train(args.seed, card)
@@ -1304,6 +1720,8 @@ def main(argv=None) -> int:
         "flash_fwd": "mlrun_tpu/ops/attention.py:223",
         # the reference's backward is XLA (_blockwise_bwd), not Pallas
         "flash_bwd": "mlrun_tpu/ops/attention.py:447",
+        "flash_v1": "mlrun_tpu/ops/attention.py:87",
+        "rms_norm": "mlrun_tpu/ops/norms.py:26",
     }
     sources = {
         "paged_decode": "mlrun_tpu_torch/csrc/paged_decode.cu",
@@ -1315,6 +1733,8 @@ def main(argv=None) -> int:
         "paged_verify_int8": "mlrun_tpu_torch/csrc/paged_prefill.cu",
         "flash_fwd": "mlrun_tpu_torch/csrc/flash_fwd_cached.cu",
         "flash_bwd": "mlrun_tpu_torch/csrc/flash_bwd.cu",
+        "flash_v1": "mlrun_tpu_torch/csrc/flash_fwd_cached.cu",
+        "rms_norm": "mlrun_tpu_torch/csrc/rms_norm.cu",
     }
     line = [{"name": k["name"], "route": "cuda", "source": sources[k["name"]],
              "replaces": replaces[k["name"]],

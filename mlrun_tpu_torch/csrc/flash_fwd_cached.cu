@@ -8,7 +8,10 @@
 // _flash_fwd_kernel_v2_bounded (k_lo > 0, _flash_fwd_v2_cached_bounded),
 // both through mlt_flash_fwd_cached; and _flash_fwd_kernel_v2 (the
 // training forward of flash_attention_mlt, via _flash_fwd_v2: q_offset = 0,
-// k_lo = 0, causal or not) through mlt_flash_fwd.
+// k_lo = 0, causal or not) through mlt_flash_fwd. The v1 body
+// _flash_fwd_kernel (entry point _flash_fwd) computes that same function
+// (q and kv from position 0, Sq and Sk free, keys past Sk masked), so
+// mlt_flash_fwd replaces it too.
 //
 // q [B, S, H, D] holds query rows at absolute positions q_offset + i; k/v
 // [B, M, Hk, D] is the cache indexed from position 0, with Hk either H

@@ -34,12 +34,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libmlt_kernels.so"
 
-# dtype codes shared with csrc/common.cuh
+# dtype codes shared with csrc/common.cuh (float16: csrc/rms_norm.cu only)
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+FLOAT16_CODE = 2
 # kernel names, one counter each
 KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill", "flash_fwd",
            "flash_bwd", "paged_decode_int8", "paged_prefill_int8",
-           "paged_verify", "paged_verify_int8")
+           "paged_verify", "paged_verify_int8", "flash_v1", "rms_norm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +62,7 @@ _SIGNATURES = {
                       _P],
     "mlt_flash_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _I, _I, _F, _P],
+    "mlt_rms_norm": [_I, _I, _P, _P, _P, _I, _I, _F, _P],
 }
 
 

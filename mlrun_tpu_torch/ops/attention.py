@@ -6,7 +6,10 @@ Counterpart of ``mlrun_tpu/ops/attention.py``. The Pallas bodies of
 ``_flash_v2_body`` (``_flash_fwd_kernel_v2_cached``, ``_bounded`` and the
 training ``_flash_fwd_kernel_v2``) become one hand-written CUDA tile loop,
 ``csrc/flash_fwd_cached.cu``, with an integer ``k_lo`` and a causal flag;
-the XLA backward ``_blockwise_bwd`` becomes ``csrc/flash_bwd.cu``. Public
+the XLA backward ``_blockwise_bwd`` becomes ``csrc/flash_bwd.cu``. The v1
+Pallas body ``_flash_fwd_kernel`` (entry point ``_flash_fwd``) computes the
+training forward's function, so its counterpart launches that same kernel
+(``mlt_flash_fwd``) under a launch counter of its own. Public
 functions keep the JAX signatures and layouts: q ``[B, S, H, D]``, k/v
 ``[B, M, H, D]`` (or at the kv head count, which the kernels index as
 ``h // (H // Hkv)``), lse ``[B, H, S]`` float32.
@@ -242,15 +245,11 @@ def flash_bwd_plain(q, k, v, o, lse, g, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_fwd(q, k, v, causal: bool = True):
-    """(o, lse) of the training flash forward (see :func:`flash_fwd_plain`).
-    CUDA tensors launch ``mlt_flash_fwd`` of ``csrc/flash_fwd_cached.cu``
-    (the replacement for the Pallas ``_flash_fwd_kernel_v2``); CPU tensors
-    take the plain version."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal)
-    _check_qkv("flash_fwd", q, k, v)
-    _check_cuda("flash_fwd", {"q": q, "k": k, "v": v}, q.dtype)
+def _launch_flash_fwd(name: str, q, k, v, causal: bool):
+    """Launch ``mlt_flash_fwd`` (self-attention from position 0, keys past
+    k's length masked) and count it under ``name``."""
+    _check_qkv(name, q, k, v)
+    _check_cuda(name, {"q": q, "k": k, "v": v}, q.dtype)
     b, s, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -258,8 +257,48 @@ def flash_fwd(q, k, v, causal: bool = True):
         _build.dtype_code(q), d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, s, k.shape[1], h, k.shape[2],
         int(bool(causal)), d ** -0.5, _build.stream_ptr(q))
-    _build.check_launch("flash_fwd", err)
+    _build.check_launch(name, err)
     return o, lse
+
+
+def flash_fwd(q, k, v, causal: bool = True):
+    """(o, lse) of the training flash forward (see :func:`flash_fwd_plain`).
+    CUDA tensors launch ``mlt_flash_fwd`` of ``csrc/flash_fwd_cached.cu``
+    (the replacement for the Pallas ``_flash_fwd_kernel_v2``); CPU tensors
+    take the plain version."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal)
+    return _launch_flash_fwd("flash_fwd", q, k, v, causal)
+
+
+# head dims csrc/flash_fwd_cached.cu is instantiated for
+FLASH_HEAD_DIMS = (32, 64, 128)
+
+
+def _flash_fwd(q, k, v, causal: bool = True, block_q: int = 256,
+               block_k: int = 256):
+    """Counterpart of the reference's v1 flash entry point ``_flash_fwd``
+    (Pallas ``_flash_fwd_kernel``): q [B, Sq, H, D] over k/v [B, Sk, H
+    (or Hkv), D], q and kv positions from 0, causal with top-left alignment
+    or not, keys past Sk masked (the Pallas body's padded-tail ``kv_len``).
+    Returns (o in q's dtype, lse [B, H, Sq] f32). That is the function of
+    the training forward, so CUDA tensors launch the same hand-written
+    ``mlt_flash_fwd`` (``csrc/flash_fwd_cached.cu``), counted as
+    ``flash_v1``; CPU tensors take :func:`flash_fwd_plain`. ``block_q`` /
+    ``block_k`` tile the Pallas grid and do not change the result; they are
+    only validated (the TPU-only ``interpret`` flag is not taken)."""
+    if int(block_q) <= 0 or int(block_k) <= 0:
+        raise ValueError(f"_flash_fwd: block_q and block_k must be > 0, got "
+                         f"{block_q} / {block_k}")
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal)
+    if q.shape[-1] not in FLASH_HEAD_DIMS:
+        from .paged_attention import KernelUnavailableError
+
+        raise KernelUnavailableError(
+            f"_flash_fwd: head_dim {q.shape[-1]} has no CUDA kernel "
+            f"(csrc/flash_fwd_cached.cu takes {FLASH_HEAD_DIMS})")
+    return _launch_flash_fwd("flash_v1", q, k, v, causal)
 
 
 def flash_bwd(q, k, v, o, lse, g, causal: bool = True):

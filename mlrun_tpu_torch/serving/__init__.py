@@ -1,5 +1,5 @@
 """LLM serving of the port: the paged continuous-batching engine
-(``paged``), its scheduler core (``llm_batch``), the prefill forward and
-``LLMModelServer`` (``llm``), batch-1 speculative decoding
-(``speculative``), sampling, the V2 model server, and copies of the
-reference's prefix cache and typed errors."""
+(``paged``), the scheduler core and the dense engine (``llm_batch``), the
+prefill forward, ``LLMEngine`` and ``LLMModelServer`` (``llm``), batch-1
+speculative decoding (``speculative``), sampling, the V2 model server, and
+copies of the reference's prefix cache and typed errors."""

@@ -13,15 +13,20 @@ The int8 KV cache (``kv_dtype="int8"``) stores k/v per vector as int8
 with float32 scales, quantized by :func:`_quantize_kv` to the reference's
 bits.
 
-``LLMModelServer`` serves through the paged continuous-batching engine
-(serving/paged.py), with an int8 pool and a speculative draft model when
-asked; its other engines are not ported yet (ROADMAP.md).
+``LLMEngine`` generates one prompt (or an equal-length batch) at a time:
+a bucket-padded prefill, then greedy decode in chunks of dense 1-token
+steps with one host read per chunk. ``LLMModelServer`` serves through it
+by default, or through the dense or the paged continuous-batching engine
+(serving/llm_batch.py, serving/paged.py), with an int8 KV cache and a
+speculative draft model when asked.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,7 +35,8 @@ from ..models.llama import LlamaConfig, Params, lm_head, logits_f32
 from ..ops.attention import NEG_INF
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
-from .resilience import not_ported
+from ..utils import logger
+from .resilience import PromptTooLongError, not_ported
 
 
 def default_device(device=None) -> torch.device:
@@ -140,10 +146,13 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
                         prefix_kv: Optional[dict] = None,
                         all_logits: bool = False,
                         attn_impl: str = "dense",
-                        page_size: int = 0):
+                        page_size: int = 0, start: int | None = None):
     """Run tokens [B, S] starting at ``cache['pos']`` (uniform over the
     batch); returns (logits, cache). Logits are [B, vocab] f32 for the last
-    position, or [B, S, vocab] with ``all_logits``.
+    position, or [B, S, vocab] with ``all_logits``. ``start`` is the
+    caller's host copy of ``cache['pos'][0]``: given, the position is not
+    read back from the device (a decode loop then never waits on the card
+    between its steps).
 
     The chunk's KV is written into ``cache`` IN PLACE and ``cache['pos']``
     advances by S (the reference returns a new cache; its callers never
@@ -173,7 +182,8 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
 
     b, s = tokens.shape
     max_len = cache["k"].shape[2]
-    start = int(cache["pos"][0])
+    if start is None:
+        start = int(cache["pos"][0])
     positions = cache["pos"].long()[:, None] + torch.arange(
         s, device=tokens.device)[None, :]                       # [B, S]
     x = params["embedding"][tokens].to(config.dtype)
@@ -245,17 +255,332 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
     return logits, cache
 
 
-class LLMModelServer:
-    """Serving-graph step: generation on the GPU through the paged
-    continuous-batching engine.
+class LLMEngine:
+    """Batch-1 (or equal-length batch) generation around a Llama param
+    tree: one bucket-padded prefill through ``_forward_with_cache``
+    (attention over the cache with the cached flash kernel on the card,
+    the dense masked softmax otherwise), then greedy decode in fixed
+    chunks of ``decode_chunk`` dense 1-token steps with one host read per
+    chunk, or sampled decode token by token. Counterpart of the
+    reference's ``LLMEngine``, whose jitted ``lax.scan`` chunk becomes a
+    loop of dispatches here.
 
-    class args: model_preset, max_len, max_new_tokens, slots, kv_dtype
-    (native | int8), page_size, n_pages, prefill_chunk, prefix_cache,
-    attention_impl, speculative (True | {"draft": preset, "k": ...} |
-    None), temperature, top_k, top_p, warmup, seed, device (default: the
-    GPU; ``"cpu"`` runs the plain paths). The reference's other engines
-    and features raise ``NotImplementedError`` naming their ROADMAP.md
-    item.
+    ``device`` defaults to the GPU (and raises without one); pass
+    ``device="cpu"`` for the plain paths. Multi-tenant adapters are not
+    ported yet (ROADMAP.md item 3)."""
+
+    def __init__(self, config: LlamaConfig, params: Params,
+                 max_len: int = 2048, batch: int = 1,
+                 prefill_buckets: tuple = (128, 512, 1024),
+                 temperature: float = 0.0, kv_dtype: str = "native",
+                 top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+                 attention_impl: str | None = None, adapters=None,
+                 device=None):
+        from ..ops.attention import resolve_prefill_impl
+
+        if adapters is not None:
+            raise not_ported("LLMEngine adapters", 3)
+        self.config = config
+        self.params = params
+        self.max_len = max_len
+        self.batch = batch
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.kv_dtype = kv_dtype
+        self.device = default_device(device)
+        if params["embedding"].device.type != self.device.type:
+            raise ValueError(
+                f"params live on {params['embedding'].device}, the engine "
+                f"on {self.device}")
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed)
+        self.prefill_buckets = tuple(
+            b for b in sorted(prefill_buckets) if b <= max_len) or (max_len,)
+        if attention_impl is None:
+            attention_impl = str(SERVING_LLM_DEFAULTS["attention_impl"])
+        self.attention_impl = attention_impl
+        # flash prefill; decode stays dense — a 1-token q gains nothing
+        # from blockwise streaming
+        self.prefill_impl = resolve_prefill_impl(attention_impl, self.device)
+        if self.prefill_impl == "flash":
+            from ..ops import _build
+
+            _build.library()  # build now: a kernel fault surfaces here
+        self.decode_chunk = 32
+
+    # -- device steps -------------------------------------------------------
+    def _new_cache(self) -> dict:
+        return init_kv_cache(self.config, self.batch, self.max_len,
+                             kv_dtype=self.kv_dtype, device=self.device)
+
+    def _prefill(self, tokens: torch.Tensor, cache: dict):
+        return _forward_with_cache(self.config, self.params, tokens, cache,
+                                   attn_impl=self.prefill_impl)
+
+    def _decode(self, tokens: torch.Tensor, cache: dict, start: int):
+        """One dense decode step of tokens [batch, 1] at ``start``."""
+        return _forward_with_cache(self.config, self.params, tokens, cache,
+                                   start=start)
+
+    def _decode_n(self, token: torch.Tensor, cache: dict, n: int,
+                  start: int):
+        """``n`` greedy steps from ``token`` [batch, 1] at ``start``, the
+        argmax kept on the device (the reference's ``lax.scan``). Returns
+        (tokens [n, batch] int32 on the device, cache)."""
+        out = []
+        for i in range(n):
+            logits, cache = self._decode(token, cache, start + i)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(nxt)
+            token = nxt[:, None].long()
+        return torch.stack(out), cache
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.temperature and self.temperature > 0:
+            from .sampling import sample_logits
+
+            b = logits.shape[0]
+            return sample_logits(logits, self._generator,
+                                 [self.temperature] * b, [self.top_k] * b,
+                                 [self.top_p] * b)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def warmup(self):
+        """Run every prefill bucket, the 1-token step and one decode chunk
+        ahead of traffic, so the first request pays for no kernel build or
+        library initialisation."""
+        started = time.perf_counter()
+        for bucket in self.prefill_buckets:
+            cache = self._new_cache()
+            self._prefill(torch.zeros((self.batch, bucket), dtype=torch.long,
+                                      device=self.device), cache)
+        step = torch.zeros((self.batch, 1), dtype=torch.long,
+                           device=self.device)
+        cache = self._new_cache()
+        self._decode(step, cache, 0)
+        tokens, _ = self._decode_n(step, cache,
+                                   min(self.decode_chunk, self.max_len), 0)
+        tokens.cpu()  # host read = a real sync
+        logger.info("llm engine warm", buckets=list(self.prefill_buckets),
+                    warmup_s=round(time.perf_counter() - started, 2))
+
+    def _bucket_for(self, length: int) -> int:
+        for bucket in self.prefill_buckets:
+            if length <= bucket:
+                return bucket
+        return self.max_len
+
+    # -- API ----------------------------------------------------------------
+    def generate(self, prompt_tokens, max_new_tokens: int = 64,
+                 eos_id: int | None = None, adapter: str = "",
+                 request_key=None) -> tuple[list[int], dict]:
+        """Greedy/temperature generation for a single prompt (every batch
+        row carries it); returns (tokens, timing stats). ``request_key``
+        only steers the reference's canary split between adapters, so it
+        is accepted and ignored without one."""
+        prompt = np.asarray(prompt_tokens, dtype=np.int64).reshape(1, -1)
+        prompt_len = prompt.shape[1]
+        if prompt_len + max_new_tokens > self.max_len:
+            raise PromptTooLongError(
+                f"prompt_len {prompt_len} + max_new_tokens "
+                f"{max_new_tokens} exceeds max_len {self.max_len}")
+        if adapter:
+            raise not_ported("LLMEngine adapters", 3)
+        bucket = self._bucket_for(prompt_len)
+        padded = np.zeros((self.batch, bucket), np.int64)
+        padded[:, :prompt_len] = prompt
+        t0 = time.perf_counter()
+        out_tokens, ttft, t1 = self._generate_inner(
+            prompt, prompt_len, bucket, padded, max_new_tokens, eos_id, t0)
+        decode_time = time.perf_counter() - t1
+        stats = {
+            "ttft_s": ttft,
+            "decode_tokens_per_sec": (len(out_tokens) - 1) / decode_time
+            if decode_time > 0 and len(out_tokens) > 1 else 0.0,
+            "prompt_len": prompt_len,
+            "generated": len(out_tokens),
+        }
+        return out_tokens, stats
+
+    def add_adapter_source(self, name: str, source):
+        raise not_ported("LLMEngine adapters", 3)
+
+    def retire_adapter(self, name: str, keep_source: bool = False):
+        raise not_ported("LLMEngine adapters", 3)
+
+    def _prefill_prompt(self, padded: np.ndarray, last: np.ndarray,
+                        prompt_len: int, bucket: int):
+        """The bucket-padded prefill, then ``pos`` rewinds to the prompt:
+        unless the prompt fills its bucket, a 1-token dense replay of the
+        last prompt token (``last`` [batch, 1]) at ``prompt_len - 1`` gives
+        the first logits. Returns (logits [batch, vocab], cache)."""
+        cache = self._new_cache()
+        logits, cache = self._prefill(
+            torch.as_tensor(padded, device=self.device), cache)
+        if prompt_len != bucket:
+            cache["pos"] = torch.full((self.batch,), prompt_len - 1,
+                                      dtype=torch.int32, device=self.device)
+            logits, cache = self._decode(
+                torch.as_tensor(last, device=self.device), cache,
+                prompt_len - 1)
+        else:
+            cache["pos"] = torch.full((self.batch,), prompt_len,
+                                      dtype=torch.int32, device=self.device)
+        return logits, cache
+
+    def _generate_inner(self, prompt, prompt_len, bucket, padded,
+                        max_new_tokens, eos_id, t0):
+        logits, cache = self._prefill_prompt(
+            padded, prompt[:, -1:].repeat(self.batch, 0), prompt_len, bucket)
+        next_token = self._sample(logits)
+        out_tokens = [int(next_token[0])]
+        ttft = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        remaining = max_new_tokens - 1
+        pos = prompt_len  # the next cache row, on the host
+        if self.temperature and self.temperature > 0:
+            # sampled decode: token by token
+            for _ in range(remaining):
+                if eos_id is not None and out_tokens[-1] == eos_id:
+                    break
+                step = torch.full((self.batch, 1), out_tokens[-1],
+                                  dtype=torch.long, device=self.device)
+                logits, cache = self._decode(step, cache, pos)
+                pos += 1
+                out_tokens.append(int(self._sample(logits)[0]))
+        else:
+            # greedy: always the full chunk, truncated on the host
+            while remaining > 0:
+                if eos_id is not None and out_tokens[-1] == eos_id:
+                    break
+                if prompt_len + len(out_tokens) + self.decode_chunk \
+                        > self.max_len:
+                    break  # cache capacity: a full chunk would not fit
+                step = torch.full((self.batch, 1), out_tokens[-1],
+                                  dtype=torch.long, device=self.device)
+                tokens, cache = self._decode_n(step, cache,
+                                               self.decode_chunk, pos)
+                pos += self.decode_chunk
+                chunk = tokens[:, 0].cpu().tolist()[:remaining]
+                if eos_id is not None and eos_id in chunk:
+                    chunk = chunk[: chunk.index(eos_id) + 1]
+                out_tokens.extend(int(t) for t in chunk)
+                remaining -= len(chunk)
+        return out_tokens, ttft, t1
+
+    def generate_batch(self, prompts: list, max_new_tokens: int = 64,
+                       eos_id: int | None = None,
+                       adapters: list | None = None) -> tuple[list, dict]:
+        """Batched greedy generation for EQUAL-LENGTH prompts (one decode
+        chunk serves the whole batch). Mixed lengths, and sampled
+        decoding, fall back to a per-prompt loop. The engine must be built
+        with ``batch >= len(prompts)``."""
+        n = len(prompts)
+        if n == 0:
+            return [], {"ttft_s": 0.0, "decode_tokens_per_sec": 0.0,
+                        "batch": 0}
+        if n > self.batch:
+            raise ValueError(
+                f"{n} prompts exceed engine batch size {self.batch}")
+        if adapters is not None and len(adapters) != n:
+            raise ValueError(
+                f"adapters has {len(adapters)} entries for {n} prompts")
+        if adapters is not None and any(adapters):
+            raise not_ported("LLMEngine adapters", 3)
+        lengths = {len(p) for p in prompts}
+        if len(lengths) > 1 or (self.temperature and self.temperature > 0):
+            outs = []
+            started = time.perf_counter()
+            first_ttft = None
+            for prompt in prompts:
+                tokens, stats = self.generate(prompt, max_new_tokens, eos_id)
+                outs.append(tokens)
+                first_ttft = first_ttft if first_ttft is not None \
+                    else stats["ttft_s"]
+            wall = time.perf_counter() - started
+            generated = sum(len(o) for o in outs)
+            return outs, {
+                "ttft_s": first_ttft or 0.0,
+                # true aggregate: total tokens over total wall time
+                "decode_tokens_per_sec": generated / wall if wall > 0
+                else 0.0,
+                "batch": n,
+            }
+
+        prompt_len = lengths.pop()
+        bucket = self._bucket_for(prompt_len)
+        padded = np.zeros((self.batch, bucket), np.int64)
+        for i, prompt in enumerate(prompts):
+            padded[i, :prompt_len] = prompt
+        t0 = time.perf_counter()
+        out, ttft, t1, generated = self._generate_batch_inner(
+            n, prompt_len, bucket, padded, max_new_tokens, eos_id, t0)
+        decode_time = time.perf_counter() - t1
+        stats = {
+            "ttft_s": ttft,
+            "decode_tokens_per_sec": generated / decode_time
+            if decode_time > 0 and generated else 0.0,
+            "batch": n,
+        }
+        return out, stats
+
+    def _generate_batch_inner(self, n, prompt_len, bucket, padded,
+                              max_new_tokens, eos_id, t0):
+        logits, cache = self._prefill_prompt(
+            padded, padded[:, prompt_len - 1:prompt_len], prompt_len, bucket)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = [[int(t)] for t in next_token.cpu().tolist()[:n]]
+        ttft = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        remaining = max_new_tokens - 1
+        generated_so_far = 1
+        step = next_token[:, None].long()
+        while remaining > 0:
+            if eos_id is not None and all(
+                    o and o[-1] == eos_id for o in out[:n]):
+                break  # every row finished
+            # the same capacity guard as generate(): pos starts at
+            # prompt_len
+            if prompt_len + generated_so_far + self.decode_chunk \
+                    > self.max_len:
+                break
+            tokens, cache = self._decode_n(
+                step, cache, self.decode_chunk,
+                prompt_len + generated_so_far - 1)
+            chunk = tokens.cpu().numpy()  # [chunk, batch]
+            take = min(self.decode_chunk, remaining)
+            for i in range(n):
+                row = chunk[:take, i].tolist()
+                if eos_id is not None and eos_id in row:
+                    row = row[: row.index(eos_id) + 1]
+                if not out[i] or (eos_id is None
+                                  or out[i][-1] != eos_id):
+                    out[i].extend(int(t) for t in row)
+            step = tokens[-1][:, None].long()
+            remaining -= take
+            generated_so_far += self.decode_chunk  # cache rows consumed
+        generated = sum(len(o) for o in out) - n
+        return out, ttft, t1, generated
+
+
+class LLMModelServer:
+    """Serving-graph step: generation on the GPU.
+
+    With its defaults (``continuous_batching=False``) the server builds an
+    :class:`LLMEngine` and ``predict`` generates each input in turn;
+    ``continuous_batching=True`` builds the dense
+    ``ContinuousBatchingEngine``, and with ``paged=True`` the paged one
+    (``paged=True`` alone raises the reference's ``ValueError`` at load).
+
+    class args: model_preset, max_len, max_new_tokens, continuous_batching,
+    paged, slots, kv_dtype (native | int8), page_size, n_pages,
+    prefill_chunk, prefix_cache, attention_impl, speculative (True |
+    {"draft": preset, "k": ...} | None; the batching engines), temperature,
+    top_k, top_p, warmup, seed, device (default: the GPU; ``"cpu"`` runs
+    the plain paths). The reference's other features raise
+    ``NotImplementedError`` naming their ROADMAP.md item.
     """
 
     def __new__(cls, *args, **kwargs):
@@ -279,6 +604,7 @@ class LLMModelServer:
                          replicas: int = 0, prefill_replicas: int = 0,
                          routing: str | None = None,
                          adapters: dict | None = None,
+                         request_ledger: bool | None = None,
                          speculative: dict | bool | None = None,
                          seed: int = 0, device=None, **kw):
                 super().__init__(*a, **kw)
@@ -287,6 +613,7 @@ class LLMModelServer:
                     "tokenizer": (tokenizer, 10),
                     "hf_model": (hf_model, 10),
                     "max_wait/degradation": (max_wait or degradation, 2),
+                    "request_ledger": (request_ledger, 2),
                     "replicas/prefill_replicas/routing": (
                         replicas >= 2 or prefill_replicas or routing, 6),
                     "adapters": (adapters, 3),
@@ -294,13 +621,9 @@ class LLMModelServer:
                 for what, (value, item) in unported.items():
                     if value:
                         raise not_ported(f"LLMModelServer {what}", item)
-                if not continuous_batching or not paged:
-                    raise not_ported(
-                        "LLMModelServer without continuous_batching=True, "
-                        "paged=True (LLMEngine / the dense "
-                        "ContinuousBatchingEngine)",
-                        2)
                 self.model_preset = model_preset
+                self.continuous_batching = continuous_batching
+                self.paged = paged
                 self.max_len = max_len
                 self.max_new_tokens = max_new_tokens
                 self.temperature = temperature
@@ -324,22 +647,46 @@ class LLMModelServer:
                 self.engine = None
 
             def load(self):
-                from ..models.llama import MODEL_PRESETS, init_params
-                from .paged import PagedContinuousBatchingEngine
+                from ..models import llama
 
-                config = MODEL_PRESETS[self.model_preset]()
+                if self.paged and not self.continuous_batching:
+                    raise ValueError(
+                        "paged=True needs continuous_batching=True "
+                        "(the paged pool backs the slot scheduler)")
+                config = llama.MODEL_PRESETS[self.model_preset]()
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(self.seed)
-                params = init_params(config, generator, self.device)
-                self.engine = PagedContinuousBatchingEngine(
-                    config, params, max_len=self.max_len, slots=self.slots,
-                    kv_dtype=self.kv_dtype, page_size=self.page_size,
-                    n_pages=self.n_pages,
+                params = llama.init_params(config, generator, self.device)
+                if not self.continuous_batching:
+                    self.engine = LLMEngine(
+                        config, params, max_len=self.max_len,
+                        temperature=self.temperature, top_k=self.top_k,
+                        top_p=self.top_p, kv_dtype=self.kv_dtype,
+                        attention_impl=self.attention_impl, seed=self.seed,
+                        device=self.device)
+                    if self._warmup:
+                        self.engine.warmup()
+                    self.model = self.engine
+                    return
+                common = dict(
+                    max_len=self.max_len, slots=self.slots,
+                    kv_dtype=self.kv_dtype,
                     max_queue_size=self.max_queue_size,
                     prefill_chunk=self.prefill_chunk,
-                    prefix_cache=self.prefix_cache,
                     attention_impl=self.attention_impl, seed=self.seed,
                     speculative=self._speculative_conf(), device=self.device)
+                if self.paged:
+                    from .paged import PagedContinuousBatchingEngine
+
+                    self.engine = PagedContinuousBatchingEngine(
+                        config, params, page_size=self.page_size,
+                        n_pages=self.n_pages, prefix_cache=self.prefix_cache,
+                        **common)
+                else:
+                    from .llm_batch import ContinuousBatchingEngine
+
+                    self.engine = ContinuousBatchingEngine(config, params,
+                                                           **common)
                 if self._warmup:
                     self.engine.warmup()
                 self.engine.start()
@@ -353,7 +700,7 @@ class LLMModelServer:
                 from PRNGKey(1)). A dict enables speculation unless it says
                 ``"enabled": False`` (the reference's docstring; its code
                 leaves such a dict off, ROADMAP.md queue 3)."""
-                from ..models.llama import MODEL_PRESETS, init_params
+                from ..models import llama
 
                 conf = dict(SERVING_LLM_DEFAULTS["speculative"])
                 arg = self.speculative
@@ -364,12 +711,12 @@ class LLMModelServer:
                     conf["enabled"] = bool(arg.get("enabled", True))
                 if not (conf["enabled"] and conf.get("draft")):
                     return None
-                draft_config = MODEL_PRESETS[conf["draft"]]()
+                draft_config = llama.MODEL_PRESETS[conf["draft"]]()
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(1)
                 conf["draft_config"] = draft_config
-                conf["draft_params"] = init_params(draft_config, generator,
-                                                   self.device)
+                conf["draft_params"] = llama.init_params(
+                    draft_config, generator, self.device)
                 return conf
 
             def predict(self, request):
@@ -378,6 +725,16 @@ class LLMModelServer:
                     if isinstance(item, str):
                         raise not_ported("string inputs (a tokenizer)", 10)
                     id_lists.append([int(t) for t in item])
+                if not self.continuous_batching:
+                    out_tokens = []
+                    for ids in id_lists:
+                        tokens, stats = self.engine.generate(
+                            ids, max_new_tokens=self.max_new_tokens)
+                        self.set_metric("ttft_s", stats["ttft_s"])
+                        self.set_metric("decode_tps",
+                                        stats["decode_tokens_per_sec"])
+                        out_tokens.append(tokens)
+                    return out_tokens
                 # submit everything, then collect — requests share the
                 # decode batch; bounded wait so a dead scheduler fails the
                 # futures rather than wedging the worker
@@ -403,7 +760,8 @@ class LLMModelServer:
                 return [tokens for tokens, _ in results]
 
             def close(self):
-                if self.engine is not None:
+                # an LLMEngine holds no scheduler thread to stop
+                if self.engine is not None and self.continuous_batching:
                     self.engine.stop()
 
         return _Server(*args, **kwargs)

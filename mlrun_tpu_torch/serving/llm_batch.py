@@ -6,21 +6,26 @@ batch-1 prefill (``_forward_with_cache``) and every scheduler tick advances
 all active slots by one token. Finished rows free their slot for the next
 queued request. All device work happens on the one scheduler thread.
 
-This module ports the scheduler core — ``submit``, ``start``/``stop``,
-``_loop``, the admission tick with chunked prefill, ``_run_prefill``,
-``_prefill_dispatch``, ``_activate_slot``, ``_finish``, ``warmup``,
-``generate`` and ``stats`` — which the paged engine (serving/paged.py)
-runs on, and the engines' speculative decoding policy: a resident draft
-model (on the dense slot cache, through ``_decode_rowwise``) proposes up
-to k tokens per row per tick, one multi-token verify dispatch (the paged
-engine's hook) checks them, and each row commits its accepted prefix. The
-dense engine's own slot storage, decode and verify steps, the request
-ledger, adapters, KV handoff and the degradation ladder are not ported
+The dense engine keeps every slot's KV in one cache [L, slots, max_len]
+(native or int8): an admission prefills a batch-1 cache, chunk by chunk
+with chunked prefill (the cached flash kernel on the card, at
+``q_offset > 0`` on a resumed chunk), and ``_insert`` copies it into its
+slot; each tick runs one ``_decode_rowwise`` over all slots (dense
+attention, per-row positions). The paged engine (serving/paged.py) runs on
+the same scheduler core with its page pool behind the storage hooks.
+
+Speculative decoding is the engines' shared policy: a resident draft
+model (on a dense slot cache, through ``_decode_rowwise``) proposes up to
+k tokens per row per tick, one multi-token verify forward checks them
+(``_verify_rowwise`` here, the page-pool verify in the paged engine), and
+each row commits its accepted prefix. The request ledger, ``max_wait``
+expiry, the degradation ladder, adapters and KV handoff are not ported
 yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import queue
 import threading
@@ -49,7 +54,6 @@ from .resilience import (
     EngineStoppedError,
     PromptTooLongError,
     QueueFullError,
-    not_ported,
 )
 
 
@@ -63,6 +67,26 @@ def _write_rows(dst: torch.Tensor, rows, index, inside, values):
     dst[rows, index] = torch.where(keep, values.to(dst.dtype), old)
 
 
+def _store_kv(cache: dict, layer: int, k, v, write, dtype):
+    """Write a step's k/v into ``layer`` of a dense slot cache through
+    ``write(dst, values)`` (an int8 cache takes them quantized per vector,
+    with their scales) and return what the attention reads: the cache
+    itself, or the int8 cache's view dequantized to ``dtype``, as the
+    reference does."""
+    from .llm import _dequantize_kv, _quantize_kv
+
+    if "k_scale" not in cache:
+        write(cache["k"][layer], k)
+        write(cache["v"][layer], v)
+        return cache["k"][layer], cache["v"][layer]
+    for name, t in (("k", k), ("v", v)):
+        values, scales = _quantize_kv(t)
+        write(cache[name][layer], values)
+        write(cache[f"{name}_scale"][layer], scales)
+    return (_dequantize_kv(cache["k"][layer], cache["k_scale"][layer], dtype),
+            _dequantize_kv(cache["v"][layer], cache["v_scale"][layer], dtype))
+
+
 def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
                     cache: dict, generator=None, temperature=None,
                     top_k=None, top_p=None):
@@ -73,7 +97,8 @@ def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     rows take the argmax; with a ``generator`` the per-row sampling
     settings apply (serving/sampling.py). The cache is updated IN PLACE
     and ``pos`` advances by one. Returns (next_token [B] int32, cache).
-    (The reference's int8 branch serves its dense engine, not ported.)"""
+    An int8 cache takes the token quantized per vector and attends its
+    dequantized view in ``config.dtype``, as the reference does."""
     from .sampling import sample_logits
 
     b = tokens.shape[0]
@@ -84,6 +109,10 @@ def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     index, inside = start.clamp_max(m - 1), start < m
     x = params["embedding"][tokens].to(config.dtype)
     cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+
+    def write(dst, values):
+        _write_rows(dst, rows, index, inside, values)
+
     for layer in range(config.n_layers):
         lp = {name: w[layer] for name, w in params["layers"].items()}
         h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
@@ -92,10 +121,9 @@ def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
         v = (h @ lp["wv"]).reshape(b, 1, config.n_kv_heads, config.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        _write_rows(cache["k"][layer], rows, index, inside, k[:, 0])
-        _write_rows(cache["v"][layer], rows, index, inside, v[:, 0])
-        attn = _cached_attention(config, q, cache["k"][layer],
-                                 cache["v"][layer], positions, m)
+        k_attn, v_attn = _store_kv(cache, layer, k[:, 0], v[:, 0], write,
+                                   config.dtype)
+        attn = _cached_attention(config, q, k_attn, v_attn, positions, m)
         x = x + attn.reshape(b, 1, config.qkv_dim) @ lp["wo"]
         h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
         x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
@@ -110,12 +138,66 @@ def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     return next_token, cache
 
 
+def _verify_rowwise(config: LlamaConfig, params: Params,
+                    chunk: torch.Tensor, cache: dict):
+    """Batched multi-token speculative verify on a dense slot cache with
+    PER-ROW positions: ``chunk`` [B, S] is each row's committed last token
+    followed by its draft proposals, at positions ``pos[r]..pos[r]+S-1``.
+    ONE forward gives the target's argmax at all S positions, the chunk
+    attending the cache in place under per-position causal masking (dense
+    attention, as the reference).
+
+    The chunk's KV is written at its positions BEFORE the attention reads
+    (int8 caches quantize it per vector), and ``pos`` is NOT advanced: the
+    host commits the accepted length afterwards, so entries past it are
+    stale but never read before they are written again. Writes past the
+    cache's end drop (the reference's ``mode="drop"``): each lane is
+    written in turn, and a lane past the end is clamped onto the last
+    entry and rewrites that entry's current value, so a garbage lane never
+    overwrites a row's real last entry and nothing syncs the host. The
+    cache is updated IN PLACE. Returns (verified [B, S] int32, cache)."""
+    b, s = chunk.shape
+    m = cache["k"].shape[2]
+    positions = cache["pos"].long()[:, None] + torch.arange(
+        s, device=chunk.device)[None, :]                    # [B, S]
+    rows = torch.arange(b, device=chunk.device)
+    index, inside = positions.clamp_max(m - 1), positions < m
+    x = params["embedding"][chunk].to(config.dtype)
+    cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+
+    def write(dst, values):
+        # lanes in ascending position: a clamped lane reads back what a
+        # real lane just wrote at the last entry
+        for lane in range(s):
+            _write_rows(dst, rows, index[:, lane], inside[:, lane],
+                        values[:, lane])
+
+    for layer in range(config.n_layers):
+        lp = {name: w[layer] for name, w in params["layers"].items()}
+        h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
+        q = (h @ lp["wq"]).reshape(b, s, config.n_heads, config.head_dim)
+        k = (h @ lp["wk"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        k_attn, v_attn = _store_kv(cache, layer, k, v, write, config.dtype)
+        attn = _cached_attention(config, q, k_attn, v_attn, positions, m)
+        x = x + attn.reshape(b, s, config.qkv_dim) @ lp["wo"]
+        h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
+        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+    x = rms_norm(x, params["final_norm_scale"], config.norm_eps)
+    logits = logits_f32(x, lm_head(params))
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
 def _insert(big_cache: dict, small: dict, slot: int, pos: int) -> dict:
-    """Copy a prefilled batch-1 cache into row ``slot`` of a dense native
-    slot cache (the same max_len) and set that row's position. In
-    place."""
-    for name in ("k", "v"):
-        big_cache[name][:, slot] = small[name][:, 0].to(big_cache[name].dtype)
+    """Copy a prefilled batch-1 cache (int8 scales included) into row
+    ``slot`` of a dense slot cache (the same max_len) and set that row's
+    position. In place."""
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in big_cache:
+            big_cache[name][:, slot] = small[name][:, 0].to(
+                big_cache[name].dtype)
     big_cache["pos"][slot] = pos
     return big_cache
 
@@ -185,12 +267,13 @@ class ContinuousBatchingEngine:
 
     ``submit()`` is thread-safe and returns a Future resolving to (tokens,
     stats). The slot storage and the decode and verify steps are hooks
-    (``_make_cache``, ``_complete_storage``, ``_plain_decode_tick``,
-    ``_release_slot_storage``, ``_make_verify_fn``,
-    ``_spec_verify_dispatch``, ``_spec_apply_positions``,
-    ``_spec_warmup_verify``): the paged engine implements them over its
-    page pool; the dense engine's versions are not ported yet, so this
-    class is used through :class:`~.paged.PagedContinuousBatchingEngine`.
+    (``_make_cache``, ``_prepare_admission``, ``_complete_storage``,
+    ``_plain_decode_tick``, ``_release_slot_storage``,
+    ``_warmup_storage``, ``_make_verify_fn``, ``_spec_verify_dispatch``,
+    ``_spec_apply_positions``, ``_spec_warmup_verify``): this class keeps
+    the slots in a dense cache [L, slots, max_len] (``kv_dtype`` native or
+    int8); :class:`~.paged.PagedContinuousBatchingEngine` implements them
+    over its page pool.
 
     ``speculative`` (``{"enabled": True, "k": ..., "draft_config": ...,
     "draft_params": ...}`` over the config defaults) keeps a draft model
@@ -245,6 +328,10 @@ class ContinuousBatchingEngine:
             attention_impl = str(SERVING_LLM_DEFAULTS["attention_impl"])
         self.attention_impl = attention_impl
         self.prefill_impl = resolve_prefill_impl(attention_impl, self.device)
+        if self.prefill_impl == "flash":
+            from ..ops import _build
+
+            _build.library()  # build now: a kernel fault surfaces here
         self._admission: Optional[_Admission] = None
         self.prefill_buckets = tuple(
             b for b in sorted(prefill_buckets) if b <= max_len) or (max_len,)
@@ -269,18 +356,57 @@ class ContinuousBatchingEngine:
         # in-engine speculative decoding: off unless a draft model is given
         self._init_speculative(speculative)
 
-    # -- storage hooks (dense versions not ported) ---------------------------
+    # -- storage hooks: the dense slot cache --------------------------------
     def _make_cache(self):
-        raise not_ported("the dense ContinuousBatchingEngine slot cache", 2)
+        """Slot KV storage (hook: the paged engine makes a page pool)."""
+        return init_kv_cache(self.config, self.slots, self.max_len,
+                             kv_dtype=self.kv_dtype, device=self.device)
 
     def _complete_storage(self, adm: _Admission):
-        raise not_ported("dense slot storage", 2)
+        """Move the prefilled batch-1 cache into the slot (the paged engine
+        scatters it into its pages)."""
+        _insert(self._cache, adm.small, adm.slot, len(adm.prompt))
+        adm.small = None  # the batch-1 cache is consumed
 
     def _plain_decode_tick(self, active) -> int:
-        raise not_ported("the dense decode tick", 2)
+        """One ``_decode_rowwise`` over every slot (inactive rows decode
+        garbage behind their own position) and one host read of the
+        tokens."""
+        last = np.zeros((self.slots, 1), np.int64)
+        for i in active:
+            last[i, 0] = self._slot_state[i].tokens[-1]
+        tokens = torch.as_tensor(last, device=self.device)
+        if any(self._slot_state[i].temperature > 0 for i in active):
+            temp = np.zeros((self.slots,), np.float32)
+            top_k = np.zeros((self.slots,), np.int64)
+            top_p = np.ones((self.slots,), np.float32)
+            for i in active:
+                slot = self._slot_state[i]
+                temp[i], top_k[i], top_p[i] = (slot.temperature, slot.top_k,
+                                               slot.top_p)
+            next_token, self._cache = _decode_rowwise(
+                self.config, self.params, tokens, self._cache,
+                self._generator, temp, top_k, top_p)
+        else:
+            next_token, self._cache = _decode_rowwise(
+                self.config, self.params, tokens, self._cache)
+        tokens_host = next_token.cpu().numpy()
+        for i in active:
+            slot = self._slot_state[i]
+            token = int(tokens_host[i])
+            slot.tokens.append(token)
+            slot.remaining -= 1
+            capacity = slot.prompt_len + len(slot.tokens) >= self.max_len
+            if (slot.eos_id is not None and token == slot.eos_id) or \
+                    slot.remaining <= 0 or capacity:
+                self._finish(i)
+        return len(active)
 
     def _release_slot_storage(self, index: int):
-        raise not_ported("dense slot storage", 2)
+        # zero the freed row's position so decode writes land in its own
+        # (now unused) region
+        self._cache["pos"][index] = 0
+        self._spec_release_slot(index)
 
     def _abort_admission(self, adm: _Admission):
         """Release admission-held storage (stop mid-prefill)."""
@@ -340,8 +466,8 @@ class ContinuousBatchingEngine:
 
     def _make_verify_fn(self):
         """The multi-token verify step ``fn(params, chunk, storage, ...)``
-        (hook: the paged engine's page-pool verify)."""
-        raise not_ported("the dense engine's speculative verify", 2)
+        (hook: the paged engine swaps in the page-pool verify)."""
+        return functools.partial(_verify_rowwise, self.config)
 
     def _spec_verify_fn(self):
         if self._spec_verify is None:
@@ -442,12 +568,18 @@ class ContinuousBatchingEngine:
         """Commit accepted positions on the target's KV (hook: the paged
         engine writes its host-side positions). Rewinding is the whole
         rollback: rejected entries are overwritten before any read."""
-        raise not_ported("the dense engine's speculative verify", 2)
+        rows = torch.as_tensor(list(committed), device=self.device)
+        self._cache["pos"][rows] = torch.as_tensor(
+            list(committed.values()), dtype=torch.int32, device=self.device)
 
     def _spec_verify_dispatch(self, chunk: np.ndarray, active) -> np.ndarray:
         """One multi-token verify forward over every slot -> the target's
-        argmax at each chunk position [slots, k+1] on the host (hook)."""
-        raise not_ported("the dense engine's speculative verify", 2)
+        argmax at each chunk position [slots, k+1] on the host (hook: the
+        paged engine dispatches the page-pool verify)."""
+        verified, self._cache = self._spec_verify_fn()(
+            self.params, torch.as_tensor(chunk, device=self.device),
+            self._cache)
+        return verified.cpu().numpy()
 
     def _spec_decode_tick(self, active) -> Optional[int]:
         """One speculative tick: ``spec_k`` batched draft steps, ONE
@@ -539,8 +671,13 @@ class ContinuousBatchingEngine:
         self._spec_warmup_verify()
 
     def _spec_warmup_verify(self):
-        """Warm the verify step (hook)."""
-        raise not_ported("the dense engine's speculative verify", 2)
+        """Warm the verify step (hook: the paged engine verifies against
+        its scratch page). The chunk's writes land behind position 0 and
+        are overwritten by the next admission's insert."""
+        chunk = torch.zeros((self.slots, self.spec_k + 1), dtype=torch.long,
+                            device=self.device)
+        self._spec_verify_fn()(self.params, chunk, self._cache)
+        self._cache["pos"].zero_()
 
     # -- lifecycle ----------------------------------------------------------
     def start(self):
@@ -591,8 +728,15 @@ class ContinuousBatchingEngine:
                     warmup_s=round(time.perf_counter() - started, 2))
 
     def _warmup_storage(self):
-        """Engine-specific warmup (hook: the paged engine warms its
-        prefix-hit prefill and its decode tick)."""
+        """One decode tick over every slot at position 0, then every
+        position back to 0 (hook: the paged engine warms its prefix-hit
+        prefill and its decode tick). The garbage KV lands at row 0 of each
+        slot, which an admission's insert overwrites."""
+        step = torch.zeros((self.slots, 1), dtype=torch.long,
+                           device=self.device)
+        _decode_rowwise(self.config, self.params, step, self._cache)
+        self._cache["pos"] = torch.zeros((self.slots,), dtype=torch.int32,
+                                         device=self.device)
 
     # -- API ----------------------------------------------------------------
     def _queue_depth(self) -> int:
@@ -785,9 +929,37 @@ class ContinuousBatchingEngine:
         return True
 
     def _prepare_admission(self) -> Optional[_Admission]:
-        """Claim a free slot + the next queued request (hook: the paged
-        engine reserves pages and matches the prefix cache)."""
-        raise not_ported("dense admission", 2)
+        """Claim a free slot + the next valid queued request and build its
+        admission (a batch-1 prefill cache, cursor at 0). Hook: the paged
+        engine reserves pages and matches the prefix cache."""
+        free = next((i for i, s in enumerate(self._slot_state)
+                     if not s.active), None)
+        if free is None:
+            return None
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return None
+            if not self._validate_item(item):
+                continue
+            (request_id, prompt, max_new, eos_id, future, submitted,
+             sampling) = item
+            try:
+                adm = _Admission(
+                    slot=free, request_id=request_id, prompt=prompt,
+                    max_new=max_new, eos_id=eos_id, future=future,
+                    submitted=submitted, sampling=sampling)
+                adm.small = init_kv_cache(self.config, 1, self.max_len,
+                                          kv_dtype=self.kv_dtype,
+                                          device=self.device)
+                return adm
+            except Exception as exc:
+                # dequeued but not yet tracked in self._admission: fail the
+                # future before the scheduler dies, or it would hang
+                if not future.done():
+                    future.set_exception(exc)
+                raise
 
     def _finish_admission(self, adm: _Admission):
         self._complete_storage(adm)

@@ -52,9 +52,9 @@ class EngineStoppedError(ResilienceError):
     status_code = 503
 
 
-# ROADMAP.md "Modules still to port", by item number (1 and 5 landed)
+# ROADMAP.md "Modules still to port", by item number (1, 5 and 8 landed)
 PORT_QUEUE = {
-    2: "the dense engines and LLMEngine",
+    2: "request expiry, the degradation ladder and the request ledger",
     3: "multi-tenant LoRA adapters",
     4: "KV handoff and the host KV tier",
     6: "the serving graph and engine fleet",

@@ -1,6 +1,6 @@
 """Where the time goes on the port's serving path (mlrun_tpu_torch), on one
-GPU: the device steps of the paged engine at Llama-3-8B width, each traced
-with torch.profiler.
+GPU: the device steps of the paged engine, of LLMEngine and of the dense
+engine at Llama-3-8B width, each traced with torch.profiler.
 
     python3 scripts/profile_torch_serving.py [--seed 0] [--out DIR]
 
@@ -20,7 +20,14 @@ max_len 2048, the chip smoke test's prompt lengths):
                verify kernel LSE-merged with the chunk's causal part);
 - spec tick:   one speculative round as the engine runs it: 4 greedy steps
                of a Llama-3.2-1B draft (random weights) over its dense slot
-               cache, one host read of the proposals, then the verify.
+               cache, one host read of the proposals, then the verify;
+- llm chunk:   ``LLMEngine``'s greedy decode chunk (LLMModelServer's
+               default engine): 32 dense 1-token steps of one prompt at
+               positions 700..731, the argmax kept on the card, one host
+               read;
+- dense tick:  the dense ``ContinuousBatchingEngine``'s decode tick: one
+               ``_decode_rowwise`` over a dense [32, 4, 2048] slot cache at
+               positions 600/436/200/700 and one host read of the tokens.
 
 For each step it prints one JSON line: wall ms per step (host clock around
 synchronised runs), device busy ms (sum of CUDA kernel times in the
@@ -114,6 +121,7 @@ def main(argv=None) -> int:
         return 1
     from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
     from mlrun_tpu_torch.serving.llm import (
+        LLMEngine,
         _forward_with_cache,
         _quantize_kv,
         init_kv_cache,
@@ -211,10 +219,31 @@ def main(argv=None) -> int:
         _verify_rowwise_paged(config, page, "kernel", params,
                               spec_chunk.to(dev), pool, table_t, pos)
 
+    engine = LLMEngine(config, params, max_len=max_len, device=dev)
+    llm_cache = engine._new_cache()
+    for name in ("k", "v"):
+        llm_cache[name].normal_(generator=gen)
+    llm_step = tokens[:1]
+
+    def llm_chunk():
+        out, _ = engine._decode_n(llm_step, llm_cache, engine.decode_chunk,
+                                  700)
+        out.cpu()
+
+    dense = init_kv_cache(config, slots, max_len, device=dev)
+    for name in ("k", "v"):
+        dense[name].normal_(generator=gen)
+
+    def dense_tick():
+        dense["pos"] = pos.clone()
+        nxt, _ = _decode_rowwise(config, params, tokens, dense)
+        nxt.cpu()
+
     for name, fn in (("decode", decode), ("cold_prefill", cold_prefill),
                      ("hit_prefill", hit_prefill),
                      ("int8_decode", int8_decode), ("verify", verify),
-                     ("spec_tick", spec_tick)):
+                     ("spec_tick", spec_tick), ("llm_chunk", llm_chunk),
+                     ("dense_tick", dense_tick)):
         row = profile_step(name, fn, ITERS, args.out)
         row.update({"layers": config.n_layers, "card": card})
         print(json.dumps(row), flush=True)

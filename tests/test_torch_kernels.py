@@ -531,3 +531,158 @@ def test_trainer_kernel_path_matches_reference_path(dev):
     for a, b in zip(hist, ref_hist):
         for key in ("loss", "grad_norm"):
             assert abs(a[key] - b[key]) <= 1e-5 * abs(b[key]), key
+
+
+# -- the v1 flash entry point and RMSNorm -------------------------------------
+
+V1_CASES = [
+    # (Sq, Sk, H, Hk, D): Sq != Sk both ways, lengths not multiples of the
+    # 64-row tiles, kv at q's head count (the v1 signature) and at fewer
+    (1000, 777, 4, 4, 128), (777, 1000, 4, 4, 64), (200, 150, 2, 2, 64),
+    (256, 256, 4, 2, 128), (1, 65, 2, 2, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,h,hk,d", V1_CASES)
+def test_flash_v1_kernel_matches_plain(dev, dtype, causal, sq, sk, h, hk, d):
+    g = _gen(21)
+    q = torch.randn((2, sq, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((2, sk, hk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((2, sk, hk, d), generator=g, device=dev).to(dtype)
+    before = _build.launch_counts()["flash_v1"]
+    o, lse = at._flash_fwd(q, k, v, causal=causal)
+    assert _build.launch_counts()["flash_v1"] == before + 1
+    o_ref, lse_ref = at.flash_fwd_plain(q, k, v, causal)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert lse.shape == (2, h, sq)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert _err(lse, lse_ref) <= LSE_TOL
+
+
+def test_flash_v1_refuses_head_dims_without_a_kernel(dev):
+    from mlrun_tpu_torch.ops.paged_attention import KernelUnavailableError
+
+    q = torch.randn((1, 8, 2, 96), device=dev)
+    before = _build.launch_counts()["flash_v1"]
+    with pytest.raises(KernelUnavailableError, match="head_dim 96"):
+        at._flash_fwd(q, q, q)
+    with pytest.raises(TypeError):
+        at._flash_fwd(q[..., :64].half(), q[..., :64].half(),
+                      q[..., :64].half())
+    assert _build.launch_counts()["flash_v1"] == before
+
+
+def _ulp(x: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
+    """One ulp of each element of x in a float format with that many
+    explicit mantissa bits (7 for bf16, 10 for f16)."""
+    mag = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - mantissa_bits)
+
+
+@pytest.mark.parametrize("dtype,scale_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float32)])
+@pytest.mark.parametrize("shape", [(4, 2048, 64), (1000, 4100), (3, 7),
+                                   (5, 4096), (257, 33)])
+def test_rms_norm_kernel_matches_plain(dev, dtype, scale_dtype, shape):
+    """Any row count and any F (rows of 4100 bf16 values start off the
+    16-byte boundary every other row): float32 out within 2e-6 relative of
+    the plain version, 16-bit out within one ulp of it (rsqrtf may sit an
+    ulp from torch.rsqrt, and the sums run in another order)."""
+    from mlrun_tpu_torch.ops import norms
+
+    g = _gen(22)
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+    scale = torch.randn(shape[-1:], generator=g, device=dev).to(scale_dtype)
+    before = _build.launch_counts()["rms_norm"]
+    out = norms.rms_norm_pallas(x, scale, 1e-5, block_rows=128)
+    assert _build.launch_counts()["rms_norm"] == before + 1
+    ref = norms.rms_norm_pallas_plain(x, scale, 1e-5)
+    assert out.dtype == dtype and out.shape == x.shape
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert bool((diff <= 2e-6 * ref.abs()).all()), float(diff.max())
+    else:
+        bits = 7 if dtype == torch.bfloat16 else 10
+        assert bool((diff <= _ulp(ref, bits)).all()), float(diff.max())
+
+
+def test_rms_norm_kernel_refuses_bad_inputs(dev):
+    from mlrun_tpu_torch.ops import norms
+
+    x = torch.randn((4, 64), device=dev, dtype=torch.bfloat16)
+    before = _build.launch_counts()["rms_norm"]
+    with pytest.raises(TypeError):
+        norms.rms_norm_pallas(x, torch.ones(64, device=dev,
+                                            dtype=torch.float16))
+    with pytest.raises(ValueError):
+        norms.rms_norm_pallas(x, torch.ones(32, device=dev))
+    with pytest.raises(ValueError):
+        norms.rms_norm_pallas(x, torch.ones(64))
+    assert _build.launch_counts()["rms_norm"] == before
+    # a strided x is made contiguous first
+    out = norms.rms_norm_pallas(x.t().contiguous().t(), torch.ones(64,
+                                                                   device=dev))
+    assert torch.equal(out, norms.rms_norm_pallas(x, torch.ones(64,
+                                                                device=dev)))
+
+
+# -- the dense serving path ----------------------------------------------------
+
+def test_llm_engine_flash_prefill_matches_reference_engine(dev):
+    """LLMEngine on the GPU: the cached flash kernel runs every prefill
+    (one launch a layer), decode stays dense, and the greedy tokens equal
+    a reference-attention engine's."""
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.serving.llm import LLMEngine
+
+    cfg = llama.tiny_llama(dtype=torch.float32)
+    params = llama.init_params(cfg, _gen(7), dev)
+    prompts = [list(range(3, 40)), list(range(5, 69))]
+    outs = []
+    for impl in ("auto", "reference"):
+        eng = LLMEngine(cfg, params, max_len=128, prefill_buckets=(32, 64),
+                        attention_impl=impl, device=dev)
+        _build.reset_launch_counts()
+        outs.append([eng.generate(p, max_new_tokens=34)[0] for p in prompts])
+        counts = _build.launch_counts()
+        flash = 2 * cfg.n_layers if impl == "auto" else 0
+        assert counts == {**dict.fromkeys(counts, 0),
+                          "flash_fwd_cached": flash}
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_dense_engine_chunk_resume_kernels(dev, kv_dtype):
+    """The dense ContinuousBatchingEngine on the GPU with 16-token chunks:
+    every chunk (q_offset > 0 on a resume) launches the cached flash
+    kernel once a layer, no paged kernel runs, and the tokens equal the
+    whole-prompt prefill's and the reference-attention engine's."""
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.serving.llm_batch import ContinuousBatchingEngine
+
+    cfg = llama.tiny_llama(dtype=torch.float32)
+    params = llama.init_params(cfg, _gen(8), dev)
+    prompts = [list(range(3, 60)), list(range(100, 120))]
+    outs = []
+    for impl, chunk in (("auto", 16), ("auto", 0), ("reference", 16)):
+        eng = ContinuousBatchingEngine(
+            cfg, params, max_len=128, slots=2, prefill_buckets=(16, 32, 64),
+            prefill_chunk=chunk, kv_dtype=kv_dtype, attention_impl=impl,
+            device=dev)
+        _build.reset_launch_counts()
+        try:
+            futures = [eng.submit(p, 8) for p in prompts]
+            outs.append([f.result(timeout=300)[0] for f in futures])
+            stats = eng.stats
+        finally:
+            eng.stop()
+        counts = _build.launch_counts()
+        flash = cfg.n_layers * stats["prefill_chunks"] if impl == "auto" \
+            else 0
+        assert counts == {**dict.fromkeys(counts, 0),
+                          "flash_fwd_cached": flash}
+        if chunk:
+            assert stats["prefill_chunks"] == 4 + 2   # 57 and 20 tokens
+    assert outs[0] == outs[1] == outs[2]

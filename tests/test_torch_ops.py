@@ -336,3 +336,100 @@ def test_attention_dispatch_impls():
         assert float((out - ref).abs().max()) <= TOL
     with pytest.raises(ValueError, match="unknown attention impl"):
         tattn.attention(q, k, k, impl="bogus")
+
+
+# -- the v1 flash entry point and rms_norm_pallas vs their Pallas kernels ------
+
+V1_FLASH_CASES = [
+    # (Sq, Sk, causal): Sq != Sk in both directions' worth of padding, not
+    # multiples of the blocks of 128 or of the port's 64-row tiles
+    (200, 150, True),
+    (200, 150, False),
+    (256, 256, True),
+    (256, 256, False),
+]
+
+
+@pytest.mark.parametrize("sq,sk,causal", V1_FLASH_CASES)
+def test_flash_v1_plain_matches_pallas(sq, sk, causal):
+    """The v1 entry point ``_flash_fwd`` (the Pallas ``_flash_fwd_kernel``
+    in interpret mode, blocks of 128) against the port's ``_flash_fwd``
+    on CPU tensors (its plain version): o and lse within 2e-5, as
+    tests/test_ops.py holds the kernel against the reference."""
+    rng = np.random.default_rng(11)
+    b, h, d = 1, 2, 16
+    q_j, q_t = _pair(rng.standard_normal((b, sq, h, d), np.float32))
+    k_j, k_t = _pair(rng.standard_normal((b, sk, h, d), np.float32))
+    v_j, v_t = _pair(rng.standard_normal((b, sk, h, d), np.float32))
+    o_j, lse_j = jattn._flash_fwd(q_j, k_j, v_j, causal=causal,
+                                  block_q=128, block_k=128, interpret=True)
+    o_t, lse_t = tattn._flash_fwd(q_t, k_t, v_t, causal=causal,
+                                  block_q=128, block_k=128)
+    assert o_t.shape == (b, sq, h, d) and lse_t.shape == (b, h, sq)
+    _close(o_j, o_t, 2e-5)
+    _close(lse_j, lse_t, 2e-5)
+
+
+def test_flash_v1_validates_blocks():
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError, match="block_q"):
+        tattn._flash_fwd(q, q, q, block_q=0)
+
+
+def _rms_norm_pallas_interpret(x, scale, eps, block_rows):
+    """The package's ``_rms_norm_kernel`` through an interpret-mode
+    ``pl.pallas_call`` with ``rms_norm_pallas``'s BlockSpecs (the package's
+    own entry point refuses the CPU)."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    rows, features = x.shape
+    block_rows = min(block_rows, rows)
+    return pl.pallas_call(
+        functools.partial(jnorms._rms_norm_kernel, eps=eps),
+        out_shape=jax.ShapeDtypeStruct((rows, features), x.dtype),
+        grid=(pl.cdiv(rows, block_rows),),
+        in_specs=[
+            pl.BlockSpec((block_rows, features), lambda i: (i, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((features,), lambda i: (0,),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((block_rows, features), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        interpret=True,
+    )(x, scale)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rms_norm_pallas_plain_matches_pallas(dtype):
+    """300 rows in blocks of 128 (a ragged last block) through the Pallas
+    body against the port's ``rms_norm_pallas`` on CPU tensors: bf16 bit
+    for bit, float32 within 1e-6 relative (the same operations, the
+    reductions in another order)."""
+    rng = np.random.default_rng(12)
+    x_np = rng.standard_normal((300, 96), np.float32) * 3
+    s_np = rng.standard_normal((96,), np.float32)
+    x_j = jnp.asarray(x_np).astype(dtype)
+    got_j = np.asarray(_rms_norm_pallas_interpret(
+        x_j, jnp.asarray(s_np), 1e-5, 128).astype(jnp.float32))
+    x_t = torch.from_numpy(x_np).to(getattr(torch, dtype))
+    got_t = tnorms.rms_norm_pallas(x_t, torch.from_numpy(s_np), 1e-5,
+                                   block_rows=128)
+    assert got_t.dtype == x_t.dtype and got_t.shape == x_t.shape
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got_j, got_t.float().numpy())
+    else:
+        np.testing.assert_allclose(got_t.numpy(), got_j, rtol=1e-6,
+                                   atol=1e-6)
+    assert torch.equal(got_t, tnorms.rms_norm_pallas_plain(
+        x_t, torch.from_numpy(s_np)))
+
+
+def test_rms_norm_pallas_validates_block_rows():
+    with pytest.raises(ValueError, match="block_rows"):
+        tnorms.rms_norm_pallas(torch.ones((2, 4)), torch.ones(4),
+                               block_rows=0)
