@@ -7,7 +7,10 @@ exits non-zero and never prints the final line):
 
 1. build   - compiles the CUDA kernels from mlrun_tpu_torch/csrc (nvcc,
              sm_90a) and reports the build time, torch/CUDA versions and
-             the card's name and power limit.
+             the card's name and power limit; counts the tensor-core
+             instructions (HMMA/HGMMA in cuobjdump -sass) of every bf16
+             flash kernel and fails if one has none or ptxas reports a
+             spill store in it.
 2. kernels - holds each hand-written kernel (int8 and verify variants,
              the v1 flash entry point and RMSNorm included) against its
              plain PyTorch
@@ -118,6 +121,9 @@ ATTENTION_LEAVES = ("layers.wq", "layers.wk", "layers.wv", "layers.wo")
 SERVING_KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill")
 INT8_KERNELS = ("paged_decode_int8", "flash_fwd_cached", "paged_prefill_int8")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
+# bf16 flash kernels on the tensor cores: the forward for D 32/64/128,
+# causal or not; the backward's dq and dkdv kernels for D 32/64/128
+TC_INSTANTIATIONS = 3 * 2 + 3 * 2
 
 
 def emit(obj):
@@ -170,10 +176,30 @@ def phase_build(card: str):
     started = time.perf_counter()
     _build.library()
     seconds = time.perf_counter() - started
-    print(_build.build_log(), file=sys.stderr, flush=True)
+    log = _build.build_log()
+    print(log, file=sys.stderr, flush=True)
     emit({"phase": "build", "build_s": seconds, "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card,
           "sources": [p.name for p in _build.sources()]})
+    # the bf16 flash kernels run on the tensor cores: every instantiation
+    # holds HMMA/HGMMA instructions in its SASS and spills nothing
+    mma = {name: count
+           for name, count in _build.tensor_core_counts(
+               _build.library_sass()).items()
+           if any(k in name for k in _build.TENSOR_CORE_KERNELS)}
+    spills = {name: n for name, n in _build.ptxas_spills(log).items()
+              if any(k in name for k in _build.TENSOR_CORE_KERNELS)}
+    emit({"phase": "build", "tensor_core_instructions": mma,
+          "spill_store_bytes": spills})
+    if len(mma) != TC_INSTANTIATIONS or len(spills) != TC_INSTANTIATIONS:
+        fail(f"expected {TC_INSTANTIATIONS} tensor-core flash kernels, found "
+             f"{len(mma)} in the SASS and {len(spills)} in ptxas' report")
+    for name, count in mma.items():
+        if count <= 0:
+            fail(f"{name}: no HMMA/HGMMA instruction in its SASS")
+    for name, n in spills.items():
+        if n != 0:
+            fail(f"{name}: ptxas reports {n} bytes of spill stores")
 
 
 # ---------------------------------------------------------------------------

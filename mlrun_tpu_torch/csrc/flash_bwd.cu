@@ -30,11 +30,14 @@
 // unmasked (query, key) pair (s, dO.v, dq, dk, dv); this kernel recomputes
 // s and dO.v in both passes (14*D). At Llama-3.2-1B's training shapes
 // (B 4, S 2048, H 32, Hk 8, D 64) that is ~0.25 TFLOP per layer, far above
-// the card's bytes-to-operations line. This first version does it in
-// float32 FMAs from shared memory (no tensor cores), like the forward;
-// mma/wgmma tiles are the next step. Tiles are staged in float32 whatever
-// the storage type; accumulation is float32.
+// the card's bytes-to-operations line.
+//
+// Routing by dtype: bf16 goes to the tensor-core kernels of
+// flash_bwd_tc.cu (the same two-kernel structure on mma.sync tiles);
+// float32 runs the two kernels below, float32 FMAs from shared memory with
+// tiles staged in float32. A bf16 launch never runs them.
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -419,8 +422,7 @@ extern "C" int mlt_flash_bwd(int dtype, int head_dim, const void* q,
     return dispatch_dim<float>(head_dim, q, k, v, o, g, lse, dq, dk, dv,
                                delta, B, Sq, Sk, H, Hk, c, scale, s);
   if (dtype == mlt::kBFloat16)
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, o, g, lse, dq, dk,
-                                       dv, delta, B, Sq, Sk, H, Hk, c, scale,
-                                       s);
+    return mlt::flash_bwd_tc(head_dim, q, k, v, o, g, lse, dq, dk, dv, delta,
+                             B, Sq, Sk, H, Hk, c, scale, s);
   return mlt::kBadArgument;
 }

@@ -25,10 +25,13 @@
 // What bounds it on the H100: the logits and the value products, 4*D
 // FLOPs per unmasked (query, key) pair. At the serving shapes (S in the
 // hundreds, M up to 2048, D 128) the work is far above the card's
-// bytes-to-operations line, so it is bound by arithmetic. This first
-// version does that arithmetic with float32 FMAs from shared memory
-// (no tensor cores), so it runs far below the bf16 tensor-core bound;
-// mma/wgmma tiles are the next step.
+// bytes-to-operations line, so it is bound by arithmetic.
+//
+// Routing by dtype: bf16 goes to the tensor-core kernel of
+// flash_fwd_tc.cu (mma.sync tiles, cp.async double buffering); float32
+// runs the tile loop below, float32 FMAs from shared memory (the tensor
+// cores take no float32 operands at float32 precision). A bf16 launch
+// never runs the float32 loop.
 //
 // Design: grid (B*H, ceil(S/64)); a block owns 64 query rows of one head
 // and walks the key tiles of 64 from k_lo/64 up to the causal limit of
@@ -38,6 +41,7 @@
 // non-causal form walks every key tile. At the training shapes
 // (Llama-3.2-1B: S 2048, D 64) the forward is bound by arithmetic too.
 #include "attn_tile.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -173,8 +177,8 @@ int dispatch(int dtype, int head_dim, const void* q, const void* k,
     return dispatch_dim<float>(head_dim, q, k, v, o, lse, B, S, M, H, Hk,
                                q_offset, k_lo, causal, scale, s);
   if (dtype == mlt::kBFloat16)
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, o, lse, B, S, M, H,
-                                       Hk, q_offset, k_lo, causal, scale, s);
+    return mlt::flash_fwd_tc(head_dim, q, k, v, o, lse, B, S, M, H, Hk,
+                             q_offset, k_lo, causal, scale, s);
   return mlt::kBadArgument;
 }
 

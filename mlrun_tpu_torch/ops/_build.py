@@ -169,6 +169,47 @@ def build_log() -> str:
     return (_state.lib_path.parent / "build.log").read_text()
 
 
+# the bf16 flash kernels that run on the tensor cores (csrc/flash_fwd_tc.cu,
+# csrc/flash_bwd_tc.cu): substrings of their symbols
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                       "flash_bwd_dkdv_tc_kernel")
+_MMA_OPCODES = ("HMMA", "HGMMA")
+
+
+def tensor_core_counts(sass: str) -> dict:
+    """Tensor-core instructions (``HMMA``/``HGMMA``) per kernel symbol in
+    the text of ``cuobjdump -sass``."""
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            current = line.split("Function : ", 1)[1].strip()
+            counts.setdefault(current, 0)
+        elif current is not None and any(op in line for op in _MMA_OPCODES):
+            counts[current] += 1
+    return counts
+
+
+def library_sass() -> str:
+    """``cuobjdump -sass`` of the loaded library (call after
+    :func:`library`); cuobjdump sits beside nvcc in the toolkit."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    return _run([str(cuobjdump), "-sass", str(_state.lib_path)])
+
+
+def ptxas_spills(log: str) -> dict:
+    """Bytes of spill stores per kernel symbol from ptxas' ``-v`` report
+    (``Function properties for <symbol>`` then ``N bytes spill stores``)."""
+    spills, current = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            current = line.split("Function properties for ", 1)[1].strip()
+        elif current is not None and "bytes spill stores" in line:
+            before = line.split("bytes spill stores")[0].split(",")[-1]
+            spills[current] = int(before.split()[0])
+            current = None
+    return spills
+
+
 def dtype_code(tensor) -> int:
     code = DTYPE_CODES.get(str(tensor.dtype))
     if code is None:

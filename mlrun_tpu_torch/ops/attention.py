@@ -4,9 +4,12 @@ differentiable ``flash_attention_mlt``, and the dispatch knobs.
 
 Counterpart of ``mlrun_tpu/ops/attention.py``. The Pallas bodies of
 ``_flash_v2_body`` (``_flash_fwd_kernel_v2_cached``, ``_bounded`` and the
-training ``_flash_fwd_kernel_v2``) become one hand-written CUDA tile loop,
-``csrc/flash_fwd_cached.cu``, with an integer ``k_lo`` and a causal flag;
-the XLA backward ``_blockwise_bwd`` becomes ``csrc/flash_bwd.cu``. The v1
+training ``_flash_fwd_kernel_v2``) become one hand-written CUDA forward
+with an integer ``k_lo`` and a causal flag, entered through
+``csrc/flash_fwd_cached.cu``; the XLA backward ``_blockwise_bwd`` becomes
+``csrc/flash_bwd.cu``. Both pick their kernel by dtype: bf16 runs on the
+tensor cores (``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``), float32
+on float32 FMA tiles. The v1
 Pallas body ``_flash_fwd_kernel`` (entry point ``_flash_fwd``) computes the
 training forward's function, so its counterpart launches that same kernel
 (``mlt_flash_fwd``) under a launch counter of its own. Public

@@ -51,6 +51,7 @@ sys.path.insert(0, os.path.dirname(HERE))
 ITERS = 5  # traced runs per step (after 2 untimed warm-up runs)
 OURS = {"paged_decode_kernel": "paged_decode",
         "flash_fwd_cached_kernel": "flash_fwd_cached",
+        "flash_fwd_tc_kernel": "flash_fwd_cached",
         "paged_prefill_kernel": "paged_prefill",
         "paged_verify_kernel": "paged_verify"}
 

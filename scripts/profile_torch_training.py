@@ -33,8 +33,11 @@ sys.path.insert(0, os.path.dirname(HERE))
 ITERS = 3  # timed / traced steps (after 2 untimed ones)
 BATCH, SEQ, LOSS_CHUNK = 4, 2048, 512
 OURS = {"flash_fwd_cached_kernel": "flash_fwd",
+        "flash_fwd_tc_kernel": "flash_fwd",
         "flash_bwd_dq_kernel": "flash_bwd_dq",
-        "flash_bwd_dkdv_kernel": "flash_bwd_dkdv"}
+        "flash_bwd_dq_tc_kernel": "flash_bwd_dq",
+        "flash_bwd_dkdv_kernel": "flash_bwd_dkdv",
+        "flash_bwd_dkdv_tc_kernel": "flash_bwd_dkdv"}
 
 
 def _group(name: str) -> str:

@@ -686,3 +686,76 @@ def test_dense_engine_chunk_resume_kernels(dev, kv_dtype):
         if chunk:
             assert stats["prefill_chunks"] == 4 + 2   # 57 and 20 tokens
     assert outs[0] == outs[1] == outs[2]
+
+
+# -- the bf16 tensor-core flash kernels at more shapes ------------------------
+# (bf16 runs csrc/flash_fwd_tc.cu and csrc/flash_bwd_tc.cu; float32 the FMA
+# kernels the tests above also cover)
+
+TC_CACHED_CASES = [
+    # (B, S, M, H, Hk, D, q_offset, k_lo): ragged S and M, k_lo off the
+    # 64-key grid, kv at q's head count, D 32, one row over a long cache
+    (2, 77, 333, 8, 8, 32, 200, 0), (1, 130, 500, 4, 1, 64, 300, 37),
+    (2, 65, 129, 4, 2, 128, 64, 63), (1, 1, 1000, 8, 2, 128, 999, 500),
+    (3, 200, 200, 2, 2, 64, 0, 0)]
+
+
+@pytest.mark.parametrize("b,s,m,h,hk,d,q_offset,k_lo", TC_CACHED_CASES)
+def test_tc_flash_cached_bf16_matches_plain(dev, b, s, m, h, hk, d, q_offset,
+                                            k_lo):
+    g = _gen(31)
+    q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, m, hk, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, m, hk, d), generator=g, device=dev).bfloat16()
+    o, lse = at.flash_fwd_cached(q, k, v, q_offset, k_lo)
+    o_ref, lse_ref = at.flash_fwd_cached_plain(q, k, v, q_offset, k_lo)
+    assert o.dtype == torch.bfloat16 and lse.shape == (b, h, s)
+    assert _err(o, o_ref) <= TOL[torch.bfloat16]
+    assert _err(lse, lse_ref) <= LSE_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,h,hk,d", [
+    (100, 333, 4, 4, 32), (333, 100, 8, 2, 64), (129, 191, 4, 1, 128)])
+def test_tc_flash_fwd_bf16_sq_ne_sk_matches_plain(dev, causal, sq, sk, h, hk,
+                                                  d):
+    g = _gen(32)
+    q = torch.randn((2, sq, h, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((2, sk, hk, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((2, sk, hk, d), generator=g, device=dev).bfloat16()
+    o, lse = at._flash_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = at.flash_fwd_plain(q, k, v, causal)
+    assert _err(o, o_ref) <= TOL[torch.bfloat16]
+    assert _err(lse, lse_ref) <= LSE_TOL
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_tc_flash_cached_bf16_chunked_equals_unchunked_bitwise(dev, d):
+    g = _gen(33)
+    q = torch.randn((1, 300, 8, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, 512, 2, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, 512, 2, d), generator=g, device=dev).bfloat16()
+    whole, whole_lse = at.flash_fwd_cached(q, k, v, 0, 37)
+    parts = [at.flash_fwd_cached(q[:, a:b].contiguous(), k, v, a, 37)
+             for a, b in ((37, 77), (77, 200), (200, 300))]
+    assert torch.equal(whole[:, 37:], torch.cat([p[0] for p in parts], 1))
+    assert torch.equal(whole_lse[..., 37:],
+                       torch.cat([p[1] for p in parts], dim=2))
+
+
+@pytest.mark.parametrize("s,h,hkv,d,causal", [
+    (333, 4, 4, 128, True), (200, 8, 2, 128, False), (97, 4, 1, 32, True),
+    (130, 2, 2, 64, False)])
+def test_tc_flash_bwd_bf16_within_half_ulp(dev, s, h, hkv, d, causal):
+    """bf16 gradients within half a bf16 ulp of the plain version's
+    unrounded float32 value on the same inputs, plus 2e-5 of the largest
+    gradient (chip_smoke.py's bound for the training shape)."""
+    q, k, v, do = _train_inputs(34, s, h, hkv, d, torch.bfloat16)
+    o, lse = at.flash_fwd(q, k, v, causal)
+    grads = at.flash_bwd(q, k, v, o, lse, do, causal)
+    refs = at.flash_bwd_plain(q.float(), k.float(), v.float(), o.float(),
+                              lse, do.float(), causal)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        bound = ref.abs() * 2.0 ** -8 + 2e-5 * float(ref.abs().max())
+        assert bool(((got.float() - ref).abs() <= bound).all()), name
