@@ -9,8 +9,9 @@ exits non-zero and never prints the final line):
              sm_90a) and reports the build time, torch/CUDA versions and
              the card's name and power limit; counts the tensor-core
              instructions (HMMA/HGMMA in cuobjdump -sass) of every bf16
-             flash kernel and fails if one has none or ptxas reports a
-             spill store in it.
+             tensor-core kernel (flash forward and backward, the paged
+             prefill and verify bodies) and fails if one has none or
+             ptxas reports a spill store in it.
 2. kernels - holds each hand-written kernel (int8 and verify variants,
              the v1 flash entry point and RMSNorm included) against its
              plain PyTorch
@@ -18,9 +19,19 @@ exits non-zero and never prints the final line):
              stated tolerances; times kernel, plain version and, where one
              PyTorch call computes the same function
              (scaled_dot_product_attention, torch.nn.functional.rms_norm),
-             with CUDA events; checks that
-             chunked and unchunked flash prefill agree bit for bit and
-             that two flash backward launches give the same bits; then
+             with CUDA events around back-to-back calls (``ms``, the
+             final line's); times each kernel again behind a sleep kernel
+             (``device_ms``: the card's time alone, where ``ms`` of a
+             short kernel reads its wrapper's host rate) and reads the
+             host's enqueue time a call (``host_ms``); checks that
+             chunked and unchunked flash prefill agree bit for bit, that
+             two flash backward launches give the same bits, that two
+             launches of each paged kernel give the same bits
+             (bit_identical_runs), that each slot of a 4-slot paged
+             decode gives the bits it gets decoded alone
+             (batch_invariant) and that a one-slot verify gives the
+             prefill's bits; times native decode also at the int8 row's
+             positions (a phase line, off the final line); then
              drives the op entry points ``_flash_fwd`` and
              ``rms_norm_pallas`` (no engine reaches them) once at each of
              their shapes, counted.
@@ -121,9 +132,10 @@ ATTENTION_LEAVES = ("layers.wq", "layers.wk", "layers.wv", "layers.wo")
 SERVING_KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill")
 INT8_KERNELS = ("paged_decode_int8", "flash_fwd_cached", "paged_prefill_int8")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
-# bf16 flash kernels on the tensor cores: the forward for D 32/64/128,
-# causal or not; the backward's dq and dkdv kernels for D 32/64/128
-TC_INSTANTIATIONS = 3 * 2 + 3 * 2
+# bf16 kernels on the tensor cores: the flash forward for D 32/64/128,
+# causal or not; the flash backward's dq and dkdv kernels for D 32/64/128;
+# the paged prefill and verify bodies for D 32/64/128, bf16 or int8 pages
+TC_INSTANTIATIONS = 3 * 2 + 3 * 2 + 2 * 2 * 3
 
 
 def emit(obj):
@@ -158,6 +170,45 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters=20, warmup=3):
+    """(device ms, host ms) per ``fn()``. :func:`time_ms` reads the card's
+    time only while the host enqueues the calls faster than the card runs
+    them; a kernel shorter than its wrapper's host work reads the host's
+    rate. Here a sleep kernel queued first holds the card while the host
+    enqueues all ``iters`` calls, so the events read the card's time
+    alone; the host's enqueue time per call is read beside it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    fn()
+    one_s = time.perf_counter() - started
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # cycles for twice the host's enqueue time at up to 2 GHz
+    torch.cuda._sleep(int(max(2 * iters * one_s, 1e-3) * 2e9))
+    start.record()
+    started = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - started
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_s * 1e3 / iters
+
+
+def kernel_times(fn, iters=20, warmup=3) -> dict:
+    """A kernel row's times: ``ms`` by :func:`time_ms` (the method of every
+    earlier reading, and the final line's), ``device_ms`` and ``host_ms``
+    by :func:`queued_ms`."""
+    device, host = queued_ms(fn, iters, warmup)
+    return {"ms": time_ms(fn, iters, warmup), "device_ms": device,
+            "host_ms": host}
+
+
 def bound_ms(n_bytes: float, n_ops: float, kind: str):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
@@ -181,7 +232,7 @@ def phase_build(card: str):
     emit({"phase": "build", "build_s": seconds, "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card,
           "sources": [p.name for p in _build.sources()]})
-    # the bf16 flash kernels run on the tensor cores: every instantiation
+    # the bf16 tensor-core kernels (flash, paged prefill and verify): each
     # holds HMMA/HGMMA instructions in its SASS and spills nothing
     mma = {name: count
            for name, count in _build.tensor_core_counts(
@@ -192,7 +243,7 @@ def phase_build(card: str):
     emit({"phase": "build", "tensor_core_instructions": mma,
           "spill_store_bytes": spills})
     if len(mma) != TC_INSTANTIATIONS or len(spills) != TC_INSTANTIATIONS:
-        fail(f"expected {TC_INSTANTIATIONS} tensor-core flash kernels, found "
+        fail(f"expected {TC_INSTANTIATIONS} tensor-core kernels, found "
              f"{len(mma)} in the SASS and {len(spills)} in ptxas' report")
     for name, count in mma.items():
         if count <= 0:
@@ -227,7 +278,40 @@ def _check(name, kind, errs: dict):
             fail(f"{name} {kind} {key}: max_abs_err {err} > tol {tol}")
 
 
-def kernel_decode(gen, kind, dtype, record):
+def _bit_checks(name, kind, run, again=None) -> dict:
+    """``run()`` twice gives the same bits (``bit_identical_runs``); with
+    ``again``, each of ``again()``'s (got, want) pairs is equal too
+    (``batch_invariant``). Fails the phase on either."""
+    import torch
+
+    first, second = run(), run()
+    if not isinstance(first, tuple):
+        first, second = (first,), (second,)
+    checks = {"bit_identical_runs": all(
+        bool(torch.equal(a, b)) for a, b in zip(first, second))}
+    if again is not None:
+        checks["batch_invariant"] = all(bool(torch.equal(a, b))
+                                        for a, b in again())
+    for key, ok in checks.items():
+        if not ok:
+            fail(f"{name} {kind}: {key} is false")
+    return checks
+
+
+def _decode_batch_invariance(call, q, table, pos, out):
+    """Each slot decoded alone against its row of the 4-slot launch."""
+    def pairs():
+        for r in range(q.shape[0]):
+            alone = call(q[r:r + 1].contiguous(), table[r:r + 1].contiguous(),
+                         pos[r:r + 1].contiguous())
+            yield alone[0], out[r]
+    return pairs
+
+
+def kernel_decode(gen, kind, dtype, record, positions=(1, 700, 1300, 2047),
+                  extra=False):
+    """Native paged decode at ``positions``; ``extra`` rows (the serve
+    positions, to compare with the int8 row) stay off the final line."""
     import torch
 
     from mlrun_tpu_torch.ops import paged_attention as pa
@@ -240,7 +324,7 @@ def kernel_decode(gen, kind, dtype, record):
     v_pages = torch.randn((n_pages + 1, PAGE, HKV, D), generator=gen,
                           device=dev).to(dtype)
     q = torch.randn((SLOTS, H, D), generator=gen, device=dev).to(dtype)
-    pos = torch.tensor([1, 700, 1300, 2047], dtype=torch.int32, device=dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
     table = torch.full((SLOTS, pps), -1, dtype=torch.int32, device=dev)
     for s in range(SLOTS):
@@ -251,8 +335,15 @@ def kernel_decode(gen, kind, dtype, record):
     torch.cuda.synchronize()
     err = _err(out, ref)
     _check("paged_decode", kind, {"o": err})
-    ms = time_ms(lambda: pa._paged_decode_call(q, k_pages, v_pages, table,
-                                               pos, PAGE))
+    bits = _bit_checks(
+        "paged_decode", kind,
+        lambda: pa._paged_decode_call(q, k_pages, v_pages, table, pos, PAGE),
+        _decode_batch_invariance(
+            lambda qq, tt, pp: pa._paged_decode_call(qq, k_pages, v_pages,
+                                                     tt, pp, PAGE),
+            q, table, pos, out))
+    times = kernel_times(lambda: pa._paged_decode_call(
+        q, k_pages, v_pages, table, pos, PAGE))
     plain = time_ms(lambda: pa.paged_decode_reference(
         q, k_pages, v_pages, table, pos, PAGE), iters=5)
     item = q.element_size()
@@ -263,8 +354,10 @@ def kernel_decode(gen, kind, dtype, record):
     bound, by = bound_ms(n_bytes, n_ops, kind)
     row = {"name": "paged_decode", "dtype": kind, "slots": SLOTS,
            "pos": pos.tolist(), "max_abs_err": err, "tol": TOL[kind]["o"],
-           "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-           "library_ms": None}
+           **bits, **times, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": by, "library_ms": None}
+    if extra:
+        row["extra"] = True
     record.append(row)
     emit({"phase": "kernels", **row})
 
@@ -305,7 +398,8 @@ def kernel_flash(gen, kind, dtype, record):
         errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
         _check(f"flash_fwd_cached S={s} q_offset={q_offset} k_lo={k_lo}",
                kind, errs)
-        ms = time_ms(lambda: at.flash_fwd_cached(q, k, v, q_offset, k_lo))
+        times = kernel_times(lambda: at.flash_fwd_cached(q, k, v, q_offset,
+                                                         k_lo))
         plain = time_ms(lambda: at.flash_fwd_cached_plain(q, k, v, q_offset,
                                                           k_lo), iters=5)
         lib_ms = _sdpa_ms(q, k, v, q_offset, k_lo)
@@ -320,7 +414,7 @@ def kernel_flash(gen, kind, dtype, record):
         row = {"name": "flash_fwd_cached", "dtype": kind, "S": s,
                "q_offset": q_offset, "k_lo": k_lo,
                "max_abs_err": max(errs.values()), "errs": errs,
-               "tol": TOL[kind], "ms": ms, "plain_ms": plain,
+               "tol": TOL[kind], **times, "plain_ms": plain,
                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
         rows.append(row)
         emit({"phase": "kernels", **row})
@@ -365,8 +459,10 @@ def kernel_prefill(gen, kind, dtype, record):
     # computed in float32 from the same input bits as the plain version
     errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
     _check("paged_prefill", "f32", errs)
-    ms = time_ms(lambda: pa._paged_prefill_call(q, k_pages, v_pages, ids,
-                                                base, PAGE))
+    bits = _bit_checks("paged_prefill", kind, lambda: pa._paged_prefill_call(
+        q, k_pages, v_pages, ids, base, PAGE))
+    times = kernel_times(lambda: pa._paged_prefill_call(
+        q, k_pages, v_pages, ids, base, PAGE))
     plain = time_ms(lambda: pa.paged_prefill_reference(
         q, k_pages, v_pages, ids, base, PAGE), iters=5)
     item = q.element_size()
@@ -376,8 +472,8 @@ def kernel_prefill(gen, kind, dtype, record):
     bound, by = bound_ms(n_bytes, n_ops, kind)
     row = {"name": "paged_prefill", "dtype": kind, "S": s, "base": base,
            "max_abs_err": max(errs.values()), "errs": errs,
-           "tol": TOL["f32"],
-           "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+           "tol": TOL["f32"], **bits,
+           **times, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
            "library_ms": None}
     record.append(row)
     emit({"phase": "kernels", **row})
@@ -444,8 +540,15 @@ def kernel_decode_int8(gen, kind, dtype, record):
     torch.cuda.synchronize()
     err = _err(out, ref)
     _check("paged_decode_int8", kind, {"o": err})
-    ms = time_ms(lambda: pa._paged_decode_call(q, k, v, table, pos, PAGE,
-                                               **scales))
+    bits = _bit_checks(
+        "paged_decode_int8", kind,
+        lambda: pa._paged_decode_call(q, k, v, table, pos, PAGE, **scales),
+        _decode_batch_invariance(
+            lambda qq, tt, pp: pa._paged_decode_call(qq, k, v, tt, pp, PAGE,
+                                                     **scales),
+            q, table, pos, out))
+    times = kernel_times(lambda: pa._paged_decode_call(
+        q, k, v, table, pos, PAGE, **scales))
     plain = time_ms(lambda: pa.paged_decode_reference(
         q, k, v, table, pos, PAGE, **scales), iters=5)
     live_tokens = int((pos.long() + 1).sum())
@@ -454,8 +557,8 @@ def kernel_decode_int8(gen, kind, dtype, record):
     bound, by = bound_ms(n_bytes, 4 * D * H * live_tokens, kind)
     row = {"name": "paged_decode_int8", "dtype": kind, "slots": SLOTS,
            "pos": list(SERVE_POS), "max_abs_err": err, "tol": TOL[kind]["o"],
-           "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-           "library_ms": None}
+           **bits, **times, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": by, "library_ms": None}
     record.append(row)
     emit({"phase": "kernels", **row})
 
@@ -478,8 +581,11 @@ def kernel_prefill_int8(gen, kind, dtype, record):
     torch.cuda.synchronize()
     errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
     _check("paged_prefill_int8", "f32", errs)
-    ms = time_ms(lambda: pa._paged_prefill_call(q, k, v, ids, base, PAGE,
-                                                **scales))
+    bits = _bit_checks("paged_prefill_int8", kind,
+                       lambda: pa._paged_prefill_call(q, k, v, ids, base,
+                                                      PAGE, **scales))
+    times = kernel_times(lambda: pa._paged_prefill_call(
+        q, k, v, ids, base, PAGE, **scales))
     plain = time_ms(lambda: pa.paged_prefill_reference(
         q, k, v, ids, base, PAGE, **scales), iters=5)
     n_bytes = (q.numel() * q.element_size() + _kv_bytes(base, "int8")
@@ -487,8 +593,8 @@ def kernel_prefill_int8(gen, kind, dtype, record):
     bound, by = bound_ms(n_bytes, 4 * D * H * s * base, kind)
     row = {"name": "paged_prefill_int8", "dtype": kind, "S": s,
            "base": base, "max_abs_err": max(errs.values()), "errs": errs,
-           "tol": TOL["f32"], "ms": ms, "plain_ms": plain, "bound_ms": bound,
-           "bound_by": by, "library_ms": None}
+           "tol": TOL["f32"], **bits, **times, "plain_ms": plain,
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
     record.append(row)
     emit({"phase": "kernels", **row})
 
@@ -532,11 +638,13 @@ def kernel_verify(gen, kind, dtype, record):
         same = bool(torch.equal(o1[0], o2) and torch.equal(lse1[0], lse2.T))
         errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
         _check(name, "f32", errs)
+        bits = _bit_checks(name, kind, lambda: pa._paged_verify_call(
+            q, k, v, table, base, PAGE, **scales))
         if not same:
             fail(f"{name} {kind}: a one-slot verify launch differs from the "
                  "prefill kernel's bits")
-        ms = time_ms(lambda: pa._paged_verify_call(q, k, v, table, base,
-                                                   PAGE, **scales))
+        times = kernel_times(lambda: pa._paged_verify_call(
+            q, k, v, table, base, PAGE, **scales))
         plain = time_ms(lambda: pa.paged_verify_prefix_reference(
             q, k, v, table, base, PAGE, **scales), iters=5)
         prefix = int(base.long().sum())
@@ -547,7 +655,8 @@ def kernel_verify(gen, kind, dtype, record):
         row = {"name": name, "dtype": kind, "slots": SLOTS, "S": VERIFY_S,
                "base": list(SERVE_POS), "max_abs_err": max(errs.values()),
                "errs": errs, "tol": TOL["f32"], "single_slot_is_prefill": same,
-               "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+               **bits,
+               **times, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                "library_ms": None}
         record.append(row)
         emit({"phase": "kernels", **row})
@@ -587,7 +696,7 @@ def kernel_train_flash(gen, kind, dtype, record):
         errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
         del o_ref, lse_ref
         _check(f"flash_fwd causal={causal}", kind, errs)
-        ms = time_ms(lambda: at.flash_fwd(q, k, v, causal), iters=10)
+        times = kernel_times(lambda: at.flash_fwd(q, k, v, causal), iters=10)
         plain = time_ms(lambda: at.flash_fwd_plain(q, k, v, causal),
                         iters=3, warmup=1)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -596,7 +705,7 @@ def kernel_train_flash(gen, kind, dtype, record):
         bound, by = bound_ms(n_bytes, 4 * TD * _train_pairs(causal), kind)
         row = {"name": "flash_fwd", "dtype": kind, "causal": causal,
                **shape, "max_abs_err": max(errs.values()), "errs": errs,
-               "tol": TOL[kind], "ms": ms, "plain_ms": plain,
+               "tol": TOL[kind], **times, "plain_ms": plain,
                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
         fwd_rows.append(row)
         emit({"phase": "kernels", **row})
@@ -627,8 +736,8 @@ def kernel_train_flash(gen, kind, dtype, record):
                      f"{worst[name]} x its bound (max_abs_err {errs[name]}, "
                      f"tol {tols[name]})")
         del grads, refs
-        ms = time_ms(lambda: at.flash_bwd(q, k, v, o, lse, do, causal),
-                     iters=5)
+        times = kernel_times(
+            lambda: at.flash_bwd(q, k, v, o, lse, do, causal), iters=5)
         plain = time_ms(lambda: at.flash_bwd_plain(q, k, v, o, lse, do,
                                                    causal), iters=2,
                         warmup=1)
@@ -645,7 +754,7 @@ def kernel_train_flash(gen, kind, dtype, record):
         bound, by = bound_ms(n_bytes, 10 * TD * _train_pairs(causal), kind)
         row = {"name": "flash_bwd", "dtype": kind, "causal": causal,
                **shape, "max_abs_err": max(errs.values()), "errs": errs,
-               "tol": tols, "err_over_bound": worst, "ms": ms,
+               "tol": tols, "err_over_bound": worst, **times,
                "plain_ms": plain, "bound_ms": bound,
                "bound_by": by, "library_ms": lib_ms,
                "library_is": "scaled_dot_product_attention forward + "
@@ -713,8 +822,8 @@ def kernel_flash_v1(gen, kind, dtype, record):
         del o_ref, lse_ref
         _check(f"flash_v1 {name} Sq={sq} Sk={sk} causal={causal}", kind,
                errs)
-        ms = time_ms(lambda: at._flash_fwd(q, k, v, causal=causal),
-                     iters=10)
+        times = kernel_times(lambda: at._flash_fwd(q, k, v, causal=causal),
+                             iters=10)
         plain = time_ms(lambda: at.flash_fwd_plain(q, k, v, causal),
                         iters=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -727,7 +836,7 @@ def kernel_flash_v1(gen, kind, dtype, record):
         row = {"name": "flash_v1", "dtype": kind, "shape": name, "B": b,
                "Sq": sq, "Sk": sk, "H": h, "D": d, "causal": causal,
                "max_abs_err": max(errs.values()), "errs": errs,
-               "tol": TOL[kind], "ms": ms, "plain_ms": plain,
+               "tol": TOL[kind], **times, "plain_ms": plain,
                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
         rows.append(row)
         emit({"phase": "kernels", **row})
@@ -770,7 +879,8 @@ def kernel_rms_norm(gen, kind, dtype, record):
         if not bool((diff <= limit).all()):
             fail(f"rms_norm {name} {kind}: max error {float(diff.max())}, "
                  f"{worst} x its bound {tol}")
-        ms = time_ms(lambda: norms.rms_norm_pallas(x, scale, RMS_EPS))
+        times = kernel_times(lambda: norms.rms_norm_pallas(x, scale,
+                                                           RMS_EPS))
         plain = time_ms(lambda: norms.rms_norm_pallas_plain(x, scale,
                                                             RMS_EPS), iters=5)
         features = shape[-1]
@@ -785,7 +895,7 @@ def kernel_rms_norm(gen, kind, dtype, record):
         row = {"name": "rms_norm", "dtype": kind, "shape": name,
                "x": list(shape), "scale_dtype": "f32",
                "max_abs_err": float(diff.max()), "err_over_bound": worst,
-               "tol": tol, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "tol": tol, **times, "plain_ms": plain, "bound_ms": bound,
                "bound_by": by, "library_ms": lib_ms,
                "library_x_dtype_scale_ms": lib_x_ms}
         rows.append(row)
@@ -848,8 +958,13 @@ def phase_kernels(seed: int) -> tuple[list, dict]:
         kernel_flash_v1(gen, kind, dtype, record)
         kernel_rms_norm(gen, kind, dtype, record)
         torch.cuda.empty_cache()
+    # native decode at the int8 row's positions; after the rows above, so
+    # each of them keeps its inputs from the seed
+    for kind, dtype in _dtypes():
+        kernel_decode(gen, kind, dtype, record, SERVE_POS, extra=True)
     launches = op_paths(gen)
-    return [r for r in record if r["dtype"] == "bf16"], launches
+    return [r for r in record
+            if r["dtype"] == "bf16" and not r.get("extra")], launches
 
 
 # ---------------------------------------------------------------------------

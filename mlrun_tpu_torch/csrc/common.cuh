@@ -83,6 +83,19 @@ __device__ __forceinline__ void dequant16(int4 raw, float scale,
   }
 }
 
+// The 4 int8 values of a 32-bit word as float32, exactly: each biased byte
+// (x + 128) becomes the low byte of 2**23's significand, and 2**23 + 128
+// comes off again (one PRMT and one FADD a value, no int-to-float
+// conversion)
+__device__ __forceinline__ void int8x4_to_f32(uint32_t word, float* out) {
+  const uint32_t biased = word ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    out[b] = __fsub_rn(
+        __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u + b)),
+        8388736.0f);
+}
+
 // Dynamic shared memory above 48 KB has to be allowed per kernel.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

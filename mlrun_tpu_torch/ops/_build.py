@@ -46,18 +46,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "mlt_paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _F, _P],
+    "mlt_paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _F, _P],
     "mlt_flash_fwd_cached": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _F, _P],
     "mlt_paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _P],
-    "mlt_paged_decode_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _F, _P],
+    "mlt_paged_decode_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mlt_paged_prefill_int8": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _I, _F, _P],
-    "mlt_paged_verify": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                         _I, _I, _I, _I, _I, _F, _P],
+    "mlt_paged_verify": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mlt_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                       _P],
     "mlt_flash_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -169,10 +169,12 @@ def build_log() -> str:
     return (_state.lib_path.parent / "build.log").read_text()
 
 
-# the bf16 flash kernels that run on the tensor cores (csrc/flash_fwd_tc.cu,
-# csrc/flash_bwd_tc.cu): substrings of their symbols
+# the bf16 kernels that run on the tensor cores (csrc/flash_fwd_tc.cu,
+# csrc/flash_bwd_tc.cu, the bf16 body of csrc/paged_prefill.cu):
+# substrings of their symbols
 TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
-                       "flash_bwd_dkdv_tc_kernel")
+                       "flash_bwd_dkdv_tc_kernel", "paged_prefill_tc_kernel",
+                       "paged_verify_tc_kernel")
 _MMA_OPCODES = ("HMMA", "HGMMA")
 
 

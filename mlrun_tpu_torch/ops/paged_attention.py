@@ -131,13 +131,35 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, pos,
     return torch.einsum("bhk,bkhd->bhd", weights, vd).to(q.dtype)
 
 
+# split-K chunk sizes, owned by the kernels and mirrored here to size their
+# scratch (a launch refuses a scratch of too few chunks): the decode kernel
+# takes max(1, DECODE_CHUNK_KEYS // page_size) pages of a slot a block
+# (csrc/paged_decode.cu kChunkKeys), the bf16 verify kernel PREFIX_CHUNK_KEYS
+# keys from position 0 (csrc/paged_prefill.cu kChunkTiles x 64)
+DECODE_CHUNK_KEYS = 128
+PREFIX_CHUNK_KEYS = 128
+# zeroed int32 arrival counters of the split-K merges (decode, verify), one
+# tensor per (device, stream): every launch leaves them zeroed, and
+# launches on one stream are ordered
+_merge_counters: dict = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    key = (device, stream)
+    have = _merge_counters.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros(n, dtype=torch.int32, device=device)
+        _merge_counters[key] = have
+    return have
+
+
 def _paged_decode_call(q, k_pages, v_pages, page_table, pos,
                        page_size: int, k_scale=None, v_scale=None):
     """q [slots, H, D] x pool pages [P+1, page_size, Hkv, D] -> [slots, H,
     D] in q's dtype. ``k_scale``/``v_scale`` select the int8 kernel. CUDA
     tensors launch ``csrc/paged_decode.cu`` (the replacement for the
-    Pallas ``_paged_decode_kernel``); CPU tensors take
-    :func:`paged_decode_reference`."""
+    Pallas ``_paged_decode_kernel``), with its split-K scratch allocated
+    here; CPU tensors take :func:`paged_decode_reference`."""
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pages, v_pages, page_table, pos,
                                       page_size, k_scale, v_scale)
@@ -152,12 +174,18 @@ def _paged_decode_call(q, k_pages, v_pages, page_table, pos,
     _check_cuda("paged_decode", {"page_table": page_table, "pos": pos},
                 torch.int32)
     out = torch.empty_like(q)
+    hkv, pps = k_pages.shape[2], page_table.shape[1]
+    max_chunks = -(-pps // max(1, DECODE_CHUNK_KEYS // page_size))
+    part = torch.empty(slots * h * max_chunks * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    stream = _build.stream_ptr(q)
+    counters = _counters(q.device, stream, slots * hkv)
     lib = _build.library()
     head = (_build.dtype_code(q), d, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr())
-    tail = (page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), slots, h,
-            k_pages.shape[2], page_size, page_table.shape[1],
-            k_pages.shape[0] - 1, d ** -0.5, _build.stream_ptr(q))
+    tail = (page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), slots, h, hkv, page_size,
+            pps, max_chunks, k_pages.shape[0] - 1, d ** -0.5, stream)
     if k_scale is not None:
         err = lib.mlt_paged_decode_int8(*head, *_scale_ptrs(k_scale, v_scale),
                                         *tail)
@@ -341,12 +369,22 @@ def _paged_verify_call(q, k_pages, v_pages, page_table, base,
                 torch.int32)
     o = torch.empty((slots, s, h, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((slots, s, h), dtype=torch.float32, device=q.device)
+    hkv, pps = k_pages.shape[2], page_table.shape[1]
+    stream = _build.stream_ptr(q)
+    part = counters = None
+    max_chunks = -(-pps * page_size // PREFIX_CHUNK_KEYS)
+    if q.dtype == torch.bfloat16:   # the tensor-core body's split-K state
+        rows = s * (h // hkv)
+        part = torch.empty(slots * hkv * max_chunks * rows * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream, slots * hkv * -(-rows // 64))
     err = _build.library().mlt_paged_verify(
         _build.dtype_code(q), d, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), *_scale_ptrs(k_scale, v_scale),
         page_table.data_ptr(), base.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        slots, s, h, k_pages.shape[2], page_size, page_table.shape[1],
-        k_pages.shape[0] - 1, d ** -0.5, _build.stream_ptr(q))
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), max_chunks, slots,
+        s, h, hkv, page_size, pps, k_pages.shape[0] - 1, d ** -0.5, stream)
     _build.check_launch(
         "paged_verify_int8" if k_scale is not None else "paged_verify", err)
     return o, lse.transpose(1, 2)

@@ -36,6 +36,7 @@ from ..ops.attention import NEG_INF
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
 from ..utils import logger
+from .adapters import UnknownAdapterError
 from .resilience import PromptTooLongError, not_ported
 
 
@@ -267,7 +268,9 @@ class LLMEngine:
 
     ``device`` defaults to the GPU (and raises without one); pass
     ``device="cpu"`` for the plain paths. Multi-tenant adapters are not
-    ported yet (ROADMAP.md item 3)."""
+    ported yet (ROADMAP.md item 3): a request naming one fails with
+    ``UnknownAdapterError`` (404), as on a reference engine without an
+    adapter registry."""
 
     def __init__(self, config: LlamaConfig, params: Params,
                  max_len: int = 2048, batch: int = 1,
@@ -386,7 +389,8 @@ class LLMEngine:
                 f"prompt_len {prompt_len} + max_new_tokens "
                 f"{max_new_tokens} exceeds max_len {self.max_len}")
         if adapter:
-            raise not_ported("LLMEngine adapters", 3)
+            raise UnknownAdapterError(
+                f"engine has no adapter registry (adapter='{adapter}')")
         bucket = self._bucket_for(prompt_len)
         padded = np.zeros((self.batch, bucket), np.int64)
         padded[:, :prompt_len] = prompt
@@ -720,6 +724,17 @@ class LLMModelServer:
                 return conf
 
             def predict(self, request):
+                # v2 body tenant id ({"inputs": [...], "adapter": "t1"}) and
+                # canary key, threaded to the engine as the reference does;
+                # without an adapter registry a named adapter fails 404
+                adapter = request.get("adapter", "") or ""
+                request_key = request.get("request_key") or None
+                # {"timing": true} returns the request ledger's breakdown
+                # on the reference's batching servers; its LLMEngine server
+                # ignores the field, and so does this one
+                if self.continuous_batching and request.get("timing"):
+                    raise not_ported("per-request timing (the request "
+                                     "ledger)", 2)
                 id_lists = []
                 for item in request["inputs"]:
                     if isinstance(item, str):
@@ -729,7 +744,8 @@ class LLMModelServer:
                     out_tokens = []
                     for ids in id_lists:
                         tokens, stats = self.engine.generate(
-                            ids, max_new_tokens=self.max_new_tokens)
+                            ids, max_new_tokens=self.max_new_tokens,
+                            adapter=adapter, request_key=request_key)
                         self.set_metric("ttft_s", stats["ttft_s"])
                         self.set_metric("decode_tps",
                                         stats["decode_tokens_per_sec"])
@@ -741,7 +757,8 @@ class LLMModelServer:
                 futures = [self.engine.submit(
                     ids, max_new_tokens=self.max_new_tokens,
                     temperature=self.temperature, top_k=self.top_k,
-                    top_p=self.top_p) for ids in id_lists]
+                    top_p=self.top_p, adapter=adapter,
+                    request_key=request_key) for ids in id_lists]
                 results = [f.result(timeout=600) for f in futures]
                 if results:
                     self.set_metric("ttft_s",

@@ -44,6 +44,7 @@ from ..models.llama import LlamaConfig, Params, lm_head, logits_f32
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
 from ..utils import logger
+from .adapters import UnknownAdapterError
 from .llm import (
     _cached_attention,
     _forward_with_cache,
@@ -744,10 +745,15 @@ class ContinuousBatchingEngine:
 
     def submit(self, prompt_tokens, max_new_tokens: int = 64,
                eos_id: int | None = None, temperature: float = 0.0,
-               top_k: int = 0, top_p: float = 1.0) -> Future:
+               top_k: int = 0, top_p: float = 1.0, adapter: str = "",
+               request_key=None) -> Future:
         """Thread-safe request submission. The future fails fast —
         QueueFullError when shedding, EngineStoppedError after stop/crash,
-        PromptTooLongError past max_len — and never silently hangs."""
+        PromptTooLongError past max_len, UnknownAdapterError (404) for a
+        named ``adapter``, since the port's engines have no adapter
+        registry yet — and never silently hangs. ``request_key`` only
+        steers the reference's canary split between adapters, so it is
+        accepted and ignored without one."""
         future: Future = Future()
         if self._stopped and not self._running:
             cause = f": {self._crash_exc}" if self._crash_exc else ""
@@ -764,6 +770,12 @@ class ContinuousBatchingEngine:
             future.set_exception(PromptTooLongError(
                 f"prompt_len {prompt_len} + max_new_tokens "
                 f"{max_new_tokens} exceeds max_len {self.max_len}"))
+            return future
+        if adapter:
+            # before the queue and any limiter: an unknown name fails 404,
+            # never 429, and is never served the base model's tokens
+            future.set_exception(UnknownAdapterError(
+                f"engine has no adapter registry (adapter='{adapter}')"))
             return future
         if self.max_queue_size and self._queue_depth() >= self.max_queue_size:
             with self._lock:
@@ -787,11 +799,13 @@ class ContinuousBatchingEngine:
     def generate(self, prompt_tokens, max_new_tokens: int = 64,
                  eos_id: int | None = None, timeout: float = 300.0,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0):
+                 top_p: float = 1.0, adapter: str = "",
+                 request_key=None):
         """Synchronous convenience wrapper around submit()."""
         return self.submit(prompt_tokens, max_new_tokens, eos_id,
                            temperature=temperature, top_k=top_k,
-                           top_p=top_p).result(timeout=timeout)
+                           top_p=top_p, adapter=adapter,
+                           request_key=request_key).result(timeout=timeout)
 
     @property
     def stats(self) -> dict:

@@ -53,7 +53,9 @@ OURS = {"paged_decode_kernel": "paged_decode",
         "flash_fwd_cached_kernel": "flash_fwd_cached",
         "flash_fwd_tc_kernel": "flash_fwd_cached",
         "paged_prefill_kernel": "paged_prefill",
-        "paged_verify_kernel": "paged_verify"}
+        "paged_prefill_tc_kernel": "paged_prefill",
+        "paged_verify_kernel": "paged_verify",
+        "paged_verify_tc_kernel": "paged_verify"}
 
 
 def _group(name: str) -> str:

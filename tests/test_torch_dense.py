@@ -33,6 +33,7 @@ from mlrun_tpu_torch.models import llama as tllama
 from mlrun_tpu_torch.models.convert import params_from_numpy
 from mlrun_tpu_torch.serving import llm as tllm
 from mlrun_tpu_torch.serving import llm_batch as tbatch
+from mlrun_tpu_torch.serving.adapters import UnknownAdapterError
 from mlrun_tpu_torch.serving.resilience import PromptTooLongError
 
 MAX_LEN = 128
@@ -253,8 +254,11 @@ def test_llm_engine_adapters_are_not_ported(models):
     with pytest.raises(NotImplementedError, match="item 3"):
         _tengine(models, adapters={"t1": "path"})
     eng = _tengine(models)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # without a registry a named adapter is a typed 404, as on the
+    # reference's engine without one (never the base model's tokens)
+    with pytest.raises(UnknownAdapterError) as err:
         eng.generate([1, 2, 3], max_new_tokens=2, adapter="t1")
+    assert err.value.status_code == 404
     for call in (lambda: eng.add_adapter_source("t1", "path"),
                  lambda: eng.retire_adapter("t1")):
         with pytest.raises(NotImplementedError, match="item 3"):
@@ -560,6 +564,87 @@ def test_llm_model_server_non_paged_matches_reference(models, monkeypatch,
         else tllm.LLMEngine
     assert type(engine) is kind
     assert "ttft_s" in tserver.metrics and "decode_tps" in tserver.metrics
+
+
+def _stop(*servers):
+    for server in servers:
+        if server.engine is not None and server.continuous_batching:
+            server.engine.stop()
+
+
+@pytest.mark.parametrize("continuous_batching", [False, True])
+def test_llm_model_server_unknown_adapter_is_404_like_reference(
+        models, monkeypatch, continuous_batching):
+    """A v2 body naming an adapter fails with a typed 404 on a server
+    without adapters, the reference's and the port's alike, and the port
+    serves no token for it."""
+    from mlrun_tpu.serving.adapters import \
+        UnknownAdapterError as JUnknownAdapterError
+
+    jserver, tserver = _servers(models, monkeypatch,
+                                continuous_batching=continuous_batching)
+    body = {"inputs": [[1, 2, 3, 4]], "adapter": "t1"}
+    try:
+        for server in (jserver, tserver):
+            server.post_init()
+        if not continuous_batching:
+            def served(*a, **kw):
+                raise AssertionError("a token was served")
+            monkeypatch.setattr(tserver.engine, "_generate_inner", served)
+        with pytest.raises(JUnknownAdapterError) as jerr:
+            jserver.do_event(_Event(dict(body)))
+        with pytest.raises(UnknownAdapterError) as terr:
+            tserver.do_event(_Event(dict(body, request_key="user-7")))
+        assert jerr.value.status_code == terr.value.status_code == 404
+        if continuous_batching:
+            stats = tserver.engine.stats
+            assert stats["requests"] == 0 and stats["tokens_out"] == 0
+        assert "requests" not in tserver.metrics
+    finally:
+        _stop(jserver, tserver)
+
+
+def test_dense_engine_submit_unknown_adapter_fails_before_queueing(models):
+    _, _, tcfg, tparams = models
+    eng = tbatch.ContinuousBatchingEngine(tcfg, tparams, max_len=MAX_LEN,
+                                          slots=2, max_queue_size=1,
+                                          device="cpu")
+    try:
+        future = eng.submit([1, 2, 3, 4], max_new_tokens=4, adapter="t1",
+                            request_key="user-7")
+        with pytest.raises(UnknownAdapterError):
+            future.result(timeout=5)
+        assert eng.stats["requests"] == 0 and eng._queue.qsize() == 0
+        with pytest.raises(UnknownAdapterError):
+            eng.generate([1, 2, 3, 4], max_new_tokens=4, adapter="t1")
+    finally:
+        eng.stop()
+
+
+def test_dense_server_timing_is_not_ported(models, monkeypatch):
+    """{"timing": true} on a batching server needs the request ledger
+    (ROADMAP.md item 2): it raises instead of being dropped silently."""
+    _, tserver = _servers(models, monkeypatch, continuous_batching=True)
+    try:
+        with pytest.raises(NotImplementedError, match="item 2"):
+            tserver.do_event(_Event({"inputs": [[1, 2, 3, 4]],
+                                     "timing": True}))
+        assert tserver.engine.stats["requests"] == 0
+    finally:
+        _stop(tserver)
+
+
+def test_llm_engine_server_ignores_timing_like_reference(models,
+                                                        monkeypatch):
+    """The reference's LLMEngine server reads "timing" only on its
+    batching branch: the field changes nothing, and no timing comes
+    back."""
+    jserver, tserver = _servers(models, monkeypatch)
+    body = {"inputs": [_tokens(11, 9)], "timing": True}
+    want = jserver.do_event(_Event(dict(body))).body
+    got = tserver.do_event(_Event(dict(body))).body
+    assert "timing" not in want and "timing" not in got
+    assert got["outputs"] == want["outputs"] and len(want["outputs"][0]) == 6
 
 
 def test_llm_model_server_paged_needs_continuous_batching():

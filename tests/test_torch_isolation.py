@@ -16,7 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlrun_tpu")
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "mlrun_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/profile_torch_serving.py",
-       "scripts/profile_torch_training.py"]
+       "scripts/profile_torch_training.py", "scripts/time_paged_kernels.py"]
 
 
 def _imported_roots(tree):

@@ -256,6 +256,141 @@ def test_single_slot_verify_equals_prefill_bitwise(dev, int8):
         assert torch.equal(lse[0], lse1.T)
 
 
+# -- the split-K decode and the tensor-core prefix body: bit properties ------
+
+def _decode_inputs(seed, dtype, int8, page_size, pos, n_rep=4, hkv=8, d=128,
+                   pps=16):
+    """Pages, q and a page table of distinct random pages for slots at
+    ``pos``; int8 pools pass their scales."""
+    g = _gen(seed)
+    slots = len(pos)
+    n_pages = slots * pps
+    if int8:
+        k, ks, v, vs = _int8_pages(g, n_pages + 1, page_size, hkv, d, "cuda")
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        k = torch.randn((n_pages + 1, page_size, hkv, d), generator=g,
+                        device="cuda").to(dtype)
+        v = torch.randn(k.shape, generator=g, device="cuda").to(dtype)
+        scales = {}
+    q = torch.randn((slots, hkv * n_rep, d), generator=g,
+                    device="cuda").to(dtype)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n_pages, generator=g, device="cuda").to(
+        torch.int32)
+    table = torch.full((slots, pps), -1, dtype=torch.int32, device="cuda")
+    for r, p in enumerate(pos):
+        live = p // page_size + 1
+        table[r, :live] = perm[r * pps:r * pps + live]
+    return q, k, v, table, pos_t, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_reruns_and_batch_are_bit_invariant(dev, dtype, int8):
+    """Split-K over pages merges in a fixed order: two launches give the
+    same bits, and every slot of a 4-slot launch gives the bits it gets
+    decoded alone."""
+    q, k, v, table, pos, scales = _decode_inputs(
+        30, dtype, int8, 128, [1, 700, 1300, 2047])
+    out = pa._paged_decode_call(q, k, v, table, pos, 128, **scales)
+    again = pa._paged_decode_call(q, k, v, table, pos, 128, **scales)
+    assert torch.equal(out, again)
+    for r in range(4):
+        alone = pa._paged_decode_call(
+            q[r:r + 1].contiguous(), k, v, table[r:r + 1].contiguous(),
+            pos[r:r + 1].contiguous(), 128, **scales)
+        assert torch.equal(alone[0], out[r]), r
+    ref = pa.paged_decode_reference(q, k, v, table, pos, 128, **scales)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page_size", [16, 128])
+def test_paged_decode_at_the_last_position(dev, dtype, int8, page_size):
+    """A slot whose current token is the last row of its last page (pos =
+    pages_per_slot * page_size - 1), beside a short one."""
+    pps = 8
+    last = pps * page_size - 1
+    q, k, v, table, pos, scales = _decode_inputs(
+        31, dtype, int8, page_size, [last, 3], pps=pps)
+    out = pa._paged_decode_call(q, k, v, table, pos, page_size, **scales)
+    ref = pa.paged_decode_reference(q, k, v, table, pos, page_size,
+                                    **scales)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_prefill_chunks_and_reruns_are_bitwise(dev, dtype, int8):
+    """A row's (o, lse) bits depend only on the key tiles it visits: S 300
+    equals chunks 0-77 / 77-200 / 200-300 over the same base (three chunks
+    of the split-K merge), and a rerun gives the same bits."""
+    g = _gen(32)
+    h, hkv, d, page_size, pps, base = 32, 8, 128, 16, 32, 300
+    if int8:
+        k, ks, v, vs = _int8_pages(g, 40, page_size, hkv, d, dev)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        k = torch.randn((40, page_size, hkv, d), generator=g,
+                        device=dev).to(dtype)
+        v = torch.randn(k.shape, generator=g, device=dev).to(dtype)
+        scales = {}
+    q = torch.randn((300, h, d), generator=g, device=dev).to(dtype)
+    ids = torch.randperm(39, generator=g, device=dev)[:pps].to(torch.int32)
+    ids[-(-base // page_size):] = -1
+    o, lse = pa._paged_prefill_call(q, k, v, ids, base, page_size, **scales)
+    o2, lse2 = pa._paged_prefill_call(q, k, v, ids, base, page_size,
+                                      **scales)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    parts = [pa._paged_prefill_call(q[a:b].contiguous(), k, v, ids, base,
+                                    page_size, **scales)
+             for a, b in ((0, 77), (77, 200), (200, 300))]
+    assert torch.equal(o, torch.cat([p[0] for p in parts]))
+    assert torch.equal(lse, torch.cat([p[1] for p in parts]))
+    o_ref, lse_ref = pa.paged_prefill_reference(q, k, v, ids, base,
+                                                page_size, **scales)
+    assert _err(o, o_ref) <= TOL[torch.float32]
+    assert _err(lse, lse_ref) <= LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("spec_k", [1, 4, 7])
+def test_paged_verify_at_each_k(dev, dtype, int8, spec_k):
+    """Verify chunks of k + 1 rows a slot over 128-key split-K chunks,
+    against the plain version; a rerun gives the same bits."""
+    g = _gen(33)
+    slots, hkv, n_rep, d, page_size, pps = 4, 8, 4, 128, 128, 16
+    s = spec_k + 1
+    n_pages = slots * pps
+    if int8:
+        k, ks, v, vs = _int8_pages(g, n_pages + 1, page_size, hkv, d, dev)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        k = torch.randn((n_pages + 1, page_size, hkv, d), generator=g,
+                        device=dev).to(dtype)
+        v = torch.randn(k.shape, generator=g, device=dev).to(dtype)
+        scales = {}
+    q = torch.randn((slots, s, hkv * n_rep, d), generator=g,
+                    device=dev).to(dtype)
+    base = torch.tensor([600, 436, 200, 700], dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pages, generator=g, device=dev).to(torch.int32)
+    table = torch.full((slots, pps), -1, dtype=torch.int32, device=dev)
+    for r in range(slots):
+        live = -(-(int(base[r]) + s) // page_size)
+        table[r, :live] = perm[r * pps:r * pps + live]
+    o, lse = pa._paged_verify_call(q, k, v, table, base, page_size, **scales)
+    o2, lse2 = pa._paged_verify_call(q, k, v, table, base, page_size,
+                                     **scales)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_ref, lse_ref = pa.paged_verify_prefix_reference(q, k, v, table, base,
+                                                      page_size, **scales)
+    assert _err(o, o_ref) <= TOL[torch.float32]
+    assert _err(lse, lse_ref) <= LSE_TOL
+
+
 def test_paged_engine_int8_kernels_match_reference_engine(dev):
     """A tiny float32 model on an int8 pool, kernel engine vs reference
     engine: identical greedy tokens (cold and through a prefix hit), the

@@ -26,6 +26,7 @@ from mlrun_tpu_torch.models.convert import params_from_numpy
 from mlrun_tpu_torch.ops.paged_attention import KernelUnavailableError
 from mlrun_tpu_torch.serving import llm as tllm
 from mlrun_tpu_torch.serving import paged as tpaged
+from mlrun_tpu_torch.serving.adapters import UnknownAdapterError
 from mlrun_tpu_torch.serving.resilience import PromptTooLongError
 
 LOGIT_TOL = 1e-4
@@ -316,6 +317,77 @@ def test_llm_model_server_do_event_on_cpu():
         assert ready == {"name": "m", "ready": True}
     finally:
         server.close()
+
+
+def _paged_servers(models, monkeypatch):
+    """The reference's paged server and the port's on the tiny preset in
+    float32 with the same weights (the port's draws are replaced by the
+    converted reference params)."""
+    from mlrun_tpu.frameworks.jax import auto_trainer as jauto
+    from mlrun_tpu.serving.llm import LLMModelServer as JServer
+
+    jcfg, _, tcfg, tparams = models
+    monkeypatch.setitem(jauto.MODEL_PRESETS, "tiny", lambda: jcfg)
+    monkeypatch.setitem(tllama.MODEL_PRESETS, "tiny", lambda: tcfg)
+    monkeypatch.setattr(tllama, "init_params",
+                        lambda config, generator, device: tparams)
+    common = dict(name="m", model_preset="tiny", continuous_batching=True,
+                  paged=True, slots=2, max_len=MAX_LEN, page_size=PAGE,
+                  max_new_tokens=4, warmup=False)
+    return JServer(**common), tllm.LLMModelServer(device="cpu", **common)
+
+
+def test_paged_server_unknown_adapter_is_404_like_reference(models,
+                                                           monkeypatch):
+    """A v2 body naming an adapter fails with a typed 404 on the paged
+    servers without adapters, the reference's and the port's alike; the
+    port's engine never queues it, so no token is served."""
+    from mlrun_tpu.serving.adapters import \
+        UnknownAdapterError as JUnknownAdapterError
+
+    jserver, tserver = _paged_servers(models, monkeypatch)
+    body = {"inputs": [[1, 2, 3, 4]], "adapter": "t1"}
+    try:
+        with pytest.raises(JUnknownAdapterError) as jerr:
+            jserver.do_event(_Event(dict(body)))
+        with pytest.raises(UnknownAdapterError) as terr:
+            tserver.do_event(_Event(dict(body)))
+        assert jerr.value.status_code == terr.value.status_code == 404
+        assert isinstance(tserver.engine, tpaged.PagedContinuousBatchingEngine)
+        stats = tserver.engine.stats
+        assert stats["requests"] == 0 and stats["tokens_out"] == 0
+    finally:
+        for server in (jserver, tserver):
+            if server.engine is not None:
+                server.engine.stop()
+
+
+def test_paged_engine_submit_unknown_adapter_fails_before_queueing(models):
+    _, _, tcfg, tparams = models
+    eng = tpaged.PagedContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                               max_queue_size=1, **ENGINE_KW)
+    try:
+        future = eng.submit(_tokens(30, 8).tolist(), max_new_tokens=4,
+                            adapter="t1", request_key="user-7")
+        with pytest.raises(UnknownAdapterError) as err:
+            future.result(timeout=5)
+        assert err.value.status_code == 404
+        assert eng.stats["requests"] == 0 and eng._queue.qsize() == 0
+    finally:
+        eng.stop()
+
+
+def test_paged_server_timing_is_not_ported(models, monkeypatch):
+    """{"timing": true} needs the request ledger (ROADMAP.md item 2): the
+    paged server raises instead of dropping the field silently."""
+    _, tserver = _paged_servers(models, monkeypatch)
+    try:
+        with pytest.raises(NotImplementedError, match="item 2"):
+            tserver.do_event(_Event({"inputs": [[1, 2, 3, 4]],
+                                     "timing": True}))
+        assert tserver.engine.stats["requests"] == 0
+    finally:
+        tserver.close()
 
 
 def test_default_device_needs_cuda(models, monkeypatch):
