@@ -59,18 +59,35 @@ exits non-zero and never prints the final line):
              chunk and against a reference-attention engine; then the
              permutation pair on the dense engine (native and int8 caches,
              the dense verify): spec on == spec off.
-7. train   - trains Llama-3.2-1B (random weights from a seed, bf16, all 16
+7. lora    - two LoRA adapters (t1, t2: rank 16, the default targets,
+             random nonzero factors from the seed) on LLMModelServer's
+             paged engine at Llama-3-8B (all 32 layers): the serve
+             prompts as t1, t2, base and t1 in one decode batch, then the
+             600-token prompt under t2 and under t1 through the v2 body's
+             "adapter"; shows the paged kernels launched on that path (no
+             gather fallback), that no prefix KV crosses tenants and a
+             same-tenant rerun hits, holds each tenant's rows against an
+             engine on its merged weights (first-token logits, greedy
+             streams until a near-tie) and reports the decode tick and
+             TTFT beside the serve phase's; then speculation with tenant
+             rows on the permutation pair at 8B width (a tiny adapter;
+             the base draft and a draft adapter): spec on == spec off.
+8. train   - trains Llama-3.2-1B (random weights from a seed, bf16, all 16
              layers, full width) through Trainer.fit for a few steps on a
              repeated synthetic batch (4 x 2048 tokens, loss chunks of
              512, per-layer remat), shows the flash forward and backward
              kernels launched once per layer per pass, checks that the
              loss is finite and falls, reports the Trainer's own
              tokens/s and MFU, and holds step 1's loss, gradient norm and
-             attention-weight gradients against the reference attention.
+             attention-weight gradients against the reference attention;
+             then a LoRA leg (rank 16, frozen base, 3 steps): the loss
+             falls, the base's checksum holds, the flash kernels launch
+             once a layer a pass.
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 ``--phases build,kernels`` runs a subset (for bring-up;
-``--phases build,kernels,serve_dense`` checks the dense serving path); the
+``--phases build,kernels,serve_dense`` checks the dense serving path,
+``--phases build,lora`` the adapters); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -1585,7 +1602,276 @@ def phase_serve_dense(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: train Llama-3.2-1B through the port's Trainer
+# phase 7: lora — multi-tenant LoRA adapters on the paged engine at 8B
+# ---------------------------------------------------------------------------
+
+# two synthetic "trained" adapters on the default targets (models/lora.py
+# init_lora_nonzero): rank 16, scaling alpha / rank = 2, B drawn at
+# b_scale; their deltas move an 8B layer's projections by ~40% of the base
+# product, so the three tenants' streams part at once
+LORA_RANK, LORA_ALPHA, LORA_B_SCALE = 16, 32.0, 0.05
+# the serve traffic's tenants, then the 600-token prompt again under t2
+# (another tenant's KV for it is cached) and under t1 (its own)
+LORA_TENANTS = ("t1", "t2", "", "t1")
+LORA_RERUNS = ("t2", "t1")
+# the speculative leg's tiny adapters on the permutation pair (deltas far
+# below its argmax gaps, so spec on == spec off exactly)
+LORA_SPEC = dict(rank=2, alpha=0.1, b_scale=0.001)
+
+
+def _serve_tenants(engine, prompts, tenants) -> list:
+    futures = [engine.submit(p, max_new_tokens=MAX_NEW, adapter=a)
+               for p, a in zip(prompts, tenants)]
+    return [f.result(timeout=600)[0] for f in futures]
+
+
+def _merged_reference(config, params, seed, requests) -> tuple:
+    """A paged engine on the kernels, no adapters, over ``params``
+    (merged weights): (first-token logits, streams) of ``requests``,
+    served one after another in the main path's order."""
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    engine = PagedContinuousBatchingEngine(
+        config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+        seed=seed, device="cuda")
+    logits: list = []
+    _record_first_logits(engine, logits)
+    try:
+        out = [engine.generate(p, max_new_tokens=MAX_NEW)[0]
+               for p in requests]
+    finally:
+        engine.stop()
+    return logits, out
+
+
+def _lora_spec_leg(seed: int, card: str, prompts) -> dict:
+    """Speculation with tenant rows on the permutation pair at 8B width:
+    spec on == spec off exactly, with the base draft and with a draft
+    adapter; the verify kernel launched on the speculative path."""
+    import dataclasses
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import (
+        MODEL_PRESETS,
+        init_permutation_params,
+        permutation_pair,
+    )
+    from mlrun_tpu_torch.models.lora import init_lora_nonzero
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.adapters import AdapterRegistry
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    config = dataclasses.replace(MODEL_PRESETS["llama3-8b"](),
+                                 n_layers=PERM_LAYERS)
+    target_perm, draft_perm = permutation_pair(config.vocab_size,
+                                               PERM_OVERLAP, seed=seed)
+    target = init_permutation_params(config, target_perm, device="cuda")
+    draft = init_permutation_params(config, draft_perm, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 5)
+    lora, draft_lora = (init_lora_nonzero(config, gen, device="cuda",
+                                          **LORA_SPEC) for _ in range(2))
+    tenants = ("t1", "", "t1", "")
+    rows = []
+    for draft_mode in ("base", "tenant"):
+        outs = []
+        for spec in (None, {"enabled": True, "k": SPEC_K,
+                            "draft_config": config, "draft_params": draft}):
+            registry = AdapterRegistry(config, sources={"t1": lora},
+                                       device="cuda")
+            if spec is not None and draft_mode == "tenant":
+                registry.attach_draft(config, sources={"t1": draft_lora})
+            engine = PagedContinuousBatchingEngine(
+                config, target, max_len=MAX_LEN, slots=SLOTS,
+                page_size=PAGE, speculative=spec, adapters=registry,
+                seed=seed, device="cuda")
+            _build.reset_launch_counts()
+            try:
+                outs.append(_serve_tenants(engine, prompts, tenants))
+                torch.cuda.synchronize()
+                counts = _build.launch_counts()
+                stats = engine.stats
+            finally:
+                engine.stop()
+        if outs[0] != outs[1]:
+            fail(f"lora speculation ({draft_mode} draft): spec-on streams "
+                 "differ from spec-off streams")
+        if not counts["paged_verify"] > 0 or stats["attn_gather_ticks"]:
+            fail(f"lora speculation ({draft_mode} draft): the verify "
+                 "kernel did not run every round")
+        row = {"phase": "lora", "leg": "speculation", "draft": draft_mode,
+               "model": f"llama3-8b width, {PERM_LAYERS} zero layers",
+               "tenants": list(tenants), "adapter": LORA_SPEC,
+               "spec_equals_plain": True,
+               "verify_launches": counts["paged_verify"],
+               "spec_rounds": stats["spec_rounds"],
+               "acceptance_rate": stats["acceptance_rate"], "card": card}
+        rows.append(row)
+        emit(row)
+        if not stats["spec_rounds"] > 0:
+            fail(f"lora speculation ({draft_mode} draft): no round ran")
+    return {"rows": rows}
+
+
+def phase_lora(seed: int, card: str, serve: dict | None) -> dict:
+    """Two LoRA adapters on LLMModelServer's paged engine at Llama-3-8B:
+    t1, t2 and base rows in one decode batch, then cross- and same-tenant
+    reruns; each tenant's rows held against an engine on its merged
+    weights; the tick and TTFT beside the serve phase's (``serve``); then
+    the speculative leg."""
+    import gc
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.models.lora import init_lora_nonzero, merge_lora
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.llm import LLMModelServer
+
+    config = MODEL_PRESETS["llama3-8b"]()
+    prompts = _prompts(seed, config.vocab_size)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 3)
+    adapters = {name: init_lora_nonzero(config, gen, rank=LORA_RANK,
+                                        alpha=LORA_ALPHA,
+                                        b_scale=LORA_B_SCALE, device="cuda")
+                for name in ("t1", "t2")}
+    emit({"phase": "lora", "adapters": sorted(adapters), "rank": LORA_RANK,
+          "alpha": LORA_ALPHA, "b_scale": LORA_B_SCALE,
+          "targets": sorted(adapters["t1"]), "card": card})
+
+    # -- the main path, counted: every count reset right before it ---------
+    _build.reset_launch_counts()
+    started = time.perf_counter()
+    server = LLMModelServer(
+        name="llama3-8b", model_preset="llama3-8b", continuous_batching=True,
+        paged=True, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        max_new_tokens=MAX_NEW, seed=seed, adapters=adapters)
+    server.post_init()
+    if not server.ready:
+        fail(f"LLMModelServer (adapters) failed to load: {server.error}")
+    load_s = time.perf_counter() - started
+    engine = server.engine
+    logits: list = []
+    _record_first_logits(engine, logits)
+    t0 = time.perf_counter()
+    # the burst goes to the engine the server built (one v2 body carries
+    # one adapter); the reruns come through the server's v2 body
+    out = _serve_tenants(engine, prompts, LORA_TENANTS)
+    cached = [engine.stats["prefix_cached_tokens"]]
+    for tenant in LORA_RERUNS:
+        body = {"inputs": [prompts[0]], "adapter": tenant}
+        out += server.do_event(_Event(body)).body["outputs"]
+        cached.append(engine.stats["prefix_cached_tokens"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    stats = engine.stats
+    params = engine.params
+    server.close()
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _check_launches(launches, SERVING_KERNELS, "lora")
+    if stats["attn_gather_ticks"] or stats["prefill_gather_admissions"]:
+        fail("an adapter row fell back to the dense gather")
+    if not (stats["attn_kernel_ticks"] > 0
+            and stats["prefill_kernel_chunks"] > 0):
+        fail("the adapter path did not run the paged decode and prefill "
+             "kernels")
+    if stats["adapter_loads"] != 2 or stats["adapter_live"] != 2:
+        fail(f"adapter_loads {stats['adapter_loads']}, adapter_live "
+             f"{stats['adapter_live']} (want 2 and 2)")
+    # the 436-token prompt under t2 shares 256 tokens with the 600-token
+    # one under t1: no hit in the burst. The 600-token prompt under t2
+    # then reuses only t2's own 256 tokens (from the 436-token prompt),
+    # never t1's 512 (its full pages); under t1 it reuses its own 512
+    shared = len(os.path.commonprefix([prompts[0], prompts[1]]))
+    want_cached = [shared // PAGE * PAGE, len(prompts[0]) // PAGE * PAGE]
+    rerun_cached = [b - a for a, b in zip(cached, cached[1:])]
+    if cached[0] != 0 or rerun_cached != want_cached:
+        fail(f"prefix reuse across tenants: burst {cached[0]} cached "
+             f"tokens, reruns {rerun_cached} (want 0, {want_cached})")
+    for tokens in out:
+        if len(tokens) != MAX_NEW or not all(
+                0 <= t < config.vocab_size for t in tokens):
+            fail(f"bad output tokens: {tokens[:8]}... ({len(tokens)})")
+
+    # -- each tenant against an engine on its merged weights ---------------
+    requests = list(zip(prompts, LORA_TENANTS)) + [
+        (prompts[0], tenant) for tenant in LORA_RERUNS]
+    ref_logits, ref_out, checks = ([None] * len(requests) for _ in range(3))
+    base_shared = None
+    for tenant in ("t1", "t2", ""):
+        index = [i for i, (_, a) in enumerate(requests) if a == tenant]
+        mine = [requests[i][0] for i in index]
+        if not tenant:
+            mine.append(prompts[0])   # the base stream of the shared prompt
+        merged = merge_lora(params, adapters[tenant]) if tenant else params
+        lg, ro = _merged_reference(config, merged, seed, mine)
+        for i, j in enumerate(index):
+            ref_logits[j], ref_out[j] = lg[i], ro[i]
+            checks[j] = _stream_check(config, merged, requests[j][0],
+                                      out[j], ro[i])
+        if not tenant:
+            base_shared = ro[-1]
+        del merged
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel_err, first_same, share = _compare(logits, out, ref_logits, ref_out)
+    # the 600-token prompt under t1 (the burst), t2 (the rerun) and base
+    shared = (out[0], out[len(LORA_TENANTS)], base_shared)
+    differ = len({tuple(s) for s in shared}) == 3
+    result = {
+        "phase": "lora", "model": "llama3-8b", "layers": config.n_layers,
+        "card": card, "requests": len(out),
+        "tenants": [a for _, a in requests],
+        "prompt_lens": [len(p) for p, _ in requests],
+        "max_new_tokens": MAX_NEW, "load_s": load_s, "serve_s": serve_s,
+        "launches": launches, "adapter_loads": stats["adapter_loads"],
+        "adapter_live": stats["adapter_live"],
+        "attn_kernel_ticks": stats["attn_kernel_ticks"],
+        "prefill_kernel_chunks": stats["prefill_kernel_chunks"],
+        "burst_prefix_cached_tokens": cached[0],
+        "rerun_prefix_cached_tokens": dict(zip(LORA_RERUNS, rerun_cached)),
+        "ttft_p50_s": stats.get("ttft_p50_s"),
+        "decode_tick_p50_s": stats.get("decode_tick_p50_s"),
+        "itl_p50_s": stats.get("itl_p50_s"),
+        "serve_ttft_p50_s": (serve or {}).get("ttft_p50_s"),
+        "serve_decode_tick_p50_s": (serve or {}).get("decode_tick_p50_s"),
+        "vs_merged_first_logits_max_rel_err": rel_err,
+        "first_logits_rel_tol": LOGIT_REL_TOL,
+        "vs_merged_first_tokens_identical": first_same,
+        "vs_merged_greedy_token_share_identical": share,
+        "tenant_streams_differ": differ, "streams": checks,
+    }
+    emit(result)
+    if not rel_err <= LOGIT_REL_TOL:
+        fail(f"lora: first-token logits vs the merged-weight engines, max "
+             f"relative error {rel_err} > {LOGIT_REL_TOL}")
+    if not differ:
+        fail("lora: the t1, t2 and base streams of the 600-token prompt do "
+             "not all differ")
+    for i, row in enumerate(checks):
+        if row["tie_at_departure_rel"] is not None \
+                and not row["tie_at_departure_rel"] <= SPEC_REL_TOL:
+            fail(f"lora, stream {i}: departs from its merged-weight engine "
+                 f"at token {row['identical_prefix']} where the two tokens "
+                 f"are {row['tie_at_departure_rel']} apart")
+        if not row["worst_argmax_gap_rel"] <= SPEC_REL_TOL:
+            fail(f"lora, stream {i}: emitted a token "
+                 f"{row['worst_argmax_gap_rel']} below its merged weights' "
+                 "argmax")
+    del params, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**result, "speculation": _lora_spec_leg(seed, card, prompts)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: train Llama-3.2-1B through the port's Trainer
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 6
@@ -1774,6 +2060,97 @@ def phase_train(seed: int, card: str) -> dict:
             fail(f"step 1 float32 gradient of {name}: kernel vs reference "
                  f"attention relative error {f32_leaf_rel[name]} > "
                  f"{TRAIN_F32_LEAF_REL_TOL}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**result, "lora": _train_lora_leg(seed, card, config,
+                                              (tokens, targets))}
+
+
+# the LoRA leg: rank 16 on the default targets over a frozen base, a few
+# steps on the same repeated batch (no warmup: at step 0 the adapter's B
+# is zero, so only a nonzero learning rate moves it)
+LORA_TRAIN_STEPS, LORA_TRAIN_RANK, LORA_TRAIN_LR = 3, 16, 5e-3
+
+
+def _train_lora_leg(seed: int, card: str, config, batch) -> dict:
+    """LoRA training of Llama-3.2-1B through Trainer.fit: the loss is
+    finite and falls, the base params' checksum does not move, and the
+    flash forward and backward launch once a layer a pass (dq, dk and dv
+    still flow to the adapters on wq, wk and wv)."""
+    import math
+
+    import torch
+
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training import TrainConfig, Trainer
+    from mlrun_tpu_torch.training.train import tree_leaves
+
+    def repeated():
+        while True:
+            yield batch
+
+    trainer = Trainer(config, TrainConfig(
+        learning_rate=LORA_TRAIN_LR, warmup_steps=0,
+        total_steps=LORA_TRAIN_STEPS, loss_chunk=LOSS_CHUNK,
+        lora_rank=LORA_TRAIN_RANK), device="cuda")
+    trainer.init(seed)
+
+    def checksum():
+        with torch.no_grad():
+            return [float(leaf.double().sum())
+                    for leaf in tree_leaves(trainer.state.params)]
+
+    base_sum = checksum()
+    warm = trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    # the LoRA leg's path, counted: every count reset right before it
+    _build.reset_launch_counts()
+    trainer.fit(repeated(), LORA_TRAIN_STEPS, log_every=1, prefetch=2)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    history = trainer.metrics_history
+    losses = [view["loss"] for view in history]
+    per_pass = config.n_layers * LORA_TRAIN_STEPS
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    unchanged = checksum() == base_sum
+    trained = sum(leaf.numel() for leaf in tree_leaves(trainer.state.lora))
+    b_max = max(float(parts["lora_b"].detach().abs().max())
+                for parts in trainer.state.lora.values())
+    last = history[-1]
+    result = {
+        "phase": "train", "leg": "lora", "model": "llama3-1b",
+        "layers": config.n_layers, "card": card, "rank": LORA_TRAIN_RANK,
+        "trained_params": trained, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": LORA_TRAIN_STEPS, "learning_rate": LORA_TRAIN_LR,
+        "losses": losses,
+        "grad_norms": [view["grad_norm"] for view in history],
+        "step_ms": TRAIN_BATCH * TRAIN_SEQ / last["tokens_per_sec"] * 1e3,
+        "tokens_per_sec": last["tokens_per_sec"], "mfu": last["mfu"],
+        "compile_seconds": warm["compile_seconds"],
+        "peak_memory_gib": peak_gb, "launches": launches,
+        "expected_launches": want, "base_checksum_unchanged": unchanged,
+        "lora_b_max_abs": b_max,
+    }
+    emit(result)
+    del trainer
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"LoRA training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"LoRA training: the loss did not fall: {losses}")
+    if not unchanged:
+        fail("LoRA training moved the frozen base params")
+    if not b_max > 0:
+        fail("LoRA training left every B factor at zero")
+    for name, count in want.items():
+        if launches[name] != count:
+            fail(f"kernel {name} launched {launches[name]} times on the "
+                 f"LoRA train path, expected {count}")
+    for name, count in launches.items():
+        if name not in TRAINING_KERNELS and count != 0:
+            fail(f"serving kernel {name} was launched on the LoRA train "
+                 "path")
     return result
 
 
@@ -1782,7 +2159,7 @@ def phase_train(seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
-              "serve_dense", "train")
+              "serve_dense", "lora", "train")
 
 
 def main(argv=None) -> int:
@@ -1819,7 +2196,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     card = gpu_name_and_limit()
-    kernels, launches, served = [], {}, None
+    kernels, launches, served, serve_native = [], {}, None, None
     if "build" in phases:
         phase_build(card)
     if "kernels" in phases:
@@ -1829,6 +2206,8 @@ def main(argv=None) -> int:
         served = phase_serve(args.seed, card)
         launches.update({name: served["launches"][name]
                          for name in SERVING_KERNELS})
+        serve_native = {key: served[key]
+                        for key in ("ttft_p50_s", "decode_tick_p50_s")}
         release()
     if "serve_int8" in phases:
         served = phase_serve(args.seed, card, "int8", native=served)
@@ -1842,6 +2221,9 @@ def main(argv=None) -> int:
         release()
     if "serve_dense" in phases:
         phase_serve_dense(args.seed, card)
+        release()
+    if "lora" in phases:
+        phase_lora(args.seed, card, serve_native)
         release()
     if "train" in phases:
         trained = phase_train(args.seed, card)

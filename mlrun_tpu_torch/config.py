@@ -1,7 +1,7 @@
 """Configuration defaults the port reads — copies of the ``serving.llm``
-and ``training`` blocks of ``mlrun_tpu/config.py`` (the knobs the paged
-engine's and the trainer's main paths consult; the rest of those blocks
-belongs to features not ported yet)."""
+and ``training`` blocks of ``mlrun_tpu/config.py`` (the knobs the
+engines', the adapter registry's and the trainer's main paths consult;
+the rest of those blocks belongs to features not ported yet)."""
 
 from __future__ import annotations
 
@@ -37,6 +37,21 @@ SERVING_LLM_DEFAULTS = {
         "window": 32,
         # parked rows re-probe every N consulted rounds
         "probe_every": 16,
+    },
+    # multi-tenant LoRA serving; the engines' and LLMModelServer's
+    # adapter args override these
+    "adapters": {
+        # device-resident adapter working set per engine (bank slots
+        # beyond the base slot 0); pinning more distinct adapters in
+        # flight than this fails with AdapterCapacityError (429)
+        "max_live_adapters": 8,
+        # deserialized adapter trees kept on the host, so an
+        # evicted-then-reused adapter skips the artifact read
+        "host_cache": 16,
+        # per-tenant admission token bucket (requests/second + burst) in
+        # front of the shared queue; 0 = fairness limiter off
+        "rate": 0.0,
+        "burst": 8.0,
     },
 }
 

@@ -1,5 +1,5 @@
 """Model families of the port (Llama only so far; ROADMAP.md queues the
-others)."""
+others) and LoRA adapters for the Llama tree."""
 
 from .llama import (  # noqa: F401
     MODEL_PRESETS,
@@ -11,4 +11,14 @@ from .llama import (  # noqa: F401
     llama3_8b,
     permutation_pair,
     tiny_llama,
+)
+from .lora import (  # noqa: F401
+    DEFAULT_TARGETS,
+    LoraShapeError,
+    init_lora,
+    init_lora_nonzero,
+    lora_param_count,
+    lora_rank,
+    merge_lora,
+    validate_lora,
 )

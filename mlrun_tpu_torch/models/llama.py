@@ -11,8 +11,9 @@ weight converter (models/convert.py) is a straight copy: ``embedding``
 Training runs ``loss_fn`` (``hidden_states`` with per-layer activation
 checkpointing, the chunked cross-entropy head); every layer's attention
 goes through ``ops.attention.attention(impl=config.attention_impl)``, the
-port's flash kernels on CUDA. Serving runs ``serving/llm.py`` and
-``serving/paged.py``.
+port's flash kernels on CUDA. With ``lora=`` (models/lora.py) each
+adapted projection adds its low-rank delta in ``config.dtype``. Serving
+runs ``serving/llm.py`` and ``serving/paged.py``.
 """
 
 from __future__ import annotations
@@ -250,8 +251,9 @@ def lm_head(params: Params) -> torch.Tensor:
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b of two bf16 operands with float32 accumulation and a float32
     result: cuBLAS's float32-output product on CUDA (no float32 copy of
-    either operand); the same function through float32 copies elsewhere."""
-    if a.device.type == "cuda":
+    either operand); the same function through float32 copies elsewhere
+    (float32 operands: the plain product)."""
+    if a.device.type == "cuda" and a.dtype != torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
 
@@ -284,8 +286,10 @@ class _LogitsF32(torch.autograd.Function):
         del grad
         head_t, x_t = head.t(), x2d.t()
         dx = _mm_f32(hi, head_t).add_(_mm_f32(lo, head_t))
-        dhead = _mm_f32(x_t, hi).add_(_mm_f32(x_t, lo))
-        return dx.to(x2d.dtype), dhead.to(head.dtype)
+        dhead = None
+        if ctx.needs_input_grad[1]:  # a frozen head (LoRA) needs none
+            dhead = _mm_f32(x_t, hi).add_(_mm_f32(x_t, lo)).to(head.dtype)
+        return dx.to(x2d.dtype), dhead
 
 
 def logits_f32(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -329,29 +333,49 @@ def _remat_context(name: str):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _layer_body(config: LlamaConfig, x, lp, cos, sin):
+def _proj(h, w, lora, target):
+    """h @ w plus, where ``lora`` (one layer's adapter) adapts ``target``,
+    ``scaling * (h @ A) @ B`` — all in h's dtype, with the factors cast
+    to it (the reference's training form; serving adds its delta in
+    float32 instead)."""
+    out = h @ w
+    if lora is not None and target in lora:
+        parts = lora[target]
+        delta = (h @ parts["lora_a"].to(h.dtype)) @ parts["lora_b"].to(h.dtype)
+        out = out + parts["scaling"].to(h.dtype) * delta
+    return out
+
+
+def _layer_body(config: LlamaConfig, x, lp, cos, sin, lora=None):
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
-    q = (h @ lp["wq"]).reshape(b, s, config.n_heads, config.head_dim)
-    k = (h @ lp["wk"]).reshape(b, s, config.n_kv_heads, config.head_dim)
-    v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+    q = _proj(h, lp["wq"], lora, "wq").reshape(b, s, config.n_heads,
+                                               config.head_dim)
+    k = _proj(h, lp["wk"], lora, "wk").reshape(b, s, config.n_kv_heads,
+                                               config.head_dim)
+    v = _proj(h, lp["wv"], lora, "wv").reshape(b, s, config.n_kv_heads,
+                                               config.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attention(q, k, v, causal=True, impl=config.attention_impl)
-    x = x + attn.reshape(b, s, config.qkv_dim) @ lp["wo"]
+    x = x + _proj(attn.reshape(b, s, config.qkv_dim), lp["wo"], lora, "wo")
     h = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
-    return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    gate = _proj(h, lp["w_gate"], lora, "w_gate")
+    up = _proj(h, lp["w_up"], lora, "w_up")
+    return x + _proj(F.silu(gate) * up, lp["w_down"], lora, "w_down")
 
 
 def hidden_states(config: LlamaConfig, params: Params, tokens: torch.Tensor,
-                  positions: torch.Tensor | None = None) -> torch.Tensor:
+                  positions: torch.Tensor | None = None,
+                  lora: Params | None = None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden [B, S, E] (no lm head).
 
     With ``config.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant) with the ``remat_policy``'s
     saved set — the reference's per-layer ``jax.checkpoint``. The stacked
-    ``[L, ...]`` weights are unbound once, so their gradients are stacked
-    once instead of scattered per layer."""
+    ``[L, ...]`` weights (and the adapter's ``[L, ...]`` factors, passed
+    to each layer's checkpoint as inputs) are unbound once, so their
+    gradients are stacked once instead of scattered per layer."""
     x = params["embedding"][tokens].to(config.dtype)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -363,20 +387,29 @@ def hidden_states(config: LlamaConfig, params: Params, tokens: torch.Tensor,
         if context_fn is not None:
             kwargs["context_fn"] = context_fn
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    lora_layers = None
+    if lora is not None:
+        lora_layers = {target: {key: t.unbind(0) for key, t in parts.items()}
+                       for target, parts in lora.items()}
     for layer in range(config.n_layers):
         lp = {name: ws[layer] for name, ws in layers.items()}
+        ll = None
+        if lora_layers is not None:
+            ll = {target: {key: ts[layer] for key, ts in parts.items()}
+                  for target, parts in lora_layers.items()}
         if remat:
-            x = checkpoint(_layer_body, config, x, lp, cos, sin,
+            x = checkpoint(_layer_body, config, x, lp, cos, sin, ll,
                            use_reentrant=False, **kwargs)
         else:
-            x = _layer_body(config, x, lp, cos, sin)
+            x = _layer_body(config, x, lp, cos, sin, ll)
     return rms_norm(x, params["final_norm_scale"], config.norm_eps)
 
 
 def forward(config: LlamaConfig, params: Params, tokens: torch.Tensor,
-            positions: torch.Tensor | None = None) -> torch.Tensor:
+            positions: torch.Tensor | None = None,
+            lora: Params | None = None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] (f32)."""
-    x = hidden_states(config, params, tokens, positions=positions)
+    x = hidden_states(config, params, tokens, positions=positions, lora=lora)
     return logits_f32(x, lm_head(params))
 
 
@@ -431,10 +464,11 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
 
 def chunked_loss(config: LlamaConfig, params: Params, tokens: torch.Tensor,
                  targets: torch.Tensor, mask: torch.Tensor | None = None,
-                 chunk: int = 512) -> tuple[torch.Tensor, dict]:
+                 chunk: int = 512,
+                 lora: Params | None = None) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy through :func:`chunked_ce`; returns (loss,
     {"loss", "accuracy", "tokens"})."""
-    x = hidden_states(config, params, tokens)
+    x = hidden_states(config, params, tokens, lora=lora)
     loss, accuracy, total = chunked_ce(x, lm_head(params), targets,
                                        mask=mask, chunk=chunk)
     return loss, {"loss": loss, "accuracy": accuracy, "tokens": total}
@@ -442,14 +476,15 @@ def chunked_loss(config: LlamaConfig, params: Params, tokens: torch.Tensor,
 
 def loss_fn(config: LlamaConfig, params: Params, tokens: torch.Tensor,
             targets: torch.Tensor, mask: torch.Tensor | None = None,
-            loss_chunk: int = 0) -> tuple[torch.Tensor, dict]:
+            loss_chunk: int = 0,
+            lora: Params | None = None) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy; returns (loss, {"loss", "accuracy",
     "tokens"}). ``loss_chunk > 0`` uses the memory-efficient chunked head
-    (:func:`chunked_loss`)."""
+    (:func:`chunked_loss`); ``lora`` adds an adapter's deltas."""
     if loss_chunk:
         return chunked_loss(config, params, tokens, targets, mask=mask,
-                            chunk=loss_chunk)
-    logits = forward(config, params, tokens)
+                            chunk=loss_chunk, lora=lora)
+    logits = forward(config, params, tokens, lora=lora)
     log_probs = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(log_probs, -1, targets[..., None].long())[..., 0]
     if mask is None:

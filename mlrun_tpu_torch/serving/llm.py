@@ -13,6 +13,11 @@ The int8 KV cache (``kv_dtype="int8"``) stores k/v per vector as int8
 with float32 scales, quantized by :func:`_quantize_kv` to the reference's
 bits.
 
+Multi-tenant LoRA: with an adapter bank (serving/adapters.py) every
+projection of the engines' forwards adds each row's own low-rank delta
+in float32 (:func:`_lora_rows`, :func:`_proj`), the reference's
+``_lora_delta``; the attention routes are the same with or without it.
+
 ``LLMEngine`` generates one prompt (or an equal-length batch) at a time:
 a bucket-padded prefill, then greedy decode in chunks of dense 1-token
 steps with one host read per chunk. ``LLMModelServer`` serves through it
@@ -31,12 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SERVING_LLM_DEFAULTS
-from ..models.llama import LlamaConfig, Params, lm_head, logits_f32
+from ..models.llama import LlamaConfig, Params, _mm_f32, lm_head, logits_f32
 from ..ops.attention import NEG_INF
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
 from ..utils import logger
-from .adapters import UnknownAdapterError
+from .adapters import UnknownAdapterError, build_registry
 from .resilience import PromptTooLongError, not_ported
 
 
@@ -142,12 +147,109 @@ def _cached_attention_lse(config, q, k_cache, v_cache, q_positions, k_lo):
     return o, m_max + torch.log(denom)
 
 
+def _gather_rows(lora_target: dict, adapter_ids: torch.Tensor):
+    """One target's bank factors for each batch row, all layers: (A rows
+    [B, L, in, r], scaling * B rows [B, L, r, out]), float32, by the
+    per-row slot ids ``adapter_ids`` [B] (a device tensor, never read
+    back). The per-row scaling is folded into B here, once."""
+    ids = adapter_ids.long()
+    scaling = lora_target["scaling"].index_select(0, ids)       # [B, L]
+    return (lora_target["lora_a"].index_select(0, ids),
+            lora_target["lora_b"].index_select(0, ids)
+            * scaling[:, :, None, None])
+
+
+def _lora_rows(lora: Optional[dict], adapter_ids) -> Optional[dict]:
+    """Every target's factors gathered for the batch rows once per
+    dispatch (:func:`_gather_rows`), ``{target: (A rows, scaled B
+    rows)}``; a layer then takes views of them instead of gathering
+    again. ``adapter_ids`` None: ``lora`` is such rows already and is
+    returned as is."""
+    if lora is None or adapter_ids is None:
+        return lora
+    return {target: _gather_rows(parts, adapter_ids)
+            for target, parts in lora.items()}
+
+
+def _lora_delta(h_in: torch.Tensor, lora_target: dict, layer: int,
+                adapter_ids: torch.Tensor) -> torch.Tensor:
+    """Per-row low-rank delta for one projection, in float32: each batch
+    row takes its OWN (A, B, scaling) from the stacked adapter bank
+    (serving/adapters.py AdapterBank) by its slot index ``adapter_ids``
+    [B]; rows on slot 0 (base model / padding) hit all-zero factors, a
+    zero delta. ``h_in`` [B, S, in] is promoted to float32, as the
+    reference's einsum of a bf16 activation with float32 factors is.
+    (The forwards add the same delta fused into their projections,
+    :func:`_proj`.)"""
+    a, bb = _gather_rows(lora_target, adapter_ids)
+    return torch.bmm(torch.bmm(h_in.float(), a[:, layer]), bb[:, layer])
+
+
+def _proj(h: torch.Tensor, w: torch.Tensor, rows: Optional[dict] = None,
+          target: str = "", layer: int = 0,
+          h32: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A projection h [B, S, in] @ w [in, out]. Without adapters
+    (``rows`` None) the plain product in h's dtype. With a bank's rows
+    (:func:`_lora_rows`) the reference's form for every row, base-slot
+    rows included: the base product with a float32 result, plus the
+    float32 delta where ``target`` is adapted (``(h @ A) @ (scaling *
+    B)``, its add fused into the second product), cast to h's dtype
+    once. ``h32`` is h in float32, when the caller has it."""
+    if rows is None:
+        return h @ w
+    b, s, e = h.shape
+    out = _mm_f32(h.reshape(b * s, e), w).reshape(b, s, w.shape[-1])
+    if target in rows:
+        a, bb = rows[target]
+        h32 = h.float() if h32 is None else h32
+        out = torch.baddbmm(out, torch.bmm(h32, a[:, layer]), bb[:, layer])
+    return out.to(h.dtype)
+
+
+def _f32_if_adapted(h: torch.Tensor, rows: Optional[dict], targets):
+    """h in float32 when one of ``targets`` is adapted (shared by the
+    projections that read h), else None."""
+    if rows and any(target in rows for target in targets):
+        return h.float()
+    return None
+
+
+def _qkv(config: LlamaConfig, h: torch.Tensor, lp: dict,
+         rows: Optional[dict] = None, layer: int = 0):
+    """The q/k/v projections of one layer: [B, S, H|Hkv, D] each (the
+    float32 copy of h made once for the three adapted products)."""
+    b, s, _ = h.shape
+    h32 = _f32_if_adapted(h, rows, ("wq", "wk", "wv"))
+    q = _proj(h, lp["wq"], rows, "wq", layer, h32)
+    k = _proj(h, lp["wk"], rows, "wk", layer, h32)
+    v = _proj(h, lp["wv"], rows, "wv", layer, h32)
+    return (q.reshape(b, s, config.n_heads, config.head_dim),
+            k.reshape(b, s, config.n_kv_heads, config.head_dim),
+            v.reshape(b, s, config.n_kv_heads, config.head_dim))
+
+
+def _out_and_mlp(config: LlamaConfig, x: torch.Tensor, attn: torch.Tensor,
+                 lp: dict, rows: Optional[dict] = None,
+                 layer: int = 0) -> torch.Tensor:
+    """The rest of a layer after its attention: the output projection
+    into the residual, then the SwiGLU MLP block."""
+    b, s, _ = x.shape
+    x = x + _proj(attn.reshape(b, s, config.qkv_dim), lp["wo"], rows, "wo",
+                  layer)
+    h = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
+    h32 = _f32_if_adapted(h, rows, ("w_gate", "w_up"))
+    gate = _proj(h, lp["w_gate"], rows, "w_gate", layer, h32)
+    up = _proj(h, lp["w_up"], rows, "w_up", layer, h32)
+    return x + _proj(F.silu(gate) * up, lp["w_down"], rows, "w_down", layer)
+
+
 def _forward_with_cache(config: LlamaConfig, params: Params,
                         tokens: torch.Tensor, cache: dict,
                         prefix_kv: Optional[dict] = None,
                         all_logits: bool = False,
                         attn_impl: str = "dense",
-                        page_size: int = 0, start: int | None = None):
+                        page_size: int = 0, start: int | None = None,
+                        lora: Optional[dict] = None, adapter_ids=None):
     """Run tokens [B, S] starting at ``cache['pos']`` (uniform over the
     batch); returns (logits, cache). Logits are [B, vocab] f32 for the last
     position, or [B, S, vocab] with ``all_logits``. ``start`` is the
@@ -174,7 +276,13 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
     cached prefix is attended in place through the page ids by the paged
     prefill kernel and LSE-merged with the local attention over the suffix
     rows, so a hit never gathers the prefix densely (``page_size`` is the
-    pool's page size)."""
+    pool's page size).
+
+    ``lora``/``adapter_ids`` add batched multi-tenant LoRA: ``lora`` is
+    the stacked adapter bank (``{target: {lora_a: [S, L, in, r], ...}}``)
+    and ``adapter_ids`` [B] selects each row's bank slot (0 = base
+    model); every projection then takes :func:`_proj`'s float32 form.
+    Without a bank the projections are the plain products."""
     from ..ops.attention import (
         _flash_fwd_v2_cached_bounded,
         flash_attention_cached,
@@ -196,13 +304,12 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
     pool_scales = (("k_scale", "v_scale")
                    if prefix_kv is not None and "k_scale" in prefix_kv
                    else ())
+    rows = _lora_rows(lora, adapter_ids)
 
     for layer in range(config.n_layers):
         lp = {name: w[layer] for name, w in params["layers"].items()}
         h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
-        q = (h @ lp["wq"]).reshape(b, s, config.n_heads, config.head_dim)
-        k = (h @ lp["wk"]).reshape(b, s, config.n_kv_heads, config.head_dim)
-        v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        q, k, v = _qkv(config, h, lp, rows, layer)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if quantized:
@@ -246,9 +353,7 @@ def _forward_with_cache(config: LlamaConfig, params: Params,
         else:
             attn = _cached_attention(config, q, k_attn, v_attn, positions,
                                      max_len)
-        x = x + attn.reshape(b, s, config.qkv_dim) @ lp["wo"]
-        h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
-        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+        x = _out_and_mlp(config, x, attn, lp, rows, layer)
 
     x = rms_norm(x, params["final_norm_scale"], config.norm_eps)
     logits = logits_f32(x if all_logits else x[:, -1], lm_head(params))
@@ -267,10 +372,10 @@ class LLMEngine:
     loop of dispatches here.
 
     ``device`` defaults to the GPU (and raises without one); pass
-    ``device="cpu"`` for the plain paths. Multi-tenant adapters are not
-    ported yet (ROADMAP.md item 3): a request naming one fails with
-    ``UnknownAdapterError`` (404), as on a reference engine without an
-    adapter registry."""
+    ``device="cpu"`` for the plain paths. ``adapters`` (a sources dict or
+    a shared ``AdapterRegistry``) serves named LoRA adapters per request
+    or per batch row; without it a request naming one fails with
+    ``UnknownAdapterError`` (404), as on the reference's engine."""
 
     def __init__(self, config: LlamaConfig, params: Params,
                  max_len: int = 2048, batch: int = 1,
@@ -278,11 +383,9 @@ class LLMEngine:
                  temperature: float = 0.0, kv_dtype: str = "native",
                  top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                  attention_impl: str | None = None, adapters=None,
-                 device=None):
+                 max_live_adapters: int | None = None, device=None):
         from ..ops.attention import resolve_prefill_impl
 
-        if adapters is not None:
-            raise not_ported("LLMEngine adapters", 3)
         self.config = config
         self.params = params
         self.max_len = max_len
@@ -306,6 +409,9 @@ class LLMEngine:
         # flash prefill; decode stays dense — a 1-token q gains nothing
         # from blockwise streaming
         self.prefill_impl = resolve_prefill_impl(attention_impl, self.device)
+        # multi-tenant LoRA: named adapters resolved per request / row
+        self._adapters = build_registry(config, adapters, max_live_adapters,
+                                        self.device)
         if self.prefill_impl == "flash":
             from ..ops import _build
 
@@ -317,23 +423,38 @@ class LLMEngine:
         return init_kv_cache(self.config, self.batch, self.max_len,
                              kv_dtype=self.kv_dtype, device=self.device)
 
-    def _prefill(self, tokens: torch.Tensor, cache: dict):
-        return _forward_with_cache(self.config, self.params, tokens, cache,
-                                   attn_impl=self.prefill_impl)
+    def _lora_kwargs(self, slots=None) -> dict:
+        """The forward kwargs that thread the adapter bank and per-row slot
+        ids (one per batch row: an int or a [batch] array; default every
+        row on the base slot 0) into a dispatch; {} without a registry."""
+        if self._adapters is None:
+            return {}
+        ids = np.broadcast_to(np.asarray(0 if slots is None else slots,
+                                         np.int32), (self.batch,))
+        return {"lora": self._adapters.bank.tensors,
+                "adapter_ids": torch.as_tensor(ids.copy(),
+                                               device=self.device)}
 
-    def _decode(self, tokens: torch.Tensor, cache: dict, start: int):
+    def _prefill(self, tokens: torch.Tensor, cache: dict, **lora_kw):
+        return _forward_with_cache(self.config, self.params, tokens, cache,
+                                   attn_impl=self.prefill_impl, **lora_kw)
+
+    def _decode(self, tokens: torch.Tensor, cache: dict, start: int,
+                **lora_kw):
         """One dense decode step of tokens [batch, 1] at ``start``."""
         return _forward_with_cache(self.config, self.params, tokens, cache,
-                                   start=start)
+                                   start=start, **lora_kw)
 
     def _decode_n(self, token: torch.Tensor, cache: dict, n: int,
-                  start: int):
+                  start: int, lora=None, adapter_ids=None):
         """``n`` greedy steps from ``token`` [batch, 1] at ``start``, the
-        argmax kept on the device (the reference's ``lax.scan``). Returns
+        argmax kept on the device (the reference's ``lax.scan``); the
+        rows' adapter factors are gathered once for all ``n``. Returns
         (tokens [n, batch] int32 on the device, cache)."""
+        rows = _lora_rows(lora, adapter_ids)
         out = []
         for i in range(n):
-            logits, cache = self._decode(token, cache, start + i)
+            logits, cache = self._decode(token, cache, start + i, lora=rows)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(nxt)
             token = nxt[:, None].long()
@@ -354,16 +475,18 @@ class LLMEngine:
         ahead of traffic, so the first request pays for no kernel build or
         library initialisation."""
         started = time.perf_counter()
+        kw = self._lora_kwargs()
         for bucket in self.prefill_buckets:
             cache = self._new_cache()
             self._prefill(torch.zeros((self.batch, bucket), dtype=torch.long,
-                                      device=self.device), cache)
+                                      device=self.device), cache, **kw)
         step = torch.zeros((self.batch, 1), dtype=torch.long,
                            device=self.device)
         cache = self._new_cache()
-        self._decode(step, cache, 0)
+        self._decode(step, cache, 0, **kw)
         tokens, _ = self._decode_n(step, cache,
-                                   min(self.decode_chunk, self.max_len), 0)
+                                   min(self.decode_chunk, self.max_len), 0,
+                                   **kw)
         tokens.cpu()  # host read = a real sync
         logger.info("llm engine warm", buckets=list(self.prefill_buckets),
                     warmup_s=round(time.perf_counter() - started, 2))
@@ -379,24 +502,35 @@ class LLMEngine:
                  eos_id: int | None = None, adapter: str = "",
                  request_key=None) -> tuple[list[int], dict]:
         """Greedy/temperature generation for a single prompt (every batch
-        row carries it); returns (tokens, timing stats). ``request_key``
-        only steers the reference's canary split between adapters, so it
-        is accepted and ignored without one."""
+        row carries it); returns (tokens, timing stats). ``adapter`` names
+        a registry adapter applied to every row (a typed 404 when
+        unknown). ``request_key`` only steers the reference's canary split
+        between adapters, so it is accepted and ignored without one."""
         prompt = np.asarray(prompt_tokens, dtype=np.int64).reshape(1, -1)
         prompt_len = prompt.shape[1]
         if prompt_len + max_new_tokens > self.max_len:
             raise PromptTooLongError(
                 f"prompt_len {prompt_len} + max_new_tokens "
                 f"{max_new_tokens} exceeds max_len {self.max_len}")
-        if adapter:
+        if adapter and self._adapters is None:
             raise UnknownAdapterError(
                 f"engine has no adapter registry (adapter='{adapter}')")
         bucket = self._bucket_for(prompt_len)
         padded = np.zeros((self.batch, bucket), np.int64)
         padded[:, :prompt_len] = prompt
         t0 = time.perf_counter()
-        out_tokens, ttft, t1 = self._generate_inner(
-            prompt, prompt_len, bucket, padded, max_new_tokens, eos_id, t0)
+        kw = {}
+        if self._adapters is not None:
+            self._adapters.pin(adapter)
+        try:
+            if self._adapters is not None:
+                kw = self._lora_kwargs(self._adapters.ensure_loaded(adapter))
+            out_tokens, ttft, t1 = self._generate_inner(
+                prompt, prompt_len, bucket, padded, max_new_tokens, eos_id,
+                t0, kw)
+        finally:
+            if self._adapters is not None:
+                self._adapters.unpin(adapter)
         decode_time = time.perf_counter() - t1
         stats = {
             "ttft_s": ttft,
@@ -407,36 +541,46 @@ class LLMEngine:
         }
         return out_tokens, stats
 
+    # -- adapter source lifecycle -------------------------------------------
     def add_adapter_source(self, name: str, source):
-        raise not_ported("LLMEngine adapters", 3)
+        if self._adapters is None:
+            raise ValueError(
+                "engine has no adapter registry (build it with "
+                "adapters=... to hot-load adapters)")
+        self._adapters.add_source(name, source)
 
     def retire_adapter(self, name: str, keep_source: bool = False):
-        raise not_ported("LLMEngine adapters", 3)
+        if self._adapters is not None:
+            self._adapters.retire(name, keep_source=keep_source)
 
     def _prefill_prompt(self, padded: np.ndarray, last: np.ndarray,
-                        prompt_len: int, bucket: int):
+                        prompt_len: int, bucket: int,
+                        kw: dict | None = None):
         """The bucket-padded prefill, then ``pos`` rewinds to the prompt:
         unless the prompt fills its bucket, a 1-token dense replay of the
         last prompt token (``last`` [batch, 1]) at ``prompt_len - 1`` gives
-        the first logits. Returns (logits [batch, vocab], cache)."""
+        the first logits. ``kw`` carries the rows' adapters. Returns
+        (logits [batch, vocab], cache)."""
+        kw = kw or {}
         cache = self._new_cache()
         logits, cache = self._prefill(
-            torch.as_tensor(padded, device=self.device), cache)
+            torch.as_tensor(padded, device=self.device), cache, **kw)
         if prompt_len != bucket:
             cache["pos"] = torch.full((self.batch,), prompt_len - 1,
                                       dtype=torch.int32, device=self.device)
             logits, cache = self._decode(
                 torch.as_tensor(last, device=self.device), cache,
-                prompt_len - 1)
+                prompt_len - 1, **kw)
         else:
             cache["pos"] = torch.full((self.batch,), prompt_len,
                                       dtype=torch.int32, device=self.device)
         return logits, cache
 
     def _generate_inner(self, prompt, prompt_len, bucket, padded,
-                        max_new_tokens, eos_id, t0):
+                        max_new_tokens, eos_id, t0, kw):
         logits, cache = self._prefill_prompt(
-            padded, prompt[:, -1:].repeat(self.batch, 0), prompt_len, bucket)
+            padded, prompt[:, -1:].repeat(self.batch, 0), prompt_len, bucket,
+            kw)
         next_token = self._sample(logits)
         out_tokens = [int(next_token[0])]
         ttft = time.perf_counter() - t0
@@ -450,7 +594,7 @@ class LLMEngine:
                     break
                 step = torch.full((self.batch, 1), out_tokens[-1],
                                   dtype=torch.long, device=self.device)
-                logits, cache = self._decode(step, cache, pos)
+                logits, cache = self._decode(step, cache, pos, **kw)
                 pos += 1
                 out_tokens.append(int(self._sample(logits)[0]))
         else:
@@ -464,7 +608,7 @@ class LLMEngine:
                 step = torch.full((self.batch, 1), out_tokens[-1],
                                   dtype=torch.long, device=self.device)
                 tokens, cache = self._decode_n(step, cache,
-                                               self.decode_chunk, pos)
+                                               self.decode_chunk, pos, **kw)
                 pos += self.decode_chunk
                 chunk = tokens[:, 0].cpu().tolist()[:remaining]
                 if eos_id is not None and eos_id in chunk:
@@ -478,8 +622,11 @@ class LLMEngine:
                        adapters: list | None = None) -> tuple[list, dict]:
         """Batched greedy generation for EQUAL-LENGTH prompts (one decode
         chunk serves the whole batch). Mixed lengths, and sampled
-        decoding, fall back to a per-prompt loop. The engine must be built
-        with ``batch >= len(prompts)``."""
+        decoding, fall back to a per-prompt loop. ``adapters`` gives one
+        registry adapter name per prompt ("" = base): each row applies its
+        own delta inside the shared dispatch, and padding rows ride the
+        base slot. The engine must be built with ``batch >=
+        len(prompts)``."""
         n = len(prompts)
         if n == 0:
             return [], {"ttft_s": 0.0, "decode_tokens_per_sec": 0.0,
@@ -490,15 +637,19 @@ class LLMEngine:
         if adapters is not None and len(adapters) != n:
             raise ValueError(
                 f"adapters has {len(adapters)} entries for {n} prompts")
-        if adapters is not None and any(adapters):
-            raise not_ported("LLMEngine adapters", 3)
+        row_adapters = list(adapters or [""] * n)
+        if any(row_adapters) and self._adapters is None:
+            raise UnknownAdapterError(
+                "engine has no adapter registry "
+                f"(adapters={sorted(set(filter(None, row_adapters)))})")
         lengths = {len(p) for p in prompts}
         if len(lengths) > 1 or (self.temperature and self.temperature > 0):
             outs = []
             started = time.perf_counter()
             first_ttft = None
-            for prompt in prompts:
-                tokens, stats = self.generate(prompt, max_new_tokens, eos_id)
+            for prompt, row_adapter in zip(prompts, row_adapters):
+                tokens, stats = self.generate(prompt, max_new_tokens, eos_id,
+                                              adapter=row_adapter)
                 outs.append(tokens)
                 first_ttft = first_ttft if first_ttft is not None \
                     else stats["ttft_s"]
@@ -518,8 +669,24 @@ class LLMEngine:
         for i, prompt in enumerate(prompts):
             padded[i, :prompt_len] = prompt
         t0 = time.perf_counter()
-        out, ttft, t1, generated = self._generate_batch_inner(
-            n, prompt_len, bucket, padded, max_new_tokens, eos_id, t0)
+        kw = {}
+        pinned = []
+        try:
+            if self._adapters is not None:
+                # every row's adapter pinned for the whole batched
+                # dispatch; padding rows (>= n) stay on the base slot 0
+                slots = np.zeros((self.batch,), np.int32)
+                for i, row_adapter in enumerate(row_adapters):
+                    self._adapters.pin(row_adapter)
+                    pinned.append(row_adapter)
+                    slots[i] = self._adapters.ensure_loaded(row_adapter)
+                kw = self._lora_kwargs(slots)
+            out, ttft, t1, generated = self._generate_batch_inner(
+                n, prompt_len, bucket, padded, max_new_tokens, eos_id, t0,
+                kw)
+        finally:
+            for row_adapter in pinned:
+                self._adapters.unpin(row_adapter)
         decode_time = time.perf_counter() - t1
         stats = {
             "ttft_s": ttft,
@@ -530,9 +697,10 @@ class LLMEngine:
         return out, stats
 
     def _generate_batch_inner(self, n, prompt_len, bucket, padded,
-                              max_new_tokens, eos_id, t0):
+                              max_new_tokens, eos_id, t0, kw):
         logits, cache = self._prefill_prompt(
-            padded, padded[:, prompt_len - 1:prompt_len], prompt_len, bucket)
+            padded, padded[:, prompt_len - 1:prompt_len], prompt_len, bucket,
+            kw)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [[int(t)] for t in next_token.cpu().tolist()[:n]]
         ttft = time.perf_counter() - t0
@@ -552,7 +720,7 @@ class LLMEngine:
                 break
             tokens, cache = self._decode_n(
                 step, cache, self.decode_chunk,
-                prompt_len + generated_so_far - 1)
+                prompt_len + generated_so_far - 1, **kw)
             chunk = tokens.cpu().numpy()  # [chunk, batch]
             take = min(self.decode_chunk, remaining)
             for i in range(n):
@@ -581,9 +749,12 @@ class LLMModelServer:
     class args: model_preset, max_len, max_new_tokens, continuous_batching,
     paged, slots, kv_dtype (native | int8), page_size, n_pages,
     prefill_chunk, prefix_cache, attention_impl, speculative (True |
-    {"draft": preset, "k": ...} | None; the batching engines), temperature,
-    top_k, top_p, warmup, seed, device (default: the GPU; ``"cpu"`` runs
-    the plain paths). The reference's other features raise
+    {"draft": preset, "k": ...} | None; the batching engines), adapters
+    (named LoRA sources: tree | local .npz path | callable; a v2 body's
+    ``"adapter"`` picks one), max_live_adapters, adapter_rate and
+    adapter_burst (the batching engines' per-tenant token bucket),
+    temperature, top_k, top_p, warmup, seed, device (default: the GPU;
+    ``"cpu"`` runs the plain paths). The reference's other features raise
     ``NotImplementedError`` naming their ROADMAP.md item.
     """
 
@@ -608,6 +779,9 @@ class LLMModelServer:
                          replicas: int = 0, prefill_replicas: int = 0,
                          routing: str | None = None,
                          adapters: dict | None = None,
+                         max_live_adapters: int | None = None,
+                         adapter_rate: float | None = None,
+                         adapter_burst: float | None = None,
                          request_ledger: bool | None = None,
                          speculative: dict | bool | None = None,
                          seed: int = 0, device=None, **kw):
@@ -620,7 +794,6 @@ class LLMModelServer:
                     "request_ledger": (request_ledger, 2),
                     "replicas/prefill_replicas/routing": (
                         replicas >= 2 or prefill_replicas or routing, 6),
-                    "adapters": (adapters, 3),
                 }
                 for what, (value, item) in unported.items():
                     if value:
@@ -646,6 +819,12 @@ class LLMModelServer:
                 # "k": ...} enables a resident draft model; None leaves it
                 # to the config defaults (off)
                 self.speculative = speculative
+                # multi-tenant LoRA: named adapter sources, handed to
+                # every engine kind
+                self.adapters = adapters
+                self.max_live_adapters = max_live_adapters
+                self.adapter_rate = adapter_rate
+                self.adapter_burst = adapter_burst
                 self.seed = seed
                 self.device = default_device(device)
                 self.engine = None
@@ -667,6 +846,8 @@ class LLMModelServer:
                         temperature=self.temperature, top_k=self.top_k,
                         top_p=self.top_p, kv_dtype=self.kv_dtype,
                         attention_impl=self.attention_impl, seed=self.seed,
+                        adapters=self.adapters,
+                        max_live_adapters=self.max_live_adapters,
                         device=self.device)
                     if self._warmup:
                         self.engine.warmup()
@@ -678,7 +859,11 @@ class LLMModelServer:
                     max_queue_size=self.max_queue_size,
                     prefill_chunk=self.prefill_chunk,
                     attention_impl=self.attention_impl, seed=self.seed,
-                    speculative=self._speculative_conf(), device=self.device)
+                    speculative=self._speculative_conf(),
+                    adapters=self.adapters,
+                    max_live_adapters=self.max_live_adapters,
+                    adapter_rate=self.adapter_rate,
+                    adapter_burst=self.adapter_burst, device=self.device)
                 if self.paged:
                     from .paged import PagedContinuousBatchingEngine
 
@@ -726,7 +911,7 @@ class LLMModelServer:
             def predict(self, request):
                 # v2 body tenant id ({"inputs": [...], "adapter": "t1"}) and
                 # canary key, threaded to the engine as the reference does;
-                # without an adapter registry a named adapter fails 404
+                # an adapter no source provides fails 404
                 adapter = request.get("adapter", "") or ""
                 request_key = request.get("request_key") or None
                 # {"timing": true} returns the request ledger's breakdown

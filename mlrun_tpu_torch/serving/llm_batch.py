@@ -18,9 +18,13 @@ Speculative decoding is the engines' shared policy: a resident draft
 model (on a dense slot cache, through ``_decode_rowwise``) proposes up to
 k tokens per row per tick, one multi-token verify forward checks them
 (``_verify_rowwise`` here, the page-pool verify in the paged engine), and
-each row commits its accepted prefix. The request ledger, ``max_wait``
-expiry, the degradation ladder, adapters and KV handoff are not ported
-yet (ROADMAP.md).
+each row commits its accepted prefix.
+
+Multi-tenant LoRA: with ``adapters`` every request may name an adapter of
+the engine's registry (serving/adapters.py); the admission prefill runs
+under its bank slot and each decode or verify dispatch gathers every
+row's factors by its slot. The request ledger, ``max_wait`` expiry, the
+degradation ladder and KV handoff are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,17 +41,26 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import SERVING_LLM_DEFAULTS
 from ..models.llama import LlamaConfig, Params, lm_head, logits_f32
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
 from ..utils import logger
-from .adapters import UnknownAdapterError
+from .adapters import (
+    AdapterError,
+    AdapterRateLimitError,
+    AdapterRegistry,
+    TenantRateLimiter,
+    UnknownAdapterError,
+    build_registry,
+)
 from .llm import (
     _cached_attention,
     _forward_with_cache,
+    _lora_rows,
+    _out_and_mlp,
+    _qkv,
     default_device,
     init_kv_cache,
 )
@@ -90,7 +103,7 @@ def _store_kv(cache: dict, layer: int, k, v, write, dtype):
 
 def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
                     cache: dict, generator=None, temperature=None,
-                    top_k=None, top_p=None):
+                    top_k=None, top_p=None, lora=None, adapter_ids=None):
     """One decode token per row of a dense native slot cache (the draft
     model's) with PER-ROW positions ``cache['pos']`` (rows at different
     generation depths): tokens [B, 1]. Each row's KV is written at its own
@@ -99,7 +112,10 @@ def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     settings apply (serving/sampling.py). The cache is updated IN PLACE
     and ``pos`` advances by one. Returns (next_token [B] int32, cache).
     An int8 cache takes the token quantized per vector and attends its
-    dequantized view in ``config.dtype``, as the reference does."""
+    dequantized view in ``config.dtype``, as the reference does.
+    ``lora``/``adapter_ids`` add per-row multi-tenant LoRA: each row
+    gathers its own factors from the bank by its slot (0 = base model /
+    inactive rows), as in ``llm._forward_with_cache``."""
     from .sampling import sample_logits
 
     b = tokens.shape[0]
@@ -110,6 +126,7 @@ def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     index, inside = start.clamp_max(m - 1), start < m
     x = params["embedding"][tokens].to(config.dtype)
     cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+    lora_rows = _lora_rows(lora, adapter_ids)
 
     def write(dst, values):
         _write_rows(dst, rows, index, inside, values)
@@ -117,17 +134,13 @@ def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
     for layer in range(config.n_layers):
         lp = {name: w[layer] for name, w in params["layers"].items()}
         h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
-        q = (h @ lp["wq"]).reshape(b, 1, config.n_heads, config.head_dim)
-        k = (h @ lp["wk"]).reshape(b, 1, config.n_kv_heads, config.head_dim)
-        v = (h @ lp["wv"]).reshape(b, 1, config.n_kv_heads, config.head_dim)
+        q, k, v = _qkv(config, h, lp, lora_rows, layer)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         k_attn, v_attn = _store_kv(cache, layer, k[:, 0], v[:, 0], write,
                                    config.dtype)
         attn = _cached_attention(config, q, k_attn, v_attn, positions, m)
-        x = x + attn.reshape(b, 1, config.qkv_dim) @ lp["wo"]
-        h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
-        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+        x = _out_and_mlp(config, x, attn, lp, lora_rows, layer)
     x = rms_norm(x, params["final_norm_scale"], config.norm_eps)
     logits = logits_f32(x[:, 0], lm_head(params))
     if generator is None:
@@ -140,7 +153,8 @@ def _decode_rowwise(config: LlamaConfig, params: Params, tokens: torch.Tensor,
 
 
 def _verify_rowwise(config: LlamaConfig, params: Params,
-                    chunk: torch.Tensor, cache: dict):
+                    chunk: torch.Tensor, cache: dict, lora=None,
+                    adapter_ids=None):
     """Batched multi-token speculative verify on a dense slot cache with
     PER-ROW positions: ``chunk`` [B, S] is each row's committed last token
     followed by its draft proposals, at positions ``pos[r]..pos[r]+S-1``.
@@ -156,7 +170,9 @@ def _verify_rowwise(config: LlamaConfig, params: Params,
     written in turn, and a lane past the end is clamped onto the last
     entry and rewrites that entry's current value, so a garbage lane never
     overwrites a row's real last entry and nothing syncs the host. The
-    cache is updated IN PLACE. Returns (verified [B, S] int32, cache)."""
+    cache is updated IN PLACE. ``lora``/``adapter_ids``: each row's own
+    adapter, as in :func:`_decode_rowwise`. Returns (verified [B, S]
+    int32, cache)."""
     b, s = chunk.shape
     m = cache["k"].shape[2]
     positions = cache["pos"].long()[:, None] + torch.arange(
@@ -165,6 +181,7 @@ def _verify_rowwise(config: LlamaConfig, params: Params,
     index, inside = positions.clamp_max(m - 1), positions < m
     x = params["embedding"][chunk].to(config.dtype)
     cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+    lora_rows = _lora_rows(lora, adapter_ids)
 
     def write(dst, values):
         # lanes in ascending position: a clamped lane reads back what a
@@ -176,16 +193,12 @@ def _verify_rowwise(config: LlamaConfig, params: Params,
     for layer in range(config.n_layers):
         lp = {name: w[layer] for name, w in params["layers"].items()}
         h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
-        q = (h @ lp["wq"]).reshape(b, s, config.n_heads, config.head_dim)
-        k = (h @ lp["wk"]).reshape(b, s, config.n_kv_heads, config.head_dim)
-        v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        q, k, v = _qkv(config, h, lp, lora_rows, layer)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         k_attn, v_attn = _store_kv(cache, layer, k, v, write, config.dtype)
         attn = _cached_attention(config, q, k_attn, v_attn, positions, m)
-        x = x + attn.reshape(b, s, config.qkv_dim) @ lp["wo"]
-        h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
-        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+        x = _out_and_mlp(config, x, attn, lp, lora_rows, layer)
     x = rms_norm(x, params["final_norm_scale"], config.norm_eps)
     logits = logits_f32(x, lm_head(params))
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
@@ -242,6 +255,10 @@ class _Admission:
     # through ``prefix_ids`` (pages_per_slot long, -1 past the prefix)
     kernel_prefix: bool = False
     prefix_ids: object = None
+    # multi-tenant LoRA: the request's adapter name and its bank slot
+    # (resolved at admission by AdapterRegistry.ensure_loaded)
+    adapter: str = ""
+    adapter_slot: int = 0
 
 
 @dataclass
@@ -257,6 +274,10 @@ class _Slot:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    # multi-tenant LoRA: the occupying request's adapter and bank slot
+    # (the decode tick gathers each row's factors by adapter_slot)
+    adapter: str = ""
+    adapter_slot: int = 0
 
     @property
     def active(self) -> bool:
@@ -280,7 +301,13 @@ class ContinuousBatchingEngine:
     "draft_params": ...}`` over the config defaults) keeps a draft model
     resident: each tick whose rows are all greedy runs up to k draft steps
     per row and one verify forward, and commits each row's accepted
-    prefix (per-row k adapts to a bounded acceptance window).
+    prefix (per-row k adapts to a bounded acceptance window, one per
+    adapter).
+
+    ``adapters`` (a sources dict, or an ``AdapterRegistry`` shared with
+    other engines) serves named LoRA adapters per request, with
+    ``max_live_adapters`` bank slots; ``adapter_rate`` > 0 puts a token
+    bucket per tenant (``adapter_burst`` deep) in front of the queue.
     """
 
     def __init__(self, config: LlamaConfig, params: Params,
@@ -291,7 +318,10 @@ class ContinuousBatchingEngine:
                  prefill_chunk: int | None = None,
                  latency_window: int | None = None,
                  attention_impl: str | None = None,
-                 speculative: dict | None = None, device=None):
+                 speculative: dict | None = None, adapters=None,
+                 max_live_adapters: int | None = None,
+                 adapter_rate: float | None = None,
+                 adapter_burst: float | None = None, device=None):
         from ..ops.attention import resolve_prefill_impl
 
         self.config = config
@@ -338,6 +368,21 @@ class ContinuousBatchingEngine:
             b for b in sorted(prefill_buckets) if b <= max_len) or (max_len,)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        # multi-tenant LoRA: named adapters loaded into a device bank that
+        # every prefill / decode dispatch gathers per row by slot. A
+        # shared registry's stats are the registry's, published by no
+        # engine; None = a single-tenant engine, on the plain products
+        self._owns_adapters = not isinstance(adapters, AdapterRegistry)
+        self._adapters = build_registry(config, adapters, max_live_adapters,
+                                        self.device)
+        adapters_conf = SERVING_LLM_DEFAULTS["adapters"]
+        if adapter_rate is None:
+            adapter_rate = float(adapters_conf["rate"])
+        if adapter_burst is None:
+            adapter_burst = float(adapters_conf["burst"])
+        # per-tenant admission fairness in front of the shared queue
+        self._tenant_limiter = (TenantRateLimiter(adapter_rate, adapter_burst)
+                                if adapter_rate > 0 else None)
 
         self._cache = self._make_cache()
         self._slot_state = [_Slot() for _ in range(slots)]
@@ -350,7 +395,8 @@ class ContinuousBatchingEngine:
         self._lock = threading.RLock()
         self._stats = {"requests": 0, "completed": 0, "ttft_sum": 0.0,
                        "tokens_out": 0, "shed": 0, "rejected_too_long": 0,
-                       "prefill_chunks": 0, "prefill_tokens_tick_max": 0}
+                       "prefill_chunks": 0, "prefill_tokens_tick_max": 0,
+                       "adapter_rate_limited": 0}
         # the reference's degradation ladder flips this; the port has no
         # ladder yet (ROADMAP.md item 2), so it stays on
         self.speculative_enabled = True
@@ -377,6 +423,7 @@ class ContinuousBatchingEngine:
         for i in active:
             last[i, 0] = self._slot_state[i].tokens[-1]
         tokens = torch.as_tensor(last, device=self.device)
+        lora_kw = self._lora_kwargs(self._slot_adapter_ids())
         if any(self._slot_state[i].temperature > 0 for i in active):
             temp = np.zeros((self.slots,), np.float32)
             top_k = np.zeros((self.slots,), np.int64)
@@ -387,10 +434,10 @@ class ContinuousBatchingEngine:
                                                slot.top_p)
             next_token, self._cache = _decode_rowwise(
                 self.config, self.params, tokens, self._cache,
-                self._generator, temp, top_k, top_p)
+                self._generator, temp, top_k, top_p, **lora_kw)
         else:
             next_token, self._cache = _decode_rowwise(
-                self.config, self.params, tokens, self._cache)
+                self.config, self.params, tokens, self._cache, **lora_kw)
         tokens_host = next_token.cpu().numpy()
         for i in active:
             slot = self._slot_state[i]
@@ -411,6 +458,59 @@ class ContinuousBatchingEngine:
 
     def _abort_admission(self, adm: _Admission):
         """Release admission-held storage (stop mid-prefill)."""
+
+    # -- multi-tenant LoRA ----------------------------------------------------
+    def _lora_kwargs(self, slots=None) -> dict:
+        """The forward kwargs that thread the adapter bank and per-row slot
+        ids into a dispatch, {} without a registry. ``slots`` is an int
+        (a batch-1 admission prefill) or one slot per engine slot (a
+        decode or verify tick); default every row on the base slot 0. The
+        ids are copied to the device once per dispatch."""
+        if self._adapters is None:
+            return {}
+        if slots is None:
+            ids = np.zeros((self.slots,), np.int32)
+        else:
+            ids = np.atleast_1d(np.asarray(slots, np.int32))
+        return {"lora": self._adapters.bank.tensors,
+                "adapter_ids": torch.as_tensor(ids, device=self.device)}
+
+    def _slot_adapter_ids(self) -> np.ndarray:
+        """Per-engine-slot bank slots for a decode dispatch (inactive rows
+        decode on the base slot; their outputs are discarded)."""
+        return np.fromiter(
+            (s.adapter_slot if s.active else 0 for s in self._slot_state),
+            np.int32, self.slots)
+
+    def _resolve_adapter(self, adapter: str, future: Future):
+        """Load the request's adapter into the device bank (on the
+        scheduler thread, the device owner). Returns the bank slot, or
+        None after failing the request's future: an adapter that does not
+        load fails ONE request, never the engine."""
+        if not adapter:
+            return 0
+        try:
+            return self._adapters.ensure_loaded(adapter)
+        except Exception as exc:  # noqa: BLE001 - a per-request failure
+            logger.warning("adapter load failed", adapter=adapter,
+                           error=str(exc))
+            if not future.done():
+                future.set_exception(exc)
+            return None
+
+    def add_adapter_source(self, name: str, source):
+        """Publish a named adapter at runtime; requests naming it load
+        through the normal pin / ensure_loaded admission."""
+        if self._adapters is None:
+            raise ValueError(
+                "engine has no adapter registry (build it with "
+                "adapters=... to hot-load adapters)")
+        self._adapters.add_source(name, source)
+
+    def retire_adapter(self, name: str, keep_source: bool = False):
+        """Take an adapter out of service; in-flight pins finish first."""
+        if self._adapters is not None:
+            self._adapters.retire(name, keep_source=keep_source)
 
     # -- speculative decoding (the policy; the verify step is a hook) -------
     def _init_speculative(self, speculative: dict | None):
@@ -451,12 +551,15 @@ class ContinuousBatchingEngine:
         # ticks advanced the target without the draft
         self._spec_prompts: dict = {}
         self._spec_stale: set = set()
-        # the bounded acceptance window: (proposed, accepted) per verify
-        # round, and the probation count of a parked engine (one window:
-        # the reference keeps one per adapter, and adapters are not ported,
-        # ROADMAP.md item 3)
-        self._spec_history: deque = deque(maxlen=self.spec_window)
-        self._spec_probe = 0
+        # per-adapter bounded acceptance windows: (proposed, accepted) per
+        # verify round, and each parked adapter's probation count
+        self._spec_windows: dict = {}
+        self._spec_probe: dict = {}
+        # per-tenant draft adapters: the one each slot pins, and the
+        # adapters whose draft load failed once (they draft on the base
+        # draft model from then on, never retried per tick)
+        self._spec_draft_pins: dict = {}
+        self._spec_draft_block: set = set()
         self._stats.update({"spec_rounds": 0, "spec_proposed": 0,
                             "spec_accepted": 0, "spec_rejected": 0,
                             "spec_tokens": 0, "spec_parked_ticks": 0,
@@ -475,25 +578,89 @@ class ContinuousBatchingEngine:
             self._spec_verify = self._make_verify_fn()
         return self._spec_verify
 
-    def _spec_draft_steps(self, tokens: torch.Tensor) -> np.ndarray:
+    def _spec_draft_registry(self):
+        """The per-tenant DRAFT adapter registry, or None (every tenant
+        drafts on the base draft model)."""
+        return getattr(self._adapters, "draft", None)
+
+    def _spec_lora_kwargs(self, adapter_ids) -> dict:
+        """Draft-bank LoRA kwargs for the draft dispatches ({} without
+        draft adapters: the base draft model)."""
+        draft = self._spec_draft_registry()
+        if draft is None or adapter_ids is None:
+            return {}
+        return {"lora": draft.bank.tensors,
+                "adapter_ids": torch.as_tensor(np.asarray(adapter_ids,
+                                                          np.int32),
+                                               device=self.device)}
+
+    def _spec_pin_draft(self, index: int, adapter: str):
+        """Pin the tenant's DRAFT adapter for the life of slot ``index``
+        (released by ``_spec_release_slot``), where the draft registry has
+        one. A tenant without one drafts on the base draft model: the
+        verify runs under the tenant's TARGET adapter, so the stream is
+        the adapter's greedy output either way (the draft only buys
+        speed)."""
+        draft = self._spec_draft_registry()
+        if draft is None or not adapter or adapter in self._spec_draft_block \
+                or not draft.known(adapter):
+            return
+        try:
+            draft.pin(adapter)
+        except AdapterError as exc:
+            self._spec_draft_block.add(adapter)
+            logger.warning("draft adapter unavailable, using base draft",
+                           adapter=adapter, error=str(exc))
+            return
+        self._spec_draft_pins[index] = adapter
+
+    def _spec_draft_slot(self, index: int) -> int:
+        """The draft bank slot of slot ``index``'s pinned draft adapter, 0
+        (the base draft) without one or once its load failed."""
+        adapter = self._spec_draft_pins.get(index)
+        if adapter is None or adapter in self._spec_draft_block:
+            return 0
+        try:
+            return self._spec_draft_registry().ensure_loaded(adapter)
+        except Exception as exc:  # noqa: BLE001 - a draft adapter that
+            # does not load degrades to the base draft, never the request
+            self._spec_draft_block.add(adapter)
+            logger.warning("draft adapter unavailable, using base draft",
+                           adapter=adapter, error=str(exc))
+            return 0
+
+    def _spec_slot_draft_ids(self, active):
+        """Per-slot DRAFT bank slots (0 = base draft model), or None
+        without draft adapters."""
+        if self._spec_draft_registry() is None:
+            return None
+        ids = np.zeros((self.slots,), np.int32)
+        for i in active:
+            ids[i] = self._spec_draft_slot(i)
+        return ids
+
+    def _spec_draft_steps(self, tokens: torch.Tensor,
+                          lora=None, adapter_ids=None) -> np.ndarray:
         """``spec_k`` greedy draft steps over the full slot batch from each
         row's draft position (the reference's ``lax.scan``, here a loop of
-        ``_decode_rowwise`` dispatches) and one host read of the
-        proposals [slots, spec_k]."""
+        ``_decode_rowwise`` dispatches; the rows' draft adapters gathered
+        once) and one host read of the proposals [slots, spec_k]."""
         cache = self._spec_dcache
         cache["pos"] = torch.as_tensor(self._spec_dpos, device=self.device)
+        lora_rows = _lora_rows(lora, adapter_ids)
         proposals = []
         for _ in range(self.spec_k):
             nxt, cache = _decode_rowwise(self._spec_draft_config,
                                          self._spec_draft_params, tokens,
-                                         cache)
+                                         cache, lora=lora_rows)
             proposals.append(nxt)
             tokens = nxt[:, None].long()
         return torch.stack(proposals, dim=1).cpu().numpy()
 
     def _spec_prefill_slot(self, index: int, tokens_seq):
-        """(Re)build one slot's draft KV by prefilling ``tokens_seq``;
-        afterwards ``_spec_dpos[index] == len(tokens_seq)``."""
+        """(Re)build one slot's draft KV by prefilling ``tokens_seq`` (under
+        the slot's draft adapter, where it has one); afterwards
+        ``_spec_dpos[index] == len(tokens_seq)``."""
         total = len(tokens_seq)
         if total <= 0 or total > self.max_len:
             self._spec_dpos[index] = max(0, min(total, self.max_len))
@@ -502,9 +669,11 @@ class ContinuousBatchingEngine:
                               device=self.device)
         padded = np.zeros((1, self._bucket_for(total)), np.int64)
         padded[0, :total] = tokens_seq
+        draft_slot = self._spec_draft_slot(index)
+        lora_kw = self._spec_lora_kwargs([draft_slot] if draft_slot else None)
         _forward_with_cache(self._spec_draft_config, self._spec_draft_params,
                             torch.as_tensor(padded, device=self.device),
-                            small)
+                            small, **lora_kw)
         # garbage KV at the padded tail is masked by position until real
         # writes land there (the target's bucket-pad argument)
         _insert(self._spec_dcache, small, index, total)
@@ -516,6 +685,7 @@ class ContinuousBatchingEngine:
         prefix-cache hit (the draft has no prefix cache)."""
         self._spec_prompts[adm.slot] = list(adm.prompt)
         self._spec_stale.discard(adm.slot)
+        self._spec_pin_draft(adm.slot, adm.adapter)
         self._spec_prefill_slot(adm.slot, adm.prompt)
 
     def _spec_resync_row(self, index: int):
@@ -539,22 +709,30 @@ class ContinuousBatchingEngine:
         self._spec_prompts.pop(index, None)
         self._spec_stale.discard(index)
         self._spec_dpos[index] = 0
+        adapter = self._spec_draft_pins.pop(index, None)
+        if adapter is not None:
+            self._spec_draft_registry().unpin(adapter)
 
-    def _spec_row_k(self) -> int:
-        """Adaptive per-row proposal length from the bounded acceptance
-        window: a cold window gives the full k; a paying one k scaled to
-        the expected acceptance; under ``spec_min_acceptance`` the row
-        parks at 0 (plain decode) with a k=1 probe every
+    def _spec_row_k(self, adapter: str) -> int:
+        """Adaptive per-row proposal length from the adapter's bounded
+        acceptance window: a cold window gives the full k; a paying one k
+        scaled to the expected acceptance; under ``spec_min_acceptance``
+        the row parks at 0 (plain decode) with a k=1 probe every
         ``spec_probe_every`` consulted rounds. Round counts, never the
         clock."""
-        proposed = sum(p for p, _ in self._spec_history)
+        window = self._spec_windows.get(adapter)
+        if window is None:
+            window = self._spec_windows[adapter] = deque(
+                maxlen=self.spec_window)
+        proposed = sum(p for p, _ in window)
         if proposed < 8:
             return self.spec_k
-        acc = sum(a for _, a in self._spec_history) / proposed
+        acc = sum(a for _, a in window) / proposed
         if acc < self.spec_min_acceptance:
-            self._spec_probe += 1
-            return 1 if self._spec_probe % self.spec_probe_every == 0 else 0
-        self._spec_probe = 0
+            count = self._spec_probe.get(adapter, 0) + 1
+            self._spec_probe[adapter] = count
+            return 1 if count % self.spec_probe_every == 0 else 0
+        self._spec_probe.pop(adapter, None)
         return max(1, min(self.spec_k,
                           int(round(acc * (self.spec_k + 1)))))
 
@@ -579,7 +757,7 @@ class ContinuousBatchingEngine:
         paged engine dispatches the page-pool verify)."""
         verified, self._cache = self._spec_verify_fn()(
             self.params, torch.as_tensor(chunk, device=self.device),
-            self._cache)
+            self._cache, **self._lora_kwargs(self._slot_adapter_ids()))
         return verified.cpu().numpy()
 
     def _spec_decode_tick(self, active) -> Optional[int]:
@@ -598,7 +776,8 @@ class ContinuousBatchingEngine:
                 continue
             # gate consult before resync: a parked row's stale draft cache
             # is never read (its k_eff is 0, its writes are discarded)
-            k_row = min(self._spec_row_k(), slot.remaining, k_max)
+            k_row = min(self._spec_row_k(slot.adapter), slot.remaining,
+                        k_max)
             k_effs[i] = max(0, k_row)
             if k_row > 0:
                 any_spec = True
@@ -611,7 +790,8 @@ class ContinuousBatchingEngine:
         for i in active:
             last[i, 0] = self._slot_state[i].tokens[-1]
         proposals = self._spec_draft_steps(
-            torch.as_tensor(last, device=self.device))    # [slots, k_max]
+            torch.as_tensor(last, device=self.device),
+            **self._spec_lora_kwargs(self._spec_slot_draft_ids(active)))
         chunk = np.zeros((self.slots, k_max + 1), np.int64)
         chunk[:, 0] = last[:, 0]
         chunk[:, 1:] = proposals
@@ -629,7 +809,7 @@ class ContinuousBatchingEngine:
                 rounds += 1
                 proposed_total += k_eff
                 accepted_total += n_accept
-                self._spec_history.append((k_eff, n_accept))
+                self._spec_windows[slot.adapter].append((k_eff, n_accept))
             if slot.eos_id is not None and slot.eos_id in emitted:
                 emitted = emitted[:emitted.index(slot.eos_id) + 1]
             emitted = emitted[:max(0, slot.remaining)]
@@ -677,7 +857,8 @@ class ContinuousBatchingEngine:
         are overwritten by the next admission's insert."""
         chunk = torch.zeros((self.slots, self.spec_k + 1), dtype=torch.long,
                             device=self.device)
-        self._spec_verify_fn()(self.params, chunk, self._cache)
+        self._spec_verify_fn()(self.params, chunk, self._cache,
+                               **self._lora_kwargs())
         self._cache["pos"].zero_()
 
     # -- lifecycle ----------------------------------------------------------
@@ -720,7 +901,8 @@ class ContinuousBatchingEngine:
         tokens = torch.zeros((1, self.prefill_buckets[0]), dtype=torch.long,
                              device=self.device)
         _forward_with_cache(self.config, self.params, tokens, small,
-                            attn_impl=self.prefill_impl)
+                            attn_impl=self.prefill_impl,
+                            **self._lora_kwargs(0))
         self._warmup_storage()
         self._spec_warmup()
         if self.device.type == "cuda":
@@ -735,7 +917,8 @@ class ContinuousBatchingEngine:
         slot, which an admission's insert overwrites."""
         step = torch.zeros((self.slots, 1), dtype=torch.long,
                            device=self.device)
-        _decode_rowwise(self.config, self.params, step, self._cache)
+        _decode_rowwise(self.config, self.params, step, self._cache,
+                        **self._lora_kwargs())
         self._cache["pos"] = torch.zeros((self.slots,), dtype=torch.int32,
                                          device=self.device)
 
@@ -749,11 +932,13 @@ class ContinuousBatchingEngine:
                request_key=None) -> Future:
         """Thread-safe request submission. The future fails fast —
         QueueFullError when shedding, EngineStoppedError after stop/crash,
-        PromptTooLongError past max_len, UnknownAdapterError (404) for a
-        named ``adapter``, since the port's engines have no adapter
-        registry yet — and never silently hangs. ``request_key`` only
-        steers the reference's canary split between adapters, so it is
-        accepted and ignored without one."""
+        PromptTooLongError past max_len, UnknownAdapterError (404) for an
+        ``adapter`` no source provides, AdapterRateLimitError (429) for a
+        tenant over its token bucket, AdapterCapacityError (429) when
+        every bank slot is pinned by other adapters — and never silently
+        hangs. A named adapter stays pinned until the future completes.
+        ``request_key`` only steers the reference's canary split between
+        adapters, so it is accepted and ignored without one."""
         future: Future = Future()
         if self._stopped and not self._running:
             cause = f": {self._crash_exc}" if self._crash_exc else ""
@@ -772,11 +957,45 @@ class ContinuousBatchingEngine:
                 f"{max_new_tokens} exceeds max_len {self.max_len}"))
             return future
         if adapter:
-            # before the queue and any limiter: an unknown name fails 404,
-            # never 429, and is never served the base model's tokens
-            future.set_exception(UnknownAdapterError(
-                f"engine has no adapter registry (adapter='{adapter}')"))
+            # the 404 check runs BEFORE the limiter: an unknown name never
+            # mints a rate-limit bucket, fails 404 (not 429), and is never
+            # served the base model's tokens
+            if self._adapters is None:
+                future.set_exception(UnknownAdapterError(
+                    f"engine has no adapter registry (adapter='{adapter}')"))
+                return future
+            try:
+                self._adapters.check_known(adapter)
+            except AdapterError as exc:
+                future.set_exception(exc)
+                return future
+        # per-tenant fairness BEFORE the shared queue: a flooding tenant
+        # burns its own bucket, not everyone's queue capacity
+        if self._tenant_limiter is not None \
+                and not self._tenant_limiter.try_acquire(adapter):
+            with self._lock:
+                self._stats["adapter_rate_limited"] += 1
+            future.set_exception(AdapterRateLimitError(
+                f"tenant '{adapter or '<base>'}' is over its admission "
+                f"rate — shed to protect the shared queue"))
             return future
+        if adapter:
+            try:
+                self._adapters.pin(adapter)
+            except AdapterError as exc:
+                future.set_exception(exc)
+                return future
+            # one pin per in-flight request, released on ANY completion
+            # path (result, shed, stop): the future is its lifetime
+            future.add_done_callback(
+                lambda _f, a=adapter: self._adapters.unpin(a))
+        return self._enqueue(future, prompt_tokens, max_new_tokens, eos_id,
+                             (float(temperature), int(top_k), float(top_p)),
+                             adapter)
+
+    def _enqueue(self, future: Future, prompt_tokens, max_new_tokens,
+                 eos_id, sampling: tuple, adapter: str) -> Future:
+        """The queue-full shed and the queue put: the tail of submit()."""
         if self.max_queue_size and self._queue_depth() >= self.max_queue_size:
             with self._lock:
                 self._stats["shed"] += 1
@@ -790,8 +1009,7 @@ class ContinuousBatchingEngine:
             self._stats["requests"] += 1
             self._queue.put((request_id, [int(t) for t in prompt_tokens],
                              int(max_new_tokens), eos_id, future,
-                             time.perf_counter(),
-                             (float(temperature), int(top_k), float(top_p))))
+                             time.perf_counter(), sampling, adapter))
         if not self._running:
             self.start()
         return future
@@ -829,6 +1047,10 @@ class ContinuousBatchingEngine:
         out["prefill_impl"] = self.prefill_impl
         out["queue_depth"] = self._queue_depth()
         out["speculative_enabled"] = self.speculative_enabled
+        if self._adapters is not None and self._owns_adapters:
+            out.update(self._adapters.stats)
+            out["adapter_live"] = self._adapters.live()
+            out["adapter_resident"] = self._adapters.resident_names()
         if "spec_rounds" in out:
             out["acceptance_rate"] = (
                 out["spec_accepted"] / out["spec_proposed"]
@@ -879,8 +1101,9 @@ class ContinuousBatchingEngine:
         padded[0, :take] = prompt[start:start + take]
         adm.small["pos"] = torch.full((1,), start, dtype=torch.int32,
                                       device=self.device)
+        lora_kw = self._lora_kwargs(adm.adapter_slot)
         logits, adm.small = self._prefill_dispatch(
-            adm, torch.as_tensor(padded, device=self.device))
+            adm, torch.as_tensor(padded, device=self.device), lora_kw)
         adm.offset += take
         adm.chunks += 1
         with self._lock:
@@ -896,16 +1119,18 @@ class ContinuousBatchingEngine:
                                           device=self.device)
             logits, adm.small = self._prefill_dispatch(
                 adm, torch.as_tensor([[prompt[-1]]], dtype=torch.long,
-                                     device=self.device))
+                                     device=self.device), lora_kw)
         adm.first_token = self._first_token(logits, adm.sampling)
         return True
 
-    def _prefill_dispatch(self, adm: _Admission, tokens):
+    def _prefill_dispatch(self, adm: _Admission, tokens, lora_kw: dict):
         """One prefill device dispatch for an admission (a chunk or the
-        last-token replay). Hook: the paged engine routes prefix-hit
-        admissions through the paged prefill kernel."""
+        last-token replay) under its adapter (``lora_kw``). Hook: the
+        paged engine routes prefix-hit admissions through the paged
+        prefill kernel."""
         return _forward_with_cache(self.config, self.params, tokens,
-                                   adm.small, attn_impl=self.prefill_impl)
+                                   adm.small, attn_impl=self.prefill_impl,
+                                   **lora_kw)
 
     def _activate_slot(self, adm: _Admission):
         """Fill slot bookkeeping after a successful prefill."""
@@ -922,6 +1147,8 @@ class ContinuousBatchingEngine:
         slot.temperature = temperature
         slot.top_k = top_k
         slot.top_p = top_p
+        slot.adapter = adm.adapter
+        slot.adapter_slot = adm.adapter_slot
         with self._lock:
             self._ttft_ring.append(slot.ttft)
         if (adm.eos_id is not None and adm.first_token == adm.eos_id) or \
@@ -958,12 +1185,16 @@ class ContinuousBatchingEngine:
             if not self._validate_item(item):
                 continue
             (request_id, prompt, max_new, eos_id, future, submitted,
-             sampling) = item
+             sampling, adapter) = item
+            adapter_slot = self._resolve_adapter(adapter, future)
+            if adapter_slot is None:
+                continue  # the adapter did not load: request failed typed
             try:
                 adm = _Admission(
                     slot=free, request_id=request_id, prompt=prompt,
                     max_new=max_new, eos_id=eos_id, future=future,
-                    submitted=submitted, sampling=sampling)
+                    submitted=submitted, sampling=sampling, adapter=adapter,
+                    adapter_slot=adapter_slot)
                 adm.small = init_kv_cache(self.config, 1, self.max_len,
                                           kv_dtype=self.kv_dtype,
                                           device=self.device)

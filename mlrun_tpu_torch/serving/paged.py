@@ -39,7 +39,6 @@ from collections import deque
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import SERVING_LLM_DEFAULTS
 from ..models.llama import LlamaConfig, lm_head, logits_f32
@@ -47,12 +46,14 @@ from .llm import (
     _cached_attention,
     _dequantize_kv,
     _forward_with_cache,
+    _lora_rows,
+    _out_and_mlp,
+    _qkv,
     _quantize_kv,
     init_kv_cache,
 )
 from .llm_batch import ContinuousBatchingEngine, _Admission
 from .prefix import PrefixCache
-from .resilience import not_ported
 
 
 def init_paged_pool(config: LlamaConfig, n_pages: int, page_size: int,
@@ -153,7 +154,8 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
                           attn_impl: str, params, tokens: torch.Tensor,
                           pool: dict, page_table: torch.Tensor,
                           pos: torch.Tensor, generator=None,
-                          temperature=None, top_k=None, top_p=None):
+                          temperature=None, top_k=None, top_p=None,
+                          lora=None, adapter_ids=None):
     """One decode token per slot against the page pool.
 
     ``attn_impl="reference"``: per layer, gather the slot's pages into a
@@ -172,7 +174,10 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
     tokens [slots, 1]; page_table [slots, pages_per_slot] int32; pos
     [slots] int32 absolute positions (all on the pool's device). The pool
     is updated IN PLACE (the reference donates it to the jitted step).
-    Returns (next_token [slots] int32, pool, pos + 1)."""
+    ``lora``/``adapter_ids`` add per-row multi-tenant LoRA: each slot's
+    projections take its own adapter from the bank by slot index (0 =
+    base model), gathered once for the tick; the attention route is the
+    same either way. Returns (next_token [slots] int32, pool, pos + 1)."""
     from ..ops.norms import rms_norm
     from ..ops.paged_attention import _paged_decode_call
     from ..ops.rotary import apply_rope, rope_table
@@ -193,14 +198,13 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
         offset = positions[:, 0] % page_size
     else:
         safe_table = page_table.long().clamp_min(0)
+    lora_rows = _lora_rows(lora, adapter_ids)
 
     k_new, v_new = [], []
     for layer in range(config.n_layers):
         lp = {name: w[layer] for name, w in params["layers"].items()}
         h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
-        q = (h @ lp["wq"]).reshape(b, 1, config.n_heads, config.head_dim)
-        k = (h @ lp["wk"]).reshape(b, 1, config.n_kv_heads, config.head_dim)
-        v = (h @ lp["wv"]).reshape(b, 1, config.n_kv_heads, config.head_dim)
+        q, k, v = _qkv(config, h, lp, lora_rows, layer)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if use_kernel:
@@ -238,9 +242,7 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
                                      kd.shape[1])
             k_new.append(k[:, 0])
             v_new.append(v[:, 0])
-        x = x + attn.reshape(b, 1, config.qkv_dim) @ lp["wo"]
-        h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
-        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+        x = _out_and_mlp(config, x, attn, lp, lora_rows, layer)
 
     x = rms_norm(x, params["final_norm_scale"], config.norm_eps)
     logits = logits_f32(x[:, 0], lm_head(params))
@@ -265,7 +267,7 @@ def _decode_rowwise_paged(config: LlamaConfig, page_size: int,
 def _verify_rowwise_paged(config: LlamaConfig, page_size: int,
                           attn_impl: str, params, chunk: torch.Tensor,
                           pool: dict, page_table: torch.Tensor,
-                          pos: torch.Tensor):
+                          pos: torch.Tensor, lora=None, adapter_ids=None):
     """Batched multi-token speculative verify against the page pool:
     ``chunk`` [slots, S] is each slot's committed last token plus its
     draft proposals at positions ``pos[r]..pos[r]+S-1``; ONE forward gives
@@ -285,7 +287,9 @@ def _verify_rowwise_paged(config: LlamaConfig, page_size: int,
     query reads before they are written again; lanes past the
     reservation (rows speculating fewer tokens this round) go to the
     scratch page. ``pos`` is not advanced here. The pool is updated IN
-    PLACE. Returns (verified [slots, S] int32, pool)."""
+    PLACE. ``lora``/``adapter_ids``: each slot's own (target) adapter, as
+    in :func:`_decode_rowwise_paged`. Returns (verified [slots, S] int32,
+    pool)."""
     from ..ops.norms import rms_norm
     from ..ops.paged_attention import (
         paged_verify_merged,
@@ -310,13 +314,12 @@ def _verify_rowwise_paged(config: LlamaConfig, page_size: int,
     pid_safe = torch.where((pid >= 0) & (page_idx < pps), pid,
                            torch.full_like(pid, scratch))
     verify = paged_verify_merged if use_kernel else paged_verify_reference
+    lora_rows = _lora_rows(lora, adapter_ids)
 
     for layer in range(config.n_layers):
         lp = {name: w[layer] for name, w in params["layers"].items()}
         h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
-        q = (h @ lp["wq"]).reshape(b, s, config.n_heads, config.head_dim)
-        k = (h @ lp["wk"]).reshape(b, s, config.n_kv_heads, config.head_dim)
-        v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        q, k, v = _qkv(config, h, lp, lora_rows, layer)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         chunk_kv = [k, v]
@@ -332,9 +335,7 @@ def _verify_rowwise_paged(config: LlamaConfig, page_size: int,
                      if quantized else {})
         attn = verify(q, *chunk_kv, pool["k"][layer], pool["v"][layer],
                       page_table, pos, page_size=page_size, **scales_kw)
-        x = x + attn.to(x.dtype).reshape(b, s, config.qkv_dim) @ lp["wo"]
-        h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
-        x = x + (F.silu(h2 @ lp["w_gate"]) * (h2 @ lp["w_up"])) @ lp["w_down"]
+        x = _out_and_mlp(config, x, attn.to(x.dtype), lp, lora_rows, layer)
 
     x = rms_norm(x, params["final_norm_scale"], config.norm_eps)
     logits = logits_f32(x, lm_head(params))
@@ -358,10 +359,14 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     decoding: each greedy tick runs the draft's k steps and one verify
     forward over the pool (``_verify_rowwise_paged``).
 
+    ``adapters`` serves named LoRA adapters per slot, as in the base
+    engine; the prefix cache keeps one root per adapter, so a prefix hit
+    only ever shares KV computed under the same adapter, and a hit's
+    suffix prefill runs under the slot's adapter on the same kernels.
+
     ``device`` defaults to the GPU (and raises without one); pass
     ``device="cpu"`` for the plain paths. The reference's degradation
-    ladder, adapters, host KV tier and KV handoff are not ported yet
-    (ROADMAP.md).
+    ladder, host KV tier and KV handoff are not ported yet (ROADMAP.md).
     """
 
     def __init__(self, config: LlamaConfig, params, max_len: int = 2048,
@@ -373,7 +378,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                  latency_window: int | None = None,
                  prefix_cache: bool | None = None,
                  attention_impl: str | None = None,
-                 speculative: dict | None = None, device=None):
+                 speculative: dict | None = None, adapters=None,
+                 max_live_adapters: int | None = None,
+                 adapter_rate: float | None = None,
+                 adapter_burst: float | None = None, device=None):
         from ..ops.paged_attention import resolve_paged_impl
 
         if max_len % page_size:
@@ -397,7 +405,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                          prefill_chunk=prefill_chunk,
                          latency_window=latency_window,
                          attention_impl=attention_impl,
-                         speculative=speculative, device=device)
+                         speculative=speculative, adapters=adapters,
+                         max_live_adapters=max_live_adapters,
+                         adapter_rate=adapter_rate,
+                         adapter_burst=adapter_burst, device=device)
         # decode: the paged kernel or the gather+dense reference, resolved
         # from the same knob as the prefill path; an explicit kernel
         # request on the CPU raised KernelUnavailableError inside
@@ -448,13 +459,15 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             _forward_with_cache(self.config, self.params, tokens, small,
                                 prefix_kv=prefix_kv,
                                 attn_impl=self.prefill_impl,
-                                page_size=self.page_size)
+                                page_size=self.page_size,
+                                **self._lora_kwargs(0))
         table = torch.as_tensor(self._page_table, device=self.device)
         pos = torch.as_tensor(self._pos, device=self.device)
         step = torch.zeros((self.slots, 1), dtype=torch.long,
                            device=self.device)
         _decode_rowwise_paged(self.config, self.page_size, self.attn_impl,
-                              self.params, step, self._pool, table, pos)
+                              self.params, step, self._pool, table, pos,
+                              **self._lora_kwargs())
 
     # -- admission: page reservation + prefix reuse -------------------------
     def _queue_depth(self) -> int:
@@ -484,7 +497,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 self._pending.popleft()
                 continue
             (request_id, prompt, max_new, eos_id, future, submitted,
-             sampling) = item
+             sampling, adapter) = item
             needed = -(-(len(prompt) + max_new) // self.page_size)
             if needed > self.n_pages:
                 # would never fit — fail fast instead of blocking the
@@ -497,8 +510,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 continue
             matched_pages: list = []
             matched_nodes: list = []
+            # matching is per ADAPTER root: KV computed under adapter A is
+            # never served to adapter B (same-tenant hits still share)
             if self._prefix is not None:
-                matched_pages, matched_nodes = self._prefix.match(prompt)
+                matched_pages, matched_nodes = self._prefix.match(
+                    prompt, adapter=adapter)
             k = len(matched_pages)
             fresh_needed = needed - k
             available = len(self._free_pages)
@@ -510,6 +526,14 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 if self._prefix is not None:
                     self._prefix.release(matched_nodes)
                 return None
+            adapter_slot = self._resolve_adapter(adapter, future)
+            if adapter_slot is None:
+                # the adapter did not load: the request failed typed;
+                # release the match holds and move on
+                if self._prefix is not None:
+                    self._prefix.release(matched_nodes)
+                self._pending.popleft()
+                continue
             self._pending.popleft()
             fresh: list = []
             try:
@@ -528,7 +552,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                     slot=free, request_id=request_id, prompt=prompt,
                     max_new=max_new, eos_id=eos_id, future=future,
                     submitted=submitted, sampling=sampling,
-                    base=k * self.page_size, offset=k * self.page_size)
+                    base=k * self.page_size, offset=k * self.page_size,
+                    adapter=adapter, adapter_slot=adapter_slot)
                 adm.page_ids = ids
                 adm.pages = fresh
                 adm.prefix_nodes = matched_nodes
@@ -563,21 +588,21 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                     future.set_exception(exc)
                 raise
 
-    def _prefill_dispatch(self, adm: _Admission, tokens):
+    def _prefill_dispatch(self, adm: _Admission, tokens, lora_kw: dict):
         """Prefix-hit admissions on the kernel path attend the cached
         prefix pages in place: the pool and page ids ride the dispatch as
         ``prefix_kv``, and every chunk (and the last-token replay)
         LSE-merges the paged prefill kernel's partial state with the local
-        attention over the suffix rows."""
+        attention over the suffix rows, under the slot's adapter."""
         if not adm.kernel_prefix:
-            return super()._prefill_dispatch(adm, tokens)
+            return super()._prefill_dispatch(adm, tokens, lora_kw)
         prefix_kv = self._prefix_kv(adm.prefix_ids, adm.base)
         with self._lock:
             self._stats["prefill_kernel_chunks"] += 1
         return _forward_with_cache(self.config, self.params, tokens,
                                    adm.small, prefix_kv=prefix_kv,
                                    attn_impl=self.prefill_impl,
-                                   page_size=self.page_size)
+                                   page_size=self.page_size, **lora_kw)
 
     def _prefix_kv(self, page_ids, base: int) -> dict:
         """The prefix-hit form of ``_forward_with_cache``: the pool (with
@@ -598,10 +623,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         held = list(adm.prefix_nodes)
         pages = list(adm.pages)
         if self._prefix is not None:
-            # index this prompt's freshly written full blocks; claimed
-            # pages become cache-owned (not freed on release)
+            # index this prompt's freshly written full blocks under the
+            # request's adapter root; claimed pages become cache-owned
+            # (not freed on release)
             new_nodes, claimed = self._prefix.register(
-                adm.prompt, adm.page_ids, adm.prefix_nodes)
+                adm.prompt, adm.page_ids, adm.prefix_nodes,
+                adapter=adm.adapter)
             held.extend(new_nodes)
             if claimed:
                 claimed_set = set(claimed)
@@ -671,7 +698,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         pos = torch.as_tensor(self._pos, device=self.device)
         verified, self._pool = self._spec_verify_fn()(
             self.params, torch.as_tensor(chunk, device=self.device),
-            self._pool, table, pos)
+            self._pool, table, pos,
+            **self._lora_kwargs(self._slot_adapter_ids()))
         verified = verified.cpu().numpy()
         with self._lock:
             # a verify dispatch is one attention tick like a decode tick:
@@ -694,7 +722,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                            dtype=torch.int32, device=self.device)
         pos = torch.zeros((self.slots,), dtype=torch.int32,
                           device=self.device)
-        self._spec_verify_fn()(self.params, chunk, self._pool, table, pos)
+        self._spec_verify_fn()(self.params, chunk, self._pool, table, pos,
+                               **self._lora_kwargs())
 
     def _plain_decode_tick(self, active) -> int:
         last = np.zeros((self.slots, 1), np.int64)
@@ -703,6 +732,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         table = torch.as_tensor(self._page_table, device=self.device)
         pos = torch.as_tensor(self._pos, device=self.device)
         tokens = torch.as_tensor(last, device=self.device)
+        lora_kw = self._lora_kwargs(self._slot_adapter_ids())
         if any(self._slot_state[i].temperature > 0 for i in active):
             temp = np.zeros((self.slots,), np.float32)
             top_k = np.zeros((self.slots,), np.int64)
@@ -714,11 +744,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             next_token, self._pool, _ = _decode_rowwise_paged(
                 self.config, self.page_size, self.attn_impl, self.params,
                 tokens, self._pool, table, pos, self._generator, temp, top_k,
-                top_p)
+                top_p, **lora_kw)
         else:
             next_token, self._pool, _ = _decode_rowwise_paged(
                 self.config, self.page_size, self.attn_impl, self.params,
-                tokens, self._pool, table, pos)
+                tokens, self._pool, table, pos, **lora_kw)
         tokens_host = next_token.cpu().numpy()
         with self._lock:
             # on the kernel path a tick never gathers a dense view

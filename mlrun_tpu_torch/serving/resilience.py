@@ -52,13 +52,13 @@ class EngineStoppedError(ResilienceError):
     status_code = 503
 
 
-# ROADMAP.md "Modules still to port", by item number (1, 5 and 8 landed)
+# ROADMAP.md "Modules still to port", by item number (1, 3, 5 and 8
+# landed)
 PORT_QUEUE = {
     2: "request expiry, the degradation ladder and the request ledger",
-    3: "multi-tenant LoRA adapters",
     4: "KV handoff and the host KV tier",
     6: "the serving graph and engine fleet",
-    7: "training on many GPUs, LoRA training and elastic training",
+    7: "training on many GPUs and elastic training",
     9: "other model families",
     10: "glue",
 }

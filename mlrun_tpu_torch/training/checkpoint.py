@@ -87,10 +87,13 @@ def _to_tree(state):
     if isinstance(state, TrainState):
         detach = lambda t: t.detach()  # noqa: E731
         opt = state.opt_state
-        return {"params": tree_map(detach, state.params),
+        tree = {"params": tree_map(detach, state.params),
                 "opt_state": {"count": opt.count, "mu": opt.mu,
                               "nu": opt.nu},
                 "step": state.step}
+        if state.lora is not None:
+            tree["lora"] = tree_map(detach, state.lora)
+        return tree
     return state
 
 
@@ -99,9 +102,13 @@ def _from_tree(state_like, tree):
 
     if not isinstance(state_like, TrainState):
         return tree
-    params = tree["params"]
+    params, lora = tree["params"], tree.get("lora")
+    # the trained tree requires grad; a LoRA run's base stays frozen
     for leaf in tree_leaves(params):
+        leaf.requires_grad_(lora is None)
+    for leaf in tree_leaves(lora or {}):
         leaf.requires_grad_(True)
     opt = tree["opt_state"]
     return TrainState(params, AdamWState(int(opt["count"]), opt["mu"],
-                                         opt["nu"]), int(tree["step"]))
+                                         opt["nu"]), int(tree["step"]),
+                      lora)

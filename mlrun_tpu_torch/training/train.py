@@ -6,9 +6,11 @@ plain branch of ``make_train_step`` (dense, no context or pipeline
 parallelism) eagerly on one device: ``loss_fn`` under autograd, gradient
 accumulation, then the optax chain of ``make_optimizer`` written out
 (warmup-cosine schedule, ``clip_by_global_norm``, ``adamw``) updating the
-params in place. Features of the reference trainer that need many devices,
-LoRA or the structured callback/elastic machinery raise
-``NotImplementedError`` naming their ROADMAP.md item.
+params in place. ``lora_rank > 0`` trains a LoRA adapter (models/lora.py) on a
+frozen base: gradients and AdamW touch the adapter's tensors only.
+Features of the reference trainer that need many devices or the
+structured callback/elastic machinery raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class TrainConfig:
     grad_accum: int = 1
     b1: float = 0.9
     b2: float = 0.95
-    lora_rank: int = 0          # 0 = full fine-tune; >0 = LoRA (not ported)
+    lora_rank: int = 0          # 0 = full fine-tune; >0 = LoRA
     lora_alpha: float = 32.0
     mesh_shape: dict | None = None
     seq_axis: str | None = None
@@ -62,8 +64,6 @@ class TrainConfig:
 def _check_ported(train_config: TrainConfig):
     """Raise for the options the port does not have yet."""
     tc = train_config
-    if tc.lora_rank > 0:
-        raise not_ported("LoRA training (lora_rank > 0)", 7)
     if tc.context_parallel:
         raise not_ported("context parallelism (context_parallel)", 7)
     if tc.pipeline_stages > 1:
@@ -210,13 +210,22 @@ def make_optimizer(config: TrainConfig) -> AdamW:
 # -- step ---------------------------------------------------------------------
 
 class TrainState:
-    """Train state: the params (a tree of leaf tensors that require grad),
-    the optimizer state and the host step count."""
+    """Train state: the params, the optimizer state, the host step count
+    and, when training LoRA, the adapter ``lora``. The trained tree (the
+    params, or the adapter on a frozen base) holds leaf tensors that
+    require grad; the optimizer state mirrors it."""
 
-    def __init__(self, params, opt_state: AdamWState, step: int):
+    def __init__(self, params, opt_state: AdamWState, step: int,
+                 lora=None):
         self.params = params
         self.opt_state = opt_state
         self.step = int(step)
+        self.lora = lora
+
+    @property
+    def trained(self):
+        """The tree the gradients and the optimizer update."""
+        return self.params if self.lora is None else self.lora
 
 
 def accumulate_grads(compute_grads: Callable, tokens, targets, accum: int):
@@ -243,30 +252,34 @@ def accumulate_grads(compute_grads: Callable, tokens, targets, accum: int):
 def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
                     optimizer: AdamW) -> Callable:
     """The plain step: (state, tokens, targets) -> (state, metrics), with
-    the state's params and moments updated in place. ``metrics`` holds the
-    loss function's (loss, accuracy, tokens) and ``grad_norm`` (before
-    clipping), all as device scalars."""
+    the state's trained tree (the params, or the LoRA adapter) and moments
+    updated in place. ``metrics`` holds the loss function's (loss,
+    accuracy, tokens) and ``grad_norm`` (before clipping), all as device
+    scalars."""
     model_config = resolve_model_config(model_config, train_config)
     accum = max(1, train_config.grad_accum)
 
-    def compute_grads(params, tokens, targets):
-        leaves = tree_leaves(params)
+    def compute_grads(params, tokens, targets, lora=None):
+        """Gradients of the loss with respect to ``lora``'s leaves when an
+        adapter is given (the base is frozen), else ``params``' leaves."""
+        leaves = tree_leaves(params if lora is None else lora)
         loss, metrics = llama_mod.loss_fn(
             model_config, params, tokens, targets,
-            loss_chunk=train_config.loss_chunk)
+            loss_chunk=train_config.loss_chunk, lora=lora)
         grads = torch.autograd.grad(loss, leaves)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
 
     def step_fn(state: TrainState, tokens, targets):
         if accum > 1:
             grads, metrics = accumulate_grads(
-                lambda t, g: compute_grads(state.params, t, g),
+                lambda t, g: compute_grads(state.params, t, g, state.lora),
                 tokens, targets, accum)
         else:
-            grads, metrics = compute_grads(state.params, tokens, targets)
+            grads, metrics = compute_grads(state.params, tokens, targets,
+                                           state.lora)
         metrics = dict(metrics)
         metrics["grad_norm"] = optimizer.update(grads, state.opt_state,
-                                                state.params)
+                                                state.trained)
         state.step += 1
         return state, metrics
 
@@ -276,18 +289,31 @@ def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
 
 def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
                      optimizer: AdamW, device, seed: int = 0,
-                     params=None) -> TrainState:
+                     params=None, lora=None) -> TrainState:
     """Params drawn on ``device`` from a ``torch.Generator`` seeded with
     ``seed`` (or the given ``params``, e.g. converted from the reference
-    with ``models.convert.params_from_numpy``), zero moments, step 0."""
+    with ``models.convert.params_from_numpy``), zero moments, step 0.
+    With ``lora_rank > 0`` the params are frozen and an adapter
+    (``models.lora.init_lora``: A random, B zero, drawn from the same
+    generator after the params, or the given ``lora``) is trained."""
+    from ..models.lora import init_lora
+
     model_config = resolve_model_config(model_config, train_config)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
     if params is None:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(seed)
         params = llama_mod.init_params(model_config, generator, device)
+    is_lora = train_config.lora_rank > 0
+    if is_lora and lora is None:
+        lora = init_lora(model_config, generator, train_config.lora_rank,
+                         train_config.lora_alpha, device=device)
     for leaf in tree_leaves(params):
+        leaf.requires_grad_(not is_lora)
+    if not is_lora:
+        return TrainState(params, optimizer.init(params), 0)
+    for leaf in tree_leaves(lora):
         leaf.requires_grad_(True)
-    return TrainState(params, optimizer.init(params), 0)
+    return TrainState(params, optimizer.init(lora), 0, lora)
 
 
 def _is_structured_callback(cb) -> bool:
@@ -320,10 +346,10 @@ class Trainer:
         self.compile_seconds: Optional[float] = None
         self._compile_attributed = False
 
-    def init(self, seed: int = 0, params=None) -> TrainState:
+    def init(self, seed: int = 0, params=None, lora=None) -> TrainState:
         self.state = init_train_state(
             self.model_config, self.train_config, self.optimizer,
-            self.device, seed=seed, params=params)
+            self.device, seed=seed, params=params, lora=lora)
         return self.state
 
     def warmup(self, batch_size: int, seq_len: int) -> dict:
@@ -342,7 +368,8 @@ class Trainer:
         accum = max(1, self.train_config.grad_accum)
         self.step_fn.compute_grads(self.state.params,
                                    zeros[:batch_size // accum],
-                                   zeros[:batch_size // accum])
+                                   zeros[:batch_size // accum],
+                                   self.state.lora)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.compile_seconds = time.perf_counter() - started

@@ -27,7 +27,11 @@ max_len 2048, the chip smoke test's prompt lengths):
                read;
 - dense tick:  the dense ``ContinuousBatchingEngine``'s decode tick: one
                ``_decode_rowwise`` over a dense [32, 4, 2048] slot cache at
-               positions 600/436/200/700 and one host read of the tokens.
+               positions 600/436/200/700 and one host read of the tokens;
+- lora decode: the decode tick with two LoRA adapters live (rank 16, the
+               four default targets, in an ``AdapterRegistry`` bank): the
+               4 slots on adapters t1, t2, base, t1;
+- lora hit prefill: the hit prefill under adapter t1.
 
 For each step it prints one JSON line: wall ms per step (host clock around
 synchronised runs), device busy ms (sum of CUDA kernel times in the
@@ -123,6 +127,8 @@ def main(argv=None) -> int:
         print("profile_torch_serving: needs a CUDA device", file=sys.stderr)
         return 1
     from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.models.lora import init_lora_nonzero
+    from mlrun_tpu_torch.serving.adapters import AdapterRegistry
     from mlrun_tpu_torch.serving.llm import (
         LLMEngine,
         _forward_with_cache,
@@ -242,11 +248,36 @@ def main(argv=None) -> int:
         nxt, _ = _decode_rowwise(config, params, tokens, dense)
         nxt.cpu()
 
+    registry = AdapterRegistry(
+        config, sources={name: init_lora_nonzero(config, gen, device=dev)
+                         for name in ("t1", "t2")}, device=dev)
+    slot_of = {"": 0}
+    for name in ("t1", "t2"):
+        registry.pin(name)
+        slot_of[name] = registry.ensure_loaded(name)
+    lora = registry.bank.tensors
+    decode_ids = torch.tensor([slot_of[a] for a in ("t1", "t2", "", "t1")],
+                              dtype=torch.int32, device=dev)
+    hit_ids = torch.tensor([slot_of["t1"]], dtype=torch.int32, device=dev)
+
+    def lora_decode():
+        _decode_rowwise_paged(config, page, "kernel", params, tokens, pool,
+                              table_t, pos, lora=lora,
+                              adapter_ids=decode_ids)
+
+    def lora_hit_prefill():
+        small["pos"].fill_(256)
+        _forward_with_cache(config, params, hit_tokens, small,
+                            prefix_kv=prefix_kv, attn_impl="flash",
+                            page_size=page, lora=lora, adapter_ids=hit_ids)
+
     for name, fn in (("decode", decode), ("cold_prefill", cold_prefill),
                      ("hit_prefill", hit_prefill),
                      ("int8_decode", int8_decode), ("verify", verify),
                      ("spec_tick", spec_tick), ("llm_chunk", llm_chunk),
-                     ("dense_tick", dense_tick)):
+                     ("dense_tick", dense_tick),
+                     ("lora_decode", lora_decode),
+                     ("lora_hit_prefill", lora_hit_prefill)):
         row = profile_step(name, fn, ITERS, args.out)
         row.update({"layers": config.n_layers, "card": card})
         print(json.dumps(row), flush=True)

@@ -251,18 +251,43 @@ def test_llm_engine_sampling_follows_its_settings(models):
 
 
 def test_llm_engine_adapters_are_not_ported(models):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        _tengine(models, adapters={"t1": "path"})
+    """The LLMEngine's adapter registry lifecycle (adapters are ported
+    now; the name is kept from the slice that refused them). Without a
+    registry a named adapter is a typed 404, as on the reference's engine
+    without one (never the base model's tokens), publishing a source
+    raises and retiring is a no-op. With one, an unknown name is still a
+    404; a source published at runtime serves, a name is never
+    overwritten, and retiring an idle adapter frees its bank slot."""
+    from mlrun_tpu_torch.models.lora import init_lora_nonzero
+
     eng = _tengine(models)
-    # without a registry a named adapter is a typed 404, as on the
-    # reference's engine without one (never the base model's tokens)
     with pytest.raises(UnknownAdapterError) as err:
         eng.generate([1, 2, 3], max_new_tokens=2, adapter="t1")
     assert err.value.status_code == 404
-    for call in (lambda: eng.add_adapter_source("t1", "path"),
-                 lambda: eng.retire_adapter("t1")):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            call()
+    with pytest.raises(ValueError, match="no adapter registry"):
+        eng.add_adapter_source("t1", {})
+    eng.retire_adapter("t1")
+
+    _, _, tcfg, _ = models
+    t1, t2 = (init_lora_nonzero(tcfg, torch.Generator().manual_seed(seed),
+                                rank=2) for seed in (1, 2))
+    eng = _tengine(models, adapters={"t1": t1}, max_live_adapters=2)
+    with pytest.raises(UnknownAdapterError) as err:
+        eng.generate([1, 2, 3], max_new_tokens=2, adapter="t2")
+    assert err.value.status_code == 404
+    eng.add_adapter_source("t2", t2)
+    eng.add_adapter_source("t2", t2)            # the same source: kept
+    with pytest.raises(ValueError, match="immutable"):
+        eng.add_adapter_source("t2", t1)
+    tokens, _ = eng.generate([1, 2, 3], max_new_tokens=2, adapter="t2")
+    assert len(tokens) == 2
+    registry = eng._adapters
+    assert registry.resident_names() == ["t2"] and registry.live() == 1
+    eng.retire_adapter("t2")
+    assert registry.resident_names() == [] and registry.live() == 0
+    assert registry.stats["adapter_evictions"] == 1
+    with pytest.raises(UnknownAdapterError):
+        eng.generate([1, 2, 3], max_new_tokens=2, adapter="t2")
 
 
 # -- the dense ContinuousBatchingEngine ----------------------------------------

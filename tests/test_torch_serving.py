@@ -415,7 +415,7 @@ def test_explicit_kernel_on_cpu_raises(models, impl):
 @pytest.mark.parametrize("kwargs", [
     {"paged": False, "degradation": {"levels": ["shed"]}},
     {"continuous_batching": False, "paged": False, "request_ledger": True},
-    {"adapters": {"t1": "path"}},
+    {"tokenizer": "gpt2"},
     {"max_wait": 1.0},
     {"replicas": 2},
 ])
