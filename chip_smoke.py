@@ -1113,6 +1113,8 @@ def phase_serve(seed: int, card: str, kv_dtype: str = "native",
     stats = server.engine.stats
     metrics = dict(server.metrics)
     params = server.engine.params
+    # the server's default: the request ledger is on, as the reference's
+    stats_ledger = server.engine.request_ledger
     server.close()
 
     _check_launches(launches, kernels, phase)
@@ -1166,6 +1168,7 @@ def phase_serve(seed: int, card: str, kv_dtype: str = "native",
         "first_logits_rel_tol": LOGIT_REL_TOL,
         "first_tokens_identical": first_same,
         "greedy_token_share_identical": share,
+        "request_ledger": stats_ledger,
     }
     if native is not None:
         # the quantization's own error: the int8 pool against the native
@@ -2155,11 +2158,490 @@ def _train_lora_leg(seed: int, card: str, config, batch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: resilience — the degradation ladder, llm.spec_verify, max_wait
+# expiry, the v2 timing field and the engine metrics on the 8B paged server
+# ---------------------------------------------------------------------------
+
+RES_LADDER = {"queue_depth": 2, "max_new_tokens": 8}
+RES_MAX_WAIT = 120.0        # the server's budget: no normal request expires
+RES_TINY_WAIT = 1e-3        # the expiry leg's request: expires behind a queue
+RES_PARKED = 2              # spec_verify ticks parked by the chaos leg
+RES_LEDGER_ORDER = (False, True, True, False)
+
+
+def _burst(seed: int, vocab: int) -> list:
+    """Eight prompts of 200-700 tokens (two draws of the serve traffic)."""
+    return _prompts(seed, vocab) + _prompts(seed + 1, vocab)
+
+
+def _spec_off_engine(config, params, seed, request_ledger):
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    return PagedContinuousBatchingEngine(
+        config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+        seed=seed, request_ledger=request_ledger, device="cuda")
+
+
+def phase_resilience(seed: int, card: str) -> dict:
+    """The paged LLMModelServer at Llama-3-8B with a Llama-3.2-1B draft,
+    the request ledger, a max_wait budget and the degradation ladder:
+    (1) llm.spec_verify armed for two ticks parks them to paged decode (no
+    verify launch in them), the stream unchanged; (2) a burst of eight
+    requests on four slots turns speculation off while the queue is two
+    deep and clamps those requests, a later lone request turns it back on,
+    every stream the spec-off engine's greedy stream (until a near-tie);
+    (3) a request with a tiny max_wait behind a full queue fails with
+    DeadlineExceeded (504), the rest succeed; (4) {"timing": true} returns
+    phases that sum to the request's wall; (5) mlt_llm_ttft_seconds counted
+    one observation a request; (6) the decode-tick p50 of the same traffic
+    with the ledger on and off."""
+    import torch
+
+    from mlrun_tpu_torch.chaos import always, chaos, fail_first
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.obs import LLM_TTFT, REGISTRY
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.llm import LLMModelServer
+    from mlrun_tpu_torch.serving.resilience import DeadlineExceeded
+
+    config = MODEL_PRESETS["llama3-8b"]()
+    burst = _burst(seed, config.vocab_size)
+    lone = _prompts(seed + 2, config.vocab_size)
+    REGISTRY.reset()
+    started = time.perf_counter()
+    server = LLMModelServer(
+        name="llama3-8b", model_preset="llama3-8b", continuous_batching=True,
+        paged=True, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        max_new_tokens=MAX_NEW, seed=seed, request_ledger=True,
+        max_wait=RES_MAX_WAIT, degradation=RES_LADDER,
+        speculative={"draft": "llama3-1b", "k": SPEC_K})
+    server.post_init()
+    if not server.ready:
+        fail(f"LLMModelServer (resilience) failed to load: {server.error}")
+    load_s = time.perf_counter() - started
+    engine = server.engine
+    params = engine.params
+    streams = []            # (prompt, tokens) the server emitted
+
+    # -- (1) llm.spec_verify parks two ticks to plain decode ---------------
+    snapshots = []
+    _build.reset_launch_counts()
+    with chaos.inject("llm.spec_verify", always(),
+                      action=lambda point, ctx: snapshots.append(
+                          dict(_build.launch_counts()))):
+        with chaos.inject("llm.spec_verify", fail_first(RES_PARKED),
+                          error=RuntimeError("injected verify fault")):
+            tokens, _ = engine.generate(lone[0], max_new_tokens=MAX_NEW)
+    streams.append((lone[0], tokens))
+    stats = engine.stats
+    ticks = [{name: b[name] - a[name] for name in b}
+             for a, b in zip(snapshots, snapshots[1:])]
+    if stats["spec_parked_ticks"] != RES_PARKED or len(ticks) <= RES_PARKED:
+        fail(f"spec_verify: {stats['spec_parked_ticks']} parked ticks, "
+             f"{len(snapshots)} verify rounds tried")
+    for tick in ticks[:RES_PARKED]:
+        if tick["paged_decode"] != config.n_layers or tick["paged_verify"]:
+            fail(f"a parked tick launched {tick}, not one paged decode a "
+                 "layer and no verify")
+    if not any(t["paged_verify"] for t in ticks[RES_PARKED:]):
+        fail("speculation did not resume after the parked ticks")
+    parked = {"parked_ticks": stats["spec_parked_ticks"],
+              "parked_tick_launches": ticks[:RES_PARKED],
+              "first_spec_tick_launches": ticks[RES_PARKED],
+              "spec_resyncs": stats["spec_resyncs"]}
+
+    # -- (2) the ladder: a burst, then a lone request ----------------------
+    # every submit's ladder level (the engine's own pressure_level call in
+    # _enqueue), the queue depth beside it and the speculation flag after
+    enqueued = []
+    enqueue, pressure = engine._enqueue, engine.pressure_level
+    levels = []
+
+    def capturing():
+        depth = engine._queue_depth()
+        level = pressure()
+        levels.append((depth, level))
+        return level
+
+    def recording(future, prompt, max_new, *rest):
+        n = len(levels)
+        out = enqueue(future, prompt, max_new, *rest)
+        depth, level = levels[n]
+        enqueued.append({"depth": depth, "level": level,
+                         "speculative_enabled": engine.speculative_enabled})
+        return out
+
+    engine.pressure_level = capturing
+    engine._enqueue = recording
+    t0 = time.perf_counter()
+    outputs = server.do_event(_Event({"inputs": burst})).body["outputs"]
+    burst_s = time.perf_counter() - t0
+    streams += list(zip(burst, outputs))
+    t0 = time.perf_counter()
+    body = server.do_event(_Event({"inputs": [lone[1]],
+                                   "timing": True})).body
+    lone_wall_s = time.perf_counter() - t0
+    streams.append((lone[1], body["outputs"][0]))
+
+    def check_ladder(rows, outs, leg):
+        for row, tokens in zip(rows, outs):
+            degraded = row["level"] >= 1
+            want = RES_LADDER["max_new_tokens"] if degraded else MAX_NEW
+            if row["speculative_enabled"] == degraded or \
+                    len(tokens) != want:
+                fail(f"ladder ({leg}): at level {row['level']} speculation "
+                     f"{row['speculative_enabled']}, {len(tokens)} tokens")
+
+    check_ladder(enqueued, outputs + body["outputs"], "burst")
+    if not any(r["level"] >= 1 for r in enqueued) \
+            or not enqueued[-1]["speculative_enabled"]:
+        fail(f"ladder: the burst never degraded, or speculation did not "
+             f"come back ({enqueued})")
+    ladder_rows = list(enqueued)
+
+    # -- (4) {"timing": true} ----------------------------------------------
+    (timing,) = body["timing"]
+    closure = abs(timing["wall_s"] - sum(timing["phases"].values()))
+    if not (timing["attribution_closed"] and closure < 1e-6
+            and timing["wall_s"] <= lone_wall_s):
+        fail(f"timing: phases {timing['phases']} vs wall {timing['wall_s']}"
+             f" (request wall {lone_wall_s})")
+
+    # -- (3) max_wait expiry behind a full queue ---------------------------
+    enqueued.clear()
+    futures = [engine.submit(p, max_new_tokens=MAX_NEW) for p in burst[:5]]
+    late = engine.submit(lone[2], max_new_tokens=MAX_NEW,
+                         max_wait=RES_TINY_WAIT)
+    served = [f.result(timeout=600)[0] for f in futures]
+    expired = late.exception(timeout=600)
+    engine._enqueue, engine.pressure_level = enqueue, pressure
+    if not isinstance(expired, DeadlineExceeded) or \
+            expired.status_code != 504:
+        fail(f"expiry: the late request ended with {expired!r}")
+    check_ladder(enqueued[:5], served, "expiry")
+    expiry_rows = list(enqueued)
+    stats = engine.stats
+    ttft_count = LLM_TTFT.value(replica="", adapter="")["count"]
+    server_counts = _build.launch_counts()
+    server_tick_p50 = stats.get("decode_tick_p50_s")
+    server.close()
+
+    # -- (5) the metrics ----------------------------------------------------
+    if ttft_count != stats["completed"] or stats["expired"] != 1:
+        fail(f"metrics: {ttft_count} TTFT observations for "
+             f"{stats['completed']} completed requests, "
+             f"{stats['expired']} expired")
+
+    # -- the spec-off streams; the same traffic with the ledger off, on,
+    # on, off (6): host time spreads between runs, so the pairs bracket it
+    prompts = [p for p, _ in streams]
+    ticks_p50 = {False: [], True: []}
+    reference = None
+    for ledger in RES_LEDGER_ORDER:
+        ref = _spec_off_engine(config, params, seed, ledger)
+        ref.warmup()
+        plain = [ref.generate(p, max_new_tokens=MAX_NEW)[0]
+                 for p in prompts[:1]]
+        plain += _submit_engine(ref)(prompts[1:-1])
+        plain += [ref.generate(prompts[-1], max_new_tokens=MAX_NEW)[0]]
+        ticks_p50[ledger].append(ref.stats.get("decode_tick_p50_s"))
+        ref.stop()
+        if reference is None:
+            reference = plain
+        elif plain != reference:
+            fail("resilience: the spec-off engine's streams changed with "
+                 "the request ledger")
+    agree = []
+    for (prompt, spec), want in zip(streams, reference):
+        n = len(spec)
+        agree.append(_stream_check(config, params, prompt, spec, want[:n]))
+    for i, row in enumerate(agree):
+        if row["tie_at_departure_rel"] is not None \
+                and not row["tie_at_departure_rel"] <= SPEC_REL_TOL:
+            fail(f"resilience, stream {i}: departs from spec-off at token "
+                 f"{row['identical_prefix']}, "
+                 f"{row['tie_at_departure_rel']} apart")
+        if not row["worst_argmax_gap_rel"] <= SPEC_REL_TOL:
+            fail(f"resilience, stream {i}: a token "
+                 f"{row['worst_argmax_gap_rel']} below the argmax")
+    result = {
+        "phase": "resilience", "model": "llama3-8b", "draft": "llama3-1b",
+        "layers": config.n_layers, "card": card, "load_s": load_s,
+        "request_ledger": True, "max_wait_s": RES_MAX_WAIT,
+        "degradation": RES_LADDER, **parked,
+        "ladder": ladder_rows, "expiry_leg_ladder": expiry_rows,
+        "burst_s": burst_s,
+        "degraded": stats["degraded"], "spec_rounds": stats["spec_rounds"],
+        "acceptance_rate": stats["acceptance_rate"],
+        "timing": timing, "timing_request_wall_s": lone_wall_s,
+        "expired": stats["expired"], "expiry_error": type(expired).__name__,
+        "expiry_status": expired.status_code,
+        "ttft_observations": ttft_count, "completed": stats["completed"],
+        "launches": server_counts,
+        "server_decode_tick_p50_s": server_tick_p50,
+        "decode_tick_p50_s_ledger_on": ticks_p50[True],
+        "decode_tick_p50_s_ledger_off": ticks_p50[False],
+        "ledger_run_order": ["on" if x else "off" for x in RES_LEDGER_ORDER],
+        "streams": agree, "rel_tol": SPEC_REL_TOL}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 10: kv_tier — the host KV tier, the KV handoff and fetch/import on
+# the 8B paged engine
+# ---------------------------------------------------------------------------
+
+TIER_PAGES = 20             # the device pool holds two 9-page requests
+TIER_PROMPT = 1024          # 8 pages of prompt + 32 new tokens: 9 pages
+TIER_HOST_BYTES = 2 << 30
+TIER_TIMING_ITERS = 20
+
+
+def _tier_prompts(seed: int, vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 7)
+    return [rng.integers(1, vocab, size=TIER_PROMPT).tolist()
+            for _ in range(4)]
+
+
+def _same_kv(a, b) -> bool:
+    import numpy as np
+
+    return set(a.kv) == set(b.kv) and all(
+        a.kv[n].dtype == b.kv[n].dtype and np.array_equal(a.kv[n], b.kv[n])
+        for n in a.kv)
+
+
+def _page_copy_ms(engine) -> dict:
+    """One 8B page's demote (device -> pinned host, every layer, K and V
+    and on int8 the scales) and promote (back) by CUDA events."""
+    import torch
+
+    pid = 0
+    host = engine._host_page(pid)
+
+    def demote():
+        engine._host_page(pid)
+
+    def promote():
+        for name, arr in engine._pool.items():
+            arr[:, pid].copy_(host[name])
+
+    def demote_pageable():
+        for arr in engine._pool.values():
+            arr[:, pid].cpu()
+
+    nbytes = sum(t.nbytes for t in host.values())
+    out = {"page_bytes": nbytes}
+    keep = []
+
+    def demote_fresh_pinned_kept():
+        # fresh pinned buffers that stay alive (as the tier holds them),
+        # so the host allocator cannot hand back a freed one
+        keep.append([torch.empty(arr[:, pid].shape, dtype=arr.dtype,
+                                 pin_memory=True).copy_(arr[:, pid])
+                     for arr in engine._pool.values()])
+
+    for name, fn in (("demote", demote), ("promote", promote),
+                     ("demote_fresh_pinned", demote_fresh_pinned_kept),
+                     ("demote_pageable", demote_pageable)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIER_TIMING_ITERS):
+            fn()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / TIER_TIMING_ITERS
+        out[f"{name}_ms_per_page"] = ms
+        out[f"{name}_gb_per_s"] = nbytes / ms / 1e6
+    keep.clear()
+    return out
+
+
+def _tier_leg(config, params, seed, card, kv_dtype) -> dict:
+    import torch
+
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    prefill_name = "paged_prefill" if kv_dtype == "native" \
+        else "paged_prefill_int8"
+    prompts = _tier_prompts(seed, config.vocab_size)
+    engine = PagedContinuousBatchingEngine(
+        config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+        n_pages=TIER_PAGES, kv_dtype=kv_dtype, seed=seed, device="cuda",
+        kv_tier={"host_bytes": TIER_HOST_BYTES})
+    engine.warmup()
+    copies = {"demote": 0.0, "promote": 0.0}
+    demote, promote = engine._demote_node, engine._tier_import
+
+    def timed(kind, fn):
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            copies[kind] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    engine._demote_node = timed("demote", demote)
+    engine._tier_import = timed("promote", promote)
+    p1 = prompts[0]
+    cold, _ = engine.generate(p1, max_new_tokens=MAX_NEW)
+    before = engine.fetch_prefix(p1).result(timeout=600)
+    hit, _ = engine.generate(p1, max_new_tokens=MAX_NEW)
+    for prompt in prompts[1:]:
+        engine.generate(prompt, max_new_tokens=MAX_NEW)
+    demoted = engine.stats
+    _build.reset_launch_counts()
+    kernel_chunks = demoted["prefill_kernel_chunks"]
+    promoted, rstats = engine.generate(p1, max_new_tokens=MAX_NEW)
+    counts = _build.launch_counts()
+    stats = engine.stats
+    after = engine.fetch_prefix(p1).result(timeout=600)
+    page_times = _page_copy_ms(engine)
+    engine.stop()
+    coverable = (TIER_PROMPT - 1) // PAGE
+    from_cache = rstats["timing"].get("cached_prefix", 0) // PAGE
+    checks = {
+        "demoted": demoted["kv_demoted_pages"] >= coverable,
+        "promoted": stats["kv_promoted_pages"] == coverable,
+        "served_from_cache": from_cache == coverable,
+        "tokens_equal_device_hit": promoted == hit,
+        "pages_bit_identical": _same_kv(before, after)
+        and before.cached_prefix == after.cached_prefix == coverable * PAGE,
+        "paged_prefill_launched": counts[prefill_name] > 0
+        and stats["prefill_kernel_chunks"] > kernel_chunks
+        and stats["prefill_gather_admissions"] == 0,
+    }
+    row = {"phase": "kv_tier", "leg": "tier", "kv_dtype": kv_dtype,
+           "model": "llama3-8b", "card": card, "n_pages": TIER_PAGES,
+           "prompt_tokens": TIER_PROMPT, "served_from_cache_rate":
+           1.0 if checks["served_from_cache"] else 0.0,
+           "kv_demoted_pages": demoted["kv_demoted_pages"],
+           "kv_promoted_pages": stats["kv_promoted_pages"],
+           "tier": stats["kv_tier"], "rerun_launches": counts,
+           "demote_s_per_page_in_engine":
+           copies["demote"] / max(1, stats["kv_demotes"]),
+           "promote_s_per_page_in_engine":
+           copies["promote"] / max(1, stats["kv_promoted_pages"]),
+           **page_times, "checks": checks,
+           "cold_vs_promoted": _stream_check(config, params, p1, promoted,
+                                             cold)}
+    return row, cold, hit, prompts
+
+
+def _handoff_leg(config, params, seed, card, kv_dtype, cold, hit,
+                 prompts) -> dict:
+    import numpy as np
+    import torch
+
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    engines = [PagedContinuousBatchingEngine(
+        config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+        kv_dtype=kv_dtype, seed=seed, device="cuda") for _ in range(2)]
+    prefill, decode = engines
+    for engine in engines:
+        engine.warmup()
+    p1 = prompts[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handoff = prefill.submit_prefill(p1).result(timeout=600)
+    handoff_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    tokens, stats = decode.submit_prefilled(
+        handoff, max_new_tokens=MAX_NEW).result(timeout=600)
+    decode_counts = _build.launch_counts()
+    payload = prefill.fetch_prefix(p1).result(timeout=600)
+    imported = decode.import_prefix(payload).result(timeout=600)
+    fetched, fstats = decode.generate(p1, max_new_tokens=MAX_NEW)
+    dstats = decode.stats
+    for engine in engines:
+        engine.stop()
+    want_dtype = np.int8 if kv_dtype == "int8" else np.uint16
+    checks = {
+        "handoff_tokens_equal_single_engine": tokens == cold,
+        "payload_dtype": str(handoff.kv["k"].dtype) == str(np.dtype(
+            want_dtype)),
+        "decode_launched_paged_decode":
+        decode_counts["paged_decode" if kv_dtype == "native"
+                      else "paged_decode_int8"] > 0,
+        "no_prefill_on_decode": decode_counts["flash_fwd_cached"] == 0,
+        "import_pages": imported == (TIER_PROMPT - 1) // PAGE,
+        "import_makes_a_hit": dstats["prefix_hits"] == 1
+        and fstats["timing"].get("cached_prefix") == payload.cached_prefix,
+        "fetched_tokens_equal_device_hit": fetched == hit,
+    }
+    return {"phase": "kv_tier", "leg": "handoff", "kv_dtype": kv_dtype,
+            "model": "llama3-8b", "card": card,
+            "handoff_bytes": handoff.nbytes(),
+            "handoff_dtypes": {n: str(a.dtype) for n, a in
+                               handoff.kv.items()},
+            "submit_prefill_s": handoff_s, "prefill_s": handoff.prefill_s,
+            "decode_handoff_phase_s": stats["timing"]["phases"].get(
+                "handoff"),
+            "fetch_bytes": payload.nbytes(), "imported_pages": imported,
+            "decode_launches": decode_counts, "checks": checks}
+
+
+def phase_kv_tier(seed: int, card: str) -> dict:
+    """The host KV tier on the 8B paged engine, native and int8 pools: a
+    20-page device pool holds two of four 1024-token prompts, so the
+    first prompt's pages demote before its rerun, which promotes them
+    (served from cache, the paged prefill kernel reading the promoted
+    pages, pages bit-identical through the round trip, tokens equal to a
+    device-hit run's); then a prefill engine hands the prompt to a decode
+    engine (submit_prefill -> submit_prefilled, the single-engine tokens,
+    an int8 payload arriving as int8) and fetch_prefix -> import_prefix
+    makes the decode engine's next request a hit."""
+    import gc
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+
+    config = MODEL_PRESETS["llama3-8b"]()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(config, gen, "cuda")
+    rows = []
+    for kv_dtype in ("native", "int8"):
+        tier, cold, hit, prompts = _tier_leg(config, params, seed, card,
+                                             kv_dtype)
+        emit(tier)
+        handoff = _handoff_leg(config, params, seed, card, kv_dtype, cold,
+                               hit, prompts)
+        emit(handoff)
+        rows += [tier, handoff]
+        gc.collect()
+        torch.cuda.empty_cache()
+        for row in (tier, handoff):
+            bad = [name for name, ok in row["checks"].items() if not ok]
+            if bad:
+                fail(f"kv_tier ({kv_dtype}, {row['leg']}): {bad}")
+        check = tier["cold_vs_promoted"]
+        if check["tie_at_departure_rel"] is not None \
+                and not check["tie_at_departure_rel"] <= SPEC_REL_TOL:
+            fail(f"kv_tier ({kv_dtype}): the promoted rerun departs from "
+                 f"the cold run at token {check['identical_prefix']}")
+    return {"rows": rows}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
-              "serve_dense", "lora", "train")
+              "serve_dense", "lora", "train", "resilience", "kv_tier")
 
 
 def main(argv=None) -> int:
@@ -2229,6 +2711,14 @@ def main(argv=None) -> int:
         trained = phase_train(args.seed, card)
         launches.update({name: trained["launches"][name]
                          for name in TRAINING_KERNELS})
+        trained = None
+        release()
+    if "resilience" in phases:
+        phase_resilience(args.seed, card)
+        release()
+    if "kv_tier" in phases:
+        phase_kv_tier(args.seed, card)
+        release()
     if set(phases) != set(ALL_PHASES):
         return 0
     replaces = {

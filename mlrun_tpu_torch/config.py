@@ -1,7 +1,8 @@
 """Configuration defaults the port reads — copies of the ``serving.llm``
 and ``training`` blocks of ``mlrun_tpu/config.py`` (the knobs the
-engines', the adapter registry's and the trainer's main paths consult;
-the rest of those blocks belongs to features not ported yet)."""
+engines', the request ledger's, the host KV tier's, the adapter
+registry's and the trainer's main paths consult; the rest of those
+blocks belongs to features not ported yet)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,21 @@ SERVING_LLM_DEFAULTS = {
     # attention dispatch: auto picks the CUDA kernels for a CUDA device
     # and the plain paths on the CPU; flash | kernel | reference override
     "attention_impl": "auto",
+    # per-request phase-transition ledger (obs/reqledger.py): every
+    # request's wall attributed to queue_wait/prefill/decode_active/...
+    # phases, exported as mlt_request_phase_seconds and returned under the
+    # v2 response's opt-in "timing" field. On by default, as the
+    # reference's; off = no ledger work on the hot path
+    "request_ledger": True,
+    # host-RAM KV tier under the paged engine's device pool
+    # (serving/kv_tier.py): evicted prefix chains demote to host memory
+    # and promote back on admission instead of re-prefilling from tokens.
+    # Off by default — the paged engine's kv_tier arg overrides
+    "kv_tier": {
+        "enabled": False,
+        # host-store byte budget for demoted pages (+ scales on int8)
+        "host_bytes": 64 << 20,
+    },
     # in-engine speculative decoding: a resident draft model proposes k
     # tokens per scheduler tick and one multi-token verify dispatch commits
     # the accepted prefix. Off by default — it needs a draft model;

@@ -22,9 +22,12 @@ Adapter identity is the NAME: the prefix cache is namespaced by it
 (serving/prefix.py), so KV computed under adapter A is never reused for
 adapter B. Names are immutable versions.
 
-The reference's ``llm.adapter_load`` chaos point, its adapter-labelled
-metric series and datastore URLs for artifacts are not ported (ROADMAP.md
-items 2 and 10); without a canary router every name resolves to itself.
+Loads and evictions fire the ``llm.adapter_load`` chaos point (an armed
+error fails one request, never the engine); ``retire`` also drops the
+adapter's request-phase series. The adapter-labelled metric series are
+published by the engines (serving/llm_batch.py). Datastore URLs for
+artifacts are not ported (ROADMAP.md item 10); without a canary router
+every name resolves to itself.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..chaos import FaultPoints, fire
 from ..config import SERVING_LLM_DEFAULTS
 from ..models.lora import (
     _PROJ_DIMS,
@@ -292,15 +296,28 @@ class AdapterRegistry:
         no in-flight request pins it. A still-pinned resident keeps
         serving its in-flight requests and becomes LRU-evictable once the
         pins drain — retire never fails live traffic."""
+        from ..obs import retire_adapter_phases
+
         with self._lock:
             if not keep_source:
                 self.sources.pop(name, None)
             self._host_cache.pop(name, None)
             resident = self._residents.get(name)
-            if resident is not None and resident.refcount == 0:
+            retired_resident = resident is not None \
+                and resident.refcount == 0
+            if retired_resident:
                 del self._residents[name]
-                self._free_slots.append(resident.slot)
+                slot = resident.slot
+                self._free_slots.append(slot)
                 self.stats["adapter_evictions"] += 1
+        if not keep_source:
+            # a fully retired identity releases its per-phase histogram
+            # series too: version churn must not exhaust the
+            # mlt_request_phase_seconds label-set cap
+            retire_adapter_phases(name)
+        if retired_resident:
+            fire(FaultPoints.llm_adapter_load, op="evict", adapter=name,
+                 slot=slot)
 
     # -- host-side loading ---------------------------------------------------
     def known(self, name: str) -> bool:
@@ -389,6 +406,13 @@ class AdapterRegistry:
                 del self._residents[victim_name]
                 slot = victim.slot
                 self.stats["adapter_evictions"] += 1
+                try:
+                    fire(FaultPoints.llm_adapter_load, op="evict",
+                         adapter=victim_name, slot=slot)
+                except BaseException:
+                    # an armed error must not leak the freed slot
+                    self._free_slots.append(slot)
+                    raise
             resident = _Resident(slot)
             resident.refcount = 1
             resident.last_used = self._tick
@@ -422,6 +446,8 @@ class AdapterRegistry:
                 return resident.slot
             slot = resident.slot
         try:
+            fire(FaultPoints.llm_adapter_load, op="load", adapter=name,
+                 slot=slot)
             lora = self._load_params(name)
             with self._bank_lock:
                 # re-validate slot ownership before the write: the fetch

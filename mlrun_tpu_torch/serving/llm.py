@@ -28,6 +28,7 @@ speculative draft model when asked.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional
 
@@ -753,9 +754,13 @@ class LLMModelServer:
     (named LoRA sources: tree | local .npz path | callable; a v2 body's
     ``"adapter"`` picks one), max_live_adapters, adapter_rate and
     adapter_burst (the batching engines' per-tenant token bucket),
-    temperature, top_k, top_p, warmup, seed, device (default: the GPU;
-    ``"cpu"`` runs the plain paths). The reference's other features raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
+    max_queue_size, max_wait and degradation (the batching engines'
+    overload protection), request_ledger (None = the config's default,
+    on; a batching server answers a v2 body's ``"timing": true`` with each
+    input's phase breakdown), temperature, top_k, top_p, warmup, seed,
+    device (default: the GPU; ``"cpu"`` runs the plain paths). The
+    reference's other features raise ``NotImplementedError`` naming their
+    ROADMAP.md item.
     """
 
     def __new__(cls, *args, **kwargs):
@@ -790,8 +795,6 @@ class LLMModelServer:
                 unported = {
                     "tokenizer": (tokenizer, 10),
                     "hf_model": (hf_model, 10),
-                    "max_wait/degradation": (max_wait or degradation, 2),
-                    "request_ledger": (request_ledger, 2),
                     "replicas/prefill_replicas/routing": (
                         replicas >= 2 or prefill_replicas or routing, 6),
                 }
@@ -811,7 +814,12 @@ class LLMModelServer:
                 self.top_p = top_p
                 self.page_size = page_size
                 self.n_pages = n_pages
+                # overload knobs forwarded to the batching engines
                 self.max_queue_size = max_queue_size
+                self.max_wait = max_wait
+                self.degradation = degradation
+                # per-request phase ledger; None = the config's default
+                self.request_ledger = request_ledger
                 self.prefill_chunk = prefill_chunk
                 self.prefix_cache = prefix_cache
                 self.attention_impl = attention_impl
@@ -828,6 +836,10 @@ class LLMModelServer:
                 self.seed = seed
                 self.device = default_device(device)
                 self.engine = None
+                # predict -> postprocess hand-over of the opt-in "timing"
+                # field: thread-local, because concurrent requests share
+                # this server and each runs its whole chain on one thread
+                self._timing_out = threading.local()
 
             def load(self):
                 from ..models import llama
@@ -857,6 +869,8 @@ class LLMModelServer:
                     max_len=self.max_len, slots=self.slots,
                     kv_dtype=self.kv_dtype,
                     max_queue_size=self.max_queue_size,
+                    max_wait=self.max_wait, degradation=self.degradation,
+                    request_ledger=self.request_ledger,
                     prefill_chunk=self.prefill_chunk,
                     attention_impl=self.attention_impl, seed=self.seed,
                     speculative=self._speculative_conf(),
@@ -914,12 +928,13 @@ class LLMModelServer:
                 # an adapter no source provides fails 404
                 adapter = request.get("adapter", "") or ""
                 request_key = request.get("request_key") or None
-                # {"timing": true} returns the request ledger's breakdown
-                # on the reference's batching servers; its LLMEngine server
-                # ignores the field, and so does this one
-                if self.continuous_batching and request.get("timing"):
-                    raise not_ported("per-request timing (the request "
-                                     "ledger)", 2)
+                # {"timing": true} returns each input's phase-ledger
+                # breakdown on the batching servers; the LLMEngine server
+                # ignores the field, as the reference's does. Clear the
+                # hand-over slot first: a predict() that raised must not
+                # leak one request's timing onto this thread's next one
+                self._timing_out.value = None
+                want_timing = bool(request.get("timing"))
                 id_lists = []
                 for item in request["inputs"]:
                     if isinstance(item, str):
@@ -959,7 +974,19 @@ class LLMModelServer:
                             "prefill_chunks"):
                     if key in engine_stats:
                         self.set_metric(key, engine_stats[key])
+                if want_timing:
+                    self._timing_out.value = [s.get("timing")
+                                              for _, s in results]
                 return [tokens for tokens, _ in results]
+
+            def postprocess(self, response):
+                # the opt-in "timing" field rides the v2 envelope next to
+                # "outputs" (one entry per input, aligned)
+                timings = getattr(self._timing_out, "value", None)
+                self._timing_out.value = None
+                if timings and any(t is not None for t in timings):
+                    response["timing"] = timings
+                return response
 
             def close(self):
                 # an LLMEngine holds no scheduler thread to stop

@@ -23,14 +23,25 @@ each row commits its accepted prefix.
 Multi-tenant LoRA: with ``adapters`` every request may name an adapter of
 the engine's registry (serving/adapters.py); the admission prefill runs
 under its bank slot and each decode or verify dispatch gathers every
-row's factors by its slot. The request ledger, ``max_wait`` expiry, the
-degradation ladder and KV handoff are not ported yet (ROADMAP.md).
+row's factors by its slot.
+
+Resilience and observability, as the reference's: a ``max_wait``
+queue-time budget fails expired requests with ``DeadlineExceeded`` (504);
+the degradation ladder (``degradation=``) clamps ``max_new_tokens`` and
+parks speculation under queue or page pressure; every request carries a
+phase ledger (``request_ledger``, on by default) whose closed summary
+rides the result's stats as ``timing``; the engines publish the ``mlt_*``
+series (obs/) and fire the chaos points ``llm.submit``, ``llm.prefill``,
+``llm.spec_verify`` and ``fleet.degrade``. ``submit_prefill`` /
+``submit_prefilled`` hand a prompt's KV from a prefill engine to a decode
+engine as a :class:`KVHandoff`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-import math
+import itertools
 import queue
 import threading
 import time
@@ -42,8 +53,30 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..chaos import FaultPoints, fire
 from ..config import SERVING_LLM_DEFAULTS
 from ..models.llama import LlamaConfig, Params, lm_head, logits_f32
+from ..obs import (
+    ADAPTER_LIVE,
+    ADAPTER_LOADS,
+    LLM_DECODE_TICK,
+    LLM_EVENTS,
+    LLM_FREE_PAGE_FRAC,
+    LLM_ITL,
+    LLM_QUEUE_DEPTH,
+    LLM_SPEC_ROUNDS,
+    LLM_SPEC_TOKENS,
+    LLM_TTFT,
+    REGISTRY,
+    RequestLedger,
+    export_phases,
+    flight_record,
+    get_flight_recorder,
+    get_tracer,
+    ledger_enabled,
+    register_memory_collector,
+)
+from ..obs.stats import nearest_rank
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
 from ..utils import logger
@@ -65,10 +98,15 @@ from .llm import (
     init_kv_cache,
 )
 from .resilience import (
+    DeadlineExceeded,
+    DegradationLadder,
     EngineStoppedError,
     PromptTooLongError,
     QueueFullError,
 )
+
+# process-wide engine sequence: each engine's /metrics identity
+_ENGINE_SEQUENCE = itertools.count(1)
 
 
 def _write_rows(dst: torch.Tensor, rows, index, inside, values):
@@ -217,12 +255,78 @@ def _insert(big_cache: dict, small: dict, slot: int, pos: int) -> dict:
 
 
 def _percentile(sorted_samples: list, q: float) -> float:
-    """Nearest-rank percentile: the ``ceil(q * n)``-th order statistic of
-    an already-sorted, non-empty sample list (0 < q <= 1)."""
-    n = len(sorted_samples)
-    if n == 0:
-        raise ValueError("_percentile needs at least one sample")
-    return sorted_samples[min(max(0, math.ceil(q * n) - 1), n - 1)]
+    """Nearest-rank percentile over an already-sorted sample list (the
+    shared ``obs.stats.nearest_rank``)."""
+    return nearest_rank(sorted_samples, q)
+
+
+def _to_wire(t: torch.Tensor) -> np.ndarray:
+    """A KV tensor as the host array a :class:`KVHandoff` carries: float32
+    and int8 as they are; bfloat16 as its raw 16-bit patterns (uint16)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_wire(a) -> torch.Tensor:
+    """The inverse of :func:`_to_wire`, which also reads the reference's
+    bfloat16 arrays (``ml_dtypes.bfloat16``, where numpy has it) by their
+    bits."""
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()     # a torch tensor must not alias read-only memory
+    if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(
+            a.view(np.int16))).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@dataclass
+class KVHandoff:
+    """Prefill-to-decode KV handoff payload, the reference's class.
+
+    A prefill engine produces one via :meth:`ContinuousBatchingEngine.
+    submit_prefill`; a decode engine consumes it via
+    ``submit_prefilled`` and decodes token-identically to the
+    single-engine path (greedy). The payload is host arrays trimmed to the
+    prompt rows, so it can cross a process boundary; rebuilt from its
+    fields as the other package's ``KVHandoff``, it crosses between the
+    reference's engines and the port's in both directions.
+
+    Wire format (the reference's): ``kv`` always carries ``k``/``v``
+    ``[L, prompt_len, Hkv, D]``; on an int8 pool (``kv_dtype == "int8"``)
+    they stay int8 and the per-vector float32 scales ride alongside as
+    ``k_scale``/``v_scale`` ``[L, prompt_len, Hkv]`` — never densified.
+    float32 and int8 arrays cross unchanged. numpy has no bfloat16 (and
+    the card's machine has no ``ml_dtypes``), so a bfloat16 native pool's
+    ``k``/``v`` cross as their raw 16-bit patterns in ``uint16`` arrays,
+    with ``kv_dtype`` still ``"native"``: the array dtype names the bits
+    (no float KV is ever uint16). The port reads both that and the
+    reference's ``ml_dtypes.bfloat16`` arrays; the reference would cast
+    uint16 values numerically, so a bfloat16 payload from the port must
+    be viewed as bfloat16 before the reference imports it (ROADMAP.md,
+    queue 3)."""
+
+    prompt: list
+    first_token: int
+    kv: dict                     # {"k","v"[, "k_scale","v_scale"]}: numpy
+    prompt_len: int
+    kv_dtype: str = "native"     # "native" | "int8": the exporting pool's
+    cached_prefix: int = 0       # prompt tokens served from the prefill
+    #                              engine's prefix cache
+    sampling: tuple = (0.0, 0, 1.0)
+    prefill_s: float = 0.0       # submit-to-export wall on the prefill side
+    replica: str = ""            # prefill replica id (fleet bookkeeping)
+    adapter: str = ""            # the tenant the KV was computed under: the
+    #                              decode engine decodes with the same one
+    timing: Optional[dict] = None  # the prefill side's closed ledger
+    prewarm: bool = False        # the importer registers the imported
+    #                              pages in its prefix index
+
+    def nbytes(self) -> int:
+        return int(sum(arr.nbytes for arr in self.kv.values()))
+
 
 
 @dataclass
@@ -241,6 +345,7 @@ class _Admission:
     future: Future
     submitted: float
     sampling: tuple
+    expires: Optional[float] = None
     small: dict = None
     base: int = 0
     offset: int = 0
@@ -259,6 +364,19 @@ class _Admission:
     # (resolved at admission by AdapterRegistry.ensure_loaded)
     adapter: str = ""
     adapter_slot: int = 0
+    # trace context captured at submit ((trace_id, parent_span_id)) and
+    # the wall clock at claim: the llm.prefill span is emitted from these
+    trace: Optional[tuple] = None
+    claimed: float = 0.0
+    # KV handoff: an export admission resolves its future with a
+    # KVHandoff instead of activating a slot; a prefilled one arrived with
+    # its KV and skips the prefill dispatch; register_import also indexes
+    # the imported pages (a prewarm payload)
+    export: bool = False
+    prefilled: bool = False
+    register_import: bool = False
+    # the request's phase ledger (None with the ledger off)
+    ledger: Optional[RequestLedger] = None
 
 
 @dataclass
@@ -278,6 +396,12 @@ class _Slot:
     # (the decode tick gathers each row's factors by adapter_slot)
     adapter: str = ""
     adapter_slot: int = 0
+    # trace context and decode start (wall clock) of the llm.decode span
+    trace: Optional[tuple] = None
+    decode_started: float = 0.0
+    # the request's phase ledger, handed over from the admission; every
+    # tick flips it decode_active / decode_stall around the dispatch
+    ledger: Optional[RequestLedger] = None
 
     @property
     def active(self) -> bool:
@@ -308,20 +432,31 @@ class ContinuousBatchingEngine:
     other engines) serves named LoRA adapters per request, with
     ``max_live_adapters`` bank slots; ``adapter_rate`` > 0 puts a token
     bucket per tenant (``adapter_burst`` deep) in front of the queue.
+
+    Overload: ``max_queue_size`` sheds the newest request (429),
+    ``max_wait`` > 0 fails a request still queued past that many seconds
+    with ``DeadlineExceeded`` (504), and ``degradation`` (a
+    ``DegradationLadder`` spec) clamps ``max_new_tokens`` and parks
+    speculation while the queue (or, paged, the free-page fraction) is
+    past its rung. ``request_ledger`` (None = the config's default, on)
+    attributes every request's wall to phases; the summary comes back as
+    ``stats["timing"]``.
     """
 
     def __init__(self, config: LlamaConfig, params: Params,
                  max_len: int = 2048, slots: int = 4,
                  prefill_buckets: tuple = (128, 512, 1024),
                  seed: int = 0, kv_dtype: str = "native",
-                 max_queue_size: int = 0,
+                 max_queue_size: int = 0, max_wait: float = 0.0,
+                 degradation: dict | None = None,
                  prefill_chunk: int | None = None,
                  latency_window: int | None = None,
                  attention_impl: str | None = None,
                  speculative: dict | None = None, adapters=None,
                  max_live_adapters: int | None = None,
                  adapter_rate: float | None = None,
-                 adapter_burst: float | None = None, device=None):
+                 adapter_burst: float | None = None,
+                 request_ledger: bool | None = None, device=None):
         from ..ops.attention import resolve_prefill_impl
 
         self.config = config
@@ -336,8 +471,13 @@ class ContinuousBatchingEngine:
                 f"on {self.device}")
         if max_queue_size < 0:
             raise ValueError("max_queue_size must be >= 0")
-        # bounded admission queue, reject-newest shedding (0 = unbounded)
+        if max_wait < 0:
+            raise ValueError("max_wait must be >= 0")
+        # bounded admission queue, reject-newest shedding (0 = unbounded);
+        # max_wait: per-request queue-time budget in seconds (0 = off)
         self.max_queue_size = int(max_queue_size)
+        self.max_wait = float(max_wait)
+        self.degradation = DegradationLadder.from_spec(degradation)
         # chunked prefill: at most prefill_chunk prompt tokens per
         # scheduler tick, so a long prompt never freezes the inter-token
         # latency of running slots; 0 = whole-prompt prefill inline
@@ -383,6 +523,16 @@ class ContinuousBatchingEngine:
         # per-tenant admission fairness in front of the shared queue
         self._tenant_limiter = (TenantRateLimiter(adapter_rate, adapter_burst)
                                 if adapter_rate > 0 else None)
+        # adapter label values this engine has emitted series for —
+        # removed with the rest of its series on stop()
+        self._adapter_labels_seen: set = set()
+        # per-request phase ledger: off = one None check per instrumented
+        # site, nothing allocated. The clock is injectable for fake-clock
+        # closure tests; every ledger transition reads it exactly once
+        if request_ledger is None:
+            request_ledger = ledger_enabled()
+        self.request_ledger = bool(request_ledger)
+        self._ledger_clock = time.perf_counter
 
         self._cache = self._make_cache()
         self._slot_state = [_Slot() for _ in range(slots)]
@@ -391,14 +541,28 @@ class ContinuousBatchingEngine:
         self._stopped = False
         self._crash_exc: Optional[Exception] = None
         self._thread: Optional[threading.Thread] = None
+        # /metrics identity and scrape-time collector; ``replica`` labels
+        # every mlt_llm_* series ("" for a standalone engine) — set it
+        # before start()
+        self._obs_name = f"{type(self).__name__}-{next(_ENGINE_SEQUENCE)}"
+        self.replica = ""
+        self._metrics_collector = None
         self._next_id = 0
+        # RLock: the expiry sweep holds it across drain and re-put while
+        # the helpers it calls re-acquire it
         self._lock = threading.RLock()
+        # queued requests carrying a max_wait budget; the per-tick expiry
+        # sweep is skipped while this is zero
+        self._budgeted = 0
         self._stats = {"requests": 0, "completed": 0, "ttft_sum": 0.0,
-                       "tokens_out": 0, "shed": 0, "rejected_too_long": 0,
+                       "tokens_out": 0, "shed": 0, "expired": 0,
+                       "degraded": 0, "rejected_too_long": 0,
                        "prefill_chunks": 0, "prefill_tokens_tick_max": 0,
+                       "handoffs_out": 0, "handoff_bytes_out": 0,
+                       "handoffs_in": 0, "handoff_bytes_in": 0,
                        "adapter_rate_limited": 0}
-        # the reference's degradation ladder flips this; the port has no
-        # ladder yet (ROADMAP.md item 2), so it stays on
+        # flipped by the degradation ladder; the speculative tick consults
+        # it
         self.speculative_enabled = True
         # in-engine speculative decoding: off unless a draft model is given
         self._init_speculative(speculative)
@@ -424,6 +588,7 @@ class ContinuousBatchingEngine:
             last[i, 0] = self._slot_state[i].tokens[-1]
         tokens = torch.as_tensor(last, device=self.device)
         lora_kw = self._lora_kwargs(self._slot_adapter_ids())
+        self._ledger_mark(active, "decode_active")
         if any(self._slot_state[i].temperature > 0 for i in active):
             temp = np.zeros((self.slots,), np.float32)
             top_k = np.zeros((self.slots,), np.int64)
@@ -439,6 +604,7 @@ class ContinuousBatchingEngine:
             next_token, self._cache = _decode_rowwise(
                 self.config, self.params, tokens, self._cache, **lora_kw)
         tokens_host = next_token.cpu().numpy()
+        self._ledger_mark(active, "decode_stall")
         for i in active:
             slot = self._slot_state[i]
             token = int(tokens_host[i])
@@ -763,9 +929,22 @@ class ContinuousBatchingEngine:
     def _spec_decode_tick(self, active) -> Optional[int]:
         """One speculative tick: ``spec_k`` batched draft steps, ONE
         multi-token verify dispatch, then per-row accept / rollback.
-        Returns None to fall through to the plain tick (every row's gate
-        parked this round)."""
+        Returns None to fall through to the plain tick (a chaos park, or
+        every row's gate parked this round)."""
         from .speculative import accept_tokens
+
+        # chaos: an armed llm.spec_verify fault parks THIS tick to plain
+        # decode — never a client error; the stream stays exact-greedy
+        # because a plain tick emits the same target argmax
+        try:
+            fire(FaultPoints.llm_spec_verify, engine=self._obs_name,
+                 replica=self.replica, rows=len(active))
+        except Exception as exc:  # noqa: BLE001 - any armed error parks
+            with self._lock:
+                self._stats["spec_parked_ticks"] += 1
+            flight_record("engine.spec_park", engine=self._obs_name,
+                          replica=self.replica, error=str(exc))
+            return None
 
         k_max = self.spec_k
         k_effs = np.zeros((self.slots,), np.int32)
@@ -789,6 +968,7 @@ class ContinuousBatchingEngine:
         last = np.zeros((self.slots, 1), np.int64)
         for i in active:
             last[i, 0] = self._slot_state[i].tokens[-1]
+        self._ledger_mark(active, "decode_active")
         proposals = self._spec_draft_steps(
             torch.as_tensor(last, device=self.device),
             **self._spec_lora_kwargs(self._spec_slot_draft_ids(active)))
@@ -796,6 +976,7 @@ class ContinuousBatchingEngine:
         chunk[:, 0] = last[:, 0]
         chunk[:, 1:] = proposals
         verified = self._spec_verify_dispatch(chunk, active)
+        self._ledger_mark(active, "decode_stall")
 
         finished = []
         committed = {}
@@ -866,30 +1047,200 @@ class ContinuousBatchingEngine:
         if self._running:
             return
         self._running = True
+        self._register_metrics()
+        # device memory / host RSS exposition while this engine lives
+        register_memory_collector(self)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
     def stop(self, timeout: float = 10.0):
         """Stop the scheduler and fail every pending request promptly with
-        :class:`EngineStoppedError`."""
+        :class:`EngineStoppedError`; the engine's metric series go with
+        it."""
         self._running = False
         self._stopped = True
         thread, self._thread = self._thread, None
+        exc = EngineStoppedError("engine stopped while the request was "
+                                 "pending")
         if thread is not None:
             thread.join(timeout=timeout)
-            if thread.is_alive():
-                # still inside a device step: fail what is queued now and
-                # leave the in-flight slots to the scheduler's exit
-                logger.warning("engine stop: scheduler still busy after "
-                               "join timeout", timeout=timeout)
-                self._drain_queue(EngineStoppedError(
-                    "engine stopped while the request was pending"))
-                return
-        self._fail_pending(EngineStoppedError(
-            "engine stopped while the request was pending"))
+        if thread is not None and thread.is_alive():
+            # still inside a device step: fail what is queued now and
+            # leave the in-flight slots to the scheduler's exit
+            logger.warning("engine stop: scheduler still busy after "
+                           "join timeout", timeout=timeout)
+            self._drain_queue(exc)
+        else:
+            self._fail_pending(exc)
+        self._unregister_metrics()
 
     def close(self):
         self.stop()
+
+    # -- /metrics collector --------------------------------------------------
+    # cumulative stats keys mirrored as counter series at scrape time (the
+    # adapter_* keys have their one family, mlt_adapter_loads_total)
+    _COUNTER_STATS = ("requests", "completed", "tokens_out", "shed",
+                      "expired", "degraded", "rejected_too_long",
+                      "prefill_chunks", "prefix_queries", "prefix_hits",
+                      "prefix_evictions", "prefix_cached_tokens",
+                      "handoffs_out", "handoff_bytes_out", "handoffs_in",
+                      "handoff_bytes_in")
+
+    def _register_metrics(self):
+        """Expose this engine on the process registry: queue-depth and
+        free-page-fraction gauges, the cumulative stats counters, the
+        speculation counters and the per-tenant adapter series, read at
+        scrape time (weakly bound; retired on stop())."""
+        if self._metrics_collector is not None:
+            return
+        import weakref
+
+        ref = weakref.ref(self)
+        name = self._obs_name
+        replica = self.replica
+        adapter_labels = self._adapter_labels_seen
+        has_adapters = self._adapters is not None and self._owns_adapters
+        has_limiter = self._tenant_limiter is not None
+        has_spec = self.spec_enabled
+        counter_stats = self._COUNTER_STATS
+
+        def remove_series():
+            for adapter in adapter_labels | {""}:
+                LLM_QUEUE_DEPTH.remove(engine=name, replica=replica,
+                                       adapter=adapter)
+            LLM_FREE_PAGE_FRAC.remove(engine=name, replica=replica)
+            if has_spec:
+                LLM_SPEC_ROUNDS.remove(engine=name, replica=replica)
+                for outcome in ("accepted", "rejected"):
+                    LLM_SPEC_TOKENS.remove(engine=name, replica=replica,
+                                           outcome=outcome)
+            for key in counter_stats:
+                LLM_EVENTS.remove(engine=name, replica=replica, event=key)
+            if has_adapters:
+                ADAPTER_LIVE.remove(engine=name, replica=replica)
+                for outcome in ("ok", "evict", "error", "capacity",
+                                "unknown"):
+                    ADAPTER_LOADS.remove(engine=name, replica=replica,
+                                         outcome=outcome)
+            if has_adapters or has_limiter:
+                ADAPTER_LOADS.remove(engine=name, replica=replica,
+                                     outcome="rate_limited")
+            if replica:
+                # a fleet replica owns its latency series too; standalone
+                # engines (replica "") share one series, never removed
+                for adapter in adapter_labels | {""}:
+                    for family in (LLM_TTFT, LLM_ITL):
+                        family.remove(replica=replica, adapter=adapter)
+                LLM_DECODE_TICK.remove(replica=replica)
+
+        def collect():
+            engine = ref()
+            if engine is None:
+                remove_series()
+                return False
+            stats = engine.stats
+            # per-tenant queue depth: every live adapter gets its queued
+            # estimate (explicitly 0 when idle); "" carries the rest, so
+            # the sum over adapter values is the engine's total depth
+            depth = stats.get("queue_depth", 0)
+            named = engine._adapter_queue_depths()
+            live = engine._live_adapter_labels() | set(named)
+            for adapter in live:
+                LLM_QUEUE_DEPTH.set(named.get(adapter, 0), engine=name,
+                                    replica=replica, adapter=adapter)
+            LLM_QUEUE_DEPTH.set(max(0, depth - sum(named.values())),
+                                engine=name, replica=replica, adapter="")
+            # retire the series of tenants that are gone
+            stale = adapter_labels - live - {""}
+            for adapter in stale:
+                LLM_QUEUE_DEPTH.remove(engine=name, replica=replica,
+                                       adapter=adapter)
+                if replica:
+                    for family in (LLM_TTFT, LLM_ITL):
+                        family.remove(replica=replica, adapter=adapter)
+            adapter_labels.difference_update(stale)
+            adapter_labels.update(live)
+            frac = engine._free_page_frac()
+            if frac is not None:
+                LLM_FREE_PAGE_FRAC.set(frac, engine=name, replica=replica)
+            for key in engine._COUNTER_STATS:
+                if key in stats:
+                    LLM_EVENTS.set_total(stats[key], engine=name,
+                                         replica=replica, event=key)
+            if has_spec:
+                LLM_SPEC_ROUNDS.set_total(stats.get("spec_rounds", 0),
+                                          engine=name, replica=replica)
+                LLM_SPEC_TOKENS.set_total(stats.get("spec_accepted", 0),
+                                          engine=name, replica=replica,
+                                          outcome="accepted")
+                LLM_SPEC_TOKENS.set_total(stats.get("spec_rejected", 0),
+                                          engine=name, replica=replica,
+                                          outcome="rejected")
+            registry = engine._adapters if engine._owns_adapters else None
+            if registry is not None:
+                ADAPTER_LIVE.set(registry.live(), engine=name,
+                                 replica=replica)
+                reg_stats = registry.stats
+                for outcome, key in (
+                        ("ok", "adapter_loads"),
+                        ("evict", "adapter_evictions"),
+                        ("error", "adapter_load_errors"),
+                        ("capacity", "adapter_rejected_capacity"),
+                        ("unknown", "adapter_rejected_unknown")):
+                    ADAPTER_LOADS.set_total(reg_stats[key], engine=name,
+                                            replica=replica,
+                                            outcome=outcome)
+            if registry is not None or has_limiter:
+                ADAPTER_LOADS.set_total(
+                    stats.get("adapter_rate_limited", 0), engine=name,
+                    replica=replica, outcome="rate_limited")
+            return None
+
+        self._metrics_collector = collect
+        self._remove_metric_series = remove_series
+        REGISTRY.add_collector(collect)
+
+    def _adapter_queue_depths(self) -> dict:
+        """{adapter: queued-but-not-active} from the registry's pins (one
+        per in-flight request) minus the rows already decoding or
+        prefilling."""
+        if self._adapters is None or not self._owns_adapters:
+            return {}
+        pins = self._adapters.pinned_counts()
+        if not pins:
+            return {}
+        active: dict = {}
+        for slot in self._slot_state:
+            if slot.active and slot.adapter:
+                active[slot.adapter] = active.get(slot.adapter, 0) + 1
+        adm = self._admission
+        if adm is not None and adm.adapter:
+            active[adm.adapter] = active.get(adm.adapter, 0) + 1
+        return {adapter: max(0, count - active.get(adapter, 0))
+                for adapter, count in pins.items()}
+
+    def _live_adapter_labels(self) -> set:
+        """Adapter names that keep metric series now: bank residents plus
+        anything occupying a slot or the admission."""
+        if self._adapters is None:
+            return set()
+        live = set(self._adapters.resident_names()) \
+            if self._owns_adapters else set()
+        live.update(s.adapter for s in self._slot_state
+                    if s.active and s.adapter)
+        adm = self._admission
+        if adm is not None and adm.adapter:
+            live.add(adm.adapter)
+        return live
+
+    def _unregister_metrics(self):
+        """Drop the collector and every labelled series this engine owns:
+        a process churning engines must not pin dead series."""
+        collector, self._metrics_collector = self._metrics_collector, None
+        if collector is not None:
+            REGISTRY.remove_collector(collector)
+            self._remove_metric_series()
 
     def warmup(self):
         """Run one prefill (cold form) and one decode tick ahead of
@@ -923,22 +1274,42 @@ class ContinuousBatchingEngine:
                                          device=self.device)
 
     # -- API ----------------------------------------------------------------
+    def _free_page_frac(self) -> Optional[float]:
+        """Paged engines report KV-page headroom; the dense engine None."""
+        return None
+
     def _queue_depth(self) -> int:
         return self._queue.qsize()
 
+    def pressure_level(self) -> int:
+        """Degradation-ladder level: 0 normal, 1 degraded (speculation
+        off, ``max_new_tokens`` clamped), 2 shedding (queue full)."""
+        depth = self._queue_depth()
+        if self.max_queue_size and depth >= self.max_queue_size:
+            return 2
+        if self.degradation is not None:
+            return self.degradation.level(depth, self.max_queue_size,
+                                          self._free_page_frac())
+        return 0
+
     def submit(self, prompt_tokens, max_new_tokens: int = 64,
                eos_id: int | None = None, temperature: float = 0.0,
-               top_k: int = 0, top_p: float = 1.0, adapter: str = "",
-               request_key=None) -> Future:
+               top_k: int = 0, top_p: float = 1.0,
+               max_wait: float | None = None, adapter: str = "",
+               request_key=None, _extra=None, _trace=None) -> Future:
         """Thread-safe request submission. The future fails fast —
         QueueFullError when shedding, EngineStoppedError after stop/crash,
         PromptTooLongError past max_len, UnknownAdapterError (404) for an
         ``adapter`` no source provides, AdapterRateLimitError (429) for a
         tenant over its token bucket, AdapterCapacityError (429) when
-        every bank slot is pinned by other adapters — and never silently
-        hangs. A named adapter stays pinned until the future completes.
-        ``request_key`` only steers the reference's canary split between
-        adapters, so it is accepted and ignored without one."""
+        every bank slot is pinned by other adapters, DeadlineExceeded
+        (504) once it waited past ``max_wait`` (None = the engine's) —
+        and never silently hangs. A named adapter stays pinned until the
+        future completes. ``request_key`` only steers the reference's
+        canary split between adapters, so it is accepted and ignored
+        without one. ``_extra`` ("export" or an imported
+        :class:`KVHandoff`) and ``_trace`` are the handoff's internal
+        channel."""
         future: Future = Future()
         if self._stopped and not self._running:
             cause = f": {self._crash_exc}" if self._crash_exc else ""
@@ -956,6 +1327,11 @@ class ContinuousBatchingEngine:
                 f"prompt_len {prompt_len} + max_new_tokens "
                 f"{max_new_tokens} exceeds max_len {self.max_len}"))
             return future
+        adapter = adapter or ""
+        # the phase ledger from here on: submit-side checks are
+        # "admission" time, the limiter check "rate_limit_wait"
+        ledger = RequestLedger(clock=self._ledger_clock) \
+            if self.request_ledger else None
         if adapter:
             # the 404 check runs BEFORE the limiter: an unknown name never
             # mints a rate-limit bucket, fails 404 (not 429), and is never
@@ -970,15 +1346,26 @@ class ContinuousBatchingEngine:
                 future.set_exception(exc)
                 return future
         # per-tenant fairness BEFORE the shared queue: a flooding tenant
-        # burns its own bucket, not everyone's queue capacity
+        # burns its own bucket, not everyone's queue capacity. An imported
+        # handoff was charged once at its prefill admission
         if self._tenant_limiter is not None \
-                and not self._tenant_limiter.try_acquire(adapter):
-            with self._lock:
-                self._stats["adapter_rate_limited"] += 1
-            future.set_exception(AdapterRateLimitError(
-                f"tenant '{adapter or '<base>'}' is over its admission "
-                f"rate — shed to protect the shared queue"))
-            return future
+                and not isinstance(_extra, KVHandoff):
+            if ledger is not None:
+                ledger.enter("rate_limit_wait")
+            acquired = self._tenant_limiter.try_acquire(adapter)
+            if ledger is not None:
+                ledger.enter("admission")
+            if not acquired:
+                with self._lock:
+                    self._stats["adapter_rate_limited"] += 1
+                future.set_exception(AdapterRateLimitError(
+                    f"tenant '{adapter or '<base>'}' is over its admission "
+                    f"rate — shed to protect the shared queue"))
+                return future
+        # the chaos point fires BEFORE the pin: an armed error here must
+        # not strand a refcount
+        fire(FaultPoints.llm_submit, prompt_len=prompt_len,
+             max_new_tokens=max_new_tokens, adapter=adapter)
         if adapter:
             try:
                 self._adapters.pin(adapter)
@@ -986,33 +1373,201 @@ class ContinuousBatchingEngine:
                 future.set_exception(exc)
                 return future
             # one pin per in-flight request, released on ANY completion
-            # path (result, shed, stop): the future is its lifetime
+            # path (result, shed, expiry, stop): the future is its lifetime
             future.add_done_callback(
                 lambda _f, a=adapter: self._adapters.unpin(a))
+            try:
+                return self._enqueue(future, prompt_tokens, max_new_tokens,
+                                     eos_id, temperature, top_k, top_p,
+                                     max_wait, adapter, _extra, _trace,
+                                     ledger)
+            except Exception as exc:  # noqa: BLE001 - an exception past
+                # the pin must complete the future (its unpin callback)
+                if not future.done():
+                    future.set_exception(exc)
+                return future
         return self._enqueue(future, prompt_tokens, max_new_tokens, eos_id,
-                             (float(temperature), int(top_k), float(top_p)),
-                             adapter)
+                             temperature, top_k, top_p, max_wait, adapter,
+                             _extra, _trace, ledger)
 
     def _enqueue(self, future: Future, prompt_tokens, max_new_tokens,
-                 eos_id, sampling: tuple, adapter: str) -> Future:
-        """The queue-full shed and the queue put: the tail of submit()."""
-        if self.max_queue_size and self._queue_depth() >= self.max_queue_size:
+                 eos_id, temperature, top_k, top_p, max_wait, adapter,
+                 _extra, _trace, ledger=None) -> Future:
+        """The pressure / degradation checks and the queue put: the tail of
+        submit()."""
+        level = self.pressure_level()
+        if level >= 2:
             with self._lock:
                 self._stats["shed"] += 1
+            flight_record("engine.shed", engine=self._obs_name,
+                          queue_depth=self._queue.qsize(), adapter=adapter)
             future.set_exception(QueueFullError(
                 f"engine queue is full (max_queue_size="
-                f"{self.max_queue_size}) — shedding"))
+                f"{self.max_queue_size}, depth {self._queue.qsize()}) — "
+                f"shedding"))
             return future
+        if level >= 1:
+            # degraded: clamp the token budget and park speculative
+            # decoding before shedding starts
+            if self.degradation is not None:
+                max_new_tokens = self.degradation.clamp_max_new(
+                    max_new_tokens, level)
+            if self.speculative_enabled:
+                logger.warning("engine degraded: speculative decoding off",
+                               queue_depth=self._queue.qsize())
+            self.speculative_enabled = False
+            with self._lock:
+                self._stats["degraded"] += 1
+        else:
+            self.speculative_enabled = True
+        budget = self.max_wait if max_wait is None else float(max_wait)
+        expires = (time.perf_counter() + budget) if budget > 0 else None
+        # the submitting thread's span crosses to the scheduler inside the
+        # queue item: the llm.prefill / llm.decode spans are its children
+        if _trace is None:
+            current_span = get_tracer().current()
+            _trace = ((current_span.trace_id, current_span.span_id)
+                      if current_span is not None else None)
+        if ledger is not None:
+            if _trace is not None:
+                ledger.trace_id = _trace[0]
+            # submit-side work done; the clock now charges the queue
+            ledger.enter("queue_wait")
+        # enqueue under the lock: the expiry sweep drains and re-puts the
+        # queue atomically, so a racing put never jumps older requests
         with self._lock:
             request_id = self._next_id
             self._next_id += 1
             self._stats["requests"] += 1
+            if expires is not None:
+                self._budgeted += 1
             self._queue.put((request_id, [int(t) for t in prompt_tokens],
                              int(max_new_tokens), eos_id, future,
-                             time.perf_counter(), sampling, adapter))
+                             time.perf_counter(),
+                             (float(temperature), int(top_k), float(top_p)),
+                             expires, _trace, _extra, adapter, ledger))
         if not self._running:
             self.start()
         return future
+
+    # -- prefill / decode disaggregation: the KV handoff ---------------------
+    def submit_prefill(self, prompt_tokens, eos_id: int | None = None,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 1.0, max_wait: float | None = None,
+                       adapter: str = "", request_key=None,
+                       _trace=None) -> Future:
+        """Run ONLY the (chunked) prefill of a prompt; the future resolves
+        to a :class:`KVHandoff` a decode engine imports via
+        :meth:`submit_prefilled`. On the paged engine the prompt's KV
+        still lands in this engine's prefix cache under ``adapter``'s
+        root. ``max_new_tokens=1`` bounds the page reservation to the
+        prompt."""
+        return self.submit(prompt_tokens, max_new_tokens=1, eos_id=eos_id,
+                           temperature=temperature, top_k=top_k,
+                           top_p=top_p, max_wait=max_wait, adapter=adapter,
+                           request_key=request_key, _extra="export",
+                           _trace=_trace)
+
+    def submit_prefilled(self, handoff: KVHandoff,
+                         max_new_tokens: int = 64,
+                         eos_id: int | None = None,
+                         max_wait: float | None = None,
+                         register_prefix: bool = False,
+                         _trace=None) -> Future:
+        """Admit an already-prefilled request: the handoff's KV is imported
+        into the admission cache and decode starts at once — no prefill
+        dispatch runs on this engine. Decode runs under the handoff's
+        adapter. ``register_prefix`` also indexes the imported prompt
+        pages in the paged engine's prefix cache (a prewarm replay). A
+        payload from a pool of another dtype raises ``ValueError``."""
+        expects_scales = self.kv_dtype == "int8"
+        wire_dtype = getattr(handoff, "kv_dtype", None) or (
+            "int8" if "k_scale" in handoff.kv else "native")
+        if wire_dtype != self.kv_dtype or \
+                ("k_scale" in handoff.kv) != expects_scales:
+            raise ValueError(
+                f"KV handoff dtype mismatch: engine kv_dtype="
+                f"'{self.kv_dtype}' cannot import a '{wire_dtype}' "
+                f"payload — prefill and decode pools must quantize alike")
+        temperature, top_k, top_p = handoff.sampling
+        if register_prefix and not handoff.prewarm:
+            handoff = dataclasses.replace(handoff, prewarm=True)
+        return self.submit(handoff.prompt, max_new_tokens=max_new_tokens,
+                           eos_id=eos_id, temperature=temperature,
+                           top_k=top_k, top_p=top_p, max_wait=max_wait,
+                           adapter=handoff.adapter, _extra=handoff,
+                           _trace=_trace)
+
+    def _handoff_kv(self, adm: _Admission, rows: int) -> dict:
+        """An export admission's prompt KV as host arrays (the
+        :class:`KVHandoff` payload; int8 pools ship int8 values and float32
+        scales). Hook: the paged engine's kernel-prefix path fills the
+        cached-prefix rows from its pool pages."""
+        return {name: _to_wire(adm.small[name][:, 0, :rows])
+                for name in ("k", "v", "k_scale", "v_scale")
+                if name in adm.small}
+
+    def _import_small(self, handoff: KVHandoff) -> dict:
+        """A handoff's payload as the batch-1 admission cache: the prompt
+        rows from the payload, zeros beyond (decode writes a position
+        before it attends it)."""
+        small = init_kv_cache(self.config, 1, self.max_len,
+                              kv_dtype=self.kv_dtype, device=self.device)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            payload = handoff.kv.get(name)
+            if name not in small or payload is None:
+                continue
+            rows = min(payload.shape[1], self.max_len)
+            small[name][:, 0, :rows] = _from_wire(payload[:, :rows]).to(
+                device=self.device, dtype=small[name].dtype)
+        small["pos"] = torch.full((1,), handoff.prompt_len,
+                                  dtype=torch.int32, device=self.device)
+        return small
+
+    def _export_admission(self, adm: _Admission):
+        """Resolve an export admission's future with its KV handoff and
+        free the slot storage at once: a prefill engine never holds a
+        decode slot. (The paged engine's ``_complete_storage`` already
+        registered the prompt's blocks, so the prefix stays cached.)"""
+        if adm.ledger is not None:
+            # the trim and serialize below are the prefill side's handoff
+            adm.ledger.enter("handoff")
+        rows = len(adm.prompt)
+        kv = self._handoff_kv(adm, rows)
+        prefill_s = time.perf_counter() - adm.submitted
+        timing = None
+        if adm.ledger is not None:
+            timing = adm.ledger.close("handoff")
+            export_phases(timing, adapter=adm.adapter)
+        if adm.trace is not None:
+            attrs = {"slot": adm.slot, "prompt_len": len(adm.prompt),
+                     "chunks": adm.chunks, "cached_prefix": adm.base,
+                     "imported": False, "exported": True,
+                     "adapter": adm.adapter, "replica": self.replica}
+            if timing is not None:
+                attrs["timing"] = timing
+            get_tracer().emit("llm.prefill", adm.trace[0], adm.trace[1],
+                              start=adm.claimed, attrs=attrs)
+        handoff = KVHandoff(
+            prompt=list(adm.prompt), first_token=adm.first_token, kv=kv,
+            prompt_len=len(adm.prompt), kv_dtype=self.kv_dtype,
+            cached_prefix=adm.base, sampling=adm.sampling,
+            prefill_s=prefill_s, replica=self.replica,
+            adapter=adm.adapter, timing=timing)
+        self._release_slot_storage(adm.slot)
+        with self._lock:
+            self._stats["handoffs_out"] += 1
+            self._stats["handoff_bytes_out"] += handoff.nbytes()
+            # a prefill engine's TTFT ring is its prefill latency: the
+            # first token ships inside the handoff
+            self._ttft_ring.append(prefill_s)
+            if adm.adapter:
+                self._adapter_labels_seen.add(adm.adapter)
+        LLM_TTFT.observe(prefill_s,
+                         exemplar=(adm.trace[0] if adm.trace else None),
+                         replica=self.replica, adapter=adm.adapter)
+        if not adm.future.done():
+            adm.future.set_result(handoff)
 
     def generate(self, prompt_tokens, max_new_tokens: int = 64,
                  eos_id: int | None = None, timeout: float = 300.0,
@@ -1046,6 +1601,7 @@ class ContinuousBatchingEngine:
         out["attention_impl"] = self.attention_impl
         out["prefill_impl"] = self.prefill_impl
         out["queue_depth"] = self._queue_depth()
+        out["pressure_level"] = self.pressure_level()
         out["speculative_enabled"] = self.speculative_enabled
         if self._adapters is not None and self._owns_adapters:
             out.update(self._adapters.stats)
@@ -1084,6 +1640,12 @@ class ContinuousBatchingEngine:
         prompt tokens (the whole remaining suffix, bucket-padded, when
         limit is None). The cursor starts at ``adm.base``. Returns True
         once the prompt is fully prefilled and the first token sampled."""
+        if adm.ledger is not None and adm.ledger.current_phase != "prefill":
+            # first chunk dispatch: the request is in prefill from here to
+            # its first token, decode ticks between chunks included
+            adm.ledger.enter("prefill")
+        fire(FaultPoints.llm_prefill, request_id=adm.request_id,
+             slot=adm.slot, offset=adm.offset, chunks=adm.chunks)
         prompt = adm.prompt
         total = len(prompt)
         start = adm.offset
@@ -1149,18 +1711,32 @@ class ContinuousBatchingEngine:
         slot.top_p = top_p
         slot.adapter = adm.adapter
         slot.adapter_slot = adm.adapter_slot
+        slot.trace = adm.trace
+        slot.ledger = adm.ledger
+        slot.decode_started = time.time()
+        if adm.ledger is not None:
+            # the row now waits for its first decode dispatch
+            adm.ledger.enter("decode_stall")
         with self._lock:
             self._ttft_ring.append(slot.ttft)
+            if adm.adapter:
+                self._adapter_labels_seen.add(adm.adapter)
+        LLM_TTFT.observe(slot.ttft,
+                         exemplar=(adm.trace[0] if adm.trace else None),
+                         replica=self.replica, adapter=adm.adapter)
         if (adm.eos_id is not None and adm.first_token == adm.eos_id) or \
                 slot.remaining <= 0:
             self._finish(adm.slot)
 
     def _validate_item(self, item) -> bool:
-        """Capacity backstop on a dequeued request (submit() already
-        rejects these). Returns False, failing the future, when the item
-        cannot be served."""
-        prompt, max_new, future = item[1], item[2], item[4]
+        """Expiry and capacity checks on a dequeued request (submit()
+        already rejects the too-long ones). Returns False, failing the
+        future, when the item cannot be served."""
+        prompt, max_new, future, submitted, expires = (
+            item[1], item[2], item[4], item[5], item[7])
         if future.done():
+            return False
+        if self._request_expired(future, submitted, expires):
             return False
         if len(prompt) + max_new > self.max_len:
             future.set_exception(PromptTooLongError(
@@ -1182,22 +1758,32 @@ class ContinuousBatchingEngine:
                 item = self._queue.get_nowait()
             except queue.Empty:
                 return None
+            self._consume_budget(item[7])
             if not self._validate_item(item):
                 continue
             (request_id, prompt, max_new, eos_id, future, submitted,
-             sampling, adapter) = item
+             sampling, expires, trace, extra, adapter, ledger) = item
+            if ledger is not None:
+                # claimed off the queue: queue_wait closes here
+                ledger.enter("adapter_load_wait" if adapter
+                             else "admission")
             adapter_slot = self._resolve_adapter(adapter, future)
+            if ledger is not None and adapter:
+                ledger.enter("admission")
             if adapter_slot is None:
                 continue  # the adapter did not load: request failed typed
             try:
                 adm = _Admission(
                     slot=free, request_id=request_id, prompt=prompt,
                     max_new=max_new, eos_id=eos_id, future=future,
-                    submitted=submitted, sampling=sampling, adapter=adapter,
-                    adapter_slot=adapter_slot)
-                adm.small = init_kv_cache(self.config, 1, self.max_len,
-                                          kv_dtype=self.kv_dtype,
-                                          device=self.device)
+                    submitted=submitted, sampling=sampling, expires=expires,
+                    trace=trace, claimed=time.time(), adapter=adapter,
+                    adapter_slot=adapter_slot, ledger=ledger)
+                self._apply_directive(adm, extra)
+                if adm.small is None:
+                    adm.small = init_kv_cache(self.config, 1, self.max_len,
+                                              kv_dtype=self.kv_dtype,
+                                              device=self.device)
                 return adm
             except Exception as exc:
                 # dequeued but not yet tracked in self._admission: fail the
@@ -1206,8 +1792,55 @@ class ContinuousBatchingEngine:
                     future.set_exception(exc)
                 raise
 
+    def _apply_directive(self, adm: _Admission, extra):
+        """Fold the handoff directive of a queue item into a fresh
+        admission: "export" marks a prefill-only request; a KVHandoff
+        means the prefill ran elsewhere — import its KV and go straight to
+        slot activation."""
+        if extra == "export":
+            adm.export = True
+        elif isinstance(extra, KVHandoff):
+            if adm.ledger is not None:
+                # deserialize + storage completion: the decode side's
+                # handoff
+                adm.ledger.enter("handoff")
+            adm.small = self._import_small(extra)
+            adm.offset = len(adm.prompt)
+            adm.first_token = int(extra.first_token)
+            adm.prefilled = True
+            adm.register_import = bool(getattr(extra, "prewarm", False))
+            with self._lock:
+                self._stats["handoffs_in"] += 1
+                self._stats["handoff_bytes_in"] += int(extra.nbytes())
+
     def _finish_admission(self, adm: _Admission):
+        small = adm.small
         self._complete_storage(adm)
+        if adm.ledger is not None:
+            adm.ledger.note("prefill_chunks", adm.chunks)
+            if adm.base:
+                adm.ledger.note("cached_prefix", adm.base)
+        if adm.trace is not None and not adm.export:
+            get_tracer().emit(
+                "llm.prefill", adm.trace[0], adm.trace[1],
+                start=adm.claimed, attrs={
+                    "slot": adm.slot, "prompt_len": len(adm.prompt),
+                    "chunks": adm.chunks, "cached_prefix": adm.base,
+                    "imported": adm.prefilled, "exported": False,
+                    "adapter": adm.adapter, "replica": self.replica})
+        # one admission completed, on the flight ring
+        flight_record("engine.admit", engine=self._obs_name,
+                      request_id=adm.request_id,
+                      prompt_len=len(adm.prompt), cached_prefix=adm.base,
+                      chunks=adm.chunks, slot=adm.slot,
+                      adapter=adm.adapter, export=bool(adm.export))
+        if adm.export:
+            # the storage hook consumed the batch-1 cache; the handoff
+            # serializes it
+            adm.small = small
+            self._export_admission(adm)
+            adm.small = None
+            return
         if self.spec_enabled:
             self._spec_admit_slot(adm)
         self._activate_slot(adm)
@@ -1220,7 +1853,8 @@ class ContinuousBatchingEngine:
         if adm is None:
             return False
         self._admission = adm
-        self._run_prefill(adm, limit=None)
+        if not adm.prefilled:
+            self._run_prefill(adm, limit=None)
         self._finish_admission(adm)
         self._admission = None
         return True
@@ -1228,7 +1862,8 @@ class ContinuousBatchingEngine:
     def _admission_tick(self):
         """Admission work for one scheduler iteration: with chunked
         prefill at most ONE <= prefill_chunk dispatch per tick; otherwise
-        admit whole prompts until slots or queue run out."""
+        admit whole prompts until slots or queue run out. (max_wait is a
+        queue-time budget, spent once the request is claimed.)"""
         if not self.prefill_chunk:
             while self._admit_one():
                 pass
@@ -1239,9 +1874,17 @@ class ContinuousBatchingEngine:
             if adm is None:
                 return
             self._admission = adm
-        if self._run_prefill(adm, limit=self.prefill_chunk):
+        if adm.prefilled or self._run_prefill(adm, limit=self.prefill_chunk):
             self._finish_admission(adm)
             self._admission = None
+
+    def _ledger_mark(self, active: list, phase: str):
+        """Flip every active slot's ledger into ``phase`` (the
+        decode_active / decode_stall split around each dispatch)."""
+        for i in active:
+            ledger = self._slot_state[i].ledger
+            if ledger is not None:
+                ledger.enter(phase)
 
     def _finish(self, index: int):
         slot = self._slot_state[index]
@@ -1251,10 +1894,22 @@ class ContinuousBatchingEngine:
             "prompt_len": slot.prompt_len,
             "total_s": time.perf_counter() - slot.started,
         }
+        timing = None
+        if slot.ledger is not None:
+            timing = slot.ledger.close()
+            stats["timing"] = timing
+            export_phases(timing, adapter=slot.adapter)
         with self._lock:
             self._stats["completed"] += 1
             self._stats["ttft_sum"] += slot.ttft
             self._stats["tokens_out"] += len(slot.tokens)
+        if slot.trace is not None:
+            attrs = {"slot": index, "generated": len(slot.tokens),
+                     "replica": self.replica}
+            if timing is not None:
+                attrs["timing"] = timing
+            get_tracer().emit("llm.decode", slot.trace[0], slot.trace[1],
+                              start=slot.decode_started, attrs=attrs)
         future, tokens = slot.future, slot.tokens
         self._slot_state[index] = _Slot()
         self._release_slot_storage(index)
@@ -1275,6 +1930,54 @@ class ContinuousBatchingEngine:
             self._spec_stale.update(active)
         return self._plain_decode_tick(active)
 
+    def _consume_budget(self, expires: float | None):
+        """A budgeted item left the admission queue for good."""
+        if expires is not None:
+            with self._lock:
+                self._budgeted = max(0, self._budgeted - 1)
+
+    def _request_expired(self, future: Future, submitted: float,
+                         expires: float | None) -> bool:
+        """Fail a request whose queue-time budget is spent (a fast
+        504-class failure instead of a future hanging)."""
+        if expires is None or time.perf_counter() < expires:
+            return False
+        waited = time.perf_counter() - submitted
+        with self._lock:
+            self._stats["expired"] += 1
+        future.set_exception(DeadlineExceeded(
+            f"request spent {waited:.2f}s queued, over its max_wait "
+            f"budget — engine overloaded"))
+        return True
+
+    def _expire_queued(self):
+        """Sweep the admission queue for requests past their queue-time
+        budget, every scheduler iteration, so queued requests fail within
+        one tick of their budget even while every slot is busy. Free when
+        no queued request carries a budget; atomic against submit(), so
+        the drain and re-put never reorder a racing newcomer."""
+        if self._budgeted <= 0 or self._queue.empty():
+            return
+        with self._lock:
+            keep = []
+            while True:
+                try:
+                    item = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if item[4].done() or self._request_expired(
+                        item[4], item[5], item[7]):
+                    self._consume_budget(item[7])
+                else:
+                    keep.append(item)
+            for item in keep:  # FIFO order preserved
+                self._queue.put(item)
+
+    def _control_tick(self):
+        """Scheduler-thread hook for control work that must not race a
+        device dispatch (the paged engine runs its fetch_prefix /
+        import_prefix ops here). Base engine: nothing."""
+
     def _loop(self):
         try:
             while self._running:
@@ -1282,21 +1985,42 @@ class ContinuousBatchingEngine:
                 # prefill included): an unchunked long prefill between two
                 # decode ticks IS the inter-token gap clients see
                 started = time.perf_counter()
+                # fail-slow injection seam: an armed delay() stretches
+                # every scheduler iteration — TTFT and ITL rise, nothing
+                # errors
+                fire(FaultPoints.fleet_degrade, replica=self.replica,
+                     engine=self._obs_name)
+                self._expire_queued()
+                self._control_tick()
                 self._admission_tick()
                 if not any(s.active for s in self._slot_state):
                     if self._admission is None:
                         time.sleep(0.002)  # idle: poll admissions at 2 ms
                     continue
                 t_tick = time.perf_counter()
+                # per-tenant ITL: one observation per adapter active in
+                # the tick (captured before it: finished rows reset inside)
+                tick_adapters = {s.adapter for s in self._slot_state
+                                 if s.active}
                 if self._decode_tick():
                     now = time.perf_counter()
+                    elapsed, tick_s = now - started, now - t_tick
                     with self._lock:
-                        self._itl_ring.append(now - started)
-                        self._tick_ring.append(now - t_tick)
+                        self._itl_ring.append(elapsed)
+                        self._tick_ring.append(tick_s)
+                        self._adapter_labels_seen.update(
+                            a for a in tick_adapters if a)
+                    for tick_adapter in tick_adapters:
+                        LLM_ITL.observe(elapsed, replica=self.replica,
+                                        adapter=tick_adapter)
+                    LLM_DECODE_TICK.observe(tick_s, replica=self.replica)
         except Exception as exc:  # noqa: BLE001 - a dead scheduler must
             # fail pending work loudly, not leave futures hanging forever
             logger.error("continuous batching scheduler died",
                          error=f"{type(exc).__name__}: {exc}")
+            flight_record("engine.crash", engine=self._obs_name,
+                          replica=self.replica, error=str(exc),
+                          error_type=type(exc).__name__)
             self._running = False
             self._stopped = True
             self._crash_exc = exc
@@ -1313,11 +2037,26 @@ class ContinuousBatchingEngine:
                 item[4].set_exception(exc)
 
     def _fail_pending(self, exc: Exception):
+        failed = int(self._admission is not None) \
+            + sum(1 for s in self._slot_state
+                  if s.active and s.future is not None
+                  and not s.future.done()) + self._queue.qsize()
+        flight_record("engine.fail_pending", engine=self._obs_name,
+                      replica=self.replica, failed=failed,
+                      error_type=type(exc).__name__)
+        if not isinstance(exc, EngineStoppedError):
+            # a crash (not a clean stop) is a post-mortem moment: the
+            # decision sequence into it is the debugging record
+            get_flight_recorder().dump(
+                "engine-crash", extra={"engine": self._obs_name,
+                                       "error": str(exc)})
         adm, self._admission = self._admission, None
         if adm is not None:
             if not adm.future.done():
                 adm.future.set_exception(exc)
             self._abort_admission(adm)
+        with self._lock:
+            self._budgeted = 0
         for i, slot in enumerate(self._slot_state):
             if not slot.active:
                 continue

@@ -20,6 +20,12 @@ slots x max_len:
   gathers the slot's pages into a dense view per layer and runs the dense
   masked attention.
 - page allocation is host-side bookkeeping on the scheduler thread.
+- the host KV tier (``kv_tier=``, serving/kv_tier.py): an evicted prefix
+  page demotes to pinned host memory, and an admission whose device match
+  stops short promotes the next cached blocks back into its fresh pages,
+  where the paged prefill kernel reads them like any prefix page.
+  ``fetch_prefix`` / ``import_prefix`` move a cached chain between
+  engines as a :class:`~.llm_batch.KVHandoff`.
 
 Pages for prompt + max_new_tokens are reserved at admission, so decode can
 never run out mid-generation. Full page-size blocks of each prompt are
@@ -35,13 +41,18 @@ from __future__ import annotations
 
 import functools
 import queue
+import time
 from collections import deque
+from concurrent.futures import Future
 
 import numpy as np
 import torch
 
+from ..chaos import FaultPoints, fire
 from ..config import SERVING_LLM_DEFAULTS
 from ..models.llama import LlamaConfig, lm_head, logits_f32
+from ..obs import KV_TIER_BYTES, KV_TIER_EVENTS, KV_TIER_HITS
+from .kv_tier import HostKVTier
 from .llm import (
     _cached_attention,
     _dequantize_kv,
@@ -52,8 +63,14 @@ from .llm import (
     _quantize_kv,
     init_kv_cache,
 )
-from .llm_batch import ContinuousBatchingEngine, _Admission
-from .prefix import PrefixCache
+from .llm_batch import (
+    ContinuousBatchingEngine,
+    KVHandoff,
+    _Admission,
+    _from_wire,
+    _to_wire,
+)
+from .prefix import PrefixCache, block_chain_key
 
 
 def init_paged_pool(config: LlamaConfig, n_pages: int, page_size: int,
@@ -364,16 +381,23 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     only ever shares KV computed under the same adapter, and a hit's
     suffix prefill runs under the slot's adapter on the same kernels.
 
+    ``kv_tier`` (True / False / ``{"host_bytes": ...}`` / None = the
+    config's default, off) keeps evicted prefix pages in a bounded host
+    tier and promotes them back on admission; a failed demote or promote
+    falls back to token prefill, never a client error. The degradation
+    ladder's ``min_free_page_frac`` reads the free-page fraction
+    (reclaimable prefix pages count as free).
+
     ``device`` defaults to the GPU (and raises without one); pass
-    ``device="cpu"`` for the plain paths. The reference's degradation
-    ladder, host KV tier and KV handoff are not ported yet (ROADMAP.md).
+    ``device="cpu"`` for the plain paths.
     """
 
     def __init__(self, config: LlamaConfig, params, max_len: int = 2048,
                  slots: int = 4, prefill_buckets: tuple = (128, 512, 1024),
                  seed: int = 0, kv_dtype: str = "native",
                  page_size: int = 128, n_pages: int | None = None,
-                 max_queue_size: int = 0,
+                 max_queue_size: int = 0, max_wait: float = 0.0,
+                 degradation: dict | None = None,
                  prefill_chunk: int | None = None,
                  latency_window: int | None = None,
                  prefix_cache: bool | None = None,
@@ -381,7 +405,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                  speculative: dict | None = None, adapters=None,
                  max_live_adapters: int | None = None,
                  adapter_rate: float | None = None,
-                 adapter_burst: float | None = None, device=None):
+                 adapter_burst: float | None = None,
+                 request_ledger: bool | None = None, kv_tier=None,
+                 device=None):
         from ..ops.paged_attention import resolve_paged_impl
 
         if max_len % page_size:
@@ -399,16 +425,34 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefix = PrefixCache(page_size) if prefix_cache else None
         # trie nodes each slot holds a refcount on (matched + registered)
         self._slot_prefix_nodes: dict[int, list] = {}
+        # the host KV tier: True / False, a config-style dict (an explicit
+        # dict opts in unless it says otherwise), or None (the config
+        # decides); it needs the prefix cache
+        tier_conf = dict(SERVING_LLM_DEFAULTS["kv_tier"])
+        if isinstance(kv_tier, dict):
+            tier_conf.update(kv_tier)
+            kv_tier = kv_tier.get("enabled", True)
+        elif kv_tier is None:
+            kv_tier = tier_conf.get("enabled", False)
+        self._kv_tier = (HostKVTier(int(tier_conf.get("host_bytes",
+                                                      64 << 20)))
+                         if kv_tier and self._prefix is not None else None)
+        # fetch_prefix / import_prefix ops queue here and run on the
+        # scheduler thread between ticks (_control_tick): the pool is
+        # written by every dispatch, so it is never touched off-thread
+        self._control: deque = deque()
         super().__init__(config, params, max_len=max_len, slots=slots,
                          prefill_buckets=prefill_buckets, seed=seed,
                          kv_dtype=kv_dtype, max_queue_size=max_queue_size,
+                         max_wait=max_wait, degradation=degradation,
                          prefill_chunk=prefill_chunk,
                          latency_window=latency_window,
                          attention_impl=attention_impl,
                          speculative=speculative, adapters=adapters,
                          max_live_adapters=max_live_adapters,
                          adapter_rate=adapter_rate,
-                         adapter_burst=adapter_burst, device=device)
+                         adapter_burst=adapter_burst,
+                         request_ledger=request_ledger, device=device)
         # decode: the paged kernel or the gather+dense reference, resolved
         # from the same knob as the prefill path; an explicit kernel
         # request on the CPU raised KernelUnavailableError inside
@@ -434,7 +478,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._stats.update({"attn_kernel_ticks": 0, "attn_gather_ticks": 0,
                             "attn_hbm_bytes_avoided": 0,
                             "prefill_kernel_chunks": 0,
-                            "prefill_gather_admissions": 0})
+                            "prefill_gather_admissions": 0,
+                            "kv_demotes": 0, "kv_demoted_pages": 0,
+                            "kv_promotes": 0, "kv_promoted_pages": 0,
+                            "kv_fetches": 0, "kv_fetched_pages": 0,
+                            "kv_imports": 0, "kv_imported_pages": 0})
 
     def _make_cache(self):
         # +1 physical page: the scratch page for masked writes
@@ -470,16 +518,307 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                               **self._lora_kwargs())
 
     # -- admission: page reservation + prefix reuse -------------------------
+    def _free_page_frac(self) -> float:
+        """KV-page headroom for the degradation ladder: it degrades
+        (speculation off, max_new clamped) before admission would block on
+        an exhausted pool. Refcount-0 cached prefix pages are reclaimable,
+        so they count as free."""
+        if not self.n_pages:
+            return 1.0
+        free = len(self._free_pages)
+        if self._prefix is not None:
+            free += self._prefix.evictable_pages()
+        return free / self.n_pages
+
     def _queue_depth(self) -> int:
         return self._queue.qsize() + len(self._pending)
 
+    def _expire_queued(self):
+        super()._expire_queued()
+        # head-of-line requests parked waiting for pages carry their
+        # queue-time budget too
+        while self._pending and (self._pending[0][4].done()
+                                 or self._request_expired(
+                                     self._pending[0][4],
+                                     self._pending[0][5],
+                                     self._pending[0][7])):
+            self._pending.popleft()
+
     def _reclaim_pages(self, needed: int):
         """Evict LRU refcount-0 cached prefix pages until the free list
-        covers ``needed`` pages."""
+        covers ``needed`` pages, firing ``llm.prefix_evict`` per evicted
+        page. With the host tier each victim demotes first; a failed
+        demote loses the chain to the tier but never blocks the
+        reclaim."""
         if self._prefix is None or len(self._free_pages) >= needed:
             return
-        freed = self._prefix.evict(needed - len(self._free_pages))
+        tier = self._kv_tier
+        # a node does not know its adapter: recover it from the root its
+        # chain hangs off (one map per reclaim)
+        root_adapters = {id(root): name for name, root
+                         in self._prefix._roots.items()} \
+            if tier is not None else None
+
+        def on_evict(node):
+            fire(FaultPoints.llm_prefix_evict, page_id=node.page_id,
+                 refcount=node.refcount, last_used=node.last_used)
+            if tier is None:
+                return
+            try:
+                self._demote_node(node, root_adapters)
+            except Exception:  # noqa: BLE001 - demote is best effort: the
+                # page is reclaimed either way
+                with self._lock:
+                    self._stats["kv_demotes"] += 1
+                KV_TIER_EVENTS.inc(engine=self._obs_name,
+                                   replica=self.replica, op="demote",
+                                   outcome="error")
+
+        freed = self._prefix.evict(needed - len(self._free_pages),
+                                   on_evict)
         self._free_pages.extend(freed)
+
+    def _host_page(self, page_id: int) -> dict:
+        """A copy of one pool page (every layer, scales included) in host
+        memory, pinned when the pool is on the card: the tier's payload."""
+        pinned = self._pool["k"].device.type == "cuda"
+        out = {}
+        for name, arr in self._pool.items():
+            src = arr[:, page_id]
+            dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=pinned)
+            out[name] = dst.copy_(src)
+        return out
+
+    def _demote_node(self, node, root_adapters: dict):
+        """Copy one eviction victim's page host-side into the tier, keyed
+        by its block-chain identity (chaos ``llm.kv_demote``). Eviction is
+        leaf-first, so a chain demotes child before parent; the tier's
+        ancestors-outlive-descendants eviction keeps probes hole-free."""
+        blocks = []
+        cur = node
+        while cur.parent is not None:
+            blocks.append(cur.block)
+            cur = cur.parent
+        adapter = root_adapters.get(id(cur), "")
+        blocks.reverse()
+        flat = [t for block in blocks for t in block]
+        key = block_chain_key(flat, self.page_size, adapter=adapter)
+        parent_key = block_chain_key(
+            flat[:-self.page_size], self.page_size, adapter=adapter) \
+            if len(blocks) > 1 else None
+        fire(FaultPoints.llm_kv_demote, key=key, page_id=node.page_id,
+             blocks=len(blocks), adapter=adapter)
+        stored = self._kv_tier.put(key, parent_key,
+                                   self._host_page(node.page_id))
+        with self._lock:
+            self._stats["kv_demotes"] += 1
+            if stored:
+                self._stats["kv_demoted_pages"] += 1
+        KV_TIER_EVENTS.inc(engine=self._obs_name, replica=self.replica,
+                           op="demote",
+                           outcome="ok" if stored else "fallback")
+        KV_TIER_BYTES.set(self._kv_tier.bytes_used,
+                          engine=self._obs_name, replica=self.replica)
+
+    def _tier_probe(self, prompt, adapter: str, k: int) -> list:
+        """Consecutive host-tier payloads for the blocks just past the
+        first ``k`` device-matched ones, probed root-down and stopped at
+        the first miss. Same cap as ``PrefixCache.match``: at least one
+        suffix token always remains to prefill."""
+        limit = max(0, (len(prompt) - 1) // self.page_size)
+        hits: list = []
+        for i in range(k, limit):
+            payload = self._kv_tier.get(block_chain_key(
+                prompt[:(i + 1) * self.page_size], self.page_size,
+                adapter=adapter))
+            if payload is None:
+                break
+            hits.append(payload)
+        return hits
+
+    def _tier_import(self, hits: list, ids, k: int) -> int:
+        """Copy probed host-tier payloads into the admission's reserved
+        fresh pages (the page table already points at them): the pages
+        come back bit-identical to what was demoted (chaos
+        ``llm.kv_promote``). Returns the number of promoted blocks."""
+        fire(FaultPoints.llm_kv_promote, blocks=len(hits), base_blocks=k)
+        for n, payload in enumerate(hits):
+            pid = int(ids[k + n])
+            for name, arr in self._pool.items():
+                arr[:, pid].copy_(payload[name])
+        with self._lock:
+            self._stats["kv_promotes"] += 1
+            self._stats["kv_promoted_pages"] += len(hits)
+        KV_TIER_EVENTS.inc(engine=self._obs_name, replica=self.replica,
+                           op="promote", outcome="ok")
+        KV_TIER_HITS.inc(len(hits), engine=self._obs_name,
+                         replica=self.replica, tier="host")
+        return len(hits)
+
+    # -- cached prefixes between engines ------------------------------------
+    def fetch_prefix(self, prompt_tokens, adapter: str = "") -> Future:
+        """Assemble this engine's cached KV for ``prompt_tokens``'s leading
+        full blocks (device pages first, then the host tier) into a
+        prefix-only :class:`KVHandoff` another engine imports with
+        :meth:`import_prefix` instead of prefilling. Resolves to None when
+        nothing is cached. Runs on the scheduler thread between ticks."""
+        future: Future = Future()
+        self._control.append(("fetch", (list(prompt_tokens), adapter),
+                              future))
+        if not self._running:
+            self.start()
+        return future
+
+    def import_prefix(self, handoff: KVHandoff) -> Future:
+        """Import a :meth:`fetch_prefix` payload's full blocks into the
+        page pool and the prefix index without admitting a request.
+        Resolves to the number of newly cached pages (0 = already cached,
+        or no page free). A payload from a pool of another dtype raises
+        ``ValueError``."""
+        expects_scales = self.kv_dtype == "int8"
+        wire_dtype = getattr(handoff, "kv_dtype", None) or (
+            "int8" if "k_scale" in handoff.kv else "native")
+        if wire_dtype != self.kv_dtype or \
+                ("k_scale" in handoff.kv) != expects_scales:
+            raise ValueError(
+                f"KV handoff dtype mismatch: engine kv_dtype="
+                f"'{self.kv_dtype}' cannot import a '{wire_dtype}' "
+                f"payload — fetch and import pools must quantize alike")
+        future: Future = Future()
+        self._control.append(("import", (handoff,), future))
+        if not self._running:
+            self.start()
+        return future
+
+    def _control_tick(self):
+        while self._control:
+            kind, args, future = self._control.popleft()
+            if future.done():
+                continue
+            try:
+                if kind == "fetch":
+                    future.set_result(self._do_fetch_prefix(*args))
+                else:
+                    future.set_result(self._do_import_prefix(*args))
+            except Exception as exc:  # noqa: BLE001 - a control op fails
+                # its own future, never the scheduler
+                future.set_exception(exc)
+
+    def _do_fetch_prefix(self, prompt, adapter: str):
+        if self._prefix is None:
+            return None
+        matched_pages, nodes = self._prefix.match(prompt, adapter=adapter)
+        k = len(matched_pages)
+        tier_rows: list = []
+        try:
+            parts: dict = {name: [] for name in self._pool}
+            if k:
+                pids = torch.as_tensor(matched_pages, dtype=torch.long,
+                                       device=self._pool["k"].device)
+                for name, arr in self._pool.items():
+                    rows = arr[:, pids]
+                    parts[name].append(rows.reshape(
+                        rows.shape[0], k * self.page_size,
+                        *rows.shape[3:]).cpu())
+            if self._kv_tier is not None:
+                tier_rows = self._tier_probe(prompt, adapter, k)
+            for payload in tier_rows:
+                for name in self._pool:
+                    parts[name].append(payload[name])
+        finally:
+            self._prefix.release(nodes)
+        total = k + len(tier_rows)
+        if not total:
+            KV_TIER_EVENTS.inc(engine=self._obs_name,
+                               replica=self.replica, op="fetch",
+                               outcome="miss")
+            return None
+        kv = {name: _to_wire(torch.cat(chunks, dim=1))
+              for name, chunks in parts.items()}
+        rows_tok = total * self.page_size
+        handoff = KVHandoff(
+            prompt=list(prompt[:rows_tok]), first_token=-1, kv=kv,
+            prompt_len=rows_tok, kv_dtype=self.kv_dtype,
+            cached_prefix=rows_tok, replica=self.replica,
+            adapter=adapter, prewarm=True)
+        with self._lock:
+            self._stats["kv_fetches"] += 1
+            self._stats["kv_fetched_pages"] += total
+        KV_TIER_EVENTS.inc(engine=self._obs_name, replica=self.replica,
+                           op="fetch", outcome="ok")
+        return handoff
+
+    def _do_import_prefix(self, handoff: KVHandoff) -> int:
+        if self._prefix is None:
+            return 0
+        prompt = list(handoff.prompt)
+        full = min(len(prompt), handoff.prompt_len) // self.page_size
+        full = min(full, self.pages_per_slot)
+        if full <= 0:
+            return 0
+        adapter = handoff.adapter
+        # a fetch payload is exactly full blocks; match() always leaves one
+        # suffix token unmatched, so probe with a sentinel token to see
+        # every cached block (the sentinel is never indexed)
+        _, nodes = self._prefix.match(prompt + [0], adapter=adapter)
+        k = len(nodes)
+        fresh: list = []
+        try:
+            need = full - k
+            if need > 0:
+                self._reclaim_pages(need)
+            if need > len(self._free_pages):
+                # a partial import stays contiguous root-down
+                need = len(self._free_pages)
+                full = k + need
+            if need <= 0:
+                return 0
+            fresh = [self._free_pages.popleft() for _ in range(need)]
+            ids = np.full((self.pages_per_slot,), -1, np.int32)
+            ids[k:full] = fresh
+            pids = torch.as_tensor(fresh, dtype=torch.long,
+                                   device=self._pool["k"].device)
+            for name, arr in self._pool.items():
+                payload = _from_wire(handoff.kv[name][
+                    :, k * self.page_size:full * self.page_size])
+                payload = payload.reshape(payload.shape[0], need,
+                                          self.page_size,
+                                          *payload.shape[2:])
+                arr[:, pids] = payload.to(device=arr.device,
+                                          dtype=arr.dtype)
+            new_nodes, claimed = self._prefix.register(
+                prompt[:full * self.page_size], ids, nodes,
+                adapter=adapter)
+            claimed_set = set(claimed)
+            self._free_pages.extend(p for p in fresh
+                                    if p not in claimed_set)
+            fresh = []
+            nodes = nodes + new_nodes
+            with self._lock:
+                self._stats["kv_imports"] += 1
+                self._stats["kv_imported_pages"] += len(claimed)
+            KV_TIER_HITS.inc(len(claimed), engine=self._obs_name,
+                             replica=self.replica, tier="remote")
+            return len(claimed)
+        except Exception:
+            self._free_pages.extend(fresh)
+            raise
+        finally:
+            self._prefix.release(nodes)
+
+    def _remove_kv_tier_series(self):
+        """Drop this engine's hierarchical-KV series on stop."""
+        labels = {"engine": self._obs_name, "replica": self.replica}
+        KV_TIER_BYTES.remove(**labels)
+        for tier in ("device", "host", "remote"):
+            KV_TIER_HITS.remove(tier=tier, **labels)
+        for op in ("demote", "promote", "fetch"):
+            for outcome in ("ok", "miss", "fallback", "error"):
+                KV_TIER_EVENTS.remove(op=op, outcome=outcome, **labels)
+
+    def _unregister_metrics(self):
+        super()._unregister_metrics()
+        self._remove_kv_tier_series()
 
     def _prepare_admission(self) -> _Admission | None:
         free = next((i for i, s in enumerate(self._slot_state)
@@ -489,15 +828,20 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         while True:
             if not self._pending:
                 try:
-                    self._pending.append(self._queue.get_nowait())
+                    item = self._queue.get_nowait()
                 except queue.Empty:
                     return None
+                # the item left the admission queue; the head-of-line sweep
+                # in _expire_queued tracks it from here
+                self._consume_budget(item[7])
+                self._pending.append(item)
             item = self._pending[0]
             if not self._validate_item(item):
                 self._pending.popleft()
                 continue
             (request_id, prompt, max_new, eos_id, future, submitted,
-             sampling, adapter) = item
+             sampling, expires, trace, extra, adapter, ledger) = item
+            imported = isinstance(extra, KVHandoff)
             needed = -(-(len(prompt) + max_new) // self.page_size)
             if needed > self.n_pages:
                 # would never fit — fail fast instead of blocking the
@@ -510,9 +854,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 continue
             matched_pages: list = []
             matched_nodes: list = []
-            # matching is per ADAPTER root: KV computed under adapter A is
-            # never served to adapter B (same-tenant hits still share)
-            if self._prefix is not None:
+            # an imported handoff arrives with its whole prompt's KV, so it
+            # takes fresh pages. Matching is per ADAPTER root: KV computed
+            # under adapter A is never served to adapter B
+            if self._prefix is not None and not imported:
                 matched_pages, matched_nodes = self._prefix.match(
                     prompt, adapter=adapter)
             k = len(matched_pages)
@@ -522,10 +867,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 available += self._prefix.evictable_pages()
             if available < fresh_needed:
                 # head-of-line waits for pages (in order); drop the match
-                # holds so the cached prefix stays evictable meanwhile
+                # holds so the cached prefix stays evictable meanwhile (the
+                # ledger keeps charging queue_wait)
                 if self._prefix is not None:
                     self._prefix.release(matched_nodes)
                 return None
+            if ledger is not None and adapter:
+                ledger.enter("adapter_load_wait")
             adapter_slot = self._resolve_adapter(adapter, future)
             if adapter_slot is None:
                 # the adapter did not load: the request failed typed;
@@ -534,32 +882,74 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                     self._prefix.release(matched_nodes)
                 self._pending.popleft()
                 continue
+            if ledger is not None:
+                # claimed for good: page reservation and the prefix work
+                # below are admission
+                ledger.enter("admission")
             self._pending.popleft()
             fresh: list = []
             try:
-                if self._prefix is not None:
+                if self._prefix is not None and not imported:
                     self._prefix.queries += 1
                     if k:
                         self._prefix.hits += 1
                         self._prefix.cached_tokens += k * self.page_size
+                        if self._kv_tier is not None:
+                            KV_TIER_HITS.inc(
+                                k, engine=self._obs_name,
+                                replica=self.replica, tier="device")
                 self._reclaim_pages(fresh_needed)
                 fresh = [self._free_pages.popleft()
                          for _ in range(fresh_needed)]
                 ids = np.full((self.pages_per_slot,), -1, np.int32)
                 ids[:k] = matched_pages
                 ids[k:needed] = fresh
+                # host-tier promote: blocks just past the device match that
+                # sit in the host tier are copied into their reserved fresh
+                # pages instead of prefilled from tokens. A failed promote
+                # falls back to token prefill over the same pages — never a
+                # client error
+                if self._kv_tier is not None and k < needed \
+                        and not imported:
+                    hits = self._tier_probe(prompt, adapter, k)
+                    if hits:
+                        if ledger is not None:
+                            ledger.enter("promote")
+                        try:
+                            promoted = self._tier_import(hits, ids, k)
+                            new_nodes, claimed = self._prefix.register(
+                                prompt[:(k + promoted) * self.page_size],
+                                ids, matched_nodes, adapter=adapter)
+                            matched_nodes = matched_nodes + new_nodes
+                            if claimed:
+                                claimed_set = set(claimed)
+                                fresh = [p for p in fresh
+                                         if p not in claimed_set]
+                            k += promoted
+                        except Exception:  # noqa: BLE001 - fall back to
+                            # prefilling the suffix from tokens
+                            KV_TIER_EVENTS.inc(
+                                engine=self._obs_name,
+                                replica=self.replica, op="promote",
+                                outcome="error")
+                        if ledger is not None:
+                            ledger.enter("admission")
                 adm = _Admission(
                     slot=free, request_id=request_id, prompt=prompt,
                     max_new=max_new, eos_id=eos_id, future=future,
-                    submitted=submitted, sampling=sampling,
+                    submitted=submitted, sampling=sampling, expires=expires,
+                    trace=trace, claimed=time.time(),
                     base=k * self.page_size, offset=k * self.page_size,
-                    adapter=adapter, adapter_slot=adapter_slot)
+                    adapter=adapter, adapter_slot=adapter_slot,
+                    ledger=ledger)
                 adm.page_ids = ids
                 adm.pages = fresh
                 adm.prefix_nodes = matched_nodes
-                adm.small = init_kv_cache(self.config, 1, self.max_len,
-                                          kv_dtype=self.kv_dtype,
-                                          device=self.device)
+                self._apply_directive(adm, extra)
+                if adm.small is None:
+                    adm.small = init_kv_cache(self.config, 1, self.max_len,
+                                              kv_dtype=self.kv_dtype,
+                                              device=self.device)
                 if k:
                     prefix_ids = ids.copy()
                     prefix_ids[k:] = -1
@@ -612,6 +1002,24 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         prefix_kv.update(page_ids=page_ids, base=base)
         return prefix_kv
 
+    def _handoff_kv(self, adm: _Admission, rows: int) -> dict:
+        kv = super()._handoff_kv(adm, rows)
+        k = adm.base // self.page_size
+        if not adm.kernel_prefix or not k:
+            return kv
+        # kernel-prefix exports: rows < base were never gathered into the
+        # slot cache — take them from the shared pool pages (int8 pages
+        # and scales ship as they are)
+        ids = torch.as_tensor(np.asarray(adm.page_ids[:k], np.int64),
+                              device=self._pool["k"].device)
+        for name in kv:
+            pages = self._pool[name][:, ids]
+            rows_t = _from_wire(kv[name])
+            rows_t[:, :adm.base] = pages.reshape(
+                pages.shape[0], adm.base, *pages.shape[3:]).cpu()
+            kv[name] = _to_wire(rows_t)
+        return kv
+
     def _complete_storage(self, adm: _Admission):
         k = adm.base // self.page_size
         insert_ids = np.asarray(adm.page_ids, np.int32).copy()
@@ -622,7 +1030,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         adm.small = None  # the batch-1 cache is consumed
         held = list(adm.prefix_nodes)
         pages = list(adm.pages)
-        if self._prefix is not None:
+        # an imported handoff is not indexed (a decode engine serves no
+        # prefills), unless it is a prewarm replay
+        if self._prefix is not None and \
+                (not adm.prefilled or adm.register_import):
             # index this prompt's freshly written full blocks under the
             # request's adapter root; claimed pages become cache-owned
             # (not freed on release)
@@ -650,6 +1061,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             future = self._pending.popleft()[4]
             if not future.done():
                 future.set_exception(exc)
+        # queued fetch / import ops fail the same way
+        while self._control:
+            future = self._control.popleft()[2]
+            if not future.done():
+                future.set_exception(exc)
         super()._fail_pending(exc)
 
     def _release_slot_storage(self, index: int):
@@ -661,6 +1077,14 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._page_table[index] = -1
         self._pos[index] = 0
         self._spec_release_slot(index)
+
+    # paged-only cumulative stats mirrored to mlt_llm_events_total
+    _COUNTER_STATS = ContinuousBatchingEngine._COUNTER_STATS + (
+        "attn_kernel_ticks", "attn_gather_ticks", "attn_hbm_bytes_avoided",
+        "prefill_kernel_chunks", "prefill_gather_admissions",
+        "kv_demotes", "kv_demoted_pages", "kv_promotes",
+        "kv_promoted_pages", "kv_fetches", "kv_fetched_pages",
+        "kv_imports", "kv_imported_pages")
 
     @property
     def stats(self) -> dict:
@@ -677,6 +1101,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             out["prefix_cached_tokens"] = self._prefix.cached_tokens
             out["prefix_evictions"] = self._prefix.evictions
             out["prefix_cached_pages"] = self._prefix.cached_pages()
+        if self._kv_tier is not None:
+            out["kv_tier"] = self._kv_tier.stats()
         return out
 
     # -- speculative decoding: the paged hooks (the policy is the base's) --
@@ -733,6 +1159,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         pos = torch.as_tensor(self._pos, device=self.device)
         tokens = torch.as_tensor(last, device=self.device)
         lora_kw = self._lora_kwargs(self._slot_adapter_ids())
+        self._ledger_mark(active, "decode_active")
         if any(self._slot_state[i].temperature > 0 for i in active):
             temp = np.zeros((self.slots,), np.float32)
             top_k = np.zeros((self.slots,), np.int64)
@@ -750,6 +1177,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 self.config, self.page_size, self.attn_impl, self.params,
                 tokens, self._pool, table, pos, **lora_kw)
         tokens_host = next_token.cpu().numpy()
+        self._ledger_mark(active, "decode_stall")
         with self._lock:
             # on the kernel path a tick never gathers a dense view
             # (attn_gather_ticks stays 0)

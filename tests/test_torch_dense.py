@@ -647,16 +647,28 @@ def test_dense_engine_submit_unknown_adapter_fails_before_queueing(models):
 
 
 def test_dense_server_timing_is_not_ported(models, monkeypatch):
-    """{"timing": true} on a batching server needs the request ledger
-    (ROADMAP.md item 2): it raises instead of being dropped silently."""
-    _, tserver = _servers(models, monkeypatch, continuous_batching=True)
+    """{"timing": true} on the dense batching server: since the request
+    ledger landed (ROADMAP.md item 2) the port answers it as the reference
+    does — one closed phase breakdown per input beside the same outputs
+    (the name is kept from when the field raised NotImplementedError)."""
+    jserver, tserver = _servers(models, monkeypatch,
+                                continuous_batching=True)
+    body = {"inputs": [_tokens(11, 9), _tokens(12, 5)], "timing": True}
     try:
-        with pytest.raises(NotImplementedError, match="item 2"):
-            tserver.do_event(_Event({"inputs": [[1, 2, 3, 4]],
-                                     "timing": True}))
-        assert tserver.engine.stats["requests"] == 0
+        want = jserver.do_event(_Event(dict(body))).body
+        got = tserver.do_event(_Event(dict(body))).body
     finally:
-        _stop(tserver)
+        _stop(jserver, tserver)
+    assert got["outputs"] == want["outputs"]
+    assert len(got["timing"]) == len(want["timing"]) == 2
+    for jt, tt in zip(want["timing"], got["timing"]):
+        assert tt["attribution_closed"] and jt["attribution_closed"]
+        assert tt["wall_s"] == pytest.approx(sum(tt["phases"].values()),
+                                             abs=1e-9)
+        assert {"prefill", "decode_active"} <= set(tt["phases"])
+        assert set(tt["phases"]) <= set(jt["phases"]) | {"decode_stall",
+                                                          "queue_wait"}
+        assert tt["prefill_chunks"] == jt["prefill_chunks"]
 
 
 def test_llm_engine_server_ignores_timing_like_reference(models,

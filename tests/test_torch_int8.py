@@ -18,8 +18,21 @@ bits (up to ~5e-6 absolute on this model), so the scales (``amax / 127``)
 are held to 1e-5 relative (1.5e-6 measured), and an int8 value may
 differ by one where the two inputs straddle a rounding tie (at most 1e-3
 of the values; 1 in 8192 measured).
+
+Logits held after a quantization (the int8 prefill, cold and through a
+prefix hit) are compared at LOGIT_TOL only where both sides read the
+same int8 state. One straddled tie in layer 1 moves the tiny model's
+logits by ~4.5e-4, four times LOGIT_TOL, while a native cache agrees to
+~3e-6. So where ``_assert_int8_state`` finds straddled ties, the port's
+forward is run again with those values pinned to the reference's
+(``_ties_pinned``: every other int8 value and every scale stays the
+port's own, and a pinned value must be off by exactly one), its int8
+state is then held bit for bit, and its logits at LOGIT_TOL. A wrong
+scale still fails SCALE_RTOL, a wrong page or a wrong value still fails
+the state or the logits.
 """
 
+import contextlib
 import importlib
 
 import jax
@@ -210,44 +223,103 @@ def _assert_int8_state(j: dict, t: dict, index=slice(None)):
         np.testing.assert_allclose(ts, js, rtol=SCALE_RTOL, atol=0)
 
 
+def _int8_equal(j: dict, t: dict) -> bool:
+    return all(np.array_equal(np.asarray(j[name]), t[name].numpy())
+               for name in ("k", "v"))
+
+
+@contextlib.contextmanager
+def _ties_pinned(jcache: dict, start: int):
+    """Within the block, the port's prefill forward takes the reference's
+    int8 value wherever its own quantization lands one step away (a
+    straddled rounding tie). Its forward quantizes k then v once a layer,
+    for the chunk at ``start``, which is how calls map to ``jcache``."""
+    quantize = tllm._quantize_kv
+    calls = []
+
+    def pinned(x):
+        q, scales = quantize(x)
+        layer, name = divmod(len(calls), 2)
+        want = torch.from_numpy(np.asarray(
+            jcache["kv"[name]][layer])[:, start:start + x.shape[1]].copy())
+        off = (q.to(torch.int32) - want.to(torch.int32)).abs()
+        assert int(off.max()) <= 1 and float((off > 0).double().mean()) \
+            <= TIE_SHARE
+        calls.append(int((off > 0).sum()))
+        return torch.where(off > 0, want, q), scales
+
+    tllm._quantize_kv = pinned
+    try:
+        yield calls
+    finally:
+        tllm._quantize_kv = quantize
+
+
+def _int8_prefill(tcfg, tparams, tokens, cache, jcache, start, **kw):
+    """The port's int8 prefill of ``tokens`` into ``cache`` (a fresh copy
+    each run), again with straddled ties pinned where its int8 state
+    differs from the reference's ``jcache``; the state is then equal."""
+    fresh = {name: a.clone() for name, a in cache.items()}
+    tlog, tcache = tllm._forward_with_cache(
+        tcfg, tparams, torch.from_numpy(tokens[None]).long(), fresh, **kw)
+    _assert_int8_state(jcache, tcache)
+    if not _int8_equal(jcache, tcache):
+        fresh = {name: a.clone() for name, a in cache.items()}
+        with _ties_pinned(jcache, start) as pins:
+            tlog, tcache = tllm._forward_with_cache(
+                tcfg, tparams, torch.from_numpy(tokens[None]).long(),
+                fresh, **kw)
+        assert sum(pins) > 0
+        assert _int8_equal(jcache, tcache)
+    return tlog, tcache
+
+
 @pytest.mark.parametrize("impl", ["dense", "flash"])
 def test_forward_with_cache_int8_cold_and_hit(models, impl):
     """Cold int8 prefill, then a suffix prefill through a prefix hit on
-    an int8 pool (the prefix attended in place with its scales): logits
-    within LOGIT_TOL of the reference's, caches and pool bits as stated."""
+    an int8 pool (the prefix attended in place with its scales): caches
+    and pool bits as stated, and logits within LOGIT_TOL of the
+    reference's wherever both sides read the same int8 state (straddled
+    ties pinned, module docstring)."""
     jcfg, jparams, tcfg, tparams = models
     prompt = _tokens(2, 40)
     jlog, jcache = jllm._forward_with_cache(
         jcfg, jparams, jnp.asarray(prompt[None]),
         jllm.init_kv_cache(jcfg, 1, MAX_LEN, kv_dtype="int8"), attn_impl=impl)
-    tcache = tllm.init_kv_cache(tcfg, 1, MAX_LEN, kv_dtype="int8",
-                                device="cpu")
-    tlog, tcache = tllm._forward_with_cache(
-        tcfg, tparams, torch.from_numpy(prompt[None]).long(), tcache,
-        attn_impl=impl)
+    tlog, _ = _int8_prefill(
+        tcfg, tparams, prompt,
+        tllm.init_kv_cache(tcfg, 1, MAX_LEN, kv_dtype="int8", device="cpu"),
+        jcache, 0, attn_impl=impl)
     _close(jlog, tlog, LOGIT_TOL)
-    _assert_int8_state(jcache, tcache)
 
     base = 32
     ids = np.full((MAX_LEN // PAGE,), -1, np.int32)
     ids[:2] = [3, 1]
     jpool, tpool = _int8_prefix_pools(models, prompt, base, ids)
     _assert_int8_state(jpool, tpool)
+    # the hit reads the pool both sides built; held at LOGIT_TOL on the
+    # reference's pages (the same state), the port's own pages only where
+    # they are bit-equal to it
+    pools = [{name: torch.from_numpy(np.asarray(a).copy())
+              for name, a in jpool.items()}]
+    if _int8_equal(jpool, tpool):
+        pools.append(tpool)
     jsmall = jllm.init_kv_cache(jcfg, 1, MAX_LEN, kv_dtype="int8")
     jsmall["pos"] = jnp.full((1,), base, jnp.int32)
     jprefix = {name: jpool[name] for name in jpool}
     jprefix.update(page_ids=jnp.asarray(ids), base=jnp.int32(base))
-    jlog, _ = jllm._forward_with_cache(
+    jlog, jsmall = jllm._forward_with_cache(
         jcfg, jparams, jnp.asarray(prompt[base:][None]), jsmall,
         prefix_kv=jprefix, attn_impl=impl, page_size=PAGE)
     tsmall = tllm.init_kv_cache(tcfg, 1, MAX_LEN, kv_dtype="int8",
                                 device="cpu")
     tsmall["pos"].fill_(base)
-    tprefix = dict(tpool, page_ids=torch.from_numpy(ids), base=base)
-    tlog, _ = tllm._forward_with_cache(
-        tcfg, tparams, torch.from_numpy(prompt[base:][None]).long(), tsmall,
-        prefix_kv=tprefix, attn_impl=impl, page_size=PAGE)
-    _close(jlog, tlog, LOGIT_TOL)
+    for pool in pools:
+        tprefix = dict(pool, page_ids=torch.from_numpy(ids), base=base)
+        tlog, _ = _int8_prefill(
+            tcfg, tparams, prompt[base:], tsmall, jsmall, base,
+            prefix_kv=tprefix, attn_impl=impl, page_size=PAGE)
+        _close(jlog, tlog, LOGIT_TOL)
 
 
 @pytest.mark.parametrize("impl", ["kernel", "reference"])

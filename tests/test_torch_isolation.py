@@ -1,7 +1,7 @@
-"""The port package stands alone: nothing under mlrun_tpu_torch/ (nor the
-chip smoke script and the port's profile scripts) imports JAX or the
-reference package, and importing the serving and training paths pulls
-neither into the process."""
+"""The port package stands alone: nothing under mlrun_tpu_torch/ (its obs/
+and chaos/ copies included, nor the chip smoke script and the port's
+profile scripts) imports JAX or the reference package, and importing the
+serving, telemetry and training paths pulls neither into the process."""
 
 import ast
 import os
@@ -40,6 +40,8 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import sys\n"
         "import mlrun_tpu_torch.serving.paged, mlrun_tpu_torch.serving.llm\n"
         "import mlrun_tpu_torch.serving.speculative\n"
+        "import mlrun_tpu_torch.serving.kv_tier\n"
+        "import mlrun_tpu_torch.obs, mlrun_tpu_torch.chaos\n"
         "import mlrun_tpu_torch.models.convert\n"
         "import mlrun_tpu_torch.training.train\n"
         "import mlrun_tpu_torch.frameworks.torch.auto_trainer\n"

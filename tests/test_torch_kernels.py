@@ -894,3 +894,90 @@ def test_tc_flash_bwd_bf16_within_half_ulp(dev, s, h, hkv, d, causal):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
         bound = ref.abs() * 2.0 ** -8 + 2e-5 * float(ref.abs().max())
         assert bool(((got.float() - ref).abs() <= bound).all()), name
+
+
+# -- the host KV tier and the KV handoff on the kernel path --------------------
+
+def _tier_engine(cfg, params, dev, impl, **kw):
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    return PagedContinuousBatchingEngine(
+        cfg, params, max_len=64, slots=2, prefill_buckets=(16,),
+        page_size=8, attention_impl=impl, device=dev, **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_promoted_prefix_hit_runs_paged_prefill_kernel(dev, kv_dtype):
+    """A prompt's evicted pages demote to the host tier and its rerun
+    promotes them: the paged prefill kernel reads the promoted pages (its
+    counter moves, nothing is gathered), the pages come back bit for bit,
+    and the tokens equal the plain versions' (a reference-attention
+    engine on the same sequence)."""
+    from mlrun_tpu_torch.models import llama
+
+    cfg = llama.tiny_llama(dtype=torch.float32)
+    params = llama.init_params(cfg, _gen(9), dev)
+    p1, p2 = list(range(1, 30)), list(range(50, 100))
+    prefill = "paged_prefill" if kv_dtype == "native" \
+        else "paged_prefill_int8"
+    outs = []
+    for impl in ("auto", "reference"):
+        eng = _tier_engine(cfg, params, dev, impl, n_pages=8,
+                           kv_dtype=kv_dtype,
+                           kv_tier={"host_bytes": 32 << 20})
+        try:
+            cold = eng.generate(p1, max_new_tokens=4)[0]
+            before = eng.fetch_prefix(p1).result(timeout=120)
+            eng.generate(p2, max_new_tokens=4)
+            chunks = eng.stats["prefill_kernel_chunks"]
+            _build.reset_launch_counts()
+            again = eng.generate(p1, max_new_tokens=4)[0]
+            counts = _build.launch_counts()
+            after = eng.fetch_prefix(p1).result(timeout=120)
+            stats = eng.stats
+        finally:
+            eng.stop()
+        assert stats["kv_promoted_pages"] == 2
+        for name in before.kv:
+            assert (before.kv[name] == after.kv[name]).all(), name
+        if impl == "auto":
+            # one launch a layer for every prefix-hit dispatch of the
+            # promoted rerun (its chunk and its last-token replay)
+            assert counts[prefill] == cfg.n_layers * (
+                stats["prefill_kernel_chunks"] - chunks) > 0
+            assert stats["prefill_gather_admissions"] == 0
+        outs.append((cold, again))
+    assert outs[0] == outs[1] and outs[0][0] == outs[0][1]
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_imported_handoff_decodes_on_paged_decode_kernel(dev, kv_dtype):
+    """submit_prefill -> submit_prefilled between two engines on the card:
+    the decode engine launches no prefill kernel, decodes every tick of
+    the imported pages on the paged decode kernel, and gives the tokens of
+    a single reference-attention engine (the plain versions)."""
+    from mlrun_tpu_torch.models import llama
+
+    cfg = llama.tiny_llama(dtype=torch.float32)
+    params = llama.init_params(cfg, _gen(10), dev)
+    prompt = list(range(3, 44))
+    decode_name = "paged_decode" if kv_dtype == "native" \
+        else "paged_decode_int8"
+    ref = _tier_engine(cfg, params, dev, "reference", kv_dtype=kv_dtype)
+    prefill = _tier_engine(cfg, params, dev, "auto", kv_dtype=kv_dtype)
+    decode = _tier_engine(cfg, params, dev, "auto", kv_dtype=kv_dtype)
+    try:
+        want = ref.generate(prompt, max_new_tokens=8)[0]
+        handoff = prefill.submit_prefill(prompt).result(timeout=120)
+        _build.reset_launch_counts()
+        got = decode.submit_prefilled(handoff,
+                                      max_new_tokens=8).result(timeout=120)
+        counts = _build.launch_counts()
+    finally:
+        for eng in (ref, prefill, decode):
+            eng.stop()
+    assert got[0] == want
+    assert counts["flash_fwd_cached"] == 0
+    assert counts[decode_name] == cfg.n_layers * 7
+    if kv_dtype == "int8":
+        assert handoff.kv["k"].dtype.name == "int8"

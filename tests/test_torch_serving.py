@@ -378,16 +378,31 @@ def test_paged_engine_submit_unknown_adapter_fails_before_queueing(models):
 
 
 def test_paged_server_timing_is_not_ported(models, monkeypatch):
-    """{"timing": true} needs the request ledger (ROADMAP.md item 2): the
-    paged server raises instead of dropping the field silently."""
-    _, tserver = _paged_servers(models, monkeypatch)
+    """{"timing": true} on the paged server: since the request ledger
+    landed (ROADMAP.md item 2) it comes back as on the reference's server —
+    a closed phase breakdown per input beside the same outputs, and no
+    field without the flag (the name is kept from when it raised)."""
+    jserver, tserver = _paged_servers(models, monkeypatch)
+    prompt = _tokens(31, 20).tolist()
     try:
-        with pytest.raises(NotImplementedError, match="item 2"):
-            tserver.do_event(_Event({"inputs": [[1, 2, 3, 4]],
-                                     "timing": True}))
-        assert tserver.engine.stats["requests"] == 0
+        jserver.do_event(_Event({"inputs": [prompt]}))
+        plain = tserver.do_event(_Event({"inputs": [prompt]})).body
+        want = jserver.do_event(_Event({"inputs": [prompt],
+                                        "timing": True})).body
+        got = tserver.do_event(_Event({"inputs": [prompt],
+                                       "timing": True})).body
     finally:
-        tserver.close()
+        for server in (jserver, tserver):
+            if server.engine is not None:
+                server.engine.stop()
+    assert "timing" not in plain
+    assert got["outputs"] == want["outputs"] == plain["outputs"]
+    (jt,), (tt,) = want["timing"], got["timing"]
+    assert jt["attribution_closed"] and tt["attribution_closed"]
+    assert tt["wall_s"] == pytest.approx(sum(tt["phases"].values()),
+                                         abs=1e-9)
+    # the second run of the prompt is a prefix hit on both servers
+    assert tt.get("cached_prefix") == jt.get("cached_prefix") == PAGE
 
 
 def test_default_device_needs_cuda(models, monkeypatch):
@@ -413,13 +428,16 @@ def test_explicit_kernel_on_cpu_raises(models, impl):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"paged": False, "degradation": {"levels": ["shed"]}},
-    {"continuous_batching": False, "paged": False, "request_ledger": True},
+    {"paged": False, "hf_model": "meta-llama/Llama-3.2-1B"},
+    {"continuous_batching": False, "paged": False, "prefill_replicas": 1},
     {"tokenizer": "gpt2"},
-    {"max_wait": 1.0},
+    {"routing": "affinity"},
     {"replicas": 2},
 ])
 def test_unported_server_features_raise(kwargs):
+    """Features of the reference's server the port does not have yet raise
+    their ROADMAP.md item (max_wait, degradation and request_ledger, once
+    cases here, landed with item 2: tests/test_torch_resilience.py)."""
     args = dict(continuous_batching=True, paged=True, device="cpu")
     args.update(kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
