@@ -83,11 +83,28 @@ exits non-zero and never prints the final line):
              then a LoRA leg (rank 16, frozen base, 3 steps): the loss
              falls, the base's checksum holds, the flash kernels launch
              once a layer a pass.
+9. resilience - the degradation ladder, an armed llm.spec_verify, the
+             max_wait expiry and the request ledger on the 8B server.
+10. kv_tier - the host KV tier (demote, promote), the KV handoff and
+             fetch_prefix / import_prefix on the 8B paged engine.
+11. fleet  - the engine fleet over the 8B paged engine, every replica from
+             one factory over one param dict: affinity routing on two
+             replicas (a shared 512-token prefix on one replica, its hits
+             on the paged prefill kernel), one prefill and one decode
+             replica joined by the KV handoff (the decode replica runs no
+             prefill), a third replica joining and a moved hot key's
+             prefix pages fetched from the old owner (and the armed
+             llm.kv_fetch fallback), re-dispatch after a replica crash and
+             its drain, a concurrent burst, LLMModelServer with
+             replicas=2 and prefill_replicas=1, and TpuModelServer over
+             the 8B forward (one flash launch a layer); every stream held
+             to a single engine's (one JSON line a leg).
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
-``--phases build,lora`` the adapters); the
+``--phases build,lora`` the adapters, ``--phases build,fleet`` the engine
+fleet); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -2637,11 +2654,431 @@ def phase_kv_tier(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the engine fleet at Llama-3-8B
+# ---------------------------------------------------------------------------
+
+FLEET_SHARED = 512                  # the shared prefix: 4 pages = the key
+FLEET_SUFFIXES = (64, 128, 200, 88)
+FLEET_ROUTE_BLOCKS = 4
+FLEET_TPU_TOKENS = 512              # TpuModelServer's [2, 512] batch
+
+
+def _fleet_prompts(seed: int, vocab: int) -> list:
+    """Four prompts sharing a 512-token prefix (suffixes 64, 128, 200, 88)
+    and the serve set's 600- and 700-token prompts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 11)
+    shared = rng.integers(1, vocab, size=FLEET_SHARED).tolist()
+    serve = _prompts(seed, vocab)
+    return [shared + rng.integers(1, vocab, size=n).tolist()
+            for n in FLEET_SUFFIXES] + [serve[0], serve[3]]
+
+
+def _kv_bytes_per_token(config, item: int) -> int:
+    # K and V, every layer, every KV head, ``item`` bytes an element
+    return config.n_layers * config.n_kv_heads * config.head_dim * 2 * item
+
+
+def _tick_mark(engine) -> int:
+    return len(engine._tick_ring)
+
+
+def _tick_p50_since(engine, mark: int):
+    import statistics
+
+    ticks = list(engine._tick_ring)[mark:]
+    return statistics.median(ticks) if ticks else None
+
+
+def _leg_check(leg: str, row: dict):
+    emit(row)
+    bad = [name for name, ok in row["checks"].items() if not ok]
+    if bad:
+        fail(f"fleet ({leg}): {bad}")
+
+
+def _fleet_movers(fleet, config, seed, count=2) -> list:
+    """Seeded 600-token prompts whose routing key moves to the replica the
+    next ``add_replica`` creates (the ring alone decides)."""
+    import numpy as np
+
+    from mlrun_tpu_torch.serving.fleet import ConsistentHashRing
+
+    probe = ConsistentHashRing(vnodes=fleet._ring.vnodes)
+    for node in fleet._ring.nodes():
+        probe.add(node)
+    candidate = f"{fleet._fleet_id}-u{fleet._replica_seq}"
+    probe.add(candidate)
+    rng = np.random.default_rng(seed + 12)
+    movers = []
+    while len(movers) < count:
+        prompt = rng.integers(1, config.vocab_size, size=600).tolist()
+        if probe.lookup(fleet.routing_key(prompt)) == candidate:
+            movers.append(prompt)
+    return candidate, movers
+
+
+def phase_fleet(seed: int, card: str) -> dict:
+    """The engine fleet over the 8B paged engine (random weights from the
+    seed, bf16, native pools, prefix cache on, speculation off), every
+    replica built by one factory over ONE param dict: affinity routing,
+    disaggregated prefill/decode over the KV handoff, a ring move with a
+    cross-replica prefix fetch (and its chaos fallback), re-dispatch after
+    a replica crash and a drain, a concurrent burst, then LLMModelServer's
+    fleet branches and TpuModelServer over the 8B forward. A single paged
+    engine serving the same requests one by one gives the reference
+    streams."""
+    import gc
+
+    import torch
+
+    from mlrun_tpu_torch.chaos import FaultPoints, chaos, fail_nth
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, forward, init_params
+    from mlrun_tpu_torch.obs import REGISTRY
+    from mlrun_tpu_torch.obs.reqledger import PHASES
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.fleet import EngineFleet
+    from mlrun_tpu_torch.serving.llm import LLMModelServer
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+    from mlrun_tpu_torch.serving.resilience import EngineStoppedError
+    from mlrun_tpu_torch.serving.v2_serving import TpuModelServer
+
+    phase_started = time.perf_counter()
+    config = MODEL_PRESETS["llama3-8b"]()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(config, gen, "cuda")
+    prompts = _fleet_prompts(seed, config.vocab_size)
+
+    def build(role="unified"):
+        return PagedContinuousBatchingEngine(
+            config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+            seed=seed, device="cuda", request_ledger=True)
+
+    def generate_all(target, batch):
+        return [target.generate(p, max_new_tokens=MAX_NEW) for p in batch]
+
+    # the reference streams: one paged engine, requests one by one
+    single = build()
+    ref = [t for t, _ in generate_all(single, prompts)]
+    tpu_prompts = [prompts[0][:FLEET_TPU_TOKENS], prompts[5][:FLEET_TPU_TOKENS]]
+    engine_first = [single.generate(p, max_new_tokens=1)[0][0]
+                    for p in tpu_prompts]
+    pool_bytes = sum(t.nbytes for t in single._pool.values())
+    per_token = _kv_bytes_per_token(config, single._pool["k"].element_size())
+    single.stop()
+    rows = []
+
+    # -- leg 1: affinity, 2 unified replicas, one by one -------------------
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    fleet = EngineFleet(build, replicas=2, route_blocks=FLEET_ROUTE_BLOCKS)
+    fleet_mem = torch.cuda.memory_allocated() - mem0
+    _build.reset_launch_counts()
+    served = generate_all(fleet, prompts)
+    launches = _build.launch_counts()
+    _check_launches(launches, SERVING_KERNELS, "fleet affinity")
+    owners = [s["replica"] for _, s in served]
+    cached = [s["timing"].get("cached_prefix", 0) for _, s in served]
+    per = fleet.stats["per_replica"]
+    row = {"phase": "fleet", "leg": "affinity", "card": card,
+           "model": "llama3-8b", "replicas": 2,
+           "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": MAX_NEW, "replica_of_request": owners,
+           "cached_prefix": cached, "launches": launches,
+           "replica_pool_bytes": pool_bytes,
+           "fleet_memory_bytes": fleet_mem,
+           "per_replica": {rid: {k: v.get(k) for k in (
+               "prefill_kernel_chunks", "prefill_gather_admissions",
+               "prefix_hit_rate", "decode_tick_p50_s", "ttft_p50_s")}
+               for rid, v in per.items()},
+           "checks": {
+               "shared_prefix_on_one_replica": len(set(owners[:4])) == 1,
+               "hits_cached_512": all(c >= FLEET_SHARED
+                                      for c in cached[1:4]),
+               "paged_prefill_on_hits":
+               per[owners[0]]["prefill_kernel_chunks"] >= 3
+               and per[owners[0]]["prefill_gather_admissions"] == 0,
+               "streams_equal_single_engine": [t for t, _ in served] == ref,
+               # the weights once (before the fleet), then a pool each
+               "weights_shared": fleet_mem < 2 * pool_bytes + (256 << 20),
+           }}
+    _leg_check("affinity", row)
+    rows.append(row)
+
+    # -- leg 2: disaggregated, 1 prefill + 1 decode replica ----------------
+    split = EngineFleet(build, replicas=1, prefill_replicas=1,
+                        route_blocks=FLEET_ROUTE_BLOCKS)
+    _build.reset_launch_counts()
+    served = generate_all(split, prompts)
+    launches = _build.launch_counts()
+    stats = split.stats
+    split.stop()
+    decode = next(v for v in stats["per_replica"].values()
+                  if v["role"] == "decode")
+    prefill = next(v for v in stats["per_replica"].values()
+                   if v["role"] == "prefill")
+    row = {"phase": "fleet", "leg": "disaggregated", "card": card,
+           "launches": launches,
+           "handoff_bytes": [s["handoff_bytes"] for _, s in served],
+           "prompt_kv_bytes": [len(p) * per_token for p in prompts],
+           "handoff_s": [s["handoff_s"] for _, s in served],
+           "prefill_s": [s["prefill_s"] for _, s in served],
+           "cached_prefix": [s["cached_prefix"] for _, s in served],
+           "decode_prefill_chunks": decode["prefill_chunks"],
+           "decode_prefill_kernel_chunks": decode["prefill_kernel_chunks"],
+           "decode_handoffs_in": decode["handoffs_in"],
+           "prefill_handoffs_out": prefill["handoffs_out"],
+           "checks": {
+               "streams_equal_single_engine": [t for t, _ in served] == ref,
+               "decode_runs_no_prefill": decode["prefill_chunks"] == 0
+               and decode["prefill_kernel_chunks"] == 0,
+               "handoffs_in_every_request":
+               decode["handoffs_in"] == len(prompts),
+               "handoff_bytes_are_prompt_kv": all(
+                   s["handoff_bytes"] == len(p) * per_token
+                   for p, (_, s) in zip(prompts, served)),
+           }}
+    _check_launches(launches, SERVING_KERNELS, "fleet disaggregated")
+    _leg_check("disaggregated", row)
+    rows.append(row)
+
+    # -- leg 3: a ring move and the cross-replica prefix fetch -------------
+    candidate, movers = _fleet_movers(fleet, config, seed)
+    warm = [generate_all(fleet, [m, m]) for m in movers]
+    cold = [w[0][0] for w in warm]
+    hit = [w[1][0] for w in warm]
+    old_owner = warm[0][1][1]["replica"]
+    reassigned = [p for _, p, _ in fleet.reassigned_hot_keys(candidate)]
+    before = dict(fleet.stats)
+    added = fleet.add_replica("unified")
+    target = next(r for r in fleet.replicas if r.id == added)
+    chunks = target.engine.stats["prefill_kernel_chunks"]
+    _build.reset_launch_counts()
+    fetched, fstats = fleet.generate(movers[0], max_new_tokens=MAX_NEW)
+    launches = _build.launch_counts()
+    tstats = target.engine.stats
+    after = fleet.stats
+    with chaos.inject(FaultPoints.llm_kv_fetch, fail_nth(1),
+                      error=RuntimeError("fleet smoke: fetch path down")):
+        fallback, fbstats = fleet.generate(movers[1], max_new_tokens=MAX_NEW)
+    last = fleet.stats
+    # fetch and import apart: the old owner's pages into the replica that
+    # holds neither mover
+    owner = next(r for r in fleet.replicas if r.id == old_owner)
+    third = next(r for r in fleet.replicas
+                 if r.id not in (old_owner, added))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = owner.engine.fetch_prefix(movers[0]).result(timeout=600)
+    fetch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imported = third.engine.import_prefix(payload).result(timeout=600)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    row = {"phase": "fleet", "leg": "ring_move_fetch", "card": card,
+           "candidate": candidate, "added": added, "old_owner": old_owner,
+           "launches": launches,
+           "fetched_cached_prefix": fstats["timing"].get("cached_prefix", 0),
+           "fetch_phase_s": fstats["timing"]["phases"].get("fetch"),
+           "fallback_cached_prefix":
+           fbstats["timing"].get("cached_prefix", 0),
+           "fetch_payload_bytes": payload.nbytes(),
+           "fetch_ms": fetch_s * 1e3, "import_ms": import_s * 1e3,
+           "imported_pages": imported,
+           "fetched_vs_device_hit": _stream_check(config, params, movers[0],
+                                                  fetched, hit[0]),
+           "checks": {
+               "movers_reassigned": all(m in reassigned for m in movers),
+               "added_is_candidate": added == candidate,
+               "fetched_on_new_replica": fstats["replica"] == added,
+               "prefix_fetches_plus_one":
+               after["prefix_fetches"] == before["prefix_fetches"] + 1,
+               "fetched_hit_512": fstats["timing"].get("cached_prefix", 0)
+               >= FLEET_SHARED,
+               "paged_prefill_over_imported_pages":
+               launches["paged_prefill"] > 0
+               and tstats["prefill_kernel_chunks"] > chunks
+               and tstats["prefill_gather_admissions"] == 0,
+               "fetched_tokens_equal_device_hit": fetched == hit[0],
+               "fallback_counted": last["prefix_fetch_fallbacks"]
+               == after["prefix_fetch_fallbacks"] + 1,
+               "fallback_tokens_equal_cold": fallback == cold[1],
+               "import_pages": imported == payload.cached_prefix // PAGE,
+           }}
+    _leg_check("ring_move_fetch", row)
+    rows.append(row)
+
+    # -- leg 4: re-dispatch after a replica crash, then drain --------------
+    prompt = prompts[4]
+    victim = fleet._ring.lookup(fleet.routing_key(prompt))
+    before = dict(fleet.stats)
+    # the owner's scheduler crashes on this request's prefill: its future
+    # fails 503-class (an armed llm.submit would raise out of submit()
+    # itself, which the fleet fails loudly, as the reference's does)
+    with chaos.inject(FaultPoints.llm_prefill, fail_nth(1),
+                      error=EngineStoppedError("fleet smoke: crashed"),
+                      match=lambda ctx: ctx.get("replica") == victim):
+        rescued, rstats = fleet.generate(prompt, max_new_tokens=MAX_NEW)
+    after = dict(fleet.stats)
+    fleet.drain_replica(victim)
+    ring_after_drain = fleet._ring.nodes()
+    moved, mstats = fleet.generate(prompt, max_new_tokens=MAX_NEW)
+    REGISTRY.render()
+    fleet.remove_replica(victim)
+    rendered = REGISTRY.render()
+    row = {"phase": "fleet", "leg": "redispatch_drain", "card": card,
+           "victim": victim, "served_by": rstats["replica"],
+           "dispatch_attempts": rstats["dispatch_attempts"],
+           "redispatch_backoff_s":
+           rstats["timing"]["phases"].get("redispatch_backoff"),
+           "after_drain_served_by": mstats["replica"],
+           "checks": {
+               "served_by_next_ring_node": rstats["replica"] != victim,
+               "redispatched": after["redispatches"]
+               >= before["redispatches"] + 1,
+               "no_client_error": len(rescued) == MAX_NEW,
+               "rescued_tokens_equal_single_engine": rescued == ref[4],
+               "drained_off_ring": victim not in ring_after_drain,
+               "drained_keys_elsewhere": mstats["replica"] != victim,
+               "series_removed": victim not in rendered,
+           }}
+    _leg_check("redispatch_drain", row)
+    rows.append(row)
+    fleet.stop()
+    fleet = split = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- leg 5: a concurrent burst on 2 replicas ---------------------------
+    burst_fleet = EngineFleet(build, replicas=2,
+                              route_blocks=FLEET_ROUTE_BLOCKS)
+    futures = [burst_fleet.submit(p, max_new_tokens=MAX_NEW)
+               for p in prompts]
+    burst = [f.result(timeout=600) for f in futures]
+    burst_per = {rid: {"decode_tick_p50_s": v.get("decode_tick_p50_s"),
+                       "completed": v["completed"]}
+                 for rid, v in burst_fleet.stats["per_replica"].items()}
+    lone = [t for t, _ in generate_all(burst_fleet, prompts)]
+    burst_fleet.stop()
+    lone_engine = build()
+    mark = _tick_mark(lone_engine)
+    futures = [lone_engine.submit(p, max_new_tokens=MAX_NEW)
+               for p in prompts]
+    for f in futures:
+        f.result(timeout=600)
+    lone_tick = _tick_p50_since(lone_engine, mark)
+    lone_engine.stop()
+    streams = [_stream_check(config, params, p, b[0], lt)
+               for p, b, lt in zip(prompts, burst, lone)]
+    row = {"phase": "fleet", "leg": "burst", "card": card,
+           "burst_replica_of_request": [s["replica"] for _, s in burst],
+           "burst_per_replica": burst_per,
+           "lone_engine_burst_tick_p50_s": lone_tick,
+           "streams": streams,
+           "checks": {
+               "burst_equals_lone_until_near_tie": all(
+                   s["tie_at_departure_rel"] is None
+                   or s["tie_at_departure_rel"] <= SPEC_REL_TOL
+                   for s in streams),
+               "every_request_served": all(len(b[0]) == MAX_NEW
+                                           for b in burst),
+           }}
+    _leg_check("burst", row)
+    rows.append(row)
+    burst_fleet = lone_engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- leg 6: through the servers -----------------------------------------
+    server_rows = {}
+    for shape, body in (({"replicas": 2}, {"inputs": prompts[:2],
+                                           "timing": True}),
+                        ({"replicas": 1, "prefill_replicas": 1},
+                         {"inputs": [prompts[4]], "timing": True})):
+        server = LLMModelServer(
+            name="llama3-8b", model_preset="llama3-8b",
+            continuous_batching=True, paged=True, slots=SLOTS,
+            max_len=MAX_LEN, page_size=PAGE, max_new_tokens=MAX_NEW,
+            seed=seed, warmup=False, **shape)
+        server.post_init()
+        if not server.ready:
+            fail(f"LLMModelServer {shape} failed to load: {server.error}")
+        _build.reset_launch_counts()
+        reply = server.do_event(_Event(dict(body))).body
+        launches = _build.launch_counts()
+        kind = type(server.engine).__name__
+        server.close()
+        server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = ref[:2] if "prefill_replicas" not in shape else [ref[4]]
+        timings = reply.get("timing") or []
+        server_rows["+".join(f"{k}={v}" for k, v in shape.items())] = {
+            "engine": kind, "launches": launches,
+            "phases": [sorted(t["phases"]) for t in timings],
+            "checks": {
+                "fleet_engine": kind == "EngineFleet",
+                "outputs_equal_single_engine": reply["outputs"] == want,
+                "timing_closed": len(timings) == len(want) and all(
+                    t["attribution_closed"] for t in timings),
+                "reference_phase_names": all(
+                    set(t["phases"]) <= set(PHASES)
+                    and "network" in t["phases"] for t in timings),
+                "handoff_phase": "prefill_replicas" not in shape or all(
+                    "handoff" in t["phases"] for t in timings),
+            }}
+    tpu = TpuModelServer(
+        name="llama3-8b-forward",
+        forward_fn=lambda p, x: forward(config, p, x.long())[:, -1],
+        params=params, warmup_shapes=[(2, FLEET_TPU_TOKENS)], device="cuda")
+    tpu.post_init()
+    if not tpu.ready:
+        fail(f"TpuModelServer failed to load: {tpu.error}")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    reply = tpu.do_event(_Event({"inputs": tpu_prompts})).body
+    tpu_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    logits = torch.tensor(reply["outputs"])
+    firsts = []
+    for row_logits, want in zip(logits, engine_first):
+        got = int(row_logits.argmax())
+        gap = float(row_logits[got] - row_logits[want]) \
+            / float(row_logits.abs().max())
+        firsts.append({"argmax": got, "engine_first": want, "gap_rel": gap})
+    server_rows["tpu_model_server"] = {
+        "launches": launches, "predict_s": tpu_s,
+        "flash_fwd_per_call": launches["flash_fwd"],
+        "first_tokens": firsts,
+        "checks": {
+            "one_flash_fwd_a_layer": launches["flash_fwd"]
+            == config.n_layers and sum(launches.values())
+            == config.n_layers,
+            "finite_logits": bool(torch.isfinite(logits).all()),
+            "argmax_equals_engine_first_token_or_near_tie": all(
+                f["gap_rel"] <= LOGIT_REL_TOL for f in firsts),
+        }}
+    row = {"phase": "fleet", "leg": "servers", "card": card,
+           "servers": server_rows,
+           "checks": {f"{name}:{check}": ok
+                      for name, srow in server_rows.items()
+                      for check, ok in srow["checks"].items()}}
+    _leg_check("servers", row)
+    rows.append(row)
+    emit({"phase": "fleet", "card": card,
+          "phase_s": time.perf_counter() - phase_started})
+    return {"rows": rows}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
-              "serve_dense", "lora", "train", "resilience", "kv_tier")
+              "serve_dense", "lora", "train", "resilience", "kv_tier",
+              "fleet")
 
 
 def main(argv=None) -> int:
@@ -2718,6 +3155,9 @@ def main(argv=None) -> int:
         release()
     if "kv_tier" in phases:
         phase_kv_tier(args.seed, card)
+        release()
+    if "fleet" in phases:
+        phase_fleet(args.seed, card)
         release()
     if set(phases) != set(ALL_PHASES):
         return 0

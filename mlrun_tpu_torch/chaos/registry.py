@@ -33,15 +33,22 @@ def set_fire_observer(observer):
 
 
 class FaultPoints:
-    """The named fault points the port's serving engines fire (the
-    reference's names). A point is matched exactly or by a ``prefix.*``
+    """The named fault points the port's serving engines and engine fleet
+    fire (the reference's names). A point is matched exactly or by a ``prefix.*``
     wildcard at injection time."""
 
+    # one ring join of a deferred-join fleet replica (serving/fleet.py
+    # join_replica) — a delay() models a slow join (keys keep routing to
+    # the survivors meanwhile), an error keeps the replica out of the ring
+    fleet_join = "fleet.join"
     # one engine scheduler iteration (serving/llm_batch.py _loop) — a
     # delay() makes the engine fail-SLOW: every request still succeeds,
     # just late
     fleet_degrade = "fleet.degrade"
-    # LLM engine request submission (serving/llm_batch.py submit)
+    # LLM engine request submission (serving/llm_batch.py submit); an armed
+    # error raises out of submit() itself. Its context (and llm.prefill's)
+    # carries the engine's ``replica`` label beside the reference's keys,
+    # so ``match=`` can narrow a fault to one fleet replica
     llm_submit = "llm.submit"
     # one prefill dispatch on the scheduler thread (llm_batch._run_prefill)
     llm_prefill = "llm.prefill"
@@ -67,14 +74,21 @@ class FaultPoints:
     # an error falls the request back to token prefill, never a client
     # error
     llm_kv_promote = "llm.kv_promote"
+    # one cross-replica prefix-page fetch (serving/fleet.py dispatch):
+    # fires before the previous ring owner's pages are pulled over the
+    # KVHandoff wire — a delay() models a slow fetch, an error falls back
+    # to re-prefill from tokens
+    llm_kv_fetch = "llm.kv_fetch"
 
     @staticmethod
     def all() -> list[str]:
         return [
-            FaultPoints.fleet_degrade, FaultPoints.llm_submit,
+            FaultPoints.fleet_join, FaultPoints.fleet_degrade,
+            FaultPoints.llm_submit,
             FaultPoints.llm_prefill, FaultPoints.llm_spec_verify,
             FaultPoints.llm_prefix_evict, FaultPoints.llm_adapter_load,
             FaultPoints.llm_kv_demote, FaultPoints.llm_kv_promote,
+            FaultPoints.llm_kv_fetch,
         ]
 
 

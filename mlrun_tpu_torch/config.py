@@ -1,7 +1,8 @@
-"""Configuration defaults the port reads — copies of the ``serving.llm``
-and ``training`` blocks of ``mlrun_tpu/config.py`` (the knobs the
-engines', the request ledger's, the host KV tier's, the adapter
-registry's and the trainer's main paths consult; the rest of those
+"""Configuration defaults the port reads — copies of the ``serving.llm``,
+``serving.fleet``, ``serving.health`` and ``training`` blocks of
+``mlrun_tpu/config.py`` (the knobs the engines', the request ledger's, the
+host KV tier's, the adapter registry's, the engine fleet's, the replica
+health scorer's and the trainer's main paths consult; the rest of those
 blocks belongs to features not ported yet)."""
 
 from __future__ import annotations
@@ -69,6 +70,50 @@ SERVING_LLM_DEFAULTS = {
         "rate": 0.0,
         "burst": 8.0,
     },
+}
+
+# engine replica fleet (serving/fleet.py); EngineFleet / LLMModelServer
+# class args override these
+SERVING_FLEET_DEFAULTS = {
+    # affinity = consistent-hash on prompt-prefix blocks (hot prefixes stay
+    # cache-resident on one replica); random is the baseline
+    "routing": "affinity",
+    # leading full blocks hashed into the routing key
+    "route_blocks": 4,
+    # virtual nodes per replica on the hash ring
+    "vnodes": 64,
+    # bounded re-dispatch on 503-class replica failures
+    "max_dispatch_attempts": 3,
+    # first re-dispatch backoff, seconds (deterministic jitter via
+    # common/retry.compute_backoff)
+    "backoff": 0.05,
+    # cross-replica prefix-page fetch: when a hot chain's ring owner
+    # changed, pull its cached pages from the previous owner over the
+    # KVHandoff wire instead of re-prefilling from tokens
+    "prefix_fetch": True,
+}
+
+# fail-slow replica detection (obs/health.py ReplicaHealthScorer); class
+# args override these
+SERVING_HEALTH_DEFAULTS = {
+    "enabled": True,
+    # EWMA smoothing weight on the per-tick raw score (1.0 = none)
+    "ewma_alpha": 0.5,
+    # robust-z thresholds: at/above suspect_z is an outlier; recovery
+    # needs falling below recover_z (the gap is the hysteresis band)
+    "suspect_z": 3.0,
+    "recover_z": 1.5,
+    # consecutive bad ticks before healthy -> suspect, further bad ticks
+    # before suspect -> probation, consecutive good ticks before -> healthy
+    "suspect_ticks": 2,
+    "probation_ticks": 2,
+    "recover_ticks": 2,
+    # ring vnode weight applied on probation
+    "probation_weight": 0.25,
+    # probation ticks before the replica becomes a replacement candidate
+    "replace_after_ticks": 20,
+    # a signal is scored only when this many replicas report it
+    "min_peers": 3,
 }
 
 TRAINING_DEFAULTS = {

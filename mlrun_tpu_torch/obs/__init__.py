@@ -5,9 +5,10 @@ names and labels (``mlt_*``), so one scrape config reads both packages.
 
 This package owns the canonical engine families so every render exposes
 the same schema before a sample lands. Producers import the family
-objects from here; consumers render ``REGISTRY``. The reference's
-federation, SLO, time-series, goodput, trace-view and debug modules
-belong to the fleet and glue items of the port queue (ROADMAP.md).
+objects from here; consumers render ``REGISTRY``. ``health`` holds the
+fail-slow replica scorer of the engine fleet. The reference's federation,
+SLO, time-series, goodput, trace-view and debug modules belong to item 6's
+remainder and the glue item of the port queue (ROADMAP.md).
 """
 
 import threading as _threading
@@ -29,10 +30,19 @@ from .reqledger import (  # noqa: F401
     RequestLedger,
     export_phases,
     ledger_enabled,
+    merge_timing,
     retire_adapter_phases,
 )
 from .stats import nearest_rank  # noqa: F401
-from .tracing import Span, Tracer, get_tracer, new_trace_id  # noqa: F401
+from .tracing import (  # noqa: F401
+    TRACE_HEADER,
+    Span,
+    Tracer,
+    format_trace_header,
+    get_tracer,
+    new_trace_id,
+    parse_trace_header,
+)
 
 # -- LLM engines -------------------------------------------------------------
 # every family carries a ``replica`` label (empty for standalone engines);
@@ -121,6 +131,49 @@ ADAPTER_LOADS = REGISTRY.counter(
     "(per-tenant fairness shed)",
     labels=("engine", "replica", "outcome"), max_label_sets=512,
     overflow="drop")
+
+# -- engine fleet (serving/fleet.py) -----------------------------------------
+FLEET_DISPATCHES = REGISTRY.counter(
+    "mlt_fleet_dispatches_total",
+    "Fleet routing outcomes per replica (ok / redispatch / failed / "
+    "no_replica)",
+    labels=("replica", "outcome"), max_label_sets=512, overflow="drop")
+FLEET_HANDOFF_BYTES = REGISTRY.counter(
+    "mlt_fleet_handoff_bytes_total",
+    "KV bytes moved prefill-replica -> decode-replica (the batch=1 "
+    "slot-cache serialization boundary)")
+FLEET_HANDOFF_LATENCY = REGISTRY.histogram(
+    "mlt_fleet_handoff_seconds",
+    "Prefill-complete -> decode-slot-active latency for disaggregated "
+    "requests (decode-side import + queueing)",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5))
+FLEET_REPLICAS = REGISTRY.gauge(
+    "mlt_fleet_replicas", "Live fleet replicas by role",
+    labels=("role",), overflow="drop")
+REPLICA_HEALTH_SCORE = REGISTRY.gauge(
+    "mlt_replica_health_score",
+    "EWMA-smoothed peer-relative badness (robust z over the fleet "
+    "median; obs/health.py ReplicaHealthScorer) — 0 is median-healthy, "
+    "above suspect_z the replica is a fail-slow outlier",
+    labels=("replica",), max_label_sets=512, overflow="drop")
+REPLICA_HEALTH_STATE = REGISTRY.gauge(
+    "mlt_replica_health_state",
+    "Replica health state machine position (0 healthy, 1 suspect, "
+    "2 probation; retired with the replica's other series on stop)",
+    labels=("replica",), max_label_sets=512, overflow="drop")
+HEALTH_TRANSITIONS = REGISTRY.counter(
+    "mlt_health_transitions_total",
+    "Health state-machine transitions per replica, labeled by the state "
+    "entered (suspect / probation / healthy)",
+    labels=("replica", "to"), max_label_sets=512, overflow="drop")
+
+# -- canary splits (serving/canary.py) ---------------------------------------
+CANARY_REQUESTS = REGISTRY.counter(
+    "mlt_canary_requests_total",
+    "Requests resolved through the canary hash split, by side (the "
+    "adapter label is the TENANT id, not the versioned adapter id)",
+    labels=("adapter", "side"), max_label_sets=512, overflow="drop")
 
 # -- chaos -------------------------------------------------------------------
 CHAOS_FIRED = REGISTRY.counter(

@@ -10,9 +10,12 @@ reference's tests assert under a fake clock). Phases: ``admission``,
 to first token; chunked prefill spans every chunk tick), ``handoff``
 (prefill-side serialize, decode-side import), ``decode_active`` (a
 decode dispatch that advanced the row was running), ``decode_stall``
-(the slot held a row while the scheduler did other work), and the
-reference fleet's ``redispatch_backoff`` / ``fetch`` / ``network``
-(kept in ``PHASES`` so both packages export one label set).
+(the slot held a row while the scheduler did other work), and the fleet's
+``redispatch_backoff`` (re-dispatch backoff timers), ``fetch`` (pulling a
+moved hot prefix's pages from its previous owner) and ``network`` (the
+dispatch/transfer remainder at the fleet boundary), which
+``EngineFleet`` attributes out of band (:meth:`RequestLedger.attribute`,
+:func:`merge_timing`).
 
 Stdlib only at module level; the one metric family lives here.
 """
@@ -66,13 +69,13 @@ class RequestLedger:
     dropped: ``Σ phase seconds == wall`` exactly (the acceptance
     invariant, fake-clock asserted).
 
-    Ownership moves submit-thread → scheduler-thread; a lock keeps each
-    transition atomic.
+    Ownership moves submit-thread → scheduler-thread → (fleet callback
+    threads for :meth:`attribute`); a lock keeps each transition atomic.
     ``clock`` is injectable for deterministic tests.
     """
 
     __slots__ = ("trace_id", "notes", "_clock", "_t0", "_t_last",
-                 "_phase", "_seconds", "_closed", "_lock")
+                 "_phase", "_seconds", "_out_of_band", "_closed", "_lock")
 
     def __init__(self, trace_id: str = "",
                  clock: Callable[[], float] = time.perf_counter,
@@ -85,6 +88,7 @@ class RequestLedger:
         self._t_last = now
         self._phase = phase
         self._seconds: dict[str, float] = {}
+        self._out_of_band = 0.0    # attribute() seconds (outside the span)
         self._closed = False
         self._lock = threading.Lock()
 
@@ -108,6 +112,18 @@ class RequestLedger:
             self._phase = phase
         return elapsed
 
+    def attribute(self, phase: str, seconds: float):
+        """Add out-of-band seconds to ``phase`` (fleet backoff timers,
+        network remainders measured by a caller that owns the outer wall).
+        Advances the wall total with them, so attribution still sums to
+        wall."""
+        seconds = float(seconds)
+        if seconds <= 0:
+            return
+        with self._lock:
+            self._seconds[phase] = self._seconds.get(phase, 0.0) + seconds
+            self._out_of_band += seconds
+
     def note(self, key: str, value):
         self.notes[key] = value
 
@@ -129,7 +145,7 @@ class RequestLedger:
         with self._lock:
             span = (self._t_last if self._closed else self._clock()) \
                 - self._t0
-            return max(0.0, span)
+            return max(0.0, span) + self._out_of_band
 
     def phases(self) -> dict[str, float]:
         with self._lock:
@@ -184,3 +200,20 @@ def export_phases(timing: dict, adapter: str = ""):
             phase = "other"
         REQUEST_PHASE_SECONDS.observe(seconds, exemplar=trace_id,
                                       phase=phase, adapter=adapter)
+
+
+def merge_timing(into: dict, other: dict | None) -> dict:
+    """Sum another hop's timing phases into ``into`` (the fleet's
+    prefill-side + decode-side merge): same-named phases add, notes of the
+    later hop win, walls add. Closure is preserved — both inputs sum to
+    their walls, so the merge sums to the summed wall."""
+    if not other:
+        return into
+    phases = into.setdefault("phases", {})
+    for phase, seconds in (other.get("phases") or {}).items():
+        phases[phase] = phases.get(phase, 0.0) + seconds
+    into["wall_s"] = into.get("wall_s", 0.0) + other.get("wall_s", 0.0)
+    for key, value in other.items():
+        if key not in ("phases", "wall_s", "attribution_closed"):
+            into.setdefault(key, value)
+    return into

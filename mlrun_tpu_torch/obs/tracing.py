@@ -1,19 +1,24 @@
-"""In-process tracer of the port's engines — the span ring of
+"""Tracer of the port's serving path — the port's copy of
 ``mlrun_tpu/obs/tracing.py`` (same ``Span`` fields and ``Tracer`` calls:
 ``current()``, ``span()``, ``start_span()``/``end_span()``, ``emit()``,
-``spans()``).
+``inject()``, ``spans()``; the same ``X-MLT-Trace`` header contract).
 
 A request's submitting thread may hold an active span; the engines read
 it at submit (``get_tracer().current()``) and, from the scheduler thread,
 emit their ``llm.prefill`` / ``llm.decode`` phases as finished child
-spans. Spans land in a bounded in-memory ring only: the reference's JSONL
-export and its ``X-MLT-Trace`` header plumbing belong to the serving
-graph, which the port does not have yet. Stdlib only.
+spans. The trace id rides the ``X-MLT-Trace: <trace_id>-<parent_span_id>``
+header across hops (:func:`parse_trace_header`, :func:`format_trace_header`,
+``span(trace_id=..., parent_id=...)`` joins a caller's trace). Spans land
+in a bounded in-memory ring and, when a path is configured, in a JSONL
+file (one span object a line, size-capped rotation with one ``.1``
+predecessor). Stdlib only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import threading
 import time
 import uuid
@@ -22,12 +27,57 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 
+# header the serving layers understand (case-insensitive):
+#   X-MLT-Trace: <32-hex trace id>-<16-hex parent span id>
+# (a bare trace id with no span part is accepted too)
+TRACE_HEADER = "x-mlt-trace"
+
+_HEX = set("0123456789abcdef")
+
+
+def _is_hex(value: str) -> bool:
+    return bool(value) and set(value) <= _HEX
+
+
 def new_trace_id() -> str:
     return uuid.uuid4().hex
 
 
 def new_span_id() -> str:
     return uuid.uuid4().hex[:16]
+
+
+def _header_text(value) -> str:
+    """Header keys/values may arrive as bytes from raw ASGI/WSGI layers;
+    decode rather than str(), which would mangle them."""
+    if isinstance(value, (bytes, bytearray)):
+        return bytes(value).decode("latin-1", "replace")
+    return str(value)
+
+
+def parse_trace_header(headers: dict | None
+                       ) -> tuple[Optional[str], Optional[str]]:
+    """(trace_id, parent_span_id) from request headers; (None, None) when
+    absent or malformed — a garbage header never fails a request."""
+    if not headers:
+        return None, None
+    value = None
+    for key, candidate in headers.items():
+        if _header_text(key).lower() == TRACE_HEADER:
+            value = _header_text(candidate)
+            break
+    if not value:
+        return None, None
+    trace_id, _, parent = value.strip().lower().partition("-")
+    if not _is_hex(trace_id) or len(trace_id) > 64:
+        return None, None
+    if parent and (not _is_hex(parent) or len(parent) > 32):
+        parent = ""
+    return trace_id, parent or None
+
+
+def format_trace_header(trace_id: str, span_id: str | None = None) -> str:
+    return f"{trace_id}-{span_id}" if span_id else trace_id
 
 
 @dataclass
@@ -57,13 +107,42 @@ class Span:
 
 
 class Tracer:
-    """Span factory over a bounded ring. One process-wide instance
+    """Span factory and exporter. One process-wide instance
     (:func:`get_tracer`); tests may build isolated ones."""
 
-    def __init__(self, ring: int = 2048):
+    # JSONL rotation default: one predecessor kept, so the on-disk span
+    # footprint is bounded at ~2x this
+    DEFAULT_MAX_BYTES = 64 * 1024 * 1024
+
+    def __init__(self, ring: int = 2048, path: str | None = None,
+                 max_bytes: int | None = None):
         self._ring: deque[Span] = deque(maxlen=max(1, int(ring)))
+        self._path = path or None
+        self._max_bytes = int(max_bytes if max_bytes is not None
+                              else self.DEFAULT_MAX_BYTES)
+        self._size: Optional[int] = None  # bytes in the active file
+        self._file_lock = threading.Lock()
         self._local = threading.local()
         self._lock = threading.Lock()
+
+    def configure(self, path: str | None = None, ring: int | None = None,
+                  max_bytes: int | None = None):
+        """Set the JSONL path (``""`` turns the file export off), the
+        ring size and the rotation cap."""
+        if ring is not None:
+            with self._lock:
+                self._ring = deque(self._ring, maxlen=max(1, int(ring)))
+        if path is not None:
+            with self._file_lock:
+                self._path = path or None
+                self._size = None  # re-measured on the next export
+        if max_bytes is not None:
+            self._max_bytes = int(max_bytes)
+        return self
+
+    @property
+    def path(self) -> Optional[str]:
+        return self._path
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -133,9 +212,46 @@ class Tracer:
         self._export(span)
         return span
 
+    def inject(self, headers: dict | None = None,
+               span: Span | None = None) -> dict:
+        """A copy of ``headers`` carrying the trace context of ``span`` (or
+        the thread's current span); absent context leaves them as they
+        are."""
+        headers = dict(headers or {})
+        span = span or self.current()
+        if span is not None:
+            headers["X-MLT-Trace"] = format_trace_header(
+                span.trace_id, span.span_id)
+        return headers
+
     def _export(self, span: Span):
         with self._lock:
             self._ring.append(span)
+        path = self._path
+        if not path:
+            return
+        try:
+            line = json.dumps(span.to_dict(), default=str) + "\n"
+            with self._file_lock:
+                directory = os.path.dirname(path)
+                if directory:
+                    os.makedirs(directory, exist_ok=True)
+                if self._size is None:
+                    try:
+                        self._size = os.path.getsize(path)
+                    except OSError:
+                        self._size = 0
+                # rotate BEFORE the write that would cross the cap,
+                # keeping exactly one ``.1`` predecessor
+                if self._max_bytes > 0 and self._size \
+                        and self._size + len(line) > self._max_bytes:
+                    os.replace(path, path + ".1")
+                    self._size = 0
+                with open(path, "a") as fp:
+                    fp.write(line)
+                self._size += len(line)
+        except OSError:
+            pass  # span export never fails the traced operation
 
     def spans(self, trace_id: str | None = None,
               name: str | None = None) -> list[Span]:

@@ -24,6 +24,8 @@ plain PyTorch, as in the reference.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
@@ -140,17 +142,22 @@ DECODE_CHUNK_KEYS = 128
 PREFIX_CHUNK_KEYS = 128
 # zeroed int32 arrival counters of the split-K merges (decode, verify), one
 # tensor per (device, stream): every launch leaves them zeroed, and
-# launches on one stream are ordered
+# launches on one stream are ordered. Several engines' scheduler threads
+# (a fleet's replicas in one process) launch on the same stream, so the
+# check-and-replace below holds a lock: two threads growing the tensor at
+# once must not each keep a tensor the other replaced
 _merge_counters: dict = {}
+_merge_counters_lock = threading.Lock()
 
 
 def _counters(device, stream: int, n: int) -> torch.Tensor:
     key = (device, stream)
-    have = _merge_counters.get(key)
-    if have is None or have.numel() < n:
-        have = torch.zeros(n, dtype=torch.int32, device=device)
-        _merge_counters[key] = have
-    return have
+    with _merge_counters_lock:
+        have = _merge_counters.get(key)
+        if have is None or have.numel() < n:
+            have = torch.zeros(n, dtype=torch.int32, device=device)
+            _merge_counters[key] = have
+        return have
 
 
 def _paged_decode_call(q, k_pages, v_pages, page_table, pos,

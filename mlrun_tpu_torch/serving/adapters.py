@@ -26,8 +26,9 @@ Loads and evictions fire the ``llm.adapter_load`` chaos point (an armed
 error fails one request, never the engine); ``retire`` also drops the
 adapter's request-phase series. The adapter-labelled metric series are
 published by the engines (serving/llm_batch.py). Datastore URLs for
-artifacts are not ported (ROADMAP.md item 10); without a canary router
-every name resolves to itself.
+artifacts are not ported (ROADMAP.md item 10). The engines resolve a
+tenant id through the canary router (serving/canary.py) before the
+registry sees it; without a router every name resolves to itself.
 """
 
 from __future__ import annotations

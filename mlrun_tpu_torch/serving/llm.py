@@ -505,14 +505,26 @@ class LLMEngine:
         """Greedy/temperature generation for a single prompt (every batch
         row carries it); returns (tokens, timing stats). ``adapter`` names
         a registry adapter applied to every row (a typed 404 when
-        unknown). ``request_key`` only steers the reference's canary split
-        between adapters, so it is accepted and ignored without one."""
+        unknown); a tenant id with canary state resolves to its effective
+        versioned id first (serving/canary.py), ``request_key`` pinning
+        the split side."""
         prompt = np.asarray(prompt_tokens, dtype=np.int64).reshape(1, -1)
         prompt_len = prompt.shape[1]
         if prompt_len + max_new_tokens > self.max_len:
             raise PromptTooLongError(
                 f"prompt_len {prompt_len} + max_new_tokens "
                 f"{max_new_tokens} exceeds max_len {self.max_len}")
+        split_tenant = split_side = ""
+        if adapter:
+            from .canary import get_canary_router, split_key_for
+
+            router = get_canary_router()
+            if router is not None:
+                resolved, side = router.resolve(
+                    adapter, split_key_for(prompt_tokens, request_key))
+                if side:
+                    split_tenant, split_side = adapter, side
+                adapter = resolved
         if adapter and self._adapters is None:
             raise UnknownAdapterError(
                 f"engine has no adapter registry (adapter='{adapter}')")
@@ -540,6 +552,12 @@ class LLMEngine:
             "prompt_len": prompt_len,
             "generated": len(out_tokens),
         }
+        if split_side:
+            # metered on success only: the split-fraction telemetry counts
+            # served requests
+            from ..obs import CANARY_REQUESTS
+
+            CANARY_REQUESTS.inc(adapter=split_tenant, side=split_side)
         return out_tokens, stats
 
     # -- adapter source lifecycle -------------------------------------------
@@ -755,7 +773,11 @@ class LLMModelServer:
     ``"adapter"`` picks one), max_live_adapters, adapter_rate and
     adapter_burst (the batching engines' per-tenant token bucket),
     max_queue_size, max_wait and degradation (the batching engines'
-    overload protection), request_ledger (None = the config's default,
+    overload protection), replicas / prefill_replicas / routing (with
+    ``continuous_batching=True``: ``replicas >= 2`` or ``prefill_replicas
+    > 0`` serves through an ``EngineFleet`` of batching engines, the
+    affinity or random routing of serving/fleet.py, a prefill pool handing
+    KV to a decode pool), request_ledger (None = the config's default,
     on; a batching server answers a v2 body's ``"timing": true`` with each
     input's phase breakdown), temperature, top_k, top_p, warmup, seed,
     device (default: the GPU; ``"cpu"`` runs the plain paths). The
@@ -795,8 +817,6 @@ class LLMModelServer:
                 unported = {
                     "tokenizer": (tokenizer, 10),
                     "hf_model": (hf_model, 10),
-                    "replicas/prefill_replicas/routing": (
-                        replicas >= 2 or prefill_replicas or routing, 6),
                 }
                 for what, (value, item) in unported.items():
                     if value:
@@ -823,6 +843,13 @@ class LLMModelServer:
                 self.prefill_chunk = prefill_chunk
                 self.prefix_cache = prefix_cache
                 self.attention_impl = attention_impl
+                # engine fleet: replicas >= 2 builds an EngineFleet of
+                # batching engines instead of one engine; prefill_replicas
+                # > 0 also splits prefill and decode into two pools joined
+                # by the KV handoff
+                self.replicas = replicas
+                self.prefill_replicas = prefill_replicas
+                self.routing = routing
                 # in-engine speculative decoding: True / {"draft": preset,
                 # "k": ...} enables a resident draft model; None leaves it
                 # to the config defaults (off)
@@ -878,18 +905,30 @@ class LLMModelServer:
                     max_live_adapters=self.max_live_adapters,
                     adapter_rate=self.adapter_rate,
                     adapter_burst=self.adapter_burst, device=self.device)
-                if self.paged:
-                    from .paged import PagedContinuousBatchingEngine
 
-                    self.engine = PagedContinuousBatchingEngine(
-                        config, params, page_size=self.page_size,
-                        n_pages=self.n_pages, prefix_cache=self.prefix_cache,
-                        **common)
-                else:
+                # every replica of a fleet closes over the same params, so
+                # the replicas share one copy of the weights on the card
+                def build_engine(role="unified"):
+                    if self.paged:
+                        from .paged import PagedContinuousBatchingEngine
+
+                        return PagedContinuousBatchingEngine(
+                            config, params, page_size=self.page_size,
+                            n_pages=self.n_pages,
+                            prefix_cache=self.prefix_cache, **common)
                     from .llm_batch import ContinuousBatchingEngine
 
-                    self.engine = ContinuousBatchingEngine(config, params,
-                                                           **common)
+                    return ContinuousBatchingEngine(config, params, **common)
+
+                if self.replicas >= 2 or self.prefill_replicas:
+                    from .fleet import EngineFleet
+
+                    self.engine = EngineFleet(
+                        build_engine, replicas=max(1, self.replicas),
+                        prefill_replicas=self.prefill_replicas,
+                        routing=self.routing)
+                else:
+                    self.engine = build_engine()
                 if self._warmup:
                     self.engine.warmup()
                 self.engine.start()

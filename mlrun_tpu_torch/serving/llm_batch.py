@@ -23,7 +23,9 @@ each row commits its accepted prefix.
 Multi-tenant LoRA: with ``adapters`` every request may name an adapter of
 the engine's registry (serving/adapters.py); the admission prefill runs
 under its bank slot and each decode or verify dispatch gathers every
-row's factors by its slot.
+row's factors by its slot. A tenant id with canary state resolves to its
+effective versioned id at submit (serving/canary.py; ``request_key`` pins
+the split side).
 
 Resilience and observability, as the reference's: a ``max_wait``
 queue-time budget fails expired requests with ``DeadlineExceeded`` (504);
@@ -59,6 +61,7 @@ from ..models.llama import LlamaConfig, Params, lm_head, logits_f32
 from ..obs import (
     ADAPTER_LIVE,
     ADAPTER_LOADS,
+    CANARY_REQUESTS,
     LLM_DECODE_TICK,
     LLM_EVENTS,
     LLM_FREE_PAGE_FRAC,
@@ -88,6 +91,7 @@ from .adapters import (
     UnknownAdapterError,
     build_registry,
 )
+from .canary import get_canary_router, split_key_for
 from .llm import (
     _cached_attention,
     _forward_with_cache,
@@ -1305,10 +1309,11 @@ class ContinuousBatchingEngine:
         every bank slot is pinned by other adapters, DeadlineExceeded
         (504) once it waited past ``max_wait`` (None = the engine's) —
         and never silently hangs. A named adapter stays pinned until the
-        future completes. ``request_key`` only steers the reference's
-        canary split between adapters, so it is accepted and ignored
-        without one. ``_extra`` ("export" or an imported
-        :class:`KVHandoff`) and ``_trace`` are the handoff's internal
+        future completes. A tenant id with canary state resolves to its
+        effective versioned id first (serving/canary.py);
+        ``request_key`` pins the split side (absent, the prompt tokens
+        decide). ``_extra`` ("export" or an imported :class:`KVHandoff`)
+        and ``_trace`` are the fleet's and the handoff's internal
         channel."""
         future: Future = Future()
         if self._stopped and not self._running:
@@ -1332,6 +1337,21 @@ class ContinuousBatchingEngine:
         # "admission" time, the limiter check "rate_limit_wait"
         ledger = RequestLedger(clock=self._ledger_clock) \
             if self.request_ledger else None
+        split_tenant = split_side = ""
+        if adapter and not isinstance(_extra, KVHandoff):
+            # canary/version resolution: a tenant id with router state
+            # becomes its effective versioned id HERE, before the prefix
+            # cache, the limiter and the bank see it. An imported handoff
+            # arrives resolved (its prefill side chose) and must not
+            # re-roll the split. Metering waits for the queue put
+            # (_meter_split): a shed request must not skew the split
+            router = get_canary_router()
+            if router is not None:
+                resolved, side = router.resolve(
+                    adapter, split_key_for(prompt_tokens, request_key))
+                if side:
+                    split_tenant, split_side = adapter, side
+                adapter = resolved
         if adapter:
             # the 404 check runs BEFORE the limiter: an unknown name never
             # mints a rate-limit bucket, fails 404 (not 429), and is never
@@ -1365,7 +1385,8 @@ class ContinuousBatchingEngine:
         # the chaos point fires BEFORE the pin: an armed error here must
         # not strand a refcount
         fire(FaultPoints.llm_submit, prompt_len=prompt_len,
-             max_new_tokens=max_new_tokens, adapter=adapter)
+             max_new_tokens=max_new_tokens, adapter=adapter,
+             replica=self.replica)
         if adapter:
             try:
                 self._adapters.pin(adapter)
@@ -1377,18 +1398,30 @@ class ContinuousBatchingEngine:
             future.add_done_callback(
                 lambda _f, a=adapter: self._adapters.unpin(a))
             try:
-                return self._enqueue(future, prompt_tokens, max_new_tokens,
-                                     eos_id, temperature, top_k, top_p,
-                                     max_wait, adapter, _extra, _trace,
-                                     ledger)
+                self._enqueue(future, prompt_tokens, max_new_tokens,
+                              eos_id, temperature, top_k, top_p, max_wait,
+                              adapter, _extra, _trace, ledger)
             except Exception as exc:  # noqa: BLE001 - an exception past
                 # the pin must complete the future (its unpin callback)
                 if not future.done():
                     future.set_exception(exc)
                 return future
-        return self._enqueue(future, prompt_tokens, max_new_tokens, eos_id,
-                             temperature, top_k, top_p, max_wait, adapter,
-                             _extra, _trace, ledger)
+            self._meter_split(split_tenant, split_side, future)
+            return future
+        self._enqueue(future, prompt_tokens, max_new_tokens, eos_id,
+                      temperature, top_k, top_p, max_wait, adapter, _extra,
+                      _trace, ledger)
+        self._meter_split(split_tenant, split_side, future)
+        return future
+
+    @staticmethod
+    def _meter_split(tenant: str, side: str, future: Future):
+        """Count one ADMITTED request on the canary split telemetry —
+        after the queue put, so sheds and rejections (whose futures
+        already failed) and fleet re-dispatch attempts that never
+        enqueued don't skew the canary/(canary+stable) fraction."""
+        if side and (not future.done() or future.exception() is None):
+            CANARY_REQUESTS.inc(adapter=tenant, side=side)
 
     def _enqueue(self, future: Future, prompt_tokens, max_new_tokens,
                  eos_id, temperature, top_k, top_p, max_wait, adapter,
@@ -1645,7 +1678,8 @@ class ContinuousBatchingEngine:
             # its first token, decode ticks between chunks included
             adm.ledger.enter("prefill")
         fire(FaultPoints.llm_prefill, request_id=adm.request_id,
-             slot=adm.slot, offset=adm.offset, chunks=adm.chunks)
+             slot=adm.slot, offset=adm.offset, chunks=adm.chunks,
+             replica=self.replica)
         prompt = adm.prompt
         total = len(prompt)
         start = adm.offset

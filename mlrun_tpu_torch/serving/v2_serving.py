@@ -1,15 +1,21 @@
-"""V2 model server — counterpart of ``mlrun_tpu/serving/v2_serving.py``
+"""V2 model server — counterpart of ``mlrun_tpu/serving/v2_serving.py``:
 ``V2ModelServer`` (op dispatch in ``do_event``, the load / predict /
-validate / preprocess / postprocess hooks, ``set_metric``). The monitoring
-stream pusher and the artifact-store ``get_model`` are not ported yet."""
+validate / preprocess / postprocess hooks, ``set_metric``), the monitoring
+stream pusher ``_ModelLogPusher`` (inference events pushed to
+``context.monitoring_stream`` when one is set, never breaking serving),
+and ``TpuModelServer``, a server whose forward is a torch callable run on
+the card (the reference's name, so graph specs written for it resolve).
+The artifact-store ``get_model`` is not ported yet (ROADMAP.md item 10)."""
 
 from __future__ import annotations
 
 import threading
 import time
 import uuid
+from datetime import datetime, timezone
 from typing import Any
 
+from ..utils import logger
 from .resilience import ModelNotReadyError
 
 
@@ -31,7 +37,9 @@ class V2ModelServer:
         self.model_path = model_path
         self.model = model
         self.class_args = class_args
+        self._model_logger = None
         self.metrics: dict = {}
+        self.labels: dict = {}
         self._lock = threading.Lock()
         self._load_time = 0.0
 
@@ -47,6 +55,9 @@ class V2ModelServer:
                 return
             self._load_time = time.monotonic() - started
         self.ready = True
+        if self.context is not None and getattr(
+                self.context, "monitoring_stream", None) is not None:
+            self._model_logger = _ModelLogPusher(self, self.context)
 
     # -- model lifecycle hooks (override) ----------------------------------
     def load(self):
@@ -69,6 +80,10 @@ class V2ModelServer:
 
     def postprocess(self, request: dict) -> dict:
         return request
+
+    def logged_results(self, request: dict, response: dict, op: str):
+        """Hook to shape what gets pushed to monitoring."""
+        return request.get("inputs"), response.get("outputs")
 
     def set_metric(self, name: str, value):
         self.metrics[name] = value
@@ -100,24 +115,32 @@ class V2ModelServer:
                     raise ModelNotReadyError(
                         f"model {self.name} failed to load: {self.error}")
             start = time.monotonic()
-            request = self.preprocess(request, op)
-            request = self.validate(request, op or "infer")
-            if op == "explain":
-                outputs = self.explain(request)
-            else:
-                outputs = self.predict(request)
-            response = {
-                "id": request.get("id") or getattr(event, "id", None)
-                or uuid.uuid4().hex,
-                "model_name": self.name,
-                "outputs": _to_serializable(outputs),
-            }
-            if self.version:
-                response["model_version"] = self.version
-            response = self.postprocess(response)
-            self.metrics["latency_microsec"] = int(
-                (time.monotonic() - start) * 1e6)
+            try:
+                request = self.preprocess(request, op)
+                request = self.validate(request, op or "infer")
+                if op == "explain":
+                    outputs = self.explain(request)
+                else:
+                    outputs = self.predict(request)
+                response = {
+                    "id": request.get("id") or getattr(event, "id", None)
+                    or uuid.uuid4().hex,
+                    "model_name": self.name,
+                    "outputs": _to_serializable(outputs),
+                }
+                if self.version:
+                    response["model_version"] = self.version
+                response = self.postprocess(response)
+            except Exception as exc:  # noqa: BLE001 - pushed, then raised
+                if self._model_logger:
+                    self._model_logger.push_error(request, str(exc))
+                raise
+            microsec = int((time.monotonic() - start) * 1e6)
+            self.metrics["latency_microsec"] = microsec
             self.metrics["requests"] = self.metrics.get("requests", 0) + 1
+            if self._model_logger:
+                self._model_logger.push(request, response, op or "infer",
+                                        microsec)
             event.body = response
             return event
         raise ValueError(f"unsupported operation '{op}'")
@@ -134,6 +157,121 @@ class V2ModelServer:
         return "infer"
 
 
+class TpuModelServer(V2ModelServer):
+    """A V2ModelServer whose forward is a torch callable run on the card
+    (the reference's name, kept so graph specs written for it resolve).
+
+    Pass ``forward_fn(params, inputs)`` / ``params`` as class args or
+    override :meth:`build_forward`. ``load`` runs each ``warmup_shapes``
+    entry once on the device (float32 zeros, as the reference warms its
+    compiled forward) and synchronizes, so the first request pays for no
+    kernel build; ``predict`` moves the inputs to the device, runs under
+    ``torch.inference_mode()`` and returns numpy. ``device`` defaults to
+    the GPU; ``"cpu"`` runs the plain paths.
+    """
+
+    def __init__(self, *args, forward_fn=None, params=None,
+                 warmup_shapes: list | None = None, device=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        from .llm import default_device
+
+        self._forward = forward_fn
+        self._params = params
+        self._warmup_shapes = warmup_shapes or []
+        self.device = default_device(device)
+
+    def build_forward(self):
+        """Override: return (forward_fn(params, inputs), params)."""
+        if self._forward is None:
+            raise NotImplementedError(
+                "pass forward_fn/params or override build_forward()")
+        return self._forward, self._params
+
+    def _synchronize(self):
+        import torch
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def load(self):
+        import torch
+
+        forward, params = self.build_forward()
+        self._params = params
+        with torch.inference_mode():
+            for shape in self._warmup_shapes:
+                dummy = torch.zeros(tuple(shape), dtype=torch.float32,
+                                    device=self.device)
+                forward(self._params, dummy)
+        self._synchronize()
+        self.model = forward
+
+    def predict(self, request: dict):
+        import numpy as np
+        import torch
+
+        array = np.asarray(request["inputs"])
+        if array.dtype == np.float64:
+            # a JSON body's floats parse as float64; the reference's
+            # jnp.asarray makes them float32 (x64 off), and so does this
+            array = array.astype(np.float32)
+        inputs = torch.as_tensor(array, device=self.device)
+        with torch.inference_mode():
+            outputs = self.model(self._params, inputs)
+        return outputs.detach().cpu().numpy()
+
+
+class _ModelLogPusher:
+    """Streams inference events to the monitoring pipeline
+    (``context.monitoring_stream``, anything with ``push(dict)``)."""
+
+    def __init__(self, model: V2ModelServer, context):
+        self.model = model
+        self.context = context
+        self.stream = getattr(context, "monitoring_stream", None)
+        self.function_uri = getattr(
+            getattr(context, "server", None), "function_uri", "") or ""
+
+    def base_data(self) -> dict:
+        return {
+            "class": self.model.__class__.__name__,
+            "model": self.model.name,
+            "version": self.model.version,
+            "function_uri": self.function_uri,
+            "when": datetime.now(timezone.utc).isoformat(),
+            "labels": self.model.labels,
+        }
+
+    def push(self, request, response, op: str, microsec: int):
+        if self.stream is None:
+            return
+        inputs, outputs = self.model.logged_results(request, response, op)
+        data = self.base_data()
+        data.update({
+            "request": {"inputs": _to_serializable(inputs),
+                        "id": response.get("id")},
+            "resp": {"outputs": _to_serializable(outputs)},
+            "op": op,
+            "microsec": microsec,
+            "metrics": dict(self.model.metrics),
+        })
+        try:
+            self.stream.push(data)
+        except Exception as exc:  # noqa: BLE001 - monitoring must not
+            # break serving
+            logger.warning("failed to push monitoring event", error=str(exc))
+
+    def push_error(self, request, error: str):
+        if self.stream is None:
+            return
+        data = self.base_data()
+        data.update({"error": error, "request": _to_serializable(request)})
+        try:
+            self.stream.push(data)
+        except Exception:  # noqa: BLE001 - monitoring must not break serving
+            pass
+
+
 def _to_serializable(obj):
     if obj is None or isinstance(obj, (str, int, float, bool)):
         return obj
@@ -142,5 +280,8 @@ def _to_serializable(obj):
     if isinstance(obj, (list, tuple)):
         return [_to_serializable(v) for v in obj]
     if hasattr(obj, "tolist"):
-        return obj.tolist()
+        try:
+            return obj.tolist()
+        except Exception:  # noqa: BLE001 - fall back to the text form
+            return str(obj)
     return str(obj)

@@ -1,7 +1,8 @@
-"""The port package stands alone: nothing under mlrun_tpu_torch/ (its obs/
-and chaos/ copies included, nor the chip smoke script and the port's
-profile scripts) imports JAX or the reference package, and importing the
-serving, telemetry and training paths pulls neither into the process."""
+"""The port package stands alone: nothing under mlrun_tpu_torch/ (its obs/,
+chaos/ and common/ copies, the engine fleet, the canary router and the
+health scorer included, nor the chip smoke script and the port's profile
+scripts) imports JAX or the reference package, and importing the serving,
+fleet, telemetry and training paths pulls neither into the process."""
 
 import ast
 import os
@@ -41,6 +42,9 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.serving.paged, mlrun_tpu_torch.serving.llm\n"
         "import mlrun_tpu_torch.serving.speculative\n"
         "import mlrun_tpu_torch.serving.kv_tier\n"
+        "import mlrun_tpu_torch.serving.fleet, mlrun_tpu_torch.serving.canary\n"
+        "import mlrun_tpu_torch.serving.v2_serving\n"
+        "import mlrun_tpu_torch.obs.health, mlrun_tpu_torch.common.retry\n"
         "import mlrun_tpu_torch.obs, mlrun_tpu_torch.chaos\n"
         "import mlrun_tpu_torch.models.convert\n"
         "import mlrun_tpu_torch.training.train\n"

@@ -981,3 +981,55 @@ def test_imported_handoff_decodes_on_paged_decode_kernel(dev, kv_dtype):
     assert counts[decode_name] == cfg.n_layers * 7
     if kv_dtype == "int8":
         assert handoff.kv["k"].dtype.name == "int8"
+
+
+# -- the engine fleet on the card ------------------------------------------------
+
+def test_fleet_fetched_prefix_hit_runs_paged_prefill_kernel(dev):
+    """Two replicas on one card from one param tree: a concurrent burst
+    gives each prompt its lone tokens (the replicas' scheduler threads
+    share the stream and its split-K counters); then a third replica
+    joins, the next request on a moved hot key fetches the old owner's
+    prefix pages, and its prefill runs the paged prefill kernel over the
+    imported pages, with the tokens of a device hit on the old owner."""
+    import numpy as np
+
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.serving.fleet import ConsistentHashRing, EngineFleet
+
+    cfg = llama.tiny_llama(dtype=torch.float32)
+    params = llama.init_params(cfg, _gen(11), dev)
+    fleet = EngineFleet(lambda role: _tier_engine(cfg, params, dev, "auto"),
+                        replicas=2)
+    probe = ConsistentHashRing(vnodes=fleet._ring.vnodes)
+    for node in fleet._ring.nodes():
+        probe.add(node)
+    candidate = f"{fleet._fleet_id}-u{fleet._replica_seq}"
+    probe.add(candidate)
+    prompts = [np.random.default_rng(s).integers(1, 512, 30).tolist()
+               for s in range(60)]
+    moving = [p for p in prompts
+              if probe.lookup(fleet.routing_key(p)) == candidate][0]
+    burst = prompts[:6]
+    try:
+        lone = [fleet.generate(p, max_new_tokens=6)[0] for p in burst]
+        futures = [fleet.submit(p, max_new_tokens=6) for p in burst]
+        together = [f.result(timeout=300)[0] for f in futures]
+        warm = fleet.generate(moving, max_new_tokens=4)[0]
+        hit = fleet.generate(moving, max_new_tokens=4)[0]
+        added = fleet.add_replica("unified")
+        chunks = fleet.stats["per_replica"][added]["prefill_kernel_chunks"]
+        _build.reset_launch_counts()
+        fetched, stats = fleet.generate(moving, max_new_tokens=4)
+        counts = _build.launch_counts()
+        row = fleet.stats["per_replica"][added]
+        fleet_stats = fleet.stats
+    finally:
+        fleet.stop()
+    assert together == lone
+    assert fetched == hit == warm
+    assert stats["replica"] == added and fleet_stats["prefix_fetches"] == 1
+    assert stats["timing"]["cached_prefix"] == 24
+    assert counts["paged_prefill"] == cfg.n_layers * (
+        row["prefill_kernel_chunks"] - chunks) > 0
+    assert row["prefill_gather_admissions"] == 0

@@ -427,6 +427,12 @@ def test_explicit_kernel_on_cpu_raises(models, impl):
             tcfg, tparams, device="cpu", attention_impl=impl, **ENGINE_KW)
 
 
+# what the server builds for the fleet's knobs, as the reference's does
+FLEET_KNOB_BUILDS = {"prefill_replicas": "LLMEngine",
+                     "routing": "PagedContinuousBatchingEngine",
+                     "replicas": "EngineFleet"}
+
+
 @pytest.mark.parametrize("kwargs", [
     {"paged": False, "hf_model": "meta-llama/Llama-3.2-1B"},
     {"continuous_batching": False, "paged": False, "prefill_replicas": 1},
@@ -437,11 +443,27 @@ def test_explicit_kernel_on_cpu_raises(models, impl):
 def test_unported_server_features_raise(kwargs):
     """Features of the reference's server the port does not have yet raise
     their ROADMAP.md item (max_wait, degradation and request_ledger, once
-    cases here, landed with item 2: tests/test_torch_resilience.py)."""
-    args = dict(continuous_batching=True, paged=True, device="cpu")
+    cases here, landed with item 2: tests/test_torch_resilience.py). The
+    fleet's knobs landed with item 6's engine fleet: the server builds
+    what the reference's builds (a fleet only for replicas >= 2 or
+    prefill_replicas on a batching server; tests/test_torch_fleet.py holds
+    the fleet against the reference's)."""
+    args = dict(continuous_batching=True, paged=True, device="cpu",
+                max_len=64, page_size=8, warmup=False)
     args.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tllm.LLMModelServer(**args)
+    builds = next((FLEET_KNOB_BUILDS[key] for key in kwargs
+                   if key in FLEET_KNOB_BUILDS), None)
+    if builds is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tllm.LLMModelServer(**args)
+        return
+    server = tllm.LLMModelServer(**args)
+    server.post_init()
+    try:
+        assert server.ready, server.error
+        assert type(server.engine).__name__ == builds
+    finally:
+        server.close()
 
 
 def test_int8_pool_is_not_ported_yet(models):
