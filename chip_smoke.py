@@ -99,12 +99,27 @@ exits non-zero and never prints the final line):
              replicas=2 and prefill_replicas=1, and TpuModelServer over
              the 8B forward (one flash launch a layer); every stream held
              to a single engine's (one JSON line a leg).
+12. families - the other model families, random weights from the seed,
+             bf16: MoE through auto_trainer.train(moe_experts=8) at
+             Mixtral-8x7B width (depth cut to 2 layers, printed; the batch
+             halved if a step's peak passed 75 GB) for 4 steps, step 1
+             held against the reference attention, forward + backward and
+             the AdamW update timed apart, the dropped (token, choice)
+             share read per layer; BERT-base's classifier step (B 8 x
+             512, half the rows padded) and mlm_logits, ViT-B/16's step (B
+             32, 224 x 224 x 3), each 3 steps and held the same way; the
+             flash forward and backward launched the counted number of
+             times on each; T5-base's step (B 8, 512 + 128), which reaches
+             no kernel, with its float32 loss on the card held against
+             the CPU's. The kernels phase holds rows 8 / 8b at these
+             legs' attention shapes too.
 
-Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
-``--phases build,kernels`` runs a subset (for bring-up;
+Then one line {"kernels": [...]} (the training flash's launches summed
+over the train and families paths) and, last, {"ok": true, "device":
+...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
 ``--phases build,lora`` the adapters, ``--phases build,fleet`` the engine
-fleet); the
+fleet, ``--phases build,families`` the model families); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -113,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -699,17 +715,112 @@ def kernel_verify(gen, kind, dtype, record):
 # Llama-3.2-1B's attention at the train phase's batch: B 4, S 2048, 32
 # query heads over 8 kv heads, head_dim 64
 TB, TS, TH, THKV, TD = 4, 2048, 32, 8, 64
+# the families phase's training shapes (name, B, S, H, Hkv, D, causal):
+# BERT-base (mlrun_tpu/models/bert.py:29-31) at B 8, S 512; ViT-B/16 at
+# 224 x 224 (mlrun_tpu/models/vit.py:38-40; 196 patches + cls = 197
+# tokens, not a multiple of the 64-row tiles) at B 32; Mixtral-8x7B's
+# attention (mlrun_tpu/models/moe.py:83-85) at B 4, S 2048
+FAMILY_SHAPES = (("bert-base", 8, 512, 12, 12, 64, False),
+                 ("vit-b16", 32, 197, 12, 12, 64, False),
+                 ("mixtral-8x7b", 4, 2048, 32, 8, 128, True))
 
 
-def _train_pairs(causal: bool) -> int:
+def _train_pairs(causal: bool, b=TB, s=TS, h=TH) -> int:
     """Unmasked (query, key) pairs of self-attention over all heads."""
-    per_head = TS * (TS + 1) // 2 if causal else TS * TS
-    return TB * TH * per_head
+    per_head = s * (s + 1) // 2 if causal else s * s
+    return b * h * per_head
+
+
+def _train_flash_rows(kind, q, k, v, do, causal, extra=None):
+    """The training flash forward and backward on (q, k, v, dO) against
+    their plain versions, timed against SDPA: emits and returns the two
+    rows (``extra`` joins each)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlrun_tpu_torch.ops import attention as at
+
+    b, s, h, d = q.shape
+    item = q.element_size()
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    shape = {"B": b, "S": s, "H": h, "Hkv": k.shape[2], "D": d,
+             **(extra or {})}
+    pairs = _train_pairs(causal, b, s, h)
+    # forward: the Pallas _flash_fwd_kernel_v2 on the main path
+    o, lse = at.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = at.flash_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
+    del o_ref, lse_ref
+    _check(f"flash_fwd {shape} causal={causal}", kind, errs)
+    times = kernel_times(lambda: at.flash_fwd(q, k, v, causal), iters=10)
+    plain = time_ms(lambda: at.flash_fwd_plain(q, k, v, causal),
+                    iters=3, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), iters=10)
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * item + lse.numel() * 4
+    bound, by = bound_ms(n_bytes, 4 * d * pairs, kind)
+    fwd_row = {"name": "flash_fwd", "dtype": kind, "causal": causal,
+               **shape, "max_abs_err": max(errs.values()), "errs": errs,
+               "tol": TOL[kind], **times, "plain_ms": plain,
+               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    emit({"phase": "kernels", **fwd_row})
+
+    # backward: the counterpart of the reference's _blockwise_bwd
+    grads = at.flash_bwd(q, k, v, o, lse, do, causal)
+    if kind == "f32":
+        refs = at.flash_bwd_plain(q, k, v, o, lse, do, causal)
+    else:   # float32 on the same bf16 values, not rounded at the end
+        refs = at.flash_bwd_plain(q.float(), k.float(), v.float(),
+                                  o.float(), lse, do.float(), causal)
+    torch.cuda.synchronize()
+    errs, tols, worst = {}, {}, {}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        errs[name] = _err(got, ref)
+        top = float(ref.abs().max())
+        if kind == "f32":
+            tols[name] = GRAD_RTOL_F32 * max(top, 1.0)
+            worst[name] = errs[name] / tols[name]
+        else:
+            tols[name] = {"rel": BF16_HALF_ULP,
+                          "floor": BF16_GRAD_FLOOR * top}
+            bound = ref.abs() * BF16_HALF_ULP + BF16_GRAD_FLOOR * top
+            worst[name] = float(((got.float() - ref).abs()
+                                 / bound).max())
+        if not worst[name] <= 1.0:
+            fail(f"flash_bwd {shape} causal={causal} {kind} {name}: error "
+                 f"{worst[name]} x its bound (max_abs_err {errs[name]}, "
+                 f"tol {tols[name]})")
+    del grads, refs
+    times = kernel_times(
+        lambda: at.flash_bwd(q, k, v, o, lse, do, causal), iters=5)
+    plain = time_ms(lambda: at.flash_bwd_plain(q, k, v, o, lse, do,
+                                               causal), iters=2,
+                    warmup=1)
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=True)
+        torch.autograd.grad(out, leaves, dot)
+
+    lib_ms = time_ms(sdpa_fwd_bwd, iters=5)
+    # read q, k, v, o, dO and lse once; write dq, dk, dv
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * item + lse.numel() * 4
+    bound, by = bound_ms(n_bytes, 10 * d * pairs, kind)
+    bwd_row = {"name": "flash_bwd", "dtype": kind, "causal": causal,
+               **shape, "max_abs_err": max(errs.values()), "errs": errs,
+               "tol": tols, "err_over_bound": worst, **times,
+               "plain_ms": plain, "bound_ms": bound,
+               "bound_by": by, "library_ms": lib_ms,
+               "library_is": "scaled_dot_product_attention forward + "
+                             "backward"}
+    emit({"phase": "kernels", **bwd_row})
+    return fwd_row, bwd_row
 
 
 def kernel_train_flash(gen, kind, dtype, record):
     import torch
-    import torch.nn.functional as F
 
     from mlrun_tpu_torch.ops import attention as at
 
@@ -718,83 +829,11 @@ def kernel_train_flash(gen, kind, dtype, record):
     k = torch.randn((TB, TS, THKV, TD), generator=gen, device=dev).to(dtype)
     v = torch.randn((TB, TS, THKV, TD), generator=gen, device=dev).to(dtype)
     do = torch.randn((TB, TS, TH, TD), generator=gen, device=dev).to(dtype)
-    item = q.element_size()
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    shape = {"B": TB, "S": TS, "H": TH, "Hkv": THKV, "D": TD}
     fwd_rows, bwd_rows = [], []
     for causal in (True, False):
-        # forward: the Pallas _flash_fwd_kernel_v2 on the main path
-        o, lse = at.flash_fwd(q, k, v, causal)
-        o_ref, lse_ref = at.flash_fwd_plain(q, k, v, causal)
-        torch.cuda.synchronize()
-        errs = {"o": _err(o, o_ref), "lse": _err(lse, lse_ref)}
-        del o_ref, lse_ref
-        _check(f"flash_fwd causal={causal}", kind, errs)
-        times = kernel_times(lambda: at.flash_fwd(q, k, v, causal), iters=10)
-        plain = time_ms(lambda: at.flash_fwd_plain(q, k, v, causal),
-                        iters=3, warmup=1)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=10)
-        n_bytes = (2 * q.numel() + 2 * k.numel()) * item + lse.numel() * 4
-        bound, by = bound_ms(n_bytes, 4 * TD * _train_pairs(causal), kind)
-        row = {"name": "flash_fwd", "dtype": kind, "causal": causal,
-               **shape, "max_abs_err": max(errs.values()), "errs": errs,
-               "tol": TOL[kind], **times, "plain_ms": plain,
-               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
-        fwd_rows.append(row)
-        emit({"phase": "kernels", **row})
-
-        # backward: the counterpart of the reference's _blockwise_bwd
-        grads = at.flash_bwd(q, k, v, o, lse, do, causal)
-        if kind == "f32":
-            refs = at.flash_bwd_plain(q, k, v, o, lse, do, causal)
-        else:   # float32 on the same bf16 values, not rounded at the end
-            refs = at.flash_bwd_plain(q.float(), k.float(), v.float(),
-                                      o.float(), lse, do.float(), causal)
-        torch.cuda.synchronize()
-        errs, tols, worst = {}, {}, {}
-        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
-            errs[name] = _err(got, ref)
-            top = float(ref.abs().max())
-            if kind == "f32":
-                tols[name] = GRAD_RTOL_F32 * max(top, 1.0)
-                worst[name] = errs[name] / tols[name]
-            else:
-                tols[name] = {"rel": BF16_HALF_ULP,
-                              "floor": BF16_GRAD_FLOOR * top}
-                bound = ref.abs() * BF16_HALF_ULP + BF16_GRAD_FLOOR * top
-                worst[name] = float(((got.float() - ref).abs()
-                                     / bound).max())
-            if not worst[name] <= 1.0:
-                fail(f"flash_bwd causal={causal} {kind} {name}: error "
-                     f"{worst[name]} x its bound (max_abs_err {errs[name]}, "
-                     f"tol {tols[name]})")
-        del grads, refs
-        times = kernel_times(
-            lambda: at.flash_bwd(q, k, v, o, lse, do, causal), iters=5)
-        plain = time_ms(lambda: at.flash_bwd_plain(q, k, v, o, lse, do,
-                                                   causal), iters=2,
-                        warmup=1)
-        leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(
-                *leaves, is_causal=causal, enable_gqa=True)
-            torch.autograd.grad(out, leaves, dot)
-
-        lib_ms = time_ms(sdpa_fwd_bwd, iters=5)
-        # read q, k, v, o, dO and lse once; write dq, dk, dv
-        n_bytes = (4 * q.numel() + 4 * k.numel()) * item + lse.numel() * 4
-        bound, by = bound_ms(n_bytes, 10 * TD * _train_pairs(causal), kind)
-        row = {"name": "flash_bwd", "dtype": kind, "causal": causal,
-               **shape, "max_abs_err": max(errs.values()), "errs": errs,
-               "tol": tols, "err_over_bound": worst, **times,
-               "plain_ms": plain, "bound_ms": bound,
-               "bound_by": by, "library_ms": lib_ms,
-               "library_is": "scaled_dot_product_attention forward + "
-                             "backward"}
-        bwd_rows.append(row)
-        emit({"phase": "kernels", **row})
+        fwd, bwd = _train_flash_rows(kind, q, k, v, do, causal)
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
     record.extend([fwd_rows[0], bwd_rows[0]])  # causal: the main path's
     # no atomics: two launches on the same inputs give the same bits
     o, lse = at.flash_fwd(q, k, v, True)
@@ -806,6 +845,28 @@ def kernel_train_flash(gen, kind, dtype, record):
           "bit_identical_runs": same})
     if not same:
         fail(f"flash_bwd {kind}: two runs on the same inputs differ")
+
+
+def kernel_train_flash_families(seed: int):
+    """The training flash forward and backward at the families phase's
+    shapes (FAMILY_SHAPES), bf16 and f32, against their plain versions and
+    SDPA, from a generator of their own (the rows before keep their
+    inputs). Phase lines only: the final line keeps the train phase's
+    row."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 10)
+    for kind, dtype in _dtypes():
+        for name, b, s, h, hkv, d, causal in FAMILY_SHAPES:
+            q, k, v, do = (torch.randn(shape, generator=gen,
+                                       device="cuda").to(dtype)
+                           for shape in ((b, s, h, d), (b, s, hkv, d),
+                                         (b, s, hkv, d), (b, s, h, d)))
+            _train_flash_rows(kind, q, k, v, do, causal,
+                              extra={"shape": name})
+            del q, k, v, do
+            torch.cuda.empty_cache()
 
 
 # the v1 flash entry point's shapes: (name, B, Sq, Sk, H, D, causal) —
@@ -997,6 +1058,7 @@ def phase_kernels(seed: int) -> tuple[list, dict]:
     for kind, dtype in _dtypes():
         kernel_decode(gen, kind, dtype, record, SERVE_POS, extra=True)
     launches = op_paths(gen)
+    kernel_train_flash_families(seed)
     return [r for r in record
             if r["dtype"] == "bf16" and not r.get("extra")], launches
 
@@ -3073,12 +3135,539 @@ def phase_fleet(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the other model families — MoE training through the trainer's
+# entry point at Mixtral-8x7B width, then BERT-base, ViT-B/16 and T5-base
+# train steps
+# ---------------------------------------------------------------------------
+
+FAM_MOE_LAYERS = 2          # Mixtral-8x7B has 32; two fit one card with AdamW
+FAM_MOE_BATCH, FAM_MOE_SEQ, FAM_MOE_STEPS = 4, 2048, 4
+FAM_PEAK_GB = 75.0          # above it the MoE batch is halved (never the width)
+FAM_STEPS = 3
+FAM_BERT_BATCH, FAM_BERT_SEQ = 8, 512
+FAM_VIT_BATCH = 32
+FAM_T5_BATCH, FAM_T5_ENC, FAM_T5_DEC = 8, 512, 128
+FAM_T5_CHECK_BATCH = 2
+FAM_LR = 1e-4
+# T5's step-1 loss in float32 (TF32 off) on the card against the port's
+# CPU loss on the same params and batch: the two differ in summation order
+# only, but T5's attention has no softmax scale, so at random init its
+# logits (std ~8 at D 64) make near-one-hot softmaxes that amplify that
+# order across 24 layers: at T5-base width on a B 2 batch the port's and
+# the JAX package's CPU losses differ by 6.9e-5 relative, the card's and
+# the CPU's by 1.3e-4. The bound sits ~4x above the card's reading
+FAM_T5_F32_REL_TOL = 5e-4
+
+
+def _step1(compute_grads, params, *batch) -> dict:
+    """Step 1's gradient through a step's own gradient function: the loss,
+    the global norm and the attention weights' gradients by name."""
+    import torch
+
+    from mlrun_tpu_torch.training.train import global_norm
+
+    grads, metrics = compute_grads(params, *batch)
+    named = dict(zip(_leaf_names(params), grads))
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(global_norm(grads)),
+           "leaves": {name: named[name] for name in ATTENTION_LEAVES}}
+    del grads, named
+    torch.cuda.synchronize()
+    return out
+
+
+def _step1_gaps(a: dict, b: dict) -> dict:
+    """Relative gaps of two step-1 readings: the loss, the global norm and
+    each attention weight's gradient norm."""
+    import torch
+
+    norm = torch.linalg.vector_norm
+    leaves = {}
+    for name in ATTENTION_LEAVES:
+        got, want = a["leaves"][name].float(), b["leaves"][name].float()
+        leaves[name] = float(abs(norm(got) - norm(want)) / norm(want))
+    return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grad_norm": abs(a["grad_norm"] - b["grad_norm"])
+            / b["grad_norm"], "leaves": leaves}
+
+
+def _step1_checks(leg: str, kernel: dict, ref: dict, kernel32=None,
+                  ref32=None) -> dict:
+    """Step 1 on the kernels against step 1 on the reference attention,
+    same params and batch, by the train phase's bf16 bounds (loss,
+    global norm, the attention weights' gradient norms).
+
+    With the float32 readings (``kernel32``, ``ref32``: the same params in
+    float32, TF32 off) two more checks: the float32 paths, which differ
+    only in summation order, agree by the train phase's float32 bound
+    (each attention weight's gradient within 2e-3, its loss by the bf16
+    loss bound); and each bf16 bound becomes the larger of the train
+    phase's and twice the gap between the bf16 and float32 reference
+    readings — the kernel's bf16 step may sit no farther from the
+    reference's than the reference's own bf16 rounding (P rounded to bf16
+    before P·V) moves the reference from float32. An encoder's
+    classification loss near log(classes) moves more with that rounding
+    than a language model's loss near log(vocab)."""
+    import torch
+
+    gaps = _step1_gaps(kernel, ref)
+    bounds = {"loss": TRAIN_LOSS_REL_TOL,
+              "grad_norm": TRAIN_GRAD_NORM_REL_TOL,
+              "leaves": {name: TRAIN_LEAF_NORM_REL_TOL
+                         for name in ATTENTION_LEAVES}}
+    out = {
+        "kernel_step1": {k: kernel[k] for k in ("loss", "grad_norm")},
+        "reference_step1": {k: ref[k] for k in ("loss", "grad_norm")},
+        "step1_loss_rel_err": gaps["loss"],
+        "step1_grad_norm_rel_err": gaps["grad_norm"],
+        "step1_leaf_grad_norm_rel_err": gaps["leaves"],
+    }
+    if kernel32 is not None:
+        own = _step1_gaps(ref, ref32)       # the bf16 reference's own gap
+        bounds = {"loss": max(bounds["loss"], 2 * own["loss"]),
+                  "grad_norm": max(bounds["grad_norm"],
+                                   2 * own["grad_norm"]),
+                  "leaves": {name: max(TRAIN_LEAF_NORM_REL_TOL,
+                                       2 * own["leaves"][name])
+                             for name in ATTENTION_LEAVES}}
+        f32 = _step1_gaps(kernel32, ref32)
+        f32_leaf = {}
+        for name in ATTENTION_LEAVES:
+            got = kernel32["leaves"][name]
+            want = ref32["leaves"][name]
+            f32_leaf[name] = float(torch.linalg.vector_norm(got - want)
+                                   / torch.linalg.vector_norm(want))
+        out.update({
+            "reference_bf16_vs_f32_rel": own,
+            "step1_f32_loss_rel_err": f32["loss"],
+            "step1_f32_grad_norm_rel_err": f32["grad_norm"],
+            "step1_f32_leaf_grad_rel_err": f32_leaf,
+            "step1_f32_leaf_grad_rel_tol": TRAIN_F32_LEAF_REL_TOL,
+        })
+        if not f32["loss"] <= TRAIN_LOSS_REL_TOL:
+            fail(f"families {leg}: float32 step 1 loss, kernel vs reference "
+                 f"attention, relative error {f32['loss']} > "
+                 f"{TRAIN_LOSS_REL_TOL}")
+        for name, rel in f32_leaf.items():
+            if not rel <= TRAIN_F32_LEAF_REL_TOL:
+                fail(f"families {leg}: float32 step 1 gradient of {name}, "
+                     f"kernel vs reference attention, relative error {rel} "
+                     f"> {TRAIN_F32_LEAF_REL_TOL}")
+    out["step1_bf16_bounds"] = bounds
+    if not gaps["loss"] <= bounds["loss"]:
+        fail(f"families {leg}: step 1 loss, kernel vs reference attention, "
+             f"relative error {gaps['loss']} > {bounds['loss']}")
+    if not gaps["grad_norm"] <= bounds["grad_norm"]:
+        fail(f"families {leg}: step 1 grad norm, kernel vs reference "
+             f"attention, relative error {gaps['grad_norm']} > "
+             f"{bounds['grad_norm']}")
+    for name, rel in gaps["leaves"].items():
+        if not rel <= bounds["leaves"][name]:
+            fail(f"families {leg}: step 1 gradient norm of {name}, kernel "
+                 f"vs reference attention, relative error {rel} > "
+                 f"{bounds['leaves'][name]}")
+    return out
+
+
+def _fam_launches(leg: str, launches: dict, want: dict):
+    """Exactly ``want``'s launches on the leg's path, no other kernel."""
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            fail(f"families {leg}: kernel {name} launched {count} times, "
+                 f"expected {want.get(name, 0)}")
+
+
+def _float32_tree(tree):
+    """A float32 copy of a param tree (bf16 values are exact in float32)."""
+    if isinstance(tree, dict):
+        return {key: _float32_tree(value) for key, value in tree.items()}
+    return tree.detach().float()
+
+
+def _release():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_steps(step, params, opt_state, batch, steps: int):
+    """``steps`` train steps on one batch, each between CUDA events:
+    (per-step ms, per-step metrics read after the last)."""
+    import torch
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    history = []
+    events[0].record()
+    for i in range(steps):
+        params, opt_state, metrics = step(params, opt_state, *batch)
+        events[i + 1].record()
+        history.append(metrics)
+    torch.cuda.synchronize()
+    ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    return ms, [{k: float(v) for k, v in m.items()} for m in history]
+
+
+def _dropped_share(config, params, tokens) -> list:
+    """Per layer, the share of (token, choice) pairs routed past their
+    expert's capacity: one forward without gradients, the port's router
+    wrapped to read each layer's dispatch mask."""
+    import torch
+
+    from mlrun_tpu_torch.models import moe
+
+    shares = []
+    route = moe.route
+
+    def reading_route(cfg, x, router):
+        dispatch, combine, aux = route(cfg, x, router)
+        kept = float(dispatch.sum()) / (x.shape[0] * x.shape[1] * cfg.top_k)
+        shares.append(1.0 - kept)
+        return dispatch, combine, aux
+
+    moe.route = reading_route
+    try:
+        with torch.no_grad():
+            moe.hidden_states(config, params, tokens)
+    finally:
+        moe.route = route
+    return shares
+
+
+def _families_moe(seed: int, card: str) -> dict:
+    """MoE at Mixtral-8x7B width (depth cut to FAM_MOE_LAYERS) through
+    ``auto_trainer.train(moe_experts=8)``, the tpujob handler's contract;
+    step 1 held against the reference attention; forward + backward and
+    the AdamW update timed apart with CUDA events."""
+    import torch
+
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.models.moe import mixtral_8x7b_like
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training import TrainConfig, Trainer
+    from mlrun_tpu_torch.training.data import synthetic_token_stream, to_device
+    from mlrun_tpu_torch.training.train import resolve_model_config
+
+    config = mixtral_8x7b_like(n_layers=FAM_MOE_LAYERS)
+    full_layers = mixtral_8x7b_like().n_layers
+    batch, seq, steps = FAM_MOE_BATCH, FAM_MOE_SEQ, FAM_MOE_STEPS
+    emit({"phase": "families", "leg": "moe", "cut": {
+        "n_layers": [full_layers, FAM_MOE_LAYERS]}, "card": card})
+
+    def train_config(**kw):
+        return TrainConfig(total_steps=steps, moe_experts=8, moe_top_k=2,
+                           **kw)
+
+    while True:
+        tokens, targets = to_device(next(synthetic_token_stream(
+            batch, seq, config.vocab_size, seed=seed)), "cuda")
+        trainer = Trainer(config, train_config(), device="cuda")
+        trainer.init(seed)
+        params = trainer.state.params
+        dropped = _dropped_share(trainer.model_config, params, tokens)
+        trainer.step_fn.compute_grads(params, tokens, targets)  # warm
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        start, mid, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        start.record()
+        grads, metrics = trainer.step_fn.compute_grads(params, tokens,
+                                                       targets)
+        mid.record()
+        named = dict(zip(_leaf_names(params), grads))
+        kernel = {"loss": float(metrics["loss"]),
+                  "aux_loss": float(metrics["aux_loss"]),
+                  "leaves": {n: named[n].clone() for n in ATTENTION_LEAVES}}
+        del named
+        g_norm = trainer.optimizer.update(grads, trainer.state.opt_state,
+                                          trainer.state.trained)
+        end.record()
+        torch.cuda.synchronize()
+        kernel["grad_norm"] = float(g_norm)
+        split = {"fwd_bwd_ms": start.elapsed_time(mid),
+                 "adamw_update_ms": mid.elapsed_time(end)}
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+        del grads, trainer, params
+        _release()
+        if step_peak <= FAM_PEAK_GB or batch == 1:
+            break
+        emit({"phase": "families", "leg": "moe", "batch_cut": [batch,
+                                                               batch // 2],
+              "peak_memory_gib": step_peak})
+        batch //= 2
+
+    before = _build.launch_counts()
+    ref_trainer = Trainer(config, train_config(attention_impl="reference"),
+                          device="cuda")
+    ref_trainer.init(seed)
+    ref = _step1(ref_trainer.step_fn.compute_grads, ref_trainer.state.params,
+                 tokens, targets)
+    del ref_trainer
+    _release()
+    if _build.launch_counts() != before:
+        fail("families moe: the reference-attention step launched a kernel")
+    checks = _step1_checks("moe", kernel, ref)
+    del kernel, ref
+
+    # -- the main path, counted: every count reset right before it ---------
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    final = auto_trainer.train(model=config, moe_experts=8, moe_top_k=2,
+                               batch_size=batch, seq_len=seq, steps=steps,
+                               log_every=1, seed=seed)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # the warmup pass and every step: under remat "nothing" the flash
+    # forward runs twice a layer (forward, then its recompute), the
+    # backward once
+    passes = steps + 1
+    want = {"flash_fwd": 2 * FAM_MOE_LAYERS * passes,
+            "flash_bwd": FAM_MOE_LAYERS * passes}
+    moe_config = resolve_model_config(config, train_config())
+    row = {
+        "phase": "families", "leg": "moe", "model": "mixtral-8x7b",
+        "card": card, "layers": FAM_MOE_LAYERS, "layers_full": full_layers,
+        "embed_dim": config.embed_dim, "experts": 8, "top_k": 2,
+        "params": moe_config.param_count(), "batch": batch, "seq": seq,
+        "steps": steps, "capacity": moe_config.capacity(seq),
+        "step_ms": batch * seq / final["tokens_per_sec"] * 1e3,
+        "tokens_per_sec": final["tokens_per_sec"], "mfu": final["mfu"],
+        "flops_per_token_active": moe_config.flops_per_token(seq),
+        "loss": final["loss"], "aux_loss": final["aux_loss"],
+        "ce_loss": final["ce_loss"], "grad_norm": final["grad_norm"],
+        "dropped_share_per_layer": dropped,
+        "compile_seconds": final.get("compile_seconds"),
+        "train_time_s": final["train_time_s"],
+        "peak_memory_gib": peak_gb, "step_peak_memory_gib": step_peak,
+        **split, "launches": launches, "expected_launches": want, **checks,
+    }
+    emit(row)
+    _fam_launches("moe", launches, want)
+    if not all(math.isfinite(final[k]) for k in ("loss", "aux_loss",
+                                                  "grad_norm")):
+        fail(f"families moe: non-finite metrics {final}")
+    return row
+
+
+def _families_encoder(seed: int, card: str, leg: str) -> dict:
+    """BERT-base (``make_classifier_train_step``, half the rows padded,
+    then ``mlm_logits`` once) or ViT-B/16 (``make_train_step`` on 224 x
+    224 x 3 images): step 1 held against the reference attention, then
+    FAM_STEPS counted steps on one batch."""
+    import dataclasses
+
+    import torch
+
+    from mlrun_tpu_torch.models import bert, vit
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training.mfu import mfu
+    from mlrun_tpu_torch.training.train import AdamW
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if leg == "bert":
+        config, module = bert.bert_base(), bert
+        b, s = FAM_BERT_BATCH, FAM_BERT_SEQ
+        tokens = torch.randint(0, config.vocab_size, (b, s), generator=gen,
+                               device="cuda")
+        labels = torch.randint(0, config.n_classes, (b,), generator=gen,
+                               device="cuda")
+        mask = torch.ones((b, s), dtype=torch.int32, device="cuda")
+        for row in range(b // 2):        # a padded tail on half the rows
+            mask[row, s - 64 * (row + 1):] = 0
+        batch = (tokens, labels, mask)
+        make = module.make_classifier_train_step
+        # remat off: the forward once a layer a step; mlm_logits once more
+        want = {"flash_fwd": config.n_layers * (FAM_STEPS + 1),
+                "flash_bwd": config.n_layers * FAM_STEPS}
+        items = b * s
+    else:
+        config, module = vit.vit_b16(), vit
+        b, s = FAM_VIT_BATCH, config.n_patches + 1
+        images = torch.randn((b, config.image_size, config.image_size,
+                              config.channels), generator=gen,
+                             device="cuda")
+        labels = torch.randint(0, config.n_classes, (b,), generator=gen,
+                               device="cuda")
+        batch = (images, labels)
+        make = module.make_train_step
+        # remat on: the forward twice a layer a step (and its recompute)
+        want = {"flash_fwd": 2 * config.n_layers * FAM_STEPS,
+                "flash_bwd": config.n_layers * FAM_STEPS}
+        items = b
+    params = module.init_params(config, gen, "cuda")
+    optimizer = AdamW(lambda count: FAM_LR, b1=0.9, b2=0.999,
+                      weight_decay=0.01)
+    step = make(config, optimizer)
+
+    kernel = _step1(step.compute_grads, params, *batch)   # builds, warms
+    before = _build.launch_counts()
+    ref_config = dataclasses.replace(config, attention_impl="reference")
+    ref = _step1(make(ref_config, optimizer).compute_grads, params, *batch)
+    if _build.launch_counts() != before:
+        fail(f"families {leg}: the reference-attention step launched a "
+             "kernel")
+    # the same params in float32 (TF32 off): the float32 kernels against
+    # the float32 reference attention
+    params32 = _float32_tree(params)
+    config32 = dataclasses.replace(config, dtype=torch.float32)
+    kernel32 = _step1(make(config32, optimizer).compute_grads, params32,
+                      *batch)
+    ref32 = _step1(make(dataclasses.replace(
+        config32, attention_impl="reference"), optimizer).compute_grads,
+        params32, *batch)
+    checks = _step1_checks(leg, kernel, ref, kernel32, ref32)
+    del kernel, ref, kernel32, ref32, params32
+    _release()
+
+    opt_state = optimizer.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    # -- the leg's path, counted: every count reset right before it --------
+    _build.reset_launch_counts()
+    ms, history = _timed_steps(step, params, opt_state, batch, FAM_STEPS)
+    extra = {}
+    if leg == "bert":
+        with torch.no_grad():
+            logits = bert.mlm_logits(config, params, tokens, mask)
+        torch.cuda.synchronize()
+        extra["mlm_logits"] = {"shape": list(logits.shape),
+                               "finite": bool(torch.isfinite(logits).all())}
+        del logits
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    steady_ms = sum(ms[1:]) / len(ms[1:])
+    row = {"phase": "families", "leg": leg, "card": card,
+           "model": "bert-base" if leg == "bert" else "vit-b16",
+           "layers": config.n_layers, "embed_dim": config.embed_dim,
+           "params": config.param_count(), "batch": b, "seq": s,
+           "steps": FAM_STEPS, "step_ms": ms, "steady_step_ms": steady_ms,
+           "losses": [m["loss"] for m in history],
+           "peak_memory_gib": peak_gb, "launches": launches,
+           "expected_launches": want, **checks, **extra}
+    if leg == "bert":
+        row["tokens_per_sec"] = items / steady_ms * 1e3
+    else:
+        row["images_per_sec"] = items / steady_ms * 1e3
+        row["grad_norms"] = [m["grad_norm"] for m in history]
+        row["mfu"] = mfu(row["images_per_sec"], config.flops_per_image(),
+                         device="cuda")
+    emit(row)
+    _fam_launches(leg, launches, want)
+    if not all(math.isfinite(m["loss"]) for m in history):
+        fail(f"families {leg}: non-finite loss {row['losses']}")
+    if leg == "bert" and not extra["mlm_logits"]["finite"]:
+        fail("families bert: non-finite mlm_logits")
+    del params, opt_state, step
+    _release()
+    return row
+
+
+def _families_t5(seed: int, card: str) -> dict:
+    """T5-base ``make_train_step`` (encoder 512, decoder 128): no kernel
+    on its path (its biased attention is plain, as in the reference), so
+    its step-1 loss is held in float32 on the card against the port's CPU
+    loss on the same params and batch instead."""
+    import torch
+
+    from mlrun_tpu_torch.models import t5
+    from mlrun_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training.mfu import mfu
+    from mlrun_tpu_torch.training.train import AdamW
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    config32 = t5.t5_base(dtype=torch.float32)
+
+    def batch_of(b):
+        return tuple(torch.randint(0, config32.vocab_size, (b, n),
+                                   generator=gen, device="cuda")
+                     for n in (FAM_T5_ENC, FAM_T5_DEC, FAM_T5_DEC))
+
+    # float32 on the card (TF32 off) against the CPU
+    params32 = t5.init_params(config32, gen, "cuda")
+    check = batch_of(FAM_T5_CHECK_BATCH)
+    with torch.no_grad():
+        card_loss = float(t5.seq2seq_loss(config32, params32, *check)[0])
+        cpu_params = params_from_numpy(params_to_numpy(params32), "cpu")
+        cpu_loss = float(t5.seq2seq_loss(config32, cpu_params,
+                                         *(x.cpu() for x in check))[0])
+    del params32, cpu_params
+    _release()
+    f32_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+
+    config = t5.t5_base()
+    params = t5.init_params(config, gen, "cuda")
+    optimizer = AdamW(lambda count: FAM_LR, b1=0.9, b2=0.999,
+                      weight_decay=0.01)
+    step = t5.make_train_step(config, optimizer)
+    batch = batch_of(FAM_T5_BATCH)
+    opt_state = optimizer.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    ms, history = _timed_steps(step, params, opt_state, batch, FAM_STEPS)
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    steady_ms = sum(ms[1:]) / len(ms[1:])
+    dec_tokens = FAM_T5_BATCH * FAM_T5_DEC
+    row = {"phase": "families", "leg": "t5", "model": "t5-base",
+           "card": card, "enc_layers": config.n_enc_layers,
+           "dec_layers": config.n_dec_layers, "params": config.param_count(),
+           "batch": FAM_T5_BATCH, "enc_len": FAM_T5_ENC,
+           "dec_len": FAM_T5_DEC, "steps": FAM_STEPS, "step_ms": ms,
+           "steady_step_ms": steady_ms,
+           "tokens_per_sec": FAM_T5_BATCH * (FAM_T5_ENC + FAM_T5_DEC)
+           / steady_ms * 1e3,
+           "decoder_tokens_per_sec": dec_tokens / steady_ms * 1e3,
+           "mfu": mfu(dec_tokens / steady_ms * 1e3,
+                      config.flops_per_token(FAM_T5_ENC, FAM_T5_DEC),
+                      device="cuda"),
+           "losses": [m["loss"] for m in history],
+           "grad_norms": [m["grad_norm"] for m in history],
+           "peak_memory_gib": peak_gb, "launches": launches,
+           "f32_step1_loss_card": card_loss, "f32_step1_loss_cpu": cpu_loss,
+           "f32_step1_loss_rel_err": f32_rel,
+           "f32_step1_loss_rel_tol": FAM_T5_F32_REL_TOL}
+    emit(row)
+    _fam_launches("t5", launches, {})
+    if not all(math.isfinite(m["loss"]) for m in history):
+        fail(f"families t5: non-finite loss {row['losses']}")
+    if not f32_rel <= FAM_T5_F32_REL_TOL:
+        fail(f"families t5: float32 loss on the card {card_loss} vs the CPU "
+             f"{cpu_loss}: relative error {f32_rel} > {FAM_T5_F32_REL_TOL}")
+    del params, opt_state, step
+    _release()
+    return row
+
+
+def phase_families(seed: int, card: str) -> dict:
+    """The four legs; returns the flash launches of the three that reach
+    the kernels."""
+    started = time.perf_counter()
+    rows = {"moe": _families_moe(seed, card)}
+    _release()
+    for leg in ("bert", "vit"):
+        rows[leg] = _families_encoder(seed, card, leg)
+    rows["t5"] = _families_t5(seed, card)
+    launches = {name: sum(rows[leg]["launches"][name]
+                          for leg in ("moe", "bert", "vit"))
+                for name in TRAINING_KERNELS}
+    emit({"phase": "families", "card": card, "launches": launches,
+          "phase_s": time.perf_counter() - started})
+    return {"rows": rows, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
-              "fleet")
+              "fleet", "families")
 
 
 def main(argv=None) -> int:
@@ -3158,6 +3747,12 @@ def main(argv=None) -> int:
         release()
     if "fleet" in phases:
         phase_fleet(args.seed, card)
+        release()
+    if "families" in phases:
+        # the training flash kernels' launches on every training path
+        for name, count in phase_families(args.seed,
+                                          card)["launches"].items():
+            launches[name] = launches.get(name, 0) + count
         release()
     if set(phases) != set(ALL_PHASES):
         return 0

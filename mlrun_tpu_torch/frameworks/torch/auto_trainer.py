@@ -1,15 +1,16 @@
 """Torch auto-trainer — counterpart of
 ``mlrun_tpu/frameworks/jax/auto_trainer.py``.
 
-``train(...)`` runs a full fine-tune of a Llama-family model on one device
-(CUDA unless ``device="cpu"``): streams data, warms the step up (kernel
-build), fits with per-step metrics logged to a duck-typed run context,
-checkpoints with ``training.CheckpointManager`` and exits cleanly on
-SIGTERM, and returns the final metrics with ``train_time_s``. The handler
-contract is the reference's, with the same defaults; features the port does
-not have yet (LoRA, meshes over many devices, context and pipeline
-parallelism, MoE, text datasets, structured callbacks) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``train(...)`` runs a full fine-tune of a Llama-family model (MoE with
+``moe_experts``) or trains a LoRA adapter on one device (CUDA unless
+``device="cpu"``): streams data, warms the step up (kernel build), fits
+with per-step metrics logged to a duck-typed run context, checkpoints
+with ``training.CheckpointManager`` and exits cleanly on SIGTERM, and
+returns the final metrics with ``train_time_s``. The handler contract is
+the reference's, with the same defaults; features the port does not have
+yet (meshes over many devices, context and pipeline parallelism, text
+datasets, structured callbacks) raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -110,6 +111,10 @@ def train(context=None,
     if early_stop or tensorboard:
         raise not_ported("early_stop / tensorboard callbacks", 10)
     model_config = _resolve_model_config(model, model_overrides)
+    if moe_experts and not mesh_shape:
+        # the reference's expert default puts gcd(experts, devices) on
+        # 'expert' and the rest on 'fsdp'; the port trains on one device
+        mesh_shape = {"expert": 1, "fsdp": 1}
     train_config = TrainConfig(
         learning_rate=learning_rate, total_steps=steps, lora_rank=lora_rank,
         lora_alpha=lora_alpha, grad_accum=grad_accum, mesh_shape=mesh_shape,

@@ -132,24 +132,33 @@ MODEL_PRESETS = {
 
 # -- init --------------------------------------------------------------------
 
-def init_params(config: LlamaConfig, generator: torch.Generator,
-                device: torch.device | str) -> Params:
-    """Random params (normal, scaled by fan_in**-0.5) drawn on ``device``
-    from ``generator`` (which must live on that device), stored in
-    ``config.dtype``. Each stacked weight is drawn layer by layer, so the
-    float32 draw never holds more than one layer at a time."""
-    dtype = config.dtype
-    e, h, kv, m, L = (config.embed_dim, config.qkv_dim, config.kv_dim,
-                      config.mlp_dim, config.n_layers)
+def normal_init(generator: torch.Generator, device, dtype):
+    """``normal(fan_in, shape)``: a normal draw from ``generator`` scaled by
+    ``fan_in**-0.5``, stored in ``dtype``. An array of three or more dims
+    is drawn one trailing ``[in, out]`` matrix at a time (a stacked weight
+    layer by layer), so the float32 draw never holds more than one."""
 
     def normal(fan_in, shape):
         out = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(shape[0] if len(shape) == 3 else 1):
-            view = out[i] if len(shape) == 3 else out
+        flat = out.view(-1, *shape[-2:]) if len(shape) >= 3 else out[None]
+        for view in flat:
             draw = torch.randn(view.shape, generator=generator,
                                device=device, dtype=torch.float32)
             view.copy_(draw.mul_(fan_in ** -0.5))
         return out
+
+    return normal
+
+
+def init_params(config: LlamaConfig, generator: torch.Generator,
+                device: torch.device | str) -> Params:
+    """Random params (normal, scaled by fan_in**-0.5) drawn on ``device``
+    from ``generator`` (which must live on that device), stored in
+    ``config.dtype``, each stacked weight layer by layer."""
+    dtype = config.dtype
+    e, h, kv, m, L = (config.embed_dim, config.qkv_dim, config.kv_dim,
+                      config.mlp_dim, config.n_layers)
+    normal = normal_init(generator, device, dtype)
 
     params: Params = {
         "embedding": normal(e, (config.vocab_size, e)),

@@ -539,7 +539,6 @@ class DegradationLadder:
 PORT_QUEUE = {
     6: "the pod fleet and the serving-graph router",
     7: "training on many GPUs and elastic training",
-    9: "other model families",
     10: "glue",
 }
 

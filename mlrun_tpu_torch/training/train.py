@@ -2,12 +2,14 @@
 ``mlrun_tpu/training/train.py``.
 
 The reference jit-compiles a sharded step over a mesh; the port runs the
-plain branch of ``make_train_step`` (dense, no context or pipeline
-parallelism) eagerly on one device: ``loss_fn`` under autograd, gradient
-accumulation, then the optax chain of ``make_optimizer`` written out
-(warmup-cosine schedule, ``clip_by_global_norm``, ``adamw``) updating the
-params in place. ``lora_rank > 0`` trains a LoRA adapter (models/lora.py) on a
-frozen base: gradients and AdamW touch the adapter's tensors only.
+plain branch of ``make_train_step`` (no context or pipeline parallelism)
+eagerly on one device: the model family's loss under autograd (Llama, or
+MoE with ``moe_experts``), gradient accumulation, then the optax chain of
+``make_optimizer`` written out (warmup-cosine schedule,
+``clip_by_global_norm``, ``adamw``) updating the params in place.
+``lora_rank > 0`` trains a LoRA adapter (models/lora.py) on a frozen
+Llama base: gradients and AdamW touch the adapter's tensors only. The
+BERT, ViT and T5 steps build on ``make_loss_step``.
 Features of the reference trainer that need many devices or the
 structured callback/elastic machinery raise ``NotImplementedError``
 naming their ROADMAP.md item.
@@ -25,7 +27,9 @@ import torch
 
 from ..config import TRAINING_DEFAULTS
 from ..models import llama as llama_mod
+from ..models import moe as moe_mod
 from ..models.llama import LlamaConfig
+from ..models.moe import MoEConfig
 from ..serving.resilience import not_ported
 from ..utils import logger
 from .data import DevicePrefetchIterator, to_device
@@ -61,15 +65,22 @@ class TrainConfig:
     attention_impl: str | None = None
 
 
-def _check_ported(train_config: TrainConfig):
-    """Raise for the options the port does not have yet."""
+def _check_ported(model_config, train_config: TrainConfig):
+    """Raise the reference's ``ValueError`` for MoE with LoRA or context
+    parallelism (in its order, so those win), then ``NotImplementedError``
+    for the options the port does not have yet."""
     tc = train_config
+    if isinstance(model_config, MoEConfig):
+        if tc.lora_rank > 0:
+            raise ValueError("moe_experts does not compose with lora_rank "
+                             "yet")
+        if tc.context_parallel:
+            raise ValueError(
+                "moe_experts does not compose with context_parallel yet")
     if tc.context_parallel:
         raise not_ported("context parallelism (context_parallel)", 7)
     if tc.pipeline_stages > 1:
         raise not_ported("pipeline parallelism (pipeline_stages)", 7)
-    if tc.moe_experts:
-        raise not_ported("the MoE model family (moe_experts)", 9)
     if tc.mesh_shape and math.prod(
             int(n) for n in tc.mesh_shape.values() if int(n) > 0) > 1:
         raise not_ported(f"a mesh over more than one device "
@@ -78,13 +89,37 @@ def _check_ported(train_config: TrainConfig):
 
 def resolve_model_config(model_config: LlamaConfig,
                          train_config: TrainConfig) -> LlamaConfig:
-    """Apply TrainConfig model-shaping options: ``attention_impl``
-    overrides the model's attention dispatch for the whole step."""
-    _check_ported(train_config)
+    """Apply TrainConfig model-shaping options: ``moe_experts`` turns a
+    dense LlamaConfig into an MoEConfig with the same backbone;
+    ``attention_impl`` overrides the model's attention dispatch for the
+    whole step."""
+    if train_config.moe_experts and not isinstance(model_config, MoEConfig):
+        backbone = {f.name: getattr(model_config, f.name)
+                    for f in dataclasses.fields(model_config)}
+        model_config = MoEConfig(
+            **backbone, n_experts=train_config.moe_experts,
+            top_k=train_config.moe_top_k,
+            capacity_factor=train_config.moe_capacity_factor)
+    _check_ported(model_config, train_config)
     if train_config.attention_impl is not None:
         model_config = dataclasses.replace(
             model_config, attention_impl=train_config.attention_impl)
     return model_config
+
+
+def _model_api(model_config) -> tuple[Callable, Callable]:
+    """(loss, init_params) of the config's model family: one switch, so the
+    dense and MoE paths share the whole trainer below it. ``loss(config,
+    params, tokens, targets, loss_chunk=, lora=)`` for both."""
+    if isinstance(model_config, MoEConfig):
+        def moe_loss(config, params, tokens, targets, loss_chunk=0,
+                     lora=None):
+            # LoRA with MoE is refused up front (_check_ported)
+            return moe_mod.loss_fn(config, params, tokens, targets,
+                                   loss_chunk=loss_chunk)
+
+        return moe_loss, moe_mod.init_params
+    return llama_mod.loss_fn, llama_mod.init_params
 
 
 # -- parameter trees ----------------------------------------------------------
@@ -258,12 +293,13 @@ def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
     scalars."""
     model_config = resolve_model_config(model_config, train_config)
     accum = max(1, train_config.grad_accum)
+    family_loss, _ = _model_api(model_config)
 
     def compute_grads(params, tokens, targets, lora=None):
         """Gradients of the loss with respect to ``lora``'s leaves when an
         adapter is given (the base is frozen), else ``params``' leaves."""
         leaves = tree_leaves(params if lora is None else lora)
-        loss, metrics = llama_mod.loss_fn(
+        loss, metrics = family_loss(
             model_config, params, tokens, targets,
             loss_chunk=train_config.loss_chunk, lora=lora)
         grads = torch.autograd.grad(loss, leaves)
@@ -287,6 +323,37 @@ def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
     return step_fn
 
 
+def make_loss_step(loss: Callable, optimizer: AdamW, mesh=None,
+                   with_grad_norm: bool = True) -> Callable:
+    """The single-device train step of the BERT, ViT and T5 families:
+    ``step(params, opt_state, *batch) -> (params, opt_state, metrics)``.
+    ``loss(params, *batch) -> (loss, metrics)`` is differentiated with
+    autograd over every leaf of ``params`` (each set to require grad), and
+    ``optimizer`` updates the params and ``opt_state`` in place;
+    ``metrics`` gains the pre-clip ``grad_norm`` when ``with_grad_norm``.
+    ``step.compute_grads(params, *batch)`` returns (grads in
+    ``tree_leaves`` order, metrics) without updating. A mesh (the
+    reference's sharded step) waits for training on many GPUs."""
+    if mesh is not None:
+        raise not_ported("a sharded train step (mesh)", 7)
+
+    def compute_grads(params, *batch):
+        leaves = [leaf.requires_grad_(True) for leaf in tree_leaves(params)]
+        value, metrics = loss(params, *batch)
+        grads = torch.autograd.grad(value, leaves)
+        return list(grads), {k: v.detach() for k, v in metrics.items()}
+
+    def step(params, opt_state: AdamWState, *batch):
+        grads, metrics = compute_grads(params, *batch)
+        grad_norm = optimizer.update(grads, opt_state, params)
+        if with_grad_norm:
+            metrics["grad_norm"] = grad_norm
+        return params, opt_state, metrics
+
+    step.compute_grads = compute_grads
+    return step
+
+
 def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
                      optimizer: AdamW, device, seed: int = 0,
                      params=None, lora=None) -> TrainState:
@@ -302,7 +369,7 @@ def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     if params is None:
-        params = llama_mod.init_params(model_config, generator, device)
+        params = _model_api(model_config)[1](model_config, generator, device)
     is_lora = train_config.lora_rank > 0
     if is_lora and lora is None:
         lora = init_lora(model_config, generator, train_config.lora_rank,

@@ -547,7 +547,10 @@ def test_kernel_engine_chunked_prefill_is_token_identical(dev):
 TRAIN_CASES = [
     # (S, H, Hkv, D, causal); S not a multiple of 64 in most
     (70, 4, 2, 64, True), (70, 4, 2, 64, False), (200, 8, 2, 32, True),
-    (130, 4, 4, 128, False), (256, 8, 1, 128, True), (1, 2, 1, 64, True)]
+    (130, 4, 4, 128, False), (256, 8, 1, 128, True), (1, 2, 1, 64, True),
+    # ViT-B/16 at 224 (197 tokens) and BERT-base at 512: 12 heads, no
+    # GQA, D 64, not causal
+    (197, 12, 12, 64, False), (512, 12, 12, 64, False)]
 
 
 def _train_inputs(seed, s, h, hkv, d, dtype, b=2):

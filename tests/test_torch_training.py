@@ -370,7 +370,7 @@ def test_fit_prefetch_and_deferred_metrics_match_sync_path():
 def test_unported_options_raise_not_implemented():
     for kw in ({"mesh_shape": {"data": 2}},
                {"context_parallel": "ring"}, {"pipeline_stages": 2},
-               {"moe_experts": 4}):
+               {"moe_experts": 4, "mesh_shape": {"expert": 4}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ttrain.Trainer(tllama.tiny_llama(), ttrain.TrainConfig(**kw),
                            device="cpu")
