@@ -113,13 +113,39 @@ exits non-zero and never prints the final line):
              no kernel, with its float32 loss on the card held against
              the CPU's. The kernels phase holds rows 8 / 8b at these
              legs' attention shapes too.
+13. entry_points - where users enter the two main paths: the serve
+             phase's seeded Llama-3-8B params written as an HF checkpoint
+             (BF16 safetensors in ~5 GB shards, an index and a config.json
+             stating every field; no safetensors package) under a
+             temporary directory, served by LLMModelServer(hf_model=) on
+             the paged engine (all 32 layers): every loaded leaf
+             bit-equal to the written one, the token streams equal to the
+             preset server's, the three serving kernels launched, the
+             write and load times, load GB/s and peak host RSS; string
+             inputs through a word-level tokenizer where transformers is
+             installed (else one skip line), and there too
+             HuggingFaceModelServer's pipeline on the card by default,
+             its scores on a tiny classifier within 1e-4 of the CPU's;
+             then auto_trainer.train at
+             Llama-3.2-1B (B 4 x 2048, all 16 layers) on a tokens .npy
+             with epochs of 2 steps, early stopping, a checkpoint every 2
+             steps and a recording callback: an early stop at step 4,
+             checkpoints 2 and 4, the hooks' sequence, raw device metrics
+             off the log points, the flash forward and backward launched
+             the counted times; then evaluate from that checkpoint
+             against a direct loss_fn (1e-4 relative), the flash forward
+             once a layer a batch and no backward, the host's RSS rising
+             by less than the checkpoint's params (the optimizer state is
+             never read).
 
-Then one line {"kernels": [...]} (the training flash's launches summed
-over the train and families paths) and, last, {"ok": true, "device":
-...}. ``--phases build,kernels`` runs a subset (for bring-up;
+Then one line {"kernels": [...]} (the serving kernels' launches summed
+over the serve and entry_points paths, the training flash's over the
+train, families and entry_points paths) and, last, {"ok": true,
+"device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
 ``--phases build,lora`` the adapters, ``--phases build,fleet`` the engine
-fleet, ``--phases build,families`` the model families); the
+fleet, ``--phases build,families`` the model families,
+``--phases build,entry_points`` the entry points); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -3269,11 +3295,11 @@ def _step1_checks(leg: str, kernel: dict, ref: dict, kernel32=None,
     return out
 
 
-def _fam_launches(leg: str, launches: dict, want: dict):
-    """Exactly ``want``'s launches on the leg's path, no other kernel."""
+def _exact_launches(path: str, launches: dict, want: dict):
+    """Exactly ``want``'s launches on the path, no other kernel."""
     for name, count in launches.items():
         if count != want.get(name, 0):
-            fail(f"families {leg}: kernel {name} launched {count} times, "
+            fail(f"{path}: kernel {name} launched {count} times, "
                  f"expected {want.get(name, 0)}")
 
 
@@ -3445,7 +3471,7 @@ def _families_moe(seed: int, card: str) -> dict:
         **split, "launches": launches, "expected_launches": want, **checks,
     }
     emit(row)
-    _fam_launches("moe", launches, want)
+    _exact_launches("families moe", launches, want)
     if not all(math.isfinite(final[k]) for k in ("loss", "aux_loss",
                                                   "grad_norm")):
         fail(f"families moe: non-finite metrics {final}")
@@ -3555,7 +3581,7 @@ def _families_encoder(seed: int, card: str, leg: str) -> dict:
         row["mfu"] = mfu(row["images_per_sec"], config.flops_per_image(),
                          device="cuda")
     emit(row)
-    _fam_launches(leg, launches, want)
+    _exact_launches(f"families {leg}", launches, want)
     if not all(math.isfinite(m["loss"]) for m in history):
         fail(f"families {leg}: non-finite loss {row['losses']}")
     if leg == "bert" and not extra["mlm_logits"]["finite"]:
@@ -3633,7 +3659,7 @@ def _families_t5(seed: int, card: str) -> dict:
            "f32_step1_loss_rel_err": f32_rel,
            "f32_step1_loss_rel_tol": FAM_T5_F32_REL_TOL}
     emit(row)
-    _fam_launches("t5", launches, {})
+    _exact_launches("families t5", launches, {})
     if not all(math.isfinite(m["loss"]) for m in history):
         fail(f"families t5: non-finite loss {row['losses']}")
     if not f32_rel <= FAM_T5_F32_REL_TOL:
@@ -3662,12 +3688,595 @@ def phase_families(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: where users enter the two main paths
+# ---------------------------------------------------------------------------
+
+EP_SHARD_BYTES = 5 * 10 ** 9        # transformers' default shard size
+EP_TRAIN_STEPS, EP_LOG_EVERY, EP_EPOCH_STEPS = 8, 4, 2
+# patience 1 and an improvement no loss can make: the second epoch's end
+# (step 4) stops the run
+EP_EARLY_STOP = {"monitor": "loss", "patience": 1, "min_delta": 1e3}
+EP_STOP_STEP = 4
+EP_CHECKPOINT_EVERY = 2
+EP_EVAL_STEPS = 2
+EP_TOKEN_CHUNKS = 64                # the tokens .npy: 64 sequences of 2048
+# HuggingFaceModelServer's float32 pipeline on the card vs on the CPU (TF32
+# off): a classifier's softmax scores
+EP_PIPELINE_TOL = 1e-4
+
+
+def _hf_tensors(config, params) -> list:
+    """(HF name, tensor in HF layout [out, in]) of a Llama param tree, in
+    the order transformers writes them."""
+    layers = params["layers"]
+    out = [("model.embed_tokens.weight", params["embedding"])]
+    for i in range(config.n_layers):
+        pre = f"model.layers.{i}."
+        out += [
+            (pre + "input_layernorm.weight", layers["attn_norm_scale"][i]),
+            (pre + "self_attn.q_proj.weight", layers["wq"][i].t()),
+            (pre + "self_attn.k_proj.weight", layers["wk"][i].t()),
+            (pre + "self_attn.v_proj.weight", layers["wv"][i].t()),
+            (pre + "self_attn.o_proj.weight", layers["wo"][i].t()),
+            (pre + "post_attention_layernorm.weight",
+             layers["mlp_norm_scale"][i]),
+            (pre + "mlp.gate_proj.weight", layers["w_gate"][i].t()),
+            (pre + "mlp.up_proj.weight", layers["w_up"][i].t()),
+            (pre + "mlp.down_proj.weight", layers["w_down"][i].t()),
+        ]
+    out.append(("model.norm.weight", params["final_norm_scale"]))
+    if "lm_head" in params:
+        out.append(("lm_head.weight", params["lm_head"].t()))
+    return out
+
+
+def _write_hf_checkpoint(directory: str, config, params) -> tuple:
+    """Write ``params`` (bf16) as an HF safetensors checkpoint: sharded
+    files of about ``EP_SHARD_BYTES``, ``model.safetensors.index.json``
+    and a ``config.json`` stating every field. Each shard's header is
+    planned from the shapes, then its tensors are copied to the host and
+    written one at a time. Returns (bytes of tensor data, shards)."""
+    import struct
+
+    import torch
+
+    tensors = _hf_tensors(config, params)
+    shards, current, size = [], [], 0
+    for name, tensor in tensors:
+        nbytes = tensor.numel() * tensor.element_size()
+        if current and size + nbytes > EP_SHARD_BYTES:
+            shards.append(current)
+            current, size = [], 0
+        current.append((name, tensor))
+        size += nbytes
+    shards.append(current)
+    weight_map, total = {}, 0
+    for index, shard in enumerate(shards):
+        fname = f"model-{index + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for name, tensor in shard:
+            if tensor.dtype != torch.bfloat16:
+                fail(f"hf writer: {name} is {tensor.dtype}, not bf16")
+            nbytes = tensor.numel() * 2
+            header[name] = {"dtype": "BF16", "shape": list(tensor.shape),
+                            "data_offsets": [offset, offset + nbytes]}
+            offset += nbytes
+            weight_map[name] = fname
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(directory, fname), "wb") as fp:
+            fp.write(struct.pack("<Q", len(raw)))
+            fp.write(raw)
+            for name, tensor in shard:
+                host = tensor.contiguous().cpu()
+                fp.write(host.view(torch.uint8).numpy())
+                del host
+        total += offset
+    with open(os.path.join(directory, "model.safetensors.index.json"),
+              "w") as fp:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, fp)
+    with open(os.path.join(directory, "config.json"), "w") as fp:
+        json.dump({
+            "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": config.vocab_size,
+            "hidden_size": config.embed_dim,
+            "num_hidden_layers": config.n_layers,
+            "num_attention_heads": config.n_heads,
+            "num_key_value_heads": config.n_kv_heads,
+            "head_dim": config.head_dim,
+            "intermediate_size": config.mlp_dim,
+            "rope_theta": config.rope_theta,
+            "rms_norm_eps": config.norm_eps,
+            "tie_word_embeddings": config.tie_embeddings,
+            "torch_dtype": "bfloat16"}, fp)
+    return total, len(shards)
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as fp:
+        return int(fp.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class _PeakRss:
+    """The process's peak resident set while the block runs, sampled
+    every millisecond by a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.before = self.peak = _rss_bytes()
+        self._done = threading.Event()
+
+        def sample():
+            while not self._done.wait(1e-3):
+                self.peak = max(self.peak, _rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, _rss_bytes())
+
+
+def _word_tokenizer(directory: str, vocab: int):
+    """A word-level tokenizer over the whole vocabulary (``t0`` ..
+    ``t<vocab-1>``, so every id decodes and re-encodes), built with
+    ``tokenizers`` and saved as a ``PreTrainedTokenizerFast``; None, with
+    the skip line, where ``transformers`` is not installed."""
+    try:
+        import transformers
+    except ImportError:
+        emit({"phase": "entry_points", "leg": "tokenizer",
+              "skipped": "transformers not installed"})
+        return None
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    tok = Tokenizer(models.WordLevel({f"t{i}": i for i in range(vocab)},
+                                     unk_token="t0"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    transformers.PreTrainedTokenizerFast(
+        tokenizer_object=tok, unk_token="t0").save_pretrained(directory)
+    return transformers.AutoTokenizer.from_pretrained(directory)
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(a[k], b[k])
+                                            for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.int16), b.view(torch.int16))
+
+
+def _ep_serve_leg(seed: int, card: str) -> dict:
+    """LLMModelServer(hf_model=) at Llama-3-8B from a checkpoint this leg
+    writes of the serve phase's seeded params; its leaves against the
+    written ones, its streams against the preset server's; the tokenizer
+    leg on the same server."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mlrun_tpu_torch.frameworks import huggingface as hf
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.llm import LLMModelServer
+
+    config = llama.MODEL_PRESETS["llama3-8b"]()
+    prompts = _prompts(seed, config.vocab_size)
+    generator = torch.Generator(device="cuda")
+    generator.manual_seed(seed)
+    params = llama.init_params(config, generator, "cuda")
+    directory = tempfile.mkdtemp(prefix="mlt-hf-")
+    tok_dir = os.path.join(directory, "tokenizer")
+    os.makedirs(tok_dir)
+    server_kw = dict(continuous_batching=True, paged=True, slots=4,
+                     max_len=MAX_LEN, page_size=PAGE, max_new_tokens=MAX_NEW)
+    try:
+        need = sum(t.numel() * t.element_size()
+                   for _, t in _hf_tensors(config, params))
+        free = shutil.disk_usage(directory).free
+        emit({"phase": "entry_points", "leg": "hf_checkpoint",
+              "directory_free_gb": free / 1e9, "checkpoint_gb": need / 1e9,
+              "card": card})
+        if free < need + (1 << 30):
+            fail(f"entry_points: {free / 1e9:.2f} GB free under "
+                 f"{directory}, the checkpoint needs {need / 1e9:.2f} GB")
+        started = time.perf_counter()
+        # the bytes handed to the OS (its page cache), not flushed to disk
+        written, shards = _write_hf_checkpoint(directory, config, params)
+        write_s = time.perf_counter() - started
+        tokenizer = _word_tokenizer(tok_dir, config.vocab_size)
+
+        # -- the main path, counted: every count reset right before it -----
+        timing = {}
+        loader = hf.load_hf_weights_into_llama
+
+        def timed_loader(*args, **kwargs):
+            with _PeakRss() as rss:
+                t0 = time.perf_counter()
+                out = loader(*args, **kwargs)
+                torch.cuda.synchronize()
+                timing["load_weights_s"] = time.perf_counter() - t0
+            timing["rss"] = rss
+            return out
+
+        hf.load_hf_weights_into_llama = timed_loader
+        _build.reset_launch_counts()
+        try:
+            started = time.perf_counter()
+            server = LLMModelServer(
+                name="llama3-8b-hf", hf_model=directory,
+                tokenizer=tok_dir if tokenizer is not None else None,
+                **server_kw)
+            server.post_init()
+            load_s = time.perf_counter() - started
+        finally:
+            hf.load_hf_weights_into_llama = loader
+        if not server.ready:
+            fail(f"LLMModelServer(hf_model=) failed to load: {server.error}")
+
+        def submit(batch):
+            return server.do_event(_Event({"inputs": batch})).body["outputs"]
+
+        t0 = time.perf_counter()
+        hf_out = _serve_events(submit, prompts)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        stats = server.engine.stats
+        leaves_equal = _same_bits(server.engine.params, params)
+        loaded_config = server.engine.config
+        tok_row = None
+        if tokenizer is not None:
+            _build.reset_launch_counts()
+            texts = [" ".join(f"t{i}" for i in p) for p in prompts]
+            replies = submit(texts)
+            tok_launches = _build.launch_counts()
+            ids = [tokenizer(text)["input_ids"] for text in replies]
+            tok_row = {
+                "phase": "entry_points", "leg": "tokenizer", "card": card,
+                "requests": len(texts), "launches": tok_launches,
+                "prompts_encode_to_ids": [tokenizer(t)["input_ids"] == p
+                                          for t, p in zip(texts, prompts)],
+                "outputs_round_trip": [
+                    isinstance(r, str) and len(i) == MAX_NEW
+                    and tokenizer.decode(i) == r
+                    for r, i in zip(replies, ids)],
+                "outputs_equal_id_streams_share": sum(
+                    i == o for i, o in zip(ids, hf_out)) / len(ids),
+            }
+        server.close()
+        del server, params
+        _release()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    # the same traffic on the preset server with the same seed
+    started = time.perf_counter()
+    preset = LLMModelServer(name="llama3-8b", model_preset="llama3-8b",
+                            seed=seed, **server_kw)
+    preset.post_init()
+    preset_load_s = time.perf_counter() - started
+    if not preset.ready:
+        fail(f"the preset LLMModelServer failed to load: {preset.error}")
+    preset_out = _serve_events(
+        lambda batch: preset.do_event(_Event({"inputs": batch}))
+        .body["outputs"], prompts)
+    preset.close()
+    del preset
+    _release()
+
+    rss = timing["rss"]
+    row = {
+        "phase": "entry_points", "leg": "hf_serve", "model": "llama3-8b",
+        "layers": loaded_config.n_layers, "card": card,
+        "checkpoint_gb": written / 1e9, "shards": shards,
+        "write_s": write_s, "write_gb_s": written / 1e9 / write_s,
+        "load_weights_s": timing["load_weights_s"],
+        "load_gb_s": written / 1e9 / timing["load_weights_s"],
+        "load_rss_before_gb": rss.before / 1e9,
+        "load_peak_rss_gb": rss.peak / 1e9,
+        "load_rss_rise_gb": (rss.peak - rss.before) / 1e9,
+        "load_s": load_s, "preset_load_s": preset_load_s,
+        "serve_s": serve_s, "requests": len(hf_out),
+        "leaves_bit_equal": leaves_equal,
+        "config_rope_theta": loaded_config.rope_theta,
+        "config_norm_eps": loaded_config.norm_eps,
+        "streams_equal_preset": hf_out == preset_out,
+        "launches": launches,
+        "attn_kernel_ticks": stats["attn_kernel_ticks"],
+        "prefill_kernel_chunks": stats["prefill_kernel_chunks"],
+        "prefix_hit_rate": stats.get("prefix_hit_rate"),
+    }
+    emit(row)
+    if not leaves_equal:
+        fail("entry_points: a loaded leaf differs from the written one")
+    if (loaded_config.rope_theta, loaded_config.norm_eps) != (
+            config.rope_theta, config.norm_eps):
+        fail(f"entry_points: config.json read as {loaded_config}")
+    _check_launches(launches, SERVING_KERNELS, "entry_points hf serve")
+    if stats["prefill_gather_admissions"] or stats["attn_gather_ticks"]:
+        fail("entry_points: the hf server fell back to a gather path")
+    if not row["streams_equal_preset"]:
+        fail("entry_points: the hf server's token streams differ from the "
+             "preset server's")
+    if tok_row is not None:
+        emit(tok_row)
+        if not (all(tok_row["prompts_encode_to_ids"])
+                and all(tok_row["outputs_round_trip"])):
+            fail(f"entry_points tokenizer: {tok_row}")
+        _check_launches(tok_row["launches"], SERVING_KERNELS,
+                        "entry_points tokenizer")
+        for name in SERVING_KERNELS:
+            launches[name] += tok_row["launches"][name]
+    return launches
+
+
+def _ep_pipeline_leg(seed: int, card: str):
+    """HuggingFaceModelServer with no device argument on a tiny random
+    BERT classifier: its pipeline runs on the card and answers as the
+    same server asked for the CPU (scores within EP_PIPELINE_TOL). Where
+    ``transformers`` is not installed, one skip line."""
+    import shutil
+    import tempfile
+
+    try:
+        import transformers
+    except ImportError:
+        emit({"phase": "entry_points", "leg": "hf_pipeline",
+              "skipped": "transformers not installed"})
+        return
+    import torch
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    from mlrun_tpu_torch.frameworks.huggingface import HuggingFaceModelServer
+
+    words = ["[UNK]", "[PAD]", "good", "bad", "movie", "plot", "dull"]
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)},
+                                     unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    torch.manual_seed(seed)
+    model = transformers.BertForSequenceClassification(
+        transformers.BertConfig(vocab_size=len(words), hidden_size=32,
+                                num_hidden_layers=2, num_attention_heads=2,
+                                intermediate_size=64, num_labels=2,
+                                max_position_embeddings=32))
+    directory = tempfile.mkdtemp(prefix="mlt-pipe-")
+    try:
+        model.save_pretrained(directory)
+        transformers.PreTrainedTokenizerFast(
+            tokenizer_object=tok, unk_token="[UNK]",
+            pad_token="[PAD]").save_pretrained(directory)
+        body = {"inputs": ["good movie", "bad plot", "dull dull movie"]}
+        outputs, devices = [], []
+        for kw in ({}, {"device": "cpu"}):
+            server = HuggingFaceModelServer(
+                name="clf", task="text-classification",
+                model_name=directory, **kw)
+            server.post_init()
+            if not server.ready:
+                fail(f"entry_points hf_pipeline: {server.error}")
+            devices.append(str(server.model.device))
+            outputs.append(server.do_event(_Event(dict(body)))
+                           .body["outputs"])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    card_out, cpu_out = outputs
+    gap = max(abs(a[0]["score"] - b[0]["score"])
+              for a, b in zip(card_out, cpu_out))
+    labels_equal = [a[0]["label"] for a in card_out] == [
+        b[0]["label"] for b in cpu_out]
+    emit({"phase": "entry_points", "leg": "hf_pipeline", "card": card,
+          "devices": devices, "labels_equal_cpu": labels_equal,
+          "max_score_gap": gap, "tol": EP_PIPELINE_TOL})
+    if not devices[0].startswith("cuda"):
+        fail(f"entry_points hf_pipeline: the default server ran on "
+             f"{devices[0]}, not the card")
+    if not (labels_equal and gap <= EP_PIPELINE_TOL):
+        fail(f"entry_points hf_pipeline: card {card_out} vs cpu {cpu_out}")
+
+
+def _ep_train_leg(seed: int, card: str, train_step_ms) -> dict:
+    """auto_trainer.train at Llama-3.2-1B on a tokens .npy with early
+    stopping on epochs, a checkpoint every 2 steps and a recording
+    callback; then evaluate from that checkpoint against a direct
+    loss_fn over the trained params."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mlrun_tpu_torch.frameworks._common import Callback
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training.data import array_token_stream, to_device
+
+    config = llama.MODEL_PRESETS["llama3-1b"]()
+
+    class Recorder(Callback):
+        """The hooks' sequence; off the log points, the type and device of
+        the metrics it is handed; then it reads the loss (a host sync),
+        as a callback that reads a value does."""
+
+        def __init__(self):
+            self.events, self.handed, self.stamps = [], {}, []
+
+        def on_train_begin(self):
+            self.events.append("train_begin")
+
+        def on_epoch_begin(self, epoch):
+            self.events.append(["epoch_begin", epoch])
+
+        def on_step_end(self, step, metrics):
+            loss = metrics["loss"]
+            self.handed[step] = (type(loss).__name__,
+                                 str(getattr(loss, "device", "host")))
+            float(loss)
+            self.stamps.append(time.perf_counter())
+            self.events.append(["step", step])
+
+        def on_epoch_end(self, epoch, metrics):
+            self.events.append(["epoch_end", epoch])
+
+        def on_train_end(self, metrics):
+            self.events.append("train_end")
+
+    work = tempfile.mkdtemp(prefix="mlt-train-")
+    try:
+        dataset = os.path.join(work, "tokens.npy")
+        np.save(dataset, np.random.default_rng(seed).integers(
+            0, config.vocab_size, EP_TOKEN_CHUNKS * TRAIN_SEQ + 1,
+            dtype=np.int32))
+        checkpoints = os.path.join(work, "checkpoints")
+        recorder = Recorder()
+
+        # -- the main path, counted: every count reset right before it -----
+        _build.reset_launch_counts()
+        final = auto_trainer.train(
+            model="llama3-1b", dataset=dataset, batch_size=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, steps=EP_TRAIN_STEPS, log_every=EP_LOG_EVERY,
+            epoch_steps=EP_EPOCH_STEPS, early_stop=dict(EP_EARLY_STOP),
+            callbacks=[recorder], checkpoint_dir=checkpoints,
+            checkpoint_every=EP_CHECKPOINT_EVERY, seed=seed)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        saved = sorted(int(p) for p in os.listdir(checkpoints)
+                       if p.isdigit())
+        stamps = recorder.stamps
+        # steps 0->1 and 2->3 hold no checkpoint write (those follow the
+        # recorder at steps 1 and 3)
+        step_ms = sorted((stamps[i + 1] - stamps[i]) * 1e3 for i in (0, 2)
+                         if i + 1 < len(stamps))
+        passes = EP_STOP_STEP + 1   # the warmup's pass and every step
+        want = {"flash_fwd": 2 * config.n_layers * passes,
+                "flash_bwd": config.n_layers * passes}
+        events = [["epoch_begin", 0], ["step", 0], ["step", 1],
+                  ["epoch_end", 0], ["epoch_begin", 1], ["step", 2],
+                  ["step", 3], ["epoch_end", 1]]
+        row = {
+            "phase": "entry_points", "leg": "callbacks_train",
+            "model": "llama3-1b", "layers": config.n_layers, "card": card,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": EP_TRAIN_STEPS,
+            "log_every": EP_LOG_EVERY, "epoch_steps": EP_EPOCH_STEPS,
+            "stopped_early": final.get("stopped_early"),
+            "step": final.get("step"), "loss": final.get("loss"),
+            "events": recorder.events, "handed_off_log_points": {
+                str(k): v for k, v in recorder.handed.items()},
+            "checkpoint_steps": saved,
+            "callback_step_ms": step_ms,
+            "checkpoint_interval_ms": (stamps[2] - stamps[1]) * 1e3
+            if len(stamps) > 2 else None,
+            "window_step_ms": TRAIN_BATCH * TRAIN_SEQ
+            / final["tokens_per_sec"] * 1e3,
+            "train_phase_step_ms": train_step_ms,
+            "train_time_s": final["train_time_s"],
+            "launches": launches, "expected_launches": want,
+        }
+        emit(row)
+        if not (final.get("stopped_early") is True
+                and final.get("step") == EP_STOP_STEP):
+            fail(f"entry_points train: expected an early stop at step "
+                 f"{EP_STOP_STEP}, got {final}")
+        if recorder.events != ["train_begin"] + events + ["train_end"]:
+            fail(f"entry_points train: hooks {recorder.events}")
+        for step, (kind, device) in recorder.handed.items():
+            log_point = (step + 1) % EP_LOG_EVERY == 0
+            if not log_point and (kind != "Tensor"
+                                  or not device.startswith("cuda")):
+                fail(f"entry_points train: step {step} handed {kind} on "
+                     f"{device}, not the raw metrics on the card")
+        if saved != [2, 4]:
+            fail(f"entry_points train: checkpoints {saved}, expected [2, 4]")
+        _exact_launches("entry_points train", launches, want)
+        trainer = recorder.trainer
+        del recorder
+
+        # -- evaluate from that checkpoint, counted on its own -------------
+        _build.reset_launch_counts()
+        with _PeakRss() as eval_rss:
+            evaluated = auto_trainer.evaluate(
+                model="llama3-1b", checkpoint_dir=checkpoints,
+                dataset=dataset, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                steps=EP_EVAL_STEPS, seed=seed)
+            torch.cuda.synchronize()
+        eval_launches = _build.launch_counts()
+        step_dir = os.path.join(checkpoints, str(saved[-1]))
+        checkpoint_bytes = sum(os.path.getsize(os.path.join(step_dir, name))
+                               for name in os.listdir(step_dir))
+        params_bytes = os.path.getsize(os.path.join(step_dir, "params.pt"))
+        eval_rss_rise = eval_rss.peak - eval_rss.before
+        stream = array_token_stream(np.load(dataset), TRAIN_BATCH, TRAIN_SEQ,
+                                    seed=seed)
+        direct = []
+        with torch.no_grad():
+            for _ in range(EP_EVAL_STEPS):
+                tokens, targets = to_device(next(stream), "cuda")
+                direct.append(float(llama.loss_fn(
+                    trainer.model_config, trainer.state.params, tokens,
+                    targets)[1]["loss"]))
+        direct_loss = sum(direct) / len(direct)
+        rel = abs(evaluated["eval_loss"] - direct_loss) / abs(direct_loss)
+        eval_want = {"flash_fwd": config.n_layers * EP_EVAL_STEPS,
+                     "flash_bwd": 0}
+        eval_row = {
+            "phase": "entry_points", "leg": "evaluate", "model": "llama3-1b",
+            "card": card, "steps": EP_EVAL_STEPS, **evaluated,
+            "direct_loss": direct_loss, "eval_loss_rel_err": rel,
+            "eval_loss_rel_tol": TRAIN_LOSS_REL_TOL,
+            "checkpoint_gb": checkpoint_bytes / 1e9,
+            "params_file_gb": params_bytes / 1e9,
+            "rss_rise_gb": eval_rss_rise / 1e9,
+            "launches": eval_launches, "expected_launches": eval_want,
+        }
+        emit(eval_row)
+        # the checkpoint holds params and both moments; evaluate reads the
+        # params alone, a leaf at a time, so the host never holds them all
+        if eval_rss_rise >= params_bytes:
+            fail(f"entry_points evaluate: host RSS rose {eval_rss_rise} "
+                 f"bytes restoring {params_bytes} bytes of params from a "
+                 f"{checkpoint_bytes}-byte checkpoint")
+        if not (math.isfinite(evaluated["eval_loss"]) and
+                rel <= TRAIN_LOSS_REL_TOL):
+            fail(f"entry_points evaluate: eval_loss {evaluated['eval_loss']}"
+                 f" vs a direct loss_fn {direct_loss}: relative error {rel} "
+                 f"> {TRAIN_LOSS_REL_TOL}")
+        _exact_launches("entry_points evaluate", eval_launches, eval_want)
+        del trainer
+        _release()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {name: launches.get(name, 0) + eval_launches.get(name, 0)
+            for name in TRAINING_KERNELS}
+
+
+def phase_entry_points(seed: int, card: str, train_step_ms=None) -> dict:
+    """The hf serve and tokenizer legs at 8B, then the callbacks train
+    and evaluate legs at 1B; returns every kernel's launches on them."""
+    started = time.perf_counter()
+    launches = _ep_serve_leg(seed, card)
+    _ep_pipeline_leg(seed, card)
+    launches.update(_ep_train_leg(seed, card, train_step_ms))
+    emit({"phase": "entry_points", "card": card, "launches": launches,
+          "phase_s": time.perf_counter() - started})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
-              "fleet", "families")
+              "fleet", "families", "entry_points")
 
 
 def main(argv=None) -> int:
@@ -3705,6 +4314,7 @@ def main(argv=None) -> int:
 
     card = gpu_name_and_limit()
     kernels, launches, served, serve_native = [], {}, None, None
+    train_step_ms = None
     if "build" in phases:
         phase_build(card)
     if "kernels" in phases:
@@ -3737,6 +4347,7 @@ def main(argv=None) -> int:
         trained = phase_train(args.seed, card)
         launches.update({name: trained["launches"][name]
                          for name in TRAINING_KERNELS})
+        train_step_ms = trained["step_ms"]
         trained = None
         release()
     if "resilience" in phases:
@@ -3752,6 +4363,12 @@ def main(argv=None) -> int:
         # the training flash kernels' launches on every training path
         for name, count in phase_families(args.seed,
                                           card)["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+        release()
+    if "entry_points" in phases:
+        # the serving and training kernels' launches on the entry points
+        for name, count in phase_entry_points(args.seed, card,
+                                              train_step_ms).items():
             launches[name] = launches.get(name, 0) + count
         release()
     if set(phases) != set(ALL_PHASES):

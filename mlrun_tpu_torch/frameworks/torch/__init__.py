@@ -1,3 +1,9 @@
 """Torch auto-trainer — counterpart of ``mlrun_tpu/frameworks/jax``."""
 
-from .auto_trainer import MODEL_PRESETS, train  # noqa: F401
+from .auto_trainer import (  # noqa: F401
+    MODEL_PRESETS,
+    TorchTrainerInterface,
+    apply_mlrun,
+    evaluate,
+    train,
+)

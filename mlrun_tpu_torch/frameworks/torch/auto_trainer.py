@@ -3,13 +3,16 @@
 
 ``train(...)`` runs a full fine-tune of a Llama-family model (MoE with
 ``moe_experts``) or trains a LoRA adapter on one device (CUDA unless
-``device="cpu"``): streams data, warms the step up (kernel build), fits
-with per-step metrics logged to a duck-typed run context, checkpoints
-with ``training.CheckpointManager`` and exits cleanly on SIGTERM, and
-returns the final metrics with ``train_time_s``. The handler contract is
-the reference's, with the same defaults; features the port does not have
-yet (meshes over many devices, context and pipeline parallelism, text
-datasets, structured callbacks) raise ``NotImplementedError`` naming their
+``device="cpu"``): streams data (synthetic, a tokens ``.npy`` or a text
+file through a tokenizer), warms the step up (kernel build), fits with
+per-step metrics logged to a duck-typed run context and the structured
+callbacks (checkpoint every N steps, early stop, TensorBoard, the
+caller's), checkpoints with ``training.CheckpointManager`` and exits
+cleanly on SIGTERM, and returns the final metrics with ``train_time_s``.
+``evaluate(...)`` averages the loss metrics over a few batches. The
+handler contract is the reference's, with the same defaults; features the
+port does not have yet (meshes over many devices, context and pipeline
+parallelism, datastore urls) raise ``NotImplementedError`` naming their
 ROADMAP.md item.
 """
 
@@ -21,10 +24,45 @@ import time
 from typing import Iterator
 
 from ...models.llama import MODEL_PRESETS, LlamaConfig
-from ...serving.resilience import not_ported
+from ...serving.resilience import local_path
 from ...utils import logger
 
-__all__ = ["MODEL_PRESETS", "train"]
+__all__ = ["MODEL_PRESETS", "TorchTrainerInterface", "apply_mlrun",
+           "evaluate", "train"]
+
+
+def apply_mlrun(model=None, context=None, model_name: str = "model",
+                tag: str = "", **kwargs):
+    """Wrap a (model_config, params) pair with context logging hooks."""
+    return TorchTrainerInterface(model=model, context=context,
+                                 model_name=model_name, tag=tag, **kwargs)
+
+
+class TorchTrainerInterface:
+    """Lifecycle hooks around a training loop (metric logging and model
+    registration in a duck-typed run context), the reference's
+    ``JaxTrainerInterface``."""
+
+    def __init__(self, model=None, context=None, model_name="model", tag="",
+                 **kwargs):
+        self.model = model
+        self.context = context
+        self.model_name = model_name
+        self.tag = tag
+        self._extra = kwargs
+
+    def log_metrics(self, metrics: dict, step: int | None = None):
+        if self.context is not None:
+            self.context.log_metrics(metrics, step=step)
+
+    def log_model(self, checkpoint_dir: str = "", metrics: dict | None = None,
+                  parameters: dict | None = None, framework: str = "torch"):
+        if self.context is None:
+            return None
+        return self.context.log_model(
+            self.model_name, model_dir=checkpoint_dir or None,
+            framework=framework, metrics=metrics, parameters=parameters,
+            upload=False, target_path=checkpoint_dir or None, tag=self.tag)
 
 
 def _resolve_model_config(model: str | LlamaConfig | dict,
@@ -49,20 +87,30 @@ def _resolve_model_config(model: str | LlamaConfig | dict,
 
 def _make_stream(dataset: str | None, tokenizer: str | None, batch_size: int,
                  seq_len: int, vocab_size: int, seed: int) -> Iterator:
-    """A tokens ``.npy`` file as an LM batch stream; the synthetic stream
-    when no dataset is given. Text datasets need a tokenizer, which the
-    port does not have yet."""
-    from ...training.data import array_token_stream, synthetic_token_stream
+    """A local dataset (tokens ``.npy``, or text through the tokenizer
+    ``tokenizer`` names) as an LM batch stream; the synthetic stream when
+    no dataset is given. A datastore url is not ported yet."""
+    from ...training.data import (
+        array_token_stream,
+        synthetic_token_stream,
+        text_file_stream,
+    )
 
     if not dataset:
         return synthetic_token_stream(batch_size, seq_len, vocab_size,
                                       seed=seed)
-    if dataset.endswith(".npy"):
-        import numpy as np
+    import numpy as np
 
-        return array_token_stream(np.load(dataset), batch_size, seq_len,
+    local = local_path(dataset, "dataset")
+    if local.endswith(".npy"):
+        return array_token_stream(np.load(local), batch_size, seq_len,
                                   seed=seed)
-    raise not_ported("text datasets (tokenizers)", 10)
+    if not tokenizer:
+        raise ValueError("text datasets need a tokenizer= id")
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(tokenizer)
+    return text_file_stream(local, tok, batch_size, seq_len, seed=seed)
 
 
 def train(context=None,
@@ -100,7 +148,17 @@ def train(context=None,
           device: str | None = None) -> dict:
     """Run a full fine-tune end to end inside a run context; returns the
     final metrics (loss, accuracy, tokens, grad_norm, tokens_per_sec,
-    mfu, ..., step, train_time_s)."""
+    mfu, ..., step, train_time_s; ``stopped_early`` when a callback
+    stopped it). ``early_stop`` holds ``EarlyStoppingCallback``'s
+    arguments (e.g. ``{"monitor": "loss", "patience": 3}``);
+    ``tensorboard=True`` writes TensorBoard summaries and logs them as
+    the ``<model_name>-tensorboard`` artifact; ``checkpoint_every`` saves
+    every N steps."""
+    from .._common.callbacks import (
+        CheckpointCallback,
+        EarlyStoppingCallback,
+        TensorBoardCallback,
+    )
     from ...training import (
         CheckpointManager,
         PreemptionGuard,
@@ -108,8 +166,6 @@ def train(context=None,
         Trainer,
     )
 
-    if early_stop or tensorboard:
-        raise not_ported("early_stop / tensorboard callbacks", 10)
     model_config = _resolve_model_config(model, model_overrides)
     if moe_experts and not mesh_shape:
         # the reference's expert default puts gcd(experts, devices) on
@@ -142,16 +198,27 @@ def train(context=None,
 
     callbacks = list(callbacks or [])
     if manager is not None and checkpoint_every:
-        def _periodic_checkpoint(step, metrics, trainer_):
-            if trainer_.state.step % checkpoint_every == 0:
-                manager.save(trainer_.state.step, trainer_.state)
-
-        callbacks.append(_periodic_checkpoint)
+        callbacks.append(CheckpointCallback(manager,
+                                            every_steps=checkpoint_every))
+    if early_stop:
+        callbacks.append(EarlyStoppingCallback(**early_stop))
+    if tensorboard:
+        callbacks.append(TensorBoardCallback(
+            name=f"{model_name}-tensorboard"))
+    interface = apply_mlrun(context=context, model_name=model_name)
 
     if warmup:
-        warm = trainer.warmup(batch_size, seq_len)
-        if context is not None and hasattr(context, "log_result"):
-            context.log_result("compile_seconds", warm["compile_seconds"])
+        try:
+            warm = trainer.warmup(batch_size, seq_len)
+        except Exception as exc:  # noqa: BLE001 - a failed warmup (a build
+            # error, an out-of-memory) degrades to a first-step build
+            logger.warning("warmup failed — compiling on first step",
+                           error=str(exc))
+        else:
+            if context is not None and warm.get("compile_seconds") \
+                    and hasattr(context, "log_result"):
+                context.log_result("compile_seconds",
+                                   warm["compile_seconds"])
 
     guard = PreemptionGuard().install()
     start = time.perf_counter()
@@ -174,13 +241,59 @@ def train(context=None,
     if manager is not None:
         manager.save(trainer.state.step, trainer.state, force=True)
         manager.wait()
-        if context is not None and hasattr(context, "log_model"):
-            context.log_model(
-                model_name, model_dir=manager.directory, framework="torch",
-                metrics={"loss": final_metrics.get("loss"),
-                         "mfu": final_metrics.get("mfu")},
-                parameters={"model": str(model), "lora_rank": lora_rank,
-                            "steps": steps, "seq_len": seq_len},
-                upload=False, target_path=manager.directory)
+        interface.log_model(
+            checkpoint_dir=manager.directory, metrics={
+                "loss": final_metrics.get("loss"),
+                "mfu": final_metrics.get("mfu"),
+            },
+            parameters={"model": str(model), "lora_rank": lora_rank,
+                        "steps": steps, "seq_len": seq_len})
         manager.close()
     return final_metrics
+
+
+def evaluate(context=None,
+             model: str | LlamaConfig | dict = "tiny",
+             model_overrides: dict | None = None,
+             checkpoint_dir: str = "", dataset: str | None = None,
+             tokenizer: str | None = None,
+             batch_size: int = 8, seq_len: int = 512, steps: int = 10,
+             mesh_shape: dict | None = None, seed: int = 0,
+             device: str | None = None) -> dict:
+    """Average ``loss_fn``'s metrics over ``steps`` batches into
+    ``eval_<key>``, on params restored from the latest checkpoint under
+    ``checkpoint_dir`` (else drawn from ``seed``); runs on CUDA unless
+    ``device="cpu"``."""
+    import torch
+
+    from ...models import llama as llama_mod
+    from ...serving.llm import default_device
+    from ...training import CheckpointManager
+    from ...training.data import to_device
+    from ...training.train import TrainConfig, _check_ported
+
+    model_config = _resolve_model_config(model, model_overrides)
+    _check_ported(model_config, TrainConfig(mesh_shape=mesh_shape))
+    device = default_device(device)
+    if checkpoint_dir:
+        # the params alone: the optimizer state never reaches the host
+        params = CheckpointManager(checkpoint_dir).restore_params(
+            device=device)
+    else:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+        params = llama_mod.init_params(model_config, generator, device)
+    stream = _make_stream(dataset, tokenizer, batch_size, seq_len,
+                          model_config.vocab_size, seed)
+    totals: dict = {}
+    with torch.no_grad():
+        for _ in range(steps):
+            tokens, targets = to_device(next(stream), device)
+            _, metrics = llama_mod.loss_fn(model_config, params, tokens,
+                                           targets)
+            for key, value in metrics.items():
+                totals[key] = totals.get(key, 0.0) + float(value)
+    results = {f"eval_{k}": v / steps for k, v in totals.items()}
+    if context is not None:
+        context.log_results(results)
+    return results

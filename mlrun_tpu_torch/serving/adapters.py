@@ -51,7 +51,7 @@ from ..models.lora import (
     lora_rank,
     validate_lora,
 )
-from .resilience import AdmissionRejected, ResilienceError, not_ported
+from .resilience import AdmissionRejected, ResilienceError, local_path
 
 
 # -- errors ------------------------------------------------------------------
@@ -83,12 +83,6 @@ class AdapterRateLimitError(AdmissionRejected):
 
 
 # -- artifact (de)serialization ----------------------------------------------
-def _local(path: str, what: str) -> str:
-    if "://" in path:
-        raise not_ported(f"{what} at a datastore url ({path})", 10)
-    return path
-
-
 def save_adapter(target_path: str, lora: dict):
     """Serialize an adapter tree (torch tensors or numpy arrays) to one
     ``.npz`` at the local ``target_path`` — the artifact the registry
@@ -104,7 +98,7 @@ def save_adapter(target_path: str, lora: dict):
             flat[f"{target}/{key}"] = np.asarray(value, np.float32)
     buf = io.BytesIO()
     np.savez(buf, **flat)
-    with open(_local(target_path, "save_adapter"), "wb") as fp:
+    with open(local_path(target_path, "save_adapter"), "wb") as fp:
         fp.write(buf.getvalue())
 
 
@@ -112,7 +106,7 @@ def load_adapter(path: str) -> dict:
     """Inverse of :func:`save_adapter`: read an ``.npz`` adapter artifact
     from a local path back into the ``{target: {lora_a, lora_b,
     scaling}}`` tree of numpy arrays."""
-    with open(_local(path, "load_adapter"), "rb") as fp:
+    with open(local_path(path, "load_adapter"), "rb") as fp:
         blob = np.load(io.BytesIO(fp.read()))
     lora: dict = {}
     for key in blob.files:

@@ -43,7 +43,7 @@ from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
 from ..utils import logger
 from .adapters import UnknownAdapterError, build_registry
-from .resilience import PromptTooLongError, not_ported
+from .resilience import PromptTooLongError
 
 
 def default_device(device=None) -> torch.device:
@@ -780,9 +780,11 @@ class LLMModelServer:
     KV to a decode pool), request_ledger (None = the config's default,
     on; a batching server answers a v2 body's ``"timing": true`` with each
     input's phase breakdown), temperature, top_k, top_p, warmup, seed,
-    device (default: the GPU; ``"cpu"`` runs the plain paths). The
-    reference's other features raise ``NotImplementedError`` naming their
-    ROADMAP.md item.
+    device (default: the GPU; ``"cpu"`` runs the plain paths), hf_model
+    (an HF Llama checkpoint directory, or hub id, loaded in place of the
+    preset by ``frameworks.huggingface.load_hf_weights_into_llama``),
+    tokenizer (an ``AutoTokenizer`` directory or id: string inputs are
+    encoded, and their outputs decoded to strings).
     """
 
     def __new__(cls, *args, **kwargs):
@@ -813,15 +815,13 @@ class LLMModelServer:
                          speculative: dict | bool | None = None,
                          seed: int = 0, device=None, **kw):
                 super().__init__(*a, **kw)
-                # (value, ROADMAP.md item) of each reference feature
-                unported = {
-                    "tokenizer": (tokenizer, 10),
-                    "hf_model": (hf_model, 10),
-                }
-                for what, (value, item) in unported.items():
-                    if value:
-                        raise not_ported(f"LLMModelServer {what}", item)
                 self.model_preset = model_preset
+                # a local HF checkpoint directory (or hub id) whose
+                # weights and config replace the preset's; a tokenizer
+                # directory (or hub id) for string inputs
+                self.hf_model = hf_model
+                self.tokenizer_id = tokenizer
+                self._tokenizer = None
                 self.continuous_batching = continuous_batching
                 self.paged = paged
                 self.max_len = max_len
@@ -875,10 +875,24 @@ class LLMModelServer:
                     raise ValueError(
                         "paged=True needs continuous_batching=True "
                         "(the paged pool backs the slot scheduler)")
-                config = llama.MODEL_PRESETS[self.model_preset]()
-                generator = torch.Generator(device=self.device)
-                generator.manual_seed(self.seed)
-                params = llama.init_params(config, generator, self.device)
+                if self.hf_model:
+                    from ..frameworks.huggingface import (
+                        load_hf_weights_into_llama,
+                    )
+
+                    config, params = load_hf_weights_into_llama(
+                        self.hf_model, device=self.device)
+                else:
+                    config = llama.MODEL_PRESETS[self.model_preset]()
+                    generator = torch.Generator(device=self.device)
+                    generator.manual_seed(self.seed)
+                    params = llama.init_params(config, generator,
+                                               self.device)
+                if self.tokenizer_id:
+                    from transformers import AutoTokenizer
+
+                    self._tokenizer = AutoTokenizer.from_pretrained(
+                        self.tokenizer_id)
                 if not self.continuous_batching:
                     self.engine = LLMEngine(
                         config, params, max_len=self.max_len,
@@ -974,11 +988,26 @@ class LLMModelServer:
                 # leak one request's timing onto this thread's next one
                 self._timing_out.value = None
                 want_timing = bool(request.get("timing"))
+                inputs = request["inputs"]
                 id_lists = []
-                for item in request["inputs"]:
+                for item in inputs:
                     if isinstance(item, str):
-                        raise not_ported("string inputs (a tokenizer)", 10)
-                    id_lists.append([int(t) for t in item])
+                        if self._tokenizer is None:
+                            raise ValueError(
+                                "string inputs need a tokenizer= class arg")
+                        id_lists.append(self._tokenizer(item)["input_ids"])
+                    else:
+                        id_lists.append([int(t) for t in item])
+                return [self._tokenizer.decode(tokens)
+                        if isinstance(item, str) else tokens
+                        for item, tokens in zip(
+                            inputs, self._generate(id_lists, adapter,
+                                                   request_key,
+                                                   want_timing))]
+
+            def _generate(self, id_lists, adapter, request_key,
+                          want_timing) -> list:
+                """Each input's generated token ids."""
                 if not self.continuous_batching:
                     out_tokens = []
                     for ids in id_lists:

@@ -8,6 +8,7 @@ from .data import (  # noqa: F401
     DevicePrefetchIterator,
     array_token_stream,
     synthetic_token_stream,
+    text_file_stream,
 )
 from .mfu import ThroughputTracker, chip_peak_flops, mfu  # noqa: F401
 from .preemption import PreemptionGuard  # noqa: F401

@@ -1,9 +1,12 @@
 """Single-device checkpoint/resume — counterpart of
 ``mlrun_tpu/training/checkpoint.py`` (which saves sharded states with
 orbax). The port saves the train state of one device with ``torch.save``:
-one ``<directory>/<step>/state.pt`` per step, written to a temporary name
-and renamed into place, the oldest pruned past ``max_to_keep``. Saves are
-synchronous, so ``wait`` and ``close`` have nothing to wait for.
+one ``<directory>/<step>/`` per step holding ``params.pt`` (the params)
+and ``state.pt`` (the rest), written to a temporary name and renamed into
+place, the oldest pruned past ``max_to_keep``. ``restore_params`` reads
+the params alone, so evaluation never holds the optimizer state on the
+host. Saves are synchronous, so ``wait`` and ``close`` have nothing to
+wait for.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Any, Optional
 import torch
 
 STATE_FILE = "state.pt"
+PARAMS_FILE = "params.pt"
 
 
 class CheckpointManager:
@@ -42,7 +46,11 @@ class CheckpointManager:
             return True
         tmp = os.path.join(self.directory, f".{step}.tmp-{os.getpid()}")
         os.makedirs(tmp, exist_ok=True)
-        torch.save(_to_tree(state), os.path.join(tmp, STATE_FILE))
+        tree = _to_tree(state)
+        if isinstance(tree, dict) and "params" in tree:
+            tree = dict(tree)
+            torch.save(tree.pop("params"), os.path.join(tmp, PARAMS_FILE))
+        torch.save(tree, os.path.join(tmp, STATE_FILE))
         os.replace(tmp, final)
         if self.max_to_keep:
             for old in self._steps()[:-self.max_to_keep]:
@@ -54,13 +62,25 @@ class CheckpointManager:
         """Restore ``step`` (default: latest) in the form of
         ``state_like``: tensors land on the device of ``state_like``'s
         params, leaves that required grad require it again."""
+        path = self._step_dir(step)
+        location = _device_of(state_like)
+        tree = torch.load(os.path.join(path, STATE_FILE),
+                          map_location=location, weights_only=False)
+        if os.path.isfile(os.path.join(path, PARAMS_FILE)):
+            tree["params"] = self.restore_params(step, location)
+        return _from_tree(state_like, tree)
+
+    def restore_params(self, step: int | None = None, device="cpu"):
+        """The params of ``step`` (default: latest) alone, each leaf read
+        and moved to ``device`` in turn."""
+        return torch.load(os.path.join(self._step_dir(step), PARAMS_FILE),
+                          map_location=device, weights_only=False)
+
+    def _step_dir(self, step: int | None) -> str:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        path = os.path.join(self.directory, str(int(step)), STATE_FILE)
-        tree = torch.load(path, map_location=_device_of(state_like),
-                          weights_only=False)
-        return _from_tree(state_like, tree)
+        return os.path.join(self.directory, str(int(step)))
 
     def latest_step(self) -> Optional[int]:
         steps = self._steps()

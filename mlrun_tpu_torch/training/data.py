@@ -1,10 +1,10 @@
 """Training data pipelines — counterpart of ``mlrun_tpu/training/data.py``.
 
-``synthetic_token_stream`` and ``array_token_stream`` are copies: the same
-seed yields the same numpy batches as the reference. Batches stay numpy on
-the host; ``DevicePrefetchIterator`` moves them to the card ahead of the
-step that consumes them. ``text_file_stream`` and ``TokenShardLoader``
-(a tokenizer and ``native/``) are not ported yet (ROADMAP.md).
+``synthetic_token_stream``, ``array_token_stream`` and ``text_file_stream``
+are copies: the same seed yields the same numpy batches as the reference.
+Batches stay numpy on the host; ``DevicePrefetchIterator`` moves them to
+the card ahead of the step that consumes them. ``TokenShardLoader`` (it
+needs ``native/``) is not ported yet (ROADMAP.md item 7).
 """
 
 from __future__ import annotations
@@ -43,6 +43,15 @@ def array_token_stream(token_array: np.ndarray, batch_size: int, seq_len: int,
         for start in range(0, n_chunks - batch_size + 1, batch_size):
             idx = order[start: start + batch_size]
             yield inputs[idx], targets[idx]
+
+
+def text_file_stream(path: str, tokenizer, batch_size: int, seq_len: int,
+                     **kwargs) -> Iterator[tuple]:
+    """Tokenize a text file with an HF tokenizer into an LM stream."""
+    with open(path) as fp:
+        text = fp.read()
+    ids = np.asarray(tokenizer(text)["input_ids"], dtype=np.int32)
+    return array_token_stream(ids, batch_size, seq_len, **kwargs)
 
 
 def to_device(batch, device) -> tuple:

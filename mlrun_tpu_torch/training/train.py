@@ -10,9 +10,10 @@ MoE with ``moe_experts``), gradient accumulation, then the optax chain of
 ``lora_rank > 0`` trains a LoRA adapter (models/lora.py) on a frozen
 Llama base: gradients and AdamW touch the adapter's tensors only. The
 BERT, ViT and T5 steps build on ``make_loss_step``.
-Features of the reference trainer that need many devices or the
-structured callback/elastic machinery raise ``NotImplementedError``
-naming their ROADMAP.md item.
+``Trainer.fit`` drives the structured callbacks of
+``frameworks/_common/callbacks.py``. Features of the reference trainer
+that need many devices or the elastic machinery raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -383,11 +384,6 @@ def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
     return TrainState(params, optimizer.init(lora), 0, lora)
 
 
-def _is_structured_callback(cb) -> bool:
-    return any(hasattr(cb, hook) for hook in
-               ("on_step_end", "on_train_begin", "on_epoch_end"))
-
-
 class Trainer:
     """High-level trainer used by the torch framework adapter and
     ``chip_smoke.py``: ``init`` -> ``warmup`` -> ``fit``. Runs on CUDA
@@ -469,22 +465,25 @@ class Trainer:
         ``data_iter`` in a :class:`~.data.DevicePrefetchIterator`;
         ``defer_metrics`` (default on) stages log-point metrics as
         non-blocking copies into pinned host tensors read one log point
-        later, so the host never waits on the device there. Callbacks —
-        bare ``callback(step, metrics, trainer)`` callables fired at log
-        points — force the synchronous read. ``tokens_per_sec``/``mfu``
-        are steady-state (after ``warmup_steps_excluded`` steps); the
-        first step's build is reported as ``compile_seconds``.
-        ``goodput_fraction`` is the share of the wall time (warmup
-        included) spent in steps other than the first."""
+        later, so the host never waits on the device there. Callbacks
+        force the synchronous read: structured
+        ``frameworks._common.Callback`` objects (``on_train_begin``,
+        ``on_step_end`` on every step with the raw device metrics off the
+        log points, ``on_epoch_end`` every ``epoch_steps`` steps with host
+        floats, ``on_train_end``; ``False`` from a step or epoch hook
+        stops the loop with ``stopped_early: True``) and bare
+        ``callback(step, metrics, trainer)`` callables, fired at log
+        points. ``tokens_per_sec``/``mfu`` are steady-state (after
+        ``warmup_steps_excluded`` steps); the first step's build is
+        reported as ``compile_seconds``. ``goodput_fraction`` is the
+        share of the wall time (warmup included) spent in steps other
+        than the first."""
+        from ..frameworks._common.callbacks import CallbackList
+
         assert self.state is not None, "call init() first"
         if elastic_guard is not None:
             raise not_ported("elastic training (elastic_guard)", 7)
-        callbacks = list(callbacks or [])
-        for cb in callbacks:
-            if _is_structured_callback(cb) or not callable(cb):
-                raise not_ported(
-                    "structured Callback objects (frameworks._common)", 10)
-        del epoch_steps  # only structured callbacks have epoch hooks
+        hooks = CallbackList(callbacks, context=context, trainer=self)
 
         depth = (int(TRAINING_DEFAULTS["prefetch"]) if prefetch is None
                  else int(prefetch))
@@ -497,7 +496,7 @@ class Trainer:
                 data_iter, device=self.device, depth=depth)
         defer = (bool(TRAINING_DEFAULTS["defer_metrics"])
                  if defer_metrics is None else bool(defer_metrics))
-        defer = defer and not callbacks
+        defer = defer and not hooks.callbacks
         cuda = self.device.type == "cuda"
 
         tracker = ThroughputTracker(
@@ -562,6 +561,10 @@ class Trainer:
             extras["goodput_fraction"] = step_seconds / wall if wall else 0.0
             return extras
 
+        hooks.on_train_begin()
+        epoch = 0
+        if epoch_steps:
+            hooks.on_epoch_begin(0)
         try:
             for step in range(steps):
                 if preemption_guard is not None and preemption_guard.agreed():
@@ -585,6 +588,10 @@ class Trainer:
                     if context is not None and hasattr(context,
                                                        "log_result"):
                         context.log_result("preempted", True)
+                    # a preempted run still finalizes its callbacks (close
+                    # writers, log the tensorboard dir): their artifacts
+                    # are what survives the eviction
+                    hooks.on_train_end(last)
                     return last
                 t_input = time.perf_counter()
                 tokens, targets = next(data_iter)
@@ -605,30 +612,48 @@ class Trainer:
                     step_seconds += elapsed
                 tracker.note_step(tokens.shape[0] * seq_len)
                 log_point = (step + 1) % log_every == 0 or step == steps - 1
-                if not log_point:
-                    continue
-                if defer:
+                # non-log steps hand callbacks the raw device metrics: no
+                # float() there, so the host keeps dispatching ahead of
+                # the device; a callback that reads a value pays its sync
+                step_metrics: dict = dict(metrics)
+                if log_point and defer:
                     extras = _extras(seq_len)
                     if pending is not None:
                         last = _drain(pending)
                     pending = _stage(metrics, extras)
-                else:
+                elif log_point:
                     # read first (a device sync), then the rate: the
                     # window then holds the finished steps only
-                    view = {k: float(v) for k, v in metrics.items()}
-                    view.update(_extras(seq_len))
-                    view["step"] = self.state.step
-                    last = _log_view(view)
-                    for cb in callbacks:
-                        try:
-                            cb(step, view, self)
-                        except Exception as exc:  # noqa: BLE001 - a broken
-                            # callback must not kill the run it observes
-                            logger.warning("callback failed",
-                                           callback=repr(cb), error=str(exc))
+                    step_metrics = {k: float(v) for k, v in metrics.items()}
+                    step_metrics.update(_extras(seq_len))
+                    step_metrics["step"] = self.state.step
+                    last = _log_view(step_metrics)
+                if not hooks.callbacks:
+                    continue
+                # one process: a stop vote takes effect in its own step
+                # (the reference agrees it across hosts at log points)
+                stopped = not hooks.on_step_end(step, step_metrics,
+                                                log_point=log_point)
+                if epoch_steps and ((step + 1) % epoch_steps == 0
+                                    or step == steps - 1 or stopped):
+                    # epoch hooks always see host floats
+                    epoch_view = step_metrics if log_point else \
+                        {k: float(v) for k, v in metrics.items()}
+                    if not hooks.on_epoch_end(epoch, epoch_view):
+                        stopped = True
+                    epoch += 1
+                    if not stopped and step < steps - 1:
+                        hooks.on_epoch_begin(epoch)
+                if stopped:
+                    last = dict(last) if last else \
+                        {k: float(v) for k, v in metrics.items()}
+                    last["stopped_early"] = True
+                    last.setdefault("step", self.state.step)
+                    break
             if pending is not None:
                 last = _drain(pending)
                 pending = None
+            hooks.on_train_end(last)
             return last
         finally:
             if pending is not None:

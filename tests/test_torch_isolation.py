@@ -1,6 +1,7 @@
 """The port package stands alone: nothing under mlrun_tpu_torch/ (its obs/,
 chaos/ and common/ copies, the engine fleet, the canary router, the
-health scorer and the model families included, nor the chip smoke script
+health scorer, the model families, the structured callbacks and the
+HuggingFace loader included, nor the chip smoke script
 and the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model and training paths pulls
 neither into the process."""
@@ -52,6 +53,9 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.models.moe, mlrun_tpu_torch.models.bert\n"
         "import mlrun_tpu_torch.models.vit, mlrun_tpu_torch.models.t5\n"
         "import mlrun_tpu_torch.frameworks.torch.auto_trainer\n"
+        "import mlrun_tpu_torch.frameworks._common.callbacks\n"
+        "import mlrun_tpu_torch.frameworks.huggingface\n"
+        "import mlrun_tpu_torch.training.data\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN,))

@@ -447,10 +447,20 @@ def test_unported_server_features_raise(kwargs):
     fleet's knobs landed with item 6's engine fleet: the server builds
     what the reference's builds (a fleet only for replicas >= 2 or
     prefill_replicas on a batching server; tests/test_torch_fleet.py holds
-    the fleet against the reference's)."""
+    the fleet against the reference's). ``hf_model`` and ``tokenizer``
+    landed with item 10: the server keeps them for its load, as the
+    reference's does (tests/test_torch_hf.py and
+    tests/test_torch_tokenizer.py load local ones; nothing is fetched
+    here)."""
     args = dict(continuous_batching=True, paged=True, device="cpu",
                 max_len=64, page_size=8, warmup=False)
     args.update(kwargs)
+    if "hf_model" in kwargs or "tokenizer" in kwargs:
+        server = tllm.LLMModelServer(**args)
+        assert server.hf_model == kwargs.get("hf_model")
+        assert server.tokenizer_id == kwargs.get("tokenizer")
+        assert server.engine is None and not server.ready
+        return
     builds = next((FLEET_KNOB_BUILDS[key] for key in kwargs
                    if key in FLEET_KNOB_BUILDS), None)
     if builds is None:

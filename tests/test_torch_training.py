@@ -375,14 +375,12 @@ def test_unported_options_raise_not_implemented():
             ttrain.Trainer(tllama.tiny_llama(), ttrain.TrainConfig(**kw),
                            device="cpu")
     trainer = _port_trainer()
-
-    class Structured:
-        def on_step_end(self, step, metrics):
-            return None
-
+    # structured callbacks landed with item 10 (tests/test_torch_callbacks.py
+    # holds them against the reference); an object that is neither a
+    # Callback nor callable is refused as the reference refuses it
     stream = tdata.synthetic_token_stream(2, 8, 512)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trainer.fit(stream, 1, callbacks=[Structured()])
+    with pytest.raises(TypeError, match="neither a Callback nor callable"):
+        trainer.fit(stream, 1, callbacks=[object()])
     with pytest.raises(NotImplementedError, match="item 7"):
         trainer.fit(stream, 1, elastic_guard=object())
 
@@ -485,5 +483,7 @@ def test_auto_trainer_returns_the_reference_metric_keys(tmp_path):
     again = tauto.train(model="tiny", steps=1, batch_size=8, seq_len=16,
                         device="cpu", checkpoint_dir=str(tmp_path / "ck"))
     assert again["step"] == 4.0
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # text datasets landed with item 10 (tests/test_torch_tokenizer.py);
+    # one without a tokenizer is refused as the reference refuses it
+    with pytest.raises(ValueError, match="need a tokenizer= id"):
         tauto.train(model="tiny", dataset="corpus.txt", device="cpu")
