@@ -137,15 +137,37 @@ exits non-zero and never prints the final line):
              once a layer a batch and no backward, the host's RSS rising
              by less than the checkpoint's params (the optimizer state is
              never read).
+14. parallel - training on many GPUs at world size 1 (the card's machine
+             has one GPU, and NCCL refuses two ranks on one): on a
+             one-rank NCCL group, Trainer.fit at Llama-3.2-1B (B 4 x
+             2048, all 16 layers) for 4 steps on the mesh {"data": 1,
+             "fsdp": 1} (DTensor state, gathered for the step, gradients
+             reduced back) against the no-mesh Trainer on the same seed
+             and batches, in turns (no mesh, mesh, mesh, no mesh):
+             losses and norms bit-equal (else within TRAIN_LOSS_REL_TOL,
+             said), the flash launched the counted times, the step times
+             of both; the sharded state saved at step
+             2 through torch.distributed.checkpoint (seconds and bytes,
+             beside a torch.save of the same state) and resumed by the
+             environment's directive in a fresh Trainer, its steps 3-4
+             bit-equal to the uninterrupted run's; then every rank's ring
+             hops of an 8192-token sequence as 4 shards (H 32 / 8, D 64,
+             bf16) run in ring order in this process: exactly 10 forward
+             and 10 backward flash launches, o and lse within the kernel
+             phase's TOL of the flash over the whole sequence, dq/dk/dv
+             within a bound from each shard's hop count, and the summed
+             hop times beside the full flash's. One line says why
+             Ulysses has no check of its own at world size 1.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
 over the serve and entry_points paths, the training flash's over the
-train, families and entry_points paths) and, last, {"ok": true,
+train, families, entry_points and parallel paths) and, last, {"ok": true,
 "device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
 ``--phases build,lora`` the adapters, ``--phases build,fleet`` the engine
 fleet, ``--phases build,families`` the model families,
-``--phases build,entry_points`` the entry points); the
+``--phases build,entry_points`` the entry points, ``--phases
+build,parallel`` training on many GPUs at world size 1); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -4271,12 +4293,308 @@ def phase_entry_points(seed: int, card: str, train_step_ms=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: training on many GPUs, at world size 1 on this card: the
+# sharded step, the sharded checkpoint with resume, and the ring's hops
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 4
+PAR_SAVE_STEP = 2
+PAR_MESH = {"data": 1, "fsdp": 1}
+# the 1B model's attention: 4 sequence shards of 2048
+RING_SHARDS, RING_SEQ, RING_HEADS, RING_KV, RING_HEAD_DIM = 4, 8192, 32, 8, 64
+# ring dq/dk/dv against the flash backward over the whole sequence (bf16,
+# the same q, k, v, dO and the ring's own o and lse). The full kernel
+# rounds one float32 sum X to bf16 once: within half a bf16 ulp of X plus
+# the float32 order floor (the kernels phase's bound). The ring adds n
+# float32-summed partials, each already rounded to bf16 by its hop's
+# kernel (half an ulp of the partial each), then rounds the sum once. A
+# partial is taken to be no larger than the tensor's largest gradient
+# ``top``. So |ring - full| <= 2 half ulps of |full| (both final
+# roundings) + n half ulps of top + two floors of top, where n is the
+# number of hops summed into that shard: rank r's dq sums r + 1 hops,
+# shard s's dk/dv the P - s ranks at or after it.
+RING_GRAD_FLOORS = 2
+
+
+def _par_trainer(config, mesh_shape, seed):
+    from mlrun_tpu_torch.training import TrainConfig, Trainer
+
+    trainer = Trainer(config, TrainConfig(
+        learning_rate=1e-3, warmup_steps=1, total_steps=PAR_STEPS,
+        loss_chunk=LOSS_CHUNK, mesh_shape=mesh_shape), device="cuda")
+    trainer.init(seed)
+    return trainer
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def _par_sharded_leg(seed: int, card: str, train_step_ms, work: str
+                     ) -> dict:
+    """(a) Trainer.fit at Llama-3.2-1B on the mesh {"data": 1, "fsdp": 1}
+    (a world-size-1 NCCL group) against the no-mesh Trainer on the same
+    seed and batches; (b) the sharded state saved at step 2 through DCP
+    and resumed by the environment directive in a fresh Trainer, whose
+    steps 3-4 must equal the uninterrupted run's. Returns the flash
+    launches of both main paths."""
+    import shutil
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training import CheckpointManager
+    from mlrun_tpu_torch.training.checkpoint import (
+        RESUME_CHECKPOINT_ENV,
+        RESUME_STEP_ENV,
+    )
+    from mlrun_tpu_torch.training.data import synthetic_token_stream
+    from mlrun_tpu_torch.training.train import tree_leaves
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    stream = synthetic_token_stream(TRAIN_BATCH, TRAIN_SEQ, config.vocab_size,
+                                    seed=seed)
+    batches = [next(stream) for _ in range(PAR_STEPS)]
+    per_pass = config.n_layers * PAR_STEPS
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    runs = {"no_mesh": [], "mesh": []}
+    # in turns (no mesh, mesh, mesh, no mesh): the first trainer of a
+    # process also pays the allocator's growth, so one pair would not
+    # tell the sharded path's overhead from the order
+    for leg, shape in (("no_mesh", None), ("mesh", PAR_MESH),
+                       ("mesh", PAR_MESH), ("no_mesh", None)):
+        trainer = _par_trainer(config, shape, seed)
+        trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
+        # -- the main path, counted: every count reset right before it -----
+        _build.reset_launch_counts()
+        trainer.fit(iter(batches), PAR_STEPS, log_every=1, prefetch=2)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        history = trainer.metrics_history
+        run = {
+            "losses": [m["loss"] for m in history],
+            "grad_norms": [m["grad_norm"] for m in history],
+            "step_ms": tokens_per_step / history[-1]["tokens_per_sec"] * 1e3,
+            "launches": launches,
+            "dtensor_state": all(isinstance(leaf, DTensor) for leaf in
+                                 tree_leaves(trainer.state.params)),
+        }
+        _exact_launches(f"parallel {leg}", launches, want)
+        if leg == "no_mesh" and not runs[leg]:
+            # the single-device checkpoint of the same state, for the DCP
+            # save's comparison on this card
+            plain_dir = os.path.join(work, "plain")
+            started = time.perf_counter()
+            CheckpointManager(plain_dir).save(PAR_STEPS, trainer.state)
+            run["torch_save_s"] = time.perf_counter() - started
+            run["torch_save_bytes"] = _dir_bytes(plain_dir)
+            shutil.rmtree(plain_dir, ignore_errors=True)
+        runs[leg].append(run)
+        del trainer, history
+        _release()
+    plain, mesh = runs["no_mesh"][0], runs["mesh"][0]
+    others = runs["no_mesh"] + runs["mesh"]
+    bit_equal = all(r["losses"] == plain["losses"]
+                    and r["grad_norms"] == plain["grad_norms"]
+                    for r in others)
+    loss_rel = max(abs(a - b) / abs(a) for r in others
+                   for a, b in zip(plain["losses"], r["losses"]))
+    mesh_ms = [r["step_ms"] for r in runs["mesh"]]
+    plain_ms = [r["step_ms"] for r in runs["no_mesh"]]
+    row = {"phase": "parallel", "leg": "sharded_step", "model": "llama3-1b",
+           "layers": config.n_layers, "card": card, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "mesh": PAR_MESH, "backend": "nccl",
+           "world_size": 1, "steps": PAR_STEPS,
+           "losses_no_mesh": plain["losses"], "losses_mesh": mesh["losses"],
+           "grad_norms_no_mesh": plain["grad_norms"],
+           "grad_norms_mesh": mesh["grad_norms"], "bit_equal": bit_equal,
+           "loss_rel_err": loss_rel, "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+           "state_is_dtensor": all(r["dtensor_state"]
+                                   for r in runs["mesh"]),
+           "order": ["no_mesh", "mesh", "mesh", "no_mesh"],
+           "step_ms_mesh": mesh_ms, "step_ms_no_mesh": plain_ms,
+           "mesh_overhead_ms": sum(mesh_ms) / 2 - sum(plain_ms) / 2,
+           "train_phase_step_ms": train_step_ms,
+           "launches": mesh["launches"], "expected_launches": want}
+    emit(row)
+    if not row["state_is_dtensor"]:
+        fail("parallel: the mesh trainer's params are not DTensors")
+    if not bit_equal and not loss_rel <= TRAIN_LOSS_REL_TOL:
+        fail(f"parallel: mesh losses {mesh['losses']} vs no mesh "
+             f"{plain['losses']}: relative error {loss_rel}")
+
+    # -- (b) the sharded checkpoint and the resume directive ----------------
+    directory = os.path.join(work, "dcp")
+    manager = CheckpointManager(directory)
+    _build.reset_launch_counts()
+    first = _par_trainer(config, PAR_MESH, seed)
+    first.fit(iter(batches[:PAR_SAVE_STEP]), PAR_SAVE_STEP, log_every=1,
+              prefetch=2)
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    manager.save(PAR_SAVE_STEP, first.state, force=True)
+    save_s = time.perf_counter() - started
+    save_bytes = _dir_bytes(os.path.join(directory, str(PAR_SAVE_STEP)))
+    first_losses = [m["loss"] for m in first.metrics_history]
+    del first
+    _release()
+    os.environ[RESUME_CHECKPOINT_ENV] = directory
+    os.environ[RESUME_STEP_ENV] = str(PAR_SAVE_STEP)
+    try:
+        second = _par_trainer(config, PAR_MESH, seed)
+        second.fit(iter(batches[PAR_SAVE_STEP:]), PAR_STEPS - PAR_SAVE_STEP,
+                   log_every=1, prefetch=2, checkpoint_manager=manager)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop(RESUME_CHECKPOINT_ENV, None)
+        os.environ.pop(RESUME_STEP_ENV, None)
+    resume_launches = _build.launch_counts()
+    resumed = [m["loss"] for m in second.metrics_history]
+    badput = second.goodput.summary()["badput"]
+    ck_row = {"phase": "parallel", "leg": "sharded_checkpoint",
+              "model": "llama3-1b", "card": card, "mesh": PAR_MESH,
+              "save_step": PAR_SAVE_STEP, "final_step": second.state.step,
+              "dcp_save_s": save_s, "dcp_bytes": save_bytes,
+              "dcp_restore_s": badput.get("checkpoint"),
+              "torch_save_s": plain["torch_save_s"],
+              "torch_save_bytes": plain["torch_save_bytes"],
+              "losses_before_save": first_losses, "losses_resumed": resumed,
+              "losses_uninterrupted": mesh["losses"],
+              "resumed_bit_equal": resumed == mesh["losses"][PAR_SAVE_STEP:],
+              "launches": resume_launches, "expected_launches": want}
+    emit(ck_row)
+    del second
+    _release()
+    if first_losses != mesh["losses"][:PAR_SAVE_STEP]:
+        fail(f"parallel checkpoint: steps before the save {first_losses} "
+             f"differ from the uninterrupted run {mesh['losses']}")
+    if not ck_row["resumed_bit_equal"] or ck_row["final_step"] != PAR_STEPS:
+        fail(f"parallel checkpoint: resumed steps {resumed} (to step "
+             f"{ck_row['final_step']}) differ from the uninterrupted run's "
+             f"{mesh['losses'][PAR_SAVE_STEP:]}")
+    _exact_launches("parallel checkpoint", resume_launches, want)
+    return {name: sum(r["launches"][name] for r in runs["mesh"])
+            + resume_launches[name] for name in TRAINING_KERNELS}
+
+
+def _par_ring_leg(seed: int, card: str) -> dict:
+    """(c) every rank's ring hops in ring order, in this process, at the
+    1B attention shape, against the flash over the whole sequence."""
+    import torch
+
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.ops import attention as at
+    from mlrun_tpu_torch.ops.ring_attention import ring_hops_bwd, ring_hops_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(heads):
+        return torch.randn((1, RING_SEQ, heads, RING_HEAD_DIM), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = randn(RING_HEADS), randn(RING_KV), randn(RING_KV), \
+        randn(RING_HEADS)
+    shard = RING_SEQ // RING_SHARDS
+    qs, ks, vs, dos = ([t[:, i * shard:(i + 1) * shard].contiguous()
+                        for i in range(RING_SHARDS)] for t in (q, k, v, do))
+    # -- the hops, counted: every count reset right before them ------------
+    _build.reset_launch_counts()
+    outs = ring_hops_fwd(qs, ks, vs)
+    os_, lses = [o for o, _ in outs], [lse for _, lse in outs]
+    dqs, dks, dvs = ring_hops_bwd(qs, ks, vs, os_, lses, dos)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    hops = RING_SHARDS * (RING_SHARDS + 1) // 2
+    want = {"flash_fwd": hops, "flash_bwd": hops}
+    o, lse = torch.cat(os_, dim=1), torch.cat(lses, dim=2)
+    o_full, lse_full = at.flash_fwd(q, k, v, True)
+    errs = {"o": _err(o, o_full), "lse": _err(lse, lse_full)}
+    full = at.flash_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    grad_errs, over = {}, {}
+    for name, parts, ref in (("dq", dqs, full[0]), ("dk", dks, full[1]),
+                             ("dv", dvs, full[2])):
+        top = float(ref.abs().max())
+        worst, err = 0.0, 0.0
+        for i, got in enumerate(parts):
+            n = i + 1 if name == "dq" else RING_SHARDS - i
+            part = ref[:, i * shard:(i + 1) * shard].float()
+            bound = (part.abs() * 2 * BF16_HALF_ULP
+                     + (n * BF16_HALF_ULP + RING_GRAD_FLOORS
+                        * BF16_GRAD_FLOOR) * top)
+            diff = (got.float() - part).abs()
+            worst = max(worst, float((diff / bound).max()))
+            err = max(err, float(diff.max()))
+        grad_errs[name], over[name] = err, worst
+    ring_fwd_ms = time_ms(lambda: ring_hops_fwd(qs, ks, vs), iters=5)
+    full_fwd_ms = time_ms(lambda: at.flash_fwd(q, k, v, True), iters=5)
+    ring_bwd_ms = time_ms(lambda: ring_hops_bwd(qs, ks, vs, os_, lses, dos),
+                          iters=5)
+    full_bwd_ms = time_ms(lambda: at.flash_bwd(q, k, v, o, lse, do, True),
+                          iters=5)
+    row = {"phase": "parallel", "leg": "ring_hops", "card": card,
+           "B": 1, "S": RING_SEQ, "shards": RING_SHARDS, "H": RING_HEADS,
+           "Hkv": RING_KV, "D": RING_HEAD_DIM, "dtype": "bf16",
+           "launches": launches, "expected_launches": want,
+           "errs": errs, "tol": TOL["bf16"], "grad_max_abs_err": grad_errs,
+           "grad_err_over_bound": over,
+           "ring_fwd_ms": ring_fwd_ms, "full_fwd_ms": full_fwd_ms,
+           "ring_bwd_ms": ring_bwd_ms, "full_bwd_ms": full_bwd_ms}
+    emit(row)
+    _exact_launches("parallel ring hops", launches, want)
+    _check(f"ring hops S {RING_SEQ} as {RING_SHARDS} shards", "bf16", errs)
+    for name, worst in over.items():
+        if not worst <= 1.0:
+            fail(f"ring hops {name}: error {worst} x its bound "
+                 f"(max_abs_err {grad_errs[name]})")
+    return launches
+
+
+def phase_parallel(seed: int, card: str, train_step_ms=None) -> dict:
+    """The sharded step and checkpoint at world size 1 on an NCCL group,
+    then the ring's hops; returns the flash launches of every leg."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mlrun_tpu_torch.parallel.mesh import initialize_distributed
+
+    started = time.perf_counter()
+    initialize_distributed(device="cuda")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"parallel: expected a world-size-1 NCCL group, got "
+             f"{dist.get_backend()} x {dist.get_world_size()}")
+    work = tempfile.mkdtemp(prefix="mlt-parallel-")
+    try:
+        launches = _par_sharded_leg(seed, card, train_step_ms, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        dist.destroy_process_group()
+    ring = _par_ring_leg(seed, card)
+    launches = {name: launches[name] + ring[name]
+                for name in TRAINING_KERNELS}
+    emit({"phase": "parallel", "leg": "ulysses", "card": card,
+          "note": "at world size 1 Ulysses' all-to-alls are copies and its "
+                  "attention is flash_attention_mlt over the whole "
+                  "sequence, the train phase's flash path: no check of "
+                  "its own"})
+    emit({"phase": "parallel", "card": card, "launches": launches,
+          "phase_s": time.perf_counter() - started})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
-              "fleet", "families", "entry_points")
+              "fleet", "families", "entry_points", "parallel")
 
 
 def main(argv=None) -> int:
@@ -4369,6 +4687,13 @@ def main(argv=None) -> int:
         # the serving and training kernels' launches on the entry points
         for name, count in phase_entry_points(args.seed, card,
                                               train_step_ms).items():
+            launches[name] = launches.get(name, 0) + count
+        release()
+    if "parallel" in phases:
+        # the training flash kernels' launches on the sharded step, its
+        # checkpoint's resumed run and the ring's hops
+        for name, count in phase_parallel(args.seed, card,
+                                          train_step_ms).items():
             launches[name] = launches.get(name, 0) + count
         release()
     if set(phases) != set(ALL_PHASES):

@@ -79,6 +79,9 @@ class FaultPoints:
     # KVHandoff wire — a delay() models a slow fetch, an error falls back
     # to re-prefill from tokens
     llm_kv_fetch = "llm.kv_fetch"
+    # datastore reads and writes (datastore/base.py DataItem / DataStore)
+    datastore_read = "datastore.read"
+    datastore_write = "datastore.write"
 
     @staticmethod
     def all() -> list[str]:
@@ -89,6 +92,7 @@ class FaultPoints:
             FaultPoints.llm_prefix_evict, FaultPoints.llm_adapter_load,
             FaultPoints.llm_kv_demote, FaultPoints.llm_kv_promote,
             FaultPoints.llm_kv_fetch,
+            FaultPoints.datastore_read, FaultPoints.datastore_write,
         ]
 
 

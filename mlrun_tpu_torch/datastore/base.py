@@ -1,0 +1,189 @@
+"""Datastore base classes — counterpart of ``mlrun_tpu/datastore/base.py``.
+
+A ``DataStore`` is a scheme-keyed backend (``file``, ``memory``); a
+``DataItem`` is the lazy handle the training and serving entry points
+resolve a url into. Reads and writes fire the ``datastore.read`` /
+``datastore.write`` fault points of the port's own ``chaos`` registry.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import tempfile
+from urllib.parse import urlparse
+
+from ..chaos import fire as chaos_fire
+
+
+class FileStats:
+    def __init__(self, size: int | None = None, modified: float | None = None,
+                 content_type: str | None = None):
+        self.size = size
+        self.modified = modified
+        self.content_type = content_type
+
+    def __repr__(self):
+        return f"FileStats(size={self.size}, modified={self.modified})"
+
+
+class DataStore:
+    """Abstract storage backend keyed by url scheme."""
+
+    kind = "base"
+
+    def __init__(self, parent, name: str, kind: str, endpoint: str = ""):
+        self._parent = parent
+        self.name = name
+        self.kind = kind
+        self.endpoint = endpoint
+
+    # -- required backend api ---------------------------------------------
+    def get(self, key: str, size: int | None = None, offset: int = 0) -> bytes:
+        raise NotImplementedError
+
+    def put(self, key: str, data: bytes | str, append: bool = False):
+        raise NotImplementedError
+
+    def stat(self, key: str) -> FileStats:
+        raise NotImplementedError
+
+    def listdir(self, key: str) -> list[str]:
+        raise NotImplementedError
+
+    def delete(self, key: str):
+        raise NotImplementedError
+
+    def exists(self, key: str) -> bool:
+        try:
+            self.stat(key)
+            return True
+        except (FileNotFoundError, KeyError):
+            return False
+
+    # -- derived helpers ---------------------------------------------------
+    def download(self, key: str, target_path: str):
+        chaos_fire("datastore.read", kind=self.kind, key=key)
+        data = self.get(key)
+        os.makedirs(os.path.dirname(target_path) or ".", exist_ok=True)
+        with open(target_path, "wb") as fp:
+            fp.write(data if isinstance(data, bytes) else data.encode())
+
+
+class DataItem:
+    """Lazy data handle (the reference's ``DataItem``)."""
+
+    def __init__(self, key: str, store: DataStore, subpath: str, url: str = "",
+                 meta: dict | None = None):
+        self._key = key
+        self._store = store
+        self._path = subpath
+        self._url = url
+        self._meta = meta or {}
+        self._local_path = ""
+
+    @property
+    def key(self) -> str:
+        return self._key
+
+    @property
+    def kind(self) -> str:
+        return self._store.kind
+
+    @property
+    def meta(self) -> dict:
+        return self._meta
+
+    @property
+    def url(self) -> str:
+        return self._url
+
+    @property
+    def store(self) -> DataStore:
+        return self._store
+
+    @property
+    def suffix(self) -> str:
+        _, ext = os.path.splitext(self._path)
+        return ext
+
+    def get(self, size=None, offset=0, encoding: str | None = None):
+        chaos_fire("datastore.read", kind=self.kind, key=self._path,
+                   url=self._url)
+        body = self._store.get(self._path, size=size, offset=offset)
+        if encoding and isinstance(body, bytes):
+            body = body.decode(encoding)
+        return body
+
+    def put(self, data, append: bool = False):
+        chaos_fire("datastore.write", kind=self.kind, key=self._path,
+                   url=self._url)
+        self._store.put(self._path, data, append=append)
+
+    def delete(self):
+        self._store.delete(self._path)
+
+    def download(self, target_path: str):
+        self._store.download(self._path, target_path)
+
+    def stat(self) -> FileStats:
+        return self._store.stat(self._path)
+
+    def exists(self) -> bool:
+        return self._store.exists(self._path)
+
+    def listdir(self) -> list[str]:
+        return self._store.listdir(self._path)
+
+    def local(self) -> str:
+        """A local file path (or directory, for a key prefix) holding the
+        item: the path itself on the file store, else a temporary copy."""
+        if self._store.kind == "file":
+            return self._path
+        if self._local_path:
+            return self._local_path
+        if not self._store.exists(self._path):
+            # a directory prefix: mirror every key under it
+            entries = self._store.listdir(self._path)
+            if entries:
+                local_dir = tempfile.mkdtemp(prefix="mlt-item-")
+                prefix = self._path.rstrip("/")
+                for entry in entries:
+                    self._store.download(f"{prefix}/{entry}",
+                                         os.path.join(local_dir, entry))
+                self._local_path = local_dir
+                return local_dir
+        temp = tempfile.NamedTemporaryFile(suffix=self.suffix or ".tmp",
+                                           delete=False)
+        temp.close()
+        self.download(temp.name)
+        self._local_path = temp.name
+        return self._local_path
+
+    def remove_local(self):
+        """Drop the temporary copy ``local()`` made (none on the file
+        store)."""
+        if self._local_path and self._store.kind != "file":
+            if os.path.isdir(self._local_path):
+                shutil.rmtree(self._local_path, ignore_errors=True)
+            elif os.path.exists(self._local_path):
+                os.remove(self._local_path)
+            self._local_path = ""
+
+    def __str__(self):
+        return self._url
+
+    def __repr__(self):
+        return f"DataItem({self._url})"
+
+
+def parse_url(url: str) -> tuple[str, str, str]:
+    """Return (scheme, endpoint, path)."""
+    parsed = urlparse(url)
+    scheme = parsed.scheme or "file"
+    endpoint = parsed.netloc
+    path = parsed.path
+    if scheme == "file" and endpoint:
+        path = endpoint + path
+        endpoint = ""
+    return scheme, endpoint, path

@@ -2,18 +2,20 @@
 ``mlrun_tpu/frameworks/jax/auto_trainer.py``.
 
 ``train(...)`` runs a full fine-tune of a Llama-family model (MoE with
-``moe_experts``) or trains a LoRA adapter on one device (CUDA unless
+``moe_experts``) or trains a LoRA adapter (CUDA unless
 ``device="cpu"``): streams data (synthetic, a tokens ``.npy`` or a text
 file through a tokenizer), warms the step up (kernel build), fits with
 per-step metrics logged to a duck-typed run context and the structured
 callbacks (checkpoint every N steps, early stop, TensorBoard, the
 caller's), checkpoints with ``training.CheckpointManager`` and exits
 cleanly on SIGTERM, and returns the final metrics with ``train_time_s``.
-``evaluate(...)`` averages the loss metrics over a few batches. The
-handler contract is the reference's, with the same defaults; features the
-port does not have yet (meshes over many devices, context and pipeline
-parallelism, datastore urls) raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+``evaluate(...)`` averages the loss metrics over a few batches. A
+dataset may be a datastore url (``file://``). ``mesh_shape``
+trains (and evaluates) over a ``data`` x ``fsdp`` mesh of the process
+group, ``context_parallel`` over a ``seq`` axis. The handler contract is
+the reference's, with the same defaults; features the port does not have
+yet (tensor, pipeline and expert parallelism) raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import time
 from typing import Iterator
 
 from ...models.llama import MODEL_PRESETS, LlamaConfig
-from ...serving.resilience import local_path
 from ...utils import logger
 
 __all__ = ["MODEL_PRESETS", "TorchTrainerInterface", "apply_mlrun",
@@ -87,9 +88,9 @@ def _resolve_model_config(model: str | LlamaConfig | dict,
 
 def _make_stream(dataset: str | None, tokenizer: str | None, batch_size: int,
                  seq_len: int, vocab_size: int, seed: int) -> Iterator:
-    """A local dataset (tokens ``.npy``, or text through the tokenizer
-    ``tokenizer`` names) as an LM batch stream; the synthetic stream when
-    no dataset is given. A datastore url is not ported yet."""
+    """A dataset path or datastore url (tokens ``.npy``, or text through
+    the tokenizer ``tokenizer`` names) as an LM batch stream; the
+    synthetic stream when no dataset is given."""
     from ...training.data import (
         array_token_stream,
         synthetic_token_stream,
@@ -101,7 +102,9 @@ def _make_stream(dataset: str | None, tokenizer: str | None, batch_size: int,
                                       seed=seed)
     import numpy as np
 
-    local = local_path(dataset, "dataset")
+    from ...datastore import store_manager
+
+    local = store_manager.object(url=dataset).local()
     if local.endswith(".npy"):
         return array_token_stream(np.load(local), batch_size, seq_len,
                                   seed=seed)
@@ -167,10 +170,6 @@ def train(context=None,
     )
 
     model_config = _resolve_model_config(model, model_overrides)
-    if moe_experts and not mesh_shape:
-        # the reference's expert default puts gcd(experts, devices) on
-        # 'expert' and the rest on 'fsdp'; the port trains on one device
-        mesh_shape = {"expert": 1, "fsdp": 1}
     train_config = TrainConfig(
         learning_rate=learning_rate, total_steps=steps, lora_rank=lora_rank,
         lora_alpha=lora_alpha, grad_accum=grad_accum, mesh_shape=mesh_shape,
@@ -262,11 +261,15 @@ def evaluate(context=None,
              device: str | None = None) -> dict:
     """Average ``loss_fn``'s metrics over ``steps`` batches into
     ``eval_<key>``, on params restored from the latest checkpoint under
-    ``checkpoint_dir`` (else drawn from ``seed``); runs on CUDA unless
-    ``device="cpu"``."""
+    ``checkpoint_dir`` (either form; else drawn from ``seed``); runs on
+    CUDA unless ``device="cpu"``. With ``mesh_shape`` every rank holds the
+    params, evaluates its slice of each batch (over ``data`` x ``fsdp``)
+    and the metrics are averaged over the ranks."""
     import torch
 
     from ...models import llama as llama_mod
+    from ...parallel.mesh import make_mesh
+    from ...parallel.sharding import batch_sharding, local_part, mean_metrics
     from ...serving.llm import default_device
     from ...training import CheckpointManager
     from ...training.data import to_device
@@ -275,6 +278,7 @@ def evaluate(context=None,
     model_config = _resolve_model_config(model, model_overrides)
     _check_ported(model_config, TrainConfig(mesh_shape=mesh_shape))
     device = default_device(device)
+    mesh = make_mesh(mesh_shape, device) if mesh_shape else None
     if checkpoint_dir:
         # the params alone: the optimizer state never reaches the host
         params = CheckpointManager(checkpoint_dir).restore_params(
@@ -289,8 +293,13 @@ def evaluate(context=None,
     with torch.no_grad():
         for _ in range(steps):
             tokens, targets = to_device(next(stream), device)
+            if mesh is not None:
+                tokens, targets = (local_part(x, mesh, batch_sharding(mesh))
+                                   for x in (tokens, targets))
             _, metrics = llama_mod.loss_fn(model_config, params, tokens,
                                            targets)
+            if mesh is not None:
+                metrics = mean_metrics(metrics, mesh.size())
             for key, value in metrics.items():
                 totals[key] = totals.get(key, 0.0) + float(value)
     results = {f"eval_{k}": v / steps for k, v in totals.items()}

@@ -355,7 +355,8 @@ def _proj(h, w, lora, target):
     return out
 
 
-def _layer_body(config: LlamaConfig, x, lp, cos, sin, lora=None):
+def _layer_body(config: LlamaConfig, x, lp, cos, sin, lora=None,
+                attention_fn=None):
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
     q = _proj(h, lp["wq"], lora, "wq").reshape(b, s, config.n_heads,
@@ -366,7 +367,10 @@ def _layer_body(config: LlamaConfig, x, lp, cos, sin, lora=None):
                                                config.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = attention(q, k, v, causal=True, impl=config.attention_impl)
+    if attention_fn is None:
+        attn = attention(q, k, v, causal=True, impl=config.attention_impl)
+    else:
+        attn = attention_fn(q, k, v)
     x = x + _proj(attn.reshape(b, s, config.qkv_dim), lp["wo"], lora, "wo")
     h = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
     gate = _proj(h, lp["w_gate"], lora, "w_gate")
@@ -376,8 +380,11 @@ def _layer_body(config: LlamaConfig, x, lp, cos, sin, lora=None):
 
 def hidden_states(config: LlamaConfig, params: Params, tokens: torch.Tensor,
                   positions: torch.Tensor | None = None,
-                  lora: Params | None = None) -> torch.Tensor:
+                  lora: Params | None = None,
+                  attention_fn=None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden [B, S, E] (no lm head).
+    ``attention_fn(q, k, v)`` replaces every layer's causal attention
+    (the context-parallel ring and Ulysses, models/llama_cp.py).
 
     With ``config.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant) with the ``remat_policy``'s
@@ -408,9 +415,9 @@ def hidden_states(config: LlamaConfig, params: Params, tokens: torch.Tensor,
                   for target, parts in lora_layers.items()}
         if remat:
             x = checkpoint(_layer_body, config, x, lp, cos, sin, ll,
-                           use_reentrant=False, **kwargs)
+                           attention_fn, use_reentrant=False, **kwargs)
         else:
-            x = _layer_body(config, x, lp, cos, sin, ll)
+            x = _layer_body(config, x, lp, cos, sin, ll, attention_fn)
     return rms_norm(x, params["final_norm_scale"], config.norm_eps)
 
 

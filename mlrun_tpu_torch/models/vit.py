@@ -198,12 +198,16 @@ def make_train_step(config: ViTConfig, optimizer, mesh=None, rules=None):
     labels) -> (params, opt_state, {"loss", "accuracy", "grad_norm"}),
     the params and moments updated in place by ``optimizer`` (the port's
     ``AdamW``). ``rules`` shard the reference's step over a mesh; a mesh
-    waits for training on many GPUs."""
+    (the families' sharded steps) is not ported yet."""
+    from ..serving.resilience import not_ported
     from ..training.train import make_loss_step
+
+    if mesh is not None:
+        raise not_ported("the ViT family's sharded train step (mesh)", 7)
 
     del rules
 
     def loss(params, images, labels):
         return loss_fn(config, params, images, labels)
 
-    return make_loss_step(loss, optimizer, mesh, with_grad_norm=True)
+    return make_loss_step(loss, optimizer, with_grad_norm=True)

@@ -6,9 +6,11 @@ names and labels (``mlt_*``), so one scrape config reads both packages.
 This package owns the canonical engine families so every render exposes
 the same schema before a sample lands. Producers import the family
 objects from here; consumers render ``REGISTRY``. ``health`` holds the
-fail-slow replica scorer of the engine fleet. The reference's federation,
-SLO, time-series, goodput, trace-view and debug modules belong to item 6's
-remainder and the glue item of the port queue (ROADMAP.md).
+fail-slow replica scorer of the engine fleet, ``goodput`` the training
+run's goodput ledger; the five ``mlt_train_*`` / ``mlt_training_mfu``
+families are the trainer's. The reference's federation, SLO, time-series,
+trace-view and debug modules belong to item 6's remainder and the glue
+item of the port queue (ROADMAP.md).
 """
 
 import threading as _threading
@@ -180,6 +182,28 @@ CHAOS_FIRED = REGISTRY.counter(
     "mlt_chaos_fired_total",
     "Armed fault injections whose effect actually fired, by point",
     labels=("point",), overflow="drop")
+
+# -- training ----------------------------------------------------------------
+TRAIN_MFU = REGISTRY.gauge(
+    "mlt_training_mfu", "Last computed model FLOPs utilization")
+TRAIN_STEP_TIME = REGISTRY.gauge(
+    "mlt_train_step_seconds", "Last step wall time per StepTimer",
+    labels=("timer",), overflow="drop")
+TRAIN_INPUT_WAIT = REGISTRY.counter(
+    "mlt_train_input_wait_seconds",
+    "Cumulative seconds the training loop spent blocked waiting on the "
+    "input pipeline (next(data_iter)) — a growing rate proves the run is "
+    "input-bound, not FLOPs-bound")
+TRAIN_H2D_BYTES = REGISTRY.counter(
+    "mlt_train_h2d_bytes_total",
+    "Host->device batch bytes issued by the training input path "
+    "(device prefetch stage or inline shard_batch)")
+TRAIN_COMPILE_SECONDS = REGISTRY.gauge(
+    "mlt_train_compile_seconds",
+    "Wall seconds of the last train-step build (Trainer.warmup or the "
+    "first fit step: the CUDA kernels' nvcc build and the first pass)")
+
+from .goodput import GoodputLedger  # noqa: E402,F401
 
 # -- memory (scrape-time) ----------------------------------------------------
 DEVICE_MEM = REGISTRY.gauge(

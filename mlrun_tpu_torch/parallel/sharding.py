@@ -1,0 +1,287 @@
+"""Sharding rules: logical parameter axes -> mesh axes — counterpart of
+``mlrun_tpu/parallel/sharding.py``.
+
+Every leaf of a parameter tree (a nested dict of tensors) is matched by
+its ``/``-joined path against the reference's rule table and gets a spec:
+one mesh axis name (or None) per tensor dim. On a ``DeviceMesh`` a spec
+becomes DTensor placements, one per mesh axis: ``Shard(d)`` where the
+spec names that axis at tensor dim ``d``, ``Replicate()`` elsewhere. Axes
+the mesh lacks, or holds at size 1, are dropped first, as the reference
+does, so one table serves every mesh.
+
+The step gathers the DTensor params into plain tensors (:func:`gather`),
+so no DTensor ever reaches a kernel launch, runs on the rank's part of
+the batch (:func:`local_part`) and brings the gradients back to the
+params' placements (:func:`reduce_to`).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Sequence
+
+from .mesh import mesh_shape
+
+# the reference's table for the Llama parameter tree (path -> spec);
+# first match wins
+DEFAULT_RULES: list[tuple[str, tuple]] = [
+    # lora adapters [layers, in, rank] / [layers, rank, out] — before the
+    # projection rules (paths look like "wq/lora_a"); rank unsharded
+    (r".*lora_a.*", (None, "fsdp", None)),
+    (r".*lora_b.*", (None, None, "tensor")),
+    (r".*scaling.*", ()),
+    # token embedding [vocab, embed]
+    (r".*embedding.*", ("fsdp", "tensor")),
+    # attention projections, stacked over layers: [layers, embed, heads*hd]
+    (r".*(wq|wk|wv).*", (None, "fsdp", "tensor")),
+    # attention output [layers, heads*head_dim, embed]
+    (r".*wo.*", (None, "tensor", "fsdp")),
+    # mlp in/gate [layers, embed, mlp]
+    (r".*(w_gate|w_up).*", (None, "fsdp", "tensor")),
+    # mlp out [layers, mlp, embed]
+    (r".*w_down.*", (None, "tensor", "fsdp")),
+    # norms / scales / biases — replicated
+    (r".*(norm|scale|bias).*", ()),
+    # final head [embed, vocab]
+    (r".*lm_head.*", ("tensor", "fsdp")),
+]
+
+
+def _map_with_path(fn, tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {key: _map_with_path(fn, value, f"{prefix}{key}/")
+                for key, value in tree.items()}
+    return fn(prefix[:-1], tree)
+
+
+def spec_for_path(path: str, rules: Sequence[tuple] | None = None,
+                  ndim: int | None = None) -> tuple:
+    """The first matching rule's spec, fitted to ``ndim`` (leading axes
+    dropped for unstacked leaves, trailing Nones added); ``()`` (replicate)
+    when no rule matches."""
+    rules = rules if rules is not None else DEFAULT_RULES
+    for pattern, spec in rules:
+        if re.match(pattern, path, flags=re.IGNORECASE):
+            spec = tuple(spec)
+            if ndim is not None:
+                if len(spec) > ndim:
+                    spec = spec[len(spec) - ndim:]
+                elif len(spec) < ndim:
+                    spec = spec + (None,) * (ndim - len(spec))
+            return spec
+    return ()
+
+
+def _filter_spec_to_mesh(spec: tuple, mesh) -> tuple:
+    """Drop axis names the mesh doesn't have, or has at size 1, and
+    trailing Nones (the reference's filter). ``mesh``: a DeviceMesh or an
+    {axis: size} dict."""
+    sizes = mesh_shape(mesh)
+
+    def kept(axis):
+        return axis in sizes and sizes[axis] > 1
+
+    out = []
+    for entry in spec:
+        if isinstance(entry, (tuple, list)):
+            entry = tuple(a for a in entry if kept(a)) or None
+        elif entry is not None and not kept(entry):
+            entry = None
+        out.append(entry)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _leaf_placements(path: str, leaf, mesh, rules) -> tuple:
+    spec = _filter_spec_to_mesh(spec_for_path(path, rules, ndim=leaf.dim()),
+                                mesh)
+    return placements_for(spec, mesh)
+
+
+def tree_pspecs(tree: Any, mesh, rules: Sequence[tuple] | None = None) -> Any:
+    """The filtered spec of every leaf (the reference's PartitionSpecs as
+    tuples)."""
+    return _map_with_path(
+        lambda path, leaf: _filter_spec_to_mesh(
+            spec_for_path(path, rules, ndim=leaf.dim()), mesh), tree)
+
+
+def placements_for(spec: tuple, mesh) -> tuple:
+    """DTensor placements of a filtered spec on ``mesh``: per mesh axis,
+    ``Shard(d)`` for the tensor dim ``d`` naming it, else
+    ``Replicate()``. Two axes on one dim shard it in mesh-axis order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {}
+    for dim, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is not None:
+                dims[axis] = dim
+    return tuple(Shard(dims[axis]) if axis in dims else Replicate()
+                 for axis in mesh.mesh_dim_names)
+
+
+def tree_shardings(tree: Any, mesh, rules: Sequence[tuple] | None = None
+                   ) -> Any:
+    """The DTensor placements of every leaf on ``mesh``."""
+    return _map_with_path(
+        lambda path, leaf: _leaf_placements(path, leaf, mesh, rules), tree)
+
+
+def shard_pytree(tree: Any, mesh, rules: Sequence[tuple] | None = None) -> Any:
+    """Place a tree of full tensors (the same on every rank) onto the mesh
+    as DTensors with rule-derived placements (detached: the step
+    differentiates the gathered tensors, not these)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return _map_with_path(
+        lambda path, leaf: distribute_tensor(
+            leaf.detach(), mesh, _leaf_placements(path, leaf, mesh, rules)),
+        tree)
+
+
+def batch_spec(mesh, seq_axis: str | None = None) -> tuple:
+    """Spec of [batch, seq, ...] data: batch over the data-ish axes,
+    optionally the sequence over ``seq_axis`` (context parallelism)."""
+    sizes = mesh_shape(mesh)
+    data_axes = tuple(a for a in ("data", "fsdp") if sizes.get(a, 1) > 1)
+    batch_axes = data_axes if data_axes else None
+    if seq_axis and sizes.get(seq_axis, 1) > 1:
+        return (batch_axes, seq_axis)
+    return (batch_axes,)
+
+
+def batch_sharding(mesh, seq_axis: str | None = None) -> tuple:
+    """DTensor placements of [batch, seq, ...] data on ``mesh``."""
+    return placements_for(batch_spec(mesh, seq_axis), mesh)
+
+
+class ShardingRules:
+    """User-extensible rule table attached to a trainer."""
+
+    def __init__(self, rules: Sequence[tuple] | None = None):
+        self.rules = list(rules if rules is not None else DEFAULT_RULES)
+
+    def add(self, pattern: str, spec: tuple, first: bool = True):
+        if first:
+            self.rules.insert(0, (pattern, spec))
+        else:
+            self.rules.append((pattern, spec))
+        return self
+
+    def shardings(self, tree, mesh):
+        return tree_shardings(tree, mesh, self.rules)
+
+    def pspecs(self, tree, mesh):
+        return tree_pspecs(tree, mesh, self.rules)
+
+
+# -- the step's collectives ---------------------------------------------------
+
+def gather(leaf):
+    """The full tensor of a DTensor leaf (an all-gather over the axes that
+    shard it), a plain tensor as is."""
+    from torch.distributed.tensor import DTensor
+
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def local_part(x, mesh, placements):
+    """This rank's part of a global tensor placed by ``placements``: a
+    DTensor's local tensor, or the slice of a plain tensor at this rank's
+    mesh coordinate (no communication). A sharded dim must divide
+    evenly."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return x.to_local()
+    return _part_at(x, mesh, placements, mesh.get_coordinate())
+
+
+def _part_at(x, mesh, placements, coordinate):
+    """The slice of ``x`` held at mesh ``coordinate``: each ``Shard(d)``
+    cut in mesh-axis order."""
+    from torch.distributed.tensor import Shard
+
+    for axis, placement in enumerate(placements):
+        if not isinstance(placement, Shard):
+            continue
+        size = mesh.size(axis)
+        dim = placement.dim
+        if x.shape[dim] % size:
+            raise ValueError(
+                f"dim {dim} of size {x.shape[dim]} does not split evenly "
+                f"over mesh axis '{mesh.mesh_dim_names[axis]}' of size "
+                f"{size}")
+        part = x.shape[dim] // size
+        x = x.narrow(dim, coordinate[axis] * part, part)
+    return x
+
+
+def reduce_to(grad, like, ranks: int):
+    """A rank's full gradient ``grad`` summed over every rank of the
+    default group, divided by ``ranks`` (the mean over the batch shards)
+    and cut to the placements of the DTensor ``like``.
+
+    One reduce-scatter over the group does the sum: each rank's part of
+    the leaf is laid out end to end in rank order, so each element is
+    summed once and lands on the ranks that hold it with one bit pattern.
+    A part replicated over other mesh axes is split into one piece per
+    copy, and an all-gather over each such axis (copies, no arithmetic)
+    puts the part back together. The group moves a reduce-scatter's bytes
+    for a leaf sharded on every rank, and an all-reduce's for a
+    replicated one."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = like.device_mesh
+    placements = like.placements
+    world = dist.get_world_size()
+    layout = mesh.mesh
+    if layout.numel() != world:
+        raise ValueError(f"the mesh holds {layout.numel()} of the group's "
+                         f"{world} ranks")
+    copied = [axis for axis, placement in enumerate(placements)
+              if not isinstance(placement, Shard) and mesh.size(axis) > 1]
+    copies = 1
+    for axis in copied:
+        copies *= mesh.size(axis)
+    shape = _part_at(grad, mesh, placements,
+                     mesh.get_coordinate()).shape
+    count = shape.numel()
+    piece = -(-count // copies)
+    pieces = []
+    for rank in range(world):
+        coordinate = [int(c) for c in (layout == rank).nonzero()[0]]
+        index = 0   # the rank's copy, row-major over the copied axes
+        for axis in copied:
+            index = index * mesh.size(axis) + coordinate[axis]
+        flat = _part_at(grad, mesh, placements, coordinate).reshape(-1)
+        flat = flat[index * piece:(index + 1) * piece]
+        if flat.numel() < piece:
+            flat = torch.nn.functional.pad(flat, (0, piece - flat.numel()))
+        pieces.append(flat)
+    send = pieces[0].contiguous() if world == 1 else torch.cat(pieces)
+    part = grad.new_empty(piece)
+    dist.reduce_scatter_tensor(part, send)
+    part.div_(ranks)
+    for axis in reversed(copied):
+        whole = part.new_empty(part.numel() * mesh.size(axis))
+        dist.all_gather_into_tensor(whole, part, group=mesh.get_group(axis))
+        part = whole
+    return DTensor.from_local(part[:count].view(shape), mesh, placements)
+
+
+def mean_metrics(metrics: dict, ranks: int) -> dict:
+    """Step metrics averaged over every rank of the default group in one
+    all-reduce; ``tokens`` (a count) is summed."""
+    import torch
+    import torch.distributed as dist
+
+    keys = sorted(metrics)
+    stacked = torch.stack([metrics[k].detach().float() for k in keys])
+    dist.all_reduce(stacked)
+    return {k: stacked[i] if k == "tokens" else stacked[i] / ranks
+            for i, k in enumerate(keys)}

@@ -51,7 +51,7 @@ from ..models.lora import (
     lora_rank,
     validate_lora,
 )
-from .resilience import AdmissionRejected, ResilienceError, local_path
+from .resilience import AdmissionRejected, ResilienceError
 
 
 # -- errors ------------------------------------------------------------------
@@ -85,8 +85,8 @@ class AdapterRateLimitError(AdmissionRejected):
 # -- artifact (de)serialization ----------------------------------------------
 def save_adapter(target_path: str, lora: dict):
     """Serialize an adapter tree (torch tensors or numpy arrays) to one
-    ``.npz`` at the local ``target_path`` — the artifact the registry
-    loads. Keys are ``<target>/<factor>``, e.g. ``wq/lora_a``; values
+    ``.npz`` at ``target_path`` (a local path or a datastore url) — the
+    artifact the registry loads. Keys are ``<target>/<factor>``, e.g. ``wq/lora_a``; values
     are float32."""
     validate_lora(lora)
     flat = {}
@@ -98,16 +98,28 @@ def save_adapter(target_path: str, lora: dict):
             flat[f"{target}/{key}"] = np.asarray(value, np.float32)
     buf = io.BytesIO()
     np.savez(buf, **flat)
-    with open(local_path(target_path, "save_adapter"), "wb") as fp:
-        fp.write(buf.getvalue())
+    if "://" in target_path:
+        from ..datastore import store_manager
+
+        store_manager.object(url=target_path).put(buf.getvalue())
+    else:
+        with open(target_path, "wb") as fp:
+            fp.write(buf.getvalue())
 
 
 def load_adapter(path: str) -> dict:
     """Inverse of :func:`save_adapter`: read an ``.npz`` adapter artifact
-    from a local path back into the ``{target: {lora_a, lora_b,
-    scaling}}`` tree of numpy arrays."""
-    with open(local_path(path, "load_adapter"), "rb") as fp:
-        blob = np.load(io.BytesIO(fp.read()))
+    from a local path or a datastore url (through ``DataItem.get``, with
+    its ``datastore.read`` fault point) back into the ``{target: {lora_a,
+    lora_b, scaling}}`` tree of numpy arrays."""
+    if "://" in path:
+        from ..datastore import store_manager
+
+        data = store_manager.object(url=path).get()
+    else:
+        with open(path, "rb") as fp:
+            data = fp.read()
+    blob = np.load(io.BytesIO(data))
     lora: dict = {}
     for key in blob.files:
         target, factor = key.rsplit("/", 1)

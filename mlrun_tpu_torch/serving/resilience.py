@@ -550,10 +550,3 @@ def not_ported(what: str, item: int) -> NotImplementedError:
         f"{what} is not ported to mlrun_tpu_torch yet (ROADMAP.md, "
         f"modules still to port, item {item}: {PORT_QUEUE[item]})")
 
-
-def local_path(path: str, what: str) -> str:
-    """``path`` as is when it is a local file; a datastore url (``://``)
-    raises ``not_ported`` item 10 until the datastore lands."""
-    if "://" in path:
-        raise not_ported(f"{what} at a datastore url ({path})", 10)
-    return path

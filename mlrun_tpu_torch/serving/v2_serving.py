@@ -5,7 +5,8 @@ stream pusher ``_ModelLogPusher`` (inference events pushed to
 ``context.monitoring_stream`` when one is set, never breaking serving),
 and ``TpuModelServer``, a server whose forward is a torch callable run on
 the card (the reference's name, so graph specs written for it resolve).
-The artifact-store ``get_model`` is not ported yet (ROADMAP.md item 10)."""
+``get_model`` fetches the model file of ``model_path`` (a directory, a
+file or a datastore url)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ class V2ModelServer:
         self.protocol = protocol or "v2"
         self.model_path = model_path
         self.model = model
+        self.model_spec = None
         self.class_args = class_args
         self._model_logger = None
         self.metrics: dict = {}
@@ -61,7 +63,18 @@ class V2ModelServer:
 
     # -- model lifecycle hooks (override) ----------------------------------
     def load(self):
-        """Load the model."""
+        """Load the model; use get_model() to fetch it."""
+
+    def get_model(self, suffix: str = ""):
+        """The model file of ``model_path`` (a directory's first entry
+        ending in ``suffix``, a file, or a datastore url) as (local path,
+        extra data); ``model_spec`` is set to the artifact's spec."""
+        from ..artifacts.model import get_model
+
+        local_path, model_spec, extra_data = get_model(self.model_path,
+                                                       suffix)
+        self.model_spec = model_spec
+        return local_path, extra_data
 
     def predict(self, request: dict) -> Any:
         raise NotImplementedError("implement predict() in your model class")

@@ -56,8 +56,11 @@ def text_file_stream(path: str, tokenizer, batch_size: int, seq_len: int,
 
 def to_device(batch, device) -> tuple:
     """(tokens, targets) host arrays -> int32 tensors on ``device`` (a
-    plain synchronous copy; the trainer's path without prefetch)."""
-    return tuple(torch.as_tensor(np.asarray(a, dtype=np.int32)).to(device)
+    plain synchronous copy; the trainer's path without prefetch). Tensors
+    already placed there pass through."""
+    return tuple(a.to(device=device, dtype=torch.int32)
+                 if isinstance(a, torch.Tensor) else
+                 torch.as_tensor(np.asarray(a, dtype=np.int32)).to(device)
                  for a in batch)
 
 
@@ -106,6 +109,7 @@ class DevicePrefetchIterator:
         self._copy_stream = (torch.cuda.Stream(device=self.device)
                              if self._cuda else None)
         self._queue: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
+        self._h2d_bytes = 0   # batch bytes staged to the device so far
         self._closed = threading.Event()
         self._exhausted = False
         self._thread = threading.Thread(
@@ -115,6 +119,7 @@ class DevicePrefetchIterator:
     # -- producer ------------------------------------------------------------
     def _place(self, item):
         host = [np.ascontiguousarray(a, dtype=np.int32) for a in item]
+        self._h2d_bytes += sum(a.nbytes for a in host)
         if not self._cuda:
             return tuple(torch.from_numpy(a.copy()) for a in host), None
         # PyTorch's pinned-host allocator keeps a block out of reuse until
@@ -189,6 +194,10 @@ class DevicePrefetchIterator:
                 # again before the consumer stream is done with them
                 tensor.record_stream(consumer)
         return placed
+
+    def stats(self) -> dict:
+        """``h2d_bytes``: batch bytes staged to the device so far."""
+        return {"h2d_bytes": self._h2d_bytes}
 
     # -- lifecycle -----------------------------------------------------------
     def close(self, timeout: float = 5.0):

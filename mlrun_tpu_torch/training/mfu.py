@@ -1,8 +1,7 @@
 """MFU accounting — model FLOPs utilization vs the card's peak, and the
 steady-state throughput window behind ``tokens_per_sec``/``mfu`` in
 ``Trainer.fit``. Counterpart of ``mlrun_tpu/training/mfu.py`` with an
-NVIDIA peak table (the port has no metrics registry yet, so ``mfu`` sets
-no gauge)."""
+NVIDIA peak table (``Trainer.fit`` sets the ``mlt_training_mfu`` gauge)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Graceful preemption handling — a copy of
-``mlrun_tpu/training/preemption.py`` for one process (without
-``on_preempted``, whose caller, the serving graph's drain, is not ported).
+``mlrun_tpu/training/preemption.py`` (without ``on_preempted``, whose
+caller, the serving graph's drain, is not ported).
 
 Preemptible/spot machines get SIGTERM with a grace period before
 eviction. ``PreemptionGuard`` latches the signal into a flag that
@@ -14,7 +14,26 @@ import os
 import signal
 import threading
 
+import torch
+import torch.distributed as dist
+
 from ..utils import logger
+
+
+def all_ranks_agree(flag: bool, device=None) -> bool:
+    """Max-reduce a local boolean across the process group's ranks: every
+    rank must take a stop decision in the same step, or the ranks still
+    stepping wait forever in the step's collectives. One process: the
+    flag itself. ``device`` holds the vote (NCCL's default: the current
+    CUDA device; gloo's: the CPU)."""
+    if not dist.is_initialized() or dist.get_world_size() <= 1:
+        return flag
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+    vote = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    dist.all_reduce(vote, op=dist.ReduceOp.MAX)
+    return bool(vote.item())
 
 
 class PreemptionGuard:
@@ -79,7 +98,13 @@ class PreemptionGuard:
     def requested(self) -> bool:
         return self._event.is_set()
 
-    def agreed(self) -> bool:
-        """The latch as every process agrees on it: one process here, so
-        the local flag (the reference all-gathers it across hosts)."""
-        return self._event.is_set()
+    def agreed(self, device=None) -> bool:
+        """Agreement of every rank on the preemption latch.
+
+        SIGTERM lands on the ranks at slightly different steps; if one
+        rank stops stepping (into the collective checkpoint save) while
+        another still runs the train step's collectives, the group
+        deadlocks until SIGKILL. Over more than one rank the local flag is
+        max-reduced, so every rank flips in the same step (the reference
+        all-gathers it across hosts). One process: the local flag."""
+        return all_ranks_agree(self._event.is_set(), device)

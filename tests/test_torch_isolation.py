@@ -1,10 +1,14 @@
 """The port package stands alone: nothing under mlrun_tpu_torch/ (its obs/,
 chaos/ and common/ copies, the engine fleet, the canary router, the
-health scorer, the model families, the structured callbacks and the
-HuggingFace loader included, nor the chip smoke script
+health scorer, the model families, the structured callbacks, the
+HuggingFace loader, the datastore, the meshes and sharding, ring and
+Ulysses attention and the goodput ledger included, nor the chip smoke
+script
 and the port's profile scripts) imports JAX or the reference package, and
-importing the serving, fleet, telemetry, model and training paths pulls
-neither into the process."""
+importing the serving, fleet, telemetry, model, training, datastore and
+parallel paths pulls neither into the process. The multi-rank test
+helper (tests/torch_ranks.py), whose ranks run the port alone, is held to
+the same rule."""
 
 import ast
 import os
@@ -18,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlrun_tpu")
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "mlrun_tpu_torch").rglob("*.py")) \
-    + ["chip_smoke.py", "scripts/profile_torch_serving.py",
+    + ["chip_smoke.py", "tests/torch_ranks.py",
+       "scripts/profile_torch_serving.py",
        "scripts/profile_torch_training.py", "scripts/time_paged_kernels.py"]
 
 
@@ -56,6 +61,13 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.frameworks._common.callbacks\n"
         "import mlrun_tpu_torch.frameworks.huggingface\n"
         "import mlrun_tpu_torch.training.data\n"
+        "import mlrun_tpu_torch.datastore, mlrun_tpu_torch.artifacts.model\n"
+        "import mlrun_tpu_torch.parallel.mesh\n"
+        "import mlrun_tpu_torch.parallel.sharding\n"
+        "import mlrun_tpu_torch.ops.ring_attention\n"
+        "import mlrun_tpu_torch.ops.ulysses, mlrun_tpu_torch.models.llama_cp\n"
+        "import mlrun_tpu_torch.obs.goodput\n"
+        "import mlrun_tpu_torch.training.checkpoint\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN,))

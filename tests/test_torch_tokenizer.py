@@ -243,11 +243,18 @@ def test_text_dataset_needs_a_tokenizer_in_both(tmp_path):
 
 
 def test_dataset_url_is_not_ported(tmp_path):
-    """Fault 3.4: a datastore url never reaches ``np.load``; the port
-    raises ROADMAP.md item 10 (the datastore) for it."""
+    """Fault 3.4: a datastore url never reaches ``np.load`` as a path.
+    Since item 10's entry 5 it resolves through the port's datastore: a
+    ``file://`` url trains exactly like its bare path, and a scheme the
+    port has no store for raises ROADMAP.md item 10 naming it."""
     path = tmp_path / "tokens.npy"
     np.save(path, np.arange(400, dtype=np.int32))
+    runs = [tauto.train(model="tiny", dataset=dataset, batch_size=2,
+                        seq_len=16, steps=1, device="cpu", warmup=False)
+            for dataset in (str(path), f"file://{path}")]
+    assert runs[0]["loss"] == runs[1]["loss"]
     with pytest.raises(NotImplementedError, match="item 10") as err:
-        tauto.train(model="tiny", dataset=f"file://{path}", batch_size=2,
-                    seq_len=16, steps=1, device="cpu", warmup=False)
-    assert "dataset at a datastore url" in str(err.value)
+        tauto.train(model="tiny", dataset="s3://bucket/tokens.npy",
+                    batch_size=2, seq_len=16, steps=1, device="cpu",
+                    warmup=False)
+    assert "'s3://' datastore" in str(err.value)

@@ -368,12 +368,23 @@ def test_fit_prefetch_and_deferred_metrics_match_sync_path():
 
 
 def test_unported_options_raise_not_implemented():
-    for kw in ({"mesh_shape": {"data": 2}},
-               {"context_parallel": "ring"}, {"pipeline_stages": 2},
+    for kw in ({"pipeline_stages": 2}, {"mesh_shape": {"tensor": 2}},
                {"moe_experts": 4, "mesh_shape": {"expert": 4}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ttrain.Trainer(tllama.tiny_llama(), ttrain.TrainConfig(**kw),
                            device="cpu")
+    # data x fsdp meshes and context parallelism landed with item 7's
+    # first half (tests/test_torch_parallel.py and
+    # test_torch_context_parallel.py run them over gloo ranks); in one
+    # process they raise the reference's errors, before any group exists
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        ttrain.Trainer(tllama.tiny_llama(),
+                       ttrain.TrainConfig(mesh_shape={"data": 2}),
+                       device="cpu")
+    with pytest.raises(ValueError, match="needs a 'seq' axis"):
+        ttrain.Trainer(tllama.tiny_llama(),
+                       ttrain.TrainConfig(context_parallel="ring"),
+                       device="cpu")
     trainer = _port_trainer()
     # structured callbacks landed with item 10 (tests/test_torch_callbacks.py
     # holds them against the reference); an object that is neither a

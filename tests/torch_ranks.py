@@ -1,0 +1,331 @@
+"""Multi-rank runs of the port for the parity tests: a spawned process per
+rank, joined over gloo through a ``FileStore`` under the test's temporary
+directory, each rank on one CPU thread. The rank functions below import
+the port and never JAX: the reference runs in the test process, which
+hands its inputs (numpy) to the ranks and compares what they return.
+
+``run_ranks`` waits at most ``timeout`` seconds for all ranks; a rank
+still running then is killed and the test fails, as it does with a
+rank's traceback when one raises.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+import sys
+import time
+import traceback
+from datetime import timedelta
+
+import pytest
+
+RANK_TIMEOUT_S = 60
+
+
+def run_ranks(name: str, world: int, directory, timeout: float =
+              RANK_TIMEOUT_S, **kwargs) -> list:
+    """Run ``<this module>.<name>(rank, world, **kwargs)`` on ``world``
+    spawned ranks; returns each rank's result."""
+    import torch
+
+    directory = str(directory)
+    context = multiprocessing.get_context("spawn")
+    procs = [context.Process(target=_child,
+                             args=(name, rank, world, directory, kwargs))
+             for rank in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    for proc in procs:
+        proc.join(max(0.0, deadline - time.monotonic()))
+    hung = [rank for rank, proc in enumerate(procs) if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    if hung:
+        pytest.fail(f"{name}: ranks {hung} still running after {timeout} s "
+                    "(killed)")
+    for rank, proc in enumerate(procs):
+        if proc.exitcode != 0:
+            err = os.path.join(directory, f"rank{rank}.err")
+            detail = open(err).read() if os.path.exists(err) else ""
+            pytest.fail(f"{name}: rank {rank} exited {proc.exitcode}\n"
+                        f"{detail}")
+    return [torch.load(os.path.join(directory, f"rank{rank}.pt"),
+                       weights_only=False) for rank in range(world)]
+
+
+def _child(name, rank, world, directory, kwargs):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(directory, "store"),
+                                         world),
+            rank=rank, world_size=world, timeout=timedelta(seconds=45))
+        result = globals()[name](rank, world, **kwargs)
+        result["jax_imported"] = "jax" in sys.modules
+        torch.save(result, os.path.join(directory, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(directory, f"rank{rank}.err"), "w") as fp:
+            fp.write(traceback.format_exc())
+        sys.exit(1)
+
+
+# -- helpers ------------------------------------------------------------------
+
+def _numpy(tree):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {key: _numpy(value) for key, value in tree.items()}
+    if isinstance(tree, DTensor):
+        tree = tree.full_tensor()
+    return tree.detach().float().numpy().copy()
+
+
+def _shards(tree):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {key: _shards(value) for key, value in tree.items()}
+    assert isinstance(tree, DTensor)
+    return tree.to_local().detach().float().numpy().copy()
+
+
+def _tiny(**overrides):
+    import torch
+
+    from mlrun_tpu_torch.models.llama import tiny_llama
+
+    return tiny_llama(dtype=torch.float32, **overrides)
+
+
+def _train_config(**kw):
+    from mlrun_tpu_torch.training import TrainConfig
+
+    base = dict(learning_rate=1e-2, warmup_steps=2, total_steps=5,
+                weight_decay=0.1)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def _trainer(init, **kw):
+    from mlrun_tpu_torch.models.convert import params_from_numpy
+    from mlrun_tpu_torch.training import Trainer
+
+    trainer = Trainer(_tiny(), _train_config(**kw), device="cpu")
+    trainer.init(params=params_from_numpy(init, "cpu"))
+    return trainer
+
+
+def _stop_on(rank: int, stop_rank: int, stop_step: int):
+    """A callback voting to stop at ``stop_step`` on ``stop_rank`` only."""
+    from mlrun_tpu_torch.frameworks._common import Callback
+
+    class Stop(Callback):
+        def on_step_end(self, step, metrics):
+            return not (rank == stop_rank and step == stop_step)
+
+    return Stop()
+
+
+# -- rank functions -------------------------------------------------------------
+
+def data_fsdp(rank, world, init, batches, ckpt_dir):
+    """Trainer.fit for len(batches) steps on {"data": 2, "fsdp": 2};
+    make_loss_step(mesh=) against the same step without a mesh; an early
+    stop voted on one rank; a preemption latched on one rank; evaluate
+    over the mesh against no mesh."""
+    import torch
+
+    from mlrun_tpu_torch.frameworks._common import Callback
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.models.convert import params_from_numpy
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+    from mlrun_tpu_torch.parallel.sharding import shard_pytree
+    from mlrun_tpu_torch.training.train import make_loss_step, make_optimizer
+
+    shape = {"data": 2, "fsdp": 2}
+    trainer = _trainer(init, mesh_shape=shape)
+    trainer.fit(iter(batches), len(batches), log_every=1, prefetch=0,
+                defer_metrics=False)
+    out = {"history": trainer.metrics_history,
+           "coordinate": trainer.mesh.get_coordinate(),
+           "shards": _shards(trainer.state.params),
+           "params": _numpy(trainer.state.params)}
+
+    # make_loss_step over the mesh vs the plain step on the whole batch
+    config = _tiny()
+    mesh = make_mesh(shape, "cpu")
+
+    def loss(params, tokens, targets):
+        return llama.loss_fn(config, params, tokens, targets)
+
+    runs = {}
+    for key, on_mesh in (("plain", None), ("mesh", mesh)):
+        optimizer = make_optimizer(_train_config())
+        params = params_from_numpy(init, "cpu")
+        if on_mesh is not None:
+            params = shard_pytree(params, mesh)
+        opt_state = optimizer.init(params)
+        step = make_loss_step(loss, optimizer, on_mesh)
+        losses = []
+        for tokens, targets in batches[:2]:
+            params, opt_state, metrics = step(
+                params, opt_state, torch.from_numpy(tokens),
+                torch.from_numpy(targets))
+            losses.append((float(metrics["loss"]),
+                           float(metrics["grad_norm"])))
+        runs[key] = {"losses": losses, "params": _numpy(params)}
+    out["loss_step"] = runs
+
+    # an early stop voted on rank 1 alone, at a step off the log points:
+    # every rank stops at the next log point, in the same step
+    stopper = _trainer(init, mesh_shape=shape)
+    last = stopper.fit(iter(batches * 2), 6, log_every=2, prefetch=0,
+                       callbacks=[_stop_on(rank, 1, 0)])
+    out["stopped"] = {"step": stopper.state.step,
+                      "stopped_early": last.get("stopped_early")}
+
+    # SIGTERM reaches rank 2 alone, during step 1: the ranks agree on the
+    # latch before step 2, all save step 2 through DCP and return
+    from mlrun_tpu_torch.training import CheckpointManager, PreemptionGuard
+
+    guard = PreemptionGuard()
+
+    class Signal(Callback):
+        def on_step_end(self, step, metrics):
+            if rank == 2 and step == 1:
+                guard.request()
+            return True
+
+    manager = CheckpointManager(ckpt_dir)
+    preempted = _trainer(init, mesh_shape=shape)
+    last = preempted.fit(iter(batches * 2), 6, log_every=1, prefetch=0,
+                         callbacks=[Signal()], checkpoint_manager=manager,
+                         preemption_guard=guard)
+    out["preempted"] = {"step": preempted.state.step,
+                        "preempted": last.get("preempted"),
+                        "latched": guard.requested,
+                        "saved": manager._steps()}
+
+    evals = {}
+    for key, eval_shape in (("plain", None), ("mesh", shape)):
+        evals[key] = auto_trainer.evaluate(
+            model="tiny", model_overrides={"dtype": torch.float32},
+            batch_size=8, seq_len=32, steps=2, seed=3,
+            mesh_shape=eval_shape, device="cpu")
+    out["evaluate"] = evals
+    return out
+
+
+CP_CASES = (({"seq": 4}, "ring"), ({"seq": 4}, "ulysses"),
+            ({"data": 2, "seq": 2}, "ring"), ({"data": 2, "seq": 2},
+                                              "ulysses"))
+
+
+def context_parallel(rank, world, init, lora, tokens, targets, batches,
+                     trainer_init):
+    """The context-parallel loss and gradients (summed over the ranks) in
+    every case of CP_CASES; the LoRA gradients through the ring; three
+    steps of Trainer(context_parallel="ring") on {"seq": 4}; and LoRA
+    with gradient accumulation on {"data": 2, "seq": 2}."""
+    import torch
+    import torch.distributed as dist
+
+    from mlrun_tpu_torch.models.convert import params_from_numpy
+    from mlrun_tpu_torch.models.llama_cp import make_context_parallel_loss
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+    from mlrun_tpu_torch.training.train import tree_leaves, tree_map
+
+    config = _tiny()
+    tokens_t, targets_t = torch.from_numpy(tokens), torch.from_numpy(targets)
+
+    def grads_of(shape, impl, trained="params"):
+        mesh = make_mesh(shape, "cpu")
+        loss = make_context_parallel_loss(
+            config, mesh, "seq", impl,
+            data_axes=("data",) if "data" in shape else None)
+        params = params_from_numpy(init, "cpu")
+        adapter = None if trained == "params" else tree_map(
+            lambda t: t.requires_grad_(True), params_from_numpy(lora, "cpu"))
+        target = params if adapter is None else adapter
+        for leaf in tree_leaves(target):
+            leaf.requires_grad_(True)
+        share, metrics = loss(params, tokens_t, targets_t, lora=adapter)
+        grads = torch.autograd.grad(share, tree_leaves(target))
+        for grad in grads:
+            dist.all_reduce(grad)
+        return {"loss": float(metrics["loss"]),
+                "tokens": float(metrics["tokens"]),
+                "grads": [g.numpy().copy() for g in grads]}
+
+    out = {"cases": [grads_of(shape, impl) for shape, impl in CP_CASES],
+           "lora": grads_of({"seq": 4}, "ring", trained="lora")}
+
+    trainer = _trainer(trainer_init, context_parallel="ring",
+                       seq_axis="seq", mesh_shape={"seq": 4})
+    trainer.fit(iter(batches), len(batches), log_every=1, prefetch=0,
+                defer_metrics=False)
+    out["trainer"] = {"history": trainer.metrics_history,
+                      "params": _numpy(trainer.state.params)}
+
+    accum = _trainer(trainer_init, context_parallel="ring", seq_axis="seq",
+                     mesh_shape={"data": 2, "seq": 2}, lora_rank=4,
+                     grad_accum=2)
+    base = _numpy(accum.state.params)
+    adapter = _numpy(accum.state.lora)
+    last = accum.fit(iter(batches), 2, log_every=1, prefetch=0)
+    out["lora_accum"] = {"loss": last["loss"],
+                         "base": (base, _numpy(accum.state.params)),
+                         "lora": (adapter, _numpy(accum.state.lora))}
+    return out
+
+
+def sharded_checkpoint(rank, world, init, batches, ckpt_dir):
+    """On {"fsdp": 2}: 4 steps saving steps 2 and 4 through DCP; a fresh
+    trainer resumed from step 2 by the environment directive; no
+    directive; a directive naming a step that is not there."""
+    from mlrun_tpu_torch.frameworks._common.callbacks import (
+        CheckpointCallback,
+    )
+    from mlrun_tpu_torch.training import CheckpointManager
+    from mlrun_tpu_torch.training.checkpoint import (
+        RESUME_CHECKPOINT_ENV,
+        RESUME_STEP_ENV,
+    )
+
+    shape = {"fsdp": 2}
+    manager = CheckpointManager(ckpt_dir)
+    full = _trainer(init, mesh_shape=shape)
+    full.fit(iter(batches), 4, log_every=1, prefetch=0,
+             callbacks=[CheckpointCallback(manager, every_steps=2)])
+    out = {"uninterrupted": [h["loss"] for h in full.metrics_history],
+           "params": _numpy(full.state.params),
+           "saved": manager._steps()}
+
+    def fresh_run(step_env, first_batch, steps):
+        os.environ.pop(RESUME_CHECKPOINT_ENV, None)
+        os.environ.pop(RESUME_STEP_ENV, None)
+        if step_env is not None:
+            os.environ[RESUME_CHECKPOINT_ENV] = ckpt_dir
+            os.environ[RESUME_STEP_ENV] = step_env
+        trainer = _trainer(init, mesh_shape=shape)
+        trainer.fit(iter(batches[first_batch:]), steps, log_every=1,
+                    prefetch=0, checkpoint_manager=manager)
+        return {"losses": [h["loss"] for h in trainer.metrics_history],
+                "step": trainer.state.step,
+                "steps_logged": [h["step"] for h in trainer.metrics_history],
+                "goodput": trainer.goodput.summary()}
+
+    out["resumed"] = fresh_run("2", 2, 2)
+    out["no_directive"] = fresh_run(None, 0, 1)
+    out["bad_step"] = fresh_run("99", 0, 1)
+    return out
