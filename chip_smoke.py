@@ -157,7 +157,25 @@ exits non-zero and never prints the final line):
              phase's TOL of the flash over the whole sequence, dq/dk/dv
              within a bound from each shard's hop count, and the summed
              hop times beside the full flash's. One line says why
-             Ulysses has no check of its own at world size 1.
+             Ulysses has no check of its own at world size 1. Then,
+             inside the NCCL group, Trainer.fit at 1B for 2 steps on
+             {"data": 1, "fsdp": 1, "tensor": 1} (the per-layer-gather
+             step) against no mesh and the whole-gather step
+             (make_loss_step on the mesh): bit-equal, each run's
+             torch.cuda.max_memory_allocated. Then one Llama-3-8B-width
+             layer (B 1 x 2048) as 2 and 8 tensor ranks' attention and
+             MLP halves on their shards in rank order, the partials
+             summed where the all-reduce stands, forward and backward
+             against the unsharded layer (bf16 norms within
+             TRAIN_LEAF_NORM_REL_TOL, float32 within
+             TRAIN_F32_LEAF_REL_TOL), one flash forward and backward a
+             rank, each rank's flash timed at its local heads beside
+             SDPA; then Llama-3.2-1B as 4 GPipe stages of 4 layers over
+             4 microbatches in this process against the unpipelined
+             loss_fn (loss, grad norm and leaf norms within the train
+             phase's bf16 bounds), 128 / 64 flash launches, each stage's
+             times. One line says why one card cannot show an elastic
+             reshard.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
 over the serve and entry_points paths, the training flash's over the
@@ -4554,9 +4572,415 @@ def _par_ring_leg(seed: int, card: str) -> dict:
     return launches
 
 
+# (a) one Llama-3-8B-width layer on tensor ranks, in one process
+TP_SIZES = (2, 8)
+TP_BATCH, TP_SEQ = 1, 2048
+def _rel(got, ref) -> float:
+    """||got - ref|| / ||ref|| in float32."""
+    ref = ref.float()
+    return float((got.float() - ref).norm() / ref.norm())
+
+
+def _local_head_times(config, tensor: int, gen) -> dict:
+    """The training flash forward and backward at a tensor rank's local
+    head counts (every rank of the leg runs these shapes), beside SDPA
+    on the same inputs, with their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlrun_tpu_torch.ops import attention as at
+
+    h, hkv, d = config.n_heads // tensor, config.n_kv_heads // tensor, \
+        config.head_dim
+
+    def randn(heads):
+        return torch.randn((TP_BATCH, TP_SEQ, heads, d), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = randn(h), randn(hkv), randn(hkv), randn(h)
+    o, lse = at.flash_fwd(q, k, v, True)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, leaves, dot)
+
+    pairs = _train_pairs(True, TP_BATCH, TP_SEQ, h)
+    item = q.element_size()
+    fwd_bound, fwd_by = bound_ms((2 * q.numel() + 2 * k.numel()) * item
+                                 + lse.numel() * 4, 4 * d * pairs, "bf16")
+    bwd_bound, bwd_by = bound_ms((4 * q.numel() + 4 * k.numel()) * item
+                                 + lse.numel() * 4, 10 * d * pairs, "bf16")
+    return {
+        "H": h, "Hkv": hkv, "D": d, "B": TP_BATCH, "S": TP_SEQ,
+        "flash_fwd_ms": time_ms(lambda: at.flash_fwd(q, k, v, True),
+                                iters=10),
+        "flash_bwd_ms": time_ms(
+            lambda: at.flash_bwd(q, k, v, o, lse, do, True), iters=10),
+        "sdpa_fwd_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10),
+        "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, iters=10),
+        "flash_fwd_bound_ms": fwd_bound, "flash_fwd_bound_by": fwd_by,
+        "flash_bwd_bound_ms": bwd_bound, "flash_bwd_bound_by": bwd_by}
+
+
+def _tp_graph(config, weights, x, dout, cos, sin, tensor=None):
+    """Forward and backward of one layer on fresh leaf copies: whole
+    (``tensor`` None) or as ``tensor`` ranks' halves on their shards in
+    rank order, the partials summed where the all-reduce stands. Returns
+    (output, input gradient, {leaf: gradient})."""
+    from mlrun_tpu_torch.models.llama import (
+        _layer_body,
+        attention_half,
+        mlp_half,
+    )
+    from mlrun_tpu_torch.parallel.tensor import tensor_shard
+
+    ws = {k: w.detach().clone().requires_grad_(True)
+          for k, w in weights.items()}
+    xs = x.detach().clone().requires_grad_(True)
+    if tensor is None:
+        out = _layer_body(config, xs, ws, cos, sin)
+    else:
+        shards = [{k: tensor_shard(k, w, t, tensor) for k, w in ws.items()}
+                  for t in range(tensor)]
+        partial = None
+        for t in range(tensor):
+            part = attention_half(config, xs, shards[t], cos, sin)
+            partial = part if partial is None else partial + part
+        mid = xs + partial
+        partial = None
+        for t in range(tensor):
+            part = mlp_half(config, mid, shards[t])
+            partial = part if partial is None else partial + part
+        out = mid + partial
+    out.backward(dout)
+    return out.detach(), xs.grad, {k: w.grad for k, w in ws.items()}
+
+
+def _par_tensor_leg(seed: int, card: str) -> dict:
+    """(a) One Llama-3-8B-width layer (B 1, S 2048) on ``tensor`` ranks in
+    turn: each rank's attention half and MLP half on its shards, the
+    partials summed in rank order where the all-reduce stands, one
+    autograd graph for forward and backward, held against the unsharded
+    layer the way the train phase holds the flash path: in bf16 (the
+    counted run) the norms of the output, the input gradient and every
+    shard's gradient against the full gradient's slice within
+    TRAIN_LEAF_NORM_REL_TOL; in float32, where the two differ in
+    summation order only, each one's relative error within
+    TRAIN_F32_LEAF_REL_TOL. Each rank's flash at its local head counts
+    is timed beside SDPA."""
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, normal_init
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.ops.rotary import rope_table
+    from mlrun_tpu_torch.parallel.tensor import check_divisible, tensor_shard
+
+    config = MODEL_PRESETS["llama3-8b"]()
+    config32 = MODEL_PRESETS["llama3-8b"](dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    normal = normal_init(gen, "cuda", config.dtype)
+    e, h, kv, m = (config.embed_dim, config.qkv_dim, config.kv_dim,
+                   config.mlp_dim)
+    ones = torch.ones((e,), dtype=config.dtype, device="cuda")
+    weights = {"attn_norm_scale": ones, "wq": normal(e, (e, h)),
+               "wk": normal(e, (e, kv)), "wv": normal(e, (e, kv)),
+               "wo": normal(h, (h, e)), "mlp_norm_scale": ones.clone(),
+               "w_gate": normal(e, (e, m)), "w_up": normal(e, (e, m)),
+               "w_down": normal(m, (m, e))}
+    x = torch.randn((TP_BATCH, TP_SEQ, e), generator=gen,
+                    device="cuda").to(config.dtype)
+    dout = torch.randn(x.shape, generator=gen,
+                       device="cuda").to(config.dtype)
+    cos, sin = rope_table(torch.arange(TP_SEQ, device="cuda"),
+                          config.head_dim, config.rope_theta)
+    weights32 = {k: w.float() for k, w in weights.items()}
+    full = _tp_graph(config, weights, x, dout, cos, sin)
+    full32 = _tp_graph(config32, weights32, x.float(), dout.float(), cos,
+                       sin)
+
+    def gaps(got, ref, tensor, measure):
+        out = {"out": measure(got[0], ref[0]), "dx": measure(got[1], ref[1])}
+        for name in weights:
+            out[name] = max(measure(tensor_shard(name, got[2][name], t,
+                                                 tensor),
+                                    tensor_shard(name, ref[2][name], t,
+                                                 tensor))
+                            for t in range(tensor))
+        return out
+
+    def norm_gap(a, b):
+        return abs(float(a.float().norm()) / float(b.float().norm()) - 1.0)
+
+    launches = {name: 0 for name in TRAINING_KERNELS}
+    for tensor in TP_SIZES:
+        check_divisible(config, tensor)
+        # -- the ranks' halves, counted: every count reset right before --
+        _build.reset_launch_counts()
+        sharded = _tp_graph(config, weights, x, dout, cos, sin, tensor)
+        torch.cuda.synchronize()
+        counted = _build.launch_counts()
+        want = {"flash_fwd": tensor, "flash_bwd": tensor}
+        _exact_launches(f"parallel tensor={tensor}", counted, want)
+        sharded32 = _tp_graph(config32, weights32, x.float(), dout.float(),
+                              cos, sin, tensor)
+        norms = gaps(sharded, full, tensor, norm_gap)
+        rel = gaps(sharded, full, tensor, _rel)
+        rel32 = gaps(sharded32, full32, tensor, _rel)
+        row = {"phase": "parallel", "leg": "tensor", "card": card,
+               "model": "llama3-8b layer", "tensor": tensor,
+               "bf16_norm_rel_errs": norms,
+               "bf16_norm_rel_tol": TRAIN_LEAF_NORM_REL_TOL,
+               "bf16_rel_errs": rel, "f32_rel_errs": rel32,
+               "f32_rel_tol": TRAIN_F32_LEAF_REL_TOL, "launches": counted,
+               "expected_launches": want,
+               "per_rank": _local_head_times(config, tensor, gen)}
+        emit(row)
+        for errs, tol, what in ((norms, TRAIN_LEAF_NORM_REL_TOL, "bf16 norm"),
+                                (rel32, TRAIN_F32_LEAF_REL_TOL, "f32")):
+            worst = max(errs, key=errs.get)
+            if not errs[worst] <= tol:
+                fail(f"parallel tensor={tensor}: {worst} {what} relative "
+                     f"error {errs[worst]} > {tol}")
+        for name in TRAINING_KERNELS:
+            launches[name] += counted[name]
+        del sharded, sharded32
+        _release()
+    return launches
+
+
+# (b) Llama-3.2-1B as GPipe stages in one process
+PP_STAGES, PP_MICRO = 4, 4
+
+
+def _par_pipe_leg(seed: int, card: str) -> dict:
+    """(b) The full Llama-3.2-1B (16 layers) as 4 stages of 4 layers, 4
+    microbatches of the train phase's batch, run in the GPipe order in
+    this process (a LocalLink stands where the send / recv would), held
+    against the unpipelined loss_fn on the same weights and batch: the
+    loss within TRAIN_LOSS_REL_TOL, the global gradient norm within
+    TRAIN_GRAD_NORM_REL_TOL and every leaf's within
+    TRAIN_LEAF_NORM_REL_TOL; stage times by CUDA events."""
+    import torch
+
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.parallel.pipeline import (
+        LocalLink,
+        Stage,
+        run_in_process,
+        split_layers_for_stages,
+    )
+    from mlrun_tpu_torch.training.data import synthetic_token_stream
+    from mlrun_tpu_torch.training.train import tree_leaves
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init_params(config, gen, "cuda")
+    tokens, targets = (torch.from_numpy(a).to("cuda") for a in next(
+        synthetic_token_stream(TRAIN_BATCH, TRAIN_SEQ, config.vocab_size,
+                               seed=seed)))
+    names = _leaf_names(params)
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loss, _ = llama.loss_fn(config, params, tokens, targets,
+                            loss_chunk=LOSS_CHUNK)
+    ref = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    split = split_layers_for_stages(
+        {k: w.detach() for k, w in params["layers"].items()}, PP_STAGES)
+    link = LocalLink()
+    stages, views, events = [], [], []
+    for p in range(PP_STAGES):
+        view = {k: w.detach().requires_grad_(True)
+                for k, w in params.items() if k != "layers"}
+        view["layers"] = {k: w[p].requires_grad_(True)
+                          for k, w in split.items()}
+        stage = Stage(config, view, tokens, targets, p, PP_STAGES, PP_MICRO,
+                      link, LOSS_CHUNK)
+        timed = {"fwd": [], "bwd": []}
+        for kind in timed:
+            stage_fn = getattr(stage, "forward" if kind == "fwd"
+                               else "backward")
+
+            def run(m, stage_fn=stage_fn, marks=timed[kind]):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
+                stage_fn(m)
+                b.record()
+                marks.append((a, b))
+
+            setattr(stage, "forward" if kind == "fwd" else "backward", run)
+        stages.append(stage)
+        views.append(view)
+        events.append(timed)
+    del params, leaves
+    # -- the stages, counted: every count reset right before them ---------
+    _build.reset_launch_counts()
+    start.record()
+    run_in_process(stages, PP_MICRO)
+    end.record()
+    torch.cuda.synchronize()
+    counted = _build.launch_counts()
+    per_pass = config.n_layers * PP_MICRO
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    sums = sum(stage.sums() for stage in stages)
+    got_loss = float(sums[0] / sums[2])
+    grads = {}
+    for name in ref:
+        key = name.split(".")[-1]
+        if name.startswith("layers."):
+            grads[name] = torch.cat([v["layers"][key].grad for v in views])
+        elif key == "embedding":
+            grads[name] = views[0][key].grad + views[-1][key].grad
+        else:
+            grads[name] = views[-1][key].grad
+    norm = lambda gs: float(torch.sqrt(sum(  # noqa: E731
+        torch.sum(g.float() * g.float()) for g in gs)))
+    ref_norm, got_norm = norm(ref.values()), norm(grads.values())
+    leaf_rel = {name: abs(norm([grads[name]]) - norm([g])) / norm([g])
+                for name, g in ref.items()}
+    row = {"phase": "parallel", "leg": "pipe", "card": card,
+           "model": "llama3-1b", "layers": config.n_layers,
+           "stages": PP_STAGES, "microbatches": PP_MICRO,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": "bf16",
+           "loss_pipelined": got_loss, "loss_unpipelined": float(loss),
+           "loss_rel_err": abs(got_loss - float(loss)) / abs(float(loss)),
+           "grad_norm_pipelined": got_norm, "grad_norm_unpipelined": ref_norm,
+           "grad_norm_rel_err": abs(got_norm - ref_norm) / ref_norm,
+           "leaf_norm_rel_err_max": max(leaf_rel.values()),
+           "leaf_rel_err": {name: _rel(grads[name], g)
+                            for name, g in ref.items()},
+           "handoffs": link.handoffs, "launches": counted,
+           "expected_launches": want,
+           "stage_fwd_ms": [sum(a.elapsed_time(b) for a, b in t["fwd"])
+                            for t in events],
+           "stage_bwd_ms": [sum(a.elapsed_time(b) for a, b in t["bwd"])
+                            for t in events],
+           "pipeline_ms": start.elapsed_time(end),
+           "unpipelined_fwd_bwd_ms": plain_ms,
+           "note": "the stages run one after another in one process, so "
+                   "the fill/drain bubble is not observable here"}
+    emit(row)
+    _exact_launches("parallel pipe", counted, want)
+    if not row["loss_rel_err"] <= TRAIN_LOSS_REL_TOL:
+        fail(f"parallel pipe: loss {got_loss} vs {float(loss)}")
+    if not row["grad_norm_rel_err"] <= TRAIN_GRAD_NORM_REL_TOL:
+        fail(f"parallel pipe: grad norm {got_norm} vs {ref_norm}")
+    if not row["leaf_norm_rel_err_max"] <= TRAIN_LEAF_NORM_REL_TOL:
+        fail(f"parallel pipe: leaf gradient norms {leaf_rel}")
+    del stages, views, grads, ref
+    _release()
+    return counted
+
+
+# (c) the per-layer-gather step at world size 1
+W1_MESH = {"data": 1, "fsdp": 1, "tensor": 1}
+W1_STEPS = 2
+
+
+def _par_world1_leg(seed: int, card: str) -> dict:
+    """(c) Trainer.fit at Llama-3.2-1B for 2 steps on {"data": 1, "fsdp":
+    1, "tensor": 1} (the per-layer-gather step) against no mesh, and
+    the whole-gather sharded step (every leaf gathered for the step, each
+    gradient reduced once: make_loss_step on the same mesh): losses and
+    norms bit-equal, each run's torch.cuda.max_memory_allocated."""
+    import torch
+
+    from mlrun_tpu_torch.models import llama
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+    from mlrun_tpu_torch.parallel.sharding import shard_pytree
+    from mlrun_tpu_torch.training import TrainConfig
+    from mlrun_tpu_torch.training.data import synthetic_token_stream
+    from mlrun_tpu_torch.training.train import make_loss_step, make_optimizer
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    stream = synthetic_token_stream(TRAIN_BATCH, TRAIN_SEQ, config.vocab_size,
+                                    seed=seed)
+    batches = [next(stream) for _ in range(W1_STEPS)]
+    per_pass = config.n_layers * W1_STEPS
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    runs = {}
+    for leg, shape in (("no_mesh", None), ("per_layer", W1_MESH)):
+        trainer = _par_trainer(config, shape, seed)
+        trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # -- the main path, counted: every count reset right before it ----
+        _build.reset_launch_counts()
+        trainer.fit(iter(batches), W1_STEPS, log_every=1, prefetch=2)
+        torch.cuda.synchronize()
+        history = trainer.metrics_history
+        runs[leg] = {"losses": [h["loss"] for h in history],
+                     "grad_norms": [h["grad_norm"] for h in history],
+                     "launches": _build.launch_counts(),
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        _exact_launches(f"parallel world size 1 {leg}",
+                        runs[leg]["launches"], want)
+        del trainer, history
+        _release()
+    # the whole-gather step on the same mesh, seed and batches
+    mesh = make_mesh(W1_MESH, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = shard_pytree(llama.init_params(config, gen, "cuda"), mesh)
+    optimizer = make_optimizer(TrainConfig(
+        learning_rate=1e-3, warmup_steps=1, total_steps=PAR_STEPS))
+    opt_state = optimizer.init(params)
+
+    def loss(p, tokens, targets):
+        return llama.loss_fn(config, p, tokens, targets,
+                             loss_chunk=LOSS_CHUNK)
+
+    step = make_loss_step(loss, optimizer, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    for tokens, targets in batches:
+        params, opt_state, metrics = step(
+            params, opt_state, *(torch.from_numpy(a).to("cuda")
+                                 for a in (tokens, targets)))
+        history.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    torch.cuda.synchronize()
+    runs["whole_gather"] = {"losses": [a for a, _ in history],
+                            "grad_norms": [b for _, b in history],
+                            "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, opt_state, step
+    _release()
+    plain = runs["no_mesh"]
+    row = {"phase": "parallel", "leg": "world_size_1", "card": card,
+           "model": "llama3-1b", "mesh": W1_MESH, "steps": W1_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "bit_equal": {leg: r["losses"] == plain["losses"]
+                         and r["grad_norms"] == plain["grad_norms"]
+                         for leg, r in runs.items()},
+           "losses": {leg: r["losses"] for leg, r in runs.items()},
+           "max_memory_allocated_gib": {leg: r["peak_bytes"] / 2 ** 30
+                                        for leg, r in runs.items()},
+           "launches": runs["per_layer"]["launches"],
+           "expected_launches": want}
+    emit(row)
+    if not all(row["bit_equal"].values()):
+        fail(f"parallel world size 1: losses {row['losses']} differ")
+    return runs["per_layer"]["launches"]
+
+
 def phase_parallel(seed: int, card: str, train_step_ms=None) -> dict:
-    """The sharded step and checkpoint at world size 1 on an NCCL group,
-    then the ring's hops; returns the flash launches of every leg."""
+    """The sharded step, checkpoint and per-layer-gather step at world
+    size 1 on an NCCL group, then the ring's hops, one 8B layer on tensor
+    ranks and the 1B model as pipeline stages; returns the flash launches
+    of every leg."""
     import shutil
     import tempfile
 
@@ -4572,17 +4996,25 @@ def phase_parallel(seed: int, card: str, train_step_ms=None) -> dict:
     work = tempfile.mkdtemp(prefix="mlt-parallel-")
     try:
         launches = _par_sharded_leg(seed, card, train_step_ms, work)
+        legs = [_par_world1_leg(seed, card)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
         dist.destroy_process_group()
-    ring = _par_ring_leg(seed, card)
-    launches = {name: launches[name] + ring[name]
+    legs += [_par_ring_leg(seed, card), _par_tensor_leg(seed, card),
+             _par_pipe_leg(seed, card)]
+    launches = {name: launches[name] + sum(leg[name] for leg in legs)
                 for name in TRAINING_KERNELS}
     emit({"phase": "parallel", "leg": "ulysses", "card": card,
           "note": "at world size 1 Ulysses' all-to-alls are copies and its "
                   "attention is flash_attention_mlt over the whole "
                   "sequence, the train phase's flash path: no check of "
                   "its own"})
+    emit({"phase": "parallel", "leg": "elastic", "card": card,
+          "note": "a reshard moves the state between meshes over "
+                  "different ranks; with one card there is one rank, "
+                  "so no slice can fail and leave survivors: the "
+                  "elastic loop is checked over gloo ranks on the CPU "
+                  "(tests/test_torch_elastic.py)"})
     emit({"phase": "parallel", "card": card, "launches": launches,
           "phase_s": time.perf_counter() - started})
     return launches

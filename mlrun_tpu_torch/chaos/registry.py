@@ -82,6 +82,11 @@ class FaultPoints:
     # datastore reads and writes (datastore/base.py DataItem / DataStore)
     datastore_read = "datastore.read"
     datastore_write = "datastore.write"
+    # one elastic health poll of the training loop (training/elastic.py
+    # ElasticGuard.poll), with a mutable ``box``: an action setting
+    # box["fail"] / box["join"] to a slice index fails / revives that
+    # slice in this step
+    train_slice_fail = "train.slice_fail"
 
     @staticmethod
     def all() -> list[str]:
@@ -93,6 +98,7 @@ class FaultPoints:
             FaultPoints.llm_kv_demote, FaultPoints.llm_kv_promote,
             FaultPoints.llm_kv_fetch,
             FaultPoints.datastore_read, FaultPoints.datastore_write,
+            FaultPoints.train_slice_fail,
         ]
 
 

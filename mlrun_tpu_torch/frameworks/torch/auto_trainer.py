@@ -11,10 +11,12 @@ caller's), checkpoints with ``training.CheckpointManager`` and exits
 cleanly on SIGTERM, and returns the final metrics with ``train_time_s``.
 ``evaluate(...)`` averages the loss metrics over a few batches. A
 dataset may be a datastore url (``file://``). ``mesh_shape``
-trains (and evaluates) over a ``data`` x ``fsdp`` mesh of the process
-group, ``context_parallel`` over a ``seq`` axis. The handler contract is
-the reference's, with the same defaults; features the port does not have
-yet (tensor, pipeline and expert parallelism) raise
+trains (and evaluates) over a ``data`` x ``fsdp`` x ``tensor`` mesh of
+the process group, ``context_parallel`` over a ``seq`` axis,
+``pipeline_stages`` over a ``pipe`` axis (by default the stages on
+``pipe`` and the rest of the ranks on ``data``, as the reference). The
+handler contract is the reference's, with the same defaults; features
+the port does not have yet (expert parallelism) raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -116,6 +118,16 @@ def _make_stream(dataset: str | None, tokenizer: str | None, batch_size: int,
     return text_file_stream(local, tok, batch_size, seq_len, seed=seed)
 
 
+def _world_size() -> int:
+    """The process group's size (the launcher's ``WORLD_SIZE`` before it
+    is joined; 1 without one)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def train(context=None,
           model: str | LlamaConfig | dict = "tiny",
           model_overrides: dict | None = None,
@@ -170,6 +182,14 @@ def train(context=None,
     )
 
     model_config = _resolve_model_config(model, model_overrides)
+    if pipeline_stages and not mesh_shape:
+        # the reference's default: the stages on 'pipe', the rest on 'data'
+        n = _world_size()
+        if n % pipeline_stages:
+            raise ValueError(
+                f"pipeline_stages={pipeline_stages} does not divide "
+                f"{n} devices; pass mesh_shape explicitly")
+        mesh_shape = {"data": n // pipeline_stages, "pipe": pipeline_stages}
     train_config = TrainConfig(
         learning_rate=learning_rate, total_steps=steps, lora_rank=lora_rank,
         lora_alpha=lora_alpha, grad_accum=grad_accum, mesh_shape=mesh_shape,
@@ -299,7 +319,7 @@ def evaluate(context=None,
             _, metrics = llama_mod.loss_fn(model_config, params, tokens,
                                            targets)
             if mesh is not None:
-                metrics = mean_metrics(metrics, mesh.size())
+                metrics = mean_metrics(metrics, mesh)
             for key, value in metrics.items():
                 totals[key] = totals.get(key, 0.0) + float(value)
     results = {f"eval_{k}": v / steps for k, v in totals.items()}

@@ -355,77 +355,136 @@ def _proj(h, w, lora, target):
     return out
 
 
-def _layer_body(config: LlamaConfig, x, lp, cos, sin, lora=None,
-                attention_fn=None):
+def attention_half(config: LlamaConfig, x, lp, cos, sin, lora=None,
+                   attention_fn=None, enter=None):
+    """The attention block's rank-local half: RMSNorm of the residual ``x``
+    [B, S, E], the q/k/v heads of this rank's ``wq``/``wk``/``wv`` columns
+    (the head counts read off their widths), causal attention over them,
+    and the product with this rank's rows of ``wo``. Returns the rank's
+    partial of the block's output [B, S, E]; the partials of every tensor
+    rank sum to the unsharded block's (a plain function of the rank's
+    shards: one rank holding whole weights computes the whole block).
+    ``enter`` (the tensor-parallel entry, parallel/tensor.py) is applied
+    to the normalized input."""
     b, s, _ = x.shape
+    d = config.head_dim
     h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
-    q = _proj(h, lp["wq"], lora, "wq").reshape(b, s, config.n_heads,
-                                               config.head_dim)
-    k = _proj(h, lp["wk"], lora, "wk").reshape(b, s, config.n_kv_heads,
-                                               config.head_dim)
-    v = _proj(h, lp["wv"], lora, "wv").reshape(b, s, config.n_kv_heads,
-                                               config.head_dim)
+    if enter is not None:
+        h = enter(h)
+    q = _proj(h, lp["wq"], lora, "wq").reshape(b, s, -1, d)
+    k = _proj(h, lp["wk"], lora, "wk").reshape(b, s, -1, d)
+    v = _proj(h, lp["wv"], lora, "wv").reshape(b, s, -1, d)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if attention_fn is None:
         attn = attention(q, k, v, causal=True, impl=config.attention_impl)
     else:
         attn = attention_fn(q, k, v)
-    x = x + _proj(attn.reshape(b, s, config.qkv_dim), lp["wo"], lora, "wo")
+    return _proj(attn.reshape(b, s, q.shape[2] * d), lp["wo"], lora, "wo")
+
+
+def mlp_half(config: LlamaConfig, x, lp, lora=None, enter=None):
+    """The MLP block's rank-local half: RMSNorm of ``x``, this rank's
+    columns of ``w_gate`` / ``w_up``, SiLU gating, and the product with
+    its rows of ``w_down`` — the rank's partial of the block's output."""
     h = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
+    if enter is not None:
+        h = enter(h)
     gate = _proj(h, lp["w_gate"], lora, "w_gate")
     up = _proj(h, lp["w_up"], lora, "w_up")
-    return x + _proj(F.silu(gate) * up, lp["w_down"], lora, "w_down")
+    return _proj(F.silu(gate) * up, lp["w_down"], lora, "w_down")
 
 
-def hidden_states(config: LlamaConfig, params: Params, tokens: torch.Tensor,
-                  positions: torch.Tensor | None = None,
-                  lora: Params | None = None,
-                  attention_fn=None) -> torch.Tensor:
-    """tokens [B, S] -> final-norm hidden [B, S, E] (no lm head).
-    ``attention_fn(q, k, v)`` replaces every layer's causal attention
-    (the context-parallel ring and Ulysses, models/llama_cp.py).
+def _layer_body(config: LlamaConfig, x, lp, cos, sin, lora=None,
+                attention_fn=None, layer_parallel=None):
+    """One decoder layer. With ``layer_parallel`` (a sharded step's
+    ``parallel.tensor.LayerParallel``) the layer's shards are gathered
+    over ``fsdp`` first, and each half runs on the rank's tensor shards
+    between the tensor group's entry and exit (an all-reduce of the
+    partials)."""
+    enter = leave = None
+    if layer_parallel is not None:
+        lp, lora = layer_parallel.gather(lp, lora)
+        enter, leave = layer_parallel.enter, layer_parallel.leave
+    partial = attention_half(config, x, lp, cos, sin, lora, attention_fn,
+                             enter)
+    x = x + (partial if leave is None else leave(partial))
+    partial = mlp_half(config, x, lp, lora, enter)
+    return x + (partial if leave is None else leave(partial))
+
+
+def run_layers(config: LlamaConfig, layers: Params, x: torch.Tensor, cos,
+               sin, lora: Params | None = None, attention_fn=None,
+               layer_parallel=None) -> torch.Tensor:
+    """The decoder stack over ``x`` [B, S, E]: ``layers`` holds stacked
+    ``[n, ...]`` weights (all of the model's, or a pipeline stage's).
 
     With ``config.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant) with the ``remat_policy``'s
-    saved set — the reference's per-layer ``jax.checkpoint``. The stacked
-    ``[L, ...]`` weights (and the adapter's ``[L, ...]`` factors, passed
-    to each layer's checkpoint as inputs) are unbound once, so their
-    gradients are stacked once instead of scattered per layer."""
-    x = params["embedding"][tokens].to(config.dtype)
-    if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-    cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+    saved set — the reference's per-layer ``jax.checkpoint``; a
+    ``layer_parallel`` gather then runs inside it, so the backward gathers
+    again. Without remat, ``layer_parallel.freeing()`` keeps the gathered
+    weights out of the saved tensors (they are gathered again where the
+    backward reads them). The stacked weights (and the adapter's ``[L,
+    ...]`` factors, passed to each layer's checkpoint as inputs) are
+    unbound once, so their gradients are stacked once instead of
+    scattered per layer."""
     remat = config.remat and torch.is_grad_enabled()
     kwargs = {}
     if remat:
         context_fn = _remat_context(config.remat_policy)
         if context_fn is not None:
             kwargs["context_fn"] = context_fn
-    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    unbound = {name: w.unbind(0) for name, w in layers.items()}
     lora_layers = None
     if lora is not None:
         lora_layers = {target: {key: t.unbind(0) for key, t in parts.items()}
                        for target, parts in lora.items()}
-    for layer in range(config.n_layers):
-        lp = {name: ws[layer] for name, ws in layers.items()}
+    for layer in range(len(next(iter(unbound.values())))):
+        lp = {name: ws[layer] for name, ws in unbound.items()}
         ll = None
         if lora_layers is not None:
             ll = {target: {key: ts[layer] for key, ts in parts.items()}
                   for target, parts in lora_layers.items()}
         if remat:
             x = checkpoint(_layer_body, config, x, lp, cos, sin, ll,
-                           attention_fn, use_reentrant=False, **kwargs)
+                           attention_fn, layer_parallel, use_reentrant=False,
+                           **kwargs)
+        elif layer_parallel is not None and torch.is_grad_enabled():
+            with layer_parallel.freeing():
+                x = _layer_body(config, x, lp, cos, sin, ll, attention_fn,
+                                layer_parallel)
         else:
-            x = _layer_body(config, x, lp, cos, sin, ll, attention_fn)
+            x = _layer_body(config, x, lp, cos, sin, ll, attention_fn,
+                            layer_parallel)
+    return x
+
+
+def hidden_states(config: LlamaConfig, params: Params, tokens: torch.Tensor,
+                  positions: torch.Tensor | None = None,
+                  lora: Params | None = None,
+                  attention_fn=None, layer_parallel=None) -> torch.Tensor:
+    """tokens [B, S] -> final-norm hidden [B, S, E] (no lm head):
+    the embedding, :func:`run_layers` and the final norm.
+    ``attention_fn(q, k, v)`` replaces every layer's causal attention
+    (the context-parallel ring and Ulysses, models/llama_cp.py);
+    ``layer_parallel`` runs the layers on a rank's shards (the sharded
+    step, training/train.py)."""
+    x = params["embedding"][tokens].to(config.dtype)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    cos, sin = rope_table(positions, config.head_dim, config.rope_theta)
+    x = run_layers(config, params["layers"], x, cos, sin, lora, attention_fn,
+                   layer_parallel)
     return rms_norm(x, params["final_norm_scale"], config.norm_eps)
 
 
 def forward(config: LlamaConfig, params: Params, tokens: torch.Tensor,
             positions: torch.Tensor | None = None,
-            lora: Params | None = None) -> torch.Tensor:
+            lora: Params | None = None, layer_parallel=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] (f32)."""
-    x = hidden_states(config, params, tokens, positions=positions, lora=lora)
+    x = hidden_states(config, params, tokens, positions=positions, lora=lora,
+                      layer_parallel=layer_parallel)
     return logits_f32(x, lm_head(params))
 
 
@@ -440,15 +499,14 @@ def _chunk_stats(x_chunk, head, t_chunk, m_chunk):
             m_chunk.sum())
 
 
-def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
-               mask: torch.Tensor | None = None, chunk: int = 512
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Cross-entropy from hidden states without materializing the full
-    [B, S, vocab] logits: the head product and softmax run per sequence
-    chunk, each under ``torch.utils.checkpoint`` (recomputed in the
-    backward), so the loss holds O(B·chunk·V) at a time. The sequence is
-    padded to a chunk multiple with mask 0. Returns (mean_nll, accuracy,
-    token_count)."""
+def chunked_sums(x: torch.Tensor, head: torch.Tensor,
+                 targets: torch.Tensor, mask: torch.Tensor | None = None,
+                 chunk: int = 512
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sums under :func:`chunked_ce`: (masked nll sum, correct count,
+    mask sum), the head product and softmax run per sequence chunk under
+    ``torch.utils.checkpoint``. The sequence is padded to a chunk multiple
+    with mask 0."""
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
@@ -474,17 +532,29 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
         loss_sum = loss_sum + stats[0]
         correct_sum = correct_sum + stats[1]
         count = count + stats[2]
+    return loss_sum, correct_sum, count
+
+
+def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+               mask: torch.Tensor | None = None, chunk: int = 512
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cross-entropy from hidden states without materializing the full
+    [B, S, vocab] logits (:func:`chunked_sums`), so the loss holds
+    O(B·chunk·V) at a time. Returns (mean_nll, accuracy, token_count)."""
+    loss_sum, correct_sum, count = chunked_sums(x, head, targets, mask,
+                                                chunk)
     total = torch.clamp_min(count, 1.0)
     return loss_sum / total, correct_sum / total, total
 
 
 def chunked_loss(config: LlamaConfig, params: Params, tokens: torch.Tensor,
                  targets: torch.Tensor, mask: torch.Tensor | None = None,
-                 chunk: int = 512,
-                 lora: Params | None = None) -> tuple[torch.Tensor, dict]:
+                 chunk: int = 512, lora: Params | None = None,
+                 layer_parallel=None) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy through :func:`chunked_ce`; returns (loss,
     {"loss", "accuracy", "tokens"})."""
-    x = hidden_states(config, params, tokens, lora=lora)
+    x = hidden_states(config, params, tokens, lora=lora,
+                      layer_parallel=layer_parallel)
     loss, accuracy, total = chunked_ce(x, lm_head(params), targets,
                                        mask=mask, chunk=chunk)
     return loss, {"loss": loss, "accuracy": accuracy, "tokens": total}
@@ -492,15 +562,19 @@ def chunked_loss(config: LlamaConfig, params: Params, tokens: torch.Tensor,
 
 def loss_fn(config: LlamaConfig, params: Params, tokens: torch.Tensor,
             targets: torch.Tensor, mask: torch.Tensor | None = None,
-            loss_chunk: int = 0,
-            lora: Params | None = None) -> tuple[torch.Tensor, dict]:
+            loss_chunk: int = 0, lora: Params | None = None,
+            layer_parallel=None) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy; returns (loss, {"loss", "accuracy",
     "tokens"}). ``loss_chunk > 0`` uses the memory-efficient chunked head
-    (:func:`chunked_loss`); ``lora`` adds an adapter's deltas."""
+    (:func:`chunked_loss`); ``lora`` adds an adapter's deltas;
+    ``layer_parallel`` runs the layers on a rank's shards (the sharded
+    step)."""
     if loss_chunk:
         return chunked_loss(config, params, tokens, targets, mask=mask,
-                            chunk=loss_chunk, lora=lora)
-    logits = forward(config, params, tokens, lora=lora)
+                            chunk=loss_chunk, lora=lora,
+                            layer_parallel=layer_parallel)
+    logits = forward(config, params, tokens, lora=lora,
+                     layer_parallel=layer_parallel)
     log_probs = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(log_probs, -1, targets[..., None].long())[..., 0]
     if mask is None:

@@ -1,3 +1,4 @@
 """Meshes and sharding over ``torch.distributed`` — counterpart of
-``mlrun_tpu/parallel`` (``mesh.py``, ``sharding.py``). Pipeline
-parallelism (``pipeline.py``) is not ported yet (ROADMAP.md item 7)."""
+``mlrun_tpu/parallel``: ``mesh.py`` and ``sharding.py``, the tensor axis
+and per-layer ``fsdp`` gather of the sharded step (``tensor.py``), and
+GPipe stages over a ``pipe`` axis (``pipeline.py``)."""

@@ -8,16 +8,20 @@ reference's named axes in its order:
 
 - ``data``   pure data parallelism (the batch)
 - ``fsdp``   parameters sharded, batch split too
-- ``tensor`` tensor parallelism (not ported yet: a ``tensor`` axis larger
-  than 1 raises item 7 in the trainer)
+- ``tensor`` tensor parallelism (the layers' column- and row-parallel
+  projections, parallel/tensor.py)
 - ``seq``    context parallelism (ring or Ulysses attention)
+- ``pipe``   pipeline stages (parallel/pipeline.py)
 
 ``initialize_distributed`` joins the process group the way the launcher
 set it up (torchrun's environment, or an explicit address): NCCL for CUDA
 devices, gloo for the CPU. A single process with no launcher gets a
 world-size-1 group on an in-process store, so a mesh of size 1 runs the
-sharded path too. The reference's ``mesh_shape_for_topology`` maps TPU
-topologies and has no counterpart here.
+sharded path too. A mesh may hold a subset of the group's ranks (the
+survivors of an elastic reshard); every rank of the group builds it, as
+it builds the process groups the mesh's collectives run on
+(:func:`axes_group`). The reference's ``mesh_shape_for_topology`` maps
+TPU topologies and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -101,30 +105,105 @@ def initialize_distributed(coordinator_address: str | None = None,
 
 
 def make_mesh(shape: dict | None = None, device="cuda",
-              axis_names: Sequence[str] | None = None):
+              axis_names: Sequence[str] | None = None,
+              ranks: Sequence[int] | None = None):
     """A ``DeviceMesh`` over every rank of the default process group
-    (joined first through :func:`initialize_distributed`), axes in
-    ``shape``'s order, rank ``r`` at the row-major coordinate of ``r``.
-    ``shape=None`` puts every rank on the second default axis (``fsdp``);
-    one axis may be -1 (the remaining ranks). Unlike the reference, a
-    shape smaller than the world raises instead of taking a prefix: a
-    rank outside the mesh would hold no part of the state."""
+    (joined first through :func:`initialize_distributed`), or over
+    ``ranks`` of it, axes in ``shape``'s order, the i-th rank at the
+    row-major coordinate i. ``shape=None`` puts every rank on the second
+    default axis (``fsdp``); one axis may be -1 (the remaining ranks).
+    Unlike the reference, a shape smaller than its ranks raises instead
+    of taking a prefix: a rank outside the mesh would hold no part of the
+    state. Every rank of the group calls it, members or not: it creates
+    the process groups of the mesh's collectives."""
     from torch.distributed.device_mesh import DeviceMesh
 
     device = torch.device(device)
     # the world the group will have: a shape that does not fit raises
     # before any group is joined
-    n = (dist.get_world_size() if dist.is_initialized()
-         else int(os.environ.get("WORLD_SIZE", "1")))
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    ranks = sorted(int(r) for r in ranks) if ranks is not None \
+        else list(range(world))
+    n = len(ranks)
     if shape is None:
         names = tuple(axis_names or DEFAULT_AXES)
         shape = {name: 1 for name in names}
         shape[names[1] if len(names) > 1 else names[0]] = n
     resolved = MeshConfig(dict(shape)).resolve(n)
     initialize_distributed(device=device)
-    ranks = torch.arange(n).reshape(tuple(resolved.values()))
-    return DeviceMesh(device.type, ranks,
+    layout = torch.tensor(ranks).reshape(tuple(resolved.values()))
+    mesh = DeviceMesh(device.type, layout,
                       mesh_dim_names=tuple(resolved.keys()))
+    _create_groups(mesh)
+    return mesh
+
+
+def _active(mesh, axes) -> tuple:
+    return tuple(a for a in axes if mesh.size(a) > 1)
+
+
+def _create_groups(mesh):
+    """Create, on every rank of the group and in one order, the groups of
+    :func:`axes_group` that no DeviceMesh dimension gives (every active
+    axis of a mesh over part of the group; the data x fsdp plane of a
+    mesh with further active axes), kept on the mesh by (axes, the
+    coordinates of the other axes)."""
+    import itertools
+
+    everything = _active(mesh, range(mesh.ndim))
+    groups = mesh.mlt_axis_groups = {}
+    planes = [everything]
+    names = mesh.mesh_dim_names
+    batch = _active(mesh, [names.index(a) for a in ("data", "fsdp")
+                           if a in names])
+    if len(batch) > 1 and batch != everything:
+        planes.append(batch)
+    for axes in planes:
+        if len(axes) < 2 or (axes == everything and mesh.mesh.numel()
+                             == dist.get_world_size()):
+            continue
+        others = [a for a in range(mesh.ndim) if a not in axes]
+        for fixed in itertools.product(*(range(mesh.size(a))
+                                         for a in others)):
+            index = [slice(None)] * mesh.ndim
+            for axis, c in zip(others, fixed):
+                index[axis] = c
+            members = sorted(mesh.mesh[tuple(index)].flatten().tolist())
+            groups[(axes, fixed)] = (dist.new_group(members), members)
+
+
+def axes_group(mesh, axes) -> tuple:
+    """(process group, its global ranks in group-rank order) of the ranks
+    that share this rank's mesh coordinate outside ``axes`` (axis
+    indices); axes of size 1 are dropped. No active axis: ``(None,
+    [this rank])``, nothing to communicate. The whole mesh over every rank
+    is the default group (``None``)."""
+    active = _active(mesh, axes)
+    if not active:
+        return None, [dist.get_rank()]
+    everything = _active(mesh, range(mesh.ndim))
+    if active == everything and mesh.mesh.numel() == dist.get_world_size():
+        return None, list(range(dist.get_world_size()))
+    if len(active) == 1:
+        group = mesh.get_group(active[0])
+        return group, dist.get_process_group_ranks(group)
+    coordinate = mesh.get_coordinate()
+    fixed = tuple(coordinate[a] for a in range(mesh.ndim)
+                  if a not in active)
+    try:
+        return mesh.mlt_axis_groups[(active, fixed)]
+    except (AttributeError, KeyError):
+        raise ValueError(
+            f"no process group over mesh axes "
+            f"{[mesh.mesh_dim_names[a] for a in active]}: build the mesh "
+            "with parallel.mesh.make_mesh") from None
+
+
+def mesh_group(mesh):
+    """The process group over every rank of ``mesh`` (None: the default
+    group)."""
+    return axes_group(mesh, range(mesh.ndim))[0]
 
 
 def refit_shape(shape: dict, n_devices: int,

@@ -9,10 +9,11 @@ spec names that axis at tensor dim ``d``, ``Replicate()`` elsewhere. Axes
 the mesh lacks, or holds at size 1, are dropped first, as the reference
 does, so one table serves every mesh.
 
-The step gathers the DTensor params into plain tensors (:func:`gather`),
-so no DTensor ever reaches a kernel launch, runs on the rank's part of
-the batch (:func:`local_part`) and brings the gradients back to the
-params' placements (:func:`reduce_to`).
+The step gathers the DTensor params into plain tensors (:func:`gather`,
+or layer by layer in parallel/tensor.py), so no DTensor ever reaches a
+kernel launch, runs on the rank's part of the batch (:func:`local_part`)
+and brings the gradients back to the params' placements
+(:func:`reduce_part`, :func:`reduce_to`).
 """
 
 from __future__ import annotations
@@ -187,16 +188,26 @@ def gather(leaf):
     return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
 
 
-def local_part(x, mesh, placements):
+def local_part(x, mesh, placements, accum: int = 1):
     """This rank's part of a global tensor placed by ``placements``: a
     DTensor's local tensor, or the slice of a plain tensor at this rank's
     mesh coordinate (no communication). A sharded dim must divide
-    evenly."""
+    evenly. With ``accum`` > 1 a plain batch is first split into
+    ``accum`` micro-batches along dim 0 and the rank's part of each is
+    kept, in order (the reference's gradient accumulation splits the
+    global batch before sharding it), so the rank's ``accum`` equal
+    parts are its rows of each micro-batch."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(x, DTensor):
         return x.to_local()
-    return _part_at(x, mesh, placements, mesh.get_coordinate())
+    coordinate = mesh.get_coordinate()
+    if accum > 1 and x.shape[0] % accum == 0:
+        import torch
+
+        return torch.cat([_part_at(part, mesh, placements, coordinate)
+                          for part in x.chunk(accum)])
+    return _part_at(x, mesh, placements, coordinate)
 
 
 def _part_at(x, mesh, placements, coordinate):
@@ -219,69 +230,117 @@ def _part_at(x, mesh, placements, coordinate):
     return x
 
 
-def reduce_to(grad, like, ranks: int):
-    """A rank's full gradient ``grad`` summed over every rank of the
-    default group, divided by ``ranks`` (the mean over the batch shards)
-    and cut to the placements of the DTensor ``like``.
+def reduce_part(grad, mesh, placements, ranks: int, over=None,
+                whole=None):
+    """The mean over the batch shards of a gradient, as this rank's part
+    of a leaf placed by ``placements``: ``grad`` summed over the ranks
+    that differ from this one only on the mesh axes ``over`` (indices;
+    default every axis), divided by ``ranks``, cut to the rank's part.
+    ``grad`` covers the whole leaf along the axes ``whole`` (default
+    every axis) and this rank's part along the others (a tensor rank's
+    shard of a projection); along whole axes outside ``over`` (a tensor
+    axis whose ranks all hold the same gradient) it is cut without a
+    sum.
 
-    One reduce-scatter over the group does the sum: each rank's part of
-    the leaf is laid out end to end in rank order, so each element is
+    One reduce-scatter over the ``over`` group does the sum: each member's
+    part is laid out end to end in group-rank order, so each element is
     summed once and lands on the ranks that hold it with one bit pattern.
-    A part replicated over other mesh axes is split into one piece per
+    A part replicated over axes of ``over`` is split into one piece per
     copy, and an all-gather over each such axis (copies, no arithmetic)
-    puts the part back together. The group moves a reduce-scatter's bytes
-    for a leaf sharded on every rank, and an all-reduce's for a
-    replicated one."""
+    puts it back together. The group moves a reduce-scatter's bytes for
+    a leaf sharded on every member, an all-reduce's for a replicated
+    one."""
     import torch
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
-    mesh = like.device_mesh
-    placements = like.placements
-    world = dist.get_world_size()
-    layout = mesh.mesh
-    if layout.numel() != world:
-        raise ValueError(f"the mesh holds {layout.numel()} of the group's "
-                         f"{world} ranks")
-    copied = [axis for axis, placement in enumerate(placements)
-              if not isinstance(placement, Shard) and mesh.size(axis) > 1]
+    from .mesh import axes_group
+
+    axes = range(mesh.ndim)
+    over = tuple(axes) if over is None else tuple(over)
+    whole = tuple(axes) if whole is None else tuple(whole)
+    coordinate = list(mesh.get_coordinate())
+    grad = _part_at(grad, mesh, [p if a in whole and a not in over
+                                 else Replicate()
+                                 for a, p in enumerate(placements)],
+                    coordinate)
+    placements = [p if a in over else Replicate()
+                  for a, p in enumerate(placements)]
+    group, members = axes_group(mesh, over)
+    copied = [a for a in over if not isinstance(placements[a], Shard)
+              and mesh.size(a) > 1]
     copies = 1
     for axis in copied:
         copies *= mesh.size(axis)
-    shape = _part_at(grad, mesh, placements,
-                     mesh.get_coordinate()).shape
+    shape = _part_at(grad, mesh, placements, coordinate).shape
     count = shape.numel()
     piece = -(-count // copies)
     pieces = []
-    for rank in range(world):
-        coordinate = [int(c) for c in (layout == rank).nonzero()[0]]
-        index = 0   # the rank's copy, row-major over the copied axes
+    layout = mesh.mesh
+    for rank in members:
+        where = [int(c) for c in (layout == rank).nonzero()[0]]
+        index = 0   # the member's copy, row-major over the copied axes
         for axis in copied:
-            index = index * mesh.size(axis) + coordinate[axis]
-        flat = _part_at(grad, mesh, placements, coordinate).reshape(-1)
+            index = index * mesh.size(axis) + where[axis]
+        flat = _part_at(grad, mesh, placements, where).reshape(-1)
         flat = flat[index * piece:(index + 1) * piece]
         if flat.numel() < piece:
             flat = torch.nn.functional.pad(flat, (0, piece - flat.numel()))
         pieces.append(flat)
-    send = pieces[0].contiguous() if world == 1 else torch.cat(pieces)
-    part = grad.new_empty(piece)
-    dist.reduce_scatter_tensor(part, send)
+    if len(members) == 1:
+        part = pieces[0].clone()
+    else:
+        part = grad.new_empty(piece)
+        dist.reduce_scatter_tensor(part, torch.cat(pieces), group=group)
     part.div_(ranks)
     for axis in reversed(copied):
-        whole = part.new_empty(part.numel() * mesh.size(axis))
-        dist.all_gather_into_tensor(whole, part, group=mesh.get_group(axis))
-        part = whole
-    return DTensor.from_local(part[:count].view(shape), mesh, placements)
+        whole_part = part.new_empty(part.numel() * mesh.size(axis))
+        dist.all_gather_into_tensor(whole_part, part,
+                                    group=mesh.get_group(axis))
+        part = whole_part
+    return part[:count].view(shape)
 
 
-def mean_metrics(metrics: dict, ranks: int) -> dict:
-    """Step metrics averaged over every rank of the default group in one
-    all-reduce; ``tokens`` (a count) is summed."""
-    import torch
+def reduce_to(grad, like, ranks: int, over=None, whole=None):
+    """:func:`reduce_part` of ``grad`` as a DTensor placed like the
+    DTensor ``like``."""
+    from torch.distributed.tensor import DTensor
+
+    part = reduce_part(grad, like.device_mesh, like.placements, ranks, over,
+                       whole)
+    return DTensor.from_local(part, like.device_mesh, like.placements)
+
+
+def batch_ranks(mesh) -> int:
+    """How many parts the batch is split into: the product of the
+    data-ish axes (``data``, ``fsdp``)."""
+    sizes = mesh_shape(mesh)
+    return sizes.get("data", 1) * sizes.get("fsdp", 1)
+
+
+def mesh_all_reduce(tensor, mesh, op=None):
+    """All-reduce ``tensor`` in place over every rank of ``mesh`` (SUM by
+    default); a mesh of one rank leaves it as is."""
     import torch.distributed as dist
+
+    from .mesh import axes_group
+
+    group, members = axes_group(mesh, range(mesh.ndim))
+    if len(members) > 1:
+        dist.all_reduce(tensor, op=op or dist.ReduceOp.SUM, group=group)
+    return tensor
+
+
+def mean_metrics(metrics: dict, mesh) -> dict:
+    """Step metrics averaged over the batch's parts in one all-reduce over
+    the mesh; ``tokens`` (a count) is summed over the parts. Ranks that
+    hold one part (a tensor group) report the same values."""
+    import torch
 
     keys = sorted(metrics)
     stacked = torch.stack([metrics[k].detach().float() for k in keys])
-    dist.all_reduce(stacked)
-    return {k: stacked[i] if k == "tokens" else stacked[i] / ranks
+    mesh_all_reduce(stacked, mesh)
+    ranks = mesh.mesh.numel()
+    copies = ranks // batch_ranks(mesh)
+    return {k: stacked[i] / copies if k == "tokens" else stacked[i] / ranks
             for i, k in enumerate(keys)}

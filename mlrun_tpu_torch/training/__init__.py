@@ -1,6 +1,7 @@
-"""Training on one device — counterpart of ``mlrun_tpu/training``: the
-trainer (``Trainer``, ``make_train_step``, ``make_optimizer``), data
-streams and device prefetch, MFU accounting, checkpoints and preemption.
+"""Training — counterpart of ``mlrun_tpu/training``: the trainer
+(``Trainer``, ``make_train_step``, ``make_optimizer``) on one device or
+a mesh, data streams and device prefetch, MFU accounting, checkpoints,
+preemption and elastic slices.
 """
 
 from .checkpoint import CheckpointManager  # noqa: F401
@@ -10,6 +11,7 @@ from .data import (  # noqa: F401
     synthetic_token_stream,
     text_file_stream,
 )
+from .elastic import ElasticGuard, SliceEvent  # noqa: F401
 from .mfu import ThroughputTracker, chip_peak_flops, mfu  # noqa: F401
 from .preemption import PreemptionGuard  # noqa: F401
 from .train import (  # noqa: F401

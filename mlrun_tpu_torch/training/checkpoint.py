@@ -7,9 +7,12 @@ One ``<directory>/<step>/`` per step, the oldest pruned past
 - a single-device state: ``torch.save`` of ``params.pt`` (the params) and
   ``state.pt`` (the rest), written to a temporary name and renamed into
   place;
-- a sharded state (DTensor leaves, a ``data`` x ``fsdp`` mesh): one
-  ``torch.distributed.checkpoint`` (DCP) save, every rank writing its
-  shards, rank 0 renaming the directory once the metadata is down.
+- a sharded state (DTensor leaves on a mesh): one
+  ``torch.distributed.checkpoint`` (DCP) save over the mesh's ranks,
+  each writing its shards, the mesh's lowest rank renaming the directory
+  once the metadata is down. DCP reads a checkpoint back onto any mesh,
+  so a state saved at one world size restores at another (an elastic
+  reshard).
 
 ``restore`` reads either form into the form of the state it is given;
 ``restore_params`` reads the params alone of either form onto one device
@@ -70,11 +73,14 @@ class CheckpointManager:
         if sharded:
             import torch.distributed.checkpoint as dcp
 
+            group, members = _mesh_group(tree)
             tree["opt_state"]["count"] = torch.tensor(
                 tree["opt_state"]["count"])
             tree["step"] = torch.tensor(tree["step"])
-            dcp.save(tree, checkpoint_id=tmp)
-            lead = dist.get_rank() == 0
+            # a mesh of one rank inside a larger group saves alone
+            dcp.save(tree, checkpoint_id=tmp, process_group=group,
+                     no_dist=len(members) == 1 < dist.get_world_size())
+            lead = dist.get_rank() == min(members)
         else:
             os.makedirs(tmp, exist_ok=True)
             if isinstance(tree, dict) and "params" in tree:
@@ -88,8 +94,8 @@ class CheckpointManager:
                 for old in self._steps()[:-self.max_to_keep]:
                     shutil.rmtree(os.path.join(self.directory, str(old)),
                                   ignore_errors=True)
-        if sharded:
-            dist.barrier()   # every rank sees the renamed step
+        if sharded and len(members) > 1:
+            dist.barrier(group=group)   # every rank sees the renamed step
         return True
 
     def restore(self, state_like: Any, step: int | None = None) -> Any:
@@ -106,8 +112,11 @@ class CheckpointManager:
             tree["opt_state"]["count"] = torch.tensor(0)
             tree["step"] = torch.tensor(0)
             skeleton = _map_tensors(torch.empty_like, tree)
-            dcp.load(skeleton, checkpoint_id=path,
-                     no_dist=not dist.is_initialized())
+            group, members = _mesh_group(tree) if _is_sharded(tree) \
+                else (None, [])
+            dcp.load(skeleton, checkpoint_id=path, process_group=group,
+                     no_dist=not dist.is_initialized()
+                     or len(members) == 1 < dist.get_world_size())
             return _from_tree(state_like, skeleton)
         if _is_sharded(_to_tree(state_like)):
             raise ValueError(
@@ -198,6 +207,16 @@ def _is_sharded(tree) -> bool:
 
     return isinstance(tree, dict) and "params" in tree and any(
         _is_dtensor(leaf) for leaf in tree_leaves(tree["params"]))
+
+
+def _mesh_group(tree) -> tuple:
+    """(process group, its ranks) of the mesh a sharded tree lives on."""
+    from ..parallel.mesh import axes_group
+    from .train import tree_leaves
+
+    mesh = next(leaf for leaf in tree_leaves(tree["params"])
+                if _is_dtensor(leaf)).device_mesh
+    return axes_group(mesh, range(mesh.ndim))
 
 
 def _map_tensors(fn, tree):

@@ -20,19 +20,19 @@ import torch.distributed as dist
 from ..utils import logger
 
 
-def all_ranks_agree(flag: bool, device=None) -> bool:
-    """Max-reduce a local boolean across the process group's ranks: every
-    rank must take a stop decision in the same step, or the ranks still
-    stepping wait forever in the step's collectives. One process: the
-    flag itself. ``device`` holds the vote (NCCL's default: the current
-    CUDA device; gloo's: the CPU)."""
-    if not dist.is_initialized() or dist.get_world_size() <= 1:
+def all_ranks_agree(flag: bool, device=None, group=None) -> bool:
+    """Max-reduce a local boolean across the process group's ranks (or
+    ``group``'s): every rank must take a stop decision in the same step,
+    or the ranks still stepping wait forever in the step's collectives.
+    One process: the flag itself. ``device`` holds the vote (NCCL's
+    default: the current CUDA device; gloo's: the CPU)."""
+    if not dist.is_initialized() or dist.get_world_size(group) <= 1:
         return flag
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
     vote = torch.tensor([int(flag)], dtype=torch.int32, device=device)
-    dist.all_reduce(vote, op=dist.ReduceOp.MAX)
+    dist.all_reduce(vote, op=dist.ReduceOp.MAX, group=group)
     return bool(vote.item())
 
 

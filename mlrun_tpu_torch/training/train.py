@@ -10,25 +10,35 @@ Llama base: gradients and AdamW touch the adapter's tensors only. The
 BERT, ViT and T5 steps build on ``make_loss_step``.
 
 With a mesh (``Trainer(mesh=)`` or ``TrainConfig.mesh_shape``; a
-``data`` x ``fsdp`` DeviceMesh over the process group, one rank per GPU)
-the state lives as DTensors placed by the reference's rule table
-(parallel/sharding.py). A step gathers the params into plain tensors, so
-the kernels never see a DTensor, runs the unchanged loss on the rank's
-slice of the batch, and brings the gradients back to the params'
-placements as the mean over the ranks (one reduce-scatter a leaf); the
-gradient norm of the clip sums every shard once. Between steps the
-params and the AdamW moments are sharded; inside a step every rank holds
-the full params and their full gradients. A mesh is taken even at size
-1. ``context_parallel`` ("ring" or "ulysses") shards the sequence
-over a ``seq`` axis instead (models/llama_cp.py).
+DeviceMesh over the process group, one rank per GPU) the state lives as
+DTensors placed by the reference's rule table (parallel/sharding.py),
+and each rank steps on its slice of the batch (over ``data`` x
+``fsdp``). A Llama step keeps the layers sharded: each layer's ``fsdp``
+shards are gathered inside the layer loop and dropped after it (again
+in the backward), and each layer's gradient is reduce-scattered as soon
+as it is complete (parallel/tensor.py), so a rank holds its shards of
+the params, gradients and moments plus one gathered layer. On a
+``tensor`` axis the layers are tensor-parallel: a rank computes its own
+heads and MLP slice, the row-parallel partials all-reduced. The
+embedding, the final norm and the head are gathered whole (over
+``tensor`` too) inside the step, a departure from the reference, whose
+XLA program keeps them sharded; they hold about 13% of Llama-3-8B's
+params. The gradient norm of the clip sums every shard once. Other
+families (MoE, and BERT, ViT and T5 through ``make_loss_step``) gather
+every leaf for the step and reduce each gradient once. A mesh is taken
+even at size 1. ``context_parallel`` ("ring" or "ulysses") shards the
+sequence over a ``seq`` axis instead (models/llama_cp.py);
+``pipeline_stages`` runs GPipe stages over a ``pipe`` axis
+(parallel/pipeline.py).
 
 ``Trainer.fit`` drives the structured callbacks of
 ``frameworks/_common/callbacks.py``, resumes from the environment's
-checkpoint directive, and attributes its wall time in a
-``GoodputLedger`` (obs/goodput.py). Features of the reference trainer
-that the port does not have yet (tensor, pipeline and expert
-parallelism, elastic training) raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+checkpoint directive, attributes its wall time in a ``GoodputLedger``
+(obs/goodput.py), and with ``elastic_guard`` (training/elastic.py)
+reshards onto the surviving slices and back. Features of the reference
+trainer that the port does not have yet (expert parallelism, LoRA on a
+``tensor`` axis) raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -49,10 +59,13 @@ from ..models.llama import LlamaConfig
 from ..models.moe import MoEConfig
 from ..parallel.mesh import make_mesh, mesh_shape
 from ..parallel.sharding import (
+    _map_with_path,
+    batch_ranks,
     batch_sharding,
     gather,
     local_part,
     mean_metrics,
+    mesh_all_reduce,
     reduce_to,
     shard_pytree,
 )
@@ -109,7 +122,7 @@ def _check_ported(model_config, train_config: TrainConfig,
             raise ValueError(
                 "moe_experts does not compose with context_parallel yet")
     if tc.pipeline_stages > 1:
-        raise not_ported("pipeline parallelism (pipeline_stages)", 7)
+        return   # the pipeline's own checks run with its mesh
     sizes = {axis: int(n) for axis, n in (
         shape if shape is not None else tc.mesh_shape or {}).items()}
     if tc.context_parallel:
@@ -125,16 +138,16 @@ def _check_ported(model_config, train_config: TrainConfig,
                 f"data x seq meshes (active axes {offending} cannot "
                 f"combine with '{seq_axis}')")
         return
-    if sizes.get("tensor", 1) > 1:
-        raise not_ported("tensor parallelism (a 'tensor' mesh axis)", 7)
-    others = [a for a, n in sizes.items() if a not in ("data", "fsdp")
-              and n > 1]
+    others = [a for a, n in sizes.items()
+              if a not in ("data", "fsdp", "tensor") and n > 1]
     if others:
         raise not_ported(f"training over mesh axes {others} (the port "
-                         f"trains on data x fsdp meshes)", 7)
+                         f"trains on data x fsdp x tensor meshes)", 7)
     if is_moe and math.prod(n for n in sizes.values() if n > 0) > 1:
         raise not_ported("expert parallelism (moe_experts on a mesh over "
                          "more than one device)", 7)
+    if tc.lora_rank > 0 and sizes.get("tensor", 1) > 1:
+        raise not_ported("LoRA on a 'tensor' mesh axis", 7)
 
 
 def resolve_model_config(model_config: LlamaConfig,
@@ -206,7 +219,8 @@ def global_norm(leaves) -> torch.Tensor:
     if not leaves or not isinstance(leaves[0], DTensor):
         return torch.sqrt(sum(torch.sum(g.float() * g.float())
                               for g in leaves))
-    coordinate = leaves[0].device_mesh.get_coordinate()
+    mesh = leaves[0].device_mesh
+    coordinate = mesh.get_coordinate()
     total = torch.zeros((), dtype=torch.float32,
                         device=leaves[0].to_local().device)
     for g in leaves:
@@ -214,7 +228,7 @@ def global_norm(leaves) -> torch.Tensor:
                if isinstance(p, Replicate)):
             local = g.to_local().float()
             total = total + torch.sum(local * local)
-    dist.all_reduce(total)
+    mesh_all_reduce(total, mesh)
     return torch.sqrt(total)
 
 
@@ -385,23 +399,212 @@ def _on_mesh(compute: Callable, mesh) -> Callable:
                                  *(local_part(x, mesh, data) for x in batch))
         grads = [reduce_to(g, like, ranks)
                  for g, like in zip(grads, tree_leaves(trained))]
-        return grads, mean_metrics(metrics, ranks)
+        return grads, mean_metrics(metrics, mesh)
 
     return sharded
 
 
+def _layered_on_mesh(model_config, train_config: TrainConfig, mesh,
+                     family_loss: Callable) -> tuple[Callable, Callable]:
+    """The Llama step on a mesh: (one batch, the step's batch with
+    gradient accumulation), each ``(params, lora, tokens, targets) ->
+    (grads, metrics)`` over the state's DTensor trees and the global
+    batch. The layers run on the rank's local shards through a
+    ``parallel.tensor.LayerParallel`` (per-layer ``fsdp`` gathers, the
+    tensor axis' halves); the embedding, final norm and head are gathered
+    whole; every gradient comes back reduced to its leaf's placements as
+    the mean over the batch's parts."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..parallel.tensor import LayerParallel, LeafComm, check_divisible
+    from ..parallel.tensor import gathered as gathered_leaf
+
+    check_divisible(model_config, mesh_shape(mesh).get("tensor", 1))
+    ranks = batch_ranks(mesh)
+    names = mesh.mesh_dim_names
+    batch_axes = tuple(names.index(a) for a in ("data", "fsdp")
+                       if a in names)
+    data = batch_sharding(mesh)
+    accum = max(1, train_config.grad_accum)
+
+    def local(tree, requires_grad: bool):
+        return tree_map(lambda t: _local(t).detach().requires_grad_(
+            requires_grad), tree)
+
+    def outer(leaf, local_leaf):
+        comm = LeafComm(mesh, leaf.placements,
+                        [a for a, p in enumerate(leaf.placements)
+                         if isinstance(p, Shard)],
+                        batch_axes, range(mesh.ndim), ranks)
+        return gathered_leaf(local_leaf, comm)
+
+    def local_grads(params, lora, tokens, targets):
+        """Gradients of the rank's local leaves (already reduced) and the
+        mean metrics, on the rank's part of the batch."""
+        layer_parallel = LayerParallel(mesh, params["layers"], lora, ranks)
+        shards = local(params, lora is None)
+        lora_shards = None if lora is None else local(lora, True)
+        view = {key: value if key == "layers" else outer(params[key], value)
+                for key, value in shards.items()}
+        loss, metrics = family_loss(
+            model_config, view, tokens, targets,
+            loss_chunk=train_config.loss_chunk, lora=lora_shards,
+            layer_parallel=layer_parallel)
+        grads = torch.autograd.grad(loss, tree_leaves(
+            shards if lora is None else lora_shards))
+        return list(grads), mean_metrics(
+            {k: v.detach() for k, v in metrics.items()}, mesh)
+
+    def wrapped(batch_grads):
+        def sharded(params, lora, tokens, targets):
+            trained = params if lora is None else lora
+            grads, metrics = batch_grads(
+                params, lora, local_part(tokens, mesh, data, accum),
+                local_part(targets, mesh, data, accum))
+            return [DTensor.from_local(g, like.device_mesh, like.placements)
+                    for g, like in zip(grads, tree_leaves(trained))], metrics
+
+        return sharded
+
+    def accumulated(params, lora, tokens, targets):
+        if accum > 1:
+            return accumulate_grads(
+                lambda t, g: local_grads(params, lora, t, g), tokens,
+                targets, accum)
+        return local_grads(params, lora, tokens, targets)
+
+    return wrapped(local_grads), wrapped(accumulated)
+
+
+def _pp_check(train_config: TrainConfig, mesh, rules=None):
+    """The reference's refusals of the pipeline trainer (``_pp_setup``),
+    in its order and with its messages."""
+    if rules is not None:
+        raise ValueError(
+            "pipeline_stages uses its own stage sharding (PP_RULES); "
+            "custom sharding rules are not supported with the pipeline "
+            "trainer")
+    stages = train_config.pipeline_stages
+    shape = {} if mesh is None else mesh_shape(mesh)
+    if shape.get("pipe") != stages:
+        raise ValueError(
+            f"pipeline_stages={stages} needs a 'pipe' mesh axis of that "
+            f"size (mesh: {shape})")
+    if train_config.lora_rank:
+        raise ValueError(
+            "pipeline_stages does not compose with lora_rank yet")
+    if train_config.context_parallel or train_config.moe_experts:
+        raise ValueError(
+            "pipeline_stages composes with data parallelism only (not "
+            "context_parallel/moe_experts)")
+    offending = [a for a, n in shape.items()
+                 if a not in ("pipe", "data") and n > 1]
+    if offending:
+        raise ValueError(
+            f"pipeline training runs on pipe (+ optional data) mesh axes; "
+            f"active axes {offending} are not supported inside the "
+            "pipelined region")
+
+
+def _make_pp_step(model_config, train_config: TrainConfig, optimizer,
+                  mesh) -> Callable:
+    """The GPipe step (parallel/pipeline.py) over the mesh's ``pipe``
+    axis, composing with a ``data`` axis (one pipeline per data
+    coordinate) and with ``grad_accum``. A stage's layer gradients are
+    averaged over ``data``; the embedding's, final norm's and head's
+    are summed over the stages (the embedding on stage 0, its tied use
+    as the head on the last) and averaged over ``data``. The metrics
+    (the loss and accuracy of the whole batch, as the reference's
+    ``pipeline_loss_fn``) reach every rank."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.pipeline import RankLink, Stage, run_rank
+
+    names = mesh.mesh_dim_names
+    pipe = names.index("pipe")
+    stages = train_config.pipeline_stages
+    microbatches = train_config.pipeline_microbatches or stages
+    accum = max(1, train_config.grad_accum)
+    ranks = batch_ranks(mesh)
+    data_axes = tuple(names.index(a) for a in ("data",) if a in names)
+    data = batch_sharding(mesh)
+
+    def link():
+        coordinate = list(mesh.get_coordinate())
+        line = []
+        for p in range(stages):
+            coordinate[pipe] = p
+            line.append(int(mesh.mesh[tuple(coordinate)]))
+        return RankLink(line)
+
+    def local_grads(params, tokens, targets):
+        shards = tree_map(lambda t: _local(t).detach().requires_grad_(True),
+                          params)
+        view = dict(shards)
+        view["layers"] = {k: v[0] for k, v in shards["layers"].items()}
+        stage = Stage(model_config, view, tokens, targets,
+                      mesh.get_coordinate()[pipe], stages, microbatches,
+                      link(), train_config.loss_chunk)
+        run_rank(stage, microbatches)
+        grads = []
+        paths = tree_leaves(_map_with_path(lambda path, _: path, params))
+        for path, leaf, like in zip(paths, tree_leaves(shards),
+                                    tree_leaves(params)):
+            grad = leaf.grad if leaf.grad is not None else \
+                torch.zeros_like(leaf)
+            if path.startswith("layers/"):
+                grads.append(reduce_to(grad, like, ranks, over=data_axes,
+                                       whole=data_axes).to_local())
+            else:
+                grads.append(reduce_to(grad, like, ranks).to_local())
+        sums = mesh_all_reduce(stage.sums(), mesh)
+        count = torch.clamp_min(sums[2], 1.0)
+        return grads, {"loss": sums[0] / count, "accuracy": sums[1] / count}
+
+    def sharded(params, tokens, targets, batch_grads):
+        grads, metrics = batch_grads(
+            params, local_part(tokens, mesh, data, accum),
+            local_part(targets, mesh, data, accum))
+        return [DTensor.from_local(g, like.device_mesh, like.placements)
+                for g, like in zip(grads, tree_leaves(params))], metrics
+
+    def accumulated(params, tokens, targets):
+        if accum > 1:
+            return accumulate_grads(
+                lambda t, g: local_grads(params, t, g), tokens, targets,
+                accum)
+        return local_grads(params, tokens, targets)
+
+    def step_fn(state: TrainState, tokens, targets):
+        grads, metrics = sharded(state.params, tokens, targets, accumulated)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = optimizer.update(grads, state.opt_state,
+                                                state.params)
+        state.step += 1
+        return state, metrics
+
+    step_fn.compute_grads = lambda params, tokens, targets, lora=None: \
+        sharded(params, tokens, targets, local_grads)
+    return step_fn
+
+
 def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
-                    optimizer: AdamW, mesh=None) -> Callable:
+                    optimizer: AdamW, mesh=None, rules=None) -> Callable:
     """The step: (state, tokens, targets) -> (state, metrics), with the
     state's trained tree (the params, or the LoRA adapter) and moments
     updated in place. ``metrics`` holds the loss function's (loss,
     accuracy, tokens) and ``grad_norm`` (before clipping), all as device
     scalars. On a ``mesh`` the state is sharded (module docstring) and
     ``tokens``/``targets`` are the global batch (plain or DTensors);
-    ``context_parallel`` takes models/llama_cp.py's step.
-    ``step_fn.compute_grads(params, tokens, targets, lora=None)`` gives
-    one batch's (grads, metrics) without updating."""
+    ``context_parallel`` takes models/llama_cp.py's step,
+    ``pipeline_stages`` the GPipe step (``rules`` is refused there, as
+    the reference refuses it). ``step_fn.compute_grads(params, tokens,
+    targets, lora=None)`` gives one batch's (grads, metrics) without
+    updating."""
     model_config = resolve_model_config(model_config, train_config)
+    if train_config.pipeline_stages > 1:
+        _pp_check(train_config, mesh, rules)
+        return _make_pp_step(model_config, train_config, optimizer, mesh)
     if mesh is not None:
         _check_ported(model_config, train_config, mesh_shape(mesh))
         if train_config.context_parallel:
@@ -428,9 +631,12 @@ def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
         return compute_grads(params, lora, tokens, targets)
 
     one_batch, step_grads = compute_grads, batch_grads
-    if mesh is not None:
+    if mesh is not None and isinstance(model_config, MoEConfig):
         one_batch, step_grads = (_on_mesh(compute_grads, mesh),
                                  _on_mesh(batch_grads, mesh))
+    elif mesh is not None:
+        one_batch, step_grads = _layered_on_mesh(
+            model_config, train_config, mesh, family_loss)
 
     def step_fn(state: TrainState, tokens, targets):
         grads, metrics = step_grads(state.params, state.lora, tokens,
@@ -520,7 +726,9 @@ def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
     generator after the params, or the given ``lora``) is trained. On a
     ``mesh`` (not context-parallel) both trees become DTensors placed by
     ``rules`` (default the reference's table); the full trees must be
-    the same on every rank (the same seed or the same given params)."""
+    the same on every rank (the same seed or the same given params).
+    With ``pipeline_stages`` the layers are split into ``[P, L/P, ...]``
+    and placed by ``PP_RULES`` (a pipe rank holds its stage's layers)."""
     from ..models.lora import init_lora
 
     model_config = resolve_model_config(model_config, train_config)
@@ -532,7 +740,15 @@ def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
     if is_lora and lora is None:
         lora = init_lora(model_config, generator, train_config.lora_rank,
                          train_config.lora_alpha, device=device)
-    if mesh is not None and not train_config.context_parallel:
+    if train_config.pipeline_stages > 1:
+        from ..parallel.pipeline import PP_RULES, split_layers_for_stages
+
+        _pp_check(train_config, mesh, rules)
+        params = dict(params)
+        params["layers"] = split_layers_for_stages(
+            params["layers"], train_config.pipeline_stages)
+        params = shard_pytree(params, mesh, PP_RULES)
+    elif mesh is not None and not train_config.context_parallel:
         params = shard_pytree(params, mesh, rules)
         lora = None if lora is None else shard_pytree(lora, mesh, rules)
     else:
@@ -542,6 +758,71 @@ def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
             leaf.requires_grad_(True)
     trained = lora if is_lora else params
     return TrainState(params, optimizer.init(trained), 0, lora)
+
+
+def _state_trees(state: TrainState) -> dict:
+    trees = {"params": state.params, "mu": state.opt_state.mu,
+             "nu": state.opt_state.nu}
+    if state.lora is not None:
+        trees["lora"] = state.lora
+    return trees
+
+
+def _state_from(trees: dict, count: int, step: int) -> TrainState:
+    return TrainState(trees["params"], AdamWState(count, trees["mu"],
+                                                  trees["nu"]), step,
+                      trees.get("lora"))
+
+
+def _state_on(state: TrainState, mesh, rules) -> TrainState:
+    """A state of ``state``'s structure, shapes and dtypes with empty
+    leaves placed on ``mesh`` by ``rules`` (a restore's skeleton)."""
+    import torch.distributed.tensor as dtensor
+
+    from ..parallel.sharding import _leaf_placements
+
+    def empty(path, leaf):
+        return dtensor.empty(tuple(leaf.shape), dtype=leaf.dtype,
+                             device_mesh=mesh,
+                             placements=_leaf_placements(path, leaf, mesh,
+                                                         rules))
+
+    trees = {key: _map_with_path(empty, tree)
+             for key, tree in _state_trees(state).items()}
+    return _state_from(trees, state.opt_state.count, state.step)
+
+
+def _carry_state(state, old_mesh, mesh, rules):
+    """The live state carried from ``old_mesh`` onto ``mesh``: every leaf
+    gathered on the old mesh's ranks, broadcast from the lowest of them
+    to every rank of the group, and sharded on the new mesh's ranks
+    (None on the others)."""
+    old_ranks = sorted(old_mesh.mesh.flatten().tolist())
+    src = old_ranks[0]
+    old_member = old_mesh.get_coordinate() is not None
+    new_member = mesh.get_coordinate() is not None
+    device = torch.device(mesh.device_type if new_member
+                          else old_mesh.device_type)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+
+    def carry(leaf):
+        full = leaf.full_tensor() if old_member else torch.empty(
+            tuple(leaf.shape), dtype=leaf.dtype, device=device)
+        dist.broadcast(full, src)
+        return full
+
+    counters = torch.tensor(
+        [state.opt_state.count, state.step] if old_member else [0, 0],
+        device=device)
+    dist.broadcast(counters, src)
+    trees = {key: tree_map(carry, tree)
+             for key, tree in _state_trees(state).items()}
+    if not new_member:
+        return None
+    trees = {key: shard_pytree(tree, mesh, rules)
+             for key, tree in trees.items()}
+    return _state_from(trees, int(counters[0]), int(counters[1]))
 
 
 class Trainer:
@@ -571,7 +852,7 @@ class Trainer:
         self.rules = rules
         self.optimizer = make_optimizer(self.train_config)
         self.step_fn = make_train_step(self.model_config, self.train_config,
-                                       self.optimizer, mesh=mesh)
+                                       self.optimizer, mesh=mesh, rules=rules)
         self.state: Optional[TrainState] = None
         self._metrics_history: list[dict] = []
         # warmup() product: wall seconds of the kernel build + first pass
@@ -624,7 +905,8 @@ class Trainer:
 
     def shard_batch(self, tokens, targets):
         """The batch on the device; on a mesh, as DTensors holding this
-        rank's slice (the batch over ``data`` x ``fsdp``). With
+        rank's slice (the batch over ``data`` x ``fsdp``; with
+        ``grad_accum``, its rows of each accumulation micro-batch). With
         ``context_parallel`` the global batch stays plain: the
         context-parallel loss cuts the rank's rows and sequence shard."""
         tokens, targets = to_device((tokens, targets), self.device)
@@ -633,9 +915,10 @@ class Trainer:
         from torch.distributed.tensor import DTensor
 
         placements = batch_sharding(self.mesh)
-        return tuple(DTensor.from_local(local_part(x, self.mesh, placements),
-                                        self.mesh, placements)
-                     for x in (tokens, targets))
+        accum = max(1, self.train_config.grad_accum)
+        return tuple(DTensor.from_local(
+            local_part(x, self.mesh, placements, accum), self.mesh,
+            placements) for x in (tokens, targets))
 
     def train_step(self, tokens, targets) -> dict:
         return self._dispatch(*self.shard_batch(tokens, targets))
@@ -677,6 +960,83 @@ class Trainer:
             context.log_result("resumed_from_step", int(self.state.step))
         return True
 
+    def _rules(self):
+        if self.train_config.pipeline_stages > 1:
+            from ..parallel.pipeline import PP_RULES
+
+            return PP_RULES
+        return self.rules
+
+    def reshard(self, ranks, checkpoint_manager=None) -> dict:
+        """Rebuild the mesh and the step over ``ranks`` and move the train
+        state onto it — the elastic slice-loss / grow-back core. The
+        mesh's shape is refit by rescaling one axis
+        (``parallel.mesh.refit_shape``). Every rank of the process group
+        calls it (it creates the new mesh's groups); a rank outside
+        ``ranks`` keeps no state and sits out until a later reshard takes
+        it back.
+
+        With a checkpoint in ``checkpoint_manager`` the new mesh's ranks
+        restore its latest step under the new placements (DCP reads it
+        across world sizes): after a slice death the only honest source,
+        as the dead slice's shards are gone. Without one (grow-back, where
+        the survivors hold everything, or a simulated shrink that never
+        checkpointed) the live state is carried over: the old mesh's ranks
+        gather each leaf, the lowest of them broadcasts it to every rank,
+        and the new mesh's ranks shard it (a carried shrink reads the
+        failed slice's shards, possible here because no rank died). A
+        rank left out keeps its stale state only as the template (shapes
+        and dtypes) of what a grow sends it.
+        Returns the decision record of the flight recorder's chain."""
+        from ..parallel.mesh import refit_shape
+
+        assert self.state is not None, "call init() first"
+        if self.mesh is None or self.train_config.context_parallel:
+            raise ValueError(
+                "elastic resharding needs a trainer on a sharded mesh (the "
+                "context-parallel step keeps its params replicated)")
+        ranks = sorted(int(r) for r in ranks)
+        old_mesh, old_world = self.mesh, self.world_size
+        new_shape = refit_shape(mesh_shape(old_mesh), len(ranks))
+        started = time.perf_counter()
+        mesh = make_mesh(new_shape, self.device, ranks=ranks)
+        step_fn = make_train_step(self.model_config, self.train_config,
+                                  self.optimizer, mesh=mesh,
+                                  rules=self.rules)
+        latest = checkpoint_manager.latest_step() \
+            if checkpoint_manager is not None else None
+        member = mesh.get_coordinate() is not None
+        if latest is not None:
+            state = checkpoint_manager.restore(
+                _state_on(self.state, mesh, self._rules()), step=latest) \
+                if member else None
+            decision = "restore_checkpoint"
+        else:
+            state = _carry_state(self.state, old_mesh, mesh, self._rules())
+            decision = "carry_live_state"
+        # swap only once the transfer succeeded: a failed restore leaves
+        # the trainer on its old (still valid) world. A rank outside the
+        # new mesh keeps its stale state as the template of what a later
+        # grow sends it
+        self.mesh, self.step_fn = mesh, step_fn
+        if member:
+            self.state = state
+        info = {"world_from": old_world, "world_to": mesh.size(),
+                "decision": decision,
+                "restored_step": state.step if member else None,
+                "reshard_s": time.perf_counter() - started}
+        logger.info("resharded train state", **{
+            k: round(v, 3) if isinstance(v, float) else v
+            for k, v in info.items()})
+        return info
+
+    @property
+    def sitting_out(self) -> bool:
+        """Whether this rank is outside the trainer's mesh (its slice
+        failed): it takes no step until a reshard takes it back, and its
+        ``state`` is stale."""
+        return self.mesh is not None and self.mesh.get_coordinate() is None
+
     def fit(self, data_iter, steps: int, context=None,
             log_every: int = 10, callbacks: list | None = None,
             checkpoint_manager=None, preemption_guard=None,
@@ -709,10 +1069,23 @@ class Trainer:
         steady-state (after ``warmup_steps_excluded`` steps); the first
         step's build is reported as ``compile_seconds``.
 
+        With ``elastic_guard`` (:class:`~.elastic.ElasticGuard`) the run
+        survives losing a slice: the guard is polled once per step; a
+        ``fail`` event reshards onto the survivors (:meth:`reshard`,
+        restoring the latest checkpoint of ``checkpoint_manager``) and
+        training goes on at the smaller world size, the failed slice's
+        ranks sitting out, until a ``join`` event grows it back with the
+        live state. The chain ``train.slice_fail`` -> ``train.reshard``
+        -> ``train.slice_join`` -> ``train.grow`` lands in the flight
+        recorder, a ``slice-preemption`` dump is written on a failure,
+        and each history entry carries ``world_size``.
+
         Every wall-second lands in ``self.goodput`` (a
         :class:`~..obs.goodput.GoodputLedger`): ``step`` is goodput; the
         build (``compile``, ``re_warm`` after a resume), ``data_wait``,
-        ``h2d``, ``metric_flush`` and ``checkpoint`` are badput;
+        ``h2d``, ``metric_flush``, ``checkpoint`` and ``reshard`` are
+        badput; while degraded, the lost capacity's share of each step is
+        ``degraded`` (all of a sitting-out rank's time);
         ``goodput_fraction`` is its fraction at the log point."""
         from ..frameworks._common.callbacks import CallbackList
         from ..obs import (
@@ -723,11 +1096,11 @@ class Trainer:
             TRAIN_STEP_TIME,
             GoodputLedger,
             flight_record,
+            get_flight_recorder,
         )
+        from ..parallel.mesh import axes_group
 
         assert self.state is not None, "call init() first"
-        if elastic_guard is not None:
-            raise not_ported("elastic training (elastic_guard)", 7)
         run_uid = str(getattr(context, "uid", "") or "") \
             if context is not None else ""
         ledger = self.goodput = GoodputLedger(run=run_uid)
@@ -741,7 +1114,18 @@ class Trainer:
         flight_record("train.fit_begin", run=run_uid, steps=steps,
                       resumed=resumed)
         hooks = CallbackList(callbacks, context=context, trainer=self)
-        multihost = dist.is_initialized() and dist.get_world_size() > 1
+
+        def agree(flag: bool) -> bool:
+            """A vote agreed over the ranks stepping together (the mesh's,
+            the whole group's without one)."""
+            group = None if self.mesh is None else \
+                axes_group(self.mesh, range(self.mesh.ndim))[0]
+            return all_ranks_agree(flag, self.device, group)
+
+        def multihost() -> bool:
+            if self.mesh is not None:
+                return self.world_size > 1
+            return dist.is_initialized() and dist.get_world_size() > 1
 
         depth = (int(TRAINING_DEFAULTS["prefetch"]) if prefetch is None
                  else int(prefetch))
@@ -824,11 +1208,73 @@ class Trainer:
             }
             if self.compile_seconds is not None:
                 extras["compile_seconds"] = self.compile_seconds
+            if elastic_guard is not None:
+                extras["world_size"] = self.world_size
             extras["goodput_fraction"] = ledger.goodput_fraction()
             if tps > 0:
                 TRAIN_STEP_TIME.set(step_tokens / tps, timer="fit")
             TRAIN_MFU.set(extras["mfu"])
             return extras
+
+        # elastic degraded-capacity accounting: while the run is at W' of W
+        # ranks, the (1 - W'/W) share of every step-second moves from
+        # goodput into 'degraded' (transfer() only reclassifies, so the
+        # attribution still sums to wall)
+        degraded_lost = 0.0   # capacity fraction currently lost
+        degraded_mark = 0.0   # goodput seconds already taxed
+        reshard_pending = False
+
+        def _degraded_tax():
+            nonlocal degraded_mark
+            good = ledger.goodput_seconds()
+            if degraded_lost <= 0.0:
+                degraded_mark = good
+                return
+            delta = good - degraded_mark
+            if delta > 0:
+                moved = delta * degraded_lost
+                ledger.transfer("step", "degraded", moved)
+                degraded_mark = good - moved
+
+        def _elastic_event(event):
+            nonlocal pending, last, reshard_pending, degraded_lost, \
+                degraded_mark
+            # a staged log point lands before the world changes
+            if pending is not None:
+                with ledger.phase("metric_flush"):
+                    last = _drain(pending)
+                pending = None
+            _degraded_tax()   # settle the tax at the old rate
+            step_before = None if self.state is None else self.state.step
+            if event.kind == "fail":
+                flight_record("train.slice_fail", run=run_uid,
+                              step=step_before, slice=event.slice_index,
+                              survivors=len(event.ranks),
+                              survivor_ranks=list(event.ranks))
+            else:
+                flight_record("train.slice_join", run=run_uid,
+                              step=step_before, slice=event.slice_index,
+                              world=len(event.ranks))
+            with ledger.phase("reshard"):
+                # a shrink restores the last checkpoint (the dead slice's
+                # shards are gone); a grow carries the survivors' state
+                info = self.reshard(event.ranks, checkpoint_manager
+                                    if event.kind == "fail" else None)
+            reshard_pending = True
+            degraded_lost = elastic_guard.lost_fraction()
+            degraded_mark = ledger.goodput_seconds()
+            flat = {k: round(v, 3) if isinstance(v, float) else v
+                    for k, v in info.items()}
+            if event.kind == "fail":
+                get_flight_recorder().dump(
+                    "slice-preemption",
+                    extra={"run": run_uid, "slice": event.slice_index,
+                           "survivors": list(event.ranks), **flat})
+                flight_record("train.reshard", run=run_uid, **flat)
+            else:
+                flight_record("train.grow", run=run_uid, **flat)
+            if context is not None and hasattr(context, "log_result"):
+                context.log_result("world_size", info["world_to"])
 
         hooks.on_train_begin()
         epoch = 0
@@ -840,13 +1286,15 @@ class Trainer:
             for step in range(steps):
                 if preemption_guard is not None and \
                         preemption_guard.agreed(self.device):
+                    at = None if self.sitting_out else self.state.step
                     logger.warning("preempted — checkpointing before exit",
-                                   step=self.state.step)
+                                   step=at)
                     if pending is not None:
                         with ledger.phase("metric_flush"):
                             last = _drain(pending)
                         pending = None
-                    if checkpoint_manager is not None:
+                    if checkpoint_manager is not None and \
+                            not self.sitting_out:
                         with ledger.phase("checkpoint"):
                             checkpoint_manager.save(self.state.step,
                                                     self.state, force=True)
@@ -854,11 +1302,11 @@ class Trainer:
                         if context is not None and \
                                 hasattr(context, "log_checkpoint"):
                             context.log_checkpoint(
-                                checkpoint_manager.directory,
-                                step=self.state.step, commit=False)
+                                checkpoint_manager.directory, step=at,
+                                commit=False)
                     last = dict(last)
                     last["preempted"] = True
-                    last["step"] = self.state.step
+                    last["step"] = at
                     if context is not None and hasattr(context,
                                                        "log_result"):
                         context.log_result("preempted", True)
@@ -867,6 +1315,17 @@ class Trainer:
                     # are what survives the eviction
                     hooks.on_train_end(last)
                     return last
+                if elastic_guard is not None:
+                    event = elastic_guard.poll()
+                    if event is not None:
+                        _elastic_event(event)
+                    if self.sitting_out:
+                        # this rank's slice is out: it enters none of the
+                        # survivors' collectives, and keeps its stream in
+                        # step with theirs
+                        ledger.enter("degraded")
+                        next(data_iter)
+                        continue
                 ledger.enter("data_wait")
                 t_input = time.perf_counter()
                 tokens, targets = next(data_iter)
@@ -889,6 +1348,16 @@ class Trainer:
                     ledger.enter("step")
                     ledger.transfer("step", "re_warm" if resumed
                                     else "compile", self.compile_seconds)
+                elif reshard_pending:
+                    # the first step after a reshard forms the new mesh's
+                    # communicators: reshard-class time, not goodput
+                    reshard_pending = False
+                    first = time.perf_counter() - t_dispatch
+                    ledger.enter("step")
+                    ledger.transfer("step", "reshard", first)
+                    degraded_mark = ledger.goodput_seconds()
+                    flight_record("train.reshard_warm", run=run_uid,
+                                  loop_step=step, compile_s=round(first, 3))
                 tracker.note_step(tokens.shape[0] * seq_len)
                 log_point = (step + 1) % log_every == 0 or step == steps - 1
                 # non-log steps hand callbacks the raw device metrics: no
@@ -896,6 +1365,7 @@ class Trainer:
                 # the device; a callback that reads a value pays its sync
                 step_metrics: dict = dict(metrics)
                 if log_point:
+                    _degraded_tax()
                     extras = _extras(tokens.shape[0] * seq_len, seq_len)
                     _flush_obs()
                     if defer:
@@ -918,12 +1388,12 @@ class Trainer:
                 if not hooks.on_step_end(step, step_metrics,
                                          log_point=log_point):
                     local_stop = True
-                if not multihost:
+                if not multihost():
                     stopped = stopped or local_stop
                 elif log_point:
                     # every rank must stop in the same step: votes are
                     # agreed at log points, step indices every rank reaches
-                    stopped = all_ranks_agree(local_stop, self.device)
+                    stopped = agree(local_stop)
                 if epoch_steps and ((step + 1) % epoch_steps == 0
                                     or step == steps - 1 or stopped):
                     # epoch hooks always see host floats
@@ -931,10 +1401,10 @@ class Trainer:
                         {k: float(v) for k, v in metrics.items()}
                     epoch_vote = not hooks.on_epoch_end(epoch, epoch_view)
                     local_stop = local_stop or epoch_vote
-                    if not multihost:
+                    if not multihost():
                         stopped = stopped or epoch_vote
                     elif not stopped:
-                        stopped = all_ranks_agree(local_stop, self.device)
+                        stopped = agree(local_stop)
                     epoch += 1
                     if not stopped and step < steps - 1:
                         hooks.on_epoch_begin(epoch)
@@ -959,6 +1429,7 @@ class Trainer:
                 except Exception:  # noqa: BLE001 - the original
                     pass           # exception must win the unwind
             _flush_obs()
+            _degraded_tax()
             ledger.close()
             if owned is not None:
                 owned.close()

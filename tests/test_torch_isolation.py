@@ -2,7 +2,8 @@
 chaos/ and common/ copies, the engine fleet, the canary router, the
 health scorer, the model families, the structured callbacks, the
 HuggingFace loader, the datastore, the meshes and sharding, ring and
-Ulysses attention and the goodput ledger included, nor the chip smoke
+Ulysses attention, the goodput ledger, tensor parallelism, the pipeline
+stages and the elastic guard included, nor the chip smoke
 script
 and the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
@@ -68,6 +69,9 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.ops.ulysses, mlrun_tpu_torch.models.llama_cp\n"
         "import mlrun_tpu_torch.obs.goodput\n"
         "import mlrun_tpu_torch.training.checkpoint\n"
+        "import mlrun_tpu_torch.parallel.tensor\n"
+        "import mlrun_tpu_torch.parallel.pipeline\n"
+        "import mlrun_tpu_torch.training.elastic\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN,))

@@ -368,23 +368,29 @@ def test_fit_prefetch_and_deferred_metrics_match_sync_path():
 
 
 def test_unported_options_raise_not_implemented():
-    for kw in ({"pipeline_stages": 2}, {"mesh_shape": {"tensor": 2}},
-               {"moe_experts": 4, "mesh_shape": {"expert": 4}}):
+    """What item 7 still lacks raises it: expert parallelism and LoRA on a
+    ``tensor`` axis. Everything else of the reference trainer's mesh
+    options landed (tests/test_torch_{parallel,context_parallel,
+    tensor_parallel,pipeline,elastic}.py run them over gloo ranks); in
+    one process a multi-rank mesh raises the reference's errors before
+    any group exists."""
+    for kw in ({"moe_experts": 4, "mesh_shape": {"expert": 4}},
+               {"lora_rank": 4, "mesh_shape": {"tensor": 2}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ttrain.Trainer(tllama.tiny_llama(), ttrain.TrainConfig(**kw),
                            device="cpu")
-    # data x fsdp meshes and context parallelism landed with item 7's
-    # first half (tests/test_torch_parallel.py and
-    # test_torch_context_parallel.py run them over gloo ranks); in one
-    # process they raise the reference's errors, before any group exists
-    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
-        ttrain.Trainer(tllama.tiny_llama(),
-                       ttrain.TrainConfig(mesh_shape={"data": 2}),
-                       device="cpu")
+    for shape in ({"data": 2}, {"tensor": 2}):
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+            ttrain.Trainer(tllama.tiny_llama(),
+                           ttrain.TrainConfig(mesh_shape=shape),
+                           device="cpu")
     with pytest.raises(ValueError, match="needs a 'seq' axis"):
         ttrain.Trainer(tllama.tiny_llama(),
                        ttrain.TrainConfig(context_parallel="ring"),
                        device="cpu")
+    with pytest.raises(ValueError, match="needs a 'pipe' mesh axis"):
+        ttrain.Trainer(tllama.tiny_llama(),
+                       ttrain.TrainConfig(pipeline_stages=2), device="cpu")
     trainer = _port_trainer()
     # structured callbacks landed with item 10 (tests/test_torch_callbacks.py
     # holds them against the reference); an object that is neither a
@@ -392,8 +398,16 @@ def test_unported_options_raise_not_implemented():
     stream = tdata.synthetic_token_stream(2, 8, 512)
     with pytest.raises(TypeError, match="neither a Callback nor callable"):
         trainer.fit(stream, 1, callbacks=[object()])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.fit(stream, 1, elastic_guard=object())
+    # an elastic guard needs a trainer on a mesh to reshard
+    from mlrun_tpu_torch.chaos import chaos, fail_nth
+    from mlrun_tpu_torch.training import ElasticGuard
+
+    guard = ElasticGuard(ranks=range(2), num_slices=2)
+    with chaos.inject("train.slice_fail", fail_nth(1),
+                      action=lambda p, ctx: ctx["box"].__setitem__("fail",
+                                                                   1)):
+        with pytest.raises(ValueError, match="sharded mesh"):
+            trainer.fit(stream, 1, elastic_guard=guard)
 
 
 def test_trainer_defaults_to_cuda():

@@ -115,11 +115,11 @@ def _train_config(**kw):
     return TrainConfig(**base)
 
 
-def _trainer(init, **kw):
+def _trainer(init, config=None, **kw):
     from mlrun_tpu_torch.models.convert import params_from_numpy
     from mlrun_tpu_torch.training import Trainer
 
-    trainer = Trainer(_tiny(), _train_config(**kw), device="cpu")
+    trainer = Trainer(config or _tiny(), _train_config(**kw), device="cpu")
     trainer.init(params=params_from_numpy(init, "cpu"))
     return trainer
 
@@ -329,3 +329,232 @@ def sharded_checkpoint(rank, world, init, batches, ckpt_dir):
     out["no_directive"] = fresh_run(None, 0, 1)
     out["bad_step"] = fresh_run("99", 0, 1)
     return out
+
+
+def _fit_record(trainer, batches):
+    trainer.fit(iter(batches), len(batches), log_every=1, prefetch=0,
+                defer_metrics=False)
+    return {"history": trainer.metrics_history,
+            "coordinate": trainer.mesh.get_coordinate(),
+            "shards": _shards(trainer.state.params),
+            "params": _numpy(trainer.state.params)}
+
+
+def tensor_parallel(rank, world, init, batches, shapes, lora):
+    """Trainer.fit for len(batches) steps on each mesh shape of
+    ``shapes`` (tensor-parallel layers, per-layer fsdp gathers), each over
+    the first ranks of the group that it needs; on an fsdp-only shape the
+    gathers are recorded: at every gather of a layer leaf over fsdp, the
+    bytes of gathered layer leaves still alive. Then a rank-4 LoRA
+    adapter ``lora`` trained on {"data": 2, "fsdp": 2}."""
+    import math
+    import weakref
+
+    from mlrun_tpu_torch.parallel import tensor as tp
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+
+    layer_comms = weakref.WeakSet()
+    alive: list = []
+    peaks: list = []
+    original_init, original_gather = (tp.LayerParallel.__init__,
+                                      tp.LeafComm.gather)
+
+    def init_recording(self, mesh, layers, lora, ranks):
+        original_init(self, mesh, layers, lora, ranks)
+        layer_comms.update(self.layers.values())
+
+    def gather_recording(self, local):
+        out = original_gather(self, local)
+        if self in layer_comms and self.gather_axes:
+            alive[:] = [(ref, n) for ref, n in alive if ref() is not None]
+            alive.append((weakref.ref(out), out.numel() * out.element_size()))
+            peaks.append(sum(n for _, n in alive))
+        return out
+
+    out = {}
+    for shape in shapes:
+        key = ",".join(f"{a}={n}" for a, n in shape.items())
+        record = "tensor" not in shape
+        if record:
+            tp.LayerParallel.__init__ = init_recording
+            tp.LeafComm.gather = gather_recording
+        try:
+            runs = {}
+            for remat in ((False, True) if record else (False,)):
+                mesh = make_mesh(shape, "cpu", ranks=range(
+                    math.prod(shape.values())))
+                if mesh.get_coordinate() is None:
+                    continue
+                trainer = _trainer_on(init, _tiny(remat=remat), mesh)
+                peaks.clear()
+                runs[remat] = _fit_record(trainer, batches)
+                runs[remat]["gathered_peak_bytes"] = max(peaks or [0])
+                runs[remat]["gathers"] = len(peaks)
+        finally:
+            tp.LayerParallel.__init__ = original_init
+            tp.LeafComm.gather = original_gather
+        if runs:
+            out[key] = runs[False]
+            if record:
+                out[key]["remat"] = runs[True]
+    adapter = _trainer_on(init, _tiny(), make_mesh({"data": 2, "fsdp": 2},
+                                                   "cpu"),
+                          lora=lora, lora_rank=4, lora_alpha=8.0)
+    out["lora"] = _fit_record(adapter, batches)
+    out["lora"]["lora"] = _numpy(adapter.state.lora)
+    return out
+
+
+def _refusal(fn) -> str:
+    try:
+        fn()
+    except ValueError as exc:
+        return str(exc)
+    return "no error"
+
+
+def pipeline(rank, world, init, batches):
+    """Trainer.fit with pipeline_stages=2 (2 microbatches, grad_accum 2,
+    a 4-layer model) on {"pipe": 2} over ranks 0-1 and on {"data": 2,
+    "pipe": 2} over all four; then the reference's refusals on real
+    meshes."""
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+    from mlrun_tpu_torch.training import Trainer
+
+    config = _tiny(n_layers=4)
+    kw = dict(pipeline_stages=2, pipeline_microbatches=2, grad_accum=2)
+    out = {}
+    for key, shape, ranks in (("pipe=2", {"pipe": 2}, [0, 1]),
+                              ("data=2,pipe=2", {"data": 2, "pipe": 2},
+                               None)):
+        mesh = make_mesh(shape, "cpu", ranks=ranks)
+        if mesh.get_coordinate() is None:
+            continue
+        trainer = _trainer_on(init, config, mesh, **kw)
+        out[key] = _fit_record(trainer, batches)
+    refusals = {}
+    for key, shape, extra, rules in (
+            ("no pipe axis", {"fsdp": 4}, {}, None),
+            ("lora", {"data": 2, "pipe": 2}, {"lora_rank": 4}, None),
+            ("rules", {"data": 2, "pipe": 2}, {}, [(r".*", ())]),
+            ("fsdp", {"fsdp": 2, "pipe": 2}, {}, None)):
+        mesh = make_mesh(shape, "cpu")
+        refusals[key] = _refusal(lambda: Trainer(
+            config, _train_config(**dict(kw, **extra)), device="cpu",
+            mesh=mesh, rules=rules))
+    out["refusals"] = refusals
+    return out
+
+
+def _trainer_on(init, config, mesh, lora=None, **kw):
+    from mlrun_tpu_torch.models.convert import params_from_numpy
+    from mlrun_tpu_torch.training import Trainer
+
+    trainer = Trainer(config, _train_config(**kw), device="cpu", mesh=mesh)
+    trainer.init(params=params_from_numpy(init, "cpu"),
+                 lora=None if lora is None else params_from_numpy(lora,
+                                                                  "cpu"))
+    return trainer
+
+
+def elastic(rank, world, init, batches, ckpt_dir):
+    """Four ranks in two slices on {"data": 2, "fsdp": 2}: slice 1 fails
+    at the 5th poll and rejoins at the 8th of a 10-step fit that saves
+    step 2; a fresh trainer on the survivors' mesh restored from that
+    step; a reshard without a checkpoint; DCP restores 4 -> 2 and 2 ->
+    4 ranks."""
+    import json
+
+    from mlrun_tpu_torch.chaos import chaos, fail_nth
+    from mlrun_tpu_torch.obs import get_flight_recorder
+    from mlrun_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+    from mlrun_tpu_torch.training import CheckpointManager, ElasticGuard
+
+    config = _tiny()
+    shape = {"data": 2, "fsdp": 2}
+    guard = ElasticGuard(num_slices=2)
+    trainer = _trainer(init, mesh_shape=shape)
+    manager = CheckpointManager(os.path.join(ckpt_dir, "elastic"))
+
+    def save_at_2(step, metrics, tr):
+        if tr.state.step == 2:
+            manager.save(2, tr.state, force=True)
+
+    recorder = get_flight_recorder()
+    recorder.clear()
+    with chaos.inject("train.slice_fail", fail_nth(5),
+                      action=lambda p, ctx: ctx["box"].__setitem__(
+                          "fail", 1)), \
+            chaos.inject("train.slice_fail", fail_nth(8),
+                         action=lambda p, ctx: ctx["box"].__setitem__(
+                             "join", 1)):
+        last = trainer.fit(iter(batches), 10, log_every=1, prefetch=0,
+                           callbacks=[save_at_2], checkpoint_manager=manager,
+                           elastic_guard=guard)
+    events = [e for e in recorder.events(kind="train.*")
+              if e["kind"] not in ("train.fit_begin", "train.resume")]
+    with open(recorder.last_dump_path) as fp:
+        dump_header = json.loads(fp.readline())
+    out = {"history": [{k: h[k] for k in ("world_size", "step", "loss",
+                                          "grad_norm")}
+                       for h in trainer.metrics_history],
+           "last": {k: last[k] for k in ("world_size", "step")},
+           "events": events, "dump": dump_header,
+           "goodput": trainer.goodput.summary(),
+           "mesh": mesh_shape(trainer.mesh),
+           "params": _numpy(trainer.state.params)}
+
+    # a fresh run on the survivors' mesh, restored from the same step
+    survivors = make_mesh({"data": 1, "fsdp": 2}, "cpu", ranks=[0, 1])
+    if survivors.get_coordinate() is not None:
+        fresh = _trainer_on(init, config, survivors)
+        fresh.state = manager.restore(fresh.state, step=2)
+        fresh.fit(iter(batches[4:7]), 3, log_every=1, prefetch=0)
+        out["fresh"] = [h["loss"] for h in fresh.metrics_history]
+
+    # a reshard without a checkpoint carries the live state
+    carried = _trainer(init, mesh_shape=shape)
+    carried.fit(iter(batches[:1]), 1, log_every=1, prefetch=0)
+    before = _numpy(carried.state.params)
+    info = carried.reshard([0, 1])
+    out["carry"] = {"info": {k: info[k] for k in ("decision", "world_from",
+                                                  "world_to")},
+                    "before": before, "mesh": mesh_shape(carried.mesh)}
+    if not carried.sitting_out:
+        out["carry"]["after"] = _numpy(carried.state.params)
+
+    # DCP across world sizes: 4 -> 2 and 2 -> 4
+    for key, save_ranks, load_ranks in (("4to2", None, [0, 1]),
+                                        ("2to4", [0, 1], None)):
+        ck = CheckpointManager(os.path.join(ckpt_dir, key))
+        saver_mesh = make_mesh({"fsdp": len(save_ranks or range(world))},
+                               "cpu", ranks=save_ranks)
+        loader_mesh = make_mesh({"fsdp": len(load_ranks or range(world))},
+                                "cpu", ranks=load_ranks)
+        row = {}
+        if saver_mesh.get_coordinate() is not None:
+            saver = _trainer_on(init, config, saver_mesh)
+            saver.fit(iter(batches[:2]), 2, log_every=1, prefetch=0)
+            ck.save(2, saver.state, force=True)
+            row["saved"] = {"params": _numpy(saver.state.params),
+                            "mu": _numpy(saver.state.opt_state.mu)}
+        import torch.distributed as dist
+
+        dist.barrier()
+        if loader_mesh.get_coordinate() is not None:
+            loader = _trainer_on(_perturbed(init), config, loader_mesh)
+            restored = ck.restore(loader.state, step=2)
+            row["restored"] = {"params": _numpy(restored.params),
+                               "mu": _numpy(restored.opt_state.mu),
+                               "step": restored.step,
+                               "count": restored.opt_state.count,
+                               "world": loader_mesh.size()}
+        out[key] = row
+    return out
+
+
+def _perturbed(init):
+    """``init`` with every leaf changed, so a restore must overwrite it."""
+    if isinstance(init, dict):
+        return {k: _perturbed(v) for k, v in init.items()}
+    return init + 1.0
