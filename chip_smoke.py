@@ -121,7 +121,10 @@ exits non-zero and never prints the final line):
              the paged engine (all 32 layers): every loaded leaf
              bit-equal to the written one, the token streams equal to the
              preset server's, the three serving kernels launched, the
-             write and load times, load GB/s and peak host RSS; string
+             write and load times, load GB/s and peak host RSS; the
+             same checkpoint reloaded with shardings= for a one-rank
+             mesh {"fsdp": 1} (a world-size-1 NCCL group): every leaf a
+             DTensor bit-equal to the written one; string
              inputs through a word-level tokenizer where transformers is
              installed (else one skip line), and there too
              HuggingFaceModelServer's pipeline on the card by default,
@@ -175,7 +178,26 @@ exits non-zero and never prints the final line):
              loss_fn (loss, grad norm and leaf norms within the train
              phase's bf16 bounds), 128 / 64 flash launches, each stage's
              times. One line says why one card cannot show an elastic
-             reshard.
+             reshard. Since slice 14, inside the NCCL group: MoE at
+             Mixtral-8x7B width (2 layers, B 4 x 2048) for 2 steps on
+             {"expert": 1, "fsdp": 1} against no mesh (bit-equal, peak
+             memory, 8 / 4 flash launches); BERT-base's, ViT-B/16's and
+             T5-base's sharded steps on {"data": 1, "fsdp": 1, "tensor":
+             1} against their no-mesh steps (bit-equal, the flash
+             counted); a rank-16 LoRA adapter on the frozen 1B for 2
+             steps on {"tensor": 1} against no mesh (bit-equal). Then, in
+             one process: one Mixtral layer's experts as the bodies of
+             2, 4 and 8 expert ranks (each its 8 / n experts on the full
+             rows, the partials summed in rank order) against the
+             unsharded _moe_mlp, and one 8B layer with a rank-16 adapter
+             as 2 and 8 tensor ranks' halves against the unsharded
+             adapted layer (both: bf16 norms within
+             TRAIN_LEAF_NORM_REL_TOL, float32 within
+             TRAIN_F32_LEAF_REL_TOL; a rank's expert bytes); and the 1B
+             fit (B 4 x 2048, 6 steps) fed by TokenShardLoader over two
+             uint16 shards of 64 Mi tokens written from the seed (step
+             time against the train phase's, consumer waits, ring
+             occupancy, 192 / 96 flash launches).
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
 over the serve and entry_points paths, the training flash's over the
@@ -3893,6 +3915,46 @@ def _same_bits(a, b) -> bool:
         a.view(torch.int16), b.view(torch.int16))
 
 
+def _ep_sharded_reload(directory: str, params, card: str) -> dict:
+    """The 8B checkpoint reloaded with ``shardings=`` (the port's
+    ``tree_shardings`` placements) for a one-rank mesh {"fsdp": 1} on a
+    world-size-1 NCCL group: every leaf a DTensor whose local tensor is
+    bit-equal to the params written."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from mlrun_tpu_torch.frameworks import huggingface as hf
+    from mlrun_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from mlrun_tpu_torch.parallel.sharding import tree_shardings
+    from mlrun_tpu_torch.training.train import tree_leaves, tree_map
+
+    existed = dist.is_initialized()
+    initialize_distributed(device="cuda")
+    try:
+        mesh = make_mesh({"fsdp": 1}, "cuda")
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        _, placed = hf.load_hf_weights_into_llama(
+            directory, shardings=tree_shardings(params, mesh))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - started
+        all_dtensors = all(isinstance(leaf, DTensor)
+                           for leaf in tree_leaves(placed))
+        equal = _same_bits(tree_map(lambda t: t.to_local(), placed), params)
+        del placed
+    finally:
+        if not existed:
+            dist.destroy_process_group()
+    row = {"phase": "entry_points", "leg": "hf_shardings", "card": card,
+           "mesh": {"fsdp": 1}, "load_s": load_s,
+           "leaves_dtensor": all_dtensors, "leaves_bit_equal": equal}
+    emit(row)
+    if not (all_dtensors and equal):
+        fail(f"entry_points hf shardings=: {row}")
+    return row
+
+
 def _ep_serve_leg(seed: int, card: str) -> dict:
     """LLMModelServer(hf_model=) at Llama-3-8B from a checkpoint this leg
     writes of the serve phase's seeded params; its leaves against the
@@ -3993,7 +4055,10 @@ def _ep_serve_leg(seed: int, card: str) -> dict:
                     i == o for i, o in zip(ids, hf_out)) / len(ids),
             }
         server.close()
-        del server, params
+        del server
+        _release()
+        _ep_sharded_reload(directory, params, card)
+        del params
         _release()
     finally:
         shutil.rmtree(directory, ignore_errors=True)
@@ -4334,14 +4399,38 @@ RING_SHARDS, RING_SEQ, RING_HEADS, RING_KV, RING_HEAD_DIM = 4, 8192, 32, 8, 64
 RING_GRAD_FLOORS = 2
 
 
-def _par_trainer(config, mesh_shape, seed):
+def _par_trainer(config, mesh_shape, seed, **train_kw):
     from mlrun_tpu_torch.training import TrainConfig, Trainer
 
+    train_kw.setdefault("total_steps", PAR_STEPS)
     trainer = Trainer(config, TrainConfig(
-        learning_rate=1e-3, warmup_steps=1, total_steps=PAR_STEPS,
-        loss_chunk=LOSS_CHUNK, mesh_shape=mesh_shape), device="cuda")
+        learning_rate=1e-3, warmup_steps=1, loss_chunk=LOSS_CHUNK,
+        mesh_shape=mesh_shape, **train_kw), device="cuda")
     trainer.init(seed)
     return trainer
+
+
+def _counted_fit(trainer, batches, batch: int, seq: int, want: dict,
+                 path: str) -> dict:
+    """Warm ``trainer`` up, then fit it on ``batches`` with every launch
+    count reset right before: the history, the launches (exactly
+    ``want``) and the peak memory of the fit."""
+    import torch
+
+    from mlrun_tpu_torch.ops import _build
+
+    trainer.warmup(batch, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path, counted: every count reset right before it --------
+    _build.reset_launch_counts()
+    trainer.fit(iter(batches), len(batches), log_every=1, prefetch=2)
+    torch.cuda.synchronize()
+    run = {"history": trainer.metrics_history,
+           "launches": _build.launch_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    _exact_launches(path, run["launches"], want)
+    return run
 
 
 def _dir_bytes(path: str) -> int:
@@ -4915,20 +5004,12 @@ def _par_world1_leg(seed: int, card: str) -> dict:
     runs = {}
     for leg, shape in (("no_mesh", None), ("per_layer", W1_MESH)):
         trainer = _par_trainer(config, shape, seed)
-        trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        # -- the main path, counted: every count reset right before it ----
-        _build.reset_launch_counts()
-        trainer.fit(iter(batches), W1_STEPS, log_every=1, prefetch=2)
-        torch.cuda.synchronize()
-        history = trainer.metrics_history
+        run = _counted_fit(trainer, batches, TRAIN_BATCH, TRAIN_SEQ, want,
+                           f"parallel world size 1 {leg}")
+        history = run.pop("history")
         runs[leg] = {"losses": [h["loss"] for h in history],
                      "grad_norms": [h["grad_norm"] for h in history],
-                     "launches": _build.launch_counts(),
-                     "peak_bytes": torch.cuda.max_memory_allocated()}
-        _exact_launches(f"parallel world size 1 {leg}",
-                        runs[leg]["launches"], want)
+                     **run}
         del trainer, history
         _release()
     # the whole-gather step on the same mesh, seed and batches
@@ -4976,11 +5057,538 @@ def _par_world1_leg(seed: int, card: str) -> dict:
     return runs["per_layer"]["launches"]
 
 
+# (d) MoE at Mixtral-8x7B width on an expert axis
+MOE_MESH = {"expert": 1, "fsdp": 1}
+MOE_STEPS = 2
+MOE_EP_SIZES = (2, 4, 8)
+
+
+def _par_moe_mesh_leg(seed: int, card: str) -> dict:
+    """(d) Trainer.fit with moe_experts=8 at Mixtral-8x7B width (depth
+    FAM_MOE_LAYERS, B 4 x 2048) for 2 steps on {"expert": 1, "fsdp": 1}
+    (the MoE mesh step, make_moe_rules placements) against no mesh:
+    losses, aux losses and grad norms bit-equal, each run's peak memory,
+    the flash launched the counted times on the mesh run."""
+    from mlrun_tpu_torch.models.moe import mixtral_8x7b_like
+    from mlrun_tpu_torch.training.data import synthetic_token_stream
+
+    config = mixtral_8x7b_like(n_layers=FAM_MOE_LAYERS)
+    stream = synthetic_token_stream(FAM_MOE_BATCH, FAM_MOE_SEQ,
+                                    config.vocab_size, seed=seed)
+    batches = [next(stream) for _ in range(MOE_STEPS)]
+    want = {"flash_fwd": 2 * FAM_MOE_LAYERS * MOE_STEPS,
+            "flash_bwd": FAM_MOE_LAYERS * MOE_STEPS}
+    runs = {}
+    for leg, shape in (("no_mesh", None), ("expert_mesh", MOE_MESH)):
+        trainer = _par_trainer(config, shape, seed, total_steps=MOE_STEPS,
+                               moe_experts=8, moe_top_k=2)
+        run = _counted_fit(trainer, batches, FAM_MOE_BATCH, FAM_MOE_SEQ,
+                           want, f"parallel moe {leg}")
+        history = run.pop("history")
+        runs[leg] = {key: [h[key] for h in history]
+                     for key in ("loss", "aux_loss", "grad_norm")}
+        runs[leg].update(run, step_ms=[FAM_MOE_BATCH * FAM_MOE_SEQ
+                                       / h["tokens_per_sec"] * 1e3
+                                       for h in history[1:]])
+        if shape is not None:
+            gate = trainer.state.params["layers"]["experts_gate"]
+            runs[leg]["experts_gate_placements"] = [str(p) for p in
+                                                    gate.placements]
+        del trainer, history
+        _release()
+    plain, mesh = runs["no_mesh"], runs["expert_mesh"]
+    equal = all(plain[k] == mesh[k] for k in ("loss", "aux_loss",
+                                               "grad_norm"))
+    row = {"phase": "parallel", "leg": "moe_expert_mesh", "card": card,
+           "model": "mixtral-8x7b", "layers": FAM_MOE_LAYERS,
+           "mesh": MOE_MESH, "steps": MOE_STEPS, "batch": FAM_MOE_BATCH,
+           "seq": FAM_MOE_SEQ, "bit_equal": equal,
+           "runs": {leg: {k: v for k, v in r.items() if k != "peak_bytes"}
+                    for leg, r in runs.items()},
+           "max_memory_allocated_gib": {leg: r["peak_bytes"] / 2 ** 30
+                                        for leg, r in runs.items()},
+           "launches": mesh["launches"], "expected_launches": want}
+    emit(row)
+    if not equal:
+        fail(f"parallel moe: the expert mesh's run {mesh} differs from no "
+             f"mesh's {plain}")
+    return mesh["launches"]
+
+
+def _ep_graph(config, weights, x, dout, ranks=None):
+    """Forward and backward of one layer's expert MLP on fresh leaf
+    copies: whole (``_moe_mlp``) or as ``ranks`` expert ranks' bodies on
+    the full rows (each its n_experts / ranks experts), the float32
+    partials summed in rank order where the group's sum stands. Returns
+    (output, input gradient, {leaf: gradient}, ms)."""
+    import torch
+
+    from mlrun_tpu_torch.models.moe import (
+        EXPERT_LEAVES,
+        _moe_mlp,
+        expert_partial,
+        route,
+    )
+
+    ws = {k: w.detach().clone().requires_grad_(True)
+          for k, w in weights.items()}
+    xs = x.detach().clone().requires_grad_(True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    if ranks is None:
+        out, _ = _moe_mlp(config, xs, ws)
+    else:
+        dispatch, combine, _ = route(config, xs, ws["router"])
+        per = config.n_experts // ranks
+        total = None
+        for r in range(ranks):
+            lo, hi = r * per, (r + 1) * per
+            part = expert_partial(xs, dispatch[:, :, lo:hi],
+                                  combine[:, :, lo:hi],
+                                  *(ws[name][lo:hi] for name in EXPERT_LEAVES))
+            total = part if total is None else total + part
+        out = total.to(x.dtype)
+    out.backward(dout)
+    end.record()
+    torch.cuda.synchronize()
+    return (out.detach(), xs.grad, {k: w.grad for k, w in ws.items()},
+            start.elapsed_time(end))
+
+
+def _par_expert_leg(seed: int, card: str) -> dict:
+    """(d) One Mixtral-8x7B-width layer's expert MLP (B 4 x 2048, 8
+    experts, top 2) as the bodies of 2, 4 and 8 expert ranks in this
+    process against the unsharded ``_moe_mlp``: in bf16 the norms of the
+    output, the input gradient, the router's gradient and every rank's
+    shard of each expert leaf's gradient within TRAIN_LEAF_NORM_REL_TOL;
+    in float32 their relative errors within TRAIN_F32_LEAF_REL_TOL. The
+    bytes of one rank's expert leaves a layer (and at full depth)."""
+    import torch
+
+    from mlrun_tpu_torch.models.moe import EXPERT_LEAVES, mixtral_8x7b_like
+
+    config = mixtral_8x7b_like(n_layers=1)
+    config32 = mixtral_8x7b_like(n_layers=1, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    e, m, E = config.embed_dim, config.mlp_dim, config.n_experts
+
+    def normal(fan_in, shape, dtype=config.dtype):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * fan_in ** -0.5).to(dtype)
+
+    weights = {"router": normal(e, (e, E), torch.float32),
+               "experts_gate": normal(e, (E, e, m)),
+               "experts_up": normal(e, (E, e, m)),
+               "experts_down": normal(m, (E, m, e))}
+    x = torch.randn((FAM_MOE_BATCH, FAM_MOE_SEQ, e), generator=gen,
+                    device="cuda").to(config.dtype)
+    dout = torch.randn(x.shape, generator=gen, device="cuda").to(config.dtype)
+    full = _ep_graph(config, weights, x, dout)
+
+    def norm_gap(a, b):
+        return abs(float(a.float().norm()) / float(b.float().norm()) - 1.0)
+
+    def gaps(got, ref, ranks, measure):
+        out = {"out": measure(got[0], ref[0]), "dx": measure(got[1], ref[1]),
+               "router": measure(got[2]["router"], ref[2]["router"])}
+        per = E // ranks
+        for name in EXPERT_LEAVES:
+            out[name] = max(measure(got[2][name][r * per:(r + 1) * per],
+                                    ref[2][name][r * per:(r + 1) * per])
+                            for r in range(ranks))
+        return out
+
+    rows = {}
+    for ranks in MOE_EP_SIZES:
+        sharded = _ep_graph(config, weights, x, dout, ranks)
+        norms = gaps(sharded, full, ranks, norm_gap)
+        del sharded
+        _release()
+        rows[ranks] = {"bf16_norm_rel_errs": norms}
+    full_ms = full[3]
+    del full
+    _release()
+    weights32 = {k: w.float() for k, w in weights.items()}
+    del weights
+    _release()
+    full32 = _ep_graph(config32, weights32, x.float(), dout.float())
+    for ranks in MOE_EP_SIZES:
+        sharded32 = _ep_graph(config32, weights32, x.float(), dout.float(),
+                              ranks)
+        rows[ranks]["f32_rel_errs"] = gaps(sharded32, full32, ranks, _rel)
+        rows[ranks]["f32_ms"] = sharded32[3]
+        del sharded32
+        _release()
+    layer_bytes = 3 * e * m * 2   # one expert's gate, up and down in bf16
+    for ranks, row in rows.items():
+        row.update(
+            {"phase": "parallel", "leg": "expert_ranks", "card": card,
+             "model": "mixtral-8x7b layer", "expert_ranks": ranks,
+             "experts_per_rank": E // ranks, "batch": FAM_MOE_BATCH,
+             "seq": FAM_MOE_SEQ,
+             "bf16_norm_rel_tol": TRAIN_LEAF_NORM_REL_TOL,
+             "f32_rel_tol": TRAIN_F32_LEAF_REL_TOL,
+             "rank_expert_bytes_per_layer": layer_bytes * E // ranks,
+             "rank_expert_bytes_32_layers": 32 * layer_bytes * E // ranks,
+             "unsharded_f32_fwd_bwd_ms": full32[3]})
+        emit(row)
+        for errs, tol, what in ((row["bf16_norm_rel_errs"],
+                                 TRAIN_LEAF_NORM_REL_TOL, "bf16 norm"),
+                                (row["f32_rel_errs"], TRAIN_F32_LEAF_REL_TOL,
+                                 "f32")):
+            worst = max(errs, key=errs.get)
+            if not errs[worst] <= tol:
+                fail(f"parallel expert ranks={ranks}: {worst} {what} "
+                     f"relative error {errs[worst]} > {tol}")
+    emit({"phase": "parallel", "leg": "expert_ranks", "card": card,
+          "unsharded_bf16_fwd_bwd_ms": full_ms})
+    del full32, weights32
+    _release()
+    return {name: 0 for name in TRAINING_KERNELS}
+
+
+# (e) the families' sharded steps at world size 1
+FAM_W1_MESH = {"data": 1, "fsdp": 1, "tensor": 1}
+FAM_W1_STEPS = 2
+
+
+def _par_families_leg(seed: int, card: str) -> dict:
+    """(e) BERT-base's classifier, ViT-B/16 and T5-base, each 2 steps of
+    its sharded step on {"data": 1, "fsdp": 1, "tensor": 1} (plain trees
+    placed by the step) against its no-mesh step from the same params and
+    batch: losses (and grad norms) bit-equal; the flash launched the
+    counted times on the sharded runs (T5's biased attention is plain)."""
+    import torch
+
+    from mlrun_tpu_torch.models import bert, t5, vit
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+    from mlrun_tpu_torch.training.train import AdamW, tree_map
+
+    mesh = make_mesh(FAM_W1_MESH, "cuda")
+    launches = {name: 0 for name in TRAINING_KERNELS}
+    for leg in ("bert", "vit", "t5"):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        if leg == "bert":
+            config, make = bert.bert_base(), bert.make_classifier_train_step
+            b, s = FAM_BERT_BATCH, FAM_BERT_SEQ
+            batch = (torch.randint(0, config.vocab_size, (b, s),
+                                   generator=gen, device="cuda"),
+                     torch.randint(0, config.n_classes, (b,), generator=gen,
+                                   device="cuda"),
+                     torch.ones((b, s), dtype=torch.int32, device="cuda"))
+            params = bert.init_params(config, gen, "cuda")
+            want = {"flash_fwd": config.n_layers * FAM_W1_STEPS,
+                    "flash_bwd": config.n_layers * FAM_W1_STEPS}
+        elif leg == "vit":
+            config, make = vit.vit_b16(), vit.make_train_step
+            batch = (torch.randn((FAM_VIT_BATCH, config.image_size,
+                                  config.image_size, config.channels),
+                                 generator=gen, device="cuda"),
+                     torch.randint(0, config.n_classes, (FAM_VIT_BATCH,),
+                                   generator=gen, device="cuda"))
+            params = vit.init_params(config, gen, "cuda")
+            want = {"flash_fwd": 2 * config.n_layers * FAM_W1_STEPS,
+                    "flash_bwd": config.n_layers * FAM_W1_STEPS}
+        else:
+            config, make = t5.t5_base(), t5.make_train_step
+            batch = tuple(torch.randint(0, config.vocab_size, (FAM_T5_BATCH, n),
+                                        generator=gen, device="cuda")
+                          for n in (FAM_T5_ENC, FAM_T5_DEC, FAM_T5_DEC))
+            params = t5.init_params(config, gen, "cuda")
+            want = {}
+        runs = {}
+        for key, on_mesh in (("no_mesh", None), ("mesh", mesh)):
+            optimizer = AdamW(lambda count: FAM_LR, b1=0.9, b2=0.999,
+                              weight_decay=0.01)
+            start = tree_map(torch.clone, params)
+            step = make(config, optimizer, on_mesh)
+            state = optimizer.init(start)
+            torch.cuda.synchronize()
+            # -- the leg's path, counted: every count reset right before it
+            _build.reset_launch_counts()
+            ms, history = _timed_steps(step, start, state, batch,
+                                       FAM_W1_STEPS)
+            runs[key] = {"losses": [h["loss"] for h in history],
+                         "grad_norms": [h.get("grad_norm")
+                                        for h in history],
+                         "step_ms": ms, "launches": _build.launch_counts()}
+            del start, state, step
+            _release()
+        equal = all(runs["mesh"][k] == runs["no_mesh"][k]
+                    for k in ("losses", "grad_norms"))
+        row = {"phase": "parallel", "leg": f"family_{leg}", "card": card,
+               "mesh": FAM_W1_MESH, "steps": FAM_W1_STEPS,
+               "bit_equal": equal, "runs": runs, "expected_launches": want}
+        emit(row)
+        _exact_launches(f"parallel family {leg}", runs["mesh"]["launches"],
+                        want)
+        if not equal:
+            fail(f"parallel family {leg}: the sharded step's run "
+                 f"{runs['mesh']} differs from no mesh's {runs['no_mesh']}")
+        for name in TRAINING_KERNELS:
+            launches[name] += runs["mesh"]["launches"][name]
+        del params, batch
+        _release()
+    return launches
+
+
+# (f) LoRA rank 16 on the tensor axis
+LORA_TP_RANK = 16
+LORA_W1_STEPS = 2
+
+
+def _lora_graph(config, weights, lora, x, dout, cos, sin, tensor=None):
+    """Forward and backward of one layer with a LoRA adapter on a frozen
+    base, on fresh adapter copies: whole or as ``tensor`` ranks' halves
+    (each on its base shards and its adapter half) in rank order, the
+    partials summed where the all-reduce stands. Returns (output, input
+    gradient, {target.leaf: adapter gradient})."""
+    from mlrun_tpu_torch.models.llama import (
+        _layer_body,
+        attention_half,
+        mlp_half,
+    )
+    from mlrun_tpu_torch.parallel.tensor import adapter_half, tensor_shard
+
+    ls = {t: {k: v.detach().clone().requires_grad_(True)
+              for k, v in parts.items()} for t, parts in lora.items()}
+    xs = x.detach().clone().requires_grad_(True)
+    if tensor is None:
+        out = _layer_body(config, xs, weights, cos, sin, ls)
+    else:
+        halves = [({k: tensor_shard(k, w, t, tensor)
+                    for k, w in weights.items()},
+                   {target: adapter_half(target, parts, t, tensor)
+                    for target, parts in ls.items()})
+                  for t in range(tensor)]
+        partial = None
+        for shards, adapter in halves:
+            part = attention_half(config, xs, shards, cos, sin, adapter)
+            partial = part if partial is None else partial + part
+        mid = xs + partial
+        partial = None
+        for shards, adapter in halves:
+            part = mlp_half(config, mid, shards, adapter)
+            partial = part if partial is None else partial + part
+        out = mid + partial
+    out.backward(dout)
+    return out.detach(), xs.grad, {f"{t}.{k}": v.grad
+                                   for t, parts in ls.items()
+                                   for k, v in parts.items()}
+
+
+def _par_lora_tensor_leg(seed: int, card: str) -> dict:
+    """(f) One Llama-3-8B-width layer (B 1 x 2048) with a rank-16 adapter
+    on wq/wk/wv/wo (B nonzero) as 2 and 8 tensor ranks' halves against
+    the unsharded adapted layer: bf16 norms of the output, the input
+    gradient and every adapter factor's gradient within
+    TRAIN_LEAF_NORM_REL_TOL, float32 relative errors of all of them and
+    of the per-layer ``scaling`` gradients within TRAIN_F32_LEAF_REL_TOL;
+    one flash forward and backward a rank. A ``scaling`` gradient is one
+    scalar, a sum of a whole projection's cancelling products that bf16
+    rounds once per rank's partial, so its bf16 gap is reported and held
+    in float32 only."""
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, normal_init
+    from mlrun_tpu_torch.models.lora import init_lora_nonzero
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.ops.rotary import rope_table
+
+    config = MODEL_PRESETS["llama3-8b"](n_layers=1)
+    config32 = MODEL_PRESETS["llama3-8b"](n_layers=1, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    normal = normal_init(gen, "cuda", config.dtype)
+    e, h, kv, m = (config.embed_dim, config.qkv_dim, config.kv_dim,
+                   config.mlp_dim)
+    ones = torch.ones((e,), dtype=config.dtype, device="cuda")
+    weights = {"attn_norm_scale": ones, "wq": normal(e, (e, h)),
+               "wk": normal(e, (e, kv)), "wv": normal(e, (e, kv)),
+               "wo": normal(h, (h, e)), "mlp_norm_scale": ones.clone(),
+               "w_gate": normal(e, (e, m)), "w_up": normal(e, (e, m)),
+               "w_down": normal(m, (m, e))}
+    lora = {t: {k: v[0] for k, v in parts.items()}
+            for t, parts in init_lora_nonzero(
+                config, gen, rank=LORA_TP_RANK, device="cuda").items()}
+    x = torch.randn((TP_BATCH, TP_SEQ, e), generator=gen,
+                    device="cuda").to(config.dtype)
+    dout = torch.randn(x.shape, generator=gen, device="cuda").to(config.dtype)
+    cos, sin = rope_table(torch.arange(TP_SEQ, device="cuda"),
+                          config.head_dim, config.rope_theta)
+    weights32 = {k: w.float() for k, w in weights.items()}
+    full = _lora_graph(config, weights, lora, x, dout, cos, sin)
+    full32 = _lora_graph(config32, weights32, lora, x.float(), dout.float(),
+                         cos, sin)
+
+    def norm_gap(a, b):
+        return abs(float(a.float().norm()) / float(b.float().norm()) - 1.0)
+
+    def gaps(got, ref, measure):
+        out = {"out": measure(got[0], ref[0]), "dx": measure(got[1], ref[1])}
+        out.update({k: measure(g, ref[2][k]) for k, g in got[2].items()})
+        return out
+
+    launches = {name: 0 for name in TRAINING_KERNELS}
+    for tensor in TP_SIZES:
+        _build.reset_launch_counts()
+        sharded = _lora_graph(config, weights, lora, x, dout, cos, sin,
+                              tensor)
+        torch.cuda.synchronize()
+        counted = _build.launch_counts()
+        want = {"flash_fwd": tensor, "flash_bwd": tensor}
+        _exact_launches(f"parallel lora tensor={tensor}", counted, want)
+        sharded32 = _lora_graph(config32, weights32, lora, x.float(),
+                                dout.float(), cos, sin, tensor)
+        norms = gaps(sharded, full, norm_gap)
+        row = {"phase": "parallel", "leg": "lora_tensor", "card": card,
+               "model": "llama3-8b layer", "tensor": tensor,
+               "lora_rank": LORA_TP_RANK,
+               "bf16_norm_rel_errs": {k: v for k, v in norms.items()
+                                      if not k.endswith(".scaling")},
+               "bf16_scaling_norm_rel_errs": {
+                   k: v for k, v in norms.items() if k.endswith(".scaling")},
+               "bf16_norm_rel_tol": TRAIN_LEAF_NORM_REL_TOL,
+               "f32_rel_errs": gaps(sharded32, full32, _rel),
+               "f32_rel_tol": TRAIN_F32_LEAF_REL_TOL, "launches": counted,
+               "expected_launches": want}
+        emit(row)
+        for errs, tol, what in ((row["bf16_norm_rel_errs"],
+                                 TRAIN_LEAF_NORM_REL_TOL, "bf16 norm"),
+                                (row["f32_rel_errs"], TRAIN_F32_LEAF_REL_TOL,
+                                 "f32")):
+            worst = max(errs, key=errs.get)
+            if not errs[worst] <= tol:
+                fail(f"parallel lora tensor={tensor}: {worst} {what} "
+                     f"relative error {errs[worst]} > {tol}")
+        for name in TRAINING_KERNELS:
+            launches[name] += counted[name]
+        del sharded, sharded32
+        _release()
+    del full, full32, weights, weights32
+    _release()
+    return launches
+
+
+def _par_lora_world1_leg(seed: int, card: str) -> dict:
+    """(f) A rank-16 LoRA adapter on the frozen Llama-3.2-1B, 2 steps on
+    {"tensor": 1} against no mesh: losses and norms bit-equal."""
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.training.data import synthetic_token_stream
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    stream = synthetic_token_stream(TRAIN_BATCH, TRAIN_SEQ, config.vocab_size,
+                                    seed=seed)
+    batches = [next(stream) for _ in range(LORA_W1_STEPS)]
+    per_pass = config.n_layers * LORA_W1_STEPS
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    runs = {}
+    for leg, shape in (("no_mesh", None), ("tensor_mesh", {"tensor": 1})):
+        trainer = _par_trainer(config, shape, seed,
+                               total_steps=LORA_W1_STEPS,
+                               lora_rank=LORA_TP_RANK)
+        run = _counted_fit(trainer, batches, TRAIN_BATCH, TRAIN_SEQ, want,
+                           f"parallel lora {leg}")
+        history = run.pop("history")
+        runs[leg] = {"losses": [h["loss"] for h in history],
+                     "grad_norms": [h["grad_norm"] for h in history],
+                     "launches": run["launches"]}
+        del trainer, history
+        _release()
+    equal = all(runs["no_mesh"][k] == runs["tensor_mesh"][k]
+                for k in ("losses", "grad_norms"))
+    emit({"phase": "parallel", "leg": "lora_world_size_1", "card": card,
+          "model": "llama3-1b", "lora_rank": LORA_TP_RANK,
+          "steps": LORA_W1_STEPS, "bit_equal": equal, "runs": runs,
+          "expected_launches": want})
+    if not equal:
+        fail(f"parallel lora world size 1: {runs}")
+    return runs["tensor_mesh"]["launches"]
+
+
+# (g) the 1B fit fed by the native token-shard loader
+LOADER_SHARDS, LOADER_SHARD_TOKENS = 2, 64 * 2 ** 20
+LOADER_STEPS = 6
+
+
+def _par_loader_leg(seed: int, card: str, train_step_ms, work: str) -> dict:
+    """(g) The train phase's Llama-3.2-1B fit (B 4 x 2048, 6 steps) fed by
+    TokenShardLoader over two uint16 shards of 64 Mi tokens each, written
+    from the seed: the step time against the synthetic stream's (the
+    train phase's), the loader's consumer waits after the first batch and
+    its mean ring occupancy at each pull; the flash launched the counted
+    times."""
+    import numpy as np
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training.data import TokenShardLoader
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    rng = np.random.default_rng(seed)
+    started = time.perf_counter()
+    paths = []
+    for i in range(LOADER_SHARDS):
+        path = os.path.join(work, f"tokens{i}.bin")
+        rng.integers(0, min(config.vocab_size, 2 ** 16), LOADER_SHARD_TOKENS,
+                     dtype=np.uint16).tofile(path)
+        paths.append(path)
+    write_s = time.perf_counter() - started
+    loader = TokenShardLoader(paths, TRAIN_BATCH, TRAIN_SEQ, dtype="uint16",
+                              seed=seed)
+    pulls = []
+
+    def watched():
+        while True:
+            pulls.append(loader.stats())
+            yield next(loader)
+
+    trainer = _par_trainer(config, None, seed, total_steps=LOADER_STEPS)
+    trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    # -- the main path, counted: every count reset right before it --------
+    _build.reset_launch_counts()
+    trainer.fit(watched(), LOADER_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    final = loader.stats()
+    loader.close()
+    history = trainer.metrics_history
+    per_pass = config.n_layers * LOADER_STEPS
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    step_ms = TRAIN_BATCH * TRAIN_SEQ / history[-1]["tokens_per_sec"] * 1e3
+    row = {"phase": "parallel", "leg": "token_shard_loader", "card": card,
+           "model": "llama3-1b", "shards": LOADER_SHARDS,
+           "shard_tokens": LOADER_SHARD_TOKENS, "dtype": "uint16",
+           "write_s": write_s, "total_tokens": LOADER_SHARDS
+           * LOADER_SHARD_TOKENS, "steps": LOADER_STEPS,
+           "step_ms": step_ms, "synthetic_step_ms": train_step_ms,
+           "input_wait_seconds": history[-1]["input_wait_seconds"],
+           "losses": [h["loss"] for h in history],
+           "consumer_waits_after_step_1": final["consumer_waits"]
+           - pulls[min(1, len(pulls) - 1)]["consumer_waits"],
+           "consumer_waits_total": final["consumer_waits"],
+           "ring_occupancy_mean": sum(p["ring_occupancy"] for p in pulls)
+           / len(pulls), "pulls": len(pulls), "loader_stats": final,
+           "launches": launches, "expected_launches": want}
+    emit(row)
+    _exact_launches("parallel token_shard_loader", launches, want)
+    if not all(math.isfinite(x) for x in row["losses"]):
+        fail(f"parallel token_shard_loader: non-finite loss {row['losses']}")
+    del trainer, history
+    _release()
+    return launches
+
+
 def phase_parallel(seed: int, card: str, train_step_ms=None) -> dict:
-    """The sharded step, checkpoint and per-layer-gather step at world
-    size 1 on an NCCL group, then the ring's hops, one 8B layer on tensor
-    ranks and the 1B model as pipeline stages; returns the flash launches
-    of every leg."""
+    """The sharded step, checkpoint and per-layer-gather step, the MoE
+    expert-mesh step, the families' sharded steps and a LoRA step on a
+    tensor mesh at world size 1 on an NCCL group, then the ring's hops,
+    one 8B layer on tensor ranks (with and without an adapter), the 1B
+    model as pipeline stages, one Mixtral layer's experts as expert
+    ranks, and the 1B fit on the native token-shard loader; returns the
+    flash launches of every leg."""
     import shutil
     import tempfile
 
@@ -4996,12 +5604,18 @@ def phase_parallel(seed: int, card: str, train_step_ms=None) -> dict:
     work = tempfile.mkdtemp(prefix="mlt-parallel-")
     try:
         launches = _par_sharded_leg(seed, card, train_step_ms, work)
-        legs = [_par_world1_leg(seed, card)]
+        legs = [_par_world1_leg(seed, card), _par_moe_mesh_leg(seed, card),
+                _par_families_leg(seed, card),
+                _par_lora_world1_leg(seed, card)]
+    finally:
+        dist.destroy_process_group()
+    try:
+        legs += [_par_ring_leg(seed, card), _par_tensor_leg(seed, card),
+                 _par_pipe_leg(seed, card), _par_expert_leg(seed, card),
+                 _par_lora_tensor_leg(seed, card),
+                 _par_loader_leg(seed, card, train_step_ms, work)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        dist.destroy_process_group()
-    legs += [_par_ring_leg(seed, card), _par_tensor_leg(seed, card),
-             _par_pipe_leg(seed, card)]
     launches = {name: launches[name] + sum(leg[name] for leg in legs)
                 for name in TRAINING_KERNELS}
     emit({"phase": "parallel", "leg": "ulysses", "card": card,

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ...models.llama import LlamaConfig
-from ...serving.resilience import not_ported
+from ...parallel.sharding import local_part
 from ...utils import logger
 
 # safetensors dtype codes the reader views; any other raises with its name
@@ -194,12 +194,13 @@ def load_hf_weights_into_llama(model_name_or_path: str, config=None,
     GPU) in the target dtype (``dtype``, else the config's) and filled one
     layer at a time, torch's ``[out, in]`` transposed to the port's
     ``[in, out]``, so host memory holds one source tensor. ``lm_head`` is
-    read only when the embeddings are untied. ``shardings`` (a mesh
-    placement in the reference) needs many devices and raises."""
+    read only when the embeddings are untied. ``shardings`` (a tree like
+    the params of ``parallel.sharding.tree_shardings`` placements, each
+    carrying its mesh; a leaf's node may be None) places each leaf as a
+    DTensor as it is read: the rank keeps its part of each source tensor
+    (its layers of a stacked leaf), so no rank holds a whole leaf."""
     from ...serving.llm import default_device
 
-    if shardings is not None:
-        raise not_ported("sharded HF weight placement (shardings=)", 7)
     device = default_device(device)
     directory = _resolve_checkpoint_dir(model_name_or_path)
     config = config or llama_config_from_hf(directory)
@@ -212,50 +213,99 @@ def load_hf_weights_into_llama(model_name_or_path: str, config=None,
         tensor = reader.get(name).to(device)
         return tensor.t() if transpose else tensor
 
-    def leaf(name: str, transpose=False) -> torch.Tensor:
+    def placement(path: tuple):
+        node = shardings
+        for key in path:
+            if node is None:
+                break
+            node = node[key]
+        return node
+
+    def placed(out: torch.Tensor, where) -> torch.Tensor:
+        if where is None:
+            return out
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(out, where.mesh, tuple(where))
+
+    def leaf(name: str, path: tuple, transpose=False) -> torch.Tensor:
         tensor = fetch(name, transpose)
+        where = placement(path)
+        if where is not None:
+            tensor = local_part(tensor, where.mesh, tuple(where))
         out = torch.empty(tensor.shape, dtype=dtype, device=device)
         out.copy_(tensor)
-        return out
+        return placed(out, where)
 
-    def stacked(fmt: str, transpose=True) -> torch.Tensor:
+    def stacked(fmt: str, path: tuple, transpose=True) -> torch.Tensor:
+        where = placement(path)
+        layers, per_layer = range(config.n_layers), None
+        if where is not None:
+            layers, per_layer = _layer_part(config.n_layers, where)
         out = None
-        for i in range(config.n_layers):
-            tensor = fetch(fmt.format(i), transpose)
+        for i, layer_index in enumerate(layers):
+            tensor = fetch(fmt.format(layer_index), transpose)
+            if per_layer is not None:
+                tensor = local_part(tensor, where.mesh, per_layer)
             if out is None:
-                out = torch.empty((config.n_layers,) + tuple(tensor.shape),
+                out = torch.empty((len(layers),) + tuple(tensor.shape),
                                   dtype=dtype, device=device)
             out[i].copy_(tensor)
             del tensor
-        return out
+        return placed(out, where)
 
     layer = "model.layers.{}."
+
+    def layer_leaf(name: str, fmt: str, transpose=True) -> torch.Tensor:
+        return stacked(layer + fmt, ("layers", name), transpose)
+
     try:
         params = {
-            "embedding": leaf("model.embed_tokens.weight"),
+            "embedding": leaf("model.embed_tokens.weight", ("embedding",)),
             "layers": {
-                "attn_norm_scale": stacked(layer + "input_layernorm.weight",
-                                           transpose=False),
-                "wq": stacked(layer + "self_attn.q_proj.weight"),
-                "wk": stacked(layer + "self_attn.k_proj.weight"),
-                "wv": stacked(layer + "self_attn.v_proj.weight"),
-                "wo": stacked(layer + "self_attn.o_proj.weight"),
-                "mlp_norm_scale": stacked(
-                    layer + "post_attention_layernorm.weight",
-                    transpose=False),
-                "w_gate": stacked(layer + "mlp.gate_proj.weight"),
-                "w_up": stacked(layer + "mlp.up_proj.weight"),
-                "w_down": stacked(layer + "mlp.down_proj.weight"),
+                "attn_norm_scale": layer_leaf(
+                    "attn_norm_scale", "input_layernorm.weight", False),
+                "wq": layer_leaf("wq", "self_attn.q_proj.weight"),
+                "wk": layer_leaf("wk", "self_attn.k_proj.weight"),
+                "wv": layer_leaf("wv", "self_attn.v_proj.weight"),
+                "wo": layer_leaf("wo", "self_attn.o_proj.weight"),
+                "mlp_norm_scale": layer_leaf(
+                    "mlp_norm_scale", "post_attention_layernorm.weight",
+                    False),
+                "w_gate": layer_leaf("w_gate", "mlp.gate_proj.weight"),
+                "w_up": layer_leaf("w_up", "mlp.up_proj.weight"),
+                "w_down": layer_leaf("w_down", "mlp.down_proj.weight"),
             },
-            "final_norm_scale": leaf("model.norm.weight"),
+            "final_norm_scale": leaf("model.norm.weight",
+                                     ("final_norm_scale",)),
         }
         if not config.tie_embeddings:
-            params["lm_head"] = leaf("lm_head.weight", transpose=True)
+            params["lm_head"] = leaf("lm_head.weight", ("lm_head",),
+                                     transpose=True)
     finally:
         reader.close()
     logger.info("streamed HF checkpoint", model=model_name_or_path,
                 layers=config.n_layers, device=str(device))
     return config, params
+
+
+def _layer_part(n_layers: int, where) -> tuple:
+    """(the layers a rank holds of a stacked leaf placed by ``where``, the
+    placements of one layer's tensor): a ``Shard(0)`` cuts the layers in
+    mesh-axis order, as ``parallel.sharding.local_part`` cuts a tensor."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, lo, count = where.mesh, 0, n_layers
+    coordinate = mesh.get_coordinate()
+    per_layer = []
+    for axis, p in enumerate(where):
+        if isinstance(p, Shard) and p.dim == 0:
+            count //= mesh.size(axis)
+            lo += coordinate[axis] * count
+            per_layer.append(Replicate())
+        else:
+            per_layer.append(Shard(p.dim - 1) if isinstance(p, Shard) else p)
+    return range(lo, lo + count), tuple(per_layer)
 
 
 class HuggingFaceModelServer:

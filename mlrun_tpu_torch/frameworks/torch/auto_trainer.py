@@ -12,12 +12,11 @@ cleanly on SIGTERM, and returns the final metrics with ``train_time_s``.
 ``evaluate(...)`` averages the loss metrics over a few batches. A
 dataset may be a datastore url (``file://``). ``mesh_shape``
 trains (and evaluates) over a ``data`` x ``fsdp`` x ``tensor`` mesh of
-the process group, ``context_parallel`` over a ``seq`` axis,
+the process group (with ``moe_experts``, an ``expert`` axis holds the
+experts), ``context_parallel`` over a ``seq`` axis,
 ``pipeline_stages`` over a ``pipe`` axis (by default the stages on
 ``pipe`` and the rest of the ranks on ``data``, as the reference). The
-handler contract is the reference's, with the same defaults; features
-the port does not have yet (expert parallelism) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+handler contract is the reference's, with the same defaults.
 """
 
 from __future__ import annotations
@@ -293,10 +292,10 @@ def evaluate(context=None,
     from ...serving.llm import default_device
     from ...training import CheckpointManager
     from ...training.data import to_device
-    from ...training.train import TrainConfig, _check_ported
+    from ...training.train import TrainConfig, _check_options
 
     model_config = _resolve_model_config(model, model_overrides)
-    _check_ported(model_config, TrainConfig(mesh_shape=mesh_shape))
+    _check_options(model_config, TrainConfig(mesh_shape=mesh_shape))
     device = default_device(device)
     mesh = make_mesh(mesh_shape, device) if mesh_shape else None
     if checkpoint_dir:

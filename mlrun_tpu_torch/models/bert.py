@@ -198,18 +198,15 @@ def mlm_loss(config: BertConfig, params: Params, tokens, targets,
 
 
 def make_classifier_train_step(config: BertConfig, optimizer, mesh=None):
-    """Classification train step on one device: (params, opt_state,
-    tokens, labels, mask) -> (params, opt_state, {"loss", "accuracy"}),
-    the params and moments updated in place by ``optimizer`` (the port's
-    ``AdamW``). A mesh (the families' sharded steps) is not ported
-    yet."""
-    from ..serving.resilience import not_ported
+    """Classification train step: (params, opt_state, tokens, labels,
+    mask) -> (params, opt_state, {"loss", "accuracy"}), the params and
+    moments updated in place by ``optimizer`` (the port's ``AdamW``). On
+    a ``mesh`` the params are placed by the shared rules ('wk'/'wv' here
+    are full-head, so the Llama rules apply) and the batch splits over
+    ``data`` x ``fsdp`` (training.train.make_loss_step)."""
     from ..training.train import make_loss_step
-
-    if mesh is not None:
-        raise not_ported("the BERT family's sharded train step (mesh)", 7)
 
     def loss(params, tokens, labels, mask):
         return classification_loss(config, params, tokens, labels, mask)
 
-    return make_loss_step(loss, optimizer, with_grad_norm=False)
+    return make_loss_step(loss, optimizer, mesh=mesh, with_grad_norm=False)

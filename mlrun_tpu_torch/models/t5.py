@@ -305,20 +305,16 @@ def seq2seq_loss(config: T5Config, params: Params, input_ids: torch.Tensor,
 
 
 def make_train_step(config: T5Config, optimizer, mesh=None, rules=None):
-    """Seq2seq train step on one device: (params, opt_state, input_ids,
-    dec_ids, targets) -> (params, opt_state, {"loss", "accuracy",
-    "grad_norm"}), the params and moments updated in place by
-    ``optimizer`` (the port's ``AdamW``). A mesh (the families' sharded
-    steps) is not ported yet."""
-    from ..serving.resilience import not_ported
+    """Seq2seq train step: (params, opt_state, input_ids, dec_ids,
+    targets) -> (params, opt_state, {"loss", "accuracy", "grad_norm"}),
+    the params and moments updated in place by ``optimizer`` (the port's
+    ``AdamW``). On a ``mesh`` the params are placed by ``rules`` (default
+    the shared table) and the batch splits over ``data`` x ``fsdp``
+    (training.train.make_loss_step)."""
     from ..training.train import make_loss_step
-
-    if mesh is not None:
-        raise not_ported("the T5 family's sharded train step (mesh)", 7)
-
-    del rules
 
     def loss(params, input_ids, dec_ids, targets):
         return seq2seq_loss(config, params, input_ids, dec_ids, targets)
 
-    return make_loss_step(loss, optimizer, with_grad_norm=True)
+    return make_loss_step(loss, optimizer, mesh=mesh, with_grad_norm=True,
+                          rules=rules)

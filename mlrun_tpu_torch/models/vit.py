@@ -194,20 +194,16 @@ def loss_fn(config: ViTConfig, params: Params, images: torch.Tensor,
 
 
 def make_train_step(config: ViTConfig, optimizer, mesh=None, rules=None):
-    """Classifier train step on one device: (params, opt_state, images,
-    labels) -> (params, opt_state, {"loss", "accuracy", "grad_norm"}),
-    the params and moments updated in place by ``optimizer`` (the port's
-    ``AdamW``). ``rules`` shard the reference's step over a mesh; a mesh
-    (the families' sharded steps) is not ported yet."""
-    from ..serving.resilience import not_ported
+    """Classifier train step: (params, opt_state, images, labels) ->
+    (params, opt_state, {"loss", "accuracy", "grad_norm"}), the params
+    and moments updated in place by ``optimizer`` (the port's ``AdamW``).
+    On a ``mesh`` the params are placed by ``rules`` (default the shared
+    table) and the batch splits over ``data`` x ``fsdp``
+    (training.train.make_loss_step)."""
     from ..training.train import make_loss_step
-
-    if mesh is not None:
-        raise not_ported("the ViT family's sharded train step (mesh)", 7)
-
-    del rules
 
     def loss(params, images, labels):
         return loss_fn(config, params, images, labels)
 
-    return make_loss_step(loss, optimizer, with_grad_norm=True)
+    return make_loss_step(loss, optimizer, mesh=mesh, with_grad_norm=True,
+                          rules=rules)

@@ -202,6 +202,16 @@ TRAIN_COMPILE_SECONDS = REGISTRY.gauge(
     "mlt_train_compile_seconds",
     "Wall seconds of the last train-step build (Trainer.warmup or the "
     "first fit step: the CUDA kernels' nvcc build and the first pass)")
+TRAIN_LOADER_OCCUPANCY = REGISTRY.gauge(
+    "mlt_train_loader_ring_occupancy",
+    "Staged batches currently in the native TokenShardLoader ring buffer "
+    "(0 with consumer waits climbing = input-bound)",
+    labels=("loader",), overflow="drop")
+TRAIN_LOADER_EVENTS = REGISTRY.counter(
+    "mlt_train_loader_events_total",
+    "Cumulative TokenShardLoader counters mirrored from stats() "
+    "(batches, consumer_waits, producer_waits, epochs)",
+    labels=("loader", "event"), max_label_sets=512, overflow="drop")
 
 from .goodput import GoodputLedger  # noqa: E402,F401
 

@@ -11,6 +11,10 @@ first use and rebuilt whenever a source changes.
 Importing this module needs neither ``nvcc`` nor a GPU: the build runs the
 first time a wrapper is handed a CUDA tensor (or :func:`library` is called).
 
+Host code (``csrc/*.cpp``: the token-shard loader) takes a route of its
+own, :func:`build_host`: one ``g++`` call into ``build/host/<hash>/``, so
+it builds wherever a C++ compiler is, with or without a GPU.
+
 Every wrapper passes its launch's return code to :func:`check_launch`,
 which raises on an error and otherwise counts the launch;
 :func:`launch_counts` / :func:`reset_launch_counts` let a run show which
@@ -33,6 +37,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libmlt_kernels.so"
+HOST_BUILD_ROOT = BUILD_ROOT.parent / "host"
+HOST_FLAGS = ("-O2", "-std=c++17", "-pthread", "-shared", "-fPIC")
 
 # dtype codes shared with csrc/common.cuh (float16: csrc/rms_norm.cu only)
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
@@ -144,6 +150,30 @@ def build() -> Path:
                       "arch=compute_90a,code=sm_90a", "-o", str(tmp),
                       *map(str, objects)]))
     (out_dir / "build.log").write_text("\n".join(logs))
+    os.replace(tmp, lib_path)  # atomic: a reader never sees a partial .so
+    return lib_path
+
+
+def build_host(source, lib_name: str) -> Path:
+    """Compile one host C++ ``source`` into the shared library
+    ``lib_name`` with ``g++`` (``$CXX`` when set) and :data:`HOST_FLAGS`;
+    returns its path. A finished build of the same source and flags is
+    reused."""
+    source = Path(source)
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    digest.update(source.read_bytes())
+    out_dir = HOST_BUILD_ROOT / digest.hexdigest()[:16]
+    lib_path = out_dir / lib_name
+    if lib_path.exists():
+        return lib_path
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise KernelBuildError(
+            f"no C++ compiler (g++ or $CXX) to build {source.name}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{lib_name}.{os.getpid()}.tmp"
+    log = _run([cxx, *HOST_FLAGS, "-o", str(tmp), str(source)])
+    (out_dir / "build.log").write_text(log)
     os.replace(tmp, lib_path)  # atomic: a reader never sees a partial .so
     return lib_path
 

@@ -13,7 +13,11 @@ The step gathers the DTensor params into plain tensors (:func:`gather`,
 or layer by layer in parallel/tensor.py), so no DTensor ever reaches a
 kernel launch, runs on the rank's part of the batch (:func:`local_part`)
 and brings the gradients back to the params' placements
-(:func:`reduce_part`, :func:`reduce_to`).
+(:func:`reduce_part`, :func:`reduce_to`). The batch splits over ``data``
+x ``fsdp`` only: the ranks of a ``tensor`` or an ``expert`` group hold
+the same rows, so their gradients of a replicated leaf are copies, cut
+and never summed (models/moe.py's ``MOE_RULES`` put the experts on the
+``expert`` axis).
 """
 
 from __future__ import annotations
@@ -123,11 +127,25 @@ def placements_for(spec: tuple, mesh) -> tuple:
                  for axis in mesh.mesh_dim_names)
 
 
+class Placements(tuple):
+    """A leaf's DTensor placements (a tuple, one per mesh axis) that also
+    carries its ``mesh``, as the reference's ``NamedSharding`` does: what
+    :func:`tree_shardings` returns, and what
+    ``load_hf_weights_into_llama(shardings=)`` places a leaf by."""
+
+    def __new__(cls, placements, mesh=None):
+        out = super().__new__(cls, placements)
+        out.mesh = mesh
+        return out
+
+
 def tree_shardings(tree: Any, mesh, rules: Sequence[tuple] | None = None
                    ) -> Any:
-    """The DTensor placements of every leaf on ``mesh``."""
+    """The DTensor placements of every leaf on ``mesh`` (each a
+    :class:`Placements`)."""
     return _map_with_path(
-        lambda path, leaf: _leaf_placements(path, leaf, mesh, rules), tree)
+        lambda path, leaf: Placements(
+            _leaf_placements(path, leaf, mesh, rules), mesh), tree)
 
 
 def shard_pytree(tree: Any, mesh, rules: Sequence[tuple] | None = None) -> Any:
@@ -313,9 +331,16 @@ def reduce_to(grad, like, ranks: int, over=None, whole=None):
 
 def batch_ranks(mesh) -> int:
     """How many parts the batch is split into: the product of the
-    data-ish axes (``data``, ``fsdp``)."""
+    data-ish axes (``data``, ``fsdp``). The ranks of the other axes
+    (``tensor``, ``expert``) hold the same rows: copies."""
     sizes = mesh_shape(mesh)
     return sizes.get("data", 1) * sizes.get("fsdp", 1)
+
+
+def batch_axes(mesh) -> tuple:
+    """Indices of the mesh's data-ish axes (``data``, ``fsdp``)."""
+    names = mesh.mesh_dim_names
+    return tuple(names.index(a) for a in ("data", "fsdp") if a in names)
 
 
 def mesh_all_reduce(tensor, mesh, op=None):
@@ -334,7 +359,8 @@ def mesh_all_reduce(tensor, mesh, op=None):
 def mean_metrics(metrics: dict, mesh) -> dict:
     """Step metrics averaged over the batch's parts in one all-reduce over
     the mesh; ``tokens`` (a count) is summed over the parts. Ranks that
-    hold one part (a tensor group) report the same values."""
+    hold one part (a tensor or an expert group) report the same values,
+    so the mean over every rank is the mean over the parts."""
     import torch
 
     keys = sorted(metrics)

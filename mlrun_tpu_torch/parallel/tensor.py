@@ -13,6 +13,11 @@ A Llama layer on a ``tensor`` rank (models/llama.py ``attention_half`` /
 - ``wo`` / ``w_down`` are split on their input dim (row-parallel): their
   products are partial sums, all-reduced over the tensor group.
 
+A LoRA adapter (reference rules: ``lora_a`` replicated on ``tensor``,
+``lora_b`` split on its output dim) is gathered whole and cut per half
+(:func:`adapter_half`); its gradients are partials over the tensor ranks
+and are summed there.
+
 Two autograd pairs carry that: :func:`enter` (identity forward, all-reduce
 of the input's gradient backward) on the replicated input of a half, and
 :func:`leave` (all-reduce forward, identity backward) on its partial
@@ -34,7 +39,7 @@ import contextlib
 import torch
 import torch.distributed as dist
 
-from .sharding import reduce_part
+from .sharding import batch_axes, reduce_part
 
 
 def all_reduce_same_bits(x: torch.Tensor, group, size: int) -> torch.Tensor:
@@ -72,6 +77,23 @@ class _Leave(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None, None
+
+
+def enter(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The entry of a region whose ranks each compute a partial of one
+    result from the same ``x``: identity forward; backward, the sum of
+    the ranks' input gradients (:func:`all_reduce_same_bits`)."""
+    if size == 1:
+        return x
+    return _Enter.apply(x, group, size)
+
+
+def leave(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The exit of such a region: the sum of the ranks' partials
+    (:func:`all_reduce_same_bits`) forward; identity backward."""
+    if size == 1:
+        return x
+    return _Leave.apply(x, group, size)
 
 
 class LeafComm:
@@ -163,6 +185,21 @@ def tensor_shard(name: str, w: torch.Tensor, t: int, tensor: int):
     return w
 
 
+def adapter_half(target: str, parts: dict, t: int, tensor: int) -> dict:
+    """Rank ``t``'s half of one layer's adapter of ``target`` (whole
+    ``lora_a`` [in, r], ``lora_b`` [r, out], ``scaling``) on a tensor axis
+    of size ``tensor``: a column-parallel target keeps its output columns
+    of ``lora_b`` (its delta is the rank's columns of the whole delta), a
+    row-parallel one its input rows of ``lora_a`` (its delta is a partial
+    sum, like the base product's)."""
+    parts = dict(parts)
+    if target in _ROW:
+        parts["lora_a"] = tensor_shard(target, parts["lora_a"], t, tensor)
+    elif target in _COLUMN:
+        parts["lora_b"] = tensor_shard(target, parts["lora_b"], t, tensor)
+    return parts
+
+
 class LayerParallel:
     """One rank's view of the layers of a sharded step (models/llama.py
     ``run_layers(layer_parallel=)``). ``layers`` / ``lora`` hold the
@@ -178,11 +215,17 @@ class LayerParallel:
         self.mesh = mesh
         tensor = names.index("tensor") if "tensor" in names else None
         self.tensor_size = 1 if tensor is None else mesh.size(tensor)
-        batch = tuple(names.index(a) for a in ("data", "fsdp")
-                      if a in names)
+        batch = batch_axes(mesh)
 
-        def comm(placements):
+        def comm(placements, adapter=False):
             placements = [_layer_dim(p) for p in placements]
+            if adapter and self.tensor_size > 1:
+                # an adapter leaf is gathered whole and cut by the halves
+                # (gather): its gradient is a partial over the tensor ranks
+                gather = [a for a, p in enumerate(placements)
+                          if isinstance(p, Shard)]
+                return LeafComm(mesh, placements, gather, batch + (tensor,),
+                                range(mesh.ndim), ranks)
             gather = [a for a, p in enumerate(placements)
                       if isinstance(p, Shard) and a != tensor]
             return LeafComm(mesh, placements, gather, batch, batch, ranks)
@@ -197,10 +240,13 @@ class LayerParallel:
                         f"tensor parallelism needs layers/{name} placed "
                         f"{want} on the tensor axis (got {on_tensor})")
             self.group = mesh.get_group(tensor)
+            self.tensor_rank = mesh.get_coordinate()[tensor]
+        else:
+            self.group, self.tensor_rank = None, 0
         self.layers = {name: comm(leaf.placements)
                        for name, leaf in layers.items()}
         self.lora = None if lora is None else {
-            target: {key: comm(leaf.placements)
+            target: {key: comm(leaf.placements, adapter=True)
                      for key, leaf in parts.items()}
             for target, parts in lora.items()}
         self._saved = None   # storage -> regather, inside freeing()
@@ -213,24 +259,32 @@ class LayerParallel:
         return out
 
     def gather(self, lp: dict, lora: dict | None):
-        """One layer's slices gathered (differentiably) over ``fsdp``."""
+        """One layer's slices gathered (differentiably) over ``fsdp``. On
+        a tensor axis an adapter is gathered whole and cut to the rank's
+        half: a column-parallel target's ``lora_b`` to the rank's output
+        columns, so its delta is the rank's columns of the whole delta; a
+        row-parallel target's ``lora_a`` to the rank's input rows, so its
+        delta is a partial sum that joins the base product's partial
+        before the tensor all-reduce (added after it, on every rank, it
+        would count ``tensor`` times)."""
         lp = {name: self._gather(t, self.layers[name])
               for name, t in lp.items()}
         if lora is not None:
             lora = {target: {key: self._gather(t, self.lora[target][key])
                              for key, t in parts.items()}
                     for target, parts in lora.items()}
+            if self.tensor_size > 1:
+                lora = {target: adapter_half(target, parts,
+                                             self.tensor_rank,
+                                             self.tensor_size)
+                        for target, parts in lora.items()}
         return lp, lora
 
     def enter(self, x):
-        if self.tensor_size == 1:
-            return x
-        return _Enter.apply(x, self.group, self.tensor_size)
+        return enter(x, self.group, self.tensor_size)
 
     def leave(self, x):
-        if self.tensor_size == 1:
-            return x
-        return _Leave.apply(x, self.group, self.tensor_size)
+        return leave(x, self.group, self.tensor_size)
 
     @contextlib.contextmanager
     def freeing(self):

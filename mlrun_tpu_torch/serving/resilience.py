@@ -534,11 +534,10 @@ class DegradationLadder:
         return max_new_tokens
 
 
-# ROADMAP.md "Modules still to port", by item number (1, 2, 3, 4, 5 and
-# 8 landed; item 6's engine fleet landed, its remainder stays)
+# ROADMAP.md "Modules still to port", by item number (1-5, 7, 8 and 9
+# landed; item 6's engine fleet landed, its remainder stays)
 PORT_QUEUE = {
     6: "the pod fleet and the serving-graph router",
-    7: "training on many GPUs and elastic training",
     10: "glue",
 }
 

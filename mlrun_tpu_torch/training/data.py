@@ -2,9 +2,12 @@
 
 ``synthetic_token_stream``, ``array_token_stream`` and ``text_file_stream``
 are copies: the same seed yields the same numpy batches as the reference.
-Batches stay numpy on the host; ``DevicePrefetchIterator`` moves them to
-the card ahead of the step that consumes them. ``TokenShardLoader`` (it
-needs ``native/``) is not ported yet (ROADMAP.md item 7).
+``TokenShardLoader`` drives the port's own copy of the native loader
+(``csrc/data_loader.cpp``, built with ``g++`` at first use by
+``ops/_build.build_host``), batch for batch the reference's for the same
+shards and seed. Batches stay numpy on the host; ``DevicePrefetchIterator``
+(or the synchronous :func:`device_prefetch`) moves them to the card ahead
+of the step that consumes them.
 """
 
 from __future__ import annotations
@@ -52,6 +55,243 @@ def text_file_stream(path: str, tokenizer, batch_size: int, seq_len: int,
         text = fp.read()
     ids = np.asarray(tokenizer(text)["input_ids"], dtype=np.int32)
     return array_token_stream(ids, batch_size, seq_len, **kwargs)
+
+
+# -- native token-shard loader (csrc/data_loader.cpp) -------------------------
+
+def _native_lib_path() -> str:
+    """``MLT_DATA_LOADER_LIB`` when set, else the port's loader library,
+    built from ``csrc/data_loader.cpp`` on first use."""
+    import os
+
+    env = os.environ.get("MLT_DATA_LOADER_LIB")
+    if env:
+        return env
+    from ..ops import _build
+
+    return str(_build.build_host(_build.CSRC / "data_loader.cpp",
+                                 "libmlt_data.so"))
+
+
+class TokenShardLoader:
+    """Native prefetching loader over flat token-shard files (the
+    reference's, on the port's copy of its C++ source).
+
+    Shards are mmapped read-only; worker threads cut seeded-shuffled
+    (seq+1)-token windows and stage whole batches in a bounded ring
+    buffer. Each batch lands by one memcpy in a reused host buffer
+    (pinned when CUDA is available, so its copy to the card can run
+    asynchronously) and is yielded as (tokens, targets) int32 numpy
+    arrays, like ``synthetic_token_stream``; ``DevicePrefetchIterator``
+    or :func:`device_prefetch` put them on the card ahead of the step.
+
+    Shard format: little-endian flat token files, int32 (dtype="int32")
+    or uint16 (dtype="uint16") — the usual pretokenized .bin layout.
+    ``lib_path`` (or ``MLT_DATA_LOADER_LIB``) names another build of the
+    same C interface.
+    """
+
+    def __init__(self, paths, batch_size: int, seq_len: int,
+                 dtype: str = "int32", seed: int = 0, workers: int = 2,
+                 queue_depth: int = 4, lib_path: str = ""):
+        import ctypes
+        import os
+
+        if isinstance(paths, (str, bytes)):
+            paths = [paths]
+        self.paths = [str(p) for p in paths]
+        for p in self.paths:
+            if not os.path.isfile(p):
+                raise FileNotFoundError(p)
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        code = {"int32": 4, "uint16": 2}.get(dtype)
+        if code is None:
+            raise ValueError(f"dtype must be int32|uint16, got {dtype}")
+
+        lib_path = lib_path or _native_lib_path()
+        self._lib = ctypes.CDLL(lib_path)
+        self._lib.mlt_loader_open.restype = ctypes.c_uint64
+        self._lib.mlt_loader_open.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64,
+            ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32]
+        self._lib.mlt_loader_next.restype = ctypes.c_int
+        self._lib.mlt_loader_next.argtypes = [
+            ctypes.c_uint64, ctypes.POINTER(ctypes.c_int32)]
+        self._lib.mlt_loader_total_tokens.restype = ctypes.c_uint64
+        self._lib.mlt_loader_total_tokens.argtypes = [ctypes.c_uint64]
+        self._lib.mlt_loader_epoch.restype = ctypes.c_uint64
+        self._lib.mlt_loader_epoch.argtypes = [ctypes.c_uint64]
+        self._lib.mlt_loader_close.argtypes = [ctypes.c_uint64]
+        try:
+            self._lib.mlt_loader_stats.restype = ctypes.c_int
+            self._lib.mlt_loader_stats.argtypes = [
+                ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64)]
+            self._has_stats = True
+        except AttributeError:
+            # an older library without the stats export still loads
+            self._has_stats = False
+
+        arr = (ctypes.c_char_p * len(self.paths))(
+            *[p.encode() for p in self.paths])
+        self._handle = self._lib.mlt_loader_open(
+            arr, len(self.paths), code, batch_size, seq_len, seed,
+            workers, queue_depth)
+        if not self._handle:
+            raise RuntimeError(
+                f"mlt_loader_open failed for {self.paths} (empty shards, "
+                f"bad dtype, or shards shorter than seq_len+1)")
+        self._host = torch.empty((batch_size, seq_len + 1),
+                                 dtype=torch.int32,
+                                 pin_memory=torch.cuda.is_available())
+        self._buf = self._host.numpy()
+        self._obs_name = (f"{os.path.basename(self.paths[0])}"
+                          f"@{self._handle}")
+        self._metrics_registered = False
+        self._register_metrics()
+
+    @property
+    def total_tokens(self) -> int:
+        return int(self._lib.mlt_loader_total_tokens(self._handle))
+
+    @property
+    def epoch(self) -> int:
+        return int(self._lib.mlt_loader_epoch(self._handle))
+
+    def stats(self) -> dict:
+        """Ring occupancy and wait counters from the native side (the
+        reference's keys). ``consumer_waits`` climbing while
+        ``ring_occupancy`` sits at 0 is the input-bound signature; the
+        same keys surface on ``/metrics`` through the registry
+        collector."""
+        import ctypes
+
+        out = {"queue_depth": 0, "ring_occupancy": 0, "batches": 0,
+               "consumer_waits": 0, "producer_waits": 0}
+        if self._handle and self._has_stats:
+            raw = (ctypes.c_uint64 * 5)()
+            if self._lib.mlt_loader_stats(self._handle, raw):
+                out.update(ring_occupancy=int(raw[0]),
+                           queue_depth=int(raw[1]), batches=int(raw[2]),
+                           consumer_waits=int(raw[3]),
+                           producer_waits=int(raw[4]))
+        out["epochs"] = int(self.epoch) if self._handle else 0
+        return out
+
+    # cumulative stats() keys mirrored as counter series at scrape time
+    _COUNTER_STATS = ("batches", "consumer_waits", "producer_waits",
+                      "epochs")
+
+    def _register_metrics(self):
+        """Expose the ring on the port's registry: a weakly bound
+        scrape-time collector that retires itself (and removes its
+        series) once the loader is closed or collected."""
+        if self._metrics_registered:
+            return
+        import weakref
+
+        try:
+            from ..obs import (
+                REGISTRY,
+                TRAIN_LOADER_EVENTS,
+                TRAIN_LOADER_OCCUPANCY,
+            )
+        except Exception:  # noqa: BLE001 - telemetry must never block IO
+            return
+        ref = weakref.ref(self)
+        name = self._obs_name
+        counter_stats = self._COUNTER_STATS
+
+        def remove_series():
+            TRAIN_LOADER_OCCUPANCY.remove(loader=name)
+            for key in counter_stats:
+                TRAIN_LOADER_EVENTS.remove(loader=name, event=key)
+
+        def collect():
+            loader = ref()
+            if loader is None or not loader._handle:
+                remove_series()
+                return False
+            stats = loader.stats()
+            TRAIN_LOADER_OCCUPANCY.set(stats["ring_occupancy"], loader=name)
+            for key in counter_stats:
+                TRAIN_LOADER_EVENTS.set_total(stats[key], loader=name,
+                                              event=key)
+            return None
+
+        REGISTRY.add_collector(collect)
+        self._metrics_registered = True
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> tuple:
+        import ctypes
+
+        ok = self._lib.mlt_loader_next(
+            self._handle,
+            self._buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if not ok:
+            raise StopIteration
+        tokens = self._buf[:, :-1].copy()
+        targets = self._buf[:, 1:].copy()
+        return tokens, targets
+
+    def close(self):
+        if getattr(self, "_handle", 0):
+            self._lib.mlt_loader_close(self._handle)
+            self._handle = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 - interpreter teardown
+            pass
+
+
+def device_prefetch(stream, device="cuda", depth: int = 2):
+    """Wrap a (tokens, targets) host iterator with device-side prefetch:
+    keeps ``depth`` batches already on their way to ``device`` (int32
+    tensors, copied from pinned memory without blocking the host on a
+    CUDA device), so the train step never waits on host->device copies.
+    The reference's ``sharding=`` (a jax placement) is ``device`` here.
+
+    Synchronous variant: the copies are *issued* ahead, but the host
+    batch for slot k+depth is still pulled on the consumer thread
+    between steps. ``DevicePrefetchIterator`` moves that pull (and the
+    copy) onto a background thread — ``Trainer.fit`` uses it."""
+    import collections
+
+    device = torch.device(device)
+    queue = collections.deque()
+
+    def put(item):
+        host = [np.ascontiguousarray(a, dtype=np.int32) for a in item]
+        if device.type != "cuda":
+            return tuple(torch.from_numpy(a.copy()).to(device) for a in host)
+        return tuple(torch.from_numpy(a).pin_memory().to(
+            device, non_blocking=True) for a in host)
+
+    iterator = iter(stream)
+    try:
+        for _ in range(depth):
+            queue.append(put(next(iterator)))
+    except StopIteration:
+        pass
+    while queue:
+        out = queue.popleft()
+        try:
+            queue.append(put(next(iterator)))
+        except StopIteration:
+            pass
+        yield out
 
 
 def to_device(batch, device) -> tuple:

@@ -23,22 +23,23 @@ heads and MLP slice, the row-parallel partials all-reduced. The
 embedding, the final norm and the head are gathered whole (over
 ``tensor`` too) inside the step, a departure from the reference, whose
 XLA program keeps them sharded; they hold about 13% of Llama-3-8B's
-params. The gradient norm of the clip sums every shard once. Other
-families (MoE, and BERT, ViT and T5 through ``make_loss_step``) gather
-every leaf for the step and reduce each gradient once. A mesh is taken
-even at size 1. ``context_parallel`` ("ring" or "ulysses") shards the
-sequence over a ``seq`` axis instead (models/llama_cp.py);
-``pipeline_stages`` runs GPipe stages over a ``pipe`` axis
-(parallel/pipeline.py).
+params. The gradient norm of the clip sums every shard once. LoRA
+on a ``tensor`` axis cuts the adapter to each half (parallel/tensor.py).
+An MoE step places its leaves by ``make_moe_rules`` and keeps each
+rank's experts local on an ``expert`` axis (models/moe.py
+``ExpertParallel``); its other leaves, and every leaf of the BERT, ViT
+and T5 steps (``make_loss_step``), are gathered for the step and each
+gradient reduced once. The batch splits over ``data`` x ``fsdp``; the
+ranks of any other axis hold the same rows. A mesh is taken even at
+size 1. ``context_parallel`` ("ring" or "ulysses") shards the sequence
+over a ``seq`` axis instead (models/llama_cp.py); ``pipeline_stages``
+runs GPipe stages over a ``pipe`` axis (parallel/pipeline.py).
 
 ``Trainer.fit`` drives the structured callbacks of
 ``frameworks/_common/callbacks.py``, resumes from the environment's
 checkpoint directive, attributes its wall time in a ``GoodputLedger``
 (obs/goodput.py), and with ``elastic_guard`` (training/elastic.py)
-reshards onto the surviving slices and back. Features of the reference
-trainer that the port does not have yet (expert parallelism, LoRA on a
-``tensor`` axis) raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+reshards onto the surviving slices and back.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from ..models.moe import MoEConfig
 from ..parallel.mesh import make_mesh, mesh_shape
 from ..parallel.sharding import (
     _map_with_path,
+    batch_axes,
     batch_ranks,
     batch_sharding,
     gather,
@@ -69,7 +71,6 @@ from ..parallel.sharding import (
     reduce_to,
     shard_pytree,
 )
-from ..serving.resilience import not_ported
 from ..utils import logger
 from .data import DevicePrefetchIterator, to_device
 from .mfu import ThroughputTracker, mfu
@@ -105,13 +106,12 @@ class TrainConfig:
     attention_impl: str | None = None
 
 
-def _check_ported(model_config, train_config: TrainConfig,
-                  shape: dict | None = None):
-    """Raise the reference's ``ValueError``s (MoE with LoRA or context
+def _check_options(model_config, train_config: TrainConfig,
+                   shape: dict | None = None):
+    """Raise the reference's ``ValueError``s: MoE with LoRA or context
     parallelism, then the context-parallel mesh validations, in its
-    order), then ``NotImplementedError`` for the options the port does
-    not have yet. ``shape`` is the mesh's {axis: size} (default: the
-    config's ``mesh_shape``)."""
+    order. ``shape`` is the mesh's {axis: size} (default: the config's
+    ``mesh_shape``)."""
     tc = train_config
     is_moe = isinstance(model_config, MoEConfig)
     if is_moe:
@@ -137,17 +137,6 @@ def _check_ported(model_config, train_config: TrainConfig,
                 f"context_parallel training supports seq-only or "
                 f"data x seq meshes (active axes {offending} cannot "
                 f"combine with '{seq_axis}')")
-        return
-    others = [a for a, n in sizes.items()
-              if a not in ("data", "fsdp", "tensor") and n > 1]
-    if others:
-        raise not_ported(f"training over mesh axes {others} (the port "
-                         f"trains on data x fsdp x tensor meshes)", 7)
-    if is_moe and math.prod(n for n in sizes.values() if n > 0) > 1:
-        raise not_ported("expert parallelism (moe_experts on a mesh over "
-                         "more than one device)", 7)
-    if tc.lora_rank > 0 and sizes.get("tensor", 1) > 1:
-        raise not_ported("LoRA on a 'tensor' mesh axis", 7)
 
 
 def resolve_model_config(model_config: LlamaConfig,
@@ -163,7 +152,7 @@ def resolve_model_config(model_config: LlamaConfig,
             **backbone, n_experts=train_config.moe_experts,
             top_k=train_config.moe_top_k,
             capacity_factor=train_config.moe_capacity_factor)
-    _check_ported(model_config, train_config)
+    _check_options(model_config, train_config)
     if train_config.attention_impl is not None:
         model_config = dataclasses.replace(
             model_config, attention_impl=train_config.attention_impl)
@@ -176,13 +165,23 @@ def _model_api(model_config) -> tuple[Callable, Callable]:
     params, tokens, targets, loss_chunk=, lora=)`` for both."""
     if isinstance(model_config, MoEConfig):
         def moe_loss(config, params, tokens, targets, loss_chunk=0,
-                     lora=None):
-            # LoRA with MoE is refused up front (_check_ported)
+                     lora=None, expert_parallel=None):
+            # LoRA with MoE is refused up front (_check_options)
             return moe_mod.loss_fn(config, params, tokens, targets,
-                                   loss_chunk=loss_chunk)
+                                   loss_chunk=loss_chunk,
+                                   expert_parallel=expert_parallel)
 
         return moe_loss, moe_mod.init_params
     return llama_mod.loss_fn, llama_mod.init_params
+
+
+def _family_rules(model_config, rules=None):
+    """The sharding rules of the config's family unless ``rules`` are
+    given: ``make_moe_rules()`` for MoE (the experts on ``expert``), the
+    reference's table (None) otherwise."""
+    if rules is None and isinstance(model_config, MoEConfig):
+        return moe_mod.make_moe_rules()
+    return rules
 
 
 # -- parameter trees ----------------------------------------------------------
@@ -387,8 +386,11 @@ def _on_mesh(compute: Callable, mesh) -> Callable:
     plain tensors onto the mesh's DTensor state: the trees are gathered,
     every batch tensor cut to the rank's slice (dim 0 over the data-ish
     axes), and the gradients reduced to the trained tree's placements as
-    the mean over the ranks, the metrics averaged the same way."""
-    ranks = mesh.size()
+    the mean over the batch's parts (summed over ``data`` x ``fsdp``; the
+    ranks of the other axes hold copies), the metrics averaged the same
+    way."""
+    ranks = batch_ranks(mesh)
+    over = batch_axes(mesh)
     data = batch_sharding(mesh)
 
     def sharded(params, lora, *batch):
@@ -397,7 +399,7 @@ def _on_mesh(compute: Callable, mesh) -> Callable:
         full_lora = None if lora is None else _gathered(lora, True)
         grads, metrics = compute(full, full_lora,
                                  *(local_part(x, mesh, data) for x in batch))
-        grads = [reduce_to(g, like, ranks)
+        grads = [reduce_to(g, like, ranks, over=over)
                  for g, like in zip(grads, tree_leaves(trained))]
         return grads, mean_metrics(metrics, mesh)
 
@@ -414,18 +416,14 @@ def _layered_on_mesh(model_config, train_config: TrainConfig, mesh,
     tensor axis' halves); the embedding, final norm and head are gathered
     whole; every gradient comes back reduced to its leaf's placements as
     the mean over the batch's parts."""
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import Shard
 
     from ..parallel.tensor import LayerParallel, LeafComm, check_divisible
     from ..parallel.tensor import gathered as gathered_leaf
 
     check_divisible(model_config, mesh_shape(mesh).get("tensor", 1))
     ranks = batch_ranks(mesh)
-    names = mesh.mesh_dim_names
-    batch_axes = tuple(names.index(a) for a in ("data", "fsdp")
-                       if a in names)
-    data = batch_sharding(mesh)
-    accum = max(1, train_config.grad_accum)
+    batch = batch_axes(mesh)
 
     def local(tree, requires_grad: bool):
         return tree_map(lambda t: _local(t).detach().requires_grad_(
@@ -435,7 +433,7 @@ def _layered_on_mesh(model_config, train_config: TrainConfig, mesh,
         comm = LeafComm(mesh, leaf.placements,
                         [a for a, p in enumerate(leaf.placements)
                          if isinstance(p, Shard)],
-                        batch_axes, range(mesh.ndim), ranks)
+                        batch, range(mesh.ndim), ranks)
         return gathered_leaf(local_leaf, comm)
 
     def local_grads(params, lora, tokens, targets):
@@ -454,6 +452,79 @@ def _layered_on_mesh(model_config, train_config: TrainConfig, mesh,
             shards if lora is None else lora_shards))
         return list(grads), mean_metrics(
             {k: v.detach() for k, v in metrics.items()}, mesh)
+
+    return _local_step_pair(mesh, train_config, local_grads)
+
+
+def _moe_on_mesh(model_config, train_config: TrainConfig, mesh,
+                 family_loss: Callable) -> tuple[Callable, Callable]:
+    """The MoE step on a mesh, as :func:`_layered_on_mesh`'s pair. On an
+    ``expert`` axis a rank keeps its ``n_experts / n`` experts: the
+    expert leaves are gathered over every other axis, each rank's
+    gradient of them is its own experts' (reduced over the batch's parts
+    only); every other leaf is gathered whole (its expert ranks' copies
+    cut, never summed). The rank's rows run through the layers with a
+    ``models.moe.ExpertParallel`` (the group sums its ranks' partial
+    outputs; the aux loss takes the global token fractions)."""
+    from torch.distributed.tensor import Shard
+
+    from ..parallel.tensor import LeafComm
+    from ..parallel.tensor import gathered as gathered_leaf
+
+    ranks = batch_ranks(mesh)
+    batch = batch_axes(mesh)
+    names = mesh.mesh_dim_names
+    expert = names.index("expert") if "expert" in names else None
+    every = tuple(range(mesh.ndim))
+
+    def comm(path, leaf):
+        placements = leaf.placements
+        sharded = [a for a, p in enumerate(placements)
+                   if isinstance(p, Shard)]
+        if path.rsplit("/", 1)[-1] not in moe_mod.EXPERT_LEAVES                 or expert is None:
+            return LeafComm(mesh, placements, sharded, batch, every, ranks)
+        if isinstance(placements[expert], Shard):
+            # the rank's experts stay local: its gradient is its part
+            # along the expert axis
+            return LeafComm(mesh, placements,
+                            [a for a in sharded if a != expert], batch,
+                            [a for a in every if a != expert], ranks)
+        # experts replicated on the axis (other rules): each rank cuts its
+        # own, so the zero-padded gradients are summed over the axis too
+        return LeafComm(mesh, placements, sharded, batch + (expert,), every,
+                        ranks)
+
+    def local_grads(params, lora, tokens, targets):
+        shards = {}
+
+        def view_of(path, leaf):
+            shards[path] = _local(leaf).detach().requires_grad_(True)
+            return gathered_leaf(shards[path], comm(path, leaf))
+
+        view = _map_with_path(view_of, params)
+        paths = tree_leaves(_map_with_path(lambda path, _: path, params))
+        loss, metrics = family_loss(
+            model_config, view, tokens, targets,
+            loss_chunk=train_config.loss_chunk,
+            expert_parallel=moe_mod.ExpertParallel(model_config, mesh))
+        grads = torch.autograd.grad(loss, [shards[p] for p in paths])
+        return list(grads), mean_metrics(
+            {k: v.detach() for k, v in metrics.items()}, mesh)
+
+    return _local_step_pair(mesh, train_config, local_grads)
+
+
+def _local_step_pair(mesh, train_config: TrainConfig,
+                     local_grads: Callable) -> tuple[Callable, Callable]:
+    """(one batch, the step's batch with gradient accumulation), each
+    ``(params, lora, tokens, targets) -> (grads, metrics)`` over the
+    state's DTensor trees and the global batch, from ``local_grads``
+    (the same over the rank's rows, returning the rank's parts of the
+    reduced gradients)."""
+    from torch.distributed.tensor import DTensor
+
+    data = batch_sharding(mesh)
+    accum = max(1, train_config.grad_accum)
 
     def wrapped(batch_grads):
         def sharded(params, lora, tokens, targets):
@@ -606,7 +677,7 @@ def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
         _pp_check(train_config, mesh, rules)
         return _make_pp_step(model_config, train_config, optimizer, mesh)
     if mesh is not None:
-        _check_ported(model_config, train_config, mesh_shape(mesh))
+        _check_options(model_config, train_config, mesh_shape(mesh))
         if train_config.context_parallel:
             return _make_cp_step(model_config, train_config, optimizer,
                                  mesh)
@@ -632,8 +703,8 @@ def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
 
     one_batch, step_grads = compute_grads, batch_grads
     if mesh is not None and isinstance(model_config, MoEConfig):
-        one_batch, step_grads = (_on_mesh(compute_grads, mesh),
-                                 _on_mesh(batch_grads, mesh))
+        one_batch, step_grads = _moe_on_mesh(model_config, train_config,
+                                             mesh, family_loss)
     elif mesh is not None:
         one_batch, step_grads = _layered_on_mesh(
             model_config, train_config, mesh, family_loss)
@@ -678,18 +749,23 @@ def _make_cp_step(model_config, train_config: TrainConfig, optimizer,
 
 
 def make_loss_step(loss: Callable, optimizer: AdamW, mesh=None,
-                   with_grad_norm: bool = True) -> Callable:
+                   with_grad_norm: bool = True, rules=None) -> Callable:
     """The train step of the BERT, ViT and T5 families:
     ``step(params, opt_state, *batch) -> (params, opt_state, metrics)``.
     ``loss(params, *batch) -> (loss, metrics)`` is differentiated with
     autograd over every leaf of ``params`` (each set to require grad), and
     ``optimizer`` updates the params and ``opt_state`` in place;
     ``metrics`` gains the pre-clip ``grad_norm`` when ``with_grad_norm``.
-    On a ``mesh`` the params and moments are DTensors (``parallel.
-    sharding.shard_pytree``) and every batch tensor is the global batch,
-    split over the data-ish axes on dim 0, as in ``make_train_step``.
-    ``step.compute_grads(params, *batch)`` returns (grads in
-    ``tree_leaves`` order, metrics) without updating."""
+    On a ``mesh`` the params and moments are DTensors: trees of plain
+    tensors (the same on every rank) are placed first by ``rules``
+    (default the reference's table; ``parallel.sharding.shard_pytree``),
+    as the reference's jit places its inputs, and the placed trees are
+    returned. Every batch tensor is the global batch, split over ``data``
+    x ``fsdp`` on dim 0 (the other axes' ranks compute the same rows), as
+    in ``make_train_step``. ``step.compute_grads(params, *batch)``
+    returns (grads in ``tree_leaves`` order, metrics) without
+    updating."""
+    from torch.distributed.tensor import DTensor
 
     def compute(params, _lora, *batch):
         leaves = [leaf.requires_grad_(True) for leaf in tree_leaves(params)]
@@ -703,7 +779,15 @@ def make_loss_step(loss: Callable, optimizer: AdamW, mesh=None,
     def compute_grads(params, *batch):
         return compute(params, None, *batch)
 
+    def placed(params, opt_state: AdamWState):
+        if mesh is None or isinstance(tree_leaves(params)[0], DTensor):
+            return params, opt_state
+        return (shard_pytree(params, mesh, rules), AdamWState(
+            opt_state.count, shard_pytree(opt_state.mu, mesh, rules),
+            shard_pytree(opt_state.nu, mesh, rules)))
+
     def step(params, opt_state: AdamWState, *batch):
+        params, opt_state = placed(params, opt_state)
         grads, metrics = compute_grads(params, *batch)
         grad_norm = optimizer.update(grads, opt_state, params)
         if with_grad_norm:
@@ -726,8 +810,9 @@ def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
     generator after the params, or the given ``lora``) is trained. On a
     ``mesh`` (not context-parallel) both trees become DTensors placed by
     ``rules`` (default the reference's table); the full trees must be
-    the same on every rank (the same seed or the same given params).
-    With ``pipeline_stages`` the layers are split into ``[P, L/P, ...]``
+    the same on every rank (the same seed or the same given params); an
+    MoE model's default is ``make_moe_rules()`` (its experts on the
+    ``expert`` axis). With ``pipeline_stages`` the layers are split into ``[P, L/P, ...]``
     and placed by ``PP_RULES`` (a pipe rank holds its stage's layers)."""
     from ..models.lora import init_lora
 
@@ -749,6 +834,7 @@ def init_train_state(model_config: LlamaConfig, train_config: TrainConfig,
             params["layers"], train_config.pipeline_stages)
         params = shard_pytree(params, mesh, PP_RULES)
     elif mesh is not None and not train_config.context_parallel:
+        rules = _family_rules(model_config, rules)
         params = shard_pytree(params, mesh, rules)
         lora = None if lora is None else shard_pytree(lora, mesh, rules)
     else:
@@ -965,7 +1051,7 @@ class Trainer:
             from ..parallel.pipeline import PP_RULES
 
             return PP_RULES
-        return self.rules
+        return _family_rules(self.model_config, self.rules)
 
     def reshard(self, ranks, checkpoint_manager=None) -> dict:
         """Rebuild the mesh and the step over ``ranks`` and move the train

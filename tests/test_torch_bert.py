@@ -155,11 +155,14 @@ def test_losses_and_grads_match_reference(impl, remat):
         _assert_trees_close(jg, tg, TOL)
 
 
-def test_classifier_train_step_matches_reference():
+def test_classifier_train_step_matches_reference(world_of_one):
     """Three steps of ``make_classifier_train_step`` on the port's AdamW
     against the reference's step with ``optax.adamw`` (its defaults: b2
     0.999, weight decay 1e-4): per-step loss and accuracy, then every
-    param."""
+    param. The sharded step (``mesh=``, multi-rank parity in
+    tests/test_torch_sharded_steps.py) on a size-1 ``{"data": 1, "fsdp":
+    1, "tensor": 1}`` mesh places the plain trees itself and repeats the
+    plain step's run bit for bit."""
     jcfg, jparams, tcfg, tparams = _models("auto", seed=7)
     lr = 1e-2
     joptim = optax.adamw(lr)
@@ -180,8 +183,40 @@ def test_classifier_train_step_matches_reference():
         assert float(jm["accuracy"]) == float(tm["accuracy"])
     _assert_trees_close(jax.tree.map(np.asarray, jparams),
                         params_to_numpy(tparams), RUN_REL_TOL)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tbert.make_classifier_train_step(tcfg, toptim, mesh=object())
+    from torch.distributed.tensor import DTensor
+
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": 1, "fsdp": 1, "tensor": 1}, "cpu")
+    _, _, _, mparams = _models("auto", seed=7)
+    moptim = ttrain.AdamW(lambda count: lr, b1=0.9, b2=0.999,
+                          weight_decay=1e-4)
+    mstep = tbert.make_classifier_train_step(tcfg, moptim, mesh)
+    mstate = moptim.init(mparams)
+    _, _, _, pparams = _models("auto", seed=7)
+    pstate = toptim.init(pparams)
+    for i in range(3):
+        batch = _t(*_batch(10 + i))
+        mparams, mstate, mm = mstep(mparams, mstate, *batch)
+        pparams, pstate, pm = tstep(pparams, pstate, *batch)
+        assert {k: float(v) for k, v in mm.items()} == \
+            {k: float(v) for k, v in pm.items()}
+    assert isinstance(mparams["embedding"], DTensor)
+    full = ttrain.tree_map(lambda t: t.full_tensor(), mparams)
+    for (name, a), (_, b) in zip(_leaves(params_to_numpy(full)),
+                                 _leaves(params_to_numpy(pparams))):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.fixture()
+def world_of_one():
+    """A world-size-1 gloo group of this process, left as found."""
+    import torch.distributed as dist
+
+    existed = dist.is_initialized()
+    yield
+    if dist.is_initialized() and not existed:
+        dist.destroy_process_group()
 
 
 def test_param_count_layer_norm_and_exports():

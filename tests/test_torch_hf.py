@@ -220,10 +220,33 @@ def test_bf16_checkpoint_loads_bit_equal_in_both_packages(tmp_path):
 
 def test_shardings_need_many_devices_and_the_device_defaults_to_cuda(
         tmp_path):
+    """``shardings=`` (the port's ``tree_shardings`` placements) places
+    every leaf as a DTensor as it is read: on a size-1 mesh each one
+    holds the device load's bits (several ranks: the gloo test in
+    tests/test_torch_sharded_steps.py); a node of None keeps its leaf
+    plain. Without a card the default device raises."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+    from mlrun_tpu_torch.parallel.sharding import tree_shardings
+
     directory = _save(_hf_model(), tmp_path, "single")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        thf.load_hf_weights_into_llama(directory, device="cpu",
-                                       shardings={})
+    existed = dist.is_initialized()
+    try:
+        _, plain = thf.load_hf_weights_into_llama(directory, device="cpu")
+        shardings = tree_shardings(plain, make_mesh({"fsdp": 1}, "cpu"))
+        shardings["embedding"] = None
+        _, placed = thf.load_hf_weights_into_llama(
+            directory, device="cpu", shardings=shardings)
+    finally:
+        if dist.is_initialized() and not existed:
+            dist.destroy_process_group()
+    assert not isinstance(placed["embedding"], DTensor)
+    assert isinstance(placed["layers"]["wq"], DTensor)
+    for (name, a), (_, b) in zip(_leaves(placed), _leaves(plain)):
+        a = a.to_local() if isinstance(a, DTensor) else a
+        assert torch.equal(a, b), name
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -9,7 +9,9 @@ and the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
 parallel paths pulls neither into the process. The multi-rank test
 helper (tests/torch_ranks.py), whose ranks run the port alone, is held to
-the same rule."""
+the same rule. No port source names a path under ``native/`` or the
+reference package: the token-shard loader builds the port's own copy of
+its C++ source."""
 
 import ast
 import os
@@ -42,6 +44,67 @@ def test_port_file_imports_no_jax_or_reference(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     bad = sorted({m for m in _imported_roots(tree) if m in FORBIDDEN})
     assert not bad, f"{path} imports {bad}"
+
+
+PORT_FILES = [f for f in FILES if f.startswith("mlrun_tpu_torch/")]
+OTHER_PACKAGES = ("native", "mlrun_tpu")
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                yield first.value
+
+
+def _paths_into_other_packages(tree):
+    """String constants (docstrings aside) that name a path under
+    ``native/`` or ``mlrun_tpu/``, and path joins (``os.path.join``,
+    ``Path(...)``, ``/``) with such a component."""
+    skip = {id(node) for node in _docstrings(tree)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in skip:
+            parts = node.value.replace("\\", "/").split("/")
+            if len(parts) > 1 and any(p in OTHER_PACKAGES
+                                      for p in parts[:-1]):
+                yield node.lineno, node.value
+        args = []
+        if isinstance(node, ast.Call):
+            name = getattr(node.func, "attr", getattr(node.func, "id", ""))
+            if name in ("join", "Path", "PurePath", "joinpath"):
+                args = node.args
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            args = [node.left, node.right]
+        for arg in args:
+            if isinstance(arg, ast.Constant) and arg.value in OTHER_PACKAGES:
+                yield arg.lineno, arg.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_opens_nothing_under_native_or_the_reference(path):
+    """The port keeps its own copies (the token-shard loader's C++ source
+    included): no port source names a file of ``native/`` or of the
+    reference package."""
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = list(_paths_into_other_packages(tree))
+    assert not bad, f"{path} names paths of another package: {bad}"
+
+
+def test_the_path_scan_catches_the_references_loader_lookup():
+    """The scan rejects the reference's own library lookup
+    (``os.path.join(here, "native", "libmlt_data.so")``) and a literal
+    path into the reference package; it passes a kv dtype named
+    "native"."""
+    bad = ast.parse('import os\nos.path.join(here, "native", "lib.so")\n'
+                    'open("mlrun_tpu/ops/x.py")\nP / "native"\n')
+    assert len(list(_paths_into_other_packages(bad))) == 3
+    good = ast.parse('kv_dtype = "native"\nif kv in ("native", "int8"): '
+                     'pass\n')
+    assert not list(_paths_into_other_packages(good))
 
 
 def test_serving_import_pulls_in_no_jax_or_reference():

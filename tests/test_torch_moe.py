@@ -256,10 +256,24 @@ def test_trainer_fit_with_moe_experts_matches_reference_trainer():
                         params_to_numpy(tt.state.params), RUN_REL_TOL)
 
 
-def test_moe_rejects_lora_and_context_parallel_like_reference():
+@pytest.fixture()
+def world_of_one():
+    """A world-size-1 gloo group of this process, left as found."""
+    import torch.distributed as dist
+
+    existed = dist.is_initialized()
+    yield
+    if dist.is_initialized() and not existed:
+        dist.destroy_process_group()
+
+
+def test_moe_rejects_lora_and_context_parallel_like_reference(world_of_one):
     """MoE with LoRA or context parallelism raises the reference's
-    ValueError (before the port's not-ported error for context
-    parallelism); a mesh over many devices stays not ported."""
+    ValueError. Expert parallelism landed (multi-rank parity in
+    tests/test_torch_expert_parallel.py): in one process an expert axis
+    of 2 raises the mesh's "needs 2 devices" ValueError before any group
+    exists, and a size-1 ``{"expert": 1, "fsdp": 1}`` mesh trains
+    bit-equal to no mesh, the experts placed by ``make_moe_rules``."""
     for kw, match in (({"lora_rank": 4}, "lora_rank"),
                       ({"context_parallel": "ring"}, "context_parallel")):
         with pytest.raises(ValueError, match=match):
@@ -270,9 +284,27 @@ def test_moe_rejects_lora_and_context_parallel_like_reference():
             jtrain.make_train_step(
                 jllama.tiny_llama(), jtrain.TrainConfig(moe_experts=4, **kw),
                 None, None)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         ttrain.Trainer(tllama.tiny_llama(), ttrain.TrainConfig(
             moe_experts=4, mesh_shape={"expert": 2}), device="cpu")
+    from torch.distributed.tensor import DTensor, Shard
+
+    runs = {}
+    for shape in (None, {"expert": 1, "fsdp": 1}):
+        trainer = ttrain.Trainer(
+            tllama.tiny_llama(dtype=torch.float32), ttrain.TrainConfig(
+                moe_experts=4, mesh_shape=shape, learning_rate=1e-2,
+                warmup_steps=1, total_steps=2), device="cpu")
+        trainer.init(0)
+        trainer.fit(tdata.synthetic_token_stream(2, 16, 512, seed=1), 2,
+                    log_every=1, prefetch=0, defer_metrics=False)
+        runs[shape is None] = [(m["loss"], m["aux_loss"], m["grad_norm"])
+                               for m in trainer.metrics_history]
+    gate = trainer.state.params["layers"]["experts_gate"]
+    assert isinstance(gate, DTensor)
+    assert trainer._rules() == tmoe.make_moe_rules()
+    assert not any(isinstance(p, Shard) for p in gate.placements)
+    assert runs[True] == runs[False]
 
 
 def test_auto_trainer_trains_moe():
@@ -289,6 +321,31 @@ def test_auto_trainer_trains_moe():
     assert set(ours) == set(ref)
     assert {"aux_loss", "ce_loss"} <= set(ours)
     assert ours["step"] == 3.0 and np.isfinite(ours["loss"])
+
+
+def test_no_item_7_is_left_in_the_port():
+    """Item 7 (training on many GPUs) has landed: no ``not_ported`` call
+    names it, ``PORT_QUEUE`` no longer lists it, and the options that
+    raised it (expert parallelism, LoRA on a ``tensor`` axis, the
+    families' sharded steps, ``shardings=``) take their ported paths."""
+    import ast
+    import inspect
+    from pathlib import Path
+
+    from mlrun_tpu_torch.frameworks import huggingface as thf
+    from mlrun_tpu_torch.serving.resilience import PORT_QUEUE
+
+    assert 7 not in PORT_QUEUE and set(PORT_QUEUE) == {6, 10}
+    root = Path(__file__).resolve().parents[1] / "mlrun_tpu_torch"
+    for path in root.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, "id", None) == "not_ported":
+                item = node.args[1]
+                assert not (isinstance(item, ast.Constant)
+                            and item.value == 7), f"{path}:{node.lineno}"
+    assert "not_ported" not in inspect.getsource(
+        thf.load_hf_weights_into_llama)
 
 
 def test_no_item_9_is_left_in_the_port():

@@ -368,15 +368,16 @@ def test_fit_prefetch_and_deferred_metrics_match_sync_path():
 
 
 def test_unported_options_raise_not_implemented():
-    """What item 7 still lacks raises it: expert parallelism and LoRA on a
-    ``tensor`` axis. Everything else of the reference trainer's mesh
-    options landed (tests/test_torch_{parallel,context_parallel,
-    tensor_parallel,pipeline,elastic}.py run them over gloo ranks); in
-    one process a multi-rank mesh raises the reference's errors before
-    any group exists."""
-    for kw in ({"moe_experts": 4, "mesh_shape": {"expert": 4}},
-               {"lora_rank": 4, "mesh_shape": {"tensor": 2}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Item 7 landed whole: expert parallelism and LoRA on a ``tensor``
+    axis raise no NotImplementedError any more (gloo parity in
+    tests/test_torch_expert_parallel.py and
+    tests/test_torch_sharded_steps.py), nor does any other reference
+    trainer mesh option (tests/test_torch_{parallel,context_parallel,
+    tensor_parallel,pipeline,elastic}.py); in one process a multi-rank
+    mesh raises the reference's errors before any group exists."""
+    for kw, n in (({"moe_experts": 4, "mesh_shape": {"expert": 4}}, 4),
+                  ({"lora_rank": 4, "mesh_shape": {"tensor": 2}}, 2)):
+        with pytest.raises(ValueError, match=f"needs {n} devices, have 1"):
             ttrain.Trainer(tllama.tiny_llama(), ttrain.TrainConfig(**kw),
                            device="cpu")
     for shape in ({"data": 2}, {"tensor": 2}):

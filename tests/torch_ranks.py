@@ -558,3 +558,139 @@ def _perturbed(init):
     if isinstance(init, dict):
         return {k: _perturbed(v) for k, v in init.items()}
     return init + 1.0
+
+
+MOE_SHAPES = ({"expert": 2, "fsdp": 2}, {"expert": 4}, {"data": 2,
+                                                        "fsdp": 2})
+
+
+def expert_parallel(rank, world, init, batches):
+    """Trainer.fit with moe_experts=4, moe_top_k=2 for len(batches) steps
+    on each mesh of MOE_SHAPES (all four ranks); each rank's local shape
+    of the expert leaves."""
+    from mlrun_tpu_torch.models.moe import EXPERT_LEAVES
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for shape in MOE_SHAPES:
+        key = ",".join(f"{a}={n}" for a, n in shape.items())
+        trainer = _trainer_on(init, _tiny(), make_mesh(shape, "cpu"),
+                              moe_experts=4, moe_top_k=2)
+        out[key] = _fit_record(trainer, batches)
+        out[key]["expert_shapes"] = {
+            name: tuple(trainer.state.params["layers"][name]
+                        .to_local().shape) for name in EXPERT_LEAVES}
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+
+    out["auto_trainer"] = auto_trainer.train(
+        model="tiny", model_overrides={"remat": False}, batch_size=4,
+        seq_len=32, steps=2, moe_experts=4, moe_top_k=2, log_every=1,
+        mesh_shape={"expert": 2, "fsdp": 2}, device="cpu")
+    return out
+
+
+def _family_optimizer():
+    from mlrun_tpu_torch.training.train import AdamW
+
+    return AdamW(lambda count: 1e-2, b1=0.9, b2=0.999, weight_decay=1e-4)
+
+
+def family_steps(rank, world, bert, vit, t5):
+    """The families' sharded steps over all four ranks: BERT's classifier
+    on {"data": 2, "tensor": 2} and ViT on {"fsdp": 4} for len(batches)
+    steps from the reference's init (plain trees, placed by the step);
+    T5 on {"fsdp": 2, "tensor": 2}, each step from the reference's state
+    before it (params and AdamW moments)."""
+    import torch
+
+    from mlrun_tpu_torch.models import bert as tbert
+    from mlrun_tpu_torch.models import t5 as tt5
+    from mlrun_tpu_torch.models import vit as tvit
+    from mlrun_tpu_torch.models.convert import params_from_numpy
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+    from mlrun_tpu_torch.parallel.sharding import shard_pytree
+    from mlrun_tpu_torch.training.train import AdamWState
+
+    def run(step, params, opt_state, batches):
+        history = []
+        for batch in batches:
+            params, opt_state, metrics = step(
+                params, opt_state, *(torch.from_numpy(a) for a in batch))
+            history.append({k: float(v) for k, v in metrics.items()})
+        return params, history
+
+    out = {}
+    for name, family, make, shape, data in (
+            ("bert", tbert.tiny_bert, tbert.make_classifier_train_step,
+             {"data": 2, "tensor": 2}, bert),
+            ("vit", tvit.tiny_vit, tvit.make_train_step, {"fsdp": 4}, vit)):
+        mesh = make_mesh(shape, "cpu")
+        optimizer = _family_optimizer()
+        params = params_from_numpy(data["init"], "cpu")
+        step = make(family(dtype=torch.float32, attention_impl="auto"),
+                    optimizer, mesh)
+        params, history = run(step, params, optimizer.init(params),
+                              data["batches"])
+        out[name] = {"history": history, "params": _numpy(params),
+                     "shards": _shards(params),
+                     "coordinate": mesh.get_coordinate()}
+    mesh = make_mesh({"fsdp": 2, "tensor": 2}, "cpu")
+    step = tt5.make_train_step(tt5.tiny_t5(dtype=torch.float32),
+                               _family_optimizer(), mesh=mesh)
+    steps = []
+    for (params, mu, nu, count), batch in zip(t5["states"], t5["batches"]):
+        state = AdamWState(count, params_from_numpy(mu, "cpu"),
+                           params_from_numpy(nu, "cpu"))
+        grads, _ = step.compute_grads(
+            shard_pytree(params_from_numpy(params, "cpu"), mesh),
+            *(torch.from_numpy(a) for a in batch))
+        params, history = run(step, params_from_numpy(params, "cpu"), state,
+                              [batch])
+        steps.append({"metrics": history[0], "params": _numpy(params),
+                      "grads": [g.full_tensor().numpy() for g in grads]})
+    out["t5"] = steps
+    return out
+
+
+LORA_SHAPES = ({"tensor": 2}, {"fsdp": 2, "tensor": 2})
+
+
+def lora_tensor(rank, world, init, lora, batches, hf_dir):
+    """A rank-4 LoRA adapter trained on each of LORA_SHAPES (the first
+    ranks of the group that it needs), then the HF checkpoint ``hf_dir``
+    loaded with ``shardings=`` onto {"fsdp": 2} over ranks 0-1 against a
+    load on the device."""
+    import math
+
+    import torch
+
+    from mlrun_tpu_torch.frameworks.huggingface import (
+        load_hf_weights_into_llama,
+    )
+    from mlrun_tpu_torch.parallel.mesh import make_mesh
+    from mlrun_tpu_torch.parallel.sharding import tree_shardings
+    from mlrun_tpu_torch.training.train import tree_leaves
+
+    out = {}
+    for shape in LORA_SHAPES:
+        key = ",".join(f"{a}={n}" for a, n in shape.items())
+        mesh = make_mesh(shape, "cpu",
+                         ranks=range(math.prod(shape.values())))
+        if mesh.get_coordinate() is None:
+            continue
+        trainer = _trainer_on(init, _tiny(), mesh, lora=lora, lora_rank=4,
+                              lora_alpha=8.0)
+        out[key] = _fit_record(trainer, batches)
+        out[key]["lora"] = _numpy(trainer.state.lora)
+    mesh = make_mesh({"fsdp": 2}, "cpu", ranks=[0, 1])
+    if mesh.get_coordinate() is not None:
+        _, plain = load_hf_weights_into_llama(hf_dir, device="cpu")
+        _, placed = load_hf_weights_into_llama(
+            hf_dir, device="cpu", shardings=tree_shardings(plain, mesh))
+        leaves = tree_leaves(placed)
+        out["hf"] = {
+            "bit_equal": [torch.equal(p.full_tensor(), q) for p, q in
+                          zip(leaves, tree_leaves(plain))],
+            "local_numel": sum(p.to_local().numel() for p in leaves),
+            "numel": sum(q.numel() for q in tree_leaves(plain))}
+    return out
