@@ -198,16 +198,42 @@ exits non-zero and never prints the final line):
              uint16 shards of 64 Mi tokens written from the seed (step
              time against the train phase's, consumer waits, ring
              occupancy, 192 / 96 flash launches).
+15. observe - in-process torch.profiler captures on the two main paths
+             through utils/profiler.arm_profile: (a) the serve phase's
+             server and traffic (a fresh 5-request burst, 32 greedy
+             tokens) with an 8-iteration capture claimed by the engine
+             loop in the iteration that admits the burst: the trace's
+             device-kernel events hold paged decode, the cached flash and
+             paged prefill under their __global__ names exactly as often
+             as the launch counters moved inside the window; the decode
+             tick p50 captured, dark and with a SampleRing observer
+             (every completion one sample, its logit_margin the plain
+             top-2 gap of the same first-token logits); (b) the train
+             phase's 1B fit (B 4 x 2048, 6 steps) with a 2-step capture
+             armed at step 1's end: 64 flash forward and 32 + 32 flash
+             backward (dq, dk/dv) kernel events, the captured steps' ms
+             beside the others; (c) two processes over one
+             MLT_TRAINING__COMPILE_CACHE_DIR: the first runs nvcc, the
+             second, with no nvcc reachable, loads the same library and
+             launches the RMSNorm and paged decode op entry points against
+             their plain versions; (d) the 1B param tree (bf16) through
+             TorchTreePackager to an .npz and back, bit for bit; (e) the
+             env of build_jobset(nodes=1, gpus_per_node=1) on the pod's
+             torchrun command (MASTER_ADDR 127.0.0.1): a one-rank NCCL
+             group, 2 steps of the 1B fit through auto_trainer.train, the
+             logging worker and one log_results.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
-over the serve and entry_points paths, the training flash's over the
-train, families, entry_points and parallel paths) and, last, {"ok": true,
-"device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
+over the serve, entry_points and observe paths, the training flash's over
+the train, families, entry_points, parallel and observe paths) and, last,
+{"ok": true, "device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
 ``--phases build,lora`` the adapters, ``--phases build,fleet`` the engine
 fleet, ``--phases build,families`` the model families,
 ``--phases build,entry_points`` the entry points, ``--phases
-build,parallel`` training on many GPUs at world size 1); the
+build,parallel`` training on many GPUs at world size 1, ``--phases
+build,observe`` the captures, the sample tap, the build cache, packaging
+and the JobSet's env); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -5635,12 +5661,707 @@ def phase_parallel(seed: int, card: str, train_step_ms=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: observe — in-process captures on the two main paths, the
+# engines' sample tap, the kernel build cache, packaging and the GPU
+# JobSet's environment
+# ---------------------------------------------------------------------------
+
+OBS_SERVE_STEPS = 8         # engine iterations in the serving capture
+OBS_TRAIN_STEPS = 6
+OBS_CAPTURED = 2            # fit steps in the training capture
+OBS_ARM_STEP = 1            # armed at this step's end: step 2's tick claims
+OBS_FIT_STEPS = 2           # steps of the JobSet leg's fit
+# the port's __global__ functions by launch counter (bf16: the
+# tensor-core bodies); one flash backward launch runs two kernels
+TRACE_KERNELS = {
+    "paged_decode": ("paged_decode_kernel",),
+    "flash_fwd_cached": ("flash_fwd_tc_kernel",),
+    "paged_prefill": ("paged_prefill_tc_kernel",),
+    "flash_fwd": ("flash_fwd_tc_kernel",),
+    "flash_bwd": ("flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_tc_kernel"),
+}
+
+
+class _CaptureProbe:
+    """Wraps the profiler's trace start and stop: the launch counts and
+    the engine's decode-tick marks right after the start and right
+    before the stop (both run on the claiming loop's thread, the only
+    launcher), so the trace's kernel events can be held to the counted
+    launches of exactly the captured window."""
+
+    def __init__(self, engine=None):
+        from mlrun_tpu_torch.ops import _build
+        from mlrun_tpu_torch.utils import profiler
+
+        self.profiler, self.build, self.engine = profiler, _build, engine
+        self.start, self.stop = profiler._start_trace, profiler._stop_trace
+        self.at = {}
+
+    def _mark(self, key):
+        self.at[key] = (self.build.launch_counts(), time.perf_counter(),
+                        _tick_mark(self.engine) if self.engine is not None
+                        else None)
+
+    def __enter__(self):
+        def start(output_dir):
+            self.start(output_dir)
+            self._mark("start")
+
+        def stop():
+            self._mark("stop")
+            t = time.perf_counter()
+            self.stop()
+            self.at["stop_s"] = time.perf_counter() - t
+
+        self.profiler._start_trace, self.profiler._stop_trace = start, stop
+        return self
+
+    def __exit__(self, *exc):
+        self.profiler._start_trace = self.start
+        self.profiler._stop_trace = self.stop
+        return False
+
+    def launches(self) -> dict:
+        (a, _, _), (b, _, _) = self.at["start"], self.at["stop"]
+        return {name: b[name] - a[name] for name in a}
+
+    def window_s(self) -> float:
+        return self.at["stop"][1] - self.at["start"][1]
+
+
+def _trace_kernels(directory: str) -> dict:
+    """The trace file's device-kernel events: counts of the port's
+    __global__ functions, device seconds by kernel name, and the span."""
+    import glob
+    import re
+
+    files = glob.glob(os.path.join(directory, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"observe: expected one trace file in {directory}, got {files}")
+    with open(files[0]) as fp:
+        events = json.load(fp)["traceEvents"]
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    if not kernels:
+        fail("observe: the trace holds no device-kernel events (CUPTI)")
+    functions = {fn for fns in TRACE_KERNELS.values() for fn in fns}
+    counts = dict.fromkeys(functions, 0)
+    by_name: dict = {}
+    for event in kernels:
+        name = event.get("name", "")
+        by_name[name] = by_name.get(name, 0.0) + float(event.get("dur", 0))
+        for fn in functions:
+            if re.search(rf"(?<![A-Za-z_]){fn}(?![a-z_])", name):
+                counts[fn] += 1
+    start = min(float(e["ts"]) for e in kernels)
+    end = max(float(e["ts"]) + float(e.get("dur", 0)) for e in kernels)
+    busy_us = sum(by_name.values())
+    port_us = sum(us for name, us in by_name.items()
+                  if any(fn in name for fn in functions))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"file_bytes": os.path.getsize(files[0]), "counts": counts,
+            "kernel_events": len(kernels), "device_busy_ms": busy_us / 1e3,
+            "kernel_span_ms": (end - start) / 1e3,
+            "port_kernels_ms": port_us / 1e3,
+            "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}
+
+
+def _trace_matches(leg: str, trace: dict, launches: dict, path_kernels):
+    """Every path kernel launched in the window, and the trace holds each
+    __global__ function exactly as often as its counters launched it."""
+    want = {}
+    for name in path_kernels:
+        if launches.get(name, 0) <= 0:
+            fail(f"observe ({leg}): kernel {name} was not launched in the "
+                 "captured window")
+        for fn in TRACE_KERNELS[name]:
+            want[fn] = want.get(fn, 0) + launches[name]
+    got = {fn: trace["counts"][fn] for fn in want}
+    if got != want:
+        fail(f"observe ({leg}): trace kernel events {got} != counted "
+             f"launches {want}")
+    return want
+
+
+def _margin(row) -> float:
+    import torch
+
+    top2 = torch.topk(row.float().reshape(-1), 2).values
+    return float(top2[0] - top2[1])
+
+
+def _obs_serve_leg(seed: int, card: str, work: str) -> dict:
+    """(a) the serve phase's server and traffic (5 requests, 32 greedy
+    tokens) in four bursts on fresh prompts: a warm-up, the captured one
+    (armed before the burst, the claim held to the iteration that admits
+    it), one dark and one with a SampleRing observer."""
+    import statistics
+    import threading
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving import samples
+    from mlrun_tpu_torch.serving.llm import LLMModelServer
+    from mlrun_tpu_torch.utils import profiler
+
+    config = MODEL_PRESETS["llama3-8b"]()
+    server = LLMModelServer(
+        name="llama3-8b", model_preset="llama3-8b", continuous_batching=True,
+        paged=True, slots=4, max_len=MAX_LEN, page_size=PAGE,
+        max_new_tokens=MAX_NEW, seed=seed)
+    server.post_init()
+    if not server.ready:
+        fail(f"observe: LLMModelServer failed to load: {server.error}")
+    engine = server.engine
+
+    def traffic(offset):
+        prompts = _prompts(seed + offset, config.vocab_size)
+        return prompts + [prompts[0]]
+
+    def burst(offset, hold=None):
+        mark = _tick_mark(engine)
+        futures = [engine.submit(p, max_new_tokens=MAX_NEW)
+                   for p in traffic(offset)]
+        if hold is not None:
+            hold.set()
+        outs = [f.result(timeout=600)[0] for f in futures]
+        return outs, _tick_p50_since(engine, mark)
+
+    try:
+        burst(3)  # warm-up: first launches, allocator, cuBLAS handles
+        # -- the captured burst: the loop is held after its tick, armed,
+        # released; its next tick claims and is held again until the
+        # burst is queued, so the window starts with the admissions
+        gates = [threading.Event(), threading.Event()]
+        reached = [threading.Event(), threading.Event()]
+        expire = engine._expire_queued
+        calls = []
+
+        def held():
+            if len(calls) < 2:
+                i = len(calls)
+                calls.append(i)
+                reached[i].set()
+                gates[i].wait(60)
+            return expire()
+
+        out_dir = os.path.join(work, "serve-trace")
+        with _CaptureProbe(engine) as probe:
+            engine._expire_queued = held
+            reached[0].wait(60)
+            # -- the main path, counted: every count reset right before it
+            _build.reset_launch_counts()
+            armed = profiler.arm_profile(steps=OBS_SERVE_STEPS,
+                                         output_dir=out_dir)
+            gates[0].set()
+            reached[1].wait(60)
+            claimed = profiler.profile_status()["active"]
+            outs_captured, _ = burst(0, hold=gates[1])
+            del engine._expire_queued
+            for _ in range(600):
+                if profiler.profile_status()["last"] is not None:
+                    break
+                time.sleep(0.05)
+            torch.cuda.synchronize()
+            burst_launches = _build.launch_counts()
+        last = profiler.profile_status()["last"]
+        if claimed is None or claimed["source"] != engine._obs_name \
+                or last is None or last.get("reason") != "bound":
+            fail(f"observe: the engine loop did not claim and finish the "
+                 f"capture (armed {armed}, claimed {claimed}, last {last})")
+        window = probe.launches()
+        ticks = list(engine._tick_ring)[probe.at["start"][2]:
+                                        probe.at["stop"][2]]
+        trace = _trace_kernels(out_dir)
+        want = _trace_matches("serve", trace, window, SERVING_KERNELS)
+        _check_launches(burst_launches, SERVING_KERNELS, "observe serve")
+
+        outs_dark, dark_p50 = burst(1)
+        # -- the sample tap: every completion, margins from the same rows
+        rows: list = []
+        _record_first_logits(engine, rows)
+        ring = samples.SampleRing()
+        samples.set_sample_observer(ring.append)
+        try:
+            outs_sampled, sampled_p50 = burst(2)
+        finally:
+            samples.set_sample_observer(None)
+            del engine._first_token
+        got = ring.drain()
+    finally:
+        server.close()
+    plain = sorted(_margin(row) for row in rows)
+    margins = sorted(s["logit_margin"] for s in got)
+    sample_tokens = sorted(s["tokens"] for s in got)
+    checks = {
+        "one_sample_per_completion": len(got) == len(outs_sampled) == 5,
+        "sample_tokens_are_the_outputs":
+            sample_tokens == sorted(outs_sampled),
+        "margins_equal_plain_top2": margins == plain,
+        "captured_outputs_full": all(len(t) == MAX_NEW
+                                     for t in outs_captured + outs_dark),
+    }
+    row = {"phase": "observe", "leg": "serve", "card": card,
+           "model": "llama3-8b", "layers": config.n_layers,
+           "requests": 5, "max_new_tokens": MAX_NEW,
+           "captured_iterations": OBS_SERVE_STEPS,
+           "capture_wall_s": last["wall_s"], "window_s": probe.window_s(),
+           "stop_s": probe.at["stop_s"], "window_launches": window,
+           "trace_kernel_events": {fn: trace["counts"][fn] for fn in want},
+           "trace": {k: trace[k] for k in (
+               "file_bytes", "kernel_events", "device_busy_ms",
+               "kernel_span_ms", "port_kernels_ms", "top_kernels_ms")},
+           "tick_p50_captured_s": statistics.median(ticks) if ticks else None,
+           "captured_ticks": len(ticks), "tick_p50_dark_s": dark_p50,
+           "tick_p50_sampled_s": sampled_p50, "samples": len(got),
+           "logit_margins": margins, "checks": checks}
+    emit(row)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"observe (serve): {bad}")
+    return burst_launches
+
+
+class _StepClock:
+    """A callback timing each fit step (synchronised at its end) and
+    arming the capture at ``arm_at``'s end."""
+
+    def __init__(self, arm_at: int, steps: int, output_dir: str):
+        from mlrun_tpu_torch.frameworks._common import Callback
+
+        clock = self
+
+        class Hook(Callback):
+            def on_train_begin(self):
+                import torch
+
+                torch.cuda.synchronize()
+                clock.marks.append(time.perf_counter())
+
+            def on_step_end(self, step, metrics):
+                import torch
+
+                from mlrun_tpu_torch.utils import profiler
+
+                torch.cuda.synchronize()
+                clock.marks.append(time.perf_counter())
+                if step == arm_at:
+                    profiler.arm_profile(steps=steps, output_dir=output_dir)
+
+        self.marks: list = []
+        self.hook = Hook()
+
+    def step_ms(self) -> list:
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def _obs_train_leg(seed: int, card: str, work: str) -> dict:
+    """(b) the train phase's 1B fit (B 4 x 2048, 6 steps), a 2-step capture
+    armed at step 1's end: step 2's tick claims, steps 3 and 4 are in it."""
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training import TrainConfig, Trainer
+    from mlrun_tpu_torch.training.data import synthetic_token_stream
+    from mlrun_tpu_torch.utils import profiler
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    batch = next(synthetic_token_stream(TRAIN_BATCH, TRAIN_SEQ,
+                                        config.vocab_size, seed=seed))
+    trainer = Trainer(config, TrainConfig(
+        learning_rate=1e-3, warmup_steps=1, total_steps=OBS_TRAIN_STEPS,
+        loss_chunk=LOSS_CHUNK), device="cuda")
+    trainer.init(seed)
+    trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
+    out_dir = os.path.join(work, "train-trace")
+    clock = _StepClock(OBS_ARM_STEP, OBS_CAPTURED, out_dir)
+    with _CaptureProbe() as probe:
+        _build.reset_launch_counts()
+        trainer.fit(iter([batch] * OBS_TRAIN_STEPS), OBS_TRAIN_STEPS,
+                    log_every=OBS_TRAIN_STEPS, prefetch=2,
+                    callbacks=[clock.hook])
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    last = profiler.profile_status()["last"]
+    if last is None or last["source"] != trainer._profiler_source \
+            or last["reason"] != "bound":
+        fail(f"observe: fit did not claim and finish the capture: {last}")
+    window = probe.launches()
+    per_step = {"flash_fwd": 2 * config.n_layers,
+                "flash_bwd": config.n_layers}
+    if window != {name: (OBS_CAPTURED * per_step.get(name, 0))
+                  for name in window}:
+        fail(f"observe (train): the window launched {window}, expected "
+             f"{OBS_CAPTURED} steps of {per_step}")
+    trace = _trace_kernels(out_dir)
+    want = _trace_matches("train", trace, window, TRAINING_KERNELS)
+    _exact_launches("observe train", launches,
+                    {name: OBS_TRAIN_STEPS * n for name, n in per_step.items()})
+    step_ms = clock.step_ms()
+    captured = [OBS_ARM_STEP + 1 + i for i in range(1, OBS_CAPTURED + 1)]
+    claim = OBS_ARM_STEP + 1
+    steady = [ms for i, ms in enumerate(step_ms)
+              if i not in captured and i not in (0, claim)]
+    row = {"phase": "observe", "leg": "train", "card": card,
+           "model": "llama3-1b", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": OBS_TRAIN_STEPS, "captured_steps": captured,
+           "claim_step": claim, "capture_wall_s": last["wall_s"],
+           "window_s": probe.window_s(), "stop_s": probe.at["stop_s"],
+           "window_launches": window,
+           "trace_kernel_events": {fn: trace["counts"][fn] for fn in want},
+           "trace": {k: trace[k] for k in (
+               "file_bytes", "kernel_events", "device_busy_ms",
+               "kernel_span_ms", "port_kernels_ms", "top_kernels_ms")},
+           "step_ms": step_ms,
+           "captured_step_ms": [step_ms[i] for i in captured],
+           "uncaptured_step_ms": steady,
+           "losses": [v["loss"] for v in trainer.metrics_history]}
+    emit(row)
+    del trainer
+    return launches
+
+
+def _cache_child(mode: str):
+    """A child process of the cache leg: ``build`` builds the kernels into
+    the cache dir its environment names; ``load`` loads them there with no
+    nvcc reachable and launches the RMSNorm and paged decode op entry
+    points against their plain versions. Prints one JSON line."""
+    import shutil
+
+    import torch
+
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.ops import norms
+    from mlrun_tpu_torch.ops import paged_attention as pa
+    from mlrun_tpu_torch.utils import compile_cache
+
+    cache = compile_cache.configure_from_mlconf()
+    nvcc = None
+    try:
+        nvcc = _build.find_nvcc()
+    except _build.KernelBuildError:
+        pass
+    torch.cuda.init()
+    started = time.perf_counter()
+    _build.library()
+    seconds = time.perf_counter() - started
+    out = {"mode": mode, "cache_dir": cache, "nvcc": nvcc,
+           "nvcc_on_path": shutil.which("nvcc"), "seconds": seconds,
+           "lib": str(_build._state.lib_path)}
+    if mode == "load":
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        dev, dtype = "cuda", torch.bfloat16
+        x = (torch.randn((4, 2048, 4096), generator=gen, device=dev)
+             * 3).to(dtype)
+        scale = torch.randn((4096,), generator=gen, device=dev)
+        rms = norms.rms_norm_pallas(x, scale, RMS_EPS)
+        rms_ref = norms.rms_norm_pallas_plain(x, scale, RMS_EPS)
+        pps = MAX_LEN // PAGE
+        k_pages = (torch.randn((SLOTS * pps + 1, PAGE, HKV, D),
+                               generator=gen, device=dev) * 0.5).to(dtype)
+        v_pages = torch.randn((SLOTS * pps + 1, PAGE, HKV, D),
+                              generator=gen, device=dev).to(dtype)
+        q = torch.randn((SLOTS, H, D), generator=gen, device=dev).to(dtype)
+        pos = torch.tensor(SERVE_POS, dtype=torch.int32, device=dev)
+        table = torch.arange(SLOTS * pps, dtype=torch.int32,
+                             device=dev).reshape(SLOTS, pps)
+        dec = pa.paged_attention(q, k_pages, v_pages, table, pos,
+                                 page_size=PAGE, impl="kernel")
+        dec_ref = pa.paged_decode_reference(q, k_pages, v_pages, table, pos,
+                                            PAGE)
+        torch.cuda.synchronize()
+        out.update({
+            "launches": {k: v for k, v in _build.launch_counts().items()
+                         if v},
+            "rms_norm_within_1_ulp": bool(
+                ((rms.float() - rms_ref.float()).abs()
+                 <= _bf16_ulp(rms_ref)).all()),
+            "paged_decode_max_abs_err": _err(dec, dec_ref),
+            "paged_decode_tol": TOL["bf16"]["o"]})
+    print(json.dumps(out), flush=True)
+
+
+def _cache_process(mode: str, env: dict):
+    code = (f"import sys; sys.path.insert(0, {HERE!r}); "
+            f"import chip_smoke; chip_smoke._cache_child({mode!r})")
+    return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _cache_result(mode: str, proc, started: float) -> dict:
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"observe (cache, {mode}): still running after 600 s (killed)")
+    if proc.returncode != 0:
+        fail(f"observe (cache, {mode}): exit {proc.returncode}\n"
+             f"{err[-4000:]}")
+    run = json.loads(out.strip().splitlines()[-1])
+    run["process_s"] = time.perf_counter() - started
+    return run
+
+
+def _obs_cache_leg(card: str, work: str, beside) -> dict:
+    """(c) two processes over one MLT_TRAINING__COMPILE_CACHE_DIR: the
+    first builds (nvcc) while ``beside`` (the JobSet leg, another process
+    of its own) runs, the second loads with no nvcc reachable."""
+    from mlrun_tpu_torch.config import COMPILE_CACHE_ENV
+
+    cache = os.path.join(work, "kernel-cache")
+    base = dict(os.environ, **{COMPILE_CACHE_ENV: cache})
+    no_nvcc = dict(base, CUDA_HOME=os.path.join(work, "no-cuda"), PATH=":".join(
+        p for p in os.environ.get("PATH", "").split(":")
+        if p and not os.path.exists(os.path.join(p, "nvcc"))))
+    started = time.perf_counter()
+    proc = _cache_process("build", base)
+    try:
+        beside()
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    runs = {"build": _cache_result("build", proc, started)}
+    started = time.perf_counter()
+    runs["load"] = _cache_result("load", _cache_process("load", no_nvcc),
+                                 started)
+    build, load = runs["build"], runs["load"]
+    checks = {
+        "built_under_the_cache": build["lib"].startswith(cache),
+        "loaded_the_same_library": load["lib"] == build["lib"],
+        "no_nvcc_in_the_loader": load["nvcc"] is None
+        and load["nvcc_on_path"] is None,
+        "both_kernels_launched": load["launches"] == {"paged_decode": 1,
+                                                      "rms_norm": 1},
+        "rms_norm_within_1_ulp": load["rms_norm_within_1_ulp"],
+        "paged_decode_within_tol": load["paged_decode_max_abs_err"]
+        <= load["paged_decode_tol"],
+    }
+    row = {"phase": "observe", "leg": "compile_cache", "card": card,
+           "nvcc_build_s": build["seconds"], "load_s": load["seconds"],
+           "build_process_s": build["process_s"],
+           "build_beside": "the jobset leg's torchrun process",
+           "load_process_s": load["process_s"],
+           "paged_decode_max_abs_err": load["paged_decode_max_abs_err"],
+           "checks": checks}
+    emit(row)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"observe (cache): {bad}")
+    return row
+
+
+class _Recorder:
+    """A duck-typed run context with no is_logging_worker."""
+
+    def __init__(self):
+        self.artifacts, self.results_calls, self.metrics = {}, 0, 0
+
+    def log_artifact(self, key, local_path="", **kw):
+        self.artifacts[key] = local_path
+
+    def log_results(self, results):
+        self.results_calls += 1
+
+    def log_result(self, key, value):
+        pass
+
+    def log_metrics(self, metrics, step=None):
+        self.metrics += 1
+
+
+def _obs_package_leg(seed: int, card: str, work: str) -> dict:
+    """(d) the 1B param tree (bf16) through TorchTreePackager to an .npz
+    and back, bit for bit."""
+    import torch
+
+    from mlrun_tpu_torch.datastore import DataItem, store_manager
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.package.packagers import torch_packagers as tpk
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    params = init_params(config, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+    flat = tpk.flatten_tree(params)
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values())
+    packager, context = tpk.TorchTreePackager(), _Recorder()
+    started = time.perf_counter()
+    packager.pack(context, params, "params")
+    pack_s = time.perf_counter() - started
+    path = context.artifacts["params"]
+    store, sub = store_manager.get_or_create_store(path)
+    started = time.perf_counter()
+    back = tpk.flatten_tree(packager.unpack(DataItem("params", store, sub),
+                                            dict))
+    unpack_s = time.perf_counter() - started
+    file_bytes = os.path.getsize(path)
+    same = sorted(back) == sorted(flat) and all(
+        back[name].dtype == leaf.dtype and torch.equal(
+            back[name].view(torch.int16) if leaf.dtype == torch.bfloat16
+            else back[name], (leaf.view(torch.int16)
+                              if leaf.dtype == torch.bfloat16 else leaf).cpu())
+        for name, leaf in flat.items())
+    packager.cleanup()
+    row = {"phase": "observe", "leg": "package", "card": card,
+           "model": "llama3-1b", "leaves": len(flat), "bytes": nbytes,
+           "npz_bytes": file_bytes, "pack_s": pack_s, "unpack_s": unpack_s,
+           "pack_gb_per_s": nbytes / pack_s / 1e9,
+           "unpack_gb_per_s": nbytes / unpack_s / 1e9, "bit_equal": same}
+    emit(row)
+    if not same:
+        fail("observe (package): the 1B tree did not come back bit for bit")
+    return row
+
+
+def _jobset_child(result_path: str):
+    """The JobSet leg's program under torchrun: the 1B fit for a few steps
+    on {"data": 1} through auto_trainer.train in the NCCL group torchrun's
+    env brings up, with a recording context."""
+    import torch.distributed as dist
+
+    from mlrun_tpu_torch.execution import is_logging_worker
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+
+    context = _Recorder()
+    metrics = auto_trainer.train(
+        context=context, model="llama3-1b", batch_size=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, steps=OBS_FIT_STEPS, mesh_shape={"data": 1},
+        log_every=1)
+    out = {"rank": os.environ.get("RANK"),
+           "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "logging_worker": is_logging_worker(),
+           "log_results_calls": context.results_calls,
+           "log_metrics_calls": context.metrics,
+           "loss": metrics.get("loss"), "step": metrics.get("step")}
+    dist.destroy_process_group()
+    with open(result_path, "w") as fp:
+        json.dump(out, fp)
+
+
+def _obs_jobset_leg(card: str, work: str) -> dict:
+    """(e) the env of build_jobset(nodes=1, gpus_per_node=1) on a torchrun
+    launch of one process: MASTER_ADDR at 127.0.0.1 and a free port, the
+    pod's field references resolved as pod 0 of slice 0."""
+    import socket
+    import stat
+
+    from mlrun_tpu_torch.k8s import build_jobset
+
+    result = os.path.join(work, "jobset-result.json")
+    program = os.path.join(work, "jobset_child.py")
+    with open(program, "w") as fp:
+        fp.write(f"import sys\nsys.path.insert(0, {HERE!r})\n"
+                 "import chip_smoke\n"
+                 f"chip_smoke._jobset_child({result!r})\n")
+    spec = build_jobset("observe", "default", {"containers": [{
+        "name": "trainer", "image": "port", "args": [program]}]},
+        gpu_product=card.split(",")[0], nodes=1, gpus_per_node=1)
+    main = (spec["spec"]["replicatedJobs"][0]["template"]["spec"]
+            ["template"]["spec"]["containers"][0])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ)
+    for entry in main["env"]:
+        env[entry["name"]] = entry.get("value", "0")  # fieldRefs: pod 0
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    # torchrun on PATH, from this interpreter's torch
+    shim = os.path.join(work, "bin")
+    os.makedirs(shim, exist_ok=True)
+    torchrun = os.path.join(shim, "torchrun")
+    with open(torchrun, "w") as fp:
+        fp.write(f"#!/bin/sh\nexec {sys.executable} -m torch.distributed.run "
+                 '"$@"\n')
+    os.chmod(torchrun, os.stat(torchrun).st_mode | stat.S_IEXEC)
+    env["PATH"] = f"{shim}:{env.get('PATH', '')}"
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(name, None)
+    started = time.perf_counter()
+    proc = subprocess.run(main["command"] + main["args"], env=env, cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - started
+    if proc.returncode != 0:
+        fail(f"observe (jobset): torchrun exited {proc.returncode}\n"
+             f"{proc.stderr[-4000:]}")
+    with open(result) as fp:
+        child = json.load(fp)
+    checks = {
+        "one_rank_nccl_group": child["world"] == 1
+        and child["backend"] == "nccl" and child["rank"] == "0",
+        "logging_worker": child["logging_worker"] is True,
+        "one_log_results": child["log_results_calls"] == 1,
+        "trained_the_steps": child["step"] == OBS_FIT_STEPS
+        and math.isfinite(child["loss"]),
+    }
+    row = {"phase": "observe", "leg": "jobset", "card": card,
+           "command": main["command"][:2] + ["..."],
+           "env": {e["name"]: env[e["name"]] for e in main["env"]},
+           "process_s": seconds, **child, "checks": checks}
+    emit(row)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"observe (jobset): {bad}")
+    return row
+
+
+def phase_observe(seed: int, card: str) -> dict:
+    """(a) a capture of the 8B paged engine's loop, the sample tap, (b) a
+    capture of the 1B Trainer.fit, (c) the kernel build cache across two
+    processes, (d) the 1B tree through the torch packager, (e) the GPU
+    JobSet's env on a one-rank torchrun launch; returns the launches of
+    the two main paths."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    started = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mlt-observe-")
+    legs_s = {}
+    try:
+        t = time.perf_counter()
+        launches = _obs_serve_leg(seed, card, work)
+        legs_s["serve"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        for name, count in _obs_train_leg(seed, card, work).items():
+            launches[name] = launches.get(name, 0) + count
+        legs_s["train"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        _obs_package_leg(seed, card, work)
+        legs_s["package"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the cache leg's nvcc build runs beside the JobSet leg's torchrun
+        # process (both are child processes; neither leg's checks depend
+        # on time)
+        t = time.perf_counter()
+        _obs_cache_leg(card, work, lambda: _obs_jobset_leg(card, work))
+        legs_s["compile_cache_and_jobset"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "observe", "card": card, "legs_s": legs_s,
+          "phase_s": time.perf_counter() - started,
+          "launches": {k: launches[k] for k in SERVING_KERNELS
+                       + TRAINING_KERNELS}})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
-              "fleet", "families", "entry_points", "parallel")
+              "fleet", "families", "entry_points", "parallel", "observe")
 
 
 def main(argv=None) -> int:
@@ -5740,6 +6461,12 @@ def main(argv=None) -> int:
         # checkpoint's resumed run and the ring's hops
         for name, count in phase_parallel(args.seed, card,
                                           train_step_ms).items():
+            launches[name] = launches.get(name, 0) + count
+        release()
+    if "observe" in phases:
+        # the serving kernels' launches on the captured burst and the
+        # training flash's on the captured fit
+        for name, count in phase_observe(args.seed, card).items():
             launches[name] = launches.get(name, 0) + count
         release()
     if set(phases) != set(ALL_PHASES):

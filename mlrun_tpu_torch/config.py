@@ -3,7 +3,11 @@
 ``mlrun_tpu/config.py`` (the knobs the engines', the request ledger's, the
 host KV tier's, the adapter registry's, the engine fleet's, the replica
 health scorer's and the trainer's main paths consult; the rest of those
-blocks belongs to features not ported yet)."""
+blocks belongs to features not ported yet).
+
+``COMPILE_CACHE_ENV`` (the reference's env mapping of
+``training.compile_cache_dir``) overrides that key at read time
+(``utils/compile_cache.configure_from_mlconf``)."""
 
 from __future__ import annotations
 
@@ -128,4 +132,10 @@ TRAINING_DEFAULTS = {
     # (first-step kernel build + ramp); the build time is reported
     # separately as compile_seconds
     "warmup_steps_excluded": 1,
+    # persistent kernel-build cache dir ("" = disabled): nvcc's kernel
+    # library and g++'s host libraries are built there and reused by the
+    # next process (utils/compile_cache.py); COMPILE_CACHE_ENV overrides
+    "compile_cache_dir": "",
 }
+
+COMPILE_CACHE_ENV = "MLT_TRAINING__COMPILE_CACHE_DIR"

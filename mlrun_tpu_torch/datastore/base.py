@@ -69,6 +69,30 @@ class DataStore:
         with open(target_path, "wb") as fp:
             fp.write(data if isinstance(data, bytes) else data.encode())
 
+    def as_df(self, key: str, columns=None, df_module=None, format: str = "",
+              **kwargs):
+        """Load an object into a dataframe (csv / parquet / json by
+        suffix)."""
+        import io
+
+        import pandas as pd
+
+        df_module = df_module or pd
+        fmt = format or key.rsplit(".", 1)[-1].lower()
+        raw = self.get(key)
+        buf = io.BytesIO(raw if isinstance(raw, bytes) else raw.encode())
+        if fmt == "csv":
+            df = df_module.read_csv(buf, **kwargs)
+        elif fmt in ("parquet", "pq"):
+            df = df_module.read_parquet(buf, **kwargs)
+        elif fmt == "json":
+            df = df_module.read_json(buf, **kwargs)
+        else:
+            raise ValueError(f"cannot load dataframe from format '{fmt}'")
+        if columns:
+            df = df[columns]
+        return df
+
 
 class DataItem:
     """Lazy data handle (the reference's ``DataItem``)."""
@@ -134,6 +158,10 @@ class DataItem:
 
     def listdir(self) -> list[str]:
         return self._store.listdir(self._path)
+
+    def as_df(self, columns=None, df_module=None, format: str = "", **kwargs):
+        return self._store.as_df(self._path, columns=columns,
+                                 df_module=df_module, format=format, **kwargs)
 
     def local(self) -> str:
         """A local file path (or directory, for a key prefix) holding the

@@ -7,10 +7,9 @@ step, and on epochs when ``epoch_steps`` is set. A hook returning
 ``False`` from ``on_step_end`` / ``on_epoch_end`` stops training
 gracefully: the trainer finishes its bookkeeping and reports
 ``stopped_early``. Callbacks that log call the run context's
-``is_logging_worker()``, as the reference's do.
-
-``EvalPlanCallback`` needs the artifact plans and waits for them
-(ROADMAP.md, item 10).
+``is_logging_worker()``, as the reference's do, or — for a context
+without one — ``execution.is_logging_worker()`` (global rank 0).
+``EvalPlanCallback`` runs the artifact plans of ``plans.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ import os
 import tempfile
 from typing import Callable, Optional, Sequence
 
+from ...execution import logging_worker
 from ...utils import logger
 
 
@@ -129,7 +129,7 @@ class MetricsLoggingCallback(Callback):
 
     def on_epoch_end(self, epoch: int, metrics: dict) -> None:
         if self.context is not None and metrics \
-                and self.context.is_logging_worker():
+                and logging_worker(self.context):
             self.context.log_metrics(
                 {k: float(v) for k, v in metrics.items()
                  if isinstance(v, (int, float))}, step=epoch)
@@ -299,7 +299,7 @@ class TensorBoardCallback(Callback):
             self._writer.close()
         if self.context is not None and self.log_dir \
                 and os.path.isdir(self.log_dir) \
-                and self.context.is_logging_worker():
+                and logging_worker(self.context):
             try:
                 self.context.log_artifact(
                     self.name, local_path=self.log_dir,
@@ -307,3 +307,35 @@ class TensorBoardCallback(Callback):
             except Exception as exc:  # noqa: BLE001 - best effort
                 logger.warning("tensorboard artifact failed",
                                error=str(exc))
+
+
+class EvalPlanCallback(Callback):
+    """Per-epoch artifact plans (confusion matrix / ROC / residuals ...)
+    from ``plans.py`` over a user eval set: ``eval_fn(model) -> (y_true,
+    y_pred)`` runs every N epochs and at train end, each plan producing a
+    versioned artifact (``<key>-epoch<N>``, then ``<key>``)."""
+
+    def __init__(self, eval_fn: Callable, plans: Sequence | None = None,
+                 every_epochs: int = 1, x=None):
+        self.eval_fn = eval_fn
+        self.plans = plans
+        self.every_epochs = max(1, every_epochs)
+        self.x = x
+
+    def _produce(self, tick: int | None):
+        from .plans import produce_artifacts
+
+        if self.context is None or not logging_worker(self.context):
+            return
+        y_true, y_pred = self.eval_fn(self.model or self.trainer)
+        suffix = "" if tick is None else f"-epoch{tick}"
+        produce_artifacts(self.context, self.model, self.x, y_true,
+                          y_pred=y_pred, plans=self.plans,
+                          key_suffix=suffix)
+
+    def on_epoch_end(self, epoch: int, metrics: dict) -> None:
+        if (epoch + 1) % self.every_epochs == 0:
+            self._produce(epoch)
+
+    def on_train_end(self, metrics: dict):
+        self._produce(None)

@@ -26,6 +26,7 @@ import os
 import time
 from typing import Iterator
 
+from ...execution import logging_worker
 from ...models.llama import MODEL_PRESETS, LlamaConfig
 from ...utils import logger
 
@@ -224,6 +225,9 @@ def train(context=None,
         callbacks.append(TensorBoardCallback(
             name=f"{model_name}-tensorboard"))
     interface = apply_mlrun(context=context, model_name=model_name)
+    # results and the model are logged from the logging worker only (the
+    # reference's run context gates its writes the same way)
+    logs = context is not None and logging_worker(context)
 
     if warmup:
         try:
@@ -233,7 +237,7 @@ def train(context=None,
             logger.warning("warmup failed — compiling on first step",
                            error=str(exc))
         else:
-            if context is not None and warm.get("compile_seconds") \
+            if logs and warm.get("compile_seconds") \
                     and hasattr(context, "log_result"):
                 context.log_result("compile_seconds",
                                    warm["compile_seconds"])
@@ -253,19 +257,20 @@ def train(context=None,
     final_metrics = {k: (v if isinstance(v, bool) else float(v))
                      for k, v in final_metrics.items()}
     final_metrics["train_time_s"] = elapsed
-    if context is not None and hasattr(context, "log_results"):
+    if logs and hasattr(context, "log_results"):
         context.log_results(final_metrics)
 
     if manager is not None:
         manager.save(trainer.state.step, trainer.state, force=True)
         manager.wait()
-        interface.log_model(
-            checkpoint_dir=manager.directory, metrics={
-                "loss": final_metrics.get("loss"),
-                "mfu": final_metrics.get("mfu"),
-            },
-            parameters={"model": str(model), "lora_rank": lora_rank,
-                        "steps": steps, "seq_len": seq_len})
+        if logs:
+            interface.log_model(
+                checkpoint_dir=manager.directory, metrics={
+                    "loss": final_metrics.get("loss"),
+                    "mfu": final_metrics.get("mfu"),
+                },
+                parameters={"model": str(model), "lora_rank": lora_rank,
+                            "steps": steps, "seq_len": seq_len})
         manager.close()
     return final_metrics
 
@@ -322,6 +327,6 @@ def evaluate(context=None,
             for key, value in metrics.items():
                 totals[key] = totals.get(key, 0.0) + float(value)
     results = {f"eval_{k}": v / steps for k, v in totals.items()}
-    if context is not None:
+    if context is not None and logging_worker(context):
         context.log_results(results)
     return results

@@ -5,8 +5,12 @@ source, all started together, then one link) into a single shared library
 with a plain C interface, loaded with :mod:`ctypes`. PyTorch's headers are
 never included, which keeps the build to seconds. The library lands under
 ``build/kernels/<hash>/`` at the root of the checkout (listed in
-``.gitignore``), keyed by a hash of the sources and flags, so it is built at
-first use and rebuilt whenever a source changes.
+``.gitignore``), keyed by a hash of the sources, the flags, the toolkit
+(``nvcc --version``) and the card's arch, so it is built at first use and
+rebuilt whenever one of them changes. ``utils/compile_cache.configure``
+re-roots :data:`BUILD_ROOT` and :data:`HOST_BUILD_ROOT` under a persistent
+directory; a process with no ``nvcc`` then loads the library built there
+for the same sources, flags and arch.
 
 Importing this module needs neither ``nvcc`` nor a GPU: the build runs the
 first time a wrapper is handed a CUDA tensor (or :func:`library` is called).
@@ -98,12 +102,60 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _source_hash() -> str:
+def _sources_digest() -> str:
+    """Hash of the flags and every kernel source."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
+    return digest.hexdigest()
+
+
+def _source_hash(toolkit: str, arch: str) -> str:
+    """The build directory's name: the sources and flags, the toolkit's
+    identity and the card's arch."""
+    digest = hashlib.sha256(_sources_digest().encode())
+    digest.update(toolkit.encode())
+    digest.update(arch.encode())
     return digest.hexdigest()[:16]
+
+
+_toolkits: dict = {}
+
+
+def toolkit_identity(nvcc: str) -> str:
+    """``nvcc --version``'s text (cached per path): two toolkits never
+    share a build directory."""
+    if nvcc not in _toolkits:
+        _toolkits[nvcc] = _run([nvcc, "--version"]).strip()
+    return _toolkits[nvcc]
+
+
+def card_arch() -> str:
+    """``sm_<major><minor>`` of the current CUDA device ('' without one)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return ""
+    major, minor = torch.cuda.get_device_capability()
+    return f"sm_{major}{minor}"
+
+
+KEY_NAME = "build.key"
+
+
+def _prebuilt(arch: str):
+    """Without nvcc: the newest finished library under :data:`BUILD_ROOT`
+    whose key names these sources, flags and arch (any toolkit — this
+    process has none to tell apart), else None."""
+    want = f"{_sources_digest()} {arch}"
+    found = []
+    for key in BUILD_ROOT.glob(f"*/{KEY_NAME}"):
+        lib_path = key.parent / LIB_NAME
+        if lib_path.exists() and \
+                key.read_text().split("\n", 1)[0] == want:
+            found.append(lib_path)
+    return max(found, key=lambda p: p.stat().st_mtime) if found else None
 
 
 def find_nvcc() -> str:
@@ -133,12 +185,22 @@ def _run(cmd: list) -> str:
 
 def build() -> Path:
     """Compile every ``csrc/*.cu`` in parallel and link one library; returns
-    its path. A finished build for the same sources is reused."""
-    out_dir = BUILD_ROOT / _source_hash()
+    its path. A finished build for the same sources, flags, toolkit and
+    arch is reused; with no nvcc, one for the same sources, flags and arch
+    (:func:`_prebuilt`)."""
+    arch = card_arch()
+    try:
+        nvcc = find_nvcc()
+    except KernelBuildError:
+        prebuilt = _prebuilt(arch)
+        if prebuilt is None:
+            raise
+        return prebuilt
+    toolkit = toolkit_identity(nvcc)
+    out_dir = BUILD_ROOT / _source_hash(toolkit, arch)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
-    nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     objects = [out_dir / (src.stem + ".o") for src in sources()]
     compile_cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
@@ -150,6 +212,8 @@ def build() -> Path:
                       "arch=compute_90a,code=sm_90a", "-o", str(tmp),
                       *map(str, objects)]))
     (out_dir / "build.log").write_text("\n".join(logs))
+    (out_dir / KEY_NAME).write_text(
+        f"{_sources_digest()} {arch}\n{toolkit}\n")
     os.replace(tmp, lib_path)  # atomic: a reader never sees a partial .so
     return lib_path
 
@@ -179,7 +243,8 @@ def build_host(source, lib_name: str) -> Path:
 
 
 def library():
-    """The bound kernel library, built on first call."""
+    """The bound kernel library, built on first call. It stays loaded for
+    the process: re-rooting the build afterwards does not swap it."""
     with _state.lock:
         if _state.lib is None:
             path = build()

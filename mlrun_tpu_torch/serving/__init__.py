@@ -3,3 +3,11 @@
 prefill forward, ``LLMEngine`` and ``LLMModelServer`` (``llm``), batch-1
 speculative decoding (``speculative``), sampling, the V2 model server, and
 copies of the reference's prefix cache and typed errors."""
+
+from .samples import (  # noqa: F401
+    SampleRing,
+    emit_sample,
+    get_sample_observer,
+    sampling_enabled,
+    set_sample_observer,
+)

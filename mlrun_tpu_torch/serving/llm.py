@@ -558,6 +558,14 @@ class LLMEngine:
             from ..obs import CANARY_REQUESTS
 
             CANARY_REQUESTS.inc(adapter=split_tenant, side=split_side)
+        from .samples import emit_sample, sampling_enabled
+
+        if sampling_enabled():
+            emit_sample(adapter=adapter, tokens=list(out_tokens),
+                        prompt_len=prompt_len, generated=len(out_tokens),
+                        ttft_s=ttft, total_s=time.perf_counter() - t0,
+                        logit_margin=float("nan"),
+                        engine=type(self).__name__, replica="")
         return out_tokens, stats
 
     # -- adapter source lifecycle -------------------------------------------

@@ -83,6 +83,7 @@ from ..obs.stats import nearest_rank
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
 from ..utils import logger
+from ..utils.profiler import tick as profiler_tick
 from .adapters import (
     AdapterError,
     AdapterRateLimitError,
@@ -101,6 +102,7 @@ from .llm import (
     default_device,
     init_kv_cache,
 )
+from .samples import emit_sample, sampling_enabled
 from .resilience import (
     DeadlineExceeded,
     DegradationLadder,
@@ -381,6 +383,9 @@ class _Admission:
     register_import: bool = False
     # the request's phase ledger (None with the ledger off)
     ledger: Optional[RequestLedger] = None
+    # monitoring tap: first-token top1-top2 logit gap, threaded to the
+    # slot for the completion sample
+    logit_margin: float = float("nan")
 
 
 @dataclass
@@ -406,6 +411,9 @@ class _Slot:
     # the request's phase ledger, handed over from the admission; every
     # tick flips it decode_active / decode_stall around the dispatch
     ledger: Optional[RequestLedger] = None
+    # monitoring tap (serving/samples.py): first-token top1-top2 logit
+    # gap, captured at prefill only while a sample observer is armed
+    logit_margin: float = float("nan")
 
     @property
     def active(self) -> bool:
@@ -1716,6 +1724,14 @@ class ContinuousBatchingEngine:
             logits, adm.small = self._prefill_dispatch(
                 adm, torch.as_tensor([[prompt[-1]]], dtype=torch.long,
                                      device=self.device), lora_kw)
+        if sampling_enabled():
+            # monitoring tap: first-token top1-top2 logit gap. Only while
+            # an observer is armed — one topk and one host copy, not paid
+            # when dark
+            row = logits.reshape(-1)
+            if row.numel() >= 2:
+                top2 = torch.topk(row, 2).values
+                adm.logit_margin = float(top2[0] - top2[1])
         adm.first_token = self._first_token(logits, adm.sampling)
         return True
 
@@ -1747,6 +1763,7 @@ class ContinuousBatchingEngine:
         slot.adapter_slot = adm.adapter_slot
         slot.trace = adm.trace
         slot.ledger = adm.ledger
+        slot.logit_margin = adm.logit_margin
         slot.decode_started = time.time()
         if adm.ledger is not None:
             # the row now waits for its first decode dispatch
@@ -1944,6 +1961,15 @@ class ContinuousBatchingEngine:
                 attrs["timing"] = timing
             get_tracer().emit("llm.decode", slot.trace[0], slot.trace[1],
                               start=slot.decode_started, attrs=attrs)
+        if sampling_enabled():
+            # monitoring tap: one bounded per-completion sample — output
+            # token ids, lengths, latency, first-token logit margin
+            emit_sample(adapter=slot.adapter, tokens=list(slot.tokens),
+                        prompt_len=slot.prompt_len,
+                        generated=len(slot.tokens), ttft_s=slot.ttft,
+                        total_s=stats["total_s"],
+                        logit_margin=slot.logit_margin,
+                        engine=self._obs_name, replica=self.replica)
         future, tokens = slot.future, slot.tokens
         self._slot_state[index] = _Slot()
         self._release_slot_storage(index)
@@ -2019,6 +2045,9 @@ class ContinuousBatchingEngine:
                 # prefill included): an unchunked long prefill between two
                 # decode ticks IS the inter-token gap clients see
                 started = time.perf_counter()
+                # on-demand profiling: claims or advances an armed capture
+                # — one global check when dark
+                profiler_tick(self._obs_name)
                 # fail-slow injection seam: an armed delay() stretches
                 # every scheduler iteration — TTFT and ITL rise, nothing
                 # errors

@@ -538,7 +538,8 @@ class DegradationLadder:
 # landed; item 6's engine fleet landed, its remainder stays)
 PORT_QUEUE = {
     6: "the pod fleet and the serving-graph router",
-    10: "glue",
+    10: "the run stack: runtimes/tpujob.py's runtime class with its run "
+        "objects and run db, the object stores, POST /debug/profile",
 }
 
 

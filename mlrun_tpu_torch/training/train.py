@@ -45,6 +45,7 @@ reshards onto the surviving slices and back.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import time
 from typing import Callable, Optional
@@ -54,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import TRAINING_DEFAULTS
+from ..execution import logging_worker
 from ..models import llama as llama_mod
 from ..models import moe as moe_mod
 from ..models.llama import LlamaConfig
@@ -72,6 +74,7 @@ from ..parallel.sharding import (
     shard_pytree,
 )
 from ..utils import logger
+from ..utils import profiler as profiler_mod
 from .data import DevicePrefetchIterator, to_device
 from .mfu import ThroughputTracker, mfu
 from .preemption import all_ranks_agree
@@ -911,6 +914,12 @@ def _carry_state(state, old_mesh, mesh, rules):
     return _state_from(trees, int(counters[0]), int(counters[1]))
 
 
+# distinct on-demand-profiler tick source per trainer instance: two
+# concurrent fit loops must not jointly drain one steps-bound capture
+# (utils/profiler.tick counts down only the claiming source's ticks)
+_TRAINER_SEQUENCE = itertools.count(1)
+
+
 class Trainer:
     """High-level trainer used by the torch framework adapter and
     ``chip_smoke.py``: ``init`` -> ``warmup`` -> ``fit``. Runs on CUDA
@@ -923,6 +932,13 @@ class Trainer:
                  train_config: TrainConfig | None = None,
                  device: torch.device | str | None = None,
                  mesh=None, rules=None):
+        # root the kernel builds in the persistent cache BEFORE anything
+        # can build them: a resubmitted JobSet carrying COMPILE_CACHE_ENV
+        # then loads the kernel library instead of running nvcc
+        # (utils/compile_cache.py); no-op when the dir is unset
+        from ..utils import compile_cache
+
+        compile_cache.configure_from_mlconf()
         self.train_config = train_config or TrainConfig()
         self.model_config = resolve_model_config(model_config,
                                                  self.train_config)
@@ -947,6 +963,12 @@ class Trainer:
         # fit() builds a fresh ledger here; after fit it holds the final
         # attribution (``.summary()``)
         self.goodput = None
+        self._profiler_source = f"trainer-{next(_TRAINER_SEQUENCE)}"
+        # device memory + host RSS exposition while this trainer lives
+        # (mlt_device_mem_bytes / mlt_host_rss_bytes, scrape-time)
+        from ..obs import register_memory_collector
+
+        register_memory_collector(self)
 
     @property
     def world_size(self) -> int:
@@ -964,10 +986,14 @@ class Trainer:
         and backward on a zero batch of ``(batch_size, seq_len)`` whose
         gradients are dropped — nothing persistent changes. Its wall time
         is ``compile_seconds`` (and the ``mlt_train_compile_seconds``
-        gauge), kept out of the steady-state throughput."""
+        gauge), kept out of the steady-state throughput. With a kernel
+        build cache (``COMPILE_CACHE_ENV``) the build lands there, so the
+        NEXT process loads the library instead of running nvcc."""
         from ..obs import TRAIN_COMPILE_SECONDS
+        from ..utils import compile_cache
 
         assert self.state is not None, "call init() first"
+        cache_dir = compile_cache.configure_from_mlconf()
         started = time.perf_counter()
         if self.device.type == "cuda":
             from ..ops import _build
@@ -985,8 +1011,10 @@ class Trainer:
         self.compile_seconds = time.perf_counter() - started
         TRAIN_COMPILE_SECONDS.set(self.compile_seconds)
         logger.info("train step warmed up", batch=batch_size, seq=seq_len,
-                    compile_s=round(self.compile_seconds, 3))
+                    compile_s=round(self.compile_seconds, 3),
+                    cache_dir=cache_dir or "(off)")
         return {"compile_seconds": self.compile_seconds,
+                "cache_dir": cache_dir,
                 "batch_size": batch_size, "seq_len": seq_len}
 
     def shard_batch(self, tokens, targets):
@@ -1189,9 +1217,14 @@ class Trainer:
         assert self.state is not None, "call init() first"
         run_uid = str(getattr(context, "uid", "") or "") \
             if context is not None else ""
+        # the run's own writes land from the logging worker only (the
+        # reference's run context gates them); callbacks and the profiler
+        # still get the context on every rank
+        log_ctx = context if context is not None \
+            and logging_worker(context) else None
         ledger = self.goodput = GoodputLedger(run=run_uid)
         with ledger.phase("checkpoint"):
-            resumed = self._maybe_resume(checkpoint_manager, context)
+            resumed = self._maybe_resume(checkpoint_manager, log_ctx)
         if self.compile_seconds is not None and not self._compile_attributed:
             # warmup() ran before this fit's wall window opened
             self._compile_attributed = True
@@ -1251,9 +1284,9 @@ class Trainer:
 
         def _log_view(view: dict) -> dict:
             self._metrics_history.append(view)
-            if context is not None:
-                context.log_metrics(view, step=view["step"])
-            else:
+            if log_ctx is not None:
+                log_ctx.log_metrics(view, step=view["step"])
+            elif context is None:
                 logger.info("train step", **{
                     k: round(v, 4) if isinstance(v, float) else v
                     for k, v in view.items()})
@@ -1359,8 +1392,8 @@ class Trainer:
                 flight_record("train.reshard", run=run_uid, **flat)
             else:
                 flight_record("train.grow", run=run_uid, **flat)
-            if context is not None and hasattr(context, "log_result"):
-                context.log_result("world_size", info["world_to"])
+            if log_ctx is not None and hasattr(log_ctx, "log_result"):
+                log_ctx.log_result("world_size", info["world_to"])
 
         hooks.on_train_begin()
         epoch = 0
@@ -1385,17 +1418,17 @@ class Trainer:
                             checkpoint_manager.save(self.state.step,
                                                     self.state, force=True)
                             checkpoint_manager.wait()
-                        if context is not None and \
-                                hasattr(context, "log_checkpoint"):
-                            context.log_checkpoint(
+                        if log_ctx is not None and \
+                                hasattr(log_ctx, "log_checkpoint"):
+                            log_ctx.log_checkpoint(
                                 checkpoint_manager.directory, step=at,
                                 commit=False)
                     last = dict(last)
                     last["preempted"] = True
                     last["step"] = at
-                    if context is not None and hasattr(context,
+                    if log_ctx is not None and hasattr(log_ctx,
                                                        "log_result"):
-                        context.log_result("preempted", True)
+                        log_ctx.log_result("preempted", True)
                     # a preempted run still finalizes its callbacks (close
                     # writers, log the tensorboard dir): their artifacts
                     # are what survives the eviction
@@ -1444,6 +1477,9 @@ class Trainer:
                     degraded_mark = ledger.goodput_seconds()
                     flight_record("train.reshard_warm", run=run_uid,
                                   loop_step=step, compile_s=round(first, 3))
+                # on-demand profiling: claims or advances an armed capture;
+                # one global check when dark
+                profiler_mod.tick(self._profiler_source, context)
                 tracker.note_step(tokens.shape[0] * seq_len)
                 log_point = (step + 1) % log_every == 0 or step == steps - 1
                 # non-log steps hand callbacks the raw device metrics: no

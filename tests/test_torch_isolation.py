@@ -3,7 +3,9 @@ chaos/ and common/ copies, the engine fleet, the canary router, the
 health scorer, the model families, the structured callbacks, the
 HuggingFace loader, the datastore, the meshes and sharding, ring and
 Ulysses attention, the goodput ledger, tensor parallelism, the pipeline
-stages and the elastic guard included, nor the chip smoke
+stages, the elastic guard, the profiler, the sample tap, the kernel
+build cache, the packagers, the artifact plans and the GPU JobSet
+builder included, nor the chip smoke
 script
 and the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
@@ -135,6 +137,11 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.parallel.tensor\n"
         "import mlrun_tpu_torch.parallel.pipeline\n"
         "import mlrun_tpu_torch.training.elastic\n"
+        "import mlrun_tpu_torch.utils.profiler\n"
+        "import mlrun_tpu_torch.utils.compile_cache\n"
+        "import mlrun_tpu_torch.serving.samples, mlrun_tpu_torch.execution\n"
+        "import mlrun_tpu_torch.package, mlrun_tpu_torch.k8s.jobset\n"
+        "import mlrun_tpu_torch.frameworks._common.plans\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN,))

@@ -694,3 +694,44 @@ def lora_tensor(rank, world, init, lora, batches, hf_dir):
             "local_numel": sum(p.to_local().numel() for p in leaves),
             "numel": sum(q.numel() for q in tree_leaves(plain))}
     return out
+
+
+class _RecordingContext:
+    """A duck-typed run context with no ``is_logging_worker``: the port's
+    callbacks and fit fall back to ``execution.is_logging_worker``."""
+
+    def __init__(self):
+        self.metrics, self.artifacts, self.results = [], [], {}
+
+    def log_metrics(self, metrics, step=None):
+        self.metrics.append(sorted(metrics))
+
+    def log_result(self, key, value):
+        self.results[key] = value
+
+    def log_results(self, results):
+        self.results.update(results)
+
+    def log_artifact(self, key, **kw):
+        self.artifacts.append(key)
+
+
+def logging_worker(rank, world, init, batches, y_true, y_pred):
+    """A 2-rank {"data": 2} fit with MetricsLoggingCallback and an
+    EvalPlanCallback over a recording context: what each rank logged."""
+    from mlrun_tpu_torch.execution import is_logging_worker
+    from mlrun_tpu_torch.frameworks._common import (
+        ConfusionMatrixPlan,
+        EvalPlanCallback,
+        MetricsLoggingCallback,
+    )
+
+    trainer = _trainer(init, mesh_shape={"data": world})
+    context = _RecordingContext()
+    callbacks = [MetricsLoggingCallback(),
+                 EvalPlanCallback(lambda model: (y_true, y_pred),
+                                  plans=[ConfusionMatrixPlan()])]
+    trainer.fit(iter(batches), len(batches), context=context, log_every=2,
+                prefetch=0, callbacks=callbacks, epoch_steps=2)
+    return {"worker": is_logging_worker(), "metrics": context.metrics,
+            "artifacts": context.artifacts}
