@@ -222,9 +222,29 @@ exits non-zero and never prints the final line):
              torchrun command (MASTER_ADDR 127.0.0.1): a one-rank NCCL
              group, 2 steps of the 1B fit through auto_trainer.train, the
              logging worker and one log_results.
+16. gateway - the serving graph and the port's standard-library HTTP
+             gateway: GATEWAY_SPEC (a router with one LLMModelServer
+             route, the serve phase's paged engine at Llama-3-8B, in the
+             SERVING_SPEC_ENV form) loaded by asgi.server_from_env and
+             served on a free 127.0.0.1 port, driven by urllib clients:
+             (a) /readyz 503 with Retry-After from begin_warmup until the
+             warmup pass, healthz 200 throughout; (b) the serve traffic
+             over HTTP (the four prompts in one request, then the prefix
+             hit), every token a near-argmax of a teacher-forced forward
+             over the route's own params, paged decode / paged prefill /
+             cached flash launched as the engine's counters say; (c) 20
+             sequential 16-token requests (4 tokens) over HTTP and 20
+             through GraphServer.test, p50 / p99, /__stats__, then 4
+             concurrent clients on the one worker; (d) a front gateway
+             whose RemoteStep calls the model gateway: the prefix-hit
+             answer again, its X-MLT-Trace id in /debug/trace/<id>; (e)
+             /__drain__ with a 4 x 64-token request in flight: readyz 503
+             before it ends, it ends 200, the next request gets the
+             ServerDrainingError envelope (503, Retry-After); (f)
+             /metrics: request and probe counts, the OpenMetrics variant.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
-over the serve, entry_points and observe paths, the training flash's over
+over the serve, entry_points, observe and gateway paths, the training flash's over
 the train, families, entry_points, parallel and observe paths) and, last,
 {"ok": true, "device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
@@ -233,7 +253,7 @@ fleet, ``--phases build,families`` the model families,
 ``--phases build,entry_points`` the entry points, ``--phases
 build,parallel`` training on many GPUs at world size 1, ``--phases
 build,observe`` the captures, the sample tap, the build cache, packaging
-and the JobSet's env); the
+and the JobSet's env, ``--phases build,gateway`` the HTTP gateway); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -6356,12 +6376,416 @@ def phase_observe(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# gateway: the serving graph and its HTTP gateway over the 8B paged engine
+# ---------------------------------------------------------------------------
+
+# the serving graph in the SERVING_SPEC_ENV form the reference's
+# ServingRuntime writes: a router with one route, the serve phase's paged
+# engine at Llama-3-8B (native KV, bf16); phase_gateway sets the seed
+GATEWAY_SPEC = {
+    "function_uri": "smoke/gateway", "version": "v2", "parameters": {},
+    "graph": {
+        "kind": "flow", "class_args": {}, "after": [], "full_event": False,
+        "responder": False, "engine": "sync",
+        "steps": {"router": {
+            "kind": "router", "name": "router", "class_name": "ModelRouter",
+            "class_args": {}, "after": [], "full_event": False,
+            "responder": True,
+            "routes": {"llm": {
+                "kind": "task", "name": "llm",
+                "class_name": "mlrun_tpu_torch.serving.llm.LLMModelServer",
+                "class_args": {
+                    "name": "llm", "model_preset": "llama3-8b",
+                    "continuous_batching": True, "paged": True,
+                    "slots": SLOTS, "max_len": MAX_LEN, "page_size": PAGE,
+                    "max_new_tokens": MAX_NEW, "kv_dtype": "native",
+                    "seed": 0},
+                "after": [], "full_event": False, "responder": False}}}}},
+    "load_mode": "sync", "verbose": False, "graph_initializer": None,
+    "error_stream": None, "track_models": None, "secret_sources": [],
+    "default_content_type": None,
+}
+GW_INFER = "/v2/models/llm/infer"
+GW_LAT_REQUESTS = 20        # (c): sequential requests, over HTTP and in process
+GW_LAT_PROMPT = 16          # (c): the one prompt's tokens
+GW_LAT_NEW = 4              # (c): tokens generated a request
+GW_CLIENTS = 4              # (c): concurrent clients
+GW_DRAIN_NEW = 64           # (e): the in-flight request's tokens a prompt
+GW_TIMEOUT = 600.0
+GW_TRACE = "5eed" * 8       # (d): the front request's trace id
+GW_PROBED = ("/readyz", "/healthz", "/__stats__", "/metrics", "/debug/trace")
+
+
+def _http(url: str, path: str, method: str = "GET", body=None,
+          headers=None) -> tuple:
+    """(status, lower-cased headers, body bytes, seconds) of one request
+    through urllib."""
+    import urllib.error
+    import urllib.request
+
+    headers = dict(headers or {})
+    data = None
+    if body is not None:
+        data = json.dumps(body).encode()
+        headers["Content-Type"] = "application/json"
+    request = urllib.request.Request(url + path, data=data, headers=headers,
+                                     method=method)
+    started = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=GW_TIMEOUT) as resp:
+            status, head, raw = resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as exc:
+        with exc:
+            status, head, raw = exc.code, exc.headers, exc.read()
+    return (status, {k.lower(): v for k, v in head.items()}, raw,
+            time.perf_counter() - started)
+
+
+def _outputs(response, what: str) -> list:
+    status, _, raw, _ = response
+    if status != 200:
+        fail(f"gateway: {what} answered {status}: {raw[:300]!r}")
+    return json.loads(raw)["outputs"]
+
+
+def _serve_app(app):
+    """Serve ``app`` on 127.0.0.1, a free port, in a thread: (url, stop)."""
+    import threading
+
+    httpd = app.bind("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+    thread.start()
+
+    def stop():
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        app.close()
+
+    return "http://127.0.0.1:%d" % httpd.server_address[1], stop
+
+
+def _percentiles(seconds: list) -> dict:
+    ordered = sorted(seconds)
+    return {"p50_ms": 1000 * ordered[len(ordered) // 2],
+            "p99_ms": 1000 * ordered[int(len(ordered) * 0.99)],
+            "n": len(ordered)}
+
+
+def _gateway_launches(launches: dict, before: dict, after: dict,
+                      layers: int) -> dict:
+    """The serving kernels launched on the gateway's requests, as the
+    engine's counters say: a paged decode a layer a kernel tick, a paged
+    prefill a layer a prefix-hit dispatch (a chunk or its 1-token
+    replay), the cached flash a layer a prefill chunk (every chunk here
+    is longer than one token; a 1-token replay takes the dense form)."""
+    _check_launches(launches, SERVING_KERNELS, "gateway")
+    ticks = after["attn_kernel_ticks"] - before["attn_kernel_ticks"]
+    hits = after["prefill_kernel_chunks"] - before["prefill_kernel_chunks"]
+    chunks = after["prefill_chunks"] - before["prefill_chunks"]
+    if launches["paged_decode"] != layers * ticks:
+        fail(f"gateway: paged decode launched {launches['paged_decode']} "
+             f"times over {ticks} kernel ticks of {layers} layers")
+    if launches["paged_prefill"] != layers * hits:
+        fail(f"gateway: paged prefill launched {launches['paged_prefill']} "
+             f"times over {hits} prefix-hit dispatches of {layers} layers")
+    flash = launches["flash_fwd_cached"]
+    if flash != layers * chunks:
+        fail(f"gateway: cached flash launched {flash} times over {chunks} "
+             f"prefill chunks of {layers} layers")
+    return {"decode_ticks": ticks, "prefix_hit_dispatches": hits,
+            "prefill_chunks": chunks}
+
+
+def _metric(text: str, name: str, labels: str = "") -> float:
+    """One sample of a Prometheus text exposition."""
+    prefix = name + labels + " "
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            return float(line[len(prefix):].split()[0])
+    fail(f"gateway: /metrics has no sample {name}{labels}")
+
+
+def phase_gateway(seed: int, card: str) -> dict:
+    """The serving graph (GATEWAY_SPEC, loaded through SERVING_SPEC_ENV by
+    asgi.server_from_env) behind the port's standard-library HTTP gateway
+    on a free localhost port, driven over HTTP by urllib clients: (a)
+    /readyz at 503 with Retry-After until warm, (b) the serve traffic with
+    every token held to a teacher-forced forward, its kernel launches as
+    the engine counts them, (c) HTTP against in-process latency and 4
+    concurrent clients on the one worker, (d) a front gateway's RemoteStep
+    carrying a trace id, (e) a drain with a request in flight, (f)
+    /metrics. Returns the launches of (b)."""
+    import copy
+    import gc
+    import threading
+
+    import torch
+
+    from mlrun_tpu_torch.obs import PROBE_REQUESTS, REQUEST_LATENCY
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving import asgi
+    from mlrun_tpu_torch.serving.server import GraphContext, GraphServer
+    from mlrun_tpu_torch.serving.states import RootFlowStep
+
+    started = time.perf_counter()
+    spec = copy.deepcopy(GATEWAY_SPEC)
+    spec["graph"]["steps"]["router"]["routes"]["llm"]["class_args"][
+        "seed"] = seed
+    previous = os.environ.get("SERVING_SPEC_ENV")
+    os.environ["SERVING_SPEC_ENV"] = json.dumps(spec)
+    try:
+        t = time.perf_counter()
+        server = asgi.server_from_env()
+        load_s = time.perf_counter() - t
+    finally:
+        if previous is None:
+            os.environ.pop("SERVING_SPEC_ENV")
+        else:
+            os.environ["SERVING_SPEC_ENV"] = previous
+    route = server.graph.steps["router"].routes["llm"]._object
+    if not route.ready:
+        fail(f"gateway: the llm route failed to load: {route.error}")
+    engine = route.engine
+    config, params = engine.config, engine.params
+    url, stop = _serve_app(asgi.build_serving_app(server))
+    stop_front = None
+    probes = dict.fromkeys(GW_PROBED, 0)
+    probes_before = {p: PROBE_REQUESTS.value(path=p) for p in GW_PROBED}
+    runs_before = REQUEST_LATENCY.value()["count"]
+    graph_runs = 0          # GraphServer.run calls: the model gateway's
+    # and the front gateway's (one process, one registry)
+
+    def probe(path: str, **kwargs):
+        probes["/debug/trace" if path.startswith("/debug/trace/")
+               else path] += 1
+        return _http(url, path, **kwargs)
+
+    rows = []
+    try:
+        # -- (a) ready means warm ------------------------------------------
+        server.begin_warmup()
+        cold, health = probe("/readyz"), probe("/healthz")
+        if cold[0] != 503 or "retry-after" not in cold[1] \
+                or health[0] != 200:
+            fail(f"gateway: warming readyz {cold[0]} {cold[1]}, healthz "
+                 f"{health[0]}")
+        t = time.perf_counter()
+        warming = threading.Thread(target=server.warmup, daemon=True)
+        warming.start()
+        polls = 0
+        while True:
+            ready, health = probe("/readyz"), probe("/healthz")
+            polls += 1
+            if health[0] != 200:
+                fail(f"gateway: healthz {health[0]} while warming")
+            if ready[0] == 200:
+                break
+            if ready[0] != 503 or "retry-after" not in ready[1] \
+                    or time.perf_counter() - t > 120:
+                fail(f"gateway: readyz {ready[0]} {ready[1]} while warming")
+            time.sleep(0.005)
+        gate_s = time.perf_counter() - t
+        warming.join(timeout=60)
+        rows.append({"phase": "gateway", "leg": "ready", "card": card,
+                     "load_and_engine_warmup_s": load_s,
+                     "readyz_gate_s": gate_s, "readyz_polls": polls,
+                     "cold_readyz": [cold[0], cold[1]["retry-after"]]})
+
+        # -- (b) the serve traffic over HTTP, counted ------------------------
+        prompts = _prompts(seed, config.vocab_size)
+        before = engine.stats
+        _build.reset_launch_counts()
+        first = _http(url, GW_INFER, "POST", {"inputs": prompts})
+        hit = _http(url, GW_INFER, "POST", {"inputs": [prompts[0]]})
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        after = engine.stats
+        graph_runs += 2
+        outputs = _outputs(first, "the serve request") + \
+            _outputs(hit, "the prefix-hit request")
+        counted = _gateway_launches(launches, before, after, config.n_layers)
+        if not after["prefix_hits"] > before["prefix_hits"]:
+            fail("gateway: the rerun of the first prompt missed the cache")
+        gaps = []
+        for prompt, tokens in zip(prompts + [prompts[0]], outputs):
+            if len(tokens) != MAX_NEW:
+                fail(f"gateway: {len(tokens)} tokens, expected {MAX_NEW}")
+            logits = _teacher_logits(config, params, prompt, tokens)
+            gaps.append(max(float(row.max() - row[tok]) /
+                            float(row.abs().max())
+                            for row, tok in zip(logits, tokens)))
+        del logits
+        rows.append({"phase": "gateway", "leg": "serve", "card": card,
+                     "requests": 2, "prompt_lens": [len(p) for p in prompts]
+                     + [len(prompts[0])], "max_new_tokens": MAX_NEW,
+                     "request_s": [first[3], hit[3]], "launches": launches,
+                     **counted, "worst_argmax_gap_rel": max(gaps),
+                     "argmax_gap_tol": SPEC_REL_TOL})
+        if max(gaps) > SPEC_REL_TOL:
+            fail(f"gateway: a served token is {max(gaps)} of the largest "
+                 f"logit below the teacher's argmax (> {SPEC_REL_TOL})")
+
+        # -- (c) the gateway's overhead and the single worker ---------------
+        route.max_new_tokens = GW_LAT_NEW
+        small = {"inputs": [_prompts(seed + 1, config.vocab_size)[2]
+                            [:GW_LAT_PROMPT]]}
+        http_s, local_s, answers = [], [], []
+        for _ in range(GW_LAT_REQUESTS):
+            response = _http(url, GW_INFER, "POST", small)
+            answers.append(_outputs(response, "a small request"))
+            http_s.append(response[3])
+        for _ in range(GW_LAT_REQUESTS):
+            t = time.perf_counter()
+            out = server.test(GW_INFER, body=copy.deepcopy(small))
+            local_s.append(time.perf_counter() - t)
+            answers.append(out["outputs"])
+        stats = json.loads(probe("/__stats__")[2])
+        barrier = threading.Barrier(GW_CLIENTS)
+        concurrent: list = [None] * GW_CLIENTS
+
+        def client(index):
+            barrier.wait()
+            concurrent[index] = _http(url, GW_INFER, "POST", small)
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(GW_CLIENTS)]
+        for thread in clients:
+            thread.start()
+        for thread in clients:
+            thread.join(timeout=GW_TIMEOUT)
+        answers += [_outputs(r, "a concurrent request") for r in concurrent]
+        graph_runs += 2 * GW_LAT_REQUESTS + GW_CLIENTS
+        if any(a != answers[0] or len(a[0]) != GW_LAT_NEW for a in answers):
+            fail("gateway: one prompt got different greedy tokens")
+        rows.append({"phase": "gateway", "leg": "overhead", "card": card,
+                     "prompt_len": GW_LAT_PROMPT, "max_new_tokens":
+                     GW_LAT_NEW, "http": _percentiles(http_s),
+                     "in_process": _percentiles(local_s),
+                     "stats": stats, "concurrent_ms": sorted(
+                         1000 * r[3] for r in concurrent)})
+
+        # -- (d) a front gateway with a RemoteStep ---------------------------
+        route.max_new_tokens = MAX_NEW
+        front = GraphServer(graph=RootFlowStep())
+        front.graph.to(class_name="mlrun_tpu_torch.serving.remote.RemoteStep",
+                       name="hop", url=url + GW_INFER,
+                       timeout=GW_TIMEOUT).respond()
+        front.init_states(GraphContext(server=front), {})
+        front_url, stop_front = _serve_app(asgi.build_serving_app(front))
+        via = _http(front_url, "/", "POST", {"inputs": [prompts[0]]},
+                    headers={"X-MLT-Trace": f"{GW_TRACE}-{'ab' * 8}"})
+        graph_runs += 2
+        if _outputs(via, "the front gateway's request") != outputs[-1:]:
+            fail("gateway: the front gateway's answer differs from the "
+                 "prefix-hit request's")
+        trace = json.loads(probe(f"/debug/trace/{GW_TRACE}")[2])
+        spans = {s["span_id"]: s for s in trace["spans"]}
+        hops = [s for s in spans.values() if s["name"] == "remote.hop"]
+        joined = [s for s in spans.values() if s["name"] == "server.run"
+                  and (s.get("attrs") or {}).get("path") == GW_INFER
+                  and hops and s["parent_id"] == hops[0]["span_id"]]
+        if len(hops) != 1 or len(joined) != 1:
+            fail(f"gateway: trace {GW_TRACE} holds no model-gateway run "
+                 f"under the front's remote span: {sorted(spans)}")
+        rows.append({"phase": "gateway", "leg": "front", "card": card,
+                     "request_s": via[3], "spans": sorted(
+                         s["name"] for s in spans.values()),
+                     "critical_path_s": trace["critical_path_s"]})
+
+        # -- (e) drain with a request in flight ------------------------------
+        route.max_new_tokens = GW_DRAIN_NEW
+        long_prompts = _prompts(seed + 2, config.vocab_size)
+        box = {}
+        inflight = threading.Thread(target=lambda: box.update(
+            answer=_http(url, GW_INFER, "POST", {"inputs": long_prompts})))
+        inflight.start()
+        t = time.perf_counter()
+        while server.inflight == 0 and time.perf_counter() - t < 60:
+            time.sleep(0.002)
+        graph_runs += 1
+        draining = threading.Thread(target=lambda: box.update(
+            drain=_http(url, "/__drain__", "POST")))
+        t = time.perf_counter()
+        draining.start()
+        while True:
+            ready = probe("/readyz")
+            if ready[0] == 503:
+                break
+            if time.perf_counter() - t > 30:
+                fail("gateway: readyz never flipped on drain")
+            time.sleep(0.002)
+        flip_s = time.perf_counter() - t
+        flipped_in_flight = inflight.is_alive()
+        inflight.join(timeout=GW_TIMEOUT)
+        draining.join(timeout=GW_TIMEOUT)
+        drained = json.loads(box["drain"][2])
+        answered = _outputs(box["answer"], "the in-flight request")
+        after_drain = _http(url, GW_INFER, "POST", small)
+        envelope = json.loads(after_drain[2])
+        if not (flipped_in_flight and "retry-after" in ready[1]
+                and drained == {"drained": True, "inflight": 0}
+                and all(len(a) == GW_DRAIN_NEW for a in answered)
+                and after_drain[0] == 503
+                and "retry-after" in after_drain[1]
+                and "draining" in envelope.get("error", "")):
+            fail(f"gateway: drain: flipped in flight {flipped_in_flight}, "
+                 f"drain {drained}, after {after_drain[0]} {envelope}")
+        rows.append({"phase": "gateway", "leg": "drain", "card": card,
+                     "readyz_flip_s": flip_s, "drain_s": box["drain"][3],
+                     "inflight_request_s": box["answer"][3],
+                     "after_drain": [after_drain[0], envelope,
+                                     after_drain[1]["retry-after"]]})
+
+        # -- (f) /metrics --------------------------------------------------------
+        text = probe("/metrics")
+        counted_probes = dict(probes)
+        om = probe("/metrics", headers={
+            "Accept": "application/openmetrics-text; version=1.0.0"})
+        body = text[2].decode()
+        runs = _metric(body, "mlt_request_latency_seconds_count") \
+            - runs_before
+        seen = {p: _metric(body, "mlt_probe_requests_total",
+                           f'{{path="{p}"}}') - probes_before[p]
+                for p in GW_PROBED}
+        if not (runs == graph_runs and seen == counted_probes
+                and text[1]["content-type"].startswith("text/plain")
+                and om[1]["content-type"].startswith(
+                    "application/openmetrics-text")
+                and om[2].endswith(b"# EOF\n")
+                and b'trace_id="' in om[2]):
+            fail(f"gateway: /metrics: {runs} runs against {graph_runs}, "
+                 f"probes {seen} against {counted_probes}, types "
+                 f"{text[1]['content-type']} / {om[1]['content-type']}")
+        rows.append({"phase": "gateway", "leg": "metrics", "card": card,
+                     "graph_runs": runs, "probes": seen,
+                     "text_bytes": len(text[2]), "openmetrics_bytes":
+                     len(om[2])})
+    finally:
+        if stop_front is not None:
+            stop_front()
+        stop()
+        route.close()
+    for row in rows:
+        emit(row)
+    del server, route, engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "gateway", "card": card,
+          "phase_s": time.perf_counter() - started,
+          "launches": {k: launches[k] for k in SERVING_KERNELS}})
+    return {k: launches[k] for k in SERVING_KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
-              "fleet", "families", "entry_points", "parallel", "observe")
+              "fleet", "families", "entry_points", "parallel", "observe",
+              "gateway")
 
 
 def main(argv=None) -> int:
@@ -6467,6 +6891,11 @@ def main(argv=None) -> int:
         # the serving kernels' launches on the captured burst and the
         # training flash's on the captured fit
         for name, count in phase_observe(args.seed, card).items():
+            launches[name] = launches.get(name, 0) + count
+        release()
+    if "gateway" in phases:
+        # the serving kernels' launches on the traffic served over HTTP
+        for name, count in phase_gateway(args.seed, card).items():
             launches[name] = launches.get(name, 0) + count
         release()
     if set(phases) != set(ALL_PHASES):

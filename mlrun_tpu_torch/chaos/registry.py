@@ -33,9 +33,19 @@ def set_fire_observer(observer):
 
 
 class FaultPoints:
-    """The named fault points the port's serving engines and engine fleet
-    fire (the reference's names). A point is matched exactly or by a ``prefix.*``
-    wildcard at injection time."""
+    """The named fault points the port's serving graph, engines and engine
+    fleet fire (the reference's names). A point is matched exactly or by a
+    ``prefix.*`` wildcard at injection time."""
+
+    # serving-graph step execution (states.py TaskStep/RouterStep.run);
+    # a delay() here models a slow model step, an error a failing one
+    serving_step = "serving.step"
+    # remote-step HTTP attempts (serving/remote.py) — an injected
+    # connection error / HTTPError exercises the retry classifier and
+    # circuit breaker without a live endpoint
+    serving_remote = "serving.remote"
+    # async queue admission (states.py QueueStep.run)
+    serving_queue = "serving.queue"
 
     # one ring join of a deferred-join fleet replica (serving/fleet.py
     # join_replica) — a delay() models a slow join (keys keep routing to
@@ -91,6 +101,8 @@ class FaultPoints:
     @staticmethod
     def all() -> list[str]:
         return [
+            FaultPoints.serving_step, FaultPoints.serving_remote,
+            FaultPoints.serving_queue,
             FaultPoints.fleet_join, FaultPoints.fleet_degrade,
             FaultPoints.llm_submit,
             FaultPoints.llm_prefill, FaultPoints.llm_spec_verify,

@@ -1,8 +1,9 @@
 """Configuration defaults the port reads — copies of the ``serving.llm``,
-``serving.fleet``, ``serving.health`` and ``training`` blocks of
+``serving.fleet``, ``serving.health``, ``serving.resilience``, ``training``
+and ``observability`` blocks and the ``exec_code_env`` key of
 ``mlrun_tpu/config.py`` (the knobs the engines', the request ledger's, the
 host KV tier's, the adapter registry's, the engine fleet's, the replica
-health scorer's and the trainer's main paths consult; the rest of those
+health scorer's, the trainer's and the serving graph's paths consult; the rest of those
 blocks belongs to features not ported yet).
 
 ``COMPILE_CACHE_ENV`` (the reference's env mapping of
@@ -139,3 +140,26 @@ TRAINING_DEFAULTS = {
 }
 
 COMPILE_CACHE_ENV = "MLT_TRAINING__COMPILE_CACHE_DIR"
+
+# serving-path resilience defaults; per-step knobs in the graph spec
+# override these
+SERVING_RESILIENCE_DEFAULTS = {
+    "drain_timeout_s": 30.0,  # GraphServer.drain bound
+}
+
+# unified telemetry read by the serving gateway and its /debug routes
+OBSERVABILITY_DEFAULTS = {
+    # metrics_enabled=false turns the /metrics endpoint into a 404
+    # (collection itself stays on)
+    "metrics_enabled": True,
+    # peer gateways whose span rings join GET /debug/trace/<id>'s
+    # waterfall ([] for an in-process fleet: it shares this process's ring)
+    "trace_peers": [],
+    # per-peer fan-out timeout of the trace assembly (a dead replica
+    # degrades the waterfall after this, never 504s it)
+    "trace_peer_timeout_s": 1.0,
+}
+
+# env var carrying base64 user code into the serving gateway process: its
+# graph classes and handlers resolve from that code's namespace
+EXEC_CODE_ENV = "MLT_EXEC_CODE"

@@ -8,9 +8,11 @@ the same schema before a sample lands. Producers import the family
 objects from here; consumers render ``REGISTRY``. ``health`` holds the
 fail-slow replica scorer of the engine fleet, ``goodput`` the training
 run's goodput ledger; the five ``mlt_train_*`` / ``mlt_training_mfu``
-families are the trainer's. The reference's federation, SLO, time-series,
-trace-view and debug modules belong to item 6's remainder and the glue
-item of the port queue (ROADMAP.md).
+families are the trainer's, the six serving-graph families the graph
+server's and its HTTP gateway's. ``traceview`` assembles one request's
+waterfall and ``debug`` holds the gateway's ``/debug`` handler cores. The
+reference's federation, SLO and time-series modules belong to item 6's
+remainder (ROADMAP.md).
 """
 
 import threading as _threading
@@ -18,7 +20,9 @@ import threading as _threading
 from .flight import FlightRecorder, get_flight_recorder  # noqa: F401
 from .flight import record as flight_record  # noqa: F401
 from .metrics import (  # noqa: F401
+    CONTENT_TYPE,
     DEFAULT_BUCKETS,
+    OPENMETRICS_CONTENT_TYPE,
     REGISTRY,
     CardinalityError,
     Counter,
@@ -26,6 +30,7 @@ from .metrics import (  # noqa: F401
     Histogram,
     MetricError,
     MetricsRegistry,
+    wants_openmetrics,
 )
 from .reqledger import (  # noqa: F401
     REQUEST_PHASE_SECONDS,
@@ -45,6 +50,31 @@ from .tracing import (  # noqa: F401
     new_trace_id,
     parse_trace_header,
 )
+
+# -- serving graph -----------------------------------------------------------
+REQUEST_LATENCY = REGISTRY.histogram(
+    "mlt_request_latency_seconds",
+    "End-to-end GraphServer.run latency per event")
+STEP_LATENCY = REGISTRY.histogram(
+    "mlt_step_latency_seconds",
+    "Per-step execution latency in the serving graph",
+    labels=("step",), overflow="drop")
+SERVING_EVENTS = REGISTRY.counter(
+    "mlt_serving_events_total",
+    "Serving-path events mirrored from context.metrics (breaker trips, "
+    "admission rejects, sheds, deadline expiries, drain rejections)",
+    labels=("event",), overflow="drop")
+PROBE_REQUESTS = REGISTRY.counter(
+    "mlt_probe_requests_total",
+    "Probe/scrape endpoint hits (healthz/readyz/stats/metrics) — counted "
+    "here, excluded from request telemetry and never traced",
+    labels=("path",), overflow="drop")
+BREAKER_STATE = REGISTRY.gauge(
+    "mlt_breaker_state",
+    "Circuit breaker state per step (0 closed, 1 half-open, 2 open)",
+    labels=("step",), overflow="drop")
+SERVER_INFLIGHT = REGISTRY.gauge(
+    "mlt_server_inflight", "In-flight events on the graph server")
 
 # -- LLM engines -------------------------------------------------------------
 # every family carries a ``replica`` label (empty for standalone engines);

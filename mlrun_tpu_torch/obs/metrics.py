@@ -432,3 +432,16 @@ class MetricsRegistry:
 
 # the process-wide registry a /metrics endpoint renders
 REGISTRY = MetricsRegistry()
+
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+# negotiated via the Accept header on the /metrics endpoint — the only
+# format whose bucket lines carry exemplars
+OPENMETRICS_CONTENT_TYPE = (
+    "application/openmetrics-text; version=1.0.0; charset=utf-8")
+
+
+def wants_openmetrics(accept: str | None) -> bool:
+    """Content negotiation for the /metrics endpoint: OpenMetrics only
+    when the client asks for it by name (Prometheus text 0.0.4 stays
+    the default for every other Accept value)."""
+    return bool(accept) and "application/openmetrics-text" in accept

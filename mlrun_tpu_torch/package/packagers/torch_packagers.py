@@ -54,7 +54,11 @@ def from_host(array):
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
-    """``{"a/b/0": leaf, ...}`` for nested dicts and lists."""
+    """``{"a/b/0": leaf, ...}`` for nested dicts and lists. ``None`` is an
+    empty subtree, as ``jax.tree_util.tree_leaves`` treats it: it gives no
+    leaf, so a tree of ``None`` alone has none."""
+    if tree is None:
+        return {}
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -70,7 +74,8 @@ def flatten_tree(tree, prefix: str = "") -> dict:
 
 def unflatten_tree(flat: dict) -> dict:
     """Nested dicts from ``/``-joined paths (list levels come back as
-    dicts keyed "0", "1", ...)."""
+    dicts keyed "0", "1", ...). A ``None`` of the packed tree had no path,
+    so it is left out."""
     out: dict = {}
     for path, leaf in flat.items():
         node = out

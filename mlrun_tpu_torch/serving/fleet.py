@@ -80,17 +80,21 @@ def redispatchable(exc: Exception) -> bool:
     unavailable (stopped, draining, breaker-open, shedding, adapter
     working-set full) — not the request (400-class, unknown tenant, and
     per-tenant rate-limit sheds stay fatal: those follow the request
-    wherever it routes). (The reference also re-routes its remote process
-    replicas' 429/502/503 ``RemoteCallError``; the port has no remote
-    replicas yet, ROADMAP.md item 6.)"""
+    wherever it routes). Remote process replicas surface the same
+    classes as ``RemoteCallError`` with a 429/502/503 status."""
     if isinstance(exc, (EngineStoppedError, ServerDrainingError,
                         QueueFullError, CircuitOpenError)):
         return True
     from .adapters import AdapterCapacityError
+    from .remote import RemoteCallError
 
-    # THIS replica's bank slots are all pinned — another replica (its
-    # own registry, its own slots) may well have room
-    return isinstance(exc, AdapterCapacityError)
+    if isinstance(exc, AdapterCapacityError):
+        # THIS replica's bank slots are all pinned — another replica
+        # (its own registry, its own slots) may well have room
+        return True
+    if isinstance(exc, RemoteCallError):
+        return getattr(exc, "status_code", None) in (429, 502, 503)
+    return False
 
 
 class ConsistentHashRing:

@@ -535,11 +535,15 @@ class DegradationLadder:
 
 
 # ROADMAP.md "Modules still to port", by item number (1-5, 7, 8 and 9
-# landed; item 6's engine fleet landed, its remainder stays)
+# landed; item 6's engine fleet, graph server, gateway and routers landed,
+# its remainder stays)
 PORT_QUEUE = {
-    6: "the pod fleet and the serving-graph router",
+    6: "the pod fleet, the rest of obs/ (federation, SLO, time series) "
+       "and the autoscaler's fleet hooks",
     10: "the run stack: runtimes/tpujob.py's runtime class with its run "
-        "objects and run db, the object stores, POST /debug/profile",
+        "objects and run db, the object stores",
+    11: "the feature store (feature_store/, host only): feature sets, "
+        "vectors and the online feature service",
 }
 
 

@@ -1,6 +1,5 @@
 """Graceful preemption handling — a copy of
-``mlrun_tpu/training/preemption.py`` (without ``on_preempted``, whose
-caller, the serving graph's drain, is not ported).
+``mlrun_tpu/training/preemption.py``.
 
 Preemptible/spot machines get SIGTERM with a grace period before
 eviction. ``PreemptionGuard`` latches the signal into a flag that
@@ -93,6 +92,47 @@ class PreemptionGuard:
     def request(self):
         """Programmatic preemption (tests / external watchers)."""
         self._event.set()
+
+    def on_preempted(self, callback, name: str = "preemption-watcher",
+                     timeout: float | None = None) -> threading.Thread:
+        """Run ``callback`` once when the preemption latch sets.
+
+        The watcher thread blocks on the latch event (no polling), so the
+        callback fires on the FIRST signal — before the second-signal
+        escalation in ``_handle`` can ever run. Serving replicas use this
+        to drain in-flight requests inside the eviction grace period
+        (``GraphServer.drain_on_preemption``). Returns the (daemon)
+        watcher thread."""
+
+        def _wait():
+            if not self._event.wait(timeout):
+                return
+            # the latch set is the black-box event of record for an
+            # eviction; the dump AFTER the callback captures the drain
+            # decisions too (guarded: the grace-period drain must never be
+            # blocked by telemetry)
+            try:
+                from ..obs import flight_record
+
+                flight_record("preempt.signal", watcher=name)
+            except Exception:  # noqa: BLE001
+                pass
+            try:
+                callback()
+            except Exception as exc:  # noqa: BLE001 - a crashing handler
+                # must not take the watcher (and the process teardown) down
+                logger.error("preemption callback failed", error=str(exc))
+            try:
+                from ..obs import get_flight_recorder
+
+                get_flight_recorder().dump("preemption",
+                                           extra={"watcher": name})
+            except Exception:  # noqa: BLE001
+                pass
+
+        thread = threading.Thread(target=_wait, daemon=True, name=name)
+        thread.start()
+        return thread
 
     @property
     def requested(self) -> bool:

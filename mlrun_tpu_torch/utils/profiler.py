@@ -34,15 +34,11 @@ import queue
 import tempfile
 import threading
 import time
-from datetime import datetime, timezone
 from typing import Optional
 
 from ..obs import memory_sample  # noqa: F401  (re-exported)
+from .helpers import now_iso
 from .logger import logger
-
-
-def now_iso() -> str:
-    return datetime.now(timezone.utc).isoformat()
 
 
 class _TraceThread:

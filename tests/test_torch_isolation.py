@@ -4,12 +4,16 @@ health scorer, the model families, the structured callbacks, the
 HuggingFace loader, the datastore, the meshes and sharding, ring and
 Ulysses attention, the goodput ledger, tensor parallelism, the pipeline
 stages, the elastic guard, the profiler, the sample tap, the kernel
-build cache, the packagers, the artifact plans and the GPU JobSet
-builder included, nor the chip smoke
-script
-and the port's profile scripts) imports JAX or the reference package, and
+build cache, the packagers, the artifact plans, the GPU JobSet builder,
+the serving graph (states, server, routers, remote steps, streams, the
+v1 server), the HTTP gateway (asgi), obs/debug and obs/traceview,
+ModelObj and the secrets store included, nor the chip smoke script and
+the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
-parallel paths pulls neither into the process. The multi-rank test
+parallel paths pulls neither into the process. None of those files
+imports ``aiohttp`` or ``requests`` either, and importing the serving
+graph and its gateway pulls neither in: the card's machine has neither,
+so the gateway and the remote steps stand on the standard library. The multi-rank test
 helper (tests/torch_ranks.py), whose ranks run the port alone, is held to
 the same rule. No port source names a path under ``native/`` or the
 reference package: the token-shard loader builds the port's own copy of
@@ -25,6 +29,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlrun_tpu")
+# HTTP packages the card's machine does not have
+ABSENT_ON_THE_CARD = ("aiohttp", "requests")
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "mlrun_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "tests/torch_ranks.py",
@@ -44,7 +50,8 @@ def _imported_roots(tree):
 @pytest.mark.parametrize("path", FILES)
 def test_port_file_imports_no_jax_or_reference(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
-    bad = sorted({m for m in _imported_roots(tree) if m in FORBIDDEN})
+    bad = sorted({m for m in _imported_roots(tree)
+                  if m in FORBIDDEN + ABSENT_ON_THE_CARD})
     assert not bad, f"{path} imports {bad}"
 
 
@@ -142,9 +149,13 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.serving.samples, mlrun_tpu_torch.execution\n"
         "import mlrun_tpu_torch.package, mlrun_tpu_torch.k8s.jobset\n"
         "import mlrun_tpu_torch.frameworks._common.plans\n"
+        "import mlrun_tpu_torch.serving, mlrun_tpu_torch.serving.asgi\n"
+        "import mlrun_tpu_torch.serving.streams\n"
+        "import mlrun_tpu_torch.obs.debug, mlrun_tpu_torch.obs.traceview\n"
+        "import mlrun_tpu_torch.model, mlrun_tpu_torch.secrets\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
-        "print(','.join(bad))\n" % (FORBIDDEN,))
+        "print(','.join(bad))\n" % (FORBIDDEN + ABSENT_ON_THE_CARD,))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

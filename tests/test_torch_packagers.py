@@ -304,3 +304,40 @@ def test_reference_reads_the_bf16_tag_as_raw_bits(tmp_path):
     np.testing.assert_array_equal(loaded["w"]["bfloat16"],
                                   tensor.view(torch.int16).numpy()
                                   .view(np.uint16))
+
+
+def test_none_leaves_are_empty_subtrees_as_in_the_reference(tmp_path):
+    """A ``None`` at the top level and nested is no leaf: both managers log
+    the same ``tree.npz`` members, and the reference's ``np.load`` reads the
+    port's file. A tree of ``None`` alone has no leaf, and neither package
+    packs it as an ``.npz``."""
+    import jax.numpy as jnp
+
+    w, b = np.arange(4, dtype=np.float32), np.ones((2, 2), np.float32)
+    trees = ({"w": torch.from_numpy(w), "bias": None,
+              "blk": {"b": torch.from_numpy(b), "gate": None,
+                      "lst": [None, torch.from_numpy(w)]}},
+             {"w": jnp.asarray(w), "bias": None,
+              "blk": {"b": jnp.asarray(b), "gate": None,
+                      "lst": [None, jnp.asarray(w)]}})
+    contexts = []
+    for name, manager, tree in (("t", PackagersManager(), trees[0]),
+                                ("j", JManager(), trees[1])):
+        (tmp_path / name).mkdir()
+        context = _Context(tmp_path / name)
+        manager.pack(context, tree, {"key": "tree"})
+        manager.pack(context, {"only": None, "l": [None]}, {"key": "nothing"})
+        contexts.append(context)
+    got, want = contexts
+    assert set(got.artifacts) == set(want.artifacts) == {"tree"}
+    assert got.results == want.results
+    port, ref = (np.load(c.artifacts["tree"][0]) for c in contexts)
+    # the reference's tree_flatten sorts dict keys; the port keeps their
+    # order, so the members are compared as a set
+    assert set(port.files) == set(ref.files) == {"w", "blk/b", "blk/lst/1"}
+    for name in ref.files:
+        np.testing.assert_array_equal(port[name], ref[name])
+    assert not tpk.TorchTreePackager().can_pack({"a": None, "b": [None]})
+    assert tpk.flatten_tree(None) == {}
+    assert tpk.unflatten_tree(tpk.flatten_tree(trees[0]))["blk"].keys() \
+        == {"b", "lst"}
