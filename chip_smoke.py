@@ -242,9 +242,38 @@ exits non-zero and never prints the final line):
              before it ends, it ends 200, the next request gets the
              ServerDrainingError envelope (503, Retry-After); (f)
              /metrics: request and probe counts, the OpenMetrics variant.
+17. podfleet - the serving pod fleet (serving/podfleet.py) over the 8B
+             paged engine: every pod's engine from one factory over one
+             param dict, each pod a JobSet on an in-memory cluster (a
+             duck-typed provider defined here: create / delete /
+             list_serving_jobsets and a pod read that answers Running or
+             404), a FleetAutoscaler (dry_run off, pods=) reading a
+             MetricsAggregator and a TimeSeriesStore fed from the registry
+             before each tick. (a) a pod joins below the floor and serves
+             the serve prompts and two 600-token prompts whose keys move
+             to the next replica; a forced scale-up (the obs.autoscale
+             box) walks pending -> warming -> ready -> joined one
+             transition a tick, the pre-warm fetches the moved keys'
+             pages from the owner, and the first moved request is a
+             prefix hit on the new pod (paged prefill over the imported
+             pages) with the lone engine's prefix-hit stream; (b) 4
+             requests of 64 tokens, two on the new pod, then its pod is
+             deleted: the next tick fails them over as
+             ReplicaPreemptedError with a KVHandoff and they resume on the
+             survivor (no request lost, each stream the lone run's until a
+             near-tie); (c) a second scale-up, 20 ticks with two replicas
+             live (tick ms p50 / p99), then the load drops: the autoscaler
+             drains, sweeps and removes a replica, its JobSet deleted and
+             its series gone from /metrics; (d) the p95 TTFT the
+             autoscaler reads from the store within one bucket of the
+             engines' own, and two latency SLOs (a target below the p50,
+             one above every TTFT) of which exactly the first breaches;
+             paged decode / cached flash / paged prefill launched as the
+             engines' counters (and the pre-warms' warmup passes) say.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
-over the serve, entry_points, observe and gateway paths, the training flash's over
+over the serve, entry_points, observe, gateway and podfleet paths, the
+training flash's over
 the train, families, entry_points, parallel and observe paths) and, last,
 {"ok": true, "device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
@@ -253,7 +282,8 @@ fleet, ``--phases build,families`` the model families,
 ``--phases build,entry_points`` the entry points, ``--phases
 build,parallel`` training on many GPUs at world size 1, ``--phases
 build,observe`` the captures, the sample tap, the build cache, packaging
-and the JobSet's env, ``--phases build,gateway`` the HTTP gateway); the
+and the JobSet's env, ``--phases build,gateway`` the HTTP gateway,
+``--phases build,podfleet`` the serving pod fleet and its autoscaler); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -6738,7 +6768,7 @@ def phase_gateway(seed: int, card: str) -> dict:
                      "after_drain": [after_drain[0], envelope,
                                      after_drain[1]["retry-after"]]})
 
-        # -- (f) /metrics --------------------------------------------------------
+        # -- (f) /metrics -----------------------------------------------------
         text = probe("/metrics")
         counted_probes = dict(probes)
         om = probe("/metrics", headers={
@@ -6779,13 +6809,568 @@ def phase_gateway(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the serving pod fleet — JobSet replicas of the 8B paged engine,
+# scaled by the fleet autoscaler over an in-memory cluster
+# ---------------------------------------------------------------------------
+
+POD_MAX_NEW = 64            # the preemption leg's requests
+POD_SUFFIX = 16             # tokens after a mover's 600 (its key stays)
+POD_FRESH = 400             # the preemption leg's two unseen prompts
+POD_IDLE_TICKS = 20         # autoscaler ticks timed with two replicas live
+POD_MAX_TICKS = 8           # a pod not joined after this many ticks fails
+
+
+class _PodGone(Exception):
+    """A read of a pod or JobSet the in-memory cluster does not hold."""
+
+    status = 404
+
+
+class _MemoryCluster:
+    """The pod fleet's provider on a machine with no cluster: an in-memory
+    stand-in with the JobSet verbs ServingPodFleet calls (``create``,
+    ``delete``, ``list_serving_jobsets``) and a ``_core`` whose
+    ``read_namespaced_pod`` answers a pod's phase, or raises a 404 once
+    the pod is gone. Creating a JobSet makes its pods Running at once;
+    ``kill_pod`` deletes one pod out of band (a preemption)."""
+
+    namespace = "serving"
+
+    def __init__(self):
+        self.jobsets: dict = {}
+        self.pods: dict = {}
+        self.events: list = []
+        self._core = self
+
+    def create(self, spec: dict, run_uid: str) -> str:
+        name = spec["metadata"]["name"]
+        self.jobsets[name] = spec
+        for job in spec["spec"]["replicatedJobs"]:
+            for j in range(int(job.get("replicas", 1))):
+                for i in range(int(job["template"]["spec"]["parallelism"])):
+                    self.pods[f"{name}-{job['name']}-{j}-{i}"] = "Running"
+        self.events.append(("create", name))
+        return f"jobset/{name}"
+
+    def delete(self, resource_id: str):
+        name = resource_id.partition("/")[2]
+        if self.jobsets.pop(name, None) is None:
+            raise _PodGone(resource_id)
+        for pod in [p for p in self.pods if p.startswith(name + "-")]:
+            del self.pods[pod]
+        self.events.append(("delete", name))
+
+    def list_serving_jobsets(self) -> dict:
+        from mlrun_tpu_torch.k8s.jobset import SERVING_ANNOTATION
+
+        return {name: spec for name, spec in self.jobsets.items()
+                if spec["metadata"]["annotations"].get(SERVING_ANNOTATION)
+                == "true"}
+
+    def read_namespaced_pod(self, name: str, namespace: str):
+        import types
+
+        if name not in self.pods:
+            raise _PodGone(name)
+        return types.SimpleNamespace(
+            status=types.SimpleNamespace(phase=self.pods[name]))
+
+    def kill_pod(self, name: str):
+        del self.pods[name]
+        self.events.append(("kill", name))
+
+
+def _bucket_index(value: float, bounds) -> int:
+    """The histogram bucket a value falls in (``le`` semantics)."""
+    for index, bound in enumerate(bounds):
+        if value <= bound:
+            return index
+    return len(bounds)
+
+
+def _engine_counters(engine) -> dict:
+    stats = engine.stats
+    return {key: stats[key] for key in (
+        "attn_kernel_ticks", "prefill_kernel_chunks", "prefill_chunks",
+        "kv_imported_pages")}
+
+
+def _counter_delta(engine, before: dict) -> dict:
+    now = _engine_counters(engine)
+    return {key: now[key] - before.get(key, 0) for key in now}
+
+
+def _podfleet_check(leg: str, row: dict):
+    emit(row)
+    bad = [name for name, ok in row["checks"].items() if not ok]
+    if bad:
+        fail(f"podfleet ({leg}): {bad}")
+
+
+def phase_podfleet(seed: int, card: str) -> dict:
+    """The serving pod fleet over the 8B paged engine (random weights from
+    the seed, bf16, native pools, prefix cache on): every pod's engine is
+    built by one factory over ONE param dict, the pods are JobSets on an
+    in-memory cluster, and a FleetAutoscaler (dry_run off, pods=) reads
+    its signals from a MetricsAggregator and a TimeSeriesStore fed from
+    the process's registry before every tick. (a) scale-up and pre-warm,
+    (b) preemption with KV handoffs, (c) scale-down, (d) the signals and
+    two SLOs; the paged decode, cached flash and paged prefill launches
+    of the whole run held against the engines' counters."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mlrun_tpu_torch.chaos import FaultPoints, always, chaos
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.obs import (
+        LLM_TTFT,
+        REGISTRY,
+        SLO,
+        MetricsAggregator,
+        MetricsRegistry,
+        SLOEvaluator,
+        TimeSeriesStore,
+        get_flight_recorder,
+        nearest_rank,
+        parse_prometheus,
+    )
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.fleet import EngineFleet
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+    from mlrun_tpu_torch.serving.podfleet import ServingPodFleet
+    from mlrun_tpu_torch.service.autoscaler import FleetAutoscaler
+
+    phase_started = time.perf_counter()
+    config = MODEL_PRESETS["llama3-8b"]()
+    layers = config.n_layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(config, gen, "cuda")
+    engines: list = []      # every pod engine the factory built
+    warm: dict = {}         # kernel launches inside pre-warm's warmup()
+
+    def build(role="unified"):
+        engine = PagedContinuousBatchingEngine(
+            config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+            seed=seed, device="cuda", request_ledger=True)
+        # each pod's engine would own its process's registry; in this one
+        # process its own label keeps its series apart from the others'
+        # (an engine's stop retires the series of its label)
+        engine.replica = f"pod-engine-{len(engines)}"
+        inner = engine.warmup
+
+        def counted_warmup():
+            before = _build.launch_counts()
+            inner()
+            for name, count in _build.launch_counts().items():
+                warm[name] = warm.get(name, 0) + count - before.get(name, 0)
+
+        engine.warmup = counted_warmup
+        engines.append(engine)
+        return engine
+
+    cluster = _MemoryCluster()
+    fleet = EngineFleet(build, replicas=0, route_blocks=FLEET_ROUTE_BLOCKS)
+    fleet.start()
+    pods = ServingPodFleet(fleet, cluster, build, gpus_per_node=1)
+    aggregator = MetricsAggregator(stale_after=3600.0)
+    store = TimeSeriesStore(resolution_s=1.0, capacity=3600)
+    scaler = FleetAutoscaler(
+        fleet, store=store, aggregator=aggregator, pods=pods,
+        ttft_window=3600.0, dry_run=False, min_replicas=1, max_replicas=2,
+        hysteresis_ticks=1, cooldown_up_s=0.0, cooldown_down_s=0.0,
+        drain_grace_s=60.0, queue_high=1e9, queue_low=0.0,
+        free_page_frac_low=0.0, ttft_p95_high_s=0.0, failure_rate_high=1.0)
+    clock0 = time.perf_counter()
+    tick_ms: list = []      # (replicas in the fleet, ms) a tick
+
+    def now() -> float:
+        return time.perf_counter() - clock0 + 1.0
+
+    def observe(at: float):
+        aggregator.ingest_text("process", REGISTRY.render(), at=at)
+        aggregator.snapshot_to(store, at)
+
+    def tick() -> dict:
+        at = now()
+        observe(at)
+        live = len(fleet.replicas)
+        t0 = time.perf_counter()
+        decision = scaler.tick(now=at)
+        tick_ms.append((live, (time.perf_counter() - t0) * 1e3))
+        return decision
+
+    def forced(action: str):
+        def effect(point, context):
+            context["box"].update(action=action, reason="smoke", force=True)
+        return chaos.inject(FaultPoints.obs_autoscale, always(),
+                            action=effect)
+
+    def until_joined(pod: str) -> tuple:
+        phases, ticks = [pods.pods().get(pod)], 0
+        while phases[-1] != "joined" and ticks < POD_MAX_TICKS:
+            tick()
+            ticks += 1
+            phases.append(pods.pods().get(pod))
+        return phases, ticks
+
+    # the first pod comes up through the below-min repair
+    first = tick()
+    if first["reason"] != "below_min" or not first["acted"]:
+        fail(f"podfleet: no below-min scale-up: {first}")
+    pod1 = first["acted"]["pod"]
+    pod1_phases, _ = until_joined(pod1)
+    rid1 = pods._pods[pod1]["rid"]
+    candidate, movers = _fleet_movers(fleet, config, seed)
+    rng = np.random.default_rng(seed + 17)
+    serve = _prompts(seed, config.vocab_size)
+    preempt_prompts = [
+        movers[0] + rng.integers(1, config.vocab_size,
+                                 size=POD_SUFFIX).tolist(),
+        movers[1] + rng.integers(1, config.vocab_size,
+                                 size=POD_SUFFIX).tolist(),
+        rng.integers(1, config.vocab_size, size=POD_FRESH).tolist(),
+        rng.integers(1, config.vocab_size, size=POD_FRESH).tolist()]
+
+    # the lone engine's streams (stopped before the store's baseline, so
+    # its series never reach the windowed reads below)
+    lone = PagedContinuousBatchingEngine(
+        config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+        seed=seed, device="cuda")
+    lone.replica = "lone"
+    lone_cold = [lone.generate(m, max_new_tokens=MAX_NEW) for m in movers]
+    lone_hit = [lone.generate(m, max_new_tokens=MAX_NEW) for m in movers]
+    lone_preempt = [lone.generate(p, max_new_tokens=POD_MAX_NEW)[0]
+                    for p in preempt_prompts]
+    lone.stop()
+    lone = None
+    torch.cuda.synchronize()
+
+    # -- the counted window starts here --------------------------------------
+    # the store's windowed reads count increases after a series' first
+    # point: the TTFT series of the pod engines (those to come included)
+    # start from recorded zeros at the baseline
+    baseline_at = now()
+    observe(baseline_at)
+    zero = MetricsRegistry()
+    shape = zero.histogram(LLM_TTFT.name, "", labels=LLM_TTFT.labelnames,
+                           buckets=LLM_TTFT.buckets)
+    for index in range(3):
+        shape.observe(0.0, replica=f"pod-engine-{index}", adapter="")
+    for (name, labels), _ in parse_prometheus(zero.render())[0].items():
+        store.record(name, 0.0, baseline_at,
+                     labels={**dict(labels), "source": "process"},
+                     kind="counter")
+    _build.reset_launch_counts()
+    warm.clear()
+    counter_base = {id(e): _engine_counters(e) for e in engines}
+    get_flight_recorder().clear()
+
+    # -- (a) traffic on one pod, then a forced scale-up and its pre-warm ------
+    traffic = [fleet.generate(p, max_new_tokens=MAX_NEW)
+               for p in serve + movers]
+    reassigned = [p for _, p, _ in fleet.reassigned_hot_keys(candidate)]
+    t_up = time.perf_counter()
+    with forced("up"):
+        up = tick()
+    if not up["acted"] or "pod" not in up["acted"]:
+        fail(f"podfleet: the forced scale-up did not act: {up}")
+    pod2 = up["acted"]["pod"]
+    pod2_phases, pod2_ticks = until_joined(pod2)
+    join_s = time.perf_counter() - t_up
+    rid2 = pods._pods[pod2]["rid"]
+    engine2 = engines[-1]
+    prewarm = [e for e in get_flight_recorder().events(kind="pod.prewarm")
+               if e.get("pod") == pod2][-1]
+    prewarm_pages = engine2.stats["kv_imported_pages"]
+    before_launch = _build.launch_counts()
+    before_counters = _engine_counters(engine2)
+    moved, moved_stats = fleet.generate(movers[0], max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    moved_launch = {name: count - before_launch.get(name, 0)
+                    for name, count in _build.launch_counts().items()}
+    moved_counters = _counter_delta(engine2, before_counters)
+    touched, touched_stats = fleet.generate(movers[1],
+                                            max_new_tokens=MAX_NEW)
+    cached = moved_stats["timing"].get("cached_prefix", 0)
+    row = {"phase": "podfleet", "leg": "scale_up_prewarm", "card": card,
+           "model": "llama3-8b", "first_pod_phases": pod1_phases,
+           "pod": pod2, "replica": rid2, "phases": pod2_phases,
+           "ticks_scale_up_to_joined": pod2_ticks + 1,
+           "seconds_scale_up_to_joined": join_s,
+           "reassigned_hot_keys": len(reassigned),
+           "prewarm_s": prewarm["wall_s"],
+           "prewarm_fetched_keys": prewarm["fetched_keys"],
+           "prewarm_replayed_keys": prewarm["replayed_keys"],
+           "prewarm_pages": prewarm_pages,
+           "prewarm_ms_per_page": (1e3 * prewarm["wall_s"] / prewarm_pages
+                                   if prewarm_pages else None),
+           "moved_key": {"replica": moved_stats["replica"],
+                         "cached_prefix": cached,
+                         "suffix_tokens": len(movers[0]) - cached,
+                         "ttft_s": moved_stats["ttft_s"],
+                         "fetch_hop": "fetch" in moved_stats["timing"][
+                             "phases"],
+                         "launches": moved_launch,
+                         "engine_counters": moved_counters},
+           # the same prompt cold on the first (warm) pod, and on the lone
+           # engine cold and as its prefix hit
+           "cold_ttft_s": traffic[len(serve)][1]["ttft_s"],
+           "lone_cold_ttft_s": lone_cold[0][1]["ttft_s"],
+           "lone_hit_ttft_s": lone_hit[0][1]["ttft_s"],
+           "traffic_replicas": [s["replica"] for _, s in traffic],
+           "checks": {
+               "first_pod_one_transition_a_tick": pod1_phases == [
+                   "pending", "warming", "ready", "joined"],
+               "one_transition_a_tick": pod2_phases == [
+                   "pending", "warming", "ready", "joined"],
+               "new_replica_is_the_candidate": rid2 == candidate,
+               "movers_reassigned": all(m in reassigned for m in movers),
+               "prewarm_warm": prewarm["warm"] is True,
+               "prewarm_covered_reassigned_keys":
+               prewarm["fetched_keys"] + prewarm["replayed_keys"]
+               == len(reassigned) > 0,
+               "prewarm_imported_pages": prewarm["fetched_keys"] == 0
+               or prewarm_pages > 0,
+               "moved_key_on_new_pod": moved_stats["replica"] == rid2,
+               "moved_key_prefix_hit": cached >= FLEET_SHARED,
+               "paged_prefill_moved": moved_launch["paged_prefill"]
+               == layers * moved_counters["prefill_kernel_chunks"] > 0,
+               "flash_only_suffix_chunks":
+               moved_launch["flash_fwd_cached"]
+               == layers * moved_counters["prefill_chunks"],
+               "moved_tokens_equal_lone_hit": moved == lone_hit[0][0],
+               "touched_tokens_equal_lone_hit":
+               touched == lone_hit[1][0]
+               and touched_stats["replica"] == rid2,
+           }}
+    _podfleet_check("scale_up_prewarm", row)
+    rows = [row]
+
+    # -- (b) preemption: in-flight requests leave the dead pod as handoffs ---
+    owners = [fleet._ring.lookup(fleet.routing_key(p))
+              for p in preempt_prompts]
+    done_at: dict = {}
+    futures = []
+    firsts = sum(len(e._ttft_ring) for e in engines)
+    for index, prompt in enumerate(preempt_prompts):
+        future = fleet.submit(prompt, max_new_tokens=POD_MAX_NEW)
+        future.add_done_callback(
+            lambda f, i=index: done_at.__setitem__(i, time.perf_counter()))
+        futures.append(future)
+    # every request's first token is out (and in the store) before the
+    # pod dies; each is still decoding its 64 tokens
+    waited = time.perf_counter()
+    while sum(len(e._ttft_ring) for e in engines) < firsts + len(futures):
+        if time.perf_counter() - waited > 120:
+            fail("podfleet: the preemption requests never started")
+        time.sleep(0.01)
+    observe(now())
+    pod2_samples = list(engine2._ttft_ring)
+    in_flight = sum(not f.done() for f in futures)
+    t_kill = time.perf_counter()
+    cluster.kill_pod(pod2)
+    after_kill = tick()
+    results = [f.result(timeout=600) for f in futures]
+    per_token = _kv_bytes_per_token(config, engine2._pool["k"].element_size())
+    on_pod = [i for i, owner in enumerate(owners) if owner == rid2]
+    row = {"phase": "podfleet", "leg": "preemption", "card": card,
+           "prompt_lens": [len(p) for p in preempt_prompts],
+           "max_new_tokens": POD_MAX_NEW, "owners": owners,
+           "served_by": [s["replica"] for _, s in results],
+           "resumed_via_handoff": [bool(s.get("resumed_via_handoff"))
+                                   for _, s in results],
+           "handoff_bytes": [s.get("handoff_bytes") for _, s in results],
+           "handoff_cached_prefix": [s.get("cached_prefix")
+                                     for _, s in results],
+           "resume_ttft_s": [s["ttft_s"] if s.get("resumed_via_handoff")
+                             else None for _, s in results],
+           "done_after_kill_s": [done_at[i] - t_kill
+                                 for i in range(len(futures))],
+           "in_flight_at_kill": in_flight,
+           "pods_after": pods.pods(),
+           "checks": {
+               "some_on_the_new_pod": len(on_pod) >= 2,
+               "all_in_flight_at_kill": in_flight == len(futures),
+               "no_request_lost": all(len(t) == POD_MAX_NEW
+                                      for t, _ in results),
+               "pod_requests_resumed_via_handoff": all(
+                   results[i][1].get("resumed_via_handoff")
+                   and results[i][1]["replica"] == rid1 for i in on_pod),
+               "handoff_bytes_are_prompt_kv": all(
+                   results[i][1]["handoff_bytes"]
+                   == len(preempt_prompts[i]) * per_token for i in on_pod),
+               "pod_removed": pod2 not in pods.pods()
+               and rid2 not in [r.id for r in fleet.replicas],
+               "jobset_deleted": pod2.rsplit("-slice", 1)[0]
+               not in cluster.jobsets,
+               "no_repair_needed": after_kill["acted"] is None,
+           }}
+    preempt_streams = [(p, t) for p, (t, _) in zip(preempt_prompts, results)]
+    rows.append(row)
+    _podfleet_check("preemption", row)
+
+    # -- (c) scale up again, then the load drops and the autoscaler drains ---
+    with forced("up"):
+        again = tick()
+    pod3 = again["acted"]["pod"]
+    pod3_phases, _ = until_joined(pod3)
+    idle_from = len(tick_ms)
+    for _ in range(POD_IDLE_TICKS):
+        tick()
+    two_live = sorted(ms for live, ms in tick_ms[idle_from:] if live == 2)
+    scaler.queue_low = 1.0
+    down = tick()
+    victim = (down["acted"] or {}).get("replica")
+    victim_pod = next((name for name, rec in pods._pods.items()
+                       if rec.get("rid") == victim), None)
+    rendered = REGISTRY.render()
+    row = {"phase": "podfleet", "leg": "scale_down", "card": card,
+           "pod": pod3, "phases": pod3_phases, "decision": {
+               k: down[k] for k in ("action", "reason", "acted",
+                                    "removed")},
+           "victim": victim, "pods_after": pods.pods(),
+           "jobsets_after": sorted(cluster.jobsets),
+           "autoscaler_tick_ms_two_replicas": {
+               "p50": statistics.median(two_live),
+               "p99": two_live[int(0.99 * (len(two_live) - 1))],
+               "n": len(two_live)},
+           "checks": {
+               "third_pod_joined": pod3_phases[-1] == "joined",
+               "drained_idle": down["action"] == "down"
+               and down["reason"] == "idle"
+               and (down["acted"] or {}).get("action") == "drain",
+               "swept_and_removed": down["removed"] == [victim],
+               "victim_pod_gone": victim_pod is None and victim not in [
+                   r.id for r in fleet.replicas],
+               "jobset_deleted": pod1.rsplit("-slice", 1)[0]
+               not in cluster.jobsets and victim == rid1,
+               "no_series_of_the_replica": f'replica="{victim}"'
+               not in rendered and 'replica="pod-engine-0"' not in rendered,
+               "two_live_ticks_timed": len(two_live) == POD_IDLE_TICKS,
+           }}
+    rows.append(row)
+    _podfleet_check("scale_down", row)
+
+    # -- the launches of the whole window against the engines' counters ------
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    _check_launches(launches, SERVING_KERNELS, "podfleet")
+    total = {"attn_kernel_ticks": 0, "prefill_kernel_chunks": 0,
+             "prefill_chunks": 0}
+    for engine in engines:
+        delta = _counter_delta(engine, counter_base.get(id(engine), {}))
+        for key in total:
+            total[key] += delta[key]
+    expect = {
+        "paged_decode": layers * total["attn_kernel_ticks"]
+        + warm.get("paged_decode", 0),
+        "paged_prefill": layers * total["prefill_kernel_chunks"]
+        + warm.get("paged_prefill", 0),
+        "flash_fwd_cached": layers * total["prefill_chunks"]
+        + warm.get("flash_fwd_cached", 0)}
+    row = {"phase": "podfleet", "leg": "launches", "card": card,
+           "launches": {k: launches[k] for k in SERVING_KERNELS},
+           "engine_counters": total, "warmup_launches": warm,
+           "expected": expect, "engines": len(engines),
+           "checks": {f"{name}_matches_counters": launches[name]
+                      == expect[name] for name in SERVING_KERNELS}}
+    rows.append(row)
+    _podfleet_check("launches", row)
+
+    # -- (d) the signals: p95 TTFT from the store, and two SLOs ---------------
+    at = now()
+    observe(at)
+    signals = scaler.signals(at)
+    # the engines' own TTFTs: every sample of the pods' rings, the dead
+    # pod's as of the store's last read before its engine stopped (its
+    # grace-window exports observed after that read died with its series)
+    samples = sorted([s for e in engines if e is not engine2
+                      for s in e._ttft_ring] + pod2_samples)
+    own_p95 = nearest_rank(samples, 0.95)
+    own_p50 = statistics.median(samples)
+    bounds = LLM_TTFT.buckets
+    store_p95 = signals["ttft_p95_s"]
+    direct_p95 = store.quantile(LLM_TTFT.name, 0.95, scaler.ttft_window, at)
+    low = own_p50 / 2
+    high = 1.5 * bounds[min(_bucket_index(samples[-1], bounds),
+                            len(bounds) - 1)]
+    span = at - baseline_at + 1.0
+    evaluator = SLOEvaluator(
+        store, [SLO("ttft-below-p50", "latency", target=low, q=0.95),
+                SLO("ttft-above-max", "latency", target=high, q=0.95)],
+        fast_window=span, slow_window=2 * span, fast_burn=1.0,
+        slow_burn=1.0)
+    statuses = evaluator.evaluate(at)
+    row = {"phase": "podfleet", "leg": "signals", "card": card,
+           "ttft_samples": len(samples), "engine_ttft_p50_s": own_p50,
+           "engine_ttft_p95_s": own_p95, "store_ttft_p95_s": store_p95,
+           "store_bucket": (_bucket_index(store_p95, bounds)
+                            if store_p95 is not None else None),
+           "engine_bucket": _bucket_index(own_p95, bounds),
+           "signals": signals,
+           "slos": [{"name": s["name"], "target": s["target"],
+                     "burn": s["burn"], "breaching": s.breaching}
+                    for s in statuses],
+           "checks": {
+               "autoscaler_read_the_store": direct_p95 is not None
+               and store_p95 == direct_p95,
+               "store_p95_within_one_bucket": store_p95 is not None
+               and abs(_bucket_index(store_p95, bounds)
+                       - _bucket_index(own_p95, bounds)) <= 1,
+               "aggregated_queue_signal": signals["load_total"] == 0.0,
+               "exactly_one_slo_breaches":
+               [s.breaching for s in statuses] == [True, False],
+           }}
+    rows.append(row)
+    _podfleet_check("signals", row)
+
+    # the streams, teacher-forced after the counted window closed
+    pod_kinds = [e["kind"] for e in get_flight_recorder().events()
+                 if e["kind"].startswith("pod.") and e.get("pod") == pod2]
+    chain = ["pod.scale_up", "pod.prewarm", "pod.join", "pod.kill",
+             "pod.redispatch", "pod.delete"]
+    positions, cursor = [], 0
+    for kind in chain:
+        cursor = pod_kinds.index(kind, cursor) if kind in pod_kinds[
+            cursor:] else -1
+        positions.append(cursor)
+        if cursor < 0:
+            break
+    streams = [_stream_check(config, params, p, t, lt)
+               for (p, t), lt in zip(preempt_streams, lone_preempt)]
+    row = {"phase": "podfleet", "leg": "streams", "card": card,
+           "preempted_vs_lone": streams, "flight_chain": pod_kinds,
+           "checks": {
+               "preempted_equal_lone_until_near_tie": all(
+                   s["tie_at_departure_rel"] is None
+                   or s["tie_at_departure_rel"] <= SPEC_REL_TOL
+                   for s in streams),
+               "flight_chain_ordered": -1 not in positions
+               and positions == sorted(positions),
+           }}
+    rows.append(row)
+    _podfleet_check("streams", row)
+    fleet.stop()
+    fleet = pods = scaler = engines = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "podfleet", "card": card,
+          "phase_s": time.perf_counter() - phase_started})
+    return {name: rows[3]["launches"][name] for name in SERVING_KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
               "fleet", "families", "entry_points", "parallel", "observe",
-              "gateway")
+              "gateway", "podfleet")
 
 
 def main(argv=None) -> int:
@@ -6896,6 +7481,12 @@ def main(argv=None) -> int:
     if "gateway" in phases:
         # the serving kernels' launches on the traffic served over HTTP
         for name, count in phase_gateway(args.seed, card).items():
+            launches[name] = launches.get(name, 0) + count
+        release()
+    if "podfleet" in phases:
+        # the serving kernels' launches on the pod fleet's traffic, its
+        # pre-warms, the preempted requests' handoffs and their resumes
+        for name, count in phase_podfleet(args.seed, card).items():
             launches[name] = launches.get(name, 0) + count
         release()
     if set(phases) != set(ALL_PHASES):

@@ -33,8 +33,9 @@ def set_fire_observer(observer):
 
 
 class FaultPoints:
-    """The named fault points the port's serving graph, engines and engine
-    fleet fire (the reference's names). A point is matched exactly or by a
+    """The named fault points the port's serving graph, engines, engine
+    fleet, pod fleet, journal, provider and autoscaler fire (the
+    reference's names). A point is matched exactly or by a
     ``prefix.*`` wildcard at injection time."""
 
     # serving-graph step execution (states.py TaskStep/RouterStep.run);
@@ -46,6 +47,40 @@ class FaultPoints:
     serving_remote = "serving.remote"
     # async queue admission (states.py QueueStep.run)
     serving_queue = "serving.queue"
+
+    # serving-pod lifecycle (serving/podfleet.py ServingPodFleet): one
+    # /readyz probe of a warmed pod — an error models a readiness flap
+    # (the probe fails, the pod stays out of the ring)
+    fleet_pod_ready = "fleet.pod_ready"
+    # one pod pre-warm pass (adapter working set + engine warmup +
+    # reassigned-prefix KV fetch or replay) — a delay() models a slow
+    # warm-up, an error a failed pre-warm (the pod still joins, cold)
+    fleet_prewarm = "fleet.prewarm"
+    # one pod drain start (scale-down / replacement) — an error models a
+    # drain endpoint that cannot be reached before deletion (the pod is
+    # preempted instead: in-flight work leaves as KV handoffs)
+    fleet_drain = "fleet.drain"
+    # one intent-journal record write (common/journal.py
+    # IntentJournal.append), with a mutable ``box`` carrying the
+    # serialized line: an action() may truncate box["line"] (a torn
+    # write), an error models a failed write (the journal degrades, the
+    # control loop never sees the exception)
+    journal_write = "journal.write"
+    # control-plane crash (serving/podfleet.py controller_crash): the
+    # restart drill's entry point — the caller drops the pod fleet and
+    # autoscaler without shutdown and builds fresh ones over the same
+    # cluster and journal
+    fleet_controller_crash = "fleet.controller_crash"
+    # the provider's JobSet verbs (service/providers.py
+    # KubernetesProvider create / state / delete)
+    provider_create = "provider.create"
+    provider_state = "provider.state"
+    provider_delete = "provider.delete"
+    # one autoscaler evaluation (service/autoscaler.py tick), with a
+    # mutable ``box`` carrying the decision: an action() may overwrite
+    # box["action"] / box["reason"] and set box["force"] (bypassing
+    # hysteresis and cooldown), an error models a failed evaluation
+    obs_autoscale = "obs.autoscale"
 
     # one ring join of a deferred-join fleet replica (serving/fleet.py
     # join_replica) — a delay() models a slow join (keys keep routing to
@@ -103,12 +138,19 @@ class FaultPoints:
         return [
             FaultPoints.serving_step, FaultPoints.serving_remote,
             FaultPoints.serving_queue,
-            FaultPoints.fleet_join, FaultPoints.fleet_degrade,
+            FaultPoints.fleet_pod_ready, FaultPoints.fleet_prewarm,
+            FaultPoints.fleet_join, FaultPoints.fleet_drain,
+            FaultPoints.fleet_degrade,
+            FaultPoints.journal_write,
+            FaultPoints.fleet_controller_crash,
+            FaultPoints.provider_create,
+            FaultPoints.provider_state, FaultPoints.provider_delete,
             FaultPoints.llm_submit,
             FaultPoints.llm_prefill, FaultPoints.llm_spec_verify,
             FaultPoints.llm_prefix_evict, FaultPoints.llm_adapter_load,
             FaultPoints.llm_kv_demote, FaultPoints.llm_kv_promote,
             FaultPoints.llm_kv_fetch,
+            FaultPoints.obs_autoscale,
             FaultPoints.datastore_read, FaultPoints.datastore_write,
             FaultPoints.train_slice_fail,
         ]

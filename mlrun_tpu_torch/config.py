@@ -1,10 +1,14 @@
 """Configuration defaults the port reads — copies of the ``serving.llm``,
-``serving.fleet``, ``serving.health``, ``serving.resilience``, ``training``
-and ``observability`` blocks and the ``exec_code_env`` key of
-``mlrun_tpu/config.py`` (the knobs the engines', the request ledger's, the
-host KV tier's, the adapter registry's, the engine fleet's, the replica
-health scorer's, the trainer's and the serving graph's paths consult; the rest of those
-blocks belongs to features not ported yet).
+``serving.fleet``, ``serving.autoscale``, ``serving.health``,
+``serving.resilience``, ``training`` and ``observability`` blocks and the
+``exec_code_env`` key of ``mlrun_tpu/config.py`` (the knobs the engines',
+the request ledger's, the host KV tier's, the adapter registry's, the
+engine fleet's, the pod fleet's and its intent journal's, the
+autoscaler's, the replica health scorer's, the trainer's, the serving
+graph's and the fleet telemetry's paths consult; the rest of those blocks
+belongs to features not ported yet). ``K8S_DEFAULTS`` holds the GPU
+counterparts of the reference's ``namespace``, ``tpu.default_accelerator``
+and ``function.tpu_image`` keys.
 
 ``COMPILE_CACHE_ENV`` (the reference's env mapping of
 ``training.compile_cache_dir``) overrides that key at read time
@@ -92,10 +96,52 @@ SERVING_FLEET_DEFAULTS = {
     # first re-dispatch backoff, seconds (deterministic jitter via
     # common/retry.compute_backoff)
     "backoff": 0.05,
+    # control-plane intent-journal directory (common/journal.py); empty
+    # disables journaling and restart reconciliation entirely
+    "journal_dir": "",
     # cross-replica prefix-page fetch: when a hot chain's ring owner
     # changed, pull its cached pages from the previous owner over the
     # KVHandoff wire instead of re-prefilling from tokens
     "prefix_fetch": True,
+}
+
+# metrics-driven fleet autoscaling (service/autoscaler.py); FleetAutoscaler
+# class args override these
+SERVING_AUTOSCALE_DEFAULTS = {
+    # dry_run records mlt_autoscaler_recommendations_total and touches
+    # nothing — flip to act
+    "dry_run": True,
+    "min_replicas": 1,
+    "max_replicas": 4,
+    # consecutive ticks a condition must hold before a recommendation is
+    # made (hysteresis against signal noise)
+    "hysteresis_ticks": 2,
+    # seconds between applied actions, per direction (scale-down waits
+    # longer: adding capacity is cheap, thrash is not)
+    "cooldown_up_s": 5.0,
+    "cooldown_down_s": 30.0,
+    # a draining replica is force-removed after this many seconds even if
+    # in-flight work remains
+    "drain_grace_s": 30.0,
+    # scale-up triggers: mean queued+active work per replica, min
+    # free-KV-page fraction, p95 TTFT seconds (0 = take the latency SLO
+    # target), dispatch failure rate per tick window
+    "queue_high": 4.0,
+    "free_page_frac_low": 0.15,
+    "ttft_p95_high_s": 0.0,
+    "failure_rate_high": 0.05,
+    # scale-down trigger: mean per-replica load below this AND every
+    # scale-up signal clear
+    "queue_low": 1.0,
+}
+
+# where serving pods land (service/providers.py, serving/podfleet.py):
+# the k8s namespace, the GPU product a pod's node selector names and the
+# serving container's image
+K8S_DEFAULTS = {
+    "namespace": "mlrun-tpu",
+    "gpu_product": "NVIDIA-H100-80GB-HBM3",
+    "image": "mlrun-tpu/gpu:latest",
 }
 
 # fail-slow replica detection (obs/health.py ReplicaHealthScorer); class
@@ -147,11 +193,53 @@ SERVING_RESILIENCE_DEFAULTS = {
     "drain_timeout_s": 30.0,  # GraphServer.drain bound
 }
 
-# unified telemetry read by the serving gateway and its /debug routes
+# unified telemetry read by the serving gateway, its /debug routes and the
+# fleet control plane (obs/federation.py, obs/timeseries.py, obs/slo.py);
+# obs.configure_from_mlconf applies the tracer and flight-recorder keys
 OBSERVABILITY_DEFAULTS = {
     # metrics_enabled=false turns the /metrics endpoint into a 404
     # (collection itself stays on)
     "metrics_enabled": True,
+    # span ring size (in-memory export, always on)
+    "trace_ring": 2048,
+    # JSONL span export path ("" = ring only)
+    "trace_path": "",
+    # size cap on the span JSONL (bytes): the active file rotates to a
+    # single `.1` predecessor before crossing it
+    "trace_max_bytes": 64 * 1024 * 1024,
+    # black-box flight recorder (obs/flight.py): bounded event ring dumped
+    # as a JSONL post-mortem; dir "" = a mlt-flight folder under the
+    # system temp dir
+    "flight": {
+        "ring": 4096,
+        "dir": "",
+    },
+    # metrics federation (obs/federation.py): per-replica scrape
+    # staleness bound and the merged-view cardinality budget
+    "federation": {
+        "stale_after_s": 60.0,
+        "max_series": 4096,
+    },
+    # aggregated time-series store (obs/timeseries.py): retention =
+    # resolution_s * capacity per series, bounded series count
+    "timeseries": {
+        "resolution_s": 5.0,
+        "capacity": 720,
+        "max_series": 2048,
+    },
+    # SLO burn-rate evaluation (obs/slo.py): multi-window thresholds (the
+    # fast+slow pattern) and declarative objectives
+    # ([{"name", "kind", "target", ...}])
+    "slo": {
+        "fast_window_s": 60.0,
+        "slow_window_s": 300.0,
+        "fast_burn": 14.4,
+        "slow_burn": 6.0,
+        # a sustained breach re-fires at most this often (0 = every
+        # evaluation tick)
+        "refire_after_s": 300.0,
+        "objectives": [],
+    },
     # peer gateways whose span rings join GET /debug/trace/<id>'s
     # waterfall ([] for an in-process fleet: it shares this process's ring)
     "trace_peers": [],

@@ -10,14 +10,24 @@ fail-slow replica scorer of the engine fleet, ``goodput`` the training
 run's goodput ledger; the five ``mlt_train_*`` / ``mlt_training_mfu``
 families are the trainer's, the six serving-graph families the graph
 server's and its HTTP gateway's. ``traceview`` assembles one request's
-waterfall and ``debug`` holds the gateway's ``/debug`` handler cores. The
-reference's federation, SLO and time-series modules belong to item 6's
-remainder (ROADMAP.md).
+waterfall and ``debug`` holds the gateway's ``/debug`` handler cores.
+``federation`` merges replicas' scrapes into one fleet view,
+``timeseries`` keeps windowed rings over it and ``slo`` turns them into
+burn rates; the pod fleet, journal, reconcile and autoscaler families are
+the control plane's (serving/podfleet.py, service/autoscaler.py).
 """
 
 import threading as _threading
 
+from .federation import (  # noqa: F401
+    MetricsAggregator,
+    PromParseError,
+    check_histogram_consistency,
+    parse_exposition,
+    parse_prometheus,
+)
 from .flight import FlightRecorder, get_flight_recorder  # noqa: F401
+from .flight import configure_from_mlconf as _configure_flight
 from .flight import record as flight_record  # noqa: F401
 from .metrics import (  # noqa: F401
     CONTENT_TYPE,
@@ -40,7 +50,23 @@ from .reqledger import (  # noqa: F401
     merge_timing,
     retire_adapter_phases,
 )
+from .slo import (  # noqa: F401
+    SLO,
+    SLO_BREACHES,
+    SLO_BURN_RATE,
+    SLO_EVENT_KIND,
+    SLO_STATUS,
+    SLOEvaluator,
+    SLOStatus,
+)
 from .stats import nearest_rank  # noqa: F401
+from .timeseries import (  # noqa: F401
+    TimeSeriesStore,
+    get_store,
+    grafana_query,
+    parse_target,
+    set_store,
+)
 from .tracing import (  # noqa: F401
     TRACE_HEADER,
     Span,
@@ -50,6 +76,15 @@ from .tracing import (  # noqa: F401
     new_trace_id,
     parse_trace_header,
 )
+from .tracing import configure_from_mlconf as _configure_tracing
+
+
+def configure_from_mlconf():
+    """Apply ``config.OBSERVABILITY_DEFAULTS`` to the process tracer AND
+    flight recorder (one call at an entry point)."""
+    _configure_flight()
+    return _configure_tracing()
+
 
 # -- serving graph -----------------------------------------------------------
 REQUEST_LATENCY = REGISTRY.histogram(
@@ -183,6 +218,42 @@ FLEET_HANDOFF_LATENCY = REGISTRY.histogram(
 FLEET_REPLICAS = REGISTRY.gauge(
     "mlt_fleet_replicas", "Live fleet replicas by role",
     labels=("role",), overflow="drop")
+# -- serving pod fleet + control-plane recovery (serving/podfleet.py,
+# common/journal.py) ---------------------------------------------------------
+FLEET_POD_EVENTS = REGISTRY.counter(
+    "mlt_fleet_pod_events_total",
+    "Serving-pod lifecycle transitions (serving/podfleet.py): scale_up /"
+    " prewarm / ready / join / kill / redispatch / drain / delete",
+    labels=("pod", "event"), max_label_sets=512, overflow="drop")
+FLEET_POD_PHASE = REGISTRY.gauge(
+    "mlt_fleet_pod_phase",
+    "Serving-pod state-machine phase (0 pending, 1 warming, 2 ready, "
+    "3 joined, 4 draining; the series is retired on delete)",
+    labels=("pod",), max_label_sets=512, overflow="drop")
+FLEET_POD_PREWARM_SECONDS = REGISTRY.histogram(
+    "mlt_fleet_pod_prewarm_seconds",
+    "Pod pre-warm wall (adapter working set + engine warmup + "
+    "reassigned-prefix KV replay) before the ring join",
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+             30.0))
+RECONCILE_ACTIONS = REGISTRY.counter(
+    "mlt_reconcile_actions_total",
+    "Intent-vs-world convergence actions taken by a restarted controller"
+    " (podfleet: adopt / resume_drain / orphan_deleted / orphan_vanished"
+    " / skip_unknown; autoscaler: cooldown_armed / adopt_drain; canary: "
+    "adopt_split / adopt_retrain)",
+    labels=("controller", "action"), max_label_sets=64, overflow="drop")
+RECONCILE_SECONDS = REGISTRY.histogram(
+    "mlt_reconcile_seconds",
+    "Wall time of one reconcile() pass (journal replay + world listing "
+    "+ convergence) on controller restart",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0))
+JOURNAL_WRITES = REGISTRY.counter(
+    "mlt_journal_writes_total",
+    "Intent-journal appends by outcome (ok / failed — a failed append "
+    "degrades recovery fidelity, never the control loop)",
+    labels=("journal", "outcome"), max_label_sets=64, overflow="drop")
 REPLICA_HEALTH_SCORE = REGISTRY.gauge(
     "mlt_replica_health_score",
     "EWMA-smoothed peer-relative badness (robust z over the fleet "
@@ -206,6 +277,20 @@ CANARY_REQUESTS = REGISTRY.counter(
     "Requests resolved through the canary hash split, by side (the "
     "adapter label is the TENANT id, not the versioned adapter id)",
     labels=("adapter", "side"), max_label_sets=512, overflow="drop")
+
+# -- autoscaler (service/autoscaler.py) --------------------------------------
+AUTOSCALER_RECOMMENDATIONS = REGISTRY.counter(
+    "mlt_autoscaler_recommendations_total",
+    "Scale recommendations the signal evaluation produced (recorded in "
+    "dry-run too — the act/observe seam)",
+    labels=("action", "reason"), overflow="drop")
+AUTOSCALER_ACTIONS = REGISTRY.counter(
+    "mlt_autoscaler_actions_total",
+    "Scale actions actually applied to the fleet (add / drain / remove)",
+    labels=("action",), overflow="drop")
+AUTOSCALER_DESIRED = REGISTRY.gauge(
+    "mlt_autoscaler_desired_replicas",
+    "Worker-replica count the autoscaler currently wants")
 
 # -- chaos -------------------------------------------------------------------
 CHAOS_FIRED = REGISTRY.counter(

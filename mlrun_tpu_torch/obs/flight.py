@@ -8,8 +8,10 @@ scheduler dies and readable live through :meth:`FlightRecorder.events`.
 - **Lock-cheap when recording**: one lock + deque append per event.
 - **Bounded**: the ring holds the last N events (default 4096).
 - **Dump never raises**: ``dump`` returns the artifact path or ``None``;
-  without a path it writes under the process temp directory
-  (``tempfile.gettempdir()``).
+  without a path it writes under the configured directory
+  (``configure(directory=)``, or ``config.OBSERVABILITY_DEFAULTS
+  ["flight"]["dir"]`` through :func:`configure_from_mlconf`), else under
+  the process temp directory (``tempfile.gettempdir()``).
 """
 
 from __future__ import annotations
@@ -43,11 +45,22 @@ class FlightRecorder:
     def __init__(self, ring: int = _DEFAULT_RING):
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=max(16, int(ring)))
+        self._dir: Optional[str] = None
         self.dumps = 0                      # post-mortems written
         self.last_dump_path: Optional[str] = None
 
-    @staticmethod
-    def _dump_dir() -> str:
+    # -- configuration -------------------------------------------------------
+    def configure(self, ring: int | None = None, directory: str | None = None):
+        if ring is not None:
+            with self._lock:
+                self._ring = deque(self._ring, maxlen=max(16, int(ring)))
+        if directory is not None:
+            self._dir = directory or None
+        return self
+
+    def _dump_dir(self) -> str:
+        if self._dir:
+            return self._dir
         import tempfile
 
         return os.path.join(tempfile.gettempdir(), "mlt-flight")
@@ -143,3 +156,22 @@ def get_flight_recorder() -> FlightRecorder:
 def record(kind: str, **data) -> dict:
     """Module-level convenience for the one process-wide recorder."""
     return _recorder.record(kind, **data)
+
+
+def configure_from_mlconf() -> FlightRecorder:
+    """Apply ``config.OBSERVABILITY_DEFAULTS["flight"]`` (ring size, dump
+    dir) to the process recorder; the config import is lazy so this
+    module stays bottom-layer."""
+    try:
+        from ..config import OBSERVABILITY_DEFAULTS
+
+        conf = OBSERVABILITY_DEFAULTS.get("flight")
+        if conf is None:
+            return _recorder
+        ring = conf.get("ring")
+        directory = str(conf.get("dir", "") or "")
+        _recorder.configure(ring=int(ring) if ring else None,
+                            directory=directory or None)
+    except Exception:  # noqa: BLE001 - observability must not block startup
+        pass
+    return _recorder

@@ -287,6 +287,32 @@ class Histogram(_Metric):
                 return {"count": 0, "sum": 0.0}
             return {"count": series.count, "sum": series.sum}
 
+    def exemplars(self, match: Optional[dict] = None) -> list[dict]:
+        """Exemplars across series whose labels contain ``match`` (the SLO
+        evaluator's breach-forensics read): one entry per occupied bucket
+        slot — ``{series, le, value, labels, ts}`` — so "worst offenders"
+        is a sort by value over this list."""
+        match_items = set((k, str(v)) for k, v in (match or {}).items())
+        out = []
+        with self._lock:
+            items = [(key, series.exemplars)
+                     for key, series in self._series.items()
+                     if series.exemplars is not None]
+        bounds = list(self.buckets) + [math.inf]
+        for key, slots in items:
+            series_labels = dict(zip(self.labelnames, key))
+            if not match_items <= set(
+                    (k, str(v)) for k, v in series_labels.items()):
+                continue
+            for index, slot in enumerate(slots):
+                if slot is None:
+                    continue
+                value, labels, ts = slot
+                out.append({"series": series_labels, "le": bounds[index],
+                            "value": value, "labels": dict(labels),
+                            "ts": ts})
+        return out
+
     @staticmethod
     def _exemplar_suffix(slot) -> str:
         """OpenMetrics exemplar clause for one bucket line:

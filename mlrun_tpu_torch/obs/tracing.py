@@ -272,3 +272,21 @@ tracer = Tracer()
 
 def get_tracer() -> Tracer:
     return tracer
+
+
+def configure_from_mlconf():
+    """Apply ``config.OBSERVABILITY_DEFAULTS`` (trace ring, JSONL path and
+    rotation cap) to the process tracer; the config import is lazy so
+    this module stays bottom-layer."""
+    try:
+        from ..config import OBSERVABILITY_DEFAULTS as obs_conf
+
+        path = str(obs_conf.get("trace_path") or "") or None
+        ring = obs_conf.get("trace_ring")
+        max_bytes = obs_conf.get("trace_max_bytes")
+        tracer.configure(path=path, ring=int(ring) if ring else None,
+                         max_bytes=(int(max_bytes)
+                                    if max_bytes is not None else None))
+    except Exception:  # noqa: BLE001 - observability must not block startup
+        pass
+    return tracer

@@ -534,16 +534,21 @@ class DegradationLadder:
         return max_new_tokens
 
 
-# ROADMAP.md "Modules still to port", by item number (1-5, 7, 8 and 9
-# landed; item 6's engine fleet, graph server, gateway and routers landed,
-# its remainder stays)
+# ROADMAP.md "Modules still to port", by item number (1-9 landed; items
+# 12-14 queue the reference's host packages that have no counterpart in the
+# port yet, in dependency order)
 PORT_QUEUE = {
-    6: "the pod fleet, the rest of obs/ (federation, SLO, time series) "
-       "and the autoscaler's fleet hooks",
     10: "the run stack: runtimes/tpujob.py's runtime class with its run "
-        "objects and run db, the object stores",
+        "objects, the run db (db/) and service/alerts, the object stores",
     11: "the feature store (feature_store/, host only): feature sets, "
         "vectors and the online feature service",
+    12: "model monitoring (model_monitoring/): the drift analyzers and the "
+        "continuous-tuning canary and retrain loop",
+    13: "projects, the launcher and the CLI (projects/, launcher/, "
+        "__main__.py, run.py)",
+    14: "the rest of the service (its API server, the Grafana proxy, the "
+        "other providers and runtimes), analysis/, render.py, hub.py, "
+        "track/, platforms/ and errors.py",
 }
 
 

@@ -7,7 +7,10 @@ stages, the elastic guard, the profiler, the sample tap, the kernel
 build cache, the packagers, the artifact plans, the GPU JobSet builder,
 the serving graph (states, server, routers, remote steps, streams, the
 v1 server), the HTTP gateway (asgi), obs/debug and obs/traceview,
-ModelObj and the secrets store included, nor the chip smoke script and
+ModelObj and the secrets store, the intent journal (common/), the JobSet
+provider and the fleet autoscaler (service/), the serving pod fleet and
+the fleet telemetry (obs/federation, obs/timeseries, obs/slo) included,
+nor the chip smoke script and
 the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
 parallel paths pulls neither into the process. None of those files
@@ -153,6 +156,12 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.serving.streams\n"
         "import mlrun_tpu_torch.obs.debug, mlrun_tpu_torch.obs.traceview\n"
         "import mlrun_tpu_torch.model, mlrun_tpu_torch.secrets\n"
+        "import mlrun_tpu_torch.common.journal\n"
+        "import mlrun_tpu_torch.service.providers\n"
+        "import mlrun_tpu_torch.service.autoscaler\n"
+        "import mlrun_tpu_torch.serving.podfleet\n"
+        "import mlrun_tpu_torch.obs.federation\n"
+        "import mlrun_tpu_torch.obs.timeseries, mlrun_tpu_torch.obs.slo\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN + ABSENT_ON_THE_CARD,))
