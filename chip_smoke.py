@@ -270,11 +270,37 @@ exits non-zero and never prints the final line):
              one above every TTFT) of which exactly the first breaches;
              paged decode / cached flash / paged prefill launched as the
              engines' counters (and the pre-warms' warmup passes) say.
+18. runs   - the run stack over a temporary SQLite run db and artifact
+             path: (a) new_function("train", kind="tpujob") sized
+             with_gpus(nodes=1, gpus_per_node=1): its JobSet (one node,
+             one GPU, the torchrun env, the exec config round-tripping the
+             run dict), then .run(handler=auto_trainer.train, local=True)
+             at Llama-3.2-1B (B 4 x 2048, all 16 layers, 4 steps, a
+             checkpoint): completed, the db's results equal to the run's,
+             the handler's stdout in the run log, the model artifact
+             resolved by get_model("store://models/smoke/llama-1b") to the
+             checkpoint directory with a ModelArtifact spec, the flash
+             forward and backward launched 2 x and 1 x 16 layers x (4
+             steps + the warmup), the step ms beside the train phase's;
+             (b) the same function with a preset the handler refuses: the
+             run ends in error with the reason, its run_failed event in the
+             db fires a JobFailed alert once through a console
+             notification; (c) a hyper-parameter run over two learning
+             rates (2 steps each) selected by min.loss: both iterations in
+             the db, best_iteration the lower loss; (d) a burst of the
+             serve traffic on a 1B paged LLMModelServer with a
+             TimeSeriesStore fed from the registry around it: a TTFT
+             target below the burst's p50 fires SLOBurnRate through
+             SLOEvaluator.process once, a second call within refire_after
+             fires nothing, the breach event is in the db; paged decode /
+             cached flash / paged prefill launched as the engine's
+             counters say.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
-over the serve, entry_points, observe, gateway and podfleet paths, the
-training flash's over
-the train, families, entry_points, parallel and observe paths) and, last,
+over the serve, entry_points, observe, gateway, podfleet and runs paths,
+the training flash's over
+the train, families, entry_points, parallel, observe and runs paths) and,
+last,
 {"ok": true, "device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
 ``--phases build,lora`` the adapters, ``--phases build,fleet`` the engine
@@ -283,7 +309,8 @@ fleet, ``--phases build,families`` the model families,
 build,parallel`` training on many GPUs at world size 1, ``--phases
 build,observe`` the captures, the sample tap, the build cache, packaging
 and the JobSet's env, ``--phases build,gateway`` the HTTP gateway,
-``--phases build,podfleet`` the serving pod fleet and its autoscaler); the
+``--phases build,podfleet`` the serving pod fleet and its autoscaler,
+``--phases build,runs`` the run stack); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -6504,25 +6531,26 @@ def _percentiles(seconds: list) -> dict:
 
 
 def _gateway_launches(launches: dict, before: dict, after: dict,
-                      layers: int) -> dict:
-    """The serving kernels launched on the gateway's requests, as the
+                      layers: int, path: str = "gateway") -> dict:
+    """The serving kernels launched on a path's requests (the gateway's
+    by default), as the
     engine's counters say: a paged decode a layer a kernel tick, a paged
     prefill a layer a prefix-hit dispatch (a chunk or its 1-token
     replay), the cached flash a layer a prefill chunk (every chunk here
     is longer than one token; a 1-token replay takes the dense form)."""
-    _check_launches(launches, SERVING_KERNELS, "gateway")
+    _check_launches(launches, SERVING_KERNELS, path)
     ticks = after["attn_kernel_ticks"] - before["attn_kernel_ticks"]
     hits = after["prefill_kernel_chunks"] - before["prefill_kernel_chunks"]
     chunks = after["prefill_chunks"] - before["prefill_chunks"]
     if launches["paged_decode"] != layers * ticks:
-        fail(f"gateway: paged decode launched {launches['paged_decode']} "
+        fail(f"{path}: paged decode launched {launches['paged_decode']} "
              f"times over {ticks} kernel ticks of {layers} layers")
     if launches["paged_prefill"] != layers * hits:
-        fail(f"gateway: paged prefill launched {launches['paged_prefill']} "
+        fail(f"{path}: paged prefill launched {launches['paged_prefill']} "
              f"times over {hits} prefix-hit dispatches of {layers} layers")
     flash = launches["flash_fwd_cached"]
     if flash != layers * chunks:
-        fail(f"gateway: cached flash launched {flash} times over {chunks} "
+        fail(f"{path}: cached flash launched {flash} times over {chunks} "
              f"prefill chunks of {layers} layers")
     return {"decode_ticks": ticks, "prefix_hit_dispatches": hits,
             "prefill_chunks": chunks}
@@ -7367,10 +7395,390 @@ def phase_podfleet(seed: int, card: str) -> dict:
 # main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 18: the run stack — tpujob runs of the 1B trainer into a run db
+# ---------------------------------------------------------------------------
+
+RUNS_STEPS = 4              # (a): steps of the tpujob run
+# (c): steps an iteration (the third step's loss is the first one the
+# learning rate moves: the first update's learning rate is 0)
+RUNS_HYPER_STEPS = 3
+RUNS_LRS = (1e-3, 1e-4)     # (c): the two iterations' learning rates
+RUNS_PROJECT = "smoke"
+RUNS_MODEL = "llama-1b"     # the model artifact's key
+
+
+def _runs_check(leg: str, row: dict):
+    emit(row)
+    bad = [name for name, ok in row["checks"].items() if not ok]
+    if bad:
+        fail(f"runs ({leg}): {bad}")
+
+
+def _runs_tpujob_leg(seed: int, card: str, db, work: str,
+                     train_step_ms) -> dict:
+    """(a) the 1B trainer as a tpujob run on the card: its JobSet, then
+    the run through the local launcher into the run db."""
+    import torch
+
+    from mlrun_tpu_torch import new_function
+    from mlrun_tpu_torch.artifacts import ModelArtifact, get_model
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.model import RunObject, new_task
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    fn = new_function("train", kind="tpujob", project=RUNS_PROJECT)
+    fn.with_gpus(nodes=1, gpus_per_node=1)
+    params = {"model": "llama3-1b", "batch_size": TRAIN_BATCH,
+              "seq_len": TRAIN_SEQ, "steps": RUNS_STEPS,
+              "log_every": RUNS_STEPS, "seed": seed,
+              "model_name": RUNS_MODEL,
+              "checkpoint_dir": os.path.join(work, "checkpoints")}
+
+    # the JobSet the service would submit for this run
+    probe = RunObject.from_template(new_task(
+        name="train", project=RUNS_PROJECT, params=params))
+    probe.metadata.uid = "0123456789abcdef"
+    jobset = fn.generate_jobset(probe)
+    job = jobset["spec"]["replicatedJobs"][0]["template"]["spec"]
+    main = job["template"]["spec"]["containers"][0]
+    env = {e["name"]: e.get("value") for e in main["env"]}
+    jobset_checks = {
+        "one_node": job["parallelism"] == job["completions"] == 1
+        and jobset["spec"]["replicatedJobs"][0]["replicas"] == 1,
+        "one_gpu": main["resources"]["limits"].get("nvidia.com/gpu") == 1
+        and fn.total_gpus == 1,
+        "torchrun_env": "torchrun" in " ".join(main["command"])
+        and env.get("NNODES") == "1" and env.get("NPROC_PER_NODE") == "1"
+        and {"MASTER_ADDR", "MASTER_PORT", "NODE_RANK"} <= set(env),
+        "exec_config_round_trips": json.loads(env["MLT_EXEC_CONFIG"])
+        == json.loads(json.dumps(probe.to_dict(), default=str)),
+    }
+
+    def print_loss(step, metrics, trainer):
+        print(f"tpujob step {step} loss {float(metrics['loss']):.6f}")
+
+    # -- the main path, counted: every count reset right before it ---------
+    _build.reset_launch_counts()
+    started = time.perf_counter()
+    run = fn.run(handler=auto_trainer.train,
+                 params={**params, "callbacks": [print_loss]},
+                 artifact_path=os.path.join(work, "artifacts"), local=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - started
+    launches = _build.launch_counts()
+    uid = run.metadata.uid
+    stored = db.read_run(uid, RUNS_PROJECT) or {}
+    log_state, log = db.get_log(uid, RUNS_PROJECT)
+    model_uri = f"store://models/{RUNS_PROJECT}/{RUNS_MODEL}"
+    model_file, spec, _ = get_model(model_uri)
+    results = run.status.results or {}
+    passes = RUNS_STEPS + 1     # the warmup's pass and every step
+    want = {"flash_fwd": 2 * config.n_layers * passes,
+            "flash_bwd": config.n_layers * passes}
+    step_ms = (TRAIN_BATCH * TRAIN_SEQ / results["tokens_per_sec"] * 1e3
+               if results.get("tokens_per_sec") else None)
+    row = {
+        "phase": "runs", "leg": "tpujob", "card": card, "model": "llama3-1b",
+        "layers": config.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": RUNS_STEPS, "uid": uid, "state": run.state(),
+        "error": run.status.error, "results": results,
+        "step_ms": step_ms, "train_phase_step_ms": train_step_ms,
+        "run_s": run_s, "log": log.decode(errors="replace")[-400:],
+        "model_uri": model_uri, "model_file": model_file,
+        "model_spec_kind": type(spec).__name__,
+        "launches": launches, "expected_launches": want,
+        "jobset_checks": jobset_checks,
+        "checks": {
+            **jobset_checks,
+            "completed": run.state() == "completed"
+            and stored.get("status", {}).get("state") == "completed"
+            and log_state == "completed",
+            "db_results_equal_the_runs":
+            stored.get("status", {}).get("results") == results,
+            "results_logged": {"loss", "tokens_per_sec", "mfu",
+                               "train_time_s", "compile_seconds"}
+            <= set(results)
+            and math.isfinite(results.get("loss", float("nan"))),
+            "log_holds_the_handlers_stdout":
+            f"tpujob step {RUNS_STEPS - 1} loss".encode() in log,
+            "model_resolves_to_the_checkpoint":
+            isinstance(spec, ModelArtifact)
+            and os.path.abspath(model_file) == os.path.abspath(
+                params["checkpoint_dir"])
+            and spec.spec.target_path == os.path.abspath(
+                params["checkpoint_dir"]),
+            "flash_launches": launches == {**{k: 0 for k in launches},
+                                           **want},
+        }}
+    _runs_check("tpujob", row)
+    return row
+
+
+def _runs_failing_leg(seed: int, card: str, db) -> dict:
+    """(b) the same function with a preset the handler refuses: the run
+    ends in error, the service's run_failed event goes into the db, and a
+    JobFailed alert fires once through a console notification."""
+    import io
+    from contextlib import redirect_stdout
+
+    from mlrun_tpu_torch import new_function
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.service.alerts import (
+        get_alert_template,
+        process_event,
+    )
+
+    config = get_alert_template("JobFailed")
+    config.update(name="train-failed", entity_id="train",
+                  notifications=[{"kind": "console"}])
+    db.store_alert_config("train-failed", config, RUNS_PROJECT)
+    fn = new_function("train", kind="tpujob", project=RUNS_PROJECT)
+    fn.with_gpus(nodes=1, gpus_per_node=1)
+    _build.reset_launch_counts()
+    run = fn.run(handler=auto_trainer.train, params={
+        "model": "llama3-1b-nope", "steps": 1, "seed": seed}, local=True)
+    launches = _build.launch_counts()
+    event = {"entity_id": run.metadata.name, "uid": run.metadata.uid,
+             "error": run.status.error}
+    out = io.StringIO()
+    with redirect_stdout(out):
+        db.emit_event("run_failed", event, RUNS_PROJECT)
+        fired = process_event(db, RUNS_PROJECT, "run_failed", event)
+    printed = out.getvalue()
+    print(printed, end="")
+    stored = db.read_run(run.metadata.uid, RUNS_PROJECT) or {}
+    alert = db.get_alert_config("train-failed", RUNS_PROJECT)
+    events = db.list_events(RUNS_PROJECT, kind="run_failed")
+    row = {
+        "phase": "runs", "leg": "failing_run", "card": card,
+        "state": run.state(), "error": run.status.error, "fired": fired,
+        "alert_count": alert.get("count"), "alert_state": alert.get("state"),
+        "events": len(events), "notification": printed.strip(),
+        "launches": launches,
+        "checks": {
+            "ended_in_error": run.state() == "error"
+            and stored.get("status", {}).get("state") == "error",
+            "reason_in_status_error": "unknown model preset 'llama3-1b-nope'"
+            in (run.status.error or ""),
+            "job_failed_fired_once": fired == ["train-failed"]
+            and alert.get("count") == 1,
+            "event_in_the_db": len(events) == 1
+            and events[0].get("uid") == run.metadata.uid,
+            "console_notification": "alert 'train-failed' fired" in printed,
+            "no_kernel_launched": not any(launches.values()),
+        }}
+    _runs_check("failing_run", row)
+    return row
+
+
+def _runs_hyper_leg(seed: int, card: str, db) -> dict:
+    """(c) a two-iteration hyper-parameter run over the learning rate,
+    selected by min.loss (the first update's learning rate is 0, so the
+    losses part at the third step)."""
+    import torch
+
+    from mlrun_tpu_torch import new_function
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    fn = new_function("train", kind="tpujob", project=RUNS_PROJECT)
+    fn.with_gpus(nodes=1, gpus_per_node=1)
+    _build.reset_launch_counts()
+    started = time.perf_counter()
+    run = fn.run(handler=auto_trainer.train, params={
+        "model": "llama3-1b", "batch_size": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ, "steps": RUNS_HYPER_STEPS,
+        "log_every": RUNS_HYPER_STEPS, "seed": seed},
+        hyperparams={"learning_rate": list(RUNS_LRS)},
+        hyper_param_options={"selector": "min.loss"}, local=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - started
+    launches = _build.launch_counts()
+    uid = run.metadata.uid
+    children = [db.read_run(uid, RUNS_PROJECT, iter=i) or {}
+                for i in range(1, len(RUNS_LRS) + 1)]
+    losses = [c.get("status", {}).get("results", {}).get("loss")
+              for c in children]
+    best = (run.status.results or {}).get("best_iteration")
+    passes = len(RUNS_LRS) * (RUNS_HYPER_STEPS + 1)
+    want = {"flash_fwd": 2 * config.n_layers * passes,
+            "flash_bwd": config.n_layers * passes}
+    finite = all(isinstance(x, float) and math.isfinite(x) for x in losses)
+    row = {
+        "phase": "runs", "leg": "hyper", "card": card,
+        "learning_rates": list(RUNS_LRS), "steps": RUNS_HYPER_STEPS,
+        "state": run.state(), "iteration_losses": losses,
+        "best_iteration": best, "iterations": run.status.iterations,
+        "run_s": run_s, "launches": launches, "expected_launches": want,
+        "checks": {
+            "completed": run.state() == "completed",
+            "both_iterations_in_the_db": [
+                c.get("status", {}).get("state") for c in children]
+            == ["completed"] * len(RUNS_LRS),
+            "best_is_the_lower_loss": finite and len(set(losses)) > 1
+            and best == 1 + losses.index(min(losses)),
+            "parent_results_are_the_best": finite
+            and (run.status.results or {}).get("loss") == min(losses),
+            "flash_launches": launches == {**{k: 0 for k in launches},
+                                           **want},
+        }}
+    _runs_check("hyper", row)
+    return row
+
+
+def _runs_slo_leg(seed: int, card: str, db) -> dict:
+    """(d) SLOEvaluator.process over a TimeSeriesStore fed from the
+    registry around a burst of the serve traffic on a 1B paged server: a
+    TTFT target below the burst's p50 fires SLOBurnRate once, a second
+    call within refire_after fires nothing, the breach event is in the
+    db."""
+    import statistics
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.obs import (
+        REGISTRY,
+        SLO,
+        MetricsAggregator,
+        SLOEvaluator,
+        TimeSeriesStore,
+    )
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.service.alerts import get_alert_template
+    from mlrun_tpu_torch.serving.llm import LLMModelServer
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    prompts = _prompts(seed, config.vocab_size)
+    server = LLMModelServer(
+        name="llama3-1b", model_preset="llama3-1b", continuous_batching=True,
+        paged=True, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        max_new_tokens=MAX_NEW, seed=seed)
+    server.post_init()
+    if not server.ready:
+        fail(f"runs (slo): LLMModelServer failed to load: {server.error}")
+
+    def submit(batch):
+        return server.do_event(_Event({"inputs": batch})).body["outputs"]
+
+    aggregator = MetricsAggregator(stale_after=3600.0)
+    # 0.1 s points: the burst's two reads land in different points even
+    # when it takes under a second
+    store = TimeSeriesStore(resolution_s=0.1, capacity=36000)
+    clock0 = time.perf_counter()
+
+    def observe() -> float:
+        at = time.perf_counter() - clock0 + 1.0
+        aggregator.ingest_text("process", REGISTRY.render(), at=at)
+        aggregator.snapshot_to(store, at)
+        return at
+
+    # one request first, so the engine's TTFT series exists at the baseline
+    submit([prompts[2][:64]])
+    engine = server.engine
+    ring_mark = len(engine._ttft_ring)
+    start_at = observe()
+    before = _engine_counters(engine)
+    # -- the burst, counted: every count reset right before it -------------
+    _build.reset_launch_counts()
+    outputs = _serve_events(submit, prompts)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    counted = _gateway_launches(launches, before, _engine_counters(engine),
+                                config.n_layers, path="runs (slo)")
+    at = observe()
+    samples = list(engine._ttft_ring)[ring_mark:]
+    server.close()
+    p50 = statistics.median(samples)
+    target = p50 / 2
+    span = at - start_at + 1.0
+    alert = get_alert_template("SLOBurnRate")
+    alert["name"] = "ttft-burn"
+    db.store_alert_config("ttft-burn", alert, RUNS_PROJECT)
+    evaluator = SLOEvaluator(
+        store, [SLO("ttft-below-p50", "latency", target=target, q=0.95)],
+        fast_window=span, slow_window=2 * span, fast_burn=1.0,
+        slow_burn=1.0, refire_after=60.0, project=RUNS_PROJECT)
+    first = evaluator.process(db, at=at)
+    status = evaluator.status()[0]
+    second = evaluator.process(db, at=at + 1.0)
+    events = db.list_events(RUNS_PROJECT, kind="slo_burn_rate")
+    stored = db.get_alert_config("ttft-burn", RUNS_PROJECT)
+    row = {
+        "phase": "runs", "leg": "slo", "card": card, "model": "llama3-1b",
+        "layers": config.n_layers, "requests": len(outputs),
+        "ttft_samples": len(samples), "ttft_p50_s": p50,
+        "target_s": target, "window_s": span, "burn_fast": status.burn_fast,
+        "burn_slow": status.burn_slow, "fired": first, "refired": second,
+        "events": len(events), "alert_count": stored.get("count"),
+        "launches": launches, **counted,
+        "checks": {
+            "tokens": all(len(o) == MAX_NEW for o in outputs),
+            "fired_once": first == ["ttft-burn"] and status.breaching,
+            "damped_within_refire_after": second == []
+            and evaluator.status()[0].breaching,
+            "breach_event_in_the_db": len(events) == 1
+            and events[0].get("slo") == "ttft-below-p50"
+            and stored.get("count") == 1,
+        }}
+    _runs_check("slo", row)
+    return row
+
+
+def phase_runs(seed: int, card: str, train_step_ms=None) -> dict:
+    """The run stack on the card, over a temporary SQLite run db and
+    artifact path: (a) the 1B trainer as a tpujob run, (b) a failing run
+    and its JobFailed alert, (c) a two-iteration hyper-parameter run, (d)
+    SLOEvaluator.process after a burst on a 1B paged server. Returns the
+    kernels' launches on the four legs."""
+    import shutil
+    import tempfile
+
+    from mlrun_tpu_torch.datastore import store_manager
+    from mlrun_tpu_torch.db import SQLiteRunDB, set_run_db
+
+    work = tempfile.mkdtemp(prefix="mlt-runs-")
+    db = SQLiteRunDB(os.path.join(work, "runs.sqlite"),
+                     logs_dir=os.path.join(work, "logs"))
+    set_run_db(db)
+    store_manager.set(db=db)
+    started = time.perf_counter()
+    launches: dict = {}
+    try:
+        rows = [_runs_tpujob_leg(seed, card, db, work, train_step_ms)]
+        _release()
+        rows.append(_runs_failing_leg(seed, card, db))
+        rows.append(_runs_hyper_leg(seed, card, db))
+        _release()
+        rows.append(_runs_slo_leg(seed, card, db))
+        _release()
+        for row in rows:
+            for name, count in row["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+        emit({"phase": "runs", "card": card,
+              "seconds": time.perf_counter() - started,
+              "step_ms": rows[0]["step_ms"],
+              "train_phase_step_ms": train_step_ms,
+              "launches": launches,
+              "runs_in_db": len(db.list_runs(project=RUNS_PROJECT,
+                                             iter=True))})
+    finally:
+        set_run_db(None)
+        store_manager._db = None
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
               "fleet", "families", "entry_points", "parallel", "observe",
-              "gateway", "podfleet")
+              "gateway", "podfleet", "runs")
 
 
 def main(argv=None) -> int:
@@ -7487,6 +7895,13 @@ def main(argv=None) -> int:
         # the serving kernels' launches on the pod fleet's traffic, its
         # pre-warms, the preempted requests' handoffs and their resumes
         for name, count in phase_podfleet(args.seed, card).items():
+            launches[name] = launches.get(name, 0) + count
+        release()
+    if "runs" in phases:
+        # the training flash's launches on the tpujob and hyper runs, the
+        # serving kernels' on the SLO leg's burst
+        for name, count in phase_runs(args.seed, card,
+                                      train_step_ms).items():
             launches[name] = launches.get(name, 0) + count
         release()
     if set(phases) != set(ALL_PHASES):

@@ -34,7 +34,8 @@ def set_fire_observer(observer):
 
 class FaultPoints:
     """The named fault points the port's serving graph, engines, engine
-    fleet, pod fleet, journal, provider and autoscaler fire (the
+    fleet, pod fleet, journal, provider, autoscaler, datastore, run
+    context and trainer fire (the
     reference's names). A point is matched exactly or by a
     ``prefix.*`` wildcard at injection time."""
 
@@ -127,6 +128,9 @@ class FaultPoints:
     # datastore reads and writes (datastore/base.py DataItem / DataStore)
     datastore_read = "datastore.read"
     datastore_write = "datastore.write"
+    # in-run context commits (execution.py MLClientCtx.commit) — a delay()
+    # here models a stalled step
+    execution_commit = "execution.commit"
     # one elastic health poll of the training loop (training/elastic.py
     # ElasticGuard.poll), with a mutable ``box``: an action setting
     # box["fail"] / box["join"] to a slice index fails / revives that
@@ -152,7 +156,7 @@ class FaultPoints:
             FaultPoints.llm_kv_fetch,
             FaultPoints.obs_autoscale,
             FaultPoints.datastore_read, FaultPoints.datastore_write,
-            FaultPoints.train_slice_fail,
+            FaultPoints.execution_commit, FaultPoints.train_slice_fail,
         ]
 
 

@@ -1,12 +1,43 @@
 """Retry policy and deterministic backoff — the port's copy of the parts of
-``mlrun_tpu/common/retry.py`` the engine fleet uses (``RetryPolicy``,
-``compute_backoff``). The jitter draw is keyed on (seed, attempt), so a
+``mlrun_tpu/common/retry.py`` the engine fleet and the run objects use
+(``FailureClass``, ``RetryPolicy``, ``compute_backoff``). The jitter draw is keyed on (seed, attempt), so a
 given seed yields the reference's backoff sequence exactly."""
 
 from __future__ import annotations
 
 import dataclasses
 import random
+
+
+class FailureClass:
+    """Coarse failure taxonomy recorded on ``status.failure_class``."""
+
+    # retryable infra faults
+    preemption = "preemption"                  # spot/preemptible eviction
+    # ONE pod-slice of a multi-slice job evicted while the job itself is
+    # alive — the elastic case: survivors reshard and keep training, the
+    # monitor submits only a replacement slice (not a full resubmit).
+    # Distinguished from ``preemption`` (whole job dead) by the provider's
+    # slice_status probe / slice-scoped failure text.
+    slice_preempted = "slice_preempted"
+    image_pull_backoff = "image_pull_backoff"  # registry flake
+    node_drain = "node_drain"                  # node shutdown / drain
+    http_5xx = "http_5xx"                      # control-plane 5xx
+    resource_vanished = "resource_vanished"    # GC'd / deleted out-of-band
+    infra = "infra"                            # generic infra failure
+    stalled = "stalled"                        # heartbeat-silent run
+    # permanent
+    user_code = "user_code"                    # handler raised / exit != 0
+
+    @staticmethod
+    def retryable() -> list[str]:
+        return [
+            FailureClass.preemption, FailureClass.slice_preempted,
+            FailureClass.image_pull_backoff,
+            FailureClass.node_drain, FailureClass.http_5xx,
+            FailureClass.resource_vanished, FailureClass.infra,
+            FailureClass.stalled,
+        ]
 
 
 @dataclasses.dataclass

@@ -12,9 +12,19 @@ and ``function.tpu_image`` keys.
 
 ``COMPILE_CACHE_ENV`` (the reference's env mapping of
 ``training.compile_cache_dir``) overrides that key at read time
-(``utils/compile_cache.configure_from_mlconf``)."""
+(``utils/compile_cache.configure_from_mlconf``).
+
+``RUN_DEFAULTS`` holds the reference's top-level keys the run stack reads
+(``db/``, ``execution.py``, ``runtimes/``, ``launcher/``); :func:`run_config`
+reads one with its ``MLT_`` environment override, parsed as JSON where it
+parses (the reference's env layer), and :func:`home_dir`,
+:func:`resolve_local_db_path` and :func:`resolve_artifact_path` resolve the
+paths under ``MLT_HOME`` as the reference's ``mlconf`` does."""
 
 from __future__ import annotations
+
+import json
+import os
 
 SERVING_LLM_DEFAULTS = {
     # tokens prefilled per scheduler tick (0 = whole prompt in one
@@ -135,13 +145,15 @@ SERVING_AUTOSCALE_DEFAULTS = {
     "queue_low": 1.0,
 }
 
-# where serving pods land (service/providers.py, serving/podfleet.py):
-# the k8s namespace, the GPU product a pod's node selector names and the
-# serving container's image
+# where pods land (service/providers.py, serving/podfleet.py,
+# runtimes/tpujob.py): the k8s namespace, the GPU product a pod's node
+# selector names and the container's image
 K8S_DEFAULTS = {
     "namespace": "mlrun-tpu",
     "gpu_product": "NVIDIA-H100-80GB-HBM3",
     "image": "mlrun-tpu/gpu:latest",
+    # a tpujob pod's GPUs when with_gpus does not say (one 8-GPU node)
+    "gpus_per_node": 8,
 }
 
 # fail-slow replica detection (obs/health.py ReplicaHealthScorer); class
@@ -251,3 +263,58 @@ OBSERVABILITY_DEFAULTS = {
 # env var carrying base64 user code into the serving gateway process: its
 # graph classes and handlers resolve from that code's namespace
 EXEC_CODE_ENV = "MLT_EXEC_CODE"
+
+# the run stack's keys (the reference's default_project, dbpath,
+# local_db_path, artifact_path, exec_config_env, runs.heartbeat.interval
+# and function.default_image)
+RUN_DEFAULTS = {
+    "default_project": "default",
+    # "" = the local sqlite file under MLT_HOME; a "*.sqlite" path; "nop"
+    "dbpath": "",
+    "local_db_path": "",
+    "artifact_path": "",
+    "exec_config_env": "MLT_EXEC_CONFIG",
+    # seconds between a run's lightweight status.last_heartbeat pushes
+    "heartbeat_interval": 30.0,
+    "default_image": "mlrun-tpu/base:latest",
+}
+
+# keys whose env name is not MLT_<KEY> (the reference's nested keys)
+_RUN_ENV = {
+    "heartbeat_interval": "MLT_RUNS__HEARTBEAT__INTERVAL",
+    "default_image": "MLT_FUNCTION__DEFAULT_IMAGE",
+}
+
+
+def run_config(key: str):
+    """``RUN_DEFAULTS[key]``, or its environment override."""
+    raw = os.environ.get(_RUN_ENV.get(key, "MLT_" + key.upper()))
+    if raw is None:
+        return RUN_DEFAULTS[key]
+    try:
+        return json.loads(raw)
+    except ValueError:
+        return raw
+
+
+def home_dir() -> str:
+    """``MLT_HOME`` (default ``~/.mlrun-tpu``), created."""
+    base = os.environ.get("MLT_HOME", os.path.expanduser("~/.mlrun-tpu"))
+    os.makedirs(base, exist_ok=True)
+    return base
+
+
+def resolve_local_db_path() -> str:
+    path = run_config("local_db_path") or os.path.join(home_dir(),
+                                                       "db.sqlite")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    return path
+
+
+def resolve_artifact_path(project: str = "") -> str:
+    path = run_config("artifact_path") or os.path.join(
+        home_dir(), "artifacts", "{project}")
+    if "{project}" in path:
+        path = path.replace("{project}",
+                            project or run_config("default_project"))
+    return path

@@ -32,11 +32,13 @@ class DataStore:
 
     kind = "base"
 
-    def __init__(self, parent, name: str, kind: str, endpoint: str = ""):
+    def __init__(self, parent, name: str, kind: str, endpoint: str = "",
+                 secrets: dict | None = None):
         self._parent = parent
         self.name = name
         self.kind = kind
         self.endpoint = endpoint
+        self._secrets = secrets or {}
 
     # -- required backend api ---------------------------------------------
     def get(self, key: str, size: int | None = None, offset: int = 0) -> bytes:
@@ -62,6 +64,11 @@ class DataStore:
             return False
 
     # -- derived helpers ---------------------------------------------------
+    def upload(self, key: str, src_path: str):
+        chaos_fire("datastore.write", kind=self.kind, key=key)
+        with open(src_path, "rb") as fp:
+            self.put(key, fp.read())
+
     def download(self, key: str, target_path: str):
         chaos_fire("datastore.read", kind=self.kind, key=key)
         data = self.get(key)

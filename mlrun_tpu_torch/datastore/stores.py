@@ -102,7 +102,7 @@ class InMemoryStore(DataStore):
 
 
 class _UnportedStore(DataStore):
-    def __init__(self, parent, name, kind, endpoint=""):
+    def __init__(self, parent, name, kind, endpoint="", secrets=None):
         raise not_ported(f"the '{kind}://' datastore ({type(self).__name__})",
                          10)
 

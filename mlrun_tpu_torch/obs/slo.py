@@ -8,11 +8,10 @@ evaluator turns the time-series store into burn rates — how fast the
 error budget is being consumed relative to steady state — over a FAST
 window (catches a sharp regression in seconds) and a SLOW window
 (confirms it is not a blip). A breach needs BOTH windows over their
-thresholds. Pushing a breach through the alert machinery
-(:meth:`SLOEvaluator.process`) needs the run db and ``service/alerts``,
-which the port does not have yet (ROADMAP.md, item 10): it raises
-``not_ported``; :meth:`SLOEvaluator.evaluate` and the refire damper's
-state are the port's.
+thresholds. :meth:`SLOEvaluator.process` pushes each confirmed breach
+through the port's ``service/alerts.process_event`` over a run db (alert
+configs, silence windows and notification fan-out as the reference's),
+re-firing a sustained breach at most every ``refire_after`` seconds.
 
 Burn-rate definitions (budget = allowed bad fraction):
 
@@ -47,7 +46,8 @@ Burn-rate definitions (budget = allowed bad fraction):
 
 ``burn = bad_fraction / budget``; burn 1.0 = exactly on budget.
 
-Stdlib-only at module level (``from_mlconf`` lazy-imports the config).
+Stdlib-only at module level (``from_mlconf`` / ``process`` lazy-import
+the config and the alert machinery).
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, Iterable, Optional
 
+from .flight import record as flight_record
 from .metrics import REGISTRY
 
 
@@ -398,12 +399,62 @@ class SLOEvaluator:
             return list(self._last)
 
     def process(self, db, at: float, project: str = None) -> list:
-        """Evaluate and push each confirmed breach through the alert
-        machinery (``service/alerts.process_event`` over a run db, with
-        the refire damper in ``_fired_at``). The port has neither the run
-        db nor the alerts yet, so this raises ``not_ported``; callers use
-        :meth:`evaluate`."""
-        from ..serving.resilience import not_ported
+        """Evaluate and push each confirmed breach through
+        ``service/alerts.process_event`` — the event is also persisted
+        via ``db.emit_event`` first so count-over-period criteria see
+        it. Returns the names of alert configs that fired (an active
+        silence window keeps a breach out of this list — silencing is
+        ``process_event``'s job, not re-implemented here). A SUSTAINED
+        breach re-fires only every ``refire_after`` seconds (0 = every
+        call): the service loop evaluates every few seconds, and one
+        long incident must not page once per tick. Recovery resets the
+        damper, so a fresh incident fires immediately."""
+        from ..service.alerts import process_event
 
-        raise not_ported("SLOEvaluator.process (SLO breaches pushed "
-                         "through service/alerts over a run db)", 10)
+        project = self.project if project is None else project
+        slos_by_name = {slo.name: slo for slo in self.slos}
+        fired = []
+        for status in self.evaluate(at):
+            if not status.breaching:
+                self._fired_at.pop(status["name"], None)
+                continue
+            last = self._fired_at.get(status["name"])
+            if last is not None and self.refire_after > 0 \
+                    and at - last < self.refire_after:
+                continue
+            self._fired_at[status["name"]] = at
+            SLO_BREACHES.inc(slo=status["name"])
+            event = {"entity_id": status["name"],
+                     "slo": status["name"], "kind": status["kind"],
+                     "severity": status["severity"],
+                     "burn_fast": status.burn_fast,
+                     "burn_slow": status.burn_slow,
+                     "target": status["target"]}
+            exemplar_ids: list[str] = []
+            slo = slos_by_name.get(status["name"])
+            if slo is not None and slo.kind == "latency":
+                # the breach window's worst offenders, lifted off the
+                # offending histogram buckets: the alert payload and the
+                # flight-recorder entry now NAME trace ids a
+                # `/debug/trace/<id>` fetch turns into a waterfall
+                try:
+                    worst = self.exemplar_lookup(
+                        slo.family, slo.labels or None, slo.target,
+                        self.exemplar_k)
+                except Exception:  # noqa: BLE001 - forensics must not
+                    worst = []     # block the alert itself
+                if worst:
+                    event["exemplars"] = [
+                        {"value": e["value"], **e["labels"]}
+                        for e in worst]
+                    exemplar_ids = [e["labels"].get("trace_id")
+                                    for e in worst
+                                    if e["labels"].get("trace_id")]
+            flight_record("slo.breach", slo=status["name"],
+                          slo_kind=status["kind"],
+                          burn_fast=status.burn_fast,
+                          burn_slow=status.burn_slow,
+                          exemplar_trace_ids=exemplar_ids)
+            db.emit_event(SLO_EVENT_KIND, event, project)
+            fired.extend(process_event(db, project, SLO_EVENT_KIND, event))
+        return fired

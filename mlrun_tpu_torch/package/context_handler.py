@@ -4,10 +4,11 @@
 Parses the user handler's signature + type hints, converts incoming
 ``DataItem`` inputs to the hinted types, injects the context, and packages
 returned values into results / artifacts via the packagers manager. The
-port has no run objects and no run db: the context is duck-typed (any
-object with ``log_result`` and ``log_artifact``), and the parameters and
-inputs are plain dicts (an input is a ``DataItem`` or a url the port's
-datastore resolves).
+context is an ``MLClientCtx`` (``runtimes/local.exec_from_params``) or any
+duck-typed one (an object with ``log_result`` and ``log_artifact``); the
+parameters and inputs are plain dicts, an input a ``DataItem`` or a url
+the context's ``get_input`` resolves (its input path, ``store://`` uris in
+its project), else the port's datastore.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ class ContextHandler:
             elif name in inputs:
                 item = inputs[name]
                 if not isinstance(item, DataItem):
-                    item = store_manager.object(url=str(item), key=name)
+                    get_input = getattr(context, "get_input", None)
+                    item = get_input(name, str(item)) if callable(get_input) \
+                        else store_manager.object(url=str(item), key=name)
                 kwargs[name] = self._manager.unpack(item, hint)
             elif name in params:
                 kwargs[name] = params[name]

@@ -1,5 +1,5 @@
-"""The control-plane services the port's serving fleet stands on (copies
-of the parts of ``mlrun_tpu/service`` it needs): the JobSet surface of the
-Kubernetes provider (``providers``) and the fleet autoscaler
-(``autoscaler``). The API server, the run db and the rest of the service
-wait for their port queue items (ROADMAP.md)."""
+"""The control-plane services the port stands on (copies of the parts of
+``mlrun_tpu/service`` it needs): the JobSet surface of the Kubernetes
+provider (``providers``), the fleet autoscaler (``autoscaler``) and alert
+processing over the run db (``alerts``). The API server and the rest of
+the service are ROADMAP.md item 14."""

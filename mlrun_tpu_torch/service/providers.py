@@ -9,7 +9,7 @@ the pod fleet reads pod phases through. Each verb fires its
 The ``kubernetes`` package is imported when a provider is built, never at
 module import, so the port imports without it (the card's machine has
 none). Pods, Deployments, Services, secrets, slice replacement and the
-local-process provider belong to the run stack (ROADMAP.md, item 10) and
+local-process provider belong to the service (ROADMAP.md, item 14) and
 raise ``not_ported``.
 """
 
@@ -60,7 +60,7 @@ class KubernetesProvider:
         if str(kind).lower() != "jobset":
             from ..serving.resilience import not_ported
 
-            raise not_ported(f"KubernetesProvider.{verb} of a '{kind}'", 10)
+            raise not_ported(f"KubernetesProvider.{verb} of a '{kind}'", 14)
         return _JOBSET_CRD
 
     def create(self, resource: dict, run_uid: str) -> str:

@@ -534,21 +534,22 @@ class DegradationLadder:
         return max_new_tokens
 
 
-# ROADMAP.md "Modules still to port", by item number (1-9 landed; items
-# 12-14 queue the reference's host packages that have no counterpart in the
-# port yet, in dependency order)
+# ROADMAP.md "Modules still to port", by item number (1-9 landed; 10's
+# tail is what the run stack left; items 11-14 queue the reference's host
+# packages that have no counterpart in the port yet, in dependency order)
 PORT_QUEUE = {
-    10: "the run stack: runtimes/tpujob.py's runtime class with its run "
-        "objects, the run db (db/) and service/alerts, the object stores",
+    10: "item 10's tail: the object stores (datastore/stores.py: gs, s3, "
+        "az, hdfs, http and redis urls)",
     11: "the feature store (feature_store/, host only): feature sets, "
         "vectors and the online feature service",
     12: "model monitoring (model_monitoring/): the drift analyzers and the "
         "continuous-tuning canary and retrain loop",
-    13: "projects, the launcher and the CLI (projects/, launcher/, "
-        "__main__.py, run.py)",
+    13: "projects and the CLI (projects/, __main__.py with its run "
+        "--from-env, run.py beyond new_function)",
     14: "the rest of the service (its API server, the Grafana proxy, the "
-        "other providers and runtimes), analysis/, render.py, hub.py, "
-        "track/, platforms/ and errors.py",
+        "image builder, the other providers and runtimes, the remote "
+        "launcher, the http and server-SQL run dbs, the log collector), "
+        "analysis/, render.py, hub.py, track/, platforms/ and errors.py",
 }
 
 

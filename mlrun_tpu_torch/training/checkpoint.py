@@ -31,14 +31,12 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+# the checkpoint-resume environment contract of a resubmitted run
+from ..common.runtimes_constants import RESUME_CHECKPOINT_ENV, RESUME_STEP_ENV
+
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params.pt"
 DCP_METADATA = ".metadata"
-
-# the checkpoint-resume environment contract of a resubmitted run (the
-# reference's common/runtimes_constants.py names)
-RESUME_CHECKPOINT_ENV = "MLT_RESUME_FROM_CHECKPOINT"
-RESUME_STEP_ENV = "MLT_RESUME_STEP"
 
 
 class CheckpointManager:

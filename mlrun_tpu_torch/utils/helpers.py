@@ -1,14 +1,44 @@
-"""Dotted-path dict helpers and the ISO clock — copies of the reference's
-``utils/helpers.py`` functions the serving graph reads."""
+"""Dotted-path dict helpers, uids, names and the ISO clock — copies of the
+reference's ``utils/helpers.py`` functions the serving graph and the run
+stack read."""
 
 from __future__ import annotations
 
+import re
+import uuid
 from datetime import datetime, timezone
 from typing import Any
 
+_name_re = re.compile(r"[^a-z0-9-]")
+
+
+def generate_uid() -> str:
+    return uuid.uuid4().hex
+
+
+def now_date() -> datetime:
+    return datetime.now(timezone.utc)
+
 
 def now_iso() -> str:
-    return datetime.now(timezone.utc).isoformat()
+    return now_date().isoformat()
+
+
+def normalize_name(name: str) -> str:
+    """Normalize to a dns-1123-ish label: lowercase alnum + '-'."""
+    name = name.strip().lower().replace("_", "-").replace(" ", "-")
+    name = _name_re.sub("-", name)
+    return name.strip("-")
+
+
+def template_artifact_path(path: str, project: str,
+                           uid: str | None = None) -> str:
+    if not path:
+        return path
+    path = path.replace("{{project}}", project).replace("{project}", project)
+    if uid:
+        path = path.replace("{{run.uid}}", uid).replace("{run_uid}", uid)
+    return path
 
 
 def split_path(keys: str | list) -> list:

@@ -1,8 +1,9 @@
 """The port's datastore urls (mlrun_tpu_torch.datastore, item 10's entry
 5) against the JAX package's: the ``file://`` and ``memory://`` stores on
 the same files, a ``file://`` tokens dataset through ``train``, adapters
-over ``file://`` urls across the two packages, ``get_model``, and the
-schemes the port refuses (ROADMAP.md item 10).
+over ``file://`` urls across the two packages, ``get_model`` (a
+``store://`` uri through the run db among them), and the object stores
+the port refuses (ROADMAP.md item 10's tail).
 
 Tolerances: the ``train`` losses at the port's ``RUN_REL_TOL`` 1e-4
 relative (tests/test_torch_training.py); everything else is exact.
@@ -97,10 +98,25 @@ def test_datastore_fault_points_fire():
     "s3://bucket/tokens.npy", "gs://bucket/t.npy", "az://c/t.npy",
     "https://host/t.npy", "redis://host/key", "store://models/p/m",
     "ds://profile/key"])
-def test_unported_schemes_raise_item_10(url):
+def test_unported_schemes_raise_item_10(url, tmp_path):
+    """The object stores raise item 10 (its tail). ``store://`` and
+    ``ds://`` resolve through the run db since the run stack landed: here
+    to an artifact and a profile on s3, whose store then raises."""
+    from mlrun_tpu_torch.db import SQLiteRunDB
+
     scheme = url.split("://")[0]
+    manager = tds.StoreManager()
+    if scheme in ("store", "ds"):
+        db = SQLiteRunDB(str(tmp_path / "db.sqlite"),
+                         logs_dir=str(tmp_path / "logs"))
+        db.store_artifact("m", {"kind": "model", "spec": {
+            "target_path": "s3://bucket/m"}}, project="p")
+        db.store_datastore_profile({"name": "profile", "type": "s3",
+                                    "fields": {"bucket": "bucket"}})
+        manager.set(db=db)
+        scheme = "s3"
     with pytest.raises(NotImplementedError, match="item 10") as err:
-        tds.store_manager.object(url=url)
+        manager.object(url=url)
     assert f"'{scheme}://'" in str(err.value)
 
 
@@ -205,5 +221,27 @@ def test_get_model_over_a_directory_a_file_and_a_url(tmp_path):
             assert fp.read() == b"weights"
     with pytest.raises(FileNotFoundError, match="no model file"):
         V2ModelServer(model_path=str(model_dir)).get_model(".pt")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        V2ModelServer(model_path="store://models/p/m").get_model()
+    # a store:// uri resolves through the run db to the artifact's
+    # target and its ModelArtifact spec, as the reference's get_model does
+    from mlrun_tpu.db import set_run_db as jset_run_db
+    from mlrun_tpu_torch.db import SQLiteRunDB, set_run_db
+
+    db = SQLiteRunDB(str(tmp_path / "db.sqlite"),
+                     logs_dir=str(tmp_path / "logs"))
+    db.store_artifact("m", {"kind": "model", "spec": {
+        "target_path": str(model_dir), "model_file": "weights.npz",
+        "extra_data": {"k": "v"}}}, project="p")
+    set_run_db(db)
+    jset_run_db(db)
+    try:
+        server = V2ModelServer(model_path="store://models/p/m")
+        local, extra = server.get_model()
+        ref_local, ref_spec, ref_extra = jget_model("store://models/p/m")
+    finally:
+        set_run_db(None)
+        jset_run_db(None)
+        tds.store_manager._db = None
+    assert (local, extra) == (ref_local, ref_extra) == (
+        str(model_dir / "weights.npz"), {"k": "v"})
+    assert server.model_spec.to_dict() == ref_spec.to_dict()
+    assert type(server.model_spec).__name__ == "ModelArtifact"

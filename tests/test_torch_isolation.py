@@ -9,7 +9,9 @@ the serving graph (states, server, routers, remote steps, streams, the
 v1 server), the HTTP gateway (asgi), obs/debug and obs/traceview,
 ModelObj and the secrets store, the intent journal (common/), the JobSet
 provider and the fleet autoscaler (service/), the serving pod fleet and
-the fleet telemetry (obs/federation, obs/timeseries, obs/slo) included,
+the fleet telemetry (obs/federation, obs/timeseries, obs/slo), the run
+stack (the run objects, the run db, artifacts, notifications,
+service/alerts, MLClientCtx, the runtimes and the launchers) included,
 nor the chip smoke script and
 the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
@@ -162,6 +164,11 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.serving.podfleet\n"
         "import mlrun_tpu_torch.obs.federation\n"
         "import mlrun_tpu_torch.obs.timeseries, mlrun_tpu_torch.obs.slo\n"
+        "import mlrun_tpu_torch.runtimes, mlrun_tpu_torch.runtimes.tpujob\n"
+        "import mlrun_tpu_torch.db, mlrun_tpu_torch.launcher\n"
+        "import mlrun_tpu_torch.service.alerts, mlrun_tpu_torch.run\n"
+        "import mlrun_tpu_torch.artifacts, mlrun_tpu_torch.datastore.profiles\n"
+        "import mlrun_tpu_torch.utils.notifications\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN + ABSENT_ON_THE_CARD,))

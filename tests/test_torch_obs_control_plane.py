@@ -11,9 +11,9 @@ are float64 host arithmetic and must agree exactly. The autoscalers run
 over each package's real ``EngineFleet`` of the reference tests' scripted
 fake engines, driven with the same ``(now, signals)`` sequence: the same
 action, reason, recommendation, desired count, victim and removal at
-every tick. Left out, as in the port: the Grafana HTTP proxy (the
-service's) and ``SLOEvaluator.process`` with the alert cases (the run db
-and ``service/alerts``), which raises ``not_ported``.
+every tick. Left out: the Grafana HTTP proxy (the service's).
+``SLOEvaluator.process`` and the alert cases are
+tests/test_torch_alerts.py's.
 """
 
 import itertools
@@ -461,9 +461,13 @@ def test_slo_config_validation_like_reference():
         [jobs.SLO.from_config(dict(c)).describe() for c in configs]
 
 
-def test_slo_process_is_not_ported_and_from_config(monkeypatch):
-    """``process`` needs the run db and service/alerts (item 10);
+def test_slo_process_is_not_ported_and_from_config(monkeypatch, tmp_path):
+    """``process`` runs over the port's run db since the run stack landed
+    (its alert cases are tests/test_torch_alerts.py): an objective with no
+    samples does not breach, so nothing fires and no event is written;
     ``from_mlconf`` reads the port's objectives and windows."""
+    from mlrun_tpu_torch.db.sqlitedb import SQLiteRunDB
+
     monkeypatch.setitem(tconfig.OBSERVABILITY_DEFAULTS["slo"], "objectives",
                         [{"name": "ttft", "kind": "latency",
                           "target": 0.25}])
@@ -471,8 +475,10 @@ def test_slo_process_is_not_ported_and_from_config(monkeypatch):
     ev = tobs.SLOEvaluator.from_mlconf(store)
     assert [s.name for s in ev.slos] == ["ttft"]
     assert (ev.fast_window, ev.slow_window) == (60.0, 300.0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ev.process(object(), at=1.0)
+    db = SQLiteRunDB(str(tmp_path / "slo.db"),
+                     logs_dir=str(tmp_path / "logs"))
+    assert ev.process(db, at=1.0) == []
+    assert db.list_events(kind="slo_burn_rate") == []
 
 
 def test_configure_from_mlconf_applies_tracer_and_flight(monkeypatch,

@@ -642,7 +642,7 @@ def test_port_provider_jobset_surface(monkeypatch):
             provider.delete("jobset/serve-x-1")
     provider.delete("jobset/serve-x-1")
     assert cluster.jobsets == {} and cluster.pods == {}
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         provider.create({"kind": "Pod", "metadata": {"name": "p"}}, "p")
 
 
