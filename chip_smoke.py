@@ -295,11 +295,35 @@ exits non-zero and never prints the final line):
              fires nothing, the breach event is in the db; paged decode /
              cached flash / paged prefill launched as the engine's
              counters say.
+19. tuning - the continuous-tuning loop (model_monitoring/
+             ContinuousTuningController) on Llama-3.2-1B at full width
+             and depth: one paged engine (page 128, 4 slots, max_len
+             2048) with a rank-16 adapter bank (tenants t1, t2) under one
+             controller whose retrains are local runs of a LoRA fit in a
+             temporary run db, with its canary journal live. (a) 32 t1
+             requests of 16 new tokens lock the reference, two windows
+             of 16 requests of 48 tokens drift it naturally (length PSI
+             over 0.2 both times) and exactly one retrain is submitted;
+             (b) the retrain is a completed rank-16 LoRA run of 4 steps
+             at B4 x 2048 on the served base (checksum), its adapter
+             written with save_adapter; (c) the next tick loads it as
+             t1@v1 at a 0.5 hash split: 32 requests with distinct keys
+             each land on the router's side for split_key_for, no prefix
+             page crosses sides, the quality stat is pinned canary-better
+             through monitor.drift, promotion after promote_ticks evicts
+             the old factors and the promoted streams are within 5% of an
+             engine on merge_lora(base, retrained); (d) injected drift on
+             t2 gives a second retrain run whose canary, pinned worse,
+             rolls back after rollback_ticks with the ordered post-mortem,
+             t2's stream unchanged; (e) a third canary live at a restart:
+             a new controller on the journal adopts the split with the
+             same side for every key and submits nothing; every kernel's
+             launches exact.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
-over the serve, entry_points, observe, gateway, podfleet and runs paths,
-the training flash's over
-the train, families, entry_points, parallel, observe and runs paths) and,
+over the serve, entry_points, observe, gateway, podfleet, runs and tuning
+paths, the training flash's over the train, families, entry_points,
+parallel, observe, runs and tuning paths) and,
 last,
 {"ok": true, "device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
@@ -310,7 +334,8 @@ build,parallel`` training on many GPUs at world size 1, ``--phases
 build,observe`` the captures, the sample tap, the build cache, packaging
 and the JobSet's env, ``--phases build,gateway`` the HTTP gateway,
 ``--phases build,podfleet`` the serving pod fleet and its autoscaler,
-``--phases build,runs`` the run stack); the
+``--phases build,runs`` the run stack, ``--phases build,tuning`` the
+continuous-tuning loop); the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -319,6 +344,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
 import os
 import subprocess
@@ -7775,10 +7801,840 @@ def phase_runs(seed: int, card: str, train_step_ms=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase: tuning — the continuous-tuning loop on the card (model_monitoring/
+# controller.py ContinuousTuningController): natural drift → a LoRA retrain
+# run → a canary hash split → promote; a second tenant's retrain → a
+# degraded canary → rollback; a restart mid-canary
+# ---------------------------------------------------------------------------
+
+TUNE_PROJECT = "tuning"
+TUNE_RANK = 16              # the lora phase's rank and four targets
+TUNE_STEPS = 4              # the retrain run's LoRA fit steps at B4 x 2048
+TUNE_LR = 5e-3
+TUNE_TICK_S = 10.0          # the loop's fake clock step
+TUNE_REFERENCE = 32         # (a): the default reference_min
+TUNE_WINDOW = 16            # (a): the default window_min
+TUNE_REF_NEW, TUNE_DRIFT_NEW = 16, 48   # (a): tokens a request
+TUNE_FRACTION = 0.5         # (c): the canary's share of the tenant
+TUNE_CANARY = 32            # (c): requests with distinct request keys
+TUNE_CANARY_NEW = 16
+TUNE_BASELINE = 8           # requests timed before the controller starts
+TUNE_T2_PROMPT = 90         # (d): a prompt of no full page (never cached)
+TUNE_SHARED = 256           # the shared prefix: two pages
+TUNE_LENS = (64, 600)       # (a)'s prompt lengths
+TUNE_CANARY_LENS = (200, 600)   # the eight prompts of (c)'s baseline,
+                                # the promoted streams and (f)
+TUNE_T2_LENS = (64, 400)    # (d)'s traffic
+TUNE_RESTART_KEYS = 64      # (e): request keys whose sides are compared
+TUNE_PROBES = 3             # (e): keys a side served across the restart
+TUNE_MAX_TICKS = 8          # a stage not concluded after this many fails
+TUNE_TICK_WINDOW = 16384    # engine ticks kept for the p50s (all of them)
+
+# the retrain handler's inputs and what it measured, set by phase_tuning
+_TUNE: dict = {}
+
+
+def _tune_handler(context, tenant: str = "", output_path: str = "",
+                  canary_id: str = "", **kwargs):
+    """The LoRA fine-tune the loop submits as a run (user code, as in the
+    reference's own loop tests): rank 16 on the base weights the server
+    holds, B4 x 2048 for TUNE_STEPS steps, the adapter written through
+    ``serving.adapters.save_adapter`` to the controller's output path."""
+    import torch
+
+    from mlrun_tpu_torch.serving.adapters import save_adapter
+    from mlrun_tpu_torch.training import TrainConfig, Trainer
+    from mlrun_tpu_torch.training.train import tree_leaves
+
+    config, params, batch = _TUNE["config"], _TUNE["params"], _TUNE["batch"]
+
+    def checksum(tree):
+        with torch.no_grad():
+            return [float(leaf.double().sum()) for leaf in tree_leaves(tree)]
+
+    def repeated():
+        while True:
+            yield batch
+
+    started = time.perf_counter()
+    trainer = Trainer(config, TrainConfig(
+        learning_rate=TUNE_LR, warmup_steps=0, total_steps=TUNE_STEPS,
+        loss_chunk=LOSS_CHUNK, lora_rank=TUNE_RANK), device="cuda")
+    trainer.init(_TUNE["seed"] + len(_TUNE["runs"]), params=params)
+    same_base = checksum(trainer.state.params) == _TUNE["base_checksum"]
+    warm = trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
+    trainer.fit(repeated(), TUNE_STEPS, log_every=1, prefetch=2)
+    torch.cuda.synchronize()
+    history = trainer.metrics_history
+    losses = [float(view["loss"]) for view in history]
+    step_ms = TRAIN_BATCH * TRAIN_SEQ / history[-1]["tokens_per_sec"] * 1e3
+    save_adapter(output_path, trainer.state.lora)
+    frozen = checksum(trainer.state.params) == _TUNE["base_checksum"]
+    run = {"tenant": tenant, "canary": canary_id, "losses": losses,
+           "output_path": output_path,
+           "step_ms": step_ms, "compile_seconds": warm["compile_seconds"],
+           "trained_on_the_served_base": same_base,
+           "base_unchanged": frozen, "run_s": time.perf_counter() - started}
+    _TUNE["runs"].append(run)
+    del trainer
+    context.log_results({"loss": losses[-1], "step_ms": step_ms,
+                         "adapter": output_path})
+
+
+def _tune_check(leg: str, row: dict):
+    emit(row)
+    bad = [name for name, ok in row["checks"].items() if not ok]
+    if bad:
+        fail(f"tuning ({leg}): {bad}")
+
+
+def _tune_prompts(seed: int, vocab: int, n: int, lo: int, hi: int,
+                  shared: list, every: int = 3) -> list:
+    """``n`` prompts of ``lo``-``hi`` tokens, every ``every``-th one
+    opening with the ``shared`` prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        length = int(rng.integers(lo, hi + 1))
+        head = list(shared) if i % every == 0 and length > len(shared) \
+            else []
+        out.append(head + rng.integers(1, vocab,
+                                       size=length - len(head)).tolist())
+    return out
+
+
+def _tune_burst(engine, prompts, tenant, max_new, keys=None) -> list:
+    futures = [engine.submit(p, max_new_tokens=max_new, adapter=tenant,
+                             request_key=None if keys is None else keys[i])
+               for i, p in enumerate(prompts)]
+    return [f.result(timeout=600)[0] for f in futures]
+
+
+def _page_bound(prompt, history) -> int:
+    """The most prompt tokens a prefix cache could hold for ``prompt`` from
+    the earlier prompts of the same identity: the longest common prefix,
+    in whole pages."""
+    best = 0
+    for earlier in history:
+        common = len(os.path.commonprefix([prompt, earlier]))
+        best = max(best, common // PAGE * PAGE)
+    return best
+
+
+def _record_prefix_owners(engine) -> list:
+    """Record, for every prefix match the engine makes from now on, the
+    adapter ids whose radix roots own the matched pages (read from the
+    prefix cache itself, not from the id the engine searched under).
+    Wraps this engine's cache instance; ``del engine._prefix.match``
+    restores it."""
+    cache = engine._prefix
+    real = cache.match
+    calls = []
+
+    def pages_under(root) -> set:
+        out, stack = set(), [root]
+        while stack:
+            node = stack.pop()
+            if node.page_id >= 0:
+                out.add(node.page_id)
+            stack.extend(node.children.values())
+        return out
+
+    def match(prompt, adapter=""):
+        pages, nodes = real(prompt, adapter=adapter)
+        owners = sorted(name for name, root in list(cache._roots.items())
+                        if pages_under(root) & set(pages))
+        calls.append({"pages": len(pages), "owners": owners})
+        return pages, nodes
+
+    cache.match = match
+    return calls
+
+
+class _WarningRecords(logging.Handler):
+    """The warnings logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _peek_samples(controller) -> list:
+    """The samples the tap handed the controller since its last tick (a
+    copy: the tick still drains them)."""
+    with controller.ring._lock:
+        return list(controller.ring._ring)
+
+
+def _until(controller, clock, action: str, tenant: str, serve=None,
+           after=()) -> tuple:
+    """Tick the loop until it takes ``action`` for ``tenant`` (serving
+    ``serve()`` before each tick), unless one of the ticks ``after``
+    already took it (a local retrain run completes inside the tick that
+    submits it, so that tick's poll starts the canary): (the tick
+    outputs, the new clock)."""
+    if any(a["action"] == action for a in _actions(after, tenant)):
+        return [], clock
+    outs = []
+    for _ in range(TUNE_MAX_TICKS):
+        if serve is not None:
+            serve()
+        clock += TUNE_TICK_S
+        outs.append(controller.tick(clock))
+        if any(a["action"] == action and a["tenant"] == tenant
+               for a in outs[-1]["actions"]):
+            return outs, clock
+    fail(f"tuning: no '{action}' for {tenant} within {TUNE_MAX_TICKS} "
+         f"ticks: {[o['actions'] for o in outs]}")
+
+
+def _actions(outs, tenant=None) -> list:
+    return [a for o in outs for a in o["actions"]
+            if tenant is None or a["tenant"] == tenant]
+
+
+class _LLMWithContext:
+    """User code of the endpoint leg: a graph step class whose ``__init__``
+    names ``context`` gets the graph context, and hands it to the
+    LLMModelServer it wraps, so the route's model logger pushes to the
+    tracked graph's stream. The step gives the bare LLMModelServer no
+    context, in this package as in the reference."""
+
+    def __init__(self, context=None, **class_args):
+        from mlrun_tpu_torch.serving.llm import LLMModelServer
+
+        self.server = LLMModelServer(context=context, **class_args)
+
+    def __getattr__(self, name):
+        if name == "server":
+            raise AttributeError(name)
+        return getattr(self.server, name)
+
+
+def _tuning_endpoint_leg(seed: int, card: str, db, prompts) -> dict:
+    """(f) the endpoint path (the card's machine has pandas and pyarrow): a
+    GraphServer with ``track_models`` over a 1B LLMModelServer, given the
+    graph context by ``_LLMWithContext``, pushes one event a request to the project's monitoring stream; the stream
+    processor writes the endpoint's parquet window and its record in the
+    run db; the application controller writes the latency results into
+    the record and the metric series (MLT_HOME's metrics.db)."""
+    import copy
+
+    import torch
+
+    from mlrun_tpu_torch.model_monitoring import (
+        EventStreamProcessor,
+        MonitoringApplicationController,
+    )
+    from mlrun_tpu_torch.model_monitoring.tsdb import get_metrics_tsdb
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.server import GraphContext, GraphServer
+
+    spec = copy.deepcopy(GATEWAY_SPEC)
+    spec["function_uri"] = f"{TUNE_PROJECT}/endpoint"
+    spec["track_models"] = True
+    route_spec = spec["graph"]["steps"]["router"]["routes"]["llm"]
+    route_spec["class_name"] = "LLMWithContext"
+    route_spec["class_args"].update(
+        model_preset="llama3-1b", max_new_tokens=TUNE_CANARY_NEW, seed=seed)
+    server = GraphServer.from_dict(spec)
+    server.init_states(GraphContext(server=server),
+                       {"LLMWithContext": _LLMWithContext})
+    route = server.graph.steps["router"].routes["llm"]._object
+    if not route.ready:
+        fail(f"tuning (endpoint): the llm route failed to load: "
+             f"{route.error}")
+    engine = route.engine
+    try:
+        # the leg's path, counted: every count reset right before it
+        _build.reset_launch_counts()
+        before = _engine_counters(engine)
+        outputs = [server.test("/v2/models/llm/infer",
+                               body={"inputs": [p]})["outputs"][0]
+                   for p in prompts]
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        counted = _gateway_launches(launches, before,
+                                    _engine_counters(engine),
+                                    engine.config.n_layers,
+                                    path="tuning (endpoint)")
+    finally:
+        route.close()
+    started = time.perf_counter()
+    processed = EventStreamProcessor(TUNE_PROJECT, db=db).run_once()
+    results = MonitoringApplicationController(TUNE_PROJECT,
+                                              db=db).run_once()
+    endpoint_id = f"{TUNE_PROJECT}-endpoint.llm"
+    record = db.get_model_endpoint(TUNE_PROJECT, endpoint_id)
+    series = {s["metric"]: s["points"] for s in get_metrics_tsdb().query(
+        TUNE_PROJECT, endpoint_id)}
+    p50 = series.get("latency_p50_microsec", [{}])[-1].get("value")
+    row = {
+        "phase": "tuning", "leg": "endpoint", "card": card,
+        "requests": len(prompts), "processed": processed,
+        "pipeline_s": time.perf_counter() - started,
+        "results": {k: [r.name for r in v] for k, v in results.items()},
+        "endpoint_metrics": record.get("metrics"),
+        "series": sorted(series), "latency_p50_microsec": p50,
+        "launches": launches, **counted,
+        "checks": {
+            "tokens": all(len(o) == TUNE_CANARY_NEW for o in outputs),
+            "every_event_processed": processed == len(prompts),
+            "endpoint_record": record.get("metrics", {}).get("requests")
+            == len(prompts),
+            "latency_series": p50 is not None and p50 > 0
+            and "latency_p95_microsec" in series,
+        }}
+    _tune_check("endpoint", row)
+    return row
+
+
+def phase_tuning(seed: int, card: str) -> dict:
+    """The continuous-tuning loop on Llama-3.2-1B at full width and depth:
+    one paged engine (page 128, prefix cache, 4 slots, max_len 2048) with
+    a rank-16 adapter bank holding tenants t1 and t2, under one
+    ContinuousTuningController whose retrains are local runs of
+    ``_tune_handler`` in a temporary run db, with its canary journal live.
+    (a) natural drift on t1 submits one retrain; (b) the retrain is a LoRA
+    fit on the card; (c) its adapter canaries at a hash split and is
+    promoted; (d) a retrain of t2 canaries worse and rolls back; (e) a
+    restarted controller adopts a live split; (f) the endpoint path of a
+    tracked graph into the stream processor, the application controller
+    and the metric series. Returns the launches."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from mlrun_tpu_torch.chaos import FaultPoints, chaos
+    from mlrun_tpu_torch.config import SERVING_FLEET_DEFAULTS
+    from mlrun_tpu_torch.datastore import store_manager
+    from mlrun_tpu_torch.db import SQLiteRunDB, set_run_db
+    from mlrun_tpu_torch.model_monitoring import ContinuousTuningController
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.models.lora import init_lora_nonzero, merge_lora
+    from mlrun_tpu_torch.obs import CANARY_REQUESTS, get_flight_recorder
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.adapters import load_adapter
+    from mlrun_tpu_torch.serving.canary import set_canary_router, split_key_for
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+    from mlrun_tpu_torch.serving.samples import set_sample_observer
+    from mlrun_tpu_torch.training.data import synthetic_token_stream, to_device
+    from mlrun_tpu_torch.training.train import tree_leaves
+
+    phase_started = time.perf_counter()
+    config = MODEL_PRESETS["llama3-1b"]()
+    vocab = config.vocab_size
+    work = tempfile.mkdtemp(prefix="mlt-tuning-")
+    db = SQLiteRunDB(os.path.join(work, "runs.sqlite"),
+                     logs_dir=os.path.join(work, "logs"))
+    set_run_db(db)
+    store_manager.set(db=db)
+    saved_env = {key: os.environ.get(key)
+                 for key in ("MLT_ARTIFACT_PATH", "MLT_HOME")}
+    os.environ["MLT_ARTIFACT_PATH"] = os.path.join(work, "artifacts")
+    os.environ["MLT_HOME"] = os.path.join(work, "home")
+    saved_journal = SERVING_FLEET_DEFAULTS.get("journal_dir", "")
+    SERVING_FLEET_DEFAULTS["journal_dir"] = os.path.join(work, "journal")
+    recorder = get_flight_recorder()
+    recorder.configure(directory=os.path.join(work, "flight"))
+    recorder.clear()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(config, gen, "cuda")
+    gen.manual_seed(seed + 3)
+    adapters = {name: init_lora_nonzero(config, gen, rank=TUNE_RANK,
+                                        alpha=LORA_ALPHA,
+                                        b_scale=LORA_B_SCALE, device="cuda")
+                for name in ("t1", "t2")}
+    tokens, targets = next(synthetic_token_stream(
+        TRAIN_BATCH, TRAIN_SEQ, vocab, seed=seed + 7))
+    _TUNE.update(config=config, params=params, seed=seed, runs=[],
+                 batch=(tokens, targets))
+    with torch.no_grad():
+        _TUNE["base_checksum"] = [float(leaf.double().sum())
+                                  for leaf in tree_leaves(params)]
+    shared = _tune_prompts(seed + 11, vocab, 1, TUNE_SHARED, TUNE_SHARED,
+                           [])[0]
+    ref_prompts = _tune_prompts(seed + 12, vocab, TUNE_REFERENCE,
+                                *TUNE_LENS, shared)
+    drift_prompts = [_tune_prompts(seed + 13 + w, vocab, TUNE_WINDOW,
+                                   *TUNE_LENS, shared) for w in range(2)]
+    canary_base = _tune_prompts(seed + 20, vocab, TUNE_CANARY // 4,
+                                *TUNE_CANARY_LENS, shared)
+    # (c)'s requests: each its own prompt, every one opening with the
+    # shared head that t1's stable pages already hold, so that a page of
+    # either side is there to be hit by the other
+    canary_prompts = _tune_prompts(seed + 21, vocab, TUNE_CANARY,
+                                   TUNE_SHARED + 1, TUNE_CANARY_LENS[1],
+                                   shared, every=1)
+    canary_keys = [f"user-{seed}-{i}" for i in range(TUNE_CANARY)]
+    t2_prompt = _tune_prompts(seed + 30, vocab, 1, TUNE_T2_PROMPT,
+                              TUNE_T2_PROMPT, [])[0]
+    t2_prompts = _tune_prompts(seed + 31, vocab, 16, *TUNE_T2_LENS, shared)
+
+    engine = PagedContinuousBatchingEngine(
+        config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+        adapters=adapters, seed=seed, device="cuda",
+        latency_window=TUNE_TICK_WINDOW)
+    overrides = dict(project=TUNE_PROJECT, retrain_kind="local",
+                     retrain_handler=_tune_handler, fraction=TUNE_FRACTION,
+                     warmup_s=0.0, vocab_size=vocab)
+    controllers = []
+    injection = None
+    rows = []
+    promoted_streams = None
+    try:
+        # -- the main path, counted: every count reset right before it -----
+        _build.reset_launch_counts()
+        before = _engine_counters(engine)
+        # t2's stream before the loop (no full page: never a prefix hit),
+        # and the dark tick baseline on the canary burst's prompts
+        t2_before = engine.generate(t2_prompt, max_new_tokens=MAX_NEW,
+                                    adapter="t2")[0]
+        mark = _tick_mark(engine)
+        for prompt in canary_prompts[:TUNE_BASELINE]:
+            engine.generate(prompt, max_new_tokens=TUNE_CANARY_NEW,
+                            adapter="t2")
+        dark_tick_p50 = _tick_p50_since(engine, mark)
+        stable_history = {"t1": [], "t2": list(
+            canary_prompts[:TUNE_BASELINE])}
+
+        controller = ContinuousTuningController(engine, **overrides).start()
+        controllers.append(controller)
+        clock = 0.0
+
+        # (a) natural drift: 32 reference requests, two windows of longer
+        # outputs; the drift verdicts stay natural
+        started = time.perf_counter()
+        _tune_burst(engine, ref_prompts, "t1", TUNE_REF_NEW)
+        stable_history["t1"] += ref_prompts
+        clock += TUNE_TICK_S
+        outs = [controller.tick(clock)]
+        window_stats = []
+        first_drift_at = None
+        for window in drift_prompts:
+            _tune_burst(engine, window, "t1", TUNE_DRIFT_NEW)
+            stable_history["t1"] += window
+            clock += TUNE_TICK_S
+            outs.append(controller.tick(clock))
+            ev = outs[-1]["evaluated"]["t1"]
+            window_stats.append({**{k: ev["stats"].get(k) for k in (
+                "length_psi", "token_psi", "token_kld", "sample_count")},
+                "drifted": ev["drifted"]})
+            if ev["drifted"] and first_drift_at is None:
+                first_drift_at = (len(outs), time.perf_counter())
+        retrains = [a for a in _actions(outs, "t1")
+                    if a["action"] == "retrain"]
+        submitted_tick = next((i + 1 for i, o in enumerate(outs)
+                               if any(a["action"] == "retrain"
+                                      for a in o["actions"])), None)
+        runs = db.list_runs(project=TUNE_PROJECT)
+        run_t1 = _TUNE["runs"][0] if _TUNE["runs"] else {}
+        row_a = {
+            "phase": "tuning", "leg": "drift", "card": card,
+            "model": "llama3-1b", "layers": config.n_layers,
+            "reference_requests": TUNE_REFERENCE,
+            "window_requests": TUNE_WINDOW,
+            "max_new_tokens": [TUNE_REF_NEW, TUNE_DRIFT_NEW],
+            "reference_tick": outs[0]["evaluated"]["t1"]["drifted"],
+            "windows": window_stats,
+            "ticks_first_drift_to_submission":
+            None if submitted_tick is None or first_drift_at is None
+            else submitted_tick - first_drift_at[0],
+            "actions": [a["action"] for a in retrains],
+            "checks": {
+                "reference_tick_has_no_verdict":
+                outs[0]["evaluated"]["t1"]["drifted"] is None,
+                "length_psi_over_0.2_both_windows": all(
+                    (w["length_psi"] or 0) >= 0.2 and w["drifted"]
+                    for w in window_stats),
+                "exactly_one_retrain": [a["action"] for a in retrains]
+                == ["retrain"] and len(runs) == 1,
+            }}
+        _tune_check("drift", row_a)
+        rows.append(row_a)
+
+        # (b) the retrain run: a completed LoRA run on the card
+        stored = db.read_run(retrains[0]["uid"], TUNE_PROJECT) or {}
+        results = stored.get("status", {}).get("results", {})
+        row_b = {
+            "phase": "tuning", "leg": "retrain", "card": card,
+            "rank": TUNE_RANK, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TUNE_STEPS, **run_t1,
+            "state": stored.get("status", {}).get("state"),
+            "results": results,
+            "checks": {
+                "completed_with_results":
+                stored.get("status", {}).get("state") == "completed"
+                and {"loss", "step_ms", "adapter"} <= set(results),
+                "trained_on_the_served_base":
+                run_t1.get("trained_on_the_served_base") is True,
+                "base_unchanged": run_t1.get("base_unchanged") is True,
+                "finite_loss": all(math.isfinite(x)
+                                   for x in run_t1.get("losses", [])),
+                "adapter_written": os.path.isfile(
+                    run_t1.get("output_path", "")),
+            }}
+        _tune_check("retrain", row_b)
+        rows.append(row_b)
+
+        # (c) canary: the next tick loads the artifact and splits t1
+        def pin(stable_id, stable_q, canary_q, drift):
+            """Pin the quality stat of ``stable_id`` and of its tenant's
+            other versioned ids (the canary) through the monitor.drift
+            box; ``drift`` also forces the stable id's verdict."""
+            prefix = stable_id.split("@")[0] + "@"
+
+            def action(point, ctx):
+                box, adapter = ctx["box"], ctx["adapter"]
+                if adapter == stable_id:
+                    if drift:
+                        box["drifted"] = True
+                    box["stats"]["quality_mean"] = stable_q
+                elif adapter.startswith(prefix):
+                    box["stats"]["quality_mean"] = canary_q
+            return chaos.inject(FaultPoints.monitor_drift, action=action)
+
+        injection = pin("t1", 0.5, 0.9, drift=False)
+        outs_c, clock = _until(controller, clock, "canary_start", "t1",
+                               after=outs)
+        canary_started = time.perf_counter()
+        split = controller.router.split("t1")
+        counted = {side: CANARY_REQUESTS.value(adapter="t1", side=side)
+                   for side in ("stable", "canary")}
+        mark = _tick_mark(engine)
+        sides, prefix_rows = [], []
+        canary_history = []
+        matches = _record_prefix_owners(engine)
+        try:
+            for prompt, key in zip(canary_prompts, canary_keys):
+                want = controller.router.resolve(
+                    "t1", split_key_for(prompt, key))
+                seen = len(_peek_samples(controller))
+                cached = engine.stats["prefix_cached_tokens"]
+                first_match = len(matches)
+                engine.generate(prompt, max_new_tokens=TUNE_CANARY_NEW,
+                                adapter="t1", request_key=key)
+                sample = _peek_samples(controller)[seen:]
+                got = sample[-1]["adapter"] if sample else None
+                history = canary_history if want[1] == "canary" \
+                    else stable_history["t1"]
+                hit = engine.stats["prefix_cached_tokens"] - cached
+                owners = sorted({o for m in matches[first_match:]
+                                 for o in m["owners"]})
+                prefix_rows.append({"side": want[1], "id": want[0],
+                                    "cached": hit, "owners": owners,
+                                    "bound": _page_bound(prompt, history)})
+                history.append(prompt)
+                sides.append((want, got))
+        finally:
+            del engine._prefix.match
+        armed_tick_p50 = _tick_p50_since(engine, mark)
+        metered = {side: CANARY_REQUESTS.value(adapter="t1", side=side)
+                   - counted[side] for side in counted}
+        outs_p, clock = _until(controller, clock, "promote", "t1")
+        promote_s = time.perf_counter()
+        decisions = [o["evaluated"].get("t1", {}).get("canary")
+                     for o in outs_c + outs_p]
+        injection.remove()
+        injection = None
+        resident = engine._adapters.resident_names()
+        promoted_streams = [engine.generate(p, max_new_tokens=MAX_NEW,
+                                            adapter="t1")[0]
+                            for p in canary_base[:4]]
+        per_side = {side: [r for r in prefix_rows if r["side"] == side]
+                    for side in ("stable", "canary")}
+        row_c = {
+            "phase": "tuning", "leg": "canary", "card": card,
+            "split": None if split is None else [split.canary,
+                                                 split.fraction],
+            "requests": TUNE_CANARY,
+            "sides": {side: len(rs) for side, rs in per_side.items()},
+            "metered": metered,
+            "prefix_cached_tokens": {side: sum(r["cached"] for r in rs)
+                                     for side, rs in per_side.items()},
+            "prefix_page_owners": {side: sorted({o for r in rs
+                                                 for o in r["owners"]})
+                                   for side, rs in per_side.items()},
+            "decisions": decisions,
+            "ticks_canary_to_promote": len(outs_p),
+            "dark_tick_p50_s": dark_tick_p50,
+            "armed_tick_p50_s": armed_tick_p50,
+            "detection_to_promotion_s":
+            promote_s - first_drift_at[1] if first_drift_at else None,
+            "canary_to_promotion_s": promote_s - canary_started,
+            "stable_id": controller.router.stable_id("t1"),
+            "resident": sorted(resident),
+            "checks": {
+                "split_installed": split is not None
+                and split.canary == "t1@v1"
+                and split.fraction == TUNE_FRACTION,
+                "sides_equal_the_hash": all(
+                    got == want[0] for want, got in sides),
+                "both_sides_served": all(per_side.values()),
+                "metered_by_side": metered == {
+                    side: float(len(rs)) for side, rs in per_side.items()},
+                "distinct_prompts": len({tuple(p) for p in canary_prompts})
+                == TUNE_CANARY,
+                "no_prefix_page_across_sides": all(
+                    r["cached"] <= r["bound"]
+                    and set(r["owners"]) <= {r["id"]}
+                    for r in prefix_rows),
+                "own_side_prefix_hits": all(
+                    sum(r["cached"] for r in rs) > 0
+                    for rs in per_side.values()),
+                "promoted_after_promote_ticks":
+                decisions[-controller.promote_ticks:]
+                == ["better"] * controller.promote_ticks,
+                "stable_is_the_canary":
+                controller.router.stable_id("t1") == "t1@v1"
+                and controller.router.split("t1") is None,
+                "old_factors_evicted": "t1" not in resident
+                and "t1" in engine._adapters.sources,
+            }}
+        _tune_check("canary", row_c)
+        rows.append(row_c)
+
+        # (d) rollback: injected drift on t2 → a second retrain run on the
+        # card → its canary pinned worse → rollback with a post-mortem
+        def serve_t2():
+            _tune_burst(engine, t2_prompts[:8], "t2", TUNE_CANARY_NEW,
+                   keys=[f"t2-{clock}-{i}" for i in range(8)])
+
+        serve_t2()
+        injection = pin("t2", 0.9, 0.2, drift=True)
+        outs_d, clock = _until(controller, clock, "retrain", "t2", serve_t2)
+        outs_d2, clock = _until(controller, clock, "canary_start", "t2",
+                                after=outs_d)
+        outs_d3, clock = _until(controller, clock, "rollback", "t2",
+                                serve_t2)
+        injection.remove()
+        injection = None
+        rollback = _actions(outs_d3, "t2")[-1]
+        lines = [json.loads(line) for line in open(rollback["post_mortem"])]
+        kinds = [e["kind"] for e in lines[1:] if e.get("adapter") == "t2"]
+        chain = ["tune.submitted", "tune.completed", "canary.start",
+                 "canary.rollback"]
+        worse = [o["evaluated"].get("t2", {}).get("canary") for o in outs_d3]
+        t2_after = engine.generate(t2_prompt, max_new_tokens=MAX_NEW,
+                                   adapter="t2")[0]
+        row_d = {
+            "phase": "tuning", "leg": "rollback", "card": card,
+            "retrain": _TUNE["runs"][1] if len(_TUNE["runs"]) > 1 else None,
+            "decisions": worse, "reason": rollback["reason"],
+            "post_mortem_kinds": kinds,
+            "checks": {
+                "second_run_completed": [r["status"]["state"] for r in
+                                         db.list_runs(project=TUNE_PROJECT)]
+                == ["completed"] * 2,
+                "rolled_back_after_rollback_ticks":
+                worse[-controller.rollback_ticks:]
+                == ["worse"] * controller.rollback_ticks,
+                "chain_in_order": all(k in kinds for k in chain) and [
+                    kinds.index(k) for k in chain] == sorted(
+                    kinds.index(k) for k in chain),
+                "split_cleared": controller.router.split("t2") is None
+                and controller.router.stable_id("t2") == "t2"
+                and "t2@v1" not in engine._adapters.sources,
+                "t2_stream_unchanged": t2_after == t2_before,
+            }}
+        _tune_check("rollback", row_d)
+        rows.append(row_d)
+
+        # (e) restart mid-canary: a third retrain of t1 (past its
+        # cooldown), its canary live and held (its quality within the
+        # budget's promote and breach bands), then a new controller on
+        # the journal
+        clock += controller.cooldown_s
+        injection = pin("t1@v1", 0.5, 0.3, drift=True)
+
+        def serve_t1():
+            _tune_burst(engine, canary_base[:4], "t1", TUNE_CANARY_NEW)
+
+        outs_e, clock = _until(controller, clock, "retrain", "t1", serve_t1)
+        outs_e2, clock = _until(controller, clock, "canary_start", "t1",
+                                after=outs_e)
+        keys = [f"restart-{i}" for i in range(TUNE_RESTART_KEYS)]
+        sides_before = {k: controller.router.resolve("t1", k) for k in keys}
+        split_before = controller.router.split("t1")
+        # probes: TUNE_PROBES keys of each side, each with its own prompt of
+        # no full page (never a prefix hit), served before and after
+        probe_keys = [k for side in ("stable", "canary") for k in [
+            k for k in keys if sides_before[k][1] == side][:TUNE_PROBES]]
+        probe_prompts = _tune_prompts(seed + 40, vocab, len(probe_keys),
+                                      TUNE_T2_PROMPT, TUNE_T2_PROMPT, [])
+
+        def probe(ctl) -> list:
+            served = []
+            for prompt, key in zip(probe_prompts, probe_keys):
+                seen = len(_peek_samples(ctl))
+                tokens = engine.generate(
+                    prompt, max_new_tokens=TUNE_CANARY_NEW, adapter="t1",
+                    request_key=key)[0]
+                sample = _peek_samples(ctl)[seen:]
+                served.append({"key": key, "tokens": tokens,
+                               "adapter": sample[-1]["adapter"]
+                               if sample else None})
+            return served
+
+        probes_before = probe(controller)
+        controller.stop()
+        controller._journal.close()
+        runs_before = len(db.list_runs(project=TUNE_PROJECT))
+        # a fresh process holds no canary: the restart reloads it from its
+        # artifact, and a failed reload is logged (a warning) and swallowed
+        engine.retire_adapter("t1@v2")
+        retired = "t1@v2" not in engine._adapters.sources
+        warnings = _WarningRecords()
+        logging.getLogger("mlrun_tpu_torch").addHandler(warnings)
+        try:
+            restarted = ContinuousTuningController(engine,
+                                                   **overrides).start()
+        finally:
+            logging.getLogger("mlrun_tpu_torch").removeHandler(warnings)
+        controllers.append(restarted)
+        split_after = restarted.router.split("t1")
+        sides_after = {k: restarted.router.resolve("t1", k) for k in keys}
+        probes_after = probe(restarted)
+        outs_r = []
+        for _ in range(2):
+            serve_t1()
+            clock += TUNE_TICK_S
+            outs_r.append(restarted.tick(clock))
+        injection.remove()
+        injection = None
+        row_e = {
+            "phase": "tuning", "leg": "restart", "card": card,
+            "split": [split_before.canary, split_before.fraction],
+            "adopted": None if split_after is None
+            else [split_after.canary, split_after.fraction],
+            "keys": len(keys), "actions_after": _actions(outs_r),
+            "warnings": warnings.messages,
+            "probes": [{"key": b["key"], "side": sides_before[b["key"]][1],
+                        "before": b["adapter"], "after": a["adapter"],
+                        "same_stream": a["tokens"] == b["tokens"]}
+                       for b, a in zip(probes_before, probes_after)],
+            "checks": {
+                "canary_retired_before_restart": retired,
+                "canary_reloaded_from_its_artifact":
+                "t1@v2" in engine._adapters.sources
+                and not warnings.messages,
+                "probes_reach_their_side": all(
+                    p["adapter"] == sides_before[p["key"]][0]
+                    for p in probes_before + probes_after)
+                and {sides_before[p["key"]][0] for p in probes_after}
+                == {"t1@v1", "t1@v2"},
+                "probe_streams_unchanged": [p["tokens"]
+                                            for p in probes_after]
+                == [p["tokens"] for p in probes_before],
+                "split_adopted": split_after is not None
+                and split_after.canary == split_before.canary == "t1@v2"
+                and split_after.fraction == split_before.fraction,
+                "same_side_every_key": sides_after == sides_before,
+                "both_sides_present": {s for _, s in sides_after.values()}
+                == {"stable", "canary"},
+                "submits_nothing": not any(
+                    a["action"] == "retrain" for a in _actions(outs_r))
+                and len(db.list_runs(project=TUNE_PROJECT)) == runs_before,
+            }}
+        _tune_check("restart", row_e)
+        rows.append(row_e)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        delta = _counter_delta(engine, before)
+        t1_path = _TUNE["runs"][0]["output_path"]
+        engine_stats = engine.stats
+    finally:
+        if injection is not None:
+            injection.remove()
+        for c in controllers:
+            c.stop()
+            if c._journal is not None:
+                c._journal.close()
+        set_canary_router(None)
+        set_sample_observer(None)
+        engine.stop()
+        SERVING_FLEET_DEFAULTS["journal_dir"] = saved_journal
+        recorder.configure(directory="")
+
+    # every kernel's launches, exactly: the serving kernels as the engine's
+    # counters say, the training flash as the three retrain runs' passes
+    n_runs = len(_TUNE["runs"])
+    passes = n_runs * (TUNE_STEPS + 1)
+    layers = config.n_layers
+    want = {"paged_decode": layers * delta["attn_kernel_ticks"],
+            "paged_prefill": layers * delta["prefill_kernel_chunks"],
+            "flash_fwd_cached": layers * delta["prefill_chunks"],
+            "flash_fwd": 2 * layers * passes, "flash_bwd": layers * passes}
+    _exact_launches("tuning", launches, want)
+    if engine_stats["attn_gather_ticks"] or \
+            engine_stats["prefill_gather_admissions"]:
+        fail("tuning: an adapter row fell back to the dense gather")
+
+    # the promoted tenant against an engine on merge_lora(base, retrained)
+    retrained = load_adapter(t1_path)
+    lora = {target: {key: torch.as_tensor(value, device="cuda")
+                     for key, value in parts.items()}
+            for target, parts in retrained.items()}
+    merged = merge_lora(params, lora)
+    _, ref_out = _merged_reference(config, merged, seed, canary_base[:4])
+    checks = [_stream_check(config, merged, p, got, ref)
+              for p, got, ref in zip(canary_base[:4], promoted_streams,
+                                     ref_out)]
+    del merged
+    _release()
+    row = {
+        "phase": "tuning", "leg": "promoted_vs_merged", "card": card,
+        "streams": checks, "rel_tol": SPEC_REL_TOL,
+        "checks": {
+            "ties_only": all(c["tie_at_departure_rel"] is None
+                             or c["tie_at_departure_rel"] <= SPEC_REL_TOL
+                             for c in checks),
+            "near_argmax": all(c["worst_argmax_gap_rel"] <= SPEC_REL_TOL
+                               for c in checks),
+        }}
+    _tune_check("promoted_vs_merged", row)
+    endpoint = _tuning_endpoint_leg(seed, card, db, canary_base)
+    for name, count in endpoint["launches"].items():
+        launches[name] = launches.get(name, 0) + count
+    shutil.rmtree(work, ignore_errors=True)
+    set_run_db(None)
+    store_manager._db = None
+    for key, value in saved_env.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+    emit({"phase": "tuning", "card": card,
+          "seconds": time.perf_counter() - phase_started,
+          "retrain_runs": n_runs,
+          "retrain_step_ms": [r["step_ms"] for r in _TUNE["runs"]],
+          "retrain_run_s": [r["run_s"] for r in _TUNE["runs"]],
+          "dark_tick_p50_s": dark_tick_p50,
+          "armed_tick_p50_s": armed_tick_p50,
+          "detection_to_promotion_s": row_c["detection_to_promotion_s"],
+          "canary_requests_total": {
+              side: CANARY_REQUESTS.value(adapter="t1", side=side)
+              for side in ("stable", "canary")},
+          "endpoint_latency_p50_microsec": endpoint["latency_p50_microsec"],
+          "launches": launches, "loop_expected_launches": want})
+    _TUNE.clear()
+    return launches
+
+
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
               "fleet", "families", "entry_points", "parallel", "observe",
-              "gateway", "podfleet", "runs")
+              "gateway", "podfleet", "runs", "tuning")
 
 
 def main(argv=None) -> int:
@@ -7902,6 +8758,12 @@ def main(argv=None) -> int:
         # serving kernels' on the SLO leg's burst
         for name, count in phase_runs(args.seed, card,
                                       train_step_ms).items():
+            launches[name] = launches.get(name, 0) + count
+        release()
+    if "tuning" in phases:
+        # the serving kernels' launches on the loop's traffic, the
+        # training flash's on its retrain runs
+        for name, count in phase_tuning(args.seed, card).items():
             launches[name] = launches.get(name, 0) + count
         release()
     if set(phases) != set(ALL_PHASES):

@@ -125,6 +125,14 @@ class FaultPoints:
     # KVHandoff wire — a delay() models a slow fetch, an error falls back
     # to re-prefill from tokens
     llm_kv_fetch = "llm.kv_fetch"
+    # one per-adapter drift evaluation (model_monitoring/
+    # stream_processing.py AdapterTrafficMonitor.evaluate) — fires with
+    # a mutable ``box`` carrying the computed windowed stats and the
+    # drifted verdict; an action() may overwrite box["stats"] /
+    # box["drifted"] for deterministic drift injection into the
+    # continuous fine-tune→canary→promote loop, an error models a failed
+    # analyzer pass
+    monitor_drift = "monitor.drift"
     # datastore reads and writes (datastore/base.py DataItem / DataStore)
     datastore_read = "datastore.read"
     datastore_write = "datastore.write"
@@ -154,7 +162,7 @@ class FaultPoints:
             FaultPoints.llm_prefix_evict, FaultPoints.llm_adapter_load,
             FaultPoints.llm_kv_demote, FaultPoints.llm_kv_promote,
             FaultPoints.llm_kv_fetch,
-            FaultPoints.obs_autoscale,
+            FaultPoints.obs_autoscale, FaultPoints.monitor_drift,
             FaultPoints.datastore_read, FaultPoints.datastore_write,
             FaultPoints.execution_commit, FaultPoints.train_slice_fail,
         ]

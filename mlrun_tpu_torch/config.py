@@ -19,7 +19,11 @@ and ``function.tpu_image`` keys.
 reads one with its ``MLT_`` environment override, parsed as JSON where it
 parses (the reference's env layer), and :func:`home_dir`,
 :func:`resolve_local_db_path` and :func:`resolve_artifact_path` resolve the
-paths under ``MLT_HOME`` as the reference's ``mlconf`` does."""
+paths under ``MLT_HOME`` as the reference's ``mlconf`` does.
+
+``MODEL_MONITORING_DEFAULTS`` is the reference's ``model_monitoring``
+block, the keys that code reads: the series' retention and the
+continuous-tuning loop's ``drift``, ``retrain`` and ``canary`` sections."""
 
 from __future__ import annotations
 
@@ -260,13 +264,91 @@ OBSERVABILITY_DEFAULTS = {
     "trace_peer_timeout_s": 1.0,
 }
 
+# model monitoring (model_monitoring/): the metric series' retention and
+# the continuous fine-tune→canary→promote loop (ContinuousTuningController;
+# its class args override these per instance)
+MODEL_MONITORING_DEFAULTS = {
+    # metric time-series retention (tsdb.py prune, applied by the
+    # controller on each window pass)
+    "tsdb_retention_days": 30.0,
+    "continuous": {
+        # -- drift detection (AdapterTrafficMonitor) --
+        "drift": {
+            # bounded-histogram shape for the windowed token/output
+            # sketches (O(bins) memory per adapter, any volume)
+            "token_bins": 32,
+            "length_bins": 16,
+            # samples locked in as the per-adapter reference distribution
+            # before drift is ever evaluated
+            "reference_min": 32,
+            # samples a window needs before it yields a verdict (smaller
+            # windows return "no signal", never "no drift")
+            "window_min": 16,
+            # PSI over the reference vs window histograms at/over this =
+            # drifted (the classic "significant population shift" rule)
+            "psi_threshold": 0.2,
+            # consecutive drifted ticks before a retrain triggers
+            "confirm_ticks": 2,
+            # distinct adapters the monitor tracks (bounded state)
+            "max_adapters": 64,
+        },
+        # -- drift → fine-tune trigger --
+        "retrain": {
+            # runtime kind the fine-tune submits as ("tpujob" on a
+            # cluster; tests use "local" with a handler override)
+            "kind": "tpujob",
+            # dotted "module.fn" handler for the fine-tune job; the job
+            # receives params {tenant, base_adapter, canary_id,
+            # output_path, drift} and must write the adapter .npz to
+            # output_path
+            "handler": "",
+            "image": "",
+            # seconds after a retrain concludes (promote, rollback or
+            # failure) before the same tenant may retrain again
+            "cooldown_s": 600.0,
+        },
+        # -- canary serving + promote/rollback --
+        "canary": {
+            # fraction of the tenant's traffic hash-split onto the canary
+            # adapter (deterministic per request key)
+            "fraction": 0.2,
+            # seconds of canary traffic before evaluation starts
+            "warmup_s": 30.0,
+            # multi-window burn-rate evaluation (obs/slo.py) windows
+            "fast_window_s": 60.0,
+            "slow_window_s": 300.0,
+            # p95 TTFT the canary must hold (latency objective); <= 0
+            # skips the latency objective
+            "ttft_target_s": 0.0,
+            "ttft_q": 0.95,
+            # allowed quality-stat degradation canary-vs-stable
+            # (quality_delta objective over mlt_drift_stat)
+            "quality_target": 0.25,
+            # the monitor stat the quality objective compares (higher =
+            # better under "lower_worse")
+            "quality_stat": "quality_mean",
+            "quality_direction": "lower_worse",
+            # consecutive better/worse evaluations before the loop
+            # promotes / rolls back
+            "promote_ticks": 3,
+            "rollback_ticks": 2,
+            # a canary reaching this age without a conclusive verdict
+            # rolls back — the loop must always conclude
+            "max_age_s": 3600.0,
+            # burn level (fraction of the objective budget) the slow AND
+            # fast windows must stay under to count as "better"
+            "promote_max_burn": 0.5,
+        },
+    },
+}
+
 # env var carrying base64 user code into the serving gateway process: its
 # graph classes and handlers resolve from that code's namespace
 EXEC_CODE_ENV = "MLT_EXEC_CODE"
 
 # the run stack's keys (the reference's default_project, dbpath,
 # local_db_path, artifact_path, exec_config_env, runs.heartbeat.interval
-# and function.default_image)
+# and function.default_image) and the datastore's redis.url
 RUN_DEFAULTS = {
     "default_project": "default",
     # "" = the local sqlite file under MLT_HOME; a "*.sqlite" path; "nop"
@@ -277,12 +359,15 @@ RUN_DEFAULTS = {
     # seconds between a run's lightweight status.last_heartbeat pushes
     "heartbeat_interval": 30.0,
     "default_image": "mlrun-tpu/base:latest",
+    # the Redis online target's server (datastore/targets.py)
+    "redis_url": "redis://localhost:6379",
 }
 
 # keys whose env name is not MLT_<KEY> (the reference's nested keys)
 _RUN_ENV = {
     "heartbeat_interval": "MLT_RUNS__HEARTBEAT__INTERVAL",
     "default_image": "MLT_FUNCTION__DEFAULT_IMAGE",
+    "redis_url": "MLT_REDIS__URL",
 }
 
 

@@ -7,7 +7,8 @@ in the process, ``store://`` artifact uris through the run db (the
 artifact's ``target_path``, its record as the item's ``meta``) and
 ``ds://<profile>/<path>`` through a datastore profile (the client-side
 registry, else the run db's ``get_datastore_profile``). The reference's
-object stores raise ``not_ported`` item 10.
+object stores raise ``not_ported`` item 10. ``sources`` and ``targets``
+hold the feature store's sources and targets.
 """
 
 from __future__ import annotations
@@ -142,3 +143,27 @@ class StoreManager:
 
 
 store_manager = StoreManager()
+
+
+from .sources import (  # noqa: E402,F401
+    BigQuerySource,
+    CSVSource,
+    DataFrameSource,
+    HttpSource,
+    KafkaSource,
+    ParquetSource,
+    SnowflakeSource,
+    SQLSource,
+    StreamSource,
+)
+from .targets import (  # noqa: E402,F401
+    CSVTarget,
+    DFTarget,
+    KafkaTarget,
+    NoSqlTarget,
+    ParquetTarget,
+    RedisNoSqlTarget,
+    SQLTarget,
+    StreamTarget,
+    TSDBTarget,
+)

@@ -14,7 +14,9 @@ waterfall and ``debug`` holds the gateway's ``/debug`` handler cores.
 ``federation`` merges replicas' scrapes into one fleet view,
 ``timeseries`` keeps windowed rings over it and ``slo`` turns them into
 burn rates; the pod fleet, journal, reconcile and autoscaler families are
-the control plane's (serving/podfleet.py, service/autoscaler.py).
+the control plane's (serving/podfleet.py, service/autoscaler.py), the
+drift and canary families the continuous-tuning loop's
+(model_monitoring/).
 """
 
 import threading as _threading
@@ -271,12 +273,34 @@ HEALTH_TRANSITIONS = REGISTRY.counter(
     "entered (suspect / probation / healthy)",
     labels=("replica", "to"), max_label_sets=512, overflow="drop")
 
-# -- canary splits (serving/canary.py) ---------------------------------------
+# -- model monitoring / continuous tuning (model_monitoring/,
+# serving/canary.py) ----------------------------------------------------------
+DRIFT_STAT = REGISTRY.gauge(
+    "mlt_drift_stat",
+    "Windowed per-adapter traffic statistics from the serving-side "
+    "sample analyzer (stat = token_psi | token_kld | length_psi | "
+    "quality_mean | ttft_mean_s | sample_count); the quality_delta SLO "
+    "kind compares these canary-vs-stable",
+    labels=("adapter", "stat"), max_label_sets=512, overflow="drop")
+DRIFT_EVENTS = REGISTRY.counter(
+    "mlt_drift_events_total",
+    "Drift state-machine transitions per adapter (detected | confirmed "
+    "| retrain_submitted | retrain_failed)",
+    labels=("adapter", "event"), max_label_sets=512, overflow="drop")
 CANARY_REQUESTS = REGISTRY.counter(
     "mlt_canary_requests_total",
     "Requests resolved through the canary hash split, by side (the "
     "adapter label is the TENANT id, not the versioned adapter id)",
     labels=("adapter", "side"), max_label_sets=512, overflow="drop")
+CANARY_STATE = REGISTRY.gauge(
+    "mlt_canary_state",
+    "Canary lifecycle per tenant: 0 none, 1 canary serving a split, "
+    "2 last canary promoted, -1 last canary rolled back",
+    labels=("adapter",), max_label_sets=256, overflow="drop")
+CANARY_DECISIONS = REGISTRY.counter(
+    "mlt_canary_decisions_total",
+    "Closed-loop decisions per tenant (start | promote | rollback)",
+    labels=("adapter", "decision"), max_label_sets=512, overflow="drop")
 
 # -- autoscaler (service/autoscaler.py) --------------------------------------
 AUTOSCALER_RECOMMENDATIONS = REGISTRY.counter(

@@ -76,10 +76,24 @@ class CanaryRouter:
                 f"'{tenant}' is not a client tenant id ('{VERSION_SEP}' "
                 f"is reserved for loop-managed versioned adapters)")
 
+    def stable_id(self, tenant: str) -> str:
+        """The versioned id the tenant's stable traffic currently
+        resolves to (the tenant id itself before any promotion)."""
+        with self._lock:
+            return self._aliases.get(tenant, tenant)
+
     def set_alias(self, tenant: str, versioned: str):
         self._check_tenant(tenant)
         with self._lock:
             self._aliases[tenant] = versioned
+
+    def split(self, tenant: str) -> Optional[CanarySplit]:
+        with self._lock:
+            return self._splits.get(tenant)
+
+    def active_splits(self) -> dict:
+        with self._lock:
+            return dict(self._splits)
 
     def set_split(self, tenant: str, canary: str, fraction: float):
         self._check_tenant(tenant)
@@ -163,6 +177,13 @@ class CanaryRouter:
             # canary/(canary+stable) fraction
             CANARY_REQUESTS.inc(adapter=adapter, side=side)
         return effective, side
+
+    @staticmethod
+    def is_managed(name: str) -> bool:
+        """True for loop-managed versioned/canary ids (never client
+        tenant ids) — e.g. the monitor's drift state machine skips
+        them."""
+        return VERSION_SEP in (name or "")
 
 
 # process-wide router consulted by the submit paths; None = the loop is

@@ -534,16 +534,13 @@ class DegradationLadder:
         return max_new_tokens
 
 
-# ROADMAP.md "Modules still to port", by item number (1-9 landed; 10's
-# tail is what the run stack left; items 11-14 queue the reference's host
-# packages that have no counterpart in the port yet, in dependency order)
+# ROADMAP.md "Modules still to port", by item number (1-9, 11 and 12
+# landed; 10's tail is what the run stack left; items 13-14 queue the
+# reference's host packages that have no counterpart in the port yet, in
+# dependency order)
 PORT_QUEUE = {
     10: "item 10's tail: the object stores (datastore/stores.py: gs, s3, "
         "az, hdfs, http and redis urls)",
-    11: "the feature store (feature_store/, host only): feature sets, "
-        "vectors and the online feature service",
-    12: "model monitoring (model_monitoring/): the drift analyzers and the "
-        "continuous-tuning canary and retrain loop",
     13: "projects and the CLI (projects/, __main__.py with its run "
         "--from-env, run.py beyond new_function)",
     14: "the rest of the service (its API server, the Grafana proxy, the "

@@ -329,9 +329,9 @@ class VotingEnsemble(BaseModelRouter):
 
 class EnrichmentModelRouter(ModelRouter):
     """Router that enriches the event with feature-store features before
-    routing. Without ``feature_vector_uri`` it routes as ``ModelRouter``;
-    with one it needs the feature store, which the port does not have yet
-    (ROADMAP.md item 11)."""
+    routing: with ``feature_vector_uri`` each input (an entity dict, or an
+    ``id``) becomes its feature list from the online feature service;
+    without one it routes as ``ModelRouter``."""
 
     def __init__(self, *args, feature_vector_uri: str = "",
                  impute_policy: dict | None = None, **kwargs):
@@ -342,10 +342,10 @@ class EnrichmentModelRouter(ModelRouter):
 
     def post_init(self, mode: str = "sync"):
         if self.feature_vector_uri:
-            from .resilience import not_ported
+            from ..feature_store import get_online_feature_service
 
-            raise not_ported("feature-vector enrichment "
-                             f"({self.feature_vector_uri!r})", 11)
+            self._service = get_online_feature_service(
+                self.feature_vector_uri, impute_policy=self.impute_policy)
 
     def parse_event(self, event):
         event = super().parse_event(event)

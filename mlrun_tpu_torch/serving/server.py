@@ -218,12 +218,13 @@ class GraphServer(ModelObj):
                 initializer = get_function(initializer, namespace or {})
             initializer(self)
         if self.track_models and isinstance(self.context, GraphContext):
-            # the reference's default stream kind (inmem): one in-memory
-            # stream per project
-            from .streams import get_stream_pusher
+            from ..config import run_config
+            from ..model_monitoring.stream_processing import (
+                get_monitoring_stream,
+            )
 
-            self.context.monitoring_stream = get_stream_pusher(
-                f"memory://monitoring-{self.context.project or 'default'}")
+            self.context.monitoring_stream = get_monitoring_stream(
+                self.context.project or run_config("default_project"))
         self._namespace = namespace or {}
         if self.tracer is None:
             self.tracer = get_tracer()

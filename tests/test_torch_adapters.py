@@ -38,6 +38,7 @@ from mlrun_tpu_torch.serving import adapters as tadapters
 from mlrun_tpu_torch.serving import llm as tllm
 from mlrun_tpu_torch.serving import llm_batch as tbatch
 from mlrun_tpu_torch.serving import paged as tpaged
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 PROMPT = [1, 7, 3, 9, 2, 4, 6, 8, 5, 3, 1, 2]   # one full page at page 8
 NEW = 6

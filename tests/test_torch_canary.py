@@ -30,6 +30,7 @@ from mlrun_tpu_torch.models.convert import params_from_numpy
 from mlrun_tpu_torch.serving import canary as tcanary
 from mlrun_tpu_torch.serving import llm as tllm
 from mlrun_tpu_torch.serving import paged as tpaged
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 MODULES = (jcanary, tcanary)
 TENANTS = ("t1", "t2", "acme", "x")

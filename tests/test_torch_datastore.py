@@ -27,6 +27,7 @@ from mlrun_tpu_torch.models.convert import params_from_numpy
 from mlrun_tpu_torch.serving import adapters as tadapters
 from mlrun_tpu_torch.serving.v2_serving import V2ModelServer
 from mlrun_tpu_torch.training import train as ttrain
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 RUN_REL_TOL = 1e-4
 

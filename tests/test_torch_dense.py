@@ -35,6 +35,7 @@ from mlrun_tpu_torch.serving import llm as tllm
 from mlrun_tpu_torch.serving import llm_batch as tbatch
 from mlrun_tpu_torch.serving.adapters import UnknownAdapterError
 from mlrun_tpu_torch.serving.resilience import PromptTooLongError
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 MAX_LEN = 128
 BUCKETS = (32, 64)

@@ -30,6 +30,7 @@ from mlrun_tpu.training import train as jtrain
 from mlrun_tpu_torch.training import ElasticGuard
 from mlrun_tpu_torch.training import data as tdata
 from tests.torch_ranks import run_ranks
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 RUN_REL_TOL = 1e-4
 PARAM_TOL = 1e-4

@@ -30,6 +30,7 @@ from mlrun_tpu_torch.models.convert import params_from_numpy
 from mlrun_tpu_torch.training import CheckpointManager
 from mlrun_tpu_torch.training import data as tdata
 from mlrun_tpu_torch.training import train as ttrain
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 RUN_REL_TOL = 1e-4
 EVAL = dict(model="tiny", batch_size=2, seq_len=32, steps=3, seed=4,

@@ -32,6 +32,7 @@ from mlrun_tpu_torch.models import moe as tmoe
 from mlrun_tpu_torch.parallel import sharding as tsharding
 from mlrun_tpu_torch.training import data as tdata
 from tests.torch_ranks import MOE_SHAPES, run_ranks
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 RUN_REL_TOL = 1e-4
 PARAM_TOL = 1e-4

@@ -42,6 +42,7 @@ from mlrun_tpu_torch.serving import fleet as tfleet
 from mlrun_tpu_torch.serving import llm as tllm
 from mlrun_tpu_torch.serving import paged as tpaged
 from mlrun_tpu_torch.serving import resilience as tres
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 # (fleet module, resilience module, chaos package) per package
 PACKAGES = {"jax": (jfleet, jres, jchaos), "port": (tfleet, tres, tchaos)}

@@ -35,6 +35,7 @@ from mlrun_tpu_torch.serving import llm as tllm
 from tests.test_torch_graph import PORT, REF, _mask, _models, _server, _spec
 from tests.test_torch_serving import PAGE, _min_margin, _tokens  # noqa: F401
 from tests.test_torch_serving import models  # noqa: F401  (fixture)
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 
 # -- serving both apps ---------------------------------------------------------

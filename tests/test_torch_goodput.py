@@ -14,6 +14,7 @@ from mlrun_tpu_torch.obs import REGISTRY
 from mlrun_tpu_torch.obs import goodput as tgoodput
 from mlrun_tpu_torch.training import TrainConfig, Trainer
 from mlrun_tpu_torch.training import data as tdata
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 TRAINING_FAMILIES = ("mlt_train_step_seconds", "mlt_training_mfu",
                      "mlt_train_input_wait_seconds",

@@ -23,6 +23,7 @@ from mlrun_tpu_torch import obs as tobs
 from mlrun_tpu_torch.obs.flight import get_flight_recorder as tflight
 from mlrun_tpu_torch.obs.health import ReplicaHealthScorer as TScorer
 from mlrun_tpu_torch.serving import fleet as tfleet
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 # (scorer class, obs package, flight recorder getter) per package
 PACKAGES = {"jax": (JScorer, jobs, jflight),

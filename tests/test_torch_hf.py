@@ -32,6 +32,7 @@ from mlrun_tpu.frameworks import huggingface as jhf
 from mlrun_tpu_torch.frameworks import huggingface as thf
 from mlrun_tpu_torch.models import llama as tllama
 from mlrun_tpu_torch.serving import llm as tllm
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 CONFIG_FIELDS = ("vocab_size", "n_layers", "embed_dim", "n_heads",
                  "n_kv_heads", "head_dim", "mlp_dim", "rope_theta",

@@ -11,8 +11,10 @@ ModelObj and the secrets store, the intent journal (common/), the JobSet
 provider and the fleet autoscaler (service/), the serving pod fleet and
 the fleet telemetry (obs/federation, obs/timeseries, obs/slo), the run
 stack (the run objects, the run db, artifacts, notifications,
-service/alerts, MLClientCtx, the runtimes and the launchers) included,
-nor the chip smoke script and
+service/alerts, MLClientCtx, the runtimes and the launchers), model
+monitoring with its continuous-tuning loop, and the feature store with
+its datastore sources and targets included, nor the chip smoke script
+and
 the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
 parallel paths pulls neither into the process. None of those files
@@ -169,6 +171,20 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.service.alerts, mlrun_tpu_torch.run\n"
         "import mlrun_tpu_torch.artifacts, mlrun_tpu_torch.datastore.profiles\n"
         "import mlrun_tpu_torch.utils.notifications\n"
+        "import mlrun_tpu_torch.model_monitoring\n"
+        "import mlrun_tpu_torch.model_monitoring.metrics\n"
+        "import mlrun_tpu_torch.model_monitoring.tsdb\n"
+        "import mlrun_tpu_torch.model_monitoring.stream_processing\n"
+        "import mlrun_tpu_torch.model_monitoring.applications\n"
+        "import mlrun_tpu_torch.model_monitoring.controller\n"
+        "import mlrun_tpu_torch.feature_store\n"
+        "import mlrun_tpu_torch.feature_store.api\n"
+        "import mlrun_tpu_torch.feature_store.feature_set\n"
+        "import mlrun_tpu_torch.feature_store.retrieval\n"
+        "import mlrun_tpu_torch.feature_store.steps\n"
+        "import mlrun_tpu_torch.feature_store.ingestion_service\n"
+        "import mlrun_tpu_torch.datastore.sources\n"
+        "import mlrun_tpu_torch.datastore.targets\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN + ABSENT_ON_THE_CARD,))
@@ -177,3 +193,37 @@ def test_serving_import_pulls_in_no_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"imported: {out.stdout.strip()}"
+
+
+def test_the_tuning_loop_needs_no_pandas():
+    """With pandas and pyarrow not importable (the card's machine may
+    lack them), model monitoring imports, the traffic monitor gives its
+    verdicts and the continuous-tuning loop ticks; only the endpoint
+    pipeline's frame-building steps need pandas."""
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "sys.modules['pyarrow'] = None\n"
+        "from mlrun_tpu_torch.model_monitoring import (\n"
+        "    AdapterTrafficMonitor, ContinuousTuningController)\n"
+        "m = AdapterTrafficMonitor(vocab_size=64, reference_min=2,\n"
+        "                          window_min=2)\n"
+        "for tokens in ([1, 2], [1, 2], [1, 2], [1, 2], [60, 61, 62],\n"
+        "               [60, 61, 62]):\n"
+        "    m.observe({'adapter': 't1', 'tokens': tokens})\n"
+        "stats, drifted = m.evaluate('t1', 0.0)\n"
+        "assert drifted is True, stats\n"
+        "c = ContinuousTuningController(object(), project='p',\n"
+        "    reference_min=2, window_min=2, vocab_size=64).start()\n"
+        "c.ring.append({'adapter': 't1', 'tokens': [1], 'generated': 1})\n"
+        "out = c.tick(1.0)\n"
+        "c.stop()\n"
+        "assert out['actions'] == [] and 't1' in out['evaluated']\n"
+        "print(sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('pandas', 'pyarrow')\n"
+        "             and sys.modules[k] is not None))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -41,6 +41,7 @@ from mlrun_tpu_torch.models.convert import params_from_numpy
 from mlrun_tpu_torch.serving import llm_batch as tbatch
 from mlrun_tpu_torch.serving import paged as tpaged
 from mlrun_tpu_torch.serving.kv_tier import HostKVTier as TTier
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

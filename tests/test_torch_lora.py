@@ -48,6 +48,7 @@ from mlrun_tpu_torch.serving import paged as tpaged
 from mlrun_tpu_torch.serving.adapters import AdapterBank as TBank
 from mlrun_tpu_torch.training import data as tdata
 from mlrun_tpu_torch.training import train as ttrain
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 MERGE_TOL = 1e-6
 LOGIT_TOL = 1e-5

@@ -32,6 +32,7 @@ from mlrun_tpu_torch.obs import metrics as tmetrics
 from mlrun_tpu_torch.obs import reqledger as treqledger
 from mlrun_tpu_torch.obs import stats as tstats
 from mlrun_tpu_torch.obs import tracing as ttracing
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -66,6 +66,7 @@ from mlrun_tpu_torch.service import providers as tproviders
 
 from . import fake_k8s
 from .test_fleet_elastic import _FakeEngine
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 PKGS = {
     "jax": types.SimpleNamespace(

@@ -40,6 +40,7 @@ from mlrun_tpu_torch.serving import llm as tllm
 from mlrun_tpu_torch.serving import llm_batch as tbatch
 from mlrun_tpu_torch.serving import paged as tpaged
 from mlrun_tpu_torch.serving import resilience as tres
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 PAGE, MAX_LEN = 16, 64
 

@@ -36,6 +36,7 @@ from mlrun_tpu_torch.k8s.jobset import TopologyError
 from mlrun_tpu_torch.runtimes import get_runtime_class
 
 from .mocks import RunDBMock
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 PKGS = {"jax": mlrun_tpu, "port": mlrun_tpu_torch}
 VOLATILE = {"uid", "tree", "start_time", "last_update", "last_heartbeat",

@@ -31,6 +31,7 @@ from mlrun_tpu_torch.serving import llm as tllm
 from mlrun_tpu_torch.serving import llm_batch as tbatch
 from mlrun_tpu_torch.serving import paged as tpaged
 from mlrun_tpu_torch.serving import samples as tsamples
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 MARGIN_RTOL = 1e-4
 KEYS = {"adapter", "tokens", "prompt_len", "generated", "ttft_s", "total_s",

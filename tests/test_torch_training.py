@@ -30,6 +30,7 @@ from mlrun_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from mlrun_tpu_torch.ops import attention as tattn
 from mlrun_tpu_torch.training import data as tdata
 from mlrun_tpu_torch.training import train as ttrain
+from tests.torch_registries import registries_left_as_found  # noqa: F401
 
 # the package re-exports an ``mfu`` function under the submodule's name
 tmfu = importlib.import_module("mlrun_tpu_torch.training.mfu")
