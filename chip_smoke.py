@@ -319,11 +319,30 @@ exits non-zero and never prints the final line):
              a new controller on the journal adopts the split with the
              same side for every key and submits nothing; every kernel's
              launches exact.
+20. projects - the pod's own program, the port's CLI, each leg a child
+             process over the build phase's kernel library, with a
+             temporary SQLite run db and MLT_HOME: (a) the tpujob
+             JobSet's own container command (python3 -m mlrun_tpu_torch
+             run --from-env under torchrun, one node and one GPU,
+             MASTER_ADDR 127.0.0.1, the handler in MLT_EXEC_CODE) runs
+             the 1B trainer (B 4 x 2048, 4 steps after the warmup); the
+             run is read back completed from the db with its results,
+             log and model artifact, its losses equal to an in-process
+             fit of the seed, its flash launches 2 x 16 x 5 / 16 x 5;
+             (b) `project <dir> --run main` runs a two-step workflow:
+             a rank-16 LoRA fit on the 1B base logged as a model, then
+             the adapter (step 1's output) on a 1B paged engine, its
+             greedy streams held to an engine on the merged weights;
+             `get runs` and `logs <uid>` read both runs back; (c)
+             `serve` with SERVING_SPEC_ENV at 8B (a user route class
+             reports the launches): the serve traffic over HTTP within
+             5% of the argmax, a drain with a request in flight, SIGINT,
+             exit 0.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
-over the serve, entry_points, observe, gateway, podfleet, runs and tuning
-paths, the training flash's over the train, families, entry_points,
-parallel, observe, runs and tuning paths) and,
+over the serve, entry_points, observe, gateway, podfleet, runs, tuning
+and projects paths, the training flash's over the train, families,
+entry_points, parallel, observe, runs, tuning and projects paths) and,
 last,
 {"ok": true, "device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
@@ -335,7 +354,8 @@ build,observe`` the captures, the sample tap, the build cache, packaging
 and the JobSet's env, ``--phases build,gateway`` the HTTP gateway,
 ``--phases build,podfleet`` the serving pod fleet and its autoscaler,
 ``--phases build,runs`` the run stack, ``--phases build,tuning`` the
-continuous-tuning loop); the
+continuous-tuning loop, ``--phases build,projects`` the pod's program);
+the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
 """
@@ -343,6 +363,7 @@ memory and spills per kernel) goes to standard error.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -8631,10 +8652,723 @@ def phase_tuning(seed: int, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: projects — the pod's own program (the port's CLI) in child
+# processes: the tpujob JobSet's command under torchrun, a project's
+# two-step workflow through `project --run`, and `serve` at 8B over HTTP
+# ---------------------------------------------------------------------------
+
+PROJ_PROJECT = "pods"
+PROJ_TRAIN_MODEL = "llama3-1b"  # (a): the tpujob run's model (full width)
+PROJ_STEPS = 4              # (a): steps after the warmup pass
+PROJ_LORA_STEPS = 4         # (b): step 1's LoRA fit at B4 x 2048
+PROJ_LORA_RANK = 16
+PROJ_LORA_LR = 5e-3
+PROJ_LOSS_REL_TOL = 1e-5    # (a): the pod's losses against in-process ones
+PROJ_CHILD_TIMEOUT = 600.0
+PROJ_RESULT_KEYS = ("losses", "launches", "torch_import_s",
+                    "kernel_load_s", "device")
+
+# (a): the pod's handler, carried by MLT_EXEC_CODE (user code: the 1B
+# trainer through auto_trainer.train, its per-step losses and the kernel
+# launches of its run logged as results)
+PROJ_TRAIN_CODE = '''
+import sys
+import time
+
+
+def train(context, device_check: bool = True, **params):
+    """auto_trainer.train in the pod, with its per-step losses, the
+    kernels' launches and the process's torch import and kernel load."""
+    preloaded = "torch" in sys.modules
+    started = time.perf_counter()
+    import torch
+    torch_import_s = time.perf_counter() - started
+
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.ops import _build
+
+    kernel_load_s = None
+    if device_check:
+        torch.cuda.init()
+        started = time.perf_counter()
+        _build.library()
+        kernel_load_s = time.perf_counter() - started
+    losses = []
+
+    def record(step, metrics, trainer):
+        losses.append(float(metrics["loss"]))
+        print(f"pod step {step} loss {losses[-1]!r}")
+
+    _build.reset_launch_counts()
+    auto_trainer.train(context=context, callbacks=[record], **params)
+    if device_check:
+        torch.cuda.synchronize()
+    context.log_results({
+        "losses": losses,
+        "launches": {k: v for k, v in _build.launch_counts().items() if v},
+        "torch_import_s": None if preloaded else torch_import_s,
+        "kernel_load_s": kernel_load_s,
+        "device": torch.cuda.get_device_name(0) if device_check else "cpu"})
+'''
+
+# (b): the project's function file and its workflow
+PROJ_STEPS_CODE = '''import sys
+
+sys.path.insert(0, {here!r})
+import chip_smoke  # noqa: E402
+
+
+def train_adapter(context, seed: int = 0, steps: int = 4):
+    """A rank-16 LoRA adapter on the 1B base, logged as a model."""
+    chip_smoke._proj_train_adapter(context, seed, steps)
+
+
+def decode(context, adapter: str = "", seed: int = 0):
+    """Greedy decoding under the adapter, held to the merged weights."""
+    chip_smoke._proj_decode(context, adapter, seed)
+'''
+
+PROJ_WORKFLOW_CODE = '''from mlrun_tpu_torch.projects import get_current_project
+
+
+def pipeline(seed="0", steps="4"):
+    proj = get_current_project()
+    train = proj.run_function("train-adapter",
+                              params={"seed": int(seed),
+                                      "steps": int(steps)})
+    proj.run_function("decode", params={"adapter": train.output("adapter"),
+                                        "seed": int(seed)}).after(train)
+'''
+
+# (c): the serving pod's user code, carried by MLT_EXEC_CODE: the route
+# class wraps LLMModelServer and answers {"launch_counts": "reset"|"read"}
+# itself (the counts, the engine's counters and the process's torch
+# import and kernel load)
+PROJ_SERVE_CODE = '''
+import time
+
+_started = time.perf_counter()
+import torch  # noqa: E402
+_TORCH_IMPORT_S = time.perf_counter() - _started
+
+from mlrun_tpu_torch.ops import _build  # noqa: E402
+
+_KERNEL_LOAD_S = None
+if torch.cuda.is_available():
+    torch.cuda.init()
+    _started = time.perf_counter()
+    _build.library()
+    _KERNEL_LOAD_S = time.perf_counter() - _started
+
+
+class CountingLLM:
+    """LLMModelServer as a graph route, with the kernels' launch counts
+    behind the body {"launch_counts": "reset" | "read"}."""
+
+    def __init__(self, context=None, **class_args):
+        from mlrun_tpu_torch.serving.llm import LLMModelServer
+
+        self.server = LLMModelServer(context=context, **class_args)
+
+    def do_event(self, event, *args, **kwargs):
+        body = event.body if isinstance(event.body, dict) else {}
+        what = body.get("launch_counts")
+        if what is None:
+            return self.server.do_event(event, *args, **kwargs)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        if what == "reset":
+            _build.reset_launch_counts()
+        event.body = {"launches": _build.launch_counts(),
+                      "stats": self.server.engine.stats,
+                      "torch_import_s": _TORCH_IMPORT_S,
+                      "kernel_load_s": _KERNEL_LOAD_S}
+        return event
+
+    def __getattr__(self, name):
+        if name == "server":
+            raise AttributeError(name)
+        return getattr(self.server, name)
+'''
+
+
+def _proj_check(leg: str, row: dict):
+    emit(row)
+    bad = [name for name, ok in row["checks"].items() if not ok]
+    if bad:
+        fail(f"projects ({leg}): {bad}")
+
+
+def _proj_env(work: str, **extra) -> dict:
+    """A child's environment: this interpreter as the PATH's python3 and
+    torchrun (the image's programs), the checkout importable, no rank."""
+    import stat
+
+    shim = os.path.join(work, "bin")
+    if not os.path.isdir(shim):
+        os.makedirs(shim)
+        for name, body in (
+                ("python3", f'exec {sys.executable} "$@"'),
+                ("torchrun", f'exec {sys.executable} -m torch.distributed.run '
+                             '"$@"')):
+            path = os.path.join(shim, name)
+            with open(path, "w") as fp:
+                fp.write(f"#!/bin/sh\n{body}\n")
+            os.chmod(path, os.stat(path).st_mode | stat.S_IEXEC)
+    env = dict(os.environ)
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT", "SERVING_SPEC_ENV",
+                 "MLT_EXEC_CODE", "MLT_EXEC_CONFIG"):
+        env.pop(name, None)
+    env["PATH"] = f"{shim}:{env.get('PATH', '')}"
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH", "")) if p)
+    env.update(extra)
+    return env
+
+
+def _proj_cli(args: list, env: dict, leg: str, timeout=PROJ_CHILD_TIMEOUT):
+    """``python3 -m mlrun_tpu_torch <args>`` in a child: (stdout, seconds)."""
+    started = time.perf_counter()
+    proc = subprocess.run(["python3", "-m", "mlrun_tpu_torch"] + args,
+                          env=env, cwd=HERE, capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.perf_counter() - started
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode != 0:
+        fail(f"projects ({leg}): `{' '.join(args)}` exited "
+             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    return proc.stdout, seconds
+
+
+def _proj_train_params(seed: int, work: str) -> dict:
+    return {"model": PROJ_TRAIN_MODEL, "batch_size": TRAIN_BATCH,
+            "seq_len": TRAIN_SEQ, "steps": PROJ_STEPS, "log_every": 1,
+            "seed": seed, "model_name": RUNS_MODEL,
+            "checkpoint_dir": os.path.join(work, "checkpoints")}
+
+
+def _proj_tpujob_leg(seed: int, card: str, work: str, db) -> dict:
+    """(a) the tpujob JobSet's own container command, under /bin/sh with
+    the JobSet's env resolved as pod 0 of slice 0 (one node, one GPU,
+    MASTER_ADDR 127.0.0.1): torchrun runs ``python3 -m mlrun_tpu_torch
+    run --from-env``, which runs the 1B trainer; the run read back from
+    the SQLite db, its losses against an in-process fit of the seed."""
+    import base64
+    import socket
+
+    import torch
+
+    from mlrun_tpu_torch import new_function
+    from mlrun_tpu_torch.artifacts import ModelArtifact, get_model
+    from mlrun_tpu_torch.config import EXEC_CODE_ENV
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.model import RunObject, new_task
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.ops import _build
+
+    config = MODEL_PRESETS["llama3-1b"]()
+    params = _proj_train_params(seed, work)
+    fn = new_function("train", kind="tpujob", project=PROJ_PROJECT)
+    fn.with_gpus(nodes=1, gpus_per_node=1)
+    run = RunObject.from_template(new_task(
+        name="train", project=PROJ_PROJECT, handler="train", params=params,
+        artifact_path=os.path.join(work, "artifacts")))
+    run.metadata.uid = "a0" + os.urandom(15).hex()
+    jobset = fn.generate_jobset(run, extra_env={
+        EXEC_CODE_ENV: base64.b64encode(PROJ_TRAIN_CODE.encode()).decode()})
+    job = jobset["spec"]["replicatedJobs"][0]["template"]["spec"]
+    main = job["template"]["spec"]["containers"][0]
+    program = list(main["command"]) + list(main["args"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    resolved = {}
+    for entry in main["env"]:
+        # the pod's field references: the completion and job indexes of
+        # pod 0 of slice 0
+        resolved[entry["name"]] = entry.get("value", "0")
+    resolved.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    env = _proj_env(work, **resolved)
+
+    started = time.perf_counter()
+    proc = subprocess.run(program, env=env, cwd=HERE, capture_output=True,
+                          text=True, timeout=PROJ_CHILD_TIMEOUT)
+    pod_s = time.perf_counter() - started
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode != 0:
+        fail(f"projects (tpujob): the JobSet's command exited "
+             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    uid = run.metadata.uid
+    stored = db.read_run(uid, PROJ_PROJECT) or {}
+    status = stored.get("status", {})
+    results = status.get("results", {})
+    log_state, log = db.get_log(uid, PROJ_PROJECT)
+    model_uri = f"store://models/{PROJ_PROJECT}/{RUNS_MODEL}"
+    model_file, spec, _ = get_model(model_uri)
+
+    # the same fit in this process, from the same seed
+    losses = []
+    started = time.perf_counter()
+    auto_trainer.train(context=None, callbacks=[
+        lambda step, metrics, trainer: losses.append(
+            float(metrics["loss"]))],
+        **{k: v for k, v in params.items()
+           if k not in ("checkpoint_dir", "device_check")})
+    torch.cuda.synchronize()
+    in_process_s = time.perf_counter() - started
+    pod_losses = results.get("losses") or []
+    rel = [abs(a - b) / abs(b) for a, b in zip(pod_losses, losses)]
+    passes = PROJ_STEPS + 1     # the warmup's pass and every step
+    want = {"flash_fwd": 2 * config.n_layers * passes,
+            "flash_bwd": config.n_layers * passes}
+    launches = results.get("launches") or {}
+    step_ms = (TRAIN_BATCH * TRAIN_SEQ / results["tokens_per_sec"] * 1e3
+               if results.get("tokens_per_sec") else None)
+    row = {
+        "phase": "projects", "leg": "tpujob", "card": card,
+        "model": PROJ_TRAIN_MODEL, "layers": config.n_layers,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": PROJ_STEPS,
+        "container_command": main["command"][:2] + ["..."],
+        "container_args": main["args"],
+        "uid": uid, "state": status.get("state"),
+        "error": status.get("error"), "pod_s": pod_s,
+        "in_process_s": in_process_s, "step_ms": step_ms,
+        "pod_losses": pod_losses, "in_process_losses": losses,
+        "loss_max_rel": max(rel) if rel else None,
+        "losses_bit_equal": pod_losses == losses,
+        "torch_import_s": results.get("torch_import_s"),
+        "kernel_load_s": results.get("kernel_load_s"),
+        "launches": launches, "expected_launches": want,
+        "log": log.decode(errors="replace")[-300:],
+        "model_file": model_file,
+        "checks": {
+            "the_ports_cli": main["args"] == ["python3", "-m",
+                                              "mlrun_tpu_torch", "run",
+                                              "--from-env"]
+            and "mlrun-tpu" not in json.dumps(main["command"]),
+            "one_node_one_gpu": resolved.get("NNODES") == "1"
+            and resolved.get("NPROC_PER_NODE") == "1"
+            and main["resources"]["limits"].get("nvidia.com/gpu") == 1,
+            "completed": status.get("state") == "completed"
+            and log_state == "completed",
+            "ran_on_the_card":
+            results.get("device") == torch.cuda.get_device_name(0),
+            "results_logged": {"loss", "tokens_per_sec", "losses"}
+            <= set(results),
+            "log_holds_each_step": log.count(b"pod step ") == PROJ_STEPS,
+            "model_artifact": isinstance(spec, ModelArtifact)
+            and os.path.abspath(model_file)
+            == os.path.abspath(params["checkpoint_dir"]),
+            "losses_equal_in_process": len(pod_losses) == PROJ_STEPS
+            == len(losses) and max(rel) <= PROJ_LOSS_REL_TOL,
+            "flash_launches": launches == want,
+        }}
+    _proj_check("tpujob", row)
+    return row
+
+
+def _proj_train_adapter(context, seed: int, steps: int):
+    """Workflow step 1 (in the `project --run` child): a rank-16 LoRA fit
+    on the seeded 1B base at B4 x 2048, the adapter written with
+    save_adapter and logged as the model "adapter"; its kernel launches
+    and per-step losses logged as results."""
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.adapters import save_adapter
+    from mlrun_tpu_torch.training import TrainConfig, Trainer
+    from mlrun_tpu_torch.training.data import synthetic_token_stream
+
+    config = MODEL_PRESETS[PROJ_TRAIN_MODEL]()
+    params = init_params(config, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+    batch = next(synthetic_token_stream(TRAIN_BATCH, TRAIN_SEQ,
+                                        config.vocab_size, seed=seed))
+
+    def repeated():
+        while True:
+            yield batch
+
+    _build.reset_launch_counts()
+    trainer = Trainer(config, TrainConfig(
+        learning_rate=PROJ_LORA_LR, warmup_steps=0, total_steps=steps,
+        loss_chunk=LOSS_CHUNK, lora_rank=PROJ_LORA_RANK), device="cuda")
+    trainer.init(seed, params=params)
+    trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
+    trainer.fit(repeated(), steps, log_every=1)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    history = trainer.metrics_history
+    os.makedirs(context.artifact_path, exist_ok=True)
+    path = os.path.join(context.artifact_path, "adapter.npz")
+    save_adapter(path, trainer.state.lora)
+    context.log_model("adapter", model_file=path, framework="lora",
+                      parameters={"rank": PROJ_LORA_RANK, "steps": steps})
+    context.log_results({
+        "losses": [float(view["loss"]) for view in history],
+        "step_ms": TRAIN_BATCH * TRAIN_SEQ
+        / history[-1]["tokens_per_sec"] * 1e3,
+        "launches": launches, "layers": config.n_layers})
+
+
+def _proj_decode(context, adapter: str, seed: int):
+    """Workflow step 2: the adapter step 1 logged (a store:// uri, from
+    ``step1.output("adapter")``) on a 1B paged engine, the serve prompts
+    decoded greedily under it, held to an engine on the merged weights
+    (first-token logits, streams until a near-tie, as the lora phase
+    holds its tenants)."""
+    import torch
+
+    from mlrun_tpu_torch.artifacts import get_model
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.models.lora import merge_lora
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.serving.adapters import load_adapter
+    from mlrun_tpu_torch.serving.paged import PagedContinuousBatchingEngine
+
+    config = MODEL_PRESETS[PROJ_TRAIN_MODEL]()
+    params = init_params(config, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+    model_file, _, _ = get_model(adapter)
+    tree = {target: {key: torch.as_tensor(value, device="cuda")
+                     for key, value in parts.items()}
+            for target, parts in load_adapter(model_file).items()}
+    prompts = _prompts(seed, config.vocab_size)
+    engine = PagedContinuousBatchingEngine(
+        config, params, max_len=MAX_LEN, slots=SLOTS, page_size=PAGE,
+        seed=seed, device="cuda", adapters={"tuned": tree})
+    logits: list = []
+    _record_first_logits(engine, logits)
+    _build.reset_launch_counts()
+    futures = [engine.submit(p, max_new_tokens=MAX_NEW, adapter="tuned")
+               for p in prompts]
+    out = [f.result(timeout=600)[0] for f in futures]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    stats = engine.stats
+    engine.stop()
+    merged = merge_lora(params, tree)
+    ref_logits, ref_out = _merged_reference(config, merged, seed, prompts)
+    streams = [_stream_check(config, merged, p, o, r)
+               for p, o, r in zip(prompts, out, ref_out)]
+    rel_err, first_same, share = _compare(logits, out, ref_logits, ref_out)
+    context.log_results({
+        "launches": launches, "layers": config.n_layers,
+        "attn_kernel_ticks": stats["attn_kernel_ticks"],
+        "attn_gather_ticks": stats["attn_gather_ticks"],
+        "prefill_gather_admissions": stats["prefill_gather_admissions"],
+        "prefill_chunks": stats["prefill_chunks"],
+        "tokens": [len(o) for o in out],
+        "vs_merged_first_logits_max_rel_err": rel_err,
+        "vs_merged_first_tokens_identical": first_same,
+        "vs_merged_greedy_token_share_identical": share,
+        "streams": streams})
+
+
+def _proj_workflow_leg(seed: int, card: str, work: str, db) -> dict:
+    """(b) a project directory (project.yaml from new_project().save(), a
+    function file whose two functions are saved to the run db with their
+    code embedded, a workflow file) run by ``python3 -m mlrun_tpu_torch
+    project <dir> --run main`` in a child; then ``get runs`` and ``logs
+    <uid>`` in children read both runs back."""
+    from mlrun_tpu_torch import code_to_function, new_project
+
+    directory = os.path.join(work, "project")
+    os.makedirs(directory)
+    steps_file = os.path.join(directory, "steps.py")
+    with open(steps_file, "w") as fp:
+        fp.write(PROJ_STEPS_CODE.format(here=HERE))
+    with open(os.path.join(directory, "workflow.py"), "w") as fp:
+        fp.write(PROJ_WORKFLOW_CODE)
+    project = new_project(PROJ_PROJECT, context=directory, save=False)
+    for name, handler in (("train-adapter", "train_adapter"),
+                          ("decode", "decode")):
+        fn = code_to_function(name, project=PROJ_PROJECT,
+                              filename=steps_file, kind="job",
+                              handler=handler)
+        project.set_function(fn, name=name)
+        fn.save()
+    project.set_workflow("main", "workflow.py")
+    project.save()
+    env = _proj_env(work)
+    out, project_s = _proj_cli(
+        ["project", directory, "--run", "main", "-x", f"seed={seed}",
+         "-x", f"steps={PROJ_LORA_STEPS}"], env, "workflow")
+    runs = {r["metadata"]["name"]: r
+            for r in db.list_runs(project=PROJ_PROJECT)
+            if r["metadata"]["name"] in ("train-adapter", "decode")}
+    listed, get_s = _proj_cli(["get", "runs", "-p", PROJ_PROJECT], env,
+                              "get runs")
+    logs = {}
+    for name, run in runs.items():
+        text, _ = _proj_cli(["logs", run["metadata"]["uid"], "-p",
+                             PROJ_PROJECT], env, "logs")
+        logs[name] = text
+    train = runs.get("train-adapter", {}).get("status", {})
+    decode = runs.get("decode", {}).get("status", {})
+    tr, dr = train.get("results", {}), decode.get("results", {})
+    layers = tr.get("layers", 0)
+    passes = PROJ_LORA_STEPS + 1
+    want = {"flash_fwd": 2 * layers * passes, "flash_bwd": layers * passes}
+    adapter_uri = (train.get("artifact_uris") or {}).get("adapter", "")
+    decode_spec = runs.get("decode", {}).get("spec", {})
+    streams = dr.get("streams") or []
+    launches = {}
+    for counts in (tr.get("launches") or {}, dr.get("launches") or {}):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+    row = {
+        "phase": "projects", "leg": "workflow", "card": card,
+        "model": PROJ_TRAIN_MODEL, "layers": layers,
+        "lora_rank": PROJ_LORA_RANK, "lora_steps": PROJ_LORA_STEPS,
+        "project_s": project_s, "get_runs_s": get_s,
+        "cli_out": out.strip().splitlines()[-3:],
+        "states": {n: r.get("status", {}).get("state")
+                   for n, r in runs.items()},
+        "adapter_uri": adapter_uri, "train_losses": tr.get("losses"),
+        "lora_step_ms": tr.get("step_ms"),
+        "train_launches": tr.get("launches"), "train_expected": want,
+        "decode_launches": dr.get("launches"),
+        "vs_merged_first_logits_max_rel_err":
+        dr.get("vs_merged_first_logits_max_rel_err"),
+        "first_logits_rel_tol": LOGIT_REL_TOL,
+        "vs_merged_first_tokens_identical":
+        dr.get("vs_merged_first_tokens_identical"),
+        "vs_merged_greedy_token_share_identical":
+        dr.get("vs_merged_greedy_token_share_identical"),
+        "streams": streams, "launches": launches,
+        "checks": {
+            "cli_lines": f"project loaded: {PROJ_PROJECT}" in out
+            and "workflow main: completed" in out,
+            "both_steps_completed": train.get("state") == "completed"
+            and decode.get("state") == "completed",
+            "step2_took_step1s_output": bool(adapter_uri)
+            and decode_spec.get("parameters", {}).get("adapter")
+            == adapter_uri,
+            "get_runs_lists_both": all(
+                f"{n:24} completed" in listed for n in runs)
+            and len(runs) == 2,
+            "logs_read_back": all("final state: completed" in t
+                                  for t in logs.values()) and len(logs) == 2,
+            "lora_flash_launches": tr.get("launches") == want,
+            "adapter_on_the_paged_kernels": all(
+                (dr.get("launches") or {}).get(k, 0) > 0
+                for k in SERVING_KERNELS)
+            and dr.get("attn_gather_ticks") == 0
+            and dr.get("prefill_gather_admissions") == 0,
+            "tokens": dr.get("tokens") == [MAX_NEW] * 4,
+            "first_logits_within_tol":
+            dr.get("vs_merged_first_logits_max_rel_err") is not None
+            and dr["vs_merged_first_logits_max_rel_err"] <= LOGIT_REL_TOL,
+            "streams_equal_until_near_tie": len(streams) == 4 and all(
+                s["tie_at_departure_rel"] is None
+                or s["tie_at_departure_rel"] <= SPEC_REL_TOL
+                for s in streams),
+            "near_argmax": len(streams) == 4 and all(
+                s["worst_argmax_gap_rel"] <= SPEC_REL_TOL for s in streams),
+        }}
+    _proj_check("workflow", row)
+    return row
+
+
+def _proj_serve_leg(seed: int, card: str, work: str) -> dict:
+    """(c) ``python3 -m mlrun_tpu_torch serve --port <p>`` in a child, with
+    SERVING_SPEC_ENV holding the gateway phase's graph at 8B (its route
+    the phase's CountingLLM over LLMModelServer): /readyz polled, the
+    serve traffic over HTTP with every token held to a teacher-forced
+    forward of the seeded params, a drain with a request in flight, then
+    SIGINT: the child exits 0."""
+    import base64
+    import copy
+    import signal
+    import socket
+    import threading
+
+    import torch
+
+    from mlrun_tpu_torch.config import EXEC_CODE_ENV
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+
+    spec = copy.deepcopy(GATEWAY_SPEC)
+    route = spec["graph"]["steps"]["router"]["routes"]["llm"]
+    route["class_name"] = "CountingLLM"
+    route["class_args"]["seed"] = seed
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    env = _proj_env(work, SERVING_SPEC_ENV=json.dumps(spec), **{
+        EXEC_CODE_ENV: base64.b64encode(PROJ_SERVE_CODE.encode()).decode()})
+    started = time.perf_counter()
+    child = subprocess.Popen(
+        ["python3", "-m", "mlrun_tpu_torch", "serve", "--port", str(port),
+         "--host", "127.0.0.1"], env=env, cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # the teacher's params, built here while the child loads its own
+        config = MODEL_PRESETS["llama3-8b"]()
+        params = init_params(config, torch.Generator(
+            device="cuda").manual_seed(seed), "cuda")
+        prompts = _prompts(seed, config.vocab_size)
+        polls = 0
+        while True:
+            if child.poll() is not None:
+                fail(f"projects (serve): the child exited {child.returncode}"
+                     f" before ready\n{child.stderr.read()[-4000:]}")
+            try:
+                status = _http(url, "/readyz")[0]
+            except OSError:
+                status = None
+            polls += 1
+            if status == 200:
+                break
+            if time.perf_counter() - started > PROJ_CHILD_TIMEOUT:
+                fail("projects (serve): /readyz never answered 200")
+            time.sleep(0.05)
+        ready_s = time.perf_counter() - started
+        reset = _http(url, GW_INFER, "POST", {"launch_counts": "reset"})
+        before = json.loads(reset[2])
+        t = time.perf_counter()
+        first = _http(url, GW_INFER, "POST", {"inputs": prompts})
+        hit = _http(url, GW_INFER, "POST", {"inputs": [prompts[0]]})
+        traffic_s = time.perf_counter() - t
+        read = json.loads(_http(url, GW_INFER, "POST",
+                                {"launch_counts": "read"})[2])
+        launches = {k: v for k, v in read["launches"].items() if v}
+        counted = _gateway_launches(read["launches"], before["stats"],
+                                    read["stats"], config.n_layers,
+                                    path="projects (serve)")
+        outputs = _outputs(first, "the serve request") + \
+            _outputs(hit, "the prefix-hit request")
+        gaps = []
+        for prompt, tokens in zip(prompts + [prompts[0]], outputs):
+            logits = _teacher_logits(config, params, prompt, tokens)
+            gaps.append(max(float(row.max() - row[tok]) /
+                            float(row.abs().max())
+                            for row, tok in zip(logits, tokens)))
+            del logits
+        del params
+        torch.cuda.empty_cache()
+        # a drain with a request in flight
+        box = {}
+        long_prompts = _prompts(seed + 2, config.vocab_size)
+        inflight = threading.Thread(target=lambda: box.update(
+            answer=_http(url, GW_INFER, "POST", {"inputs": long_prompts})))
+        inflight.start()
+        t = time.perf_counter()
+        while json.loads(_http(url, "/healthz")[2]).get("inflight", 0) == 0:
+            if time.perf_counter() - t > 60:
+                fail("projects (serve): the long request never went in "
+                     "flight")
+            time.sleep(0.002)
+        drain = _http(url, "/__drain__", "POST")
+        inflight.join(timeout=GW_TIMEOUT)
+        drained = json.loads(drain[2])
+        answered = box["answer"]
+        child.send_signal(signal.SIGINT)
+        try:
+            out, err = child.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            out, err = child.communicate()
+            fail("projects (serve): the child did not exit after SIGINT")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    sys.stderr.write(err[-4000:])
+    row = {
+        "phase": "projects", "leg": "serve", "card": card,
+        "model": "llama3-8b", "layers": config.n_layers,
+        "ready_s": ready_s, "readyz_polls": polls, "traffic_s": traffic_s,
+        "request_s": [first[3], hit[3]], "drain_s": drain[3],
+        "inflight_request_s": answered[3], "drained": drained,
+        "exit_code": child.returncode, "launches": launches, **counted,
+        "torch_import_s": read["torch_import_s"],
+        "kernel_load_s": read["kernel_load_s"],
+        "worst_argmax_gap_rel": max(gaps), "argmax_gap_tol": SPEC_REL_TOL,
+        "checks": {
+            "tokens": len(outputs) == 5
+            and all(len(o) == MAX_NEW for o in outputs),
+            "near_argmax": max(gaps) <= SPEC_REL_TOL,
+            "prefix_hit": read["stats"]["prefix_hits"]
+            > before["stats"]["prefix_hits"],
+            "drain_kept_the_inflight_request": answered[0] == 200
+            and drained == {"drained": True, "inflight": 0}
+            and [len(a) for a in json.loads(answered[2])["outputs"]]
+            == [MAX_NEW] * len(long_prompts),
+            "exit_0": child.returncode == 0,
+        }}
+    _proj_check("serve", row)
+    return row
+
+
+def phase_projects(seed: int, card: str) -> dict:
+    """The pod's own program on the card, every leg a child process over
+    the kernel build the build phase left (a temporary SQLite run db and
+    MLT_HOME): (a) the tpujob JobSet's command, (b) a two-step workflow
+    through `project --run`, (c) `serve` at 8B. Returns the kernels'
+    launches summed over the children's main paths."""
+    import shutil
+    import tempfile
+
+    from mlrun_tpu_torch.datastore import store_manager
+    from mlrun_tpu_torch.db import get_run_db, set_run_db
+
+    work = tempfile.mkdtemp(prefix="mlt-projects-")
+    saved = {k: os.environ.get(k) for k in ("MLT_DBPATH", "MLT_HOME")}
+    os.environ["MLT_DBPATH"] = os.path.join(work, "runs.sqlite")
+    os.environ["MLT_HOME"] = os.path.join(work, "home")
+    set_run_db(None)
+    store_manager._db = None
+    started = time.perf_counter()
+    launches: dict = {}
+    try:
+        db = get_run_db()
+        rows = [_proj_tpujob_leg(seed, card, work, db)]
+        _release()
+        rows.append(_proj_workflow_leg(seed, card, work, db))
+        _release()
+        rows.append(_proj_serve_leg(seed, card, work))
+        _release()
+        for row in rows:
+            for name, count in row["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+        emit({"phase": "projects", "card": card,
+              "seconds": time.perf_counter() - started,
+              "leg_seconds": {"tpujob_pod": rows[0]["pod_s"],
+                              "tpujob_in_process": rows[0]["in_process_s"],
+                              "workflow": rows[1]["project_s"],
+                              "serve_ready": rows[2]["ready_s"]},
+              "child_torch_import_s": {
+                  "tpujob": rows[0]["torch_import_s"],
+                  "serve": rows[2]["torch_import_s"]},
+              "child_kernel_load_s": {
+                  "tpujob": rows[0]["kernel_load_s"],
+                  "serve": rows[2]["kernel_load_s"]},
+              "tpujob_step_ms": rows[0]["step_ms"],
+              "launches": launches})
+    finally:
+        set_run_db(None)
+        store_manager._db = None
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
               "fleet", "families", "entry_points", "parallel", "observe",
-              "gateway", "podfleet", "runs", "tuning")
+              "gateway", "podfleet", "runs", "tuning", "projects")
 
 
 def main(argv=None) -> int:
@@ -8670,102 +9404,141 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    phase_seconds = {}
+
+    @contextlib.contextmanager
+    def timed(phase):
+        started = time.perf_counter()
+        try:
+            yield
+        finally:
+            phase_seconds[phase] = time.perf_counter() - started
+
     card = gpu_name_and_limit()
     kernels, launches, served, serve_native = [], {}, None, None
     train_step_ms = None
     if "build" in phases:
-        phase_build(card)
+        with timed("build"):
+            phase_build(card)
     if "kernels" in phases:
-        kernels, op_launches = phase_kernels(args.seed)
-        launches.update(op_launches)
+        with timed("kernels"):
+            kernels, op_launches = phase_kernels(args.seed)
+            launches.update(op_launches)
     if "serve" in phases:
-        served = phase_serve(args.seed, card)
-        launches.update({name: served["launches"][name]
-                         for name in SERVING_KERNELS})
-        serve_native = {key: served[key]
-                        for key in ("ttft_p50_s", "decode_tick_p50_s")}
-        release()
+        with timed("serve"):
+            served = phase_serve(args.seed, card)
+            launches.update({name: served["launches"][name]
+                             for name in SERVING_KERNELS})
+            serve_native = {key: served[key]
+                            for key in ("ttft_p50_s", "decode_tick_p50_s")}
+            release()
     if "serve_int8" in phases:
-        served = phase_serve(args.seed, card, "int8", native=served)
-        launches.update({name: served["launches"][name]
-                         for name in ("paged_decode_int8",
-                                      "paged_prefill_int8")})
+        with timed("serve_int8"):
+            served = phase_serve(args.seed, card, "int8", native=served)
+            launches.update({name: served["launches"][name]
+                             for name in ("paged_decode_int8",
+                                          "paged_prefill_int8")})
     served = None
     release()
     if "spec" in phases:
-        launches.update(phase_spec(args.seed, card)["launches"])
-        release()
+        with timed("spec"):
+            launches.update(phase_spec(args.seed, card)["launches"])
+            release()
     if "serve_dense" in phases:
-        phase_serve_dense(args.seed, card)
-        release()
+        with timed("serve_dense"):
+            phase_serve_dense(args.seed, card)
+            release()
     if "lora" in phases:
-        phase_lora(args.seed, card, serve_native)
-        release()
+        with timed("lora"):
+            phase_lora(args.seed, card, serve_native)
+            release()
     if "train" in phases:
-        trained = phase_train(args.seed, card)
-        launches.update({name: trained["launches"][name]
-                         for name in TRAINING_KERNELS})
-        train_step_ms = trained["step_ms"]
-        trained = None
-        release()
+        with timed("train"):
+            trained = phase_train(args.seed, card)
+            launches.update({name: trained["launches"][name]
+                             for name in TRAINING_KERNELS})
+            train_step_ms = trained["step_ms"]
+            trained = None
+            release()
     if "resilience" in phases:
-        phase_resilience(args.seed, card)
-        release()
+        with timed("resilience"):
+            phase_resilience(args.seed, card)
+            release()
     if "kv_tier" in phases:
-        phase_kv_tier(args.seed, card)
-        release()
+        with timed("kv_tier"):
+            phase_kv_tier(args.seed, card)
+            release()
     if "fleet" in phases:
-        phase_fleet(args.seed, card)
-        release()
+        with timed("fleet"):
+            phase_fleet(args.seed, card)
+            release()
     if "families" in phases:
-        # the training flash kernels' launches on every training path
-        for name, count in phase_families(args.seed,
-                                          card)["launches"].items():
-            launches[name] = launches.get(name, 0) + count
-        release()
+        with timed("families"):
+            # the training flash kernels' launches on every training path
+            for name, count in phase_families(args.seed,
+                                              card)["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+            release()
     if "entry_points" in phases:
-        # the serving and training kernels' launches on the entry points
-        for name, count in phase_entry_points(args.seed, card,
-                                              train_step_ms).items():
-            launches[name] = launches.get(name, 0) + count
-        release()
+        with timed("entry_points"):
+            # the serving and training kernels' launches on the entry points
+            for name, count in phase_entry_points(args.seed, card,
+                                                  train_step_ms).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
     if "parallel" in phases:
-        # the training flash kernels' launches on the sharded step, its
-        # checkpoint's resumed run and the ring's hops
-        for name, count in phase_parallel(args.seed, card,
-                                          train_step_ms).items():
-            launches[name] = launches.get(name, 0) + count
-        release()
+        with timed("parallel"):
+            # the training flash kernels' launches on the sharded step, its
+            # checkpoint's resumed run and the ring's hops
+            for name, count in phase_parallel(args.seed, card,
+                                              train_step_ms).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
     if "observe" in phases:
-        # the serving kernels' launches on the captured burst and the
-        # training flash's on the captured fit
-        for name, count in phase_observe(args.seed, card).items():
-            launches[name] = launches.get(name, 0) + count
-        release()
+        with timed("observe"):
+            # the serving kernels' launches on the captured burst and the
+            # training flash's on the captured fit
+            for name, count in phase_observe(args.seed, card).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
     if "gateway" in phases:
-        # the serving kernels' launches on the traffic served over HTTP
-        for name, count in phase_gateway(args.seed, card).items():
-            launches[name] = launches.get(name, 0) + count
-        release()
+        with timed("gateway"):
+            # the serving kernels' launches on the traffic served over HTTP
+            for name, count in phase_gateway(args.seed, card).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
     if "podfleet" in phases:
-        # the serving kernels' launches on the pod fleet's traffic, its
-        # pre-warms, the preempted requests' handoffs and their resumes
-        for name, count in phase_podfleet(args.seed, card).items():
-            launches[name] = launches.get(name, 0) + count
-        release()
+        with timed("podfleet"):
+            # the serving kernels' launches on the pod fleet's traffic, its
+            # pre-warms, the preempted requests' handoffs and their resumes
+            for name, count in phase_podfleet(args.seed, card).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
     if "runs" in phases:
-        # the training flash's launches on the tpujob and hyper runs, the
-        # serving kernels' on the SLO leg's burst
-        for name, count in phase_runs(args.seed, card,
-                                      train_step_ms).items():
-            launches[name] = launches.get(name, 0) + count
-        release()
+        with timed("runs"):
+            # the training flash's launches on the tpujob and hyper runs, the
+            # serving kernels' on the SLO leg's burst
+            for name, count in phase_runs(args.seed, card,
+                                          train_step_ms).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
     if "tuning" in phases:
-        # the serving kernels' launches on the loop's traffic, the
-        # training flash's on its retrain runs
-        for name, count in phase_tuning(args.seed, card).items():
-            launches[name] = launches.get(name, 0) + count
-        release()
+        with timed("tuning"):
+            # the serving kernels' launches on the loop's traffic, the
+            # training flash's on its retrain runs
+            for name, count in phase_tuning(args.seed, card).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
+    if "projects" in phases:
+        with timed("projects"):
+            # the training flash's launches in the tpujob pod and the
+            # workflow's LoRA step, the serving kernels' in its decode step
+            # and in the serving pod
+            for name, count in phase_projects(args.seed, card).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
+    # each phase's wall-clock seconds, for the smoke's time limit
+    emit({"phase_seconds": phase_seconds})
     if set(phases) != set(ALL_PHASES):
         return 0
     replaces = {

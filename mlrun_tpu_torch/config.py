@@ -346,6 +346,12 @@ MODEL_MONITORING_DEFAULTS = {
 # graph classes and handlers resolve from that code's namespace
 EXEC_CODE_ENV = "MLT_EXEC_CODE"
 
+# the port's CLI as a pod runs it (``python3 -m`` works whether or not the
+# package is pip-installed in the image), and the in-pod run contract:
+# the run dict in the exec-config env, the code in EXEC_CODE_ENV
+CLI_COMMAND = ["python3", "-m", "mlrun_tpu_torch"]
+RUN_FROM_ENV_COMMAND = CLI_COMMAND + ["run", "--from-env"]
+
 # the run stack's keys (the reference's default_project, dbpath,
 # local_db_path, artifact_path, exec_config_env, runs.heartbeat.interval
 # and function.default_image) and the datastore's redis.url

@@ -16,6 +16,7 @@ ask :func:`logging_worker`, which falls back to :func:`is_logging_worker`.
 from __future__ import annotations
 
 import os
+import sys
 import time
 import traceback
 from typing import Any, Optional
@@ -52,10 +53,12 @@ def is_logging_worker() -> bool:
     for env in RANK_ENVS:
         if env in os.environ:
             return os.environ[env].split(":")[0] in ("0", "")
+    # a process that never imported torch.distributed has no group (and
+    # a CLI run of a plain handler need not import torch to learn that)
+    dist = sys.modules.get("torch.distributed")
     try:
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized():
+        if dist is not None and dist.is_available() \
+                and dist.is_initialized():
             return dist.get_rank() == 0
     except Exception:  # noqa: BLE001 - any backend issue: one process
         pass

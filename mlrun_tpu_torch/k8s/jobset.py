@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import copy
 
-from ..config import COMPILE_CACHE_ENV
+from ..config import CLI_COMMAND, COMPILE_CACHE_ENV
 
 JOBSET_API_VERSION = "jobset.x-k8s.io/v1alpha2"
 
@@ -171,10 +171,17 @@ def build_serving_jobset(name: str, namespace: str, pod_spec: dict, *,
       in-flight requests before the kubelet sends SIGTERM;
     - ``compile_cache_dir`` rides in as ``COMPILE_CACHE_ENV`` so the
       replacement pod loads its kernel library from the shared cache
-      instead of running nvcc.
+      instead of running nvcc;
+    - a main container that names no program runs the port's gateway,
+      ``python3 -m mlrun_tpu_torch serve --port <serve_port>`` (the
+      ``SERVING_SPEC_ENV`` graph), as one process: torchrun would start
+      one gateway a GPU on the one port, and with no program it starts
+      nothing at all.
     """
     annotations = dict(annotations or {})
     annotations[SERVING_ANNOTATION] = "true"
+    given = (pod_spec.get("containers") or [{}])[0]
+    no_program = not given.get("command") and not given.get("args")
     spec = build_jobset(name, namespace, pod_spec, gpu_product=gpu_product,
                         nodes=nodes, gpus_per_node=gpus_per_node,
                         num_slices=1, labels=labels, annotations=annotations)
@@ -183,6 +190,10 @@ def build_serving_jobset(name: str, namespace: str, pod_spec: dict, *,
     containers = pod.get("containers", [])
     if containers:
         main = containers[0]
+        if no_program:
+            main["command"] = CLI_COMMAND + ["serve", "--port",
+                                             str(serve_port)]
+            main.pop("args", None)
         if compile_cache_dir:
             env = main.setdefault("env", [])
             env.append({"name": COMPILE_CACHE_ENV,

@@ -310,10 +310,14 @@ class BaseRuntime(ModelObj):
                 name: str = "", project: str = "", params: dict | None = None,
                 inputs: dict | None = None, outputs: list | None = None,
                 artifact_path: str = "", image: str = "", **kwargs):
-        """A workflow step (the projects' pipeline engine, item 13)."""
-        from ..serving.resilience import not_ported
+        """This function as a workflow step, run or compiled by the
+        pipeline engine (projects/pipelines.py)."""
+        from ..projects.pipelines import PipelineStep
 
-        raise not_ported("workflow steps (projects/pipelines.py)", 13)
+        return PipelineStep(
+            function=self, runspec=runspec, handler=handler, name=name,
+            project=project, params=params, inputs=inputs, outputs=outputs,
+            artifact_path=artifact_path, image=image, **kwargs)
 
     def doc(self):
         entry_points = self.spec.entry_points or {}

@@ -15,7 +15,7 @@ place of the reference's ``with_tpu_topology``, ``total_chips`` and
 from __future__ import annotations
 
 from ..common.runtimes_constants import RuntimeKinds
-from ..config import K8S_DEFAULTS, run_config
+from ..config import K8S_DEFAULTS, RUN_FROM_ENV_COMMAND, run_config
 from ..k8s.jobset import TopologyError
 from ..model import RunObject
 from .pod import KubeResource, KubeResourceSpec
@@ -126,8 +126,9 @@ class TpuJobRuntime(KubeResource):
     def generate_jobset(self, runobj: RunObject, extra_env: dict | None = None,
                         command: list[str] | None = None) -> dict:
         """Build the JobSet resource for this run: the pod's program
-        (``command``, default the CLI's ``run --from-env``) under torchrun,
-        with the run dict in the exec-config env."""
+        (``command``, default the port's CLI ``python3 -m mlrun_tpu_torch
+        run --from-env``) under torchrun, with the run dict in the
+        exec-config env."""
         import json
 
         from ..k8s.jobset import build_jobset
@@ -139,7 +140,7 @@ class TpuJobRuntime(KubeResource):
         }
         env.update(extra_env or {})
         pod_spec = self.to_pod_spec(
-            command=command or ["mlrun-tpu", "run", "--from-env"],
+            command=command or list(RUN_FROM_ENV_COMMAND),
             extra_env=env)
         name = f"{runobj.metadata.name}-{runobj.metadata.uid[:8]}"
         return build_jobset(

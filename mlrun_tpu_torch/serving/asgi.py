@@ -395,6 +395,10 @@ def serve(function=None, spec: dict | None = None, host: str = "0.0.0.0",
     httpd = app.bind(host, port)
     try:
         httpd.serve_forever()
+    except KeyboardInterrupt:
+        # SIGINT ends the gateway and returns, as the reference's
+        # run_app does
+        pass
     finally:
         httpd.server_close()
         app.close()

@@ -24,6 +24,8 @@ setup(
         "gpu": ["torch"],
     },
     entry_points={
-        "console_scripts": ["mlrun-tpu = mlrun_tpu.__main__:main"],
+        "console_scripts": ["mlrun-tpu = mlrun_tpu.__main__:main",
+                            # the port's CLI (python3 -m mlrun_tpu_torch)
+                            "mlrun-tpu-torch = mlrun_tpu_torch.__main__:main"],
     },
 )

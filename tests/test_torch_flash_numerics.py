@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from mlrun_tpu_torch.ops import attention as at
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TILE = 64
 O_TOL = 1.6e-2

@@ -12,15 +12,17 @@ provider and the fleet autoscaler (service/), the serving pod fleet and
 the fleet telemetry (obs/federation, obs/timeseries, obs/slo), the run
 stack (the run objects, the run db, artifacts, notifications,
 service/alerts, MLClientCtx, the runtimes and the launchers), model
-monitoring with its continuous-tuning loop, and the feature store with
-its datastore sources and targets included, nor the chip smoke script
-and
+monitoring with its continuous-tuning loop, the feature store with
+its datastore sources and targets, and the CLI with the projects and
+their workflow engines included, nor the chip smoke script and
 the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
 parallel paths pulls neither into the process. None of those files
 imports ``aiohttp`` or ``requests`` either, and importing the serving
-graph and its gateway pulls neither in: the card's machine has neither,
-so the gateway and the remote steps stand on the standard library. The multi-rank test
+graph and its gateway pulls neither in: the gateway and the remote steps
+stand on the standard library's ``http.server`` and ``urllib``, which
+the port's tests drive. No file imports ``click``: the CLI stands on
+argparse. The multi-rank test
 helper (tests/torch_ranks.py), whose ranks run the port alone, is held to
 the same rule. No port source names a path under ``native/`` or the
 reference package: the token-shard loader builds the port's own copy of
@@ -36,8 +38,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlrun_tpu")
-# HTTP packages the card's machine does not have
-ABSENT_ON_THE_CARD = ("aiohttp", "requests")
+# the reference's HTTP packages: the port's gateway and remote steps are
+# written on the standard library instead, so they must not creep back in
+HTTP_LIBRARIES = ("aiohttp", "requests")
+# the reference CLI's framework: the port's CLI stands on argparse
+NOT_USED = ("click",)
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "mlrun_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "tests/torch_ranks.py",
@@ -58,7 +63,7 @@ def _imported_roots(tree):
 def test_port_file_imports_no_jax_or_reference(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     bad = sorted({m for m in _imported_roots(tree)
-                  if m in FORBIDDEN + ABSENT_ON_THE_CARD})
+                  if m in FORBIDDEN + HTTP_LIBRARIES + NOT_USED})
     assert not bad, f"{path} imports {bad}"
 
 
@@ -185,9 +190,12 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.feature_store.ingestion_service\n"
         "import mlrun_tpu_torch.datastore.sources\n"
         "import mlrun_tpu_torch.datastore.targets\n"
+        "import mlrun_tpu_torch.__main__, mlrun_tpu_torch.projects\n"
+        "import mlrun_tpu_torch.projects.pipelines\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
-        "print(','.join(bad))\n" % (FORBIDDEN + ABSENT_ON_THE_CARD,))
+        "print(','.join(bad))\n" % (FORBIDDEN + HTTP_LIBRARIES
+                                     + NOT_USED,))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -227,3 +235,40 @@ def test_the_tuning_loop_needs_no_pandas():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_cli_and_projects_need_no_click_or_kfp(tmp_path):
+    """With click and kfp not importable, the CLI, the projects and
+    run.py import, ``import mlrun_tpu_torch`` leaves the projects and
+    torch unloaded, a project saves and loads and the CLI answers; the
+    kfp engine alone needs kfp."""
+    code = (
+        "import sys, tempfile\n"
+        "for name in ('click', 'kfp'):\n"
+        "    sys.modules[name] = None\n"
+        "import mlrun_tpu_torch\n"
+        "light = [m for m in ('mlrun_tpu_torch.projects', 'torch')\n"
+        "         if m in sys.modules]\n"
+        "import mlrun_tpu_torch.__main__ as cli\n"
+        "import mlrun_tpu_torch.run, mlrun_tpu_torch.projects\n"
+        "d = tempfile.mkdtemp()\n"
+        "p = mlrun_tpu_torch.new_project('p', context=d, save=False)\n"
+        "p.set_workflow('main', 'wf.py')\n"
+        "p.save(store=False)\n"
+        "q = mlrun_tpu_torch.load_project(d, save=False)\n"
+        "assert q.spec.get_workflow('main')['path'] == 'wf.py'\n"
+        "assert cli.main(['version']) == 0\n"
+        "try:\n"
+        "    mlrun_tpu_torch.projects.pipelines.get_workflow_engine(\n"
+        "        'kfp').run(q, {}, workflow_handler=lambda: None)\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('the kfp engine ran without kfp')\n"
+        "print(light, sorted(m for m in ('click', 'kfp')\n"
+        "                    if sys.modules.get(m) is not None))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), MLT_HOME=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[] []"

@@ -94,6 +94,31 @@ def test_serving_jobset_agrees_on_shared_fields():
     assert _env(port)[COMPILE_CACHE_ENV] == "/cache"
 
 
+def test_serving_pod_without_a_program_runs_the_ports_gateway():
+    """A serving container that names no program (the pod fleet's default
+    pod spec) runs the port's ``serve`` as one process, on the probes'
+    port; a given program keeps its torchrun launch."""
+    from mlrun_tpu_torch.__main__ import build_parser
+
+    spec = tjobset.build_serving_jobset(
+        "serve-a", "ns", {"containers": [{"name": "engine",
+                                          "image": "img"}]},
+        gpu_product="H100", gpus_per_node=2, serve_port=9000)
+    main = _main(spec)
+    assert main["command"] == ["python3", "-m", "mlrun_tpu_torch", "serve",
+                               "--port", "9000"]
+    assert "args" not in main
+    args = build_parser().parse_args(main["command"][3:])
+    assert (args.command, args.port) == ("serve", 9000)
+    assert main["readinessProbe"]["httpGet"]["port"] == 9000
+    given = tjobset.build_serving_jobset(
+        "serve-b", "ns", {"containers": [{"name": "engine", "image": "img",
+                                          "args": ["serve.py"]}]},
+        gpu_product="H100", gpus_per_node=1)
+    assert "torchrun" in _main(given)["command"][2]
+    assert _main(given)["args"] == ["serve.py"]
+
+
 def test_gpu_fields_and_torchrun_env():
     spec = tjobset.build_jobset("run", "ns", POD, gpu_product="H100",
                                 nodes=2, gpus_per_node=4, num_slices=2)

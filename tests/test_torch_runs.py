@@ -301,7 +301,9 @@ def test_tpujob_jobset_in_gpus():
             "NODE_RANK", "MLT_SLICE_ID"} <= set(env)
     assert (env["NNODES"], env["NPROC_PER_NODE"]) == ("1", "1")
     assert "torchrun" in main["command"][2]
-    assert main["args"] == ["mlrun-tpu", "run", "--from-env"]
+    # the port's CLI, never the reference's console script (fault 3.7)
+    assert main["args"] == ["python3", "-m", "mlrun_tpu_torch", "run",
+                            "--from-env"]
     # the exec config round-trips the run dict, as the reference's
     parsed = json.loads(env["MLT_EXEC_CONFIG"])
     assert parsed == _run_obj(tmodel).to_dict()
