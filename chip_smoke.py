@@ -86,9 +86,12 @@ exits non-zero and never prints the final line):
 9. resilience - the degradation ladder, an armed llm.spec_verify, the
              max_wait expiry and the request ledger on the 8B server.
 10. kv_tier - the host KV tier (demote, promote), the KV handoff and
-             fetch_prefix / import_prefix on the 8B paged engine.
-11. fleet  - the engine fleet over the 8B paged engine, every replica from
-             one factory over one param dict: affinity routing on two
+             fetch_prefix / import_prefix on the 8B paged engine (the
+             8B width, CUT_LAYERS layers: this phase, fleet and podfleet
+             test host logic).
+11. fleet  - the engine fleet over the 8B paged engine (CUT_LAYERS
+             layers), every replica from one factory over one param
+             dict: affinity routing on two
              replicas (a shared 512-token prefix on one replica, its hits
              on the paged prefill kernel), one prefill and one decode
              replica joined by the KV handoff (the decode replica runs no
@@ -220,8 +223,8 @@ exits non-zero and never prints the final line):
              TorchTreePackager to an .npz and back, bit for bit; (e) the
              env of build_jobset(nodes=1, gpus_per_node=1) on the pod's
              torchrun command (MASTER_ADDR 127.0.0.1): a one-rank NCCL
-             group, 2 steps of the 1B fit through auto_trainer.train, the
-             logging worker and one log_results.
+             group, 2 steps of the 1B fit (its width, 2 layers) through
+             auto_trainer.train, the logging worker and one log_results.
 16. gateway - the serving graph and the port's standard-library HTTP
              gateway: GATEWAY_SPEC (a router with one LLMModelServer
              route, the serve phase's paged engine at Llama-3-8B, in the
@@ -243,8 +246,9 @@ exits non-zero and never prints the final line):
              ServerDrainingError envelope (503, Retry-After); (f)
              /metrics: request and probe counts, the OpenMetrics variant.
 17. podfleet - the serving pod fleet (serving/podfleet.py) over the 8B
-             paged engine: every pod's engine from one factory over one
-             param dict, each pod a JobSet on an in-memory cluster (a
+             paged engine (CUT_LAYERS layers): every pod's engine from one
+             factory over one param dict, each pod a JobSet on an
+             in-memory cluster (a
              duck-typed provider defined here: create / delete /
              list_serving_jobsets and a pod read that answers Running or
              404), a FleetAutoscaler (dry_run off, pods=) reading a
@@ -294,7 +298,13 @@ exits non-zero and never prints the final line):
              SLOEvaluator.process once, a second call within refire_after
              fires nothing, the breach event is in the db; paged decode /
              cached flash / paged prefill launched as the engine's
-             counters say.
+             counters say; (e) a seeded 5,313-parameter MLP on the card
+             trains 2 epochs of 4 host batches through
+             frameworks.torch.train in a local run (completed, its state
+             dict a model artifact in the db), then TorchModelServer
+             with its default device loads it on the card and predicts a
+             batch: params and outputs on cuda, the served outputs within
+             1e-6 of the in-memory model's.
 19. tuning - the continuous-tuning loop (model_monitoring/
              ContinuousTuningController) on Llama-3.2-1B at full width
              and depth: one paged engine (page 128, 4 slots, max_len
@@ -2710,9 +2720,37 @@ def phase_resilience(seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 TIER_PAGES = 20             # the device pool holds two 9-page requests
+# the 8B phases that test host logic (the host KV tier, the engine fleet,
+# the pod fleet) run Llama-3-8B at its full width with this many layers;
+# the serve, serve_int8, lora, resilience and gateway phases keep all 32
+CUT_LAYERS = 4
+CUT_PRESET = "llama3-8b-cut"   # the same config as a preset, for a server
+
 TIER_PROMPT = 1024          # 8 pages of prompt + 32 new tokens: 9 pages
 TIER_HOST_BYTES = 2 << 30
 TIER_TIMING_ITERS = 20
+
+
+def _cut_8b(**overrides):
+    """Llama-3-8B at its full width with CUT_LAYERS layers."""
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+
+    return MODEL_PRESETS["llama3-8b"](**{"n_layers": CUT_LAYERS,
+                                         **overrides})
+
+
+@contextlib.contextmanager
+def _cut_preset():
+    """_cut_8b as the preset CUT_PRESET while the block runs, so an
+    LLMModelServer builds the phase's config from the seed as the phase
+    does."""
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+
+    MODEL_PRESETS[CUT_PRESET] = _cut_8b
+    try:
+        yield CUT_PRESET
+    finally:
+        MODEL_PRESETS.pop(CUT_PRESET, None)
 
 
 def _tier_prompts(seed: int, vocab: int) -> list:
@@ -2839,7 +2877,8 @@ def _tier_leg(config, params, seed, card, kv_dtype) -> dict:
         and stats["prefill_gather_admissions"] == 0,
     }
     row = {"phase": "kv_tier", "leg": "tier", "kv_dtype": kv_dtype,
-           "model": "llama3-8b", "card": card, "n_pages": TIER_PAGES,
+           "model": "llama3-8b", "layers": config.n_layers, "card": card,
+           "n_pages": TIER_PAGES,
            "prompt_tokens": TIER_PROMPT, "served_from_cache_rate":
            1.0 if checks["served_from_cache"] else 0.0,
            "kv_demoted_pages": demoted["kv_demoted_pages"],
@@ -2899,7 +2938,7 @@ def _handoff_leg(config, params, seed, card, kv_dtype, cold, hit,
         "fetched_tokens_equal_device_hit": fetched == hit,
     }
     return {"phase": "kv_tier", "leg": "handoff", "kv_dtype": kv_dtype,
-            "model": "llama3-8b", "card": card,
+            "model": "llama3-8b", "layers": config.n_layers, "card": card,
             "handoff_bytes": handoff.nbytes(),
             "handoff_dtypes": {n: str(a.dtype) for n, a in
                                handoff.kv.items()},
@@ -2924,9 +2963,9 @@ def phase_kv_tier(seed: int, card: str) -> dict:
 
     import torch
 
-    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.models.llama import init_params
 
-    config = MODEL_PRESETS["llama3-8b"]()
+    config = _cut_8b()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     params = init_params(config, gen, "cuda")
@@ -3034,7 +3073,7 @@ def phase_fleet(seed: int, card: str) -> dict:
     import torch
 
     from mlrun_tpu_torch.chaos import FaultPoints, chaos, fail_nth
-    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, forward, init_params
+    from mlrun_tpu_torch.models.llama import forward, init_params
     from mlrun_tpu_torch.obs import REGISTRY
     from mlrun_tpu_torch.obs.reqledger import PHASES
     from mlrun_tpu_torch.ops import _build
@@ -3045,7 +3084,7 @@ def phase_fleet(seed: int, card: str) -> dict:
     from mlrun_tpu_torch.serving.v2_serving import TpuModelServer
 
     phase_started = time.perf_counter()
-    config = MODEL_PRESETS["llama3-8b"]()
+    config = _cut_8b()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     params = init_params(config, gen, "cuda")
@@ -3083,7 +3122,7 @@ def phase_fleet(seed: int, card: str) -> dict:
     cached = [s["timing"].get("cached_prefix", 0) for _, s in served]
     per = fleet.stats["per_replica"]
     row = {"phase": "fleet", "leg": "affinity", "card": card,
-           "model": "llama3-8b", "replicas": 2,
+           "model": "llama3-8b", "layers": config.n_layers, "replicas": 2,
            "prompt_lens": [len(p) for p in prompts],
            "max_new_tokens": MAX_NEW, "replica_of_request": owners,
            "cached_prefix": cached, "launches": launches,
@@ -3297,12 +3336,13 @@ def phase_fleet(seed: int, card: str) -> dict:
                                            "timing": True}),
                         ({"replicas": 1, "prefill_replicas": 1},
                          {"inputs": [prompts[4]], "timing": True})):
-        server = LLMModelServer(
-            name="llama3-8b", model_preset="llama3-8b",
-            continuous_batching=True, paged=True, slots=SLOTS,
-            max_len=MAX_LEN, page_size=PAGE, max_new_tokens=MAX_NEW,
-            seed=seed, warmup=False, **shape)
-        server.post_init()
+        with _cut_preset() as preset:
+            server = LLMModelServer(
+                name="llama3-8b", model_preset=preset,
+                continuous_batching=True, paged=True, slots=SLOTS,
+                max_len=MAX_LEN, page_size=PAGE, max_new_tokens=MAX_NEW,
+                seed=seed, warmup=False, **shape)
+            server.post_init()
         if not server.ready:
             fail(f"LLMModelServer {shape} failed to load: {server.error}")
         _build.reset_launch_counts()
@@ -5795,6 +5835,7 @@ OBS_TRAIN_STEPS = 6
 OBS_CAPTURED = 2            # fit steps in the training capture
 OBS_ARM_STEP = 1            # armed at this step's end: step 2's tick claims
 OBS_FIT_STEPS = 2           # steps of the JobSet leg's fit
+OBS_FIT_LAYERS = 2          # its 1B depth (projects runs the full 1B pod)
 # the port's __global__ functions by launch counter (bf16: the
 # tensor-core bodies); one flash backward launch runs two kernels
 TRACE_KERNELS = {
@@ -6342,9 +6383,10 @@ def _obs_package_leg(seed: int, card: str, work: str) -> dict:
 
 
 def _jobset_child(result_path: str):
-    """The JobSet leg's program under torchrun: the 1B fit for a few steps
-    on {"data": 1} through auto_trainer.train in the NCCL group torchrun's
-    env brings up, with a recording context."""
+    """The JobSet leg's program under torchrun: the 1B fit (its width,
+    OBS_FIT_LAYERS layers) for a few steps on {"data": 1} through
+    auto_trainer.train in the NCCL group torchrun's env brings up, with a
+    recording context."""
     import torch.distributed as dist
 
     from mlrun_tpu_torch.execution import is_logging_worker
@@ -6352,9 +6394,10 @@ def _jobset_child(result_path: str):
 
     context = _Recorder()
     metrics = auto_trainer.train(
-        context=context, model="llama3-1b", batch_size=TRAIN_BATCH,
-        seq_len=TRAIN_SEQ, steps=OBS_FIT_STEPS, mesh_shape={"data": 1},
-        log_every=1)
+        context=context, model="llama3-1b",
+        model_overrides={"n_layers": OBS_FIT_LAYERS},
+        batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=OBS_FIT_STEPS,
+        mesh_shape={"data": 1}, log_every=1)
     out = {"rank": os.environ.get("RANK"),
            "world": dist.get_world_size(), "backend": dist.get_backend(),
            "logging_worker": is_logging_worker(),
@@ -6999,7 +7042,7 @@ def phase_podfleet(seed: int, card: str) -> dict:
     import torch
 
     from mlrun_tpu_torch.chaos import FaultPoints, always, chaos
-    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.models.llama import init_params
     from mlrun_tpu_torch.obs import (
         LLM_TTFT,
         REGISTRY,
@@ -7019,7 +7062,7 @@ def phase_podfleet(seed: int, card: str) -> dict:
     from mlrun_tpu_torch.service.autoscaler import FleetAutoscaler
 
     phase_started = time.perf_counter()
-    config = MODEL_PRESETS["llama3-8b"]()
+    config = _cut_8b()
     layers = config.n_layers
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -7172,7 +7215,8 @@ def phase_podfleet(seed: int, card: str) -> dict:
                                             max_new_tokens=MAX_NEW)
     cached = moved_stats["timing"].get("cached_prefix", 0)
     row = {"phase": "podfleet", "leg": "scale_up_prewarm", "card": card,
-           "model": "llama3-8b", "first_pod_phases": pod1_phases,
+           "model": "llama3-8b", "layers": layers,
+           "first_pod_phases": pod1_phases,
            "pod": pod2, "replica": rid2, "phases": pod2_phases,
            "ticks_scale_up_to_joined": pod2_ticks + 1,
            "seconds_scale_up_to_joined": join_s,
@@ -7622,6 +7666,96 @@ def _runs_failing_leg(seed: int, card: str, db) -> dict:
     return row
 
 
+ADAPTER_FEATURES, ADAPTER_HIDDEN = 16, 64    # a 5,313-parameter MLP
+ADAPTER_BATCHES, ADAPTER_BATCH, ADAPTER_EPOCHS = 4, 32, 2
+
+
+def _adapter_mlp():
+    from torch import nn
+
+    return nn.Sequential(nn.Linear(ADAPTER_FEATURES, ADAPTER_HIDDEN),
+                         nn.ReLU(), nn.Linear(ADAPTER_HIDDEN, ADAPTER_HIDDEN),
+                         nn.ReLU(), nn.Linear(ADAPTER_HIDDEN, 1))
+
+
+def _runs_torch_adapter_leg(seed: int, card: str, db) -> dict:
+    """(e) user torch code through the torch adapter: a seeded MLP on the
+    card trains through frameworks.torch.train inside a local run (host
+    batches, moved to the model's device by the loop), its state dict a
+    model artifact in the run db; TorchModelServer with its default
+    device loads that artifact on the card and predicts a batch, equal to
+    the in-memory model's outputs on the same inputs."""
+    import torch
+    from torch import nn
+
+    from mlrun_tpu_torch import new_function
+    from mlrun_tpu_torch.frameworks.torch import TorchModelServer, train
+
+    started = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(ADAPTER_BATCHES * ADAPTER_BATCH, ADAPTER_FEATURES,
+                    generator=gen)
+    y = x.sum(dim=1, keepdim=True)
+    loader = [(x[i:i + ADAPTER_BATCH], y[i:i + ADAPTER_BATCH])
+              for i in range(0, len(x), ADAPTER_BATCH)]
+    trained = {}
+
+    def handler(context):
+        torch.manual_seed(seed)
+        model = _adapter_mlp().to("cuda")
+        trained["model"] = model
+        trained["params_on_cuda"] = all(
+            p.is_cuda for p in model.parameters())
+        train(model, nn.MSELoss(),
+              torch.optim.Adam(model.parameters(), lr=1e-2), loader,
+              context=context, epochs=ADAPTER_EPOCHS, model_name="torch-mlp")
+        trained["params_on_cuda"] &= all(
+            p.is_cuda for p in model.parameters())
+
+    fn = new_function("torch-mlp", kind="local", handler=handler,
+                      project=RUNS_PROJECT)
+    run = fn.run(local=True)
+    train_s = time.perf_counter() - started
+    uri = (run.status.artifact_uris or {}).get("torch-mlp", "")
+    server = TorchModelServer(None, name="torch-mlp", model_path=uri,
+                              model_factory=_adapter_mlp)
+    server.post_init()
+    if not server.ready:
+        fail(f"runs (torch_adapter): TorchModelServer failed to load: "
+             f"{server.error}")
+    inputs = x[:ADAPTER_BATCH]
+    reply = server.do_event(_Event({"inputs": inputs.tolist()})).body
+    served = torch.tensor(reply["outputs"], dtype=torch.float32)
+    with torch.no_grad():
+        direct = server.model(inputs.to("cuda"))
+        expected = trained["model"].eval()(inputs.to("cuda"))
+    err = float((served - expected.cpu()).abs().max())
+    stored = db.read_run(run.metadata.uid, RUNS_PROJECT) or {}
+    row = {
+        "phase": "runs", "leg": "torch_adapter", "card": card,
+        "state": run.state(), "error": run.status.error,
+        "results": run.status.results, "model_uri": uri,
+        "parameters": sum(p.numel() for p in trained["model"].parameters()),
+        "served_max_abs_err": err, "served_tol": 1e-6,
+        "train_s": train_s, "seconds": time.perf_counter() - started,
+        "launches": {},
+        "checks": {
+            "completed": run.state() == "completed"
+            and stored.get("status", {}).get("state") == "completed",
+            "model_artifact_in_the_db": bool(uri) and "torch-mlp" in (
+                stored.get("status", {}).get("artifact_uris") or {}),
+            "params_on_cuda": trained["params_on_cuda"],
+            "served_params_on_cuda": all(
+                p.is_cuda for p in server.model.parameters()),
+            "served_outputs_on_cuda": direct.is_cuda,
+            "served_equal_in_memory": err <= 1e-6
+            and served.shape == expected.shape,
+            "under_10_s": time.perf_counter() - started < 10.0,
+        }}
+    _runs_check("torch_adapter", row)
+    return row
+
+
 def _runs_hyper_leg(seed: int, card: str, db) -> dict:
     """(c) a two-iteration hyper-parameter run over the learning rate,
     selected by min.loss (the first update's learning rate is 0, so the
@@ -7782,8 +7916,9 @@ def phase_runs(seed: int, card: str, train_step_ms=None) -> dict:
     """The run stack on the card, over a temporary SQLite run db and
     artifact path: (a) the 1B trainer as a tpujob run, (b) a failing run
     and its JobFailed alert, (c) a two-iteration hyper-parameter run, (d)
-    SLOEvaluator.process after a burst on a 1B paged server. Returns the
-    kernels' launches on the four legs."""
+    SLOEvaluator.process after a burst on a 1B paged server, (e) user
+    torch code through frameworks.torch's train and TorchModelServer.
+    Returns the kernels' launches on the legs."""
     import shutil
     import tempfile
 
@@ -7805,6 +7940,7 @@ def phase_runs(seed: int, card: str, train_step_ms=None) -> dict:
         _release()
         rows.append(_runs_slo_leg(seed, card, db))
         _release()
+        rows.append(_runs_torch_adapter_leg(seed, card, db))
         for row in rows:
             for name, count in row["launches"].items():
                 launches[name] = launches.get(name, 0) + count

@@ -9,9 +9,13 @@ use (ops/_build.py), with a plain PyTorch version beside it.
 The run stack and projects are at the top level as in the reference:
 ``new_function`` (e.g. ``new_function("train", kind="tpujob").run(
 handler=train, local=True)``), ``get_run_db``, ``MLClientCtx``,
-``get_or_create_ctx``, ``code_to_function``, ``import_function``,
-``new_project`` / ``load_project`` / ``get_or_create_project`` /
-``get_current_project`` and ``run_function``. The CLI is ``python3 -m
+``get_or_create_ctx``, ``code_to_function``, ``import_function`` (also
+``hub://`` functions), ``new_project`` / ``load_project`` /
+``get_or_create_project`` / ``get_current_project`` and ``run_function``;
+so are the reference's other top-level names: ``get_dataitem``,
+``get_object``, ``get_pipeline``, ``pipeline_context``, the mounts, the
+errors, the run objects, the packagers, ``handler``, ``Version``,
+``set_environment`` and ``set_env_from_file``. The CLI is ``python3 -m
 mlrun_tpu_torch`` (``__main__.py``).
 """
 
@@ -38,6 +42,33 @@ _LAZY_EXPORTS = {
     "deploy_function": "mlrun_tpu_torch.projects",
     "MlrunProject": "mlrun_tpu_torch.projects",
     "ProjectMetadata": "mlrun_tpu_torch.projects",
+    "get_dataitem": "mlrun_tpu_torch.run",
+    "get_object": "mlrun_tpu_torch.run",
+    "get_pipeline": "mlrun_tpu_torch.run",
+    "pipeline_context": "mlrun_tpu_torch.run",
+    "set_environment": "mlrun_tpu_torch.run",
+    "set_env_from_file": "mlrun_tpu_torch.run",
+    "auto_mount": "mlrun_tpu_torch.platforms",
+    "mount_pvc": "mlrun_tpu_torch.platforms",
+    "get_secret_or_env": "mlrun_tpu_torch.secrets",
+    "environ": "os",
+    "Version": "mlrun_tpu_torch.utils.version",
+    "get_version": "mlrun_tpu_torch.utils.version",
+    "ArtifactType": "mlrun_tpu_torch.package",
+    "handler": "mlrun_tpu_torch.package",
+    "DefaultPackager": "mlrun_tpu_torch.package.packagers.default",
+    "Packager": "mlrun_tpu_torch.package",
+    "MLRunBaseError": "mlrun_tpu_torch.errors",
+    "MLRunConflictError": "mlrun_tpu_torch.errors",
+    "MLRunInvalidArgumentError": "mlrun_tpu_torch.errors",
+    "MLRunNotFoundError": "mlrun_tpu_torch.errors",
+    "MLRunRuntimeError": "mlrun_tpu_torch.errors",
+    "MLRunTimeoutError": "mlrun_tpu_torch.errors",
+    "new_task": "mlrun_tpu_torch.model",
+    "RunObject": "mlrun_tpu_torch.model",
+    "RunTemplate": "mlrun_tpu_torch.model",
+    "HyperParamOptions": "mlrun_tpu_torch.model",
+    "Notification": "mlrun_tpu_torch.model",
 }
 
 

@@ -139,6 +139,11 @@ class FaultPoints:
     # in-run context commits (execution.py MLClientCtx.commit) — a delay()
     # here models a stalled step
     execution_commit = "execution.commit"
+    # training device-prefetch stage (training/data.py
+    # DevicePrefetchIterator): fires on the producer thread once per host
+    # batch BEFORE it is pulled and staged — a delay() stalls the input
+    # pipeline, an error reaches the consumer at that batch's position
+    train_prefetch = "train.prefetch"
     # one elastic health poll of the training loop (training/elastic.py
     # ElasticGuard.poll), with a mutable ``box``: an action setting
     # box["fail"] / box["join"] to a slice index fails / revives that
@@ -164,7 +169,8 @@ class FaultPoints:
             FaultPoints.llm_kv_fetch,
             FaultPoints.obs_autoscale, FaultPoints.monitor_drift,
             FaultPoints.datastore_read, FaultPoints.datastore_write,
-            FaultPoints.execution_commit, FaultPoints.train_slice_fail,
+            FaultPoints.execution_commit,
+            FaultPoints.train_prefetch, FaultPoints.train_slice_fail,
         ]
 
 

@@ -98,7 +98,9 @@ class StoreManager:
     def object(self, url: str, key: str = "", project: str = "",
                secrets: dict | None = None) -> DataItem:
         meta = {}
+        artifact_url = ""
         if url.startswith("store://"):
+            artifact_url = url
             meta = self._resolve_store_resource(url, project) or {}
             target = (meta.get("spec", {}).get("target_path")
                       or meta.get("target_path"))
@@ -108,7 +110,8 @@ class StoreManager:
             url = target
         store, path = self.get_or_create_store(url, secrets=secrets,
                                                project=project)
-        return DataItem(key or path, store, path, url=url, meta=meta)
+        return DataItem(key or path, store, path, url=url, meta=meta,
+                        artifact_url=artifact_url)
 
     def _resolve_store_resource(self, url: str,
                                 project: str = "") -> Optional[dict]:

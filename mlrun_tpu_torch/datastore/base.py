@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
+from typing import Optional
 from urllib.parse import urlparse
 
 from ..chaos import fire as chaos_fire
@@ -31,6 +32,7 @@ class DataStore:
     """Abstract storage backend keyed by url scheme."""
 
     kind = "base"
+    using_bucket = False
 
     def __init__(self, parent, name: str, kind: str, endpoint: str = "",
                  secrets: dict | None = None):
@@ -39,6 +41,9 @@ class DataStore:
         self.kind = kind
         self.endpoint = endpoint
         self._secrets = secrets or {}
+
+    def _get_secret_or_env(self, key: str, default: str = "") -> str:
+        return self._secrets.get(key) or os.environ.get(key, default)
 
     # -- required backend api ---------------------------------------------
     def get(self, key: str, size: int | None = None, offset: int = 0) -> bytes:
@@ -76,6 +81,11 @@ class DataStore:
         with open(target_path, "wb") as fp:
             fp.write(data if isinstance(data, bytes) else data.encode())
 
+    def url(self, key: str) -> str:
+        if self.kind == "file":
+            return key
+        return f"{self.kind}://{self.endpoint}{key}"
+
     def as_df(self, key: str, columns=None, df_module=None, format: str = "",
               **kwargs):
         """Load an object into a dataframe (csv / parquet / json by
@@ -100,17 +110,21 @@ class DataStore:
             df = df[columns]
         return df
 
+    def rm(self, path: str, recursive: bool = False):
+        self.delete(path)
+
 
 class DataItem:
     """Lazy data handle (the reference's ``DataItem``)."""
 
     def __init__(self, key: str, store: DataStore, subpath: str, url: str = "",
-                 meta: dict | None = None):
+                 meta: dict | None = None, artifact_url: str = ""):
         self._key = key
         self._store = store
         self._path = subpath
         self._url = url
         self._meta = meta or {}
+        self._artifact_url = artifact_url
         self._local_path = ""
 
     @property
@@ -128,6 +142,12 @@ class DataItem:
     @property
     def url(self) -> str:
         return self._url
+
+    @property
+    def artifact_url(self) -> str:
+        """The ``store://`` uri the item was resolved from, else its
+        url."""
+        return self._artifact_url or self._url
 
     @property
     def store(self) -> DataStore:
@@ -194,6 +214,28 @@ class DataItem:
         self.download(temp.name)
         self._local_path = temp.name
         return self._local_path
+
+    def ls(self) -> list[str]:
+        """Alias of listdir."""
+        return self.listdir()
+
+    def open(self, mode: str = "rb"):
+        """Open the (locally materialized) item as a file object."""
+        return open(self.local(), mode)
+
+    def upload(self, src_path: str):
+        """Upload a local file into this item's target."""
+        self._store.upload(self._path, src_path)
+
+    def get_artifact_type(self) -> Optional[str]:
+        """The artifact's kind when this item resolved a ``store://``
+        uri."""
+        return self._meta.get("kind") if self._meta else None
+
+    def show(self):
+        from ..utils import logger
+
+        logger.info("data item", url=self._url, kind=self.kind)
 
     def remove_local(self):
         """Drop the temporary copy ``local()`` made (none on the file

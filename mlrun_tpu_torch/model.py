@@ -524,6 +524,26 @@ class RunObject(RunTemplate):
             )
         return self.status.state
 
+    def show(self):
+        """Notebook-rich run view (render.py's detail card); a log summary
+        outside IPython."""
+        from .render import run_to_html
+        from .utils import logger
+
+        html = run_to_html(self.to_dict(), display=True)
+        if not html:
+            logger.info(
+                "run summary", name=self.metadata.name,
+                uid=self.metadata.uid, state=self.status.state,
+                results=self.status.results,
+                artifacts=list((self.status.artifact_uris or {}).keys()),
+            )
+
+    def _repr_html_(self) -> str:
+        from .render import run_to_html
+
+        return run_to_html(self.to_dict(), display=False)
+
     def to_dict(self, exclude=None):
         out = super().to_dict(exclude)
         out["kind"] = self.kind

@@ -1,7 +1,10 @@
 """Run helpers — the port's copy of ``mlrun_tpu/run.py``:
 ``get_or_create_ctx``, ``new_function``, ``code_to_function``,
 ``import_function``, ``function_to_module``, ``run_local`` and
-``wait_for_pipeline_completion``."""
+``wait_for_pipeline_completion``; and the reference package's top-level
+helpers ``get_dataitem``, ``get_object``, ``get_pipeline``,
+``pipeline_context``, ``set_environment`` and ``set_env_from_file``
+(re-exported by ``mlrun_tpu_torch``)."""
 
 from __future__ import annotations
 
@@ -123,8 +126,9 @@ def code_to_function(name: str = "", project: str = "", tag: str = "",
 
 def import_function(url: str = "", project: str = "", new_name: str = "",
                     secrets: dict | None = None) -> BaseRuntime:
-    """A function object from the run db (``db://project/name[:tag]``) or
-    from a yaml or json file at any datastore url."""
+    """A function object from the run db (``db://project/name[:tag]``),
+    the function hub (``hub://name[:tag]``, hub.py) or a yaml or json file
+    at any datastore url."""
     if url.startswith("db://"):
         body = url[len("db://"):]
         project_part, _, name_part = body.partition("/")
@@ -135,9 +139,9 @@ def import_function(url: str = "", project: str = "", new_name: str = "",
 
         struct = get_run_db().get_function(name_part, project_part, tag)
     elif url.startswith("hub://"):
-        from .serving.resilience import not_ported
+        from .hub import get_hub_function
 
-        raise not_ported("hub:// functions (hub.py)", 14)
+        struct = get_hub_function(url)
     else:
         import yaml
 
@@ -188,6 +192,97 @@ def wait_for_pipeline_completion(run_id, timeout: float = 3600,
 
     return wait_for_run_completion(run_id, timeout=timeout, project=project,
                                    expected_statuses=expected_statuses)
+
+
+def get_dataitem(url: str, secrets: dict | None = None):
+    """Resolve any url (a path, ``file://``, ``memory://``, ``store://``,
+    ``ds://``) into a DataItem."""
+    from .datastore import store_manager
+
+    return store_manager.object(url=url, secrets=secrets)
+
+
+def get_object(url: str, secrets: dict | None = None,
+               size: int | None = None, offset: int = 0) -> bytes:
+    """Read an object's bytes from any datastore url."""
+    return get_dataitem(url, secrets=secrets).get(size=size, offset=offset)
+
+
+def get_pipeline(run_id: str, project: str = ""):
+    """A workflow run's record from the run db, where the db keeps
+    them."""
+    from .db import get_run_db
+    from .errors import MLRunInvalidArgumentError
+
+    db = get_run_db()
+    getter = getattr(db, "get_pipeline", None)
+    if getter:
+        return getter(run_id, project=project)
+    raise MLRunInvalidArgumentError(
+        "the configured run DB does not expose pipeline runs "
+        "(connect to the service with MLT_DBPATH)")
+
+
+class _PipelineContextProxy:
+    """Attribute access to the active workflow's context (the top-level
+    ``pipeline_context`` is an object: ``pipeline_context.project``);
+    None-safe outside a workflow."""
+
+    def _current(self):
+        from .projects.pipelines import pipeline_context as _context
+
+        return _context()
+
+    def __getattr__(self, name):
+        current = self._current()
+        if current is None:
+            if name in ("project", "workflow", "workflow_id"):
+                return None
+            raise AttributeError(
+                f"no active pipeline context (attribute {name!r})")
+        return getattr(current, name)
+
+    def __bool__(self):
+        return self._current() is not None
+
+
+pipeline_context = _PipelineContextProxy()
+
+
+def set_environment(api_path: str | None = None, artifact_path: str = "",
+                    project: str = "", access_key: str | None = None,
+                    username: str | None = None, env_file: str | None = None,
+                    mock_functions: str | None = None):
+    """Set the run db path, artifact path and default project for this
+    process (the environment ``config.run_config`` reads); returns
+    (default project, artifact path or None)."""
+    if env_file:
+        set_env_from_file(env_file)
+    if api_path:
+        os.environ["MLT_DBPATH"] = api_path
+    if artifact_path:
+        os.environ["MLT_ARTIFACT_PATH"] = artifact_path
+    if project:
+        os.environ["MLT_DEFAULT_PROJECT"] = project
+    if access_key:
+        os.environ["MLT_ACCESS_KEY"] = access_key
+    return (run_config("default_project"),
+            run_config("artifact_path") or None)
+
+
+def set_env_from_file(env_file: str, return_dict: bool = False):
+    """Load KEY=VALUE lines into the environment."""
+    env_vars = {}
+    with open(os.path.expanduser(env_file)) as fp:
+        for line in fp:
+            line = line.strip()
+            if line and not line.startswith("#") and "=" in line:
+                key, value = line.split("=", 1)
+                env_vars[key.strip()] = value.strip()
+    for key, value in env_vars.items():
+        os.environ[key] = value
+    if return_dict:
+        return env_vars
 
 
 def _calling_filename() -> str:

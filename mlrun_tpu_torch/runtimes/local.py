@@ -3,9 +3,8 @@
 ``load_module``).
 
 Executes the handler in-process (or a python file via subprocess with the
-``MLT_EXEC_CONFIG`` env contract) and captures results via ``MLClientCtx``.
-The reference wraps the handler in its trackers' pre / post hooks
-(``track/``, ROADMAP.md item 14); the port calls the handler alone.
+``MLT_EXEC_CONFIG`` env contract) and captures results via ``MLClientCtx``,
+the handler wrapped in the trackers' pre / post hooks (``track/``).
 """
 
 from __future__ import annotations
@@ -59,7 +58,12 @@ def exec_from_params(handler: Callable, runobj: RunObject, context: MLClientCtx,
         if cwd:
             os.chdir(cwd)
         with redirect_stdout(stdout_buf):
+            # hook trackers (mlflow import etc.) around the user handler
+            from ..track import tracker_manager
+
+            tracker_manager.pre_run(context)
             returned = handler(**kwargs)
+            tracker_manager.post_run(context)
         context_handler.package_results(context, returned, runobj.spec.returns)
         context.commit(completed=True)
     except Exception as exc:  # noqa: BLE001 - report user errors on the run

@@ -534,16 +534,17 @@ class DegradationLadder:
         return max_new_tokens
 
 
-# ROADMAP.md "Modules still to port", by item number (1-9 and 11-13
+# ROADMAP.md "Modules still to port", by item number (1-9, 11-13 and 15
 # landed; 10's tail is what the run stack left; item 14 queues the
-# reference's host packages that have no counterpart in the port yet)
+# reference's host packages that have no counterpart in the port yet:
+# its 14a surfaces landed, 14b-14d remain)
 PORT_QUEUE = {
     10: "item 10's tail: the object stores (datastore/stores.py: gs, s3, "
         "az, hdfs, http and redis urls)",
     14: "the rest of the service (its API server, the Grafana proxy, the "
         "image builder, the other providers and runtimes, the remote "
-        "launcher, the http and server-SQL run dbs, the log collector), "
-        "analysis/, render.py, hub.py, track/, platforms/ and errors.py",
+        "launcher, the http and server-SQL run dbs, the log collector) "
+        "and analysis/",
 }
 
 

@@ -19,6 +19,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..chaos import FaultPoints, fire
+
 
 def synthetic_token_stream(batch_size: int, seq_len: int, vocab_size: int,
                            seed: int = 0) -> Iterator[tuple]:
@@ -384,8 +386,10 @@ class DevicePrefetchIterator:
         return False
 
     def _produce(self):
+        index = 0
         while not self._closed.is_set():
             try:
+                fire(FaultPoints.train_prefetch, batch_index=index)
                 batch = next(self._iterator)
             except StopIteration:
                 self._put(_PREFETCH_END)
@@ -401,6 +405,7 @@ class DevicePrefetchIterator:
                 return
             if not self._put(placed):
                 return
+            index += 1
 
     # -- consumer ------------------------------------------------------------
     def __iter__(self):

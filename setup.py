@@ -8,8 +8,11 @@ setup(
                                     "mlrun_tpu_torch", "mlrun_tpu_torch.*"]),
     package_data={"mlrun_tpu": ["hub_functions/*/function.yaml",
                                 "hub_functions/*/*.py"],
-                  # the port's CUDA sources, compiled at first use
-                  "mlrun_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  # the port's CUDA and host C++ sources, compiled at
+                  # first use, and its hub functions
+                  "mlrun_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "csrc/*.cpp",
+                                      "hub_functions/*/function.yaml"]},
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=[

@@ -51,3 +51,44 @@ def test_tensor_core_counts_per_symbol():
 ])
 def test_ptxas_spills_per_symbol(text, expected):
     assert _build.ptxas_spills(text) == expected
+
+
+def _package_data() -> dict:
+    """``setup.py``'s ``package_data`` literal, read with ``ast`` (the
+    script is not run)."""
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "setup.py")
+                     .read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.keyword) and node.arg == "package_data":
+            return ast.literal_eval(node.value)
+    raise AssertionError("setup.py has no package_data")
+
+
+def test_package_data_ships_every_source_the_port_builds(monkeypatch):
+    """A pip-installed port holds every file ``ops/_build.py`` compiles or
+    includes (the kernel sources, their headers, the token-shard loader's
+    C++ source that ``build_host`` compiles) and every hub function yaml
+    it ships (ROADMAP 3.12)."""
+    from fnmatch import fnmatch
+    from pathlib import Path
+
+    from mlrun_tpu_torch.training import data
+
+    root = Path(_build.__file__).resolve().parents[1]
+    globs = _package_data()["mlrun_tpu_torch"]
+    host = []
+    monkeypatch.delenv("MLT_DATA_LOADER_LIB", raising=False)
+    monkeypatch.setattr(_build, "build_host",
+                        lambda source, name: host.append(Path(source)))
+    data._native_lib_path()
+    hub = sorted(root.glob("hub_functions/*/function.yaml"))
+    files = sorted(set(_build.sources()) | set(_build.CSRC.glob("*.cu*"))
+                   | set(host) | set(hub))
+    assert [p.name for p in host] == ["data_loader.cpp"] and len(hub) == 6
+    missing = [str(f.relative_to(root)) for f in files
+               if not any(fnmatch(str(f.relative_to(root)), g)
+                          for g in globs)]
+    assert not missing, f"not in package_data: {missing}"

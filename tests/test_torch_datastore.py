@@ -79,6 +79,49 @@ def test_stores_match_reference(tmp_path, kind):
     assert jds.store_manager.object(url=url("j.bin")).exists()
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_dataitem_contract(tmp_path, pkg):
+    """tests/test_api_parity.py::test_dataitem_contract on both packages
+    (ROADMAP 3.9): ``open``, the store's kind, ``get_artifact_type``,
+    ``ls``, ``upload`` and ``remove_local``; then the store's ``url``,
+    ``rm`` and ``_get_secret_or_env`` and the item's ``artifact_url`` on
+    the ``memory://`` store."""
+    store_manager = {"jax": jds, "port": tds}[pkg].store_manager
+    src = tmp_path / "data.txt"
+    src.write_text("hello")
+    item = store_manager.object(url=str(src))
+    with item.open("r") as f:
+        assert f.read() == "hello"
+    assert item.store.kind == "file"
+    assert item.get_artifact_type() is None
+    dir_item = store_manager.object(url=str(tmp_path))
+    assert "data.txt" in dir_item.ls()
+    src2 = tmp_path / "new.txt"
+    src2.write_text("payload")
+    target = store_manager.object(url=str(tmp_path / "uploaded.txt"))
+    target.upload(str(src2))
+    assert (tmp_path / "uploaded.txt").read_text() == "payload"
+    target.remove_local()  # no-op for file store, must not raise
+
+    url = f"memory://bucket/{tmp_path.name}/m.bin"
+    memory = store_manager.object(url=url)
+    memory.upload(str(src2))
+    with memory.open("rb") as f:
+        assert f.read() == b"payload"
+    memory.remove_local()
+    store = memory.store
+    assert (store.using_bucket, memory.artifact_url, memory.url) == (
+        False, url, url)
+    assert store.url(f"/{tmp_path.name}/m.bin") == url
+    assert item.store.url(str(src)) == str(src)
+    store.rm(memory._path)
+    assert not memory.exists()
+    store._secrets["MLT_DS_KEY"] = "from-secrets"
+    assert store._get_secret_or_env("MLT_DS_KEY") == "from-secrets"
+    assert store._get_secret_or_env("MLT_DS_NONE", "d") == "d"
+    memory.show()
+
+
 def test_datastore_fault_points_fire():
     """``datastore.read`` / ``datastore.write`` arm through the port's
     own chaos registry, as the reference's DataItem fires them."""

@@ -13,8 +13,12 @@ the fleet telemetry (obs/federation, obs/timeseries, obs/slo), the run
 stack (the run objects, the run db, artifacts, notifications,
 service/alerts, MLClientCtx, the runtimes and the launchers), model
 monitoring with its continuous-tuning loop, the feature store with
-its datastore sources and targets, and the CLI with the projects and
-their workflow engines included, nor the chip smoke script and
+its datastore sources and targets, the CLI with the projects and
+their workflow engines, the framework adapters (sklearn, xgboost,
+lightgbm, tf_keras, onnx, the user-code torch adapter, auto_mlrun and
+the boosters' shared logging) and the small host surfaces (errors, the
+logger and helpers, platforms, render, track, the hub and its
+functions) included, nor the chip smoke script and
 the port's profile scripts) imports JAX or the reference package, and
 importing the serving, fleet, telemetry, model, training, datastore and
 parallel paths pulls neither into the process. None of those files
@@ -192,6 +196,16 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.datastore.targets\n"
         "import mlrun_tpu_torch.__main__, mlrun_tpu_torch.projects\n"
         "import mlrun_tpu_torch.projects.pipelines\n"
+        "import mlrun_tpu_torch.frameworks, mlrun_tpu_torch.hub\n"
+        "import mlrun_tpu_torch.frameworks.sklearn\n"
+        "import mlrun_tpu_torch.frameworks.xgboost\n"
+        "import mlrun_tpu_torch.frameworks.lightgbm\n"
+        "import mlrun_tpu_torch.frameworks.tf_keras\n"
+        "import mlrun_tpu_torch.frameworks.onnx\n"
+        "import mlrun_tpu_torch.frameworks.torch\n"
+        "import mlrun_tpu_torch.errors, mlrun_tpu_torch.platforms\n"
+        "import mlrun_tpu_torch.render, mlrun_tpu_torch.track\n"
+        "import mlrun_tpu_torch.utils.version\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN + HTTP_LIBRARIES

@@ -270,11 +270,6 @@ def test_code_to_function_embeds_source_like_reference(each):
     assert got["port"][1]["handler"]["doc"] == "docstring"
 
 
-def test_hub_functions_are_item_14():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mlrun_tpu_torch.import_function("hub://auto-trainer")
-
-
 def test_run_local_and_function_to_module_like_reference(each):
     def scenario(name, pkg, directory):
         (directory / "mod.py").write_text(

@@ -484,6 +484,69 @@ def test_device_prefetch_is_ordered_and_error_transparent():
     it.close()
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_chaos_prefetch_error_reaches_consumer_in_position(pkg):
+    """tests/test_train_pipeline.py's contract on both packages (ROADMAP
+    3.11): an error armed at ``train.prefetch`` for the third batch
+    reaches the consumer after the first two, at that batch's place."""
+    if pkg == "jax":
+        from mlrun_tpu.chaos import chaos, fail_nth
+
+        prefetch = jdata.DevicePrefetchIterator
+    else:
+        from mlrun_tpu_torch.chaos import chaos, fail_nth
+
+        def prefetch(stream, depth):
+            return tdata.DevicePrefetchIterator(stream, device="cpu",
+                                                depth=depth)
+
+    batches = [(np.full((1, 2), i, np.int32),) * 2 for i in range(5)]
+    with chaos.inject("train.prefetch", fail_nth(3),
+                      error=RuntimeError("poisoned batch")):
+        with prefetch(iter(batches), depth=2) as it:
+            assert int(next(it)[0][0, 0]) == 0
+            assert int(next(it)[0][0, 0]) == 1
+            with pytest.raises(RuntimeError, match="poisoned"):
+                next(it)
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_preemption_mid_prefetch_drains_without_deadlock(pkg):
+    """tests/test_train_pipeline.py's contract on both packages (ROADMAP
+    3.11): with every prefetched batch delayed at ``train.prefetch`` and
+    the guard latched before the first step, a 50-step fit returns
+    preempted, promptly, without waiting on a full prefetch queue."""
+    import time
+
+    if pkg == "jax":
+        from mlrun_tpu.chaos import chaos
+        from mlrun_tpu.training import TrainConfig, Trainer
+        from mlrun_tpu.training.preemption import PreemptionGuard
+
+        trainer = Trainer(jllama.tiny_llama(attention_impl="reference",
+                                            remat=False),
+                          TrainConfig(mesh_shape={"fsdp": 1}))
+        trainer.init(0)
+        stream = jdata.synthetic_token_stream(
+            4, 32, trainer.model_config.vocab_size)
+    else:
+        from mlrun_tpu_torch.chaos import chaos
+        from mlrun_tpu_torch.training import PreemptionGuard
+
+        trainer = _port_trainer()
+        stream = tdata.synthetic_token_stream(
+            4, 32, trainer.model_config.vocab_size)
+    guard = PreemptionGuard()
+    guard.request()   # latched before the first step
+    with chaos.inject("train.prefetch", delay=0.05):
+        started = time.time()
+        out = trainer.fit(stream, steps=50, log_every=1,
+                          preemption_guard=guard, prefetch=2)
+        elapsed = time.time() - started
+    assert out["preempted"] is True
+    assert elapsed < 30   # returned promptly, not after 50 steps of input
+
+
 def test_peak_flops_table(monkeypatch):
     assert tmfu.chip_peak_flops("cpu") == tmfu.PEAK_FLOPS["cpu"]
     for name, peak in (("NVIDIA H100 80GB HBM3", 989e12),
