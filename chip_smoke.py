@@ -348,11 +348,26 @@ exits non-zero and never prints the final line):
              reports the launches): the serve traffic over HTTP within
              5% of the argmax, a drain with a request in flight, SIGINT,
              exit 0.
+21. service - the service and its clients: the port's API server on
+             127.0.0.1 (a thread, a temporary SQLite run db, the local
+             process provider); HTTPRunDB through MLT_DBPATH and
+             ClientRemoteLauncher submit a tpujob run of
+             auto_trainer.train (the 1B width at 2 layers, B 4 x 2048,
+             4 steps, a checkpoint every 2, max_retries 1, no backoff);
+             the provider runs the JobSet's own command (torchrun, one
+             process) on the card; after step 2's checkpoint the child's
+             process group is SIGKILLed; the service's monitor classifies
+             the failure (infra) and resubmits <name>-r1 with the resume
+             env; the resumed child trains steps 3-4, their losses equal
+             to an uninterrupted in-process fit's; retry_count 1, the run
+             completed, both attempts' log lines read over HTTP, each
+             child's flash launches 2 x 2 x 3 / 2 x 3.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
 over the serve, entry_points, observe, gateway, podfleet, runs, tuning
 and projects paths, the training flash's over the train, families,
-entry_points, parallel, observe, runs, tuning and projects paths) and,
+entry_points, parallel, observe, runs, tuning, projects and service
+paths) and,
 last,
 {"ok": true, "device": ...}. ``--phases build,kernels`` runs a subset (for bring-up;
 ``--phases build,kernels,serve_dense`` checks the dense serving path,
@@ -364,7 +379,8 @@ build,observe`` the captures, the sample tap, the build cache, packaging
 and the JobSet's env, ``--phases build,gateway`` the HTTP gateway,
 ``--phases build,podfleet`` the serving pod fleet and its autoscaler,
 ``--phases build,runs`` the run stack, ``--phases build,tuning`` the
-continuous-tuning loop, ``--phases build,projects`` the pod's program);
+continuous-tuning loop, ``--phases build,projects`` the pod's program,
+``--phases build,service`` the service with a killed and resumed run);
 the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
@@ -9501,10 +9517,417 @@ def phase_projects(seed: int, card: str) -> dict:
     return launches
 
 
+# -- service: a tpujob run submitted over HTTP, killed and resumed ------------
+
+SVC_PROJECT = "svc"
+SVC_MODEL = "llama3-1b"     # the run's model: its full width ...
+SVC_LAYERS = 2              # ... at 2 layers (observe's JobSet child's cut)
+SVC_STEPS = 4               # steps after the warmup pass
+SVC_CKPT_EVERY = 2          # the kill lands after step 2's checkpoint
+SVC_MONITOR_S = 0.5         # the service's monitor loop period
+SVC_TIMEOUT = 300.0         # each wait of the phase
+SVC_MARK = "svc-pod"        # the children's log lines start with it
+
+# the run's handler, carried by MLT_EXEC_CODE: auto_trainer.train with a
+# checkpoint every SVC_CKPT_EVERY steps (its CheckpointCallback records
+# status.checkpoint). The resume env (MLT_RESUME_STEP) says how many
+# batches the run already took: the stream skips them and the fit runs
+# the remaining steps. The first attempt parks its input stream at the
+# batch after its first checkpoint, so the kill lands between that
+# checkpoint and the next step. Its lines go to stderr, which the
+# service's provider pumps into the run's log as they come (the run
+# context holds stdout until the handler returns, and a killed child
+# never returns).
+SVC_TRAIN_CODE = """
+import json
+import sys
+import time
+
+
+def train(context, steps: int = 4, park_after: int = 2,
+          device_check: bool = True, **params):
+    preloaded = "torch" in sys.modules
+    started = time.perf_counter()
+    import torch
+    torch_import_s = None if preloaded else time.perf_counter() - started
+
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+    from mlrun_tpu_torch.ops import _build
+    from mlrun_tpu_torch.training import checkpoint
+
+    kernel_load_s = None
+    if device_check:
+        torch.cuda.init()
+        started = time.perf_counter()
+        _build.library()
+        kernel_load_s = time.perf_counter() - started
+    directive = checkpoint.resume_directive()
+    done = int(directive[1]) if directive and directive[1] else 0
+    attempt = 1 if directive else 0
+    restore_s = []
+    restore = checkpoint.CheckpointManager.restore
+
+    def timed_restore(self, *args, **kwargs):
+        started = time.perf_counter()
+        state = restore(self, *args, **kwargs)
+        if device_check:
+            torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - started)
+        return state
+
+    checkpoint.CheckpointManager.restore = timed_restore
+    make_stream = auto_trainer._make_stream
+
+    def stream(*args, **kwargs):
+        source = make_stream(*args, **kwargs)
+        for _ in range(done):
+            next(source)
+        for served, batch in enumerate(source):
+            if directive is None and served == park_after:
+                time.sleep(3600)
+            yield batch
+
+    auto_trainer._make_stream = stream
+    out = {"attempt": attempt, "resume_step": done, "losses": [],
+           "step_t": [], "torch_import_s": torch_import_s,
+           "kernel_load_s": kernel_load_s,
+           "device": torch.cuda.get_device_name(0) if device_check
+           else "cpu"}
+
+    def report(final):
+        if device_check:
+            torch.cuda.synchronize()
+        out["launches"] = {k: v for k, v in _build.launch_counts().items()
+                           if v}
+        out["restore_s"] = restore_s
+        out["final"] = final
+        print("MARK result " + json.dumps(out), file=sys.stderr,
+              flush=True)
+
+    def record(step, metrics, trainer):
+        out["losses"].append(float(metrics["loss"]))
+        out["step_t"].append(time.time())
+        print(f"MARK attempt {attempt} step {metrics['step']} loss "
+              f"{out['losses'][-1]!r}", file=sys.stderr, flush=True)
+        if directive is None and metrics["step"] == park_after:
+            report(False)
+
+    _build.reset_launch_counts()
+    auto_trainer.train(context=context, steps=steps - done,
+                       callbacks=[record], resume=False, **params)
+    report(True)
+""".replace("MARK", SVC_MARK)
+
+
+def _svc_check(row: dict):
+    emit(row)
+    bad = [name for name, ok in row["checks"].items() if not ok]
+    if bad:
+        fail(f"service: {bad}")
+
+
+def _svc_until(what: str, probe, timeout: float = SVC_TIMEOUT,
+               every: float = 0.05):
+    """Poll ``probe`` until it returns a truthy value; fail on timeout."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = probe()
+        if value:
+            return value
+        time.sleep(every)
+    fail(f"service: timed out waiting for {what}")
+
+
+def _svc_results(log: bytes) -> list:
+    """The children's result lines from the run's log, in order."""
+    prefix = f"{SVC_MARK} result "
+    return [json.loads(line[len(prefix):])
+            for line in log.decode(errors="replace").splitlines()
+            if line.startswith(prefix)]
+
+
+def _svc_run_params(seed: int, work: str) -> dict:
+    return {"model": SVC_MODEL, "model_overrides": {"n_layers": SVC_LAYERS},
+            "batch_size": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "steps": SVC_STEPS, "log_every": 1, "seed": seed,
+            "checkpoint_dir": os.path.join(work, "checkpoints"),
+            "checkpoint_every": SVC_CKPT_EVERY, "model_name": "svc-1b",
+            "park_after": SVC_CKPT_EVERY}
+
+
+def _svc_in_process(params: dict) -> tuple:
+    """The same fit in this process, uninterrupted: (losses, step times)."""
+    import torch
+
+    from mlrun_tpu_torch.frameworks.torch import auto_trainer
+
+    losses, step_t = [], []
+
+    def record(step, metrics, trainer):
+        losses.append(float(metrics["loss"]))
+        step_t.append(time.time())
+
+    auto_trainer.train(context=None, callbacks=[record], **{
+        k: v for k, v in params.items()
+        if k not in ("checkpoint_dir", "checkpoint_every", "park_after",
+                     "device_check")})
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return losses, step_t
+
+
+def phase_service(seed: int, card: str) -> dict:
+    """The service on the card: the port's API server on 127.0.0.1 over a
+    temporary SQLite run db with the local process provider; a client
+    (HTTPRunDB through MLT_DBPATH, ClientRemoteLauncher) submits a tpujob
+    run of auto_trainer.train (the 1B width at 2 layers, 4 x 2048, 4
+    steps, a checkpoint every 2, max_retries 1 with no backoff); the
+    service's TpuJobHandler builds the JobSet and the provider runs its
+    own command (torchrun, one process) on the card; after step 2's
+    checkpoint the child's process group is SIGKILLed; the service's own
+    monitor classifies the failure and resubmits <name>-r1 with the
+    resume env; the resumed child trains steps 3-4. Returns the kernels'
+    launches summed over both children."""
+    import base64
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    from mlrun_tpu_torch import new_function, new_task
+    from mlrun_tpu_torch.config import SERVICE_DEFAULTS
+    from mlrun_tpu_torch.datastore import store_manager
+    from mlrun_tpu_torch.db import get_run_db, set_run_db
+    from mlrun_tpu_torch.db.httpdb import HTTPRunDB
+    from mlrun_tpu_torch.db.sqlitedb import SQLiteRunDB
+    from mlrun_tpu_torch.launcher import ClientRemoteLauncher, LauncherFactory
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS
+    from mlrun_tpu_torch.obs import get_flight_recorder
+    from mlrun_tpu_torch.service.app import ServiceState, ServiceThread
+    from mlrun_tpu_torch.service.providers import (
+        LocalProcessProvider,
+        _process_tree,
+        signal_process_tree,
+    )
+
+    started = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mlt-service-")
+    saved_env = {k: os.environ.get(k) for k in (
+        "MLT_DBPATH", "MLT_HOME", "PATH", "PYTHONPATH", "RANK",
+        "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+        "MASTER_PORT")}
+    saved_conf = (SERVICE_DEFAULTS["httpdb"]["port"],
+                  SERVICE_DEFAULTS["runs"]["monitoring_interval"])
+    # the children's programs (python3, torchrun) are this interpreter's,
+    # with the checkout importable and no rank of this process
+    os.environ.update(_proj_env(work, MLT_HOME=os.path.join(work, "home")))
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(name, None)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    SERVICE_DEFAULTS["httpdb"]["port"] = port
+    SERVICE_DEFAULTS["runs"]["monitoring_interval"] = SVC_MONITOR_S
+    db = SQLiteRunDB(os.path.join(work, "svc.sqlite"),
+                     logs_dir=os.path.join(work, "logs"))
+    provider = LocalProcessProvider(db)
+    state = ServiceState(db=db, provider=provider)
+    server = ServiceThread(state, port=port)
+    url = server.url
+    os.environ["MLT_DBPATH"] = url
+    set_run_db(None)
+    store_manager._db = None
+    try:
+        client = get_run_db()
+        params = _svc_run_params(seed, work)
+        fn = new_function("svc-train", kind="tpujob", project=SVC_PROJECT)
+        fn.with_gpus(nodes=1, gpus_per_node=1)
+        fn.spec.build.functionSourceCode = base64.b64encode(
+            SVC_TRAIN_CODE.encode()).decode()
+        task = new_task(name="svc-train", project=SVC_PROJECT,
+                        handler="train", params=params).with_retry(
+            max_retries=1, backoff=0.0)
+        submitted = time.time()
+        run = fn.run(runspec=task, local=False, watch=False)
+        uid = run.metadata.uid
+        handler = state.launcher.handler_for("tpujob")
+        first_id = handler._resources[uid][0]
+        manifest = handler._manifests[uid]
+
+        def checkpointed():
+            doc = client.read_run(uid, SVC_PROJECT) or {}
+            ckpt = doc.get("status", {}).get("checkpoint") or {}
+            if doc.get("status", {}).get("state") in ("error", "completed"):
+                fail(f"service: the first attempt ended before its "
+                     f"checkpoint: {doc.get('status')}")
+            return ckpt.get("step") == SVC_CKPT_EVERY and ckpt
+
+        checkpoint = _svc_until("step 2's checkpoint", checkpointed)
+        tree = _process_tree(provider._pid_of(first_id)[0])
+        killed = time.time()
+        # a preemption: SIGKILL, no SIGTERM, to the child's process group
+        # and its torchrun worker's (a session of its own)
+        signal_process_tree(tree[0], signal.SIGKILL)
+        gone = _svc_until("the killed child's processes to exit",
+                          lambda: not any(os.path.exists(f"/proc/{p}")
+                                          and _pid_running(p)
+                                          for p in tree))
+
+        def resubmitted():
+            doc = client.read_run(uid, SVC_PROJECT) or {}
+            return doc.get("status", {}).get("retry_count") == 1 and doc
+
+        _svc_until("the monitor's resubmission", resubmitted)
+        events = [e for e in get_flight_recorder().events("run.resubmit")
+                  if e.get("uid") == uid]
+        resubmit_t = events[-1]["t"] if events else None
+        final_state = run.wait_for_completion(sleep=0.1,
+                                              timeout=SVC_TIMEOUT,
+                                              raise_on_failure=False)
+        status = (client.read_run(uid, SVC_PROJECT) or {}).get("status", {})
+        log_state, log = client.get_log(uid, SVC_PROJECT)
+        lines = log.decode(errors="replace").splitlines()
+        results = _svc_results(log)
+        attempts = {r["attempt"]: r for r in results}
+        first, second = attempts.get(0, {}), attempts.get(1, {})
+        server.stop()
+        server = None
+        _release()
+
+        losses, step_t = _svc_in_process(params)
+        config = MODEL_PRESETS[SVC_MODEL](n_layers=SVC_LAYERS)
+        passes = SVC_CKPT_EVERY + 1      # the warmup's pass and 2 steps
+        want = {"flash_fwd": 2 * config.n_layers * passes,
+                "flash_bwd": config.n_layers * passes}
+
+        def step_ms(times):
+            return ((times[-1] - times[0]) / (len(times) - 1) * 1e3
+                    if len(times) > 1 else None)
+
+        first_t, second_t = first.get("step_t") or [None], \
+            second.get("step_t") or [None]
+        seconds = {
+            "submit_to_first_step": first_t[0] - submitted
+            if first_t[0] else None,
+            "kill_to_resubmit": resubmit_t - killed if resubmit_t else None,
+            "resubmit_to_resumed_first_step": second_t[0] - resubmit_t
+            if second_t[0] and resubmit_t else None,
+            "first_child": {"torch_import": first.get("torch_import_s"),
+                            "kernel_load": first.get("kernel_load_s")},
+            "resumed_child": {"torch_import": second.get("torch_import_s"),
+                              "kernel_load": second.get("kernel_load_s"),
+                              "checkpoint_restore":
+                              (second.get("restore_s") or [None])[0]},
+        }
+        main = manifest["spec"]["replicatedJobs"][0]["template"]["spec"][
+            "template"]["spec"]["containers"][0]
+        row = {
+            "phase": "service", "card": card, "url": url, "uid": uid,
+            "model": SVC_MODEL, "layers": SVC_LAYERS, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": SVC_STEPS,
+            "state": final_state, "status_text": status.get("status_text"),
+            "retry_count": status.get("retry_count"),
+            "failure_class": status.get("failure_class"),
+            "checkpoint": checkpoint, "killed_resource": first_id,
+            "killed_processes": len(tree),
+            "container_args": main["args"], "seconds": seconds,
+            "step_ms": {"first_child": step_ms(first.get("step_t") or []),
+                        "resumed_child": step_ms(second.get("step_t") or []),
+                        "in_process": step_ms(step_t)},
+            "losses": {"first_child": first.get("losses"),
+                       "resumed_child": second.get("losses"),
+                       "in_process": losses},
+            "launches": {"first_child": first.get("launches"),
+                         "resumed_child": second.get("launches"),
+                         "expected_each": want},
+            "log_lines": len(lines),
+            "checks": {
+                "client_is_the_http_db": isinstance(client, HTTPRunDB)
+                and isinstance(getattr(run, "_db", None), HTTPRunDB),
+                "remote_launcher": isinstance(
+                    LauncherFactory.create_launcher(
+                        is_remote=fn.is_remote(), local=False),
+                    ClientRemoteLauncher),
+                "the_ports_torchrun_pod": main["args"] == [
+                    "python3", "-m", "mlrun_tpu_torch", "run",
+                    "--from-env", "--handler", "train"]
+                and "torchrun" in main["command"][2],
+                "completed": final_state == "completed"
+                and status.get("state") == "completed"
+                and log_state == "completed",
+                "retry_count_1": status.get("retry_count") == 1,
+                "failure_class_infra": status.get("failure_class")
+                == "infra",
+                "killed_the_whole_tree": gone and len(tree) >= 2,
+                "resubmitted_once": len(events) == 1
+                and events[0].get("attempt") == 1
+                and events[0].get("failure_class") == "infra"
+                and events[0].get("resource") != first_id,
+                "resumed_from_step_2": second.get("resume_step")
+                == SVC_CKPT_EVERY and bool(second.get("restore_s")),
+                "ran_on_the_card": first.get("device") == second.get(
+                    "device") == _device_name(),
+                "log_holds_both_attempts": sum(
+                    f"{SVC_MARK} attempt 0 step" in ln for ln in lines)
+                == SVC_CKPT_EVERY and sum(
+                    f"{SVC_MARK} attempt 1 step" in ln for ln in lines)
+                == SVC_STEPS - SVC_CKPT_EVERY,
+                "resumed_steps_equal_in_process": len(losses) == SVC_STEPS
+                and second.get("losses") == losses[SVC_CKPT_EVERY:],
+                "first_steps_equal_in_process":
+                first.get("losses") == losses[:SVC_CKPT_EVERY],
+                "flash_launches": first.get("launches") == want
+                and second.get("launches") == want,
+            }}
+        _svc_check(row)
+        launches = {}
+        for counts in (first.get("launches"), second.get("launches")):
+            for name, count in (counts or {}).items():
+                launches[name] = launches.get(name, 0) + count
+        emit({"phase": "service", "card": card,
+              "seconds": time.perf_counter() - started,
+              "launches": launches})
+        return launches
+    finally:
+        if server is not None:
+            server.stop()
+        for resource_id in list(provider._procs):
+            provider.delete(resource_id)
+        SERVICE_DEFAULTS["httpdb"]["port"], \
+            SERVICE_DEFAULTS["runs"]["monitoring_interval"] = saved_conf
+        set_run_db(None)
+        store_manager._db = None
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _pid_running(pid: int) -> bool:
+    """A pid that is alive and not a zombie awaiting its parent."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            return f.read().decode(errors="replace").rsplit(") ", 1)[1][
+                0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def _device_name() -> str:
+    import torch
+
+    return torch.cuda.get_device_name(0) if torch.cuda.is_available() \
+        else "cpu"
+
+
 ALL_PHASES = ("build", "kernels", "serve", "serve_int8", "spec",
               "serve_dense", "lora", "train", "resilience", "kv_tier",
               "fleet", "families", "entry_points", "parallel", "observe",
-              "gateway", "podfleet", "runs", "tuning", "projects")
+              "gateway", "podfleet", "runs", "tuning", "projects",
+              "service")
 
 
 def main(argv=None) -> int:
@@ -9671,6 +10094,13 @@ def main(argv=None) -> int:
             # workflow's LoRA step, the serving kernels' in its decode step
             # and in the serving pod
             for name, count in phase_projects(args.seed, card).items():
+                launches[name] = launches.get(name, 0) + count
+            release()
+    if "service" in phases:
+        with timed("service"):
+            # the training flash's launches in the tpujob run's two
+            # children (killed after step 2, resumed for steps 3-4)
+            for name, count in phase_service(args.seed, card).items():
                 launches[name] = launches.get(name, 0) + count
             release()
     # each phase's wall-clock seconds, for the smoke's time limit

@@ -7,12 +7,14 @@
     python3 -m mlrun_tpu_torch logs <uid>
     python3 -m mlrun_tpu_torch project <dir> --run main
     python3 -m mlrun_tpu_torch serve --port 8080    # SERVING_SPEC_ENV
+    python3 -m mlrun_tpu_torch db --port 8787       # the service
+    python3 -m mlrun_tpu_torch bootstrap -r pkg -- python3 job.py
 
 The commands, options, printed lines and exit codes are the reference's.
 An error the reference raises as a ``click.ClickException`` prints
-``Error: <message>`` to stderr and exits 1. ``build``, ``db`` and
-``bootstrap`` need the image builder and the service, which are not
-ported: they print the reason and exit 1.
+``Error: <message>`` to stderr and exits 1. ``build`` needs the image
+builder (part 14c of ROADMAP.md item 14, not ported): it prints the
+reason and exits 1.
 """
 
 from __future__ import annotations
@@ -192,14 +194,37 @@ def _serve(args) -> int:
     return 0
 
 
-# -- the service's commands (not ported) -------------------------------------
-def _needs_the_service(what: str):
-    def command(args) -> int:
-        from .serving.resilience import not_ported
+# -- the service's commands -----------------------------------------------
+def _build(args) -> int:
+    """Build a function's image: ``fn.deploy`` through the service's image
+    builder (part 14c of ROADMAP.md item 14, not ported)."""
+    from .serving.resilience import not_ported
 
-        raise CLIError(str(not_ported(what, 14)))
+    raise CLIError(str(not_ported("the build command (the image builder, "
+                                  "part 14c)", 14)))
 
-    return command
+
+def _db(args) -> int:
+    """Start the metadata/orchestration service (aiohttp)."""
+    from .service.app import run_app
+
+    run_app(host=args.host, port=args.port)
+    return 0
+
+
+def _bootstrap(args) -> int:
+    """Ensure a cached requirements overlay, then exec CMD with it on
+    PYTHONPATH — the in-pod half of the build path (runtime handlers wrap
+    run commands with this when the function declares
+    build.requirements)."""
+    from .utils.bootstrap import exec_with_requirements
+
+    cmd = list(args.cmd)
+    if cmd[:1] == ["--"]:
+        cmd = cmd[1:]
+    exec_with_requirements(list(args.requirement), cmd,
+                           overlay_root=args.overlay_root or None)
+    return 0
 
 
 def _version(args) -> int:
@@ -286,13 +311,12 @@ def build_parser() -> argparse.ArgumentParser:
     build.add_argument("func_url")
     build.add_argument("--tag", default="latest")
     build.add_argument("--with-tpu", action="store_true")
-    build.set_defaults(func=_needs_the_service("the build command (the "
-                                               "image builder)"))
+    build.set_defaults(func=_build)
 
     db = commands.add_parser("db", help="start the metadata service")
     db.add_argument("--port", default=0, type=int)
     db.add_argument("--host", default="")
-    db.set_defaults(func=_needs_the_service("the db command (the service)"))
+    db.set_defaults(func=_db)
 
     serve = commands.add_parser(
         "serve", help="start a serving-graph gateway (SERVING_SPEC_ENV or "
@@ -310,9 +334,7 @@ def build_parser() -> argparse.ArgumentParser:
     bootstrap.add_argument("--overlay-root", default="",
                            help="overlay cache directory")
     bootstrap.add_argument("cmd", nargs=argparse.REMAINDER)
-    bootstrap.set_defaults(func=_needs_the_service(
-        "the bootstrap command (the image builder's requirements "
-        "overlay)"))
+    bootstrap.set_defaults(func=_bootstrap)
 
     version = commands.add_parser("version")
     version.set_defaults(func=_version)

@@ -35,9 +35,20 @@ def set_fire_observer(observer):
 class FaultPoints:
     """The named fault points the port's serving graph, engines, engine
     fleet, pod fleet, journal, provider, autoscaler, datastore, run
-    context and trainer fire (the
+    context, trainer, HTTP run-db client and (in tests) a fake cluster fire (the
     reference's names). A point is matched exactly or by a
     ``prefix.*`` wildcard at injection time."""
+
+    # k8s API verbs (a test's fake cluster fires these; the provider
+    # fires the provider.* tier above them)
+    k8s_create = "k8s.create"
+    k8s_read = "k8s.read"
+    k8s_delete = "k8s.delete"
+    # custom-object patch (JobSet suspend / resume, slice replacement)
+    k8s_patch = "k8s.patch"
+    # out-of-band pod eviction (a fake cluster's kill_pod): the pod record
+    # vanishes, the next liveness probe 404s
+    k8s_pod_kill = "k8s.pod_kill"
 
     # serving-graph step execution (states.py TaskStep/RouterStep.run);
     # a delay() here models a slow model step, an error a failing one
@@ -77,6 +88,12 @@ class FaultPoints:
     provider_create = "provider.create"
     provider_state = "provider.state"
     provider_delete = "provider.delete"
+    # one child-Job slice replacement during elastic recovery
+    # (service/providers.py replace_slice) — an error models a
+    # replacement submission that itself fails
+    provider_replace_slice = "provider.replace_slice"
+    # HTTP run-db client calls (db/httpdb.py api_call)
+    httpdb_request = "httpdb.request"
     # one autoscaler evaluation (service/autoscaler.py tick), with a
     # mutable ``box`` carrying the decision: an action() may overwrite
     # box["action"] / box["reason"] and set box["force"] (bypassing
@@ -153,6 +170,9 @@ class FaultPoints:
     @staticmethod
     def all() -> list[str]:
         return [
+            FaultPoints.k8s_create, FaultPoints.k8s_read,
+            FaultPoints.k8s_delete, FaultPoints.k8s_patch,
+            FaultPoints.k8s_pod_kill,
             FaultPoints.serving_step, FaultPoints.serving_remote,
             FaultPoints.serving_queue,
             FaultPoints.fleet_pod_ready, FaultPoints.fleet_prewarm,
@@ -162,6 +182,7 @@ class FaultPoints:
             FaultPoints.fleet_controller_crash,
             FaultPoints.provider_create,
             FaultPoints.provider_state, FaultPoints.provider_delete,
+            FaultPoints.provider_replace_slice, FaultPoints.httpdb_request,
             FaultPoints.llm_submit,
             FaultPoints.llm_prefill, FaultPoints.llm_spec_verify,
             FaultPoints.llm_prefix_evict, FaultPoints.llm_adapter_load,

@@ -11,6 +11,9 @@ from __future__ import annotations
 # them — one definition so the two sides cannot drift
 RESUME_CHECKPOINT_ENV = "MLT_RESUME_FROM_CHECKPOINT"
 RESUME_STEP_ENV = "MLT_RESUME_STEP"
+# the persistent kernel-build cache dir a resubmitted resource restarts
+# warm from (config.COMPILE_CACHE_ENV, the reference's env name)
+from ..config import COMPILE_CACHE_ENV  # noqa: E402,F401
 
 
 class RunStates:

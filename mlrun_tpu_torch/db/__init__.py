@@ -1,11 +1,12 @@
 """The run db — the port's copy of ``mlrun_tpu/db`` (``get_run_db``,
-``set_run_db``, ``RunDBInterface``, ``NopDB``, ``SQLiteRunDB``).
+``set_run_db``, ``RunDBInterface``, ``NopDB``, ``SQLiteRunDB``,
+``HTTPRunDB``, ``SQLServerRunDB``).
 
-``get_run_db`` opens the embedded SQLite db (the reference's schema, so a
-file either package writes reads the same in the other) or ``NopDB`` for
-``"nop"``. An ``http(s)://`` url (the reference's ``HTTPRunDB``, a client
-of the service) and a server SQL DSN (``SQLServerRunDB``) raise
-``not_ported`` item 14; neither falls back to SQLite.
+``get_run_db`` opens a client of the service (``HTTPRunDB``) for an
+``http(s)://`` url, a server SQL db for a ``postgresql://`` or
+``mysql://`` DSN, ``NopDB`` for ``"nop"``, and otherwise the embedded
+SQLite db (the reference's schema, so a file either package writes reads
+the same in the other).
 """
 
 from __future__ import annotations
@@ -27,24 +28,26 @@ _lock = threading.Lock()
 
 def get_run_db(url: str = "", secrets: dict | None = None,
                force_reconnect: bool = False) -> RunDBInterface:
-    """Return the process-wide run db: the embedded sqlite db (``url``, or
+    """Return the process-wide run db: the service's HTTP client when a
+    dbpath is configured, otherwise the embedded sqlite db (``url``, or
     the configured ``dbpath``, a ``*.sqlite`` path; else the local file
-    under ``MLT_HOME``), or ``NopDB`` for ``"nop"``."""
+    under ``MLT_HOME``)."""
     global _run_db
     url = url or run_config("dbpath") or ""
     with _lock:
         if _run_db is not None and not force_reconnect:
             return _run_db
         if url.startswith("http"):
-            from ..serving.resilience import not_ported
+            from .httpdb import HTTPRunDB
 
-            raise not_ported(f"the service's run db client ({url})", 14)
-        if sql_dialect_for_dsn(url):
-            from ..serving.resilience import not_ported
-
-            raise not_ported(f"the server SQL run db ({url})", 14)
-        if url == "nop":
+            _run_db = HTTPRunDB(url).connect(secrets)
+        elif url == "nop":
             _run_db = NopDB()
+        elif sql_dialect_for_dsn(url):
+            # server-grade shared store for clusterized deployments
+            from .sqldb import SQLServerRunDB
+
+            _run_db = SQLServerRunDB(url)
         else:
             _run_db = SQLiteRunDB(url if url.endswith(".sqlite") else "")
         return _run_db

@@ -7,9 +7,9 @@ versions, projects, schedules, feature sets and vectors, model endpoints,
 background tasks, alert configs and events, hub sources, runtime
 resources, project secrets, page tokens and datastore profiles.
 
-Logs are files under ``<home>/logs/<project>/<uid>``, as the reference
-writes them when no log collector daemon is configured (the daemon is the
-service's, ROADMAP.md item 14).
+Logs are files under ``<home>/logs/<project>/<uid>``, or lines in the
+native log collector daemon (``utils/log_collector.py``) when
+``MLT_LOG_COLLECTOR`` names its socket and the daemon answers.
 """
 
 from __future__ import annotations
@@ -187,7 +187,22 @@ class SQLiteRunDB(RunDBInterface):
         self.dsn = dsn or resolve_local_db_path()
         self.logs_dir = logs_dir or os.path.join(home_dir(), "logs")
         self._local = threading.local()
+        self._log_collector = None
+        self._log_collector_checked = False
         self._init_schema()
+
+    def _get_log_collector(self):
+        """Native mlt-logd client when MLT_LOG_COLLECTOR is configured
+        (falls back to direct file IO)."""
+        if not self._log_collector_checked:
+            self._log_collector_checked = True
+            if os.environ.get("MLT_LOG_COLLECTOR"):
+                from ..utils.log_collector import LogCollectorClient
+
+                client = LogCollectorClient()
+                if client.ping():
+                    self._log_collector = client
+        return self._log_collector
 
     # -- plumbing ----------------------------------------------------------
     @property
@@ -621,6 +636,13 @@ class SQLiteRunDB(RunDBInterface):
                   append: bool = True):
         if isinstance(body, str):
             body = body.encode()
+        collector = self._get_log_collector()
+        if collector is not None and append:
+            try:
+                collector.append(self._project_or_default(project), uid, body)
+                return
+            except (OSError, RuntimeError):
+                self._log_collector = None
         mode = "ab" if append else "wb"
         with open(self._log_path(project, uid), mode) as fp:
             fp.write(body)
@@ -629,6 +651,13 @@ class SQLiteRunDB(RunDBInterface):
                 size: int = -1) -> tuple[str, bytes]:
         run = self.read_run(uid, project)
         state = get_in(run or {}, "status.state", RunStates.unknown)
+        collector = self._get_log_collector()
+        if collector is not None:
+            try:
+                return state, collector.get_log(
+                    self._project_or_default(project), uid, offset, size)
+            except (OSError, RuntimeError):
+                self._log_collector = None
         path = self._log_path(project, uid)
         if not os.path.isfile(path):
             return state, b""
@@ -638,6 +667,13 @@ class SQLiteRunDB(RunDBInterface):
         return state, data
 
     def get_log_size(self, uid: str, project: str = "") -> int:
+        collector = self._get_log_collector()
+        if collector is not None:
+            try:
+                return collector.get_log_size(
+                    self._project_or_default(project), uid)
+            except (OSError, RuntimeError):
+                self._log_collector = None
         path = self._log_path(project, uid)
         return os.path.getsize(path) if os.path.isfile(path) else 0
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 from ..config import run_config
 from .base import BaseLauncher
 from .local import ClientLocalLauncher
+from .remote import ClientRemoteLauncher
 
 
 class LauncherFactory:
@@ -26,8 +27,5 @@ class LauncherFactory:
                 raise RuntimeError(
                     "remote runtime kinds need the service — set MLT_DBPATH "
                     "to the api url, or pass local=True to run in-process")
-            from ..serving.resilience import not_ported
-
-            raise not_ported("the remote launcher (a client of the service)",
-                             14)
+            return ClientRemoteLauncher()
         return ClientLocalLauncher(local=False)

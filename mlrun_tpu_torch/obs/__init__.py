@@ -77,6 +77,7 @@ from .tracing import (  # noqa: F401
     get_tracer,
     new_trace_id,
     parse_trace_header,
+    trace_id_for,
 )
 from .tracing import configure_from_mlconf as _configure_tracing
 
@@ -352,7 +353,24 @@ TRAIN_LOADER_EVENTS = REGISTRY.counter(
     "(batches, consumer_waits, producer_waits, epochs)",
     labels=("loader", "event"), max_label_sets=512, overflow="drop")
 
-from .goodput import GoodputLedger  # noqa: E402,F401
+from .goodput import (  # noqa: E402,F401
+    GoodputLedger,
+    record_badput,
+    release_run,
+    retire_run,
+)
+
+# -- the service's run monitor (service/launcher.py, runtime_handlers.py) ----
+RUN_SUBMITS = REGISTRY.counter(
+    "mlt_run_submits_total", "Runs launched via the server-side launcher",
+    labels=("kind",), overflow="drop")
+RUN_RETRIES = REGISTRY.counter(
+    "mlt_run_retries_total",
+    "Failed resources resubmitted by the monitor, by failure class",
+    labels=("failure_class",), overflow="drop")
+RUN_STALL_ABORTS = REGISTRY.counter(
+    "mlt_run_stall_aborts_total",
+    "Runs aborted by the heartbeat-stall watchdog")
 
 # -- memory (scrape-time) ----------------------------------------------------
 DEVICE_MEM = REGISTRY.gauge(

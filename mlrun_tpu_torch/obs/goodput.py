@@ -1,7 +1,8 @@
 """Goodput/badput accounting of a training run — the port's copy of
-``mlrun_tpu/obs/goodput.py`` (the in-process ledger and its four metric
-families; the service-side out-of-band attribution stays with the
-service, which is not ported).
+``mlrun_tpu/obs/goodput.py`` (the in-process ledger, its four metric
+families, and the service's out-of-band attribution: :func:`record_badput`
+for the gaps the run process never sees, :func:`release_run` /
+:func:`retire_run` for the series of finished runs).
 
 :class:`GoodputLedger` attributes every wall-second of a ``Trainer.fit``
 to goodput (the ``step`` phase) or a typed badput bucket. Entering a phase
@@ -74,6 +75,62 @@ def _admit_run(run: str) -> bool:
             return False
         _admitted_runs.add(run)
         return True
+
+
+def retire_run(run: str):
+    """Drop a run's per-run series from every goodput family — the same
+    series-lifecycle contract fleet replicas and adapters follow: a
+    long-lived service attributing badput for a rotating run population
+    must not consume the families' label-set budget forever (past it,
+    ``overflow="drop"`` silently stops attributing NEW runs)."""
+    if not run:
+        return  # "" is the shared anonymous series, never retired
+    GOODPUT_SECONDS.remove(run=run)
+    WALL_SECONDS.remove(run=run)
+    GOODPUT_FRACTION.remove(run=run)
+    for bucket in BADPUT_BUCKETS:
+        BADPUT_SECONDS.remove(run=run, bucket=bucket)
+    with _admit_lock:
+        _admitted_runs.discard(run)
+
+
+# finished runs whose series are KEPT so the terminal attribution (the
+# stall window, the final fraction) survives until federation scrapes
+# it; past the bound the oldest retires — bounded well inside the
+# families' label-set budgets
+RECENT_RUNS_KEPT = 64
+_recent_lock = threading.Lock()
+_recent_runs: list[str] = []
+
+
+def release_run(run: str):
+    """Queue a finished run for series retirement (the monitor calls
+    this when it forgets a run's resource). The most recent
+    ``RECENT_RUNS_KEPT`` finished runs stay scrapeable; older ones are
+    retired via :func:`retire_run`."""
+    if not run:
+        return
+    evicted = []
+    with _recent_lock:
+        if run in _recent_runs:
+            _recent_runs.remove(run)
+        _recent_runs.append(run)
+        while len(_recent_runs) > RECENT_RUNS_KEPT:
+            evicted.append(_recent_runs.pop(0))
+    for old in evicted:
+        retire_run(old)
+
+
+def record_badput(bucket: str, seconds: float, run: str = ""):
+    """Out-of-band badput attribution (service-side lifecycle gaps the
+    run process cannot time itself: retry backoff, preemption downtime,
+    stall windows). Also advances the wall denominator so the
+    goodput-fraction burn rate sees the downtime."""
+    seconds = float(seconds)
+    if seconds <= 0 or not _admit_run(run):
+        return
+    BADPUT_SECONDS.inc(seconds, run=run, bucket=bucket)
+    WALL_SECONDS.inc(seconds, run=run)
 
 
 class GoodputLedger:

@@ -17,6 +17,7 @@ predecessor). Stdlib only.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import threading
@@ -45,6 +46,13 @@ def new_trace_id() -> str:
 
 def new_span_id() -> str:
     return uuid.uuid4().hex[:16]
+
+
+def trace_id_for(seed: str) -> str:
+    """Deterministic trace id for an out-of-band correlation key (run
+    uid): every lifecycle span of one run shares a trace without any
+    header plumbing through k8s manifests."""
+    return hashlib.md5(str(seed).encode()).hexdigest()  # noqa: S324
 
 
 def _header_text(value) -> str:

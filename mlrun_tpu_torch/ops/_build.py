@@ -43,6 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libmlt_kernels.so"
 HOST_BUILD_ROOT = BUILD_ROOT.parent / "host"
 HOST_FLAGS = ("-O2", "-std=c++17", "-pthread", "-shared", "-fPIC")
+# a host program (csrc/log_collector.cpp's daemon): the same flags, linked
+# as an executable
+HOST_EXE_FLAGS = ("-O2", "-std=c++17", "-pthread")
 
 # dtype codes shared with csrc/common.cuh (float16: csrc/rms_norm.cu only)
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
@@ -218,13 +221,15 @@ def build() -> Path:
     return lib_path
 
 
-def build_host(source, lib_name: str) -> Path:
+def build_host(source, lib_name: str, executable: bool = False) -> Path:
     """Compile one host C++ ``source`` into the shared library
-    ``lib_name`` with ``g++`` (``$CXX`` when set) and :data:`HOST_FLAGS`;
-    returns its path. A finished build of the same source and flags is
-    reused."""
+    ``lib_name`` (or, with ``executable``, the program ``lib_name``) with
+    ``g++`` (``$CXX`` when set) and :data:`HOST_FLAGS` (or
+    :data:`HOST_EXE_FLAGS`); returns its path. A finished build of the
+    same source and flags is reused."""
     source = Path(source)
-    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    flags = HOST_EXE_FLAGS if executable else HOST_FLAGS
+    digest = hashlib.sha256(" ".join(flags).encode())
     digest.update(source.read_bytes())
     out_dir = HOST_BUILD_ROOT / digest.hexdigest()[:16]
     lib_path = out_dir / lib_name
@@ -236,9 +241,9 @@ def build_host(source, lib_name: str) -> Path:
             f"no C++ compiler (g++ or $CXX) to build {source.name}")
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{lib_name}.{os.getpid()}.tmp"
-    log = _run([cxx, *HOST_FLAGS, "-o", str(tmp), str(source)])
+    log = _run([cxx, *flags, "-o", str(tmp), str(source)])
     (out_dir / "build.log").write_text(log)
-    os.replace(tmp, lib_path)  # atomic: a reader never sees a partial .so
+    os.replace(tmp, lib_path)  # atomic: a reader never sees a partial file
     return lib_path
 
 

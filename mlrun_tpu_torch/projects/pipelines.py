@@ -224,7 +224,7 @@ class _RemoteRunner(_PipelineRunner):
         from ..serving.resilience import not_ported
 
         raise not_ported("the remote workflow engine (the service's "
-                         "workflow runner)", 14)
+                         "workflow runner, part 14c)", 14)
 
     @classmethod
     def wait_for_completion(cls, run_status, timeout=3600,
@@ -507,8 +507,7 @@ def load_and_run(context, url: str = "", project_name: str = "",
 
 def wait_for_run_completion(run_id, timeout: float = 3600, project: str = "",
                             expected_statuses: list | None = None) -> str:
-    """Poll the service for a workflow run's state. A run db with no
-    service behind it (the local SQLite db) cannot answer, and raises."""
+    """Poll the service for a workflow run's state."""
     from ..db import get_run_db
 
     db = get_run_db()
@@ -520,11 +519,6 @@ def wait_for_run_completion(run_id, timeout: float = 3600, project: str = "",
                 "GET", f"projects/{project or run_config('default_project')}/"
                 f"workflows/{run_id}")
             state = resp.get("state", RunStates.running)
-        except NotImplementedError as exc:
-            from ..serving.resilience import not_ported
-
-            raise not_ported("workflow run status (the service's "
-                             "workflows API)", 14) from exc
         except Exception:  # noqa: BLE001 - transient api errors tolerated
             pass
         if state in RunStates.terminal_states():

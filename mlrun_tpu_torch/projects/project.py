@@ -251,7 +251,7 @@ class MlrunProject(ModelObj):
                        skip_deployed: bool = False, **kwargs):
         from ..serving.resilience import not_ported
 
-        raise not_ported("build_function (the image builder)", 14)
+        raise not_ported("build_function (the image builder, part 14c)", 14)
 
     def deploy_function(self, function, models: list | None = None,
                         env: dict | None = None, tag: str = "", **kwargs):
@@ -506,7 +506,7 @@ class MlrunProject(ModelObj):
         """Build the project image (the image builder's)."""
         from ..serving.resilience import not_ported
 
-        raise not_ported("build_image (the image builder)", 14)
+        raise not_ported("build_image (the image builder, part 14c)", 14)
 
     # artifacts / store
     def get_artifact_uri(self, key: str, category: str = "artifact",
@@ -658,7 +658,7 @@ class MlrunProject(ModelObj):
     def list_api_gateways(self) -> list:
         from ..serving.resilience import not_ported
 
-        raise not_ported("api gateways (the service)", 14)
+        raise not_ported("api gateways (part 14c)", 14)
 
     # git remotes
     def _git(self, *args, check: bool = True):

@@ -34,7 +34,7 @@ def get_runtime_class(kind: str) -> type:
     if kind in _UNPORTED_KINDS:
         from ..serving.resilience import not_ported
 
-        raise not_ported(f"the '{kind}' runtime", 14)
+        raise not_ported(f"the '{kind}' runtime (part 14c)", 14)
     registry = _registry()
     if kind not in registry:
         raise ValueError(

@@ -44,7 +44,7 @@ class KubejobRuntime(KubeResource):
             return True
         from ..serving.resilience import not_ported
 
-        raise not_ported("the service's image builder (deploy)", 14)
+        raise not_ported("the service's image builder (deploy, part 14c)", 14)
 
     def _run(self, runobj: RunObject, execution) -> dict:
         # runs happen server-side; reaching here means misconfiguration

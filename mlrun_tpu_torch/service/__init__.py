@@ -1,5 +1,7 @@
-"""The control-plane services the port stands on (copies of the parts of
-``mlrun_tpu/service`` it needs): the JobSet surface of the Kubernetes
-provider (``providers``), the fleet autoscaler (``autoscaler``) and alert
-processing over the run db (``alerts``). The API server and the rest of
-the service are ROADMAP.md item 14."""
+"""The orchestration service — the port's copy of ``mlrun_tpu/service``:
+the aiohttp API server (``app``, ``api/``), the server-side launcher and
+the run monitor with its retries (``launcher``, ``runtime_handlers``),
+the execution providers (``providers``), project secrets, cron schedules,
+the chief/worker roles and projects sync, the fleet autoscaler
+(``autoscaler``) and alert processing over the run db (``alerts``). The
+image builder and the deployments are ROADMAP.md item 14, part 14c."""

@@ -537,14 +537,13 @@ class DegradationLadder:
 # ROADMAP.md "Modules still to port", by item number (1-9, 11-13 and 15
 # landed; 10's tail is what the run stack left; item 14 queues the
 # reference's host packages that have no counterpart in the port yet:
-# its 14a surfaces landed, 14b-14d remain)
+# its 14a surfaces and 14b service landed, 14c and 14d remain)
 PORT_QUEUE = {
     10: "item 10's tail: the object stores (datastore/stores.py: gs, s3, "
         "az, hdfs, http and redis urls)",
-    14: "the rest of the service (its API server, the Grafana proxy, the "
-        "image builder, the other providers and runtimes, the remote "
-        "launcher, the http and server-SQL run dbs, the log collector) "
-        "and analysis/",
+    14: "14c, the image builder, the deployments and the other runtimes "
+        "(serving, remote, api gateways, dask, spark, databricks); 14d, "
+        "analysis/",
 }
 
 

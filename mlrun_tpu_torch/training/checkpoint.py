@@ -174,6 +174,20 @@ class CheckpointManager:
         """Nothing is held open."""
 
 
+def save_checkpoint_artifact(context, key: str, manager: CheckpointManager,
+                             framework: str = "torch", **kwargs):
+    """Register the checkpoint dir as a model artifact on the run."""
+    manager.wait()
+    record = getattr(context, "log_checkpoint", None)
+    if record is not None:
+        # status.checkpoint is what the service monitor wires into a
+        # resubmitted JobSet's resume env (runtime_handlers.TpuJobHandler)
+        record(manager.directory, step=manager.latest_step(), commit=False)
+    return context.log_model(
+        key, model_dir=manager.directory, framework=framework,
+        upload=False, target_path=manager.directory, **kwargs)
+
+
 def resume_directive() -> tuple[str, Optional[int]] | None:
     """The checkpoint-resume contract a resubmitted run finds in its
     environment: (path, step), or None. The step is None when only the

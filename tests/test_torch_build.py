@@ -69,25 +69,33 @@ def _package_data() -> dict:
 
 def test_package_data_ships_every_source_the_port_builds(monkeypatch):
     """A pip-installed port holds every file ``ops/_build.py`` compiles or
-    includes (the kernel sources, their headers, the token-shard loader's
-    C++ source that ``build_host`` compiles) and every hub function yaml
-    it ships (ROADMAP 3.12)."""
+    includes (the kernel sources, their headers, the C++ sources that
+    ``build_host`` compiles: the token-shard loader's library and the log
+    collector's daemon) and every hub function yaml it ships (ROADMAP
+    3.12)."""
     from fnmatch import fnmatch
     from pathlib import Path
 
     from mlrun_tpu_torch.training import data
+    from mlrun_tpu_torch.utils import log_collector
 
     root = Path(_build.__file__).resolve().parents[1]
     globs = _package_data()["mlrun_tpu_torch"]
     host = []
     monkeypatch.delenv("MLT_DATA_LOADER_LIB", raising=False)
     monkeypatch.setattr(_build, "build_host",
-                        lambda source, name: host.append(Path(source)))
+                        lambda source, name, executable=False:
+                        host.append(Path(source)))
+    monkeypatch.setattr(log_collector, "binary_path",
+                        lambda: str(root / "no-such-daemon"))
     data._native_lib_path()
+    log_collector.build_binary()
     hub = sorted(root.glob("hub_functions/*/function.yaml"))
     files = sorted(set(_build.sources()) | set(_build.CSRC.glob("*.cu*"))
                    | set(host) | set(hub))
-    assert [p.name for p in host] == ["data_loader.cpp"] and len(hub) == 6
+    assert [p.name for p in host] == ["data_loader.cpp",
+                                      "log_collector.cpp"]
+    assert len(hub) == 6
     missing = [str(f.relative_to(root)) for f in files
                if not any(fnmatch(str(f.relative_to(root)), g)
                           for g in globs)]

@@ -734,12 +734,15 @@ def test_cluster_retrain_kind_concludes_failed_like_reference(dbpath,
     """A ``tpujob`` retrain submits through the remote launcher: without a
     service url both packages refuse it, and the loop concludes the
     tenant as a failed retrain (cooldown, no in-flight run). With a
-    sqlite dbpath the port's remote launcher raises ``not_ported`` item
-    14 where the reference would reach its service client."""
+    sqlite dbpath both packages' remote launchers reach the sqlite db,
+    which refuses ``submit_job`` with the same error."""
     if dbpath:
+        from mlrun_tpu.config import mlconf
+
         monkeypatch.setenv("MLT_DBPATH", str(tmp_path / dbpath))
+        mlconf.reload()  # the reference reads its env at load
     errors = []
-    for pkg in PKGS if not dbpath else (PORT,):
+    for pkg in PKGS:
         controller = pkg["ctl"].ContinuousTuningController(
             object(), project="ct", retrain_kind="tpujob",
             retrain_handler="tune.handler")
@@ -753,8 +756,8 @@ def test_cluster_retrain_kind_concludes_failed_like_reference(dbpath,
         assert out["actions"] == [] and state.inflight is None
         assert state.last_concluded_at == 5.0 and failed
         errors.append(failed[-1]["error"])
+    assert errors[1] == errors[0]
     if dbpath:
-        assert "item 14" in errors[0]
+        assert "submit_job requires a remote service" in errors[1]
     else:
-        assert errors[1] == errors[0]
         assert "remote runtime kinds need the service" in errors[1]

@@ -16,17 +16,28 @@ monitoring with its continuous-tuning loop, the feature store with
 its datastore sources and targets, the CLI with the projects and
 their workflow engines, the framework adapters (sklearn, xgboost,
 lightgbm, tf_keras, onnx, the user-code torch adapter, auto_mlrun and
-the boosters' shared logging) and the small host surfaces (errors, the
+the boosters' shared logging), the small host surfaces (errors, the
 logger and helpers, platforms, render, track, the hub and its
-functions) included, nor the chip smoke script and
-the port's profile scripts) imports JAX or the reference package, and
-importing the serving, fleet, telemetry, model, training, datastore and
-parallel paths pulls neither into the process. None of those files
-imports ``aiohttp`` or ``requests`` either, and importing the serving
-graph and its gateway pulls neither in: the gateway and the remote steps
-stand on the standard library's ``http.server`` and ``urllib``, which
-the port's tests drive. No file imports ``click``: the CLI stands on
-argparse. The multi-rank test
+functions) and the service with its clients (the API schemas, the
+aiohttp API server and its routes, the run monitor and its providers,
+the server-side launcher, project secrets, cron, the chief/worker roles,
+projects sync, the HTTP and server-SQL run dbs, the remote launcher, the
+log collector client and the requirements bootstrap) included, nor the
+chip smoke script and the port's profile scripts) imports JAX or the
+reference package, and importing the serving, fleet, telemetry, model,
+training, datastore, parallel and run-stack paths pulls neither into the
+process.
+
+``aiohttp`` and ``requests`` are imported only by the service's HTTP
+layer and its clients: ``service/app.py``, ``service/api/*``,
+``service/http_utils.py``, ``service/clusterization.py``,
+``service/projects_sync.py``, ``db/httpdb.py`` and ``launcher/remote.py``
+(the card's machine has both, and setup.py requires them). Every other
+file imports neither, and importing the serving graph and its gateway,
+the training, serving and run-stack paths, or ``get_run_db()`` of a
+local path pulls neither in: the gateway and the remote steps stand on
+the standard library's ``http.server`` and ``urllib``, which the port's
+tests drive. No file imports ``click``: the CLI stands on argparse. The multi-rank test
 helper (tests/torch_ranks.py), whose ranks run the port alone, is held to
 the same rule. No port source names a path under ``native/`` or the
 reference package: the token-shard loader builds the port's own copy of
@@ -42,9 +53,17 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlrun_tpu")
-# the reference's HTTP packages: the port's gateway and remote steps are
-# written on the standard library instead, so they must not creep back in
+# the reference's HTTP packages: the service's HTTP layer and its clients
+# use them (HTTP_FILES); the port's gateway and remote steps are written
+# on the standard library instead, so they must not creep in elsewhere
 HTTP_LIBRARIES = ("aiohttp", "requests")
+HTTP_FILES = ("mlrun_tpu_torch/service/app.py",
+              "mlrun_tpu_torch/service/http_utils.py",
+              "mlrun_tpu_torch/service/clusterization.py",
+              "mlrun_tpu_torch/service/projects_sync.py",
+              "mlrun_tpu_torch/db/httpdb.py",
+              "mlrun_tpu_torch/launcher/remote.py")
+HTTP_DIRS = ("mlrun_tpu_torch/service/api/",)
 # the reference CLI's framework: the port's CLI stands on argparse
 NOT_USED = ("click",)
 FILES = sorted(str(p.relative_to(ROOT))
@@ -66,9 +85,22 @@ def _imported_roots(tree):
 @pytest.mark.parametrize("path", FILES)
 def test_port_file_imports_no_jax_or_reference(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
-    bad = sorted({m for m in _imported_roots(tree)
-                  if m in FORBIDDEN + HTTP_LIBRARIES + NOT_USED})
+    http_ok = path in HTTP_FILES or path.startswith(HTTP_DIRS)
+    forbidden = FORBIDDEN + NOT_USED + (() if http_ok else HTTP_LIBRARIES)
+    bad = sorted({m for m in _imported_roots(tree) if m in forbidden})
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_http_files_are_the_services_layer_and_its_clients():
+    """Every file the HTTP rule names exists (the list names no stale
+    path), and the service's server and its client do use the reference's
+    libraries."""
+    assert set(HTTP_FILES) <= set(FILES)
+    assert any(f.startswith(HTTP_DIRS) for f in FILES)
+    for path, library in (("mlrun_tpu_torch/service/app.py", "aiohttp"),
+                          ("mlrun_tpu_torch/db/httpdb.py", "requests")):
+        roots = set(_imported_roots(ast.parse((ROOT / path).read_text())))
+        assert library in roots, path
 
 
 PORT_FILES = [f for f in FILES if f.startswith("mlrun_tpu_torch/")]
@@ -215,6 +247,36 @@ def test_serving_import_pulls_in_no_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"imported: {out.stdout.strip()}"
+
+
+def test_the_run_stack_and_a_local_run_db_pull_in_no_http_library(
+        tmp_path):
+    """Importing the training, serving and run-stack paths (the launchers,
+    the runtimes, the run context) and opening ``get_run_db()`` of a local
+    path load neither ``aiohttp`` nor ``requests``: only a client of the
+    service (an ``http(s)://`` run db) does."""
+    code = (
+        "import sys\n"
+        "import mlrun_tpu_torch, mlrun_tpu_torch.run\n"
+        "import mlrun_tpu_torch.training.train\n"
+        "import mlrun_tpu_torch.serving.llm, mlrun_tpu_torch.serving.asgi\n"
+        "import mlrun_tpu_torch.launcher, mlrun_tpu_torch.runtimes.tpujob\n"
+        "import mlrun_tpu_torch.execution, mlrun_tpu_torch.db\n"
+        "import mlrun_tpu_torch.service.providers\n"
+        "import mlrun_tpu_torch.service.runtime_handlers\n"
+        "import mlrun_tpu_torch.utils.log_collector\n"
+        "import mlrun_tpu_torch.utils.bootstrap\n"
+        "db = mlrun_tpu_torch.db.get_run_db(%r)\n"
+        "assert type(db).__name__ == 'SQLiteRunDB', db\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in %r))\n"
+        % (str(tmp_path / "runs.sqlite"), HTTP_LIBRARIES))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), MLT_HOME=str(tmp_path))
+    env.pop("MLT_DBPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_the_tuning_loop_needs_no_pandas():

@@ -622,8 +622,8 @@ def test_degraded_pod_replaced_via_drain_delete_repair_like_reference(
 def test_port_provider_jobset_surface(monkeypatch):
     """The port's provider speaks the reference's JobSet verbs over the
     same cluster: create / state / delete / list_serving_jobsets, its
-    ``provider.*`` chaos points, and not_ported for the run stack's
-    kinds."""
+    ``provider.*`` chaos points, a plain pod (the run stack's job kind),
+    and not_ported for a Deployment (the builder's part 14c)."""
     from mlrun_tpu_torch.k8s.jobset import build_serving_jobset
 
     cluster, provider = _cluster(PKGS["port"], monkeypatch)
@@ -643,8 +643,12 @@ def test_port_provider_jobset_surface(monkeypatch):
             provider.delete("jobset/serve-x-1")
     provider.delete("jobset/serve-x-1")
     assert cluster.jobsets == {} and cluster.pods == {}
+    assert provider.create({"kind": "Pod", "metadata": {"name": "p"}},
+                           "p") == "pod/p"
+    assert "p" in cluster.pods
     with pytest.raises(NotImplementedError, match="item 14"):
-        provider.create({"kind": "Pod", "metadata": {"name": "p"}}, "p")
+        provider.create({"kind": "Deployment", "metadata": {"name": "d"}},
+                        "d")
 
 
 # -- real paged engines -------------------------------------------------------

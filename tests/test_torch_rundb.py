@@ -10,6 +10,7 @@ loosened.
 """
 
 import sqlite3
+import sys
 
 import pytest
 
@@ -277,9 +278,11 @@ def test_function_versioning_and_project_cascade(db):
 def test_get_run_db_opens_sqlite_and_refuses_what_is_left(tmp_path,
                                                          monkeypatch):
     """``get_run_db`` opens the sqlite file a ``*.sqlite`` dbpath names
-    (else the one under MLT_HOME) and ``NopDB`` for "nop"; the service's
-    http client and a server SQL DSN raise ``not_ported`` item 14, never a
-    silent SQLite."""
+    (else the one under MLT_HOME) and ``NopDB`` for "nop"; an ``http(s)``
+    url opens the service's client (``HTTPRunDB``, whose connect only warns
+    when no service answers) and a server SQL DSN ``SQLServerRunDB``, whose
+    missing driver raises the reference's ``RunDBError`` — never a silent
+    SQLite."""
     path = str(tmp_path / "runs.sqlite")
     monkeypatch.setenv("MLT_DBPATH", path)
     tdb_pkg.set_run_db(None)
@@ -291,9 +294,27 @@ def test_get_run_db_opens_sqlite_and_refuses_what_is_left(tmp_path,
         home = tdb_pkg.get_run_db(force_reconnect=True).dsn
         assert home == str(tmp_path / "mlt-home" / "db.sqlite")
         assert jdb_pkg.get_run_db(force_reconnect=True).dsn == home
-        for url in ("http://svc:8787", "https://svc",
-                    "postgresql://u:p@h/db", "mysql://u@h/db"):
-            with pytest.raises(NotImplementedError, match="item 14"):
-                tdb_pkg.get_run_db(url, force_reconnect=True)
+        import socket
+
+        from mlrun_tpu_torch.db.httpdb import HTTPRunDB
+
+        with socket.socket() as sock:  # a closed local port: refused
+            sock.bind(("127.0.0.1", 0))
+            closed = sock.getsockname()[1]
+        monkeypatch.setenv("MLT_HTTPDB__RETRIES", "0")
+        for url in (f"http://127.0.0.1:{closed}",
+                    f"https://127.0.0.1:{closed}"):
+            db = tdb_pkg.get_run_db(url, force_reconnect=True)
+            assert isinstance(db, HTTPRunDB) and db.base_url == url
+        for url, driver in (("postgresql://u:p@h/db", "psycopg2"),
+                            ("mysql://u@h/db", "pymysql")):
+            monkeypatch.setitem(sys.modules, driver, None)
+            errors = []
+            for pkg in (tdb_pkg, jdb_pkg):
+                with pytest.raises(pkg.RunDBError,
+                                   match=f"{driver} is not installed") as exc:
+                    pkg.get_run_db(url, force_reconnect=True)
+                errors.append(str(exc.value))
+            assert errors[0] == errors[1]
     finally:
         tdb_pkg.set_run_db(None)

@@ -263,9 +263,27 @@ def test_unported_kinds_and_the_remote_launcher_raise(monkeypatch):
     fn = mlrun_tpu_torch.new_function("j", kind="job", image="img")
     with pytest.raises(NotImplementedError, match="item 14"):
         fn.deploy()
-    monkeypatch.setenv("MLT_DBPATH", "http://svc:8787")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        fn.run()
+    # with a service url the run goes through the remote launcher, which
+    # stores the function in the service first: no service answers on a
+    # closed local port, so the store fails with the client's error
+    import socket
+
+    from mlrun_tpu_torch.db import RunDBError, set_run_db
+    from mlrun_tpu_torch.launcher import ClientRemoteLauncher, LauncherFactory
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        closed = sock.getsockname()[1]
+    monkeypatch.setenv("MLT_DBPATH", f"http://127.0.0.1:{closed}")
+    monkeypatch.setenv("MLT_HTTPDB__RETRIES", "0")
+    set_run_db(None)
+    assert isinstance(LauncherFactory.create_launcher(is_remote=True),
+                      ClientRemoteLauncher)
+    try:
+        with pytest.raises(RunDBError, match="store function"):
+            fn.run()
+    finally:
+        set_run_db(None)
 
 
 # -- the tpujob runtime: tests/test_tpujob.py, sized in GPUs -------------------
