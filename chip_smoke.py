@@ -335,19 +335,15 @@ exits non-zero and never prints the final line):
              JobSet's own container command (python3 -m mlrun_tpu_torch
              run --from-env under torchrun, one node and one GPU,
              MASTER_ADDR 127.0.0.1, the handler in MLT_EXEC_CODE) runs
-             the 1B trainer (B 4 x 2048, 4 steps after the warmup); the
-             run is read back completed from the db with its results,
-             log and model artifact, its losses equal to an in-process
-             fit of the seed, its flash launches 2 x 16 x 5 / 16 x 5;
-             (b) `project <dir> --run main` runs a two-step workflow:
-             a rank-16 LoRA fit on the 1B base logged as a model, then
-             the adapter (step 1's output) on a 1B paged engine, its
-             greedy streams held to an engine on the merged weights;
-             `get runs` and `logs <uid>` read both runs back; (c)
-             `serve` with SERVING_SPEC_ENV at 8B (a user route class
-             reports the launches): the serve traffic over HTTP within
-             5% of the argmax, a drain with a request in flight, SIGINT,
-             exit 0.
+             the 1B-width trainer at 2 layers (B 4 x 2048, 4 steps after
+             the warmup); the run is read back completed from the db
+             with its results, log and model artifact, its losses equal
+             to an in-process fit of the seed, its flash launches
+             2 x 2 x 5 / 2 x 5; (b) `project <dir> --run main` runs a
+             two-step workflow: a rank-16 LoRA fit on the 1B base logged
+             as a model, then the adapter (step 1's output) on a 1B paged
+             engine, its greedy streams held to an engine on the merged
+             weights; `get runs` and `logs <uid>` read both runs back.
 21. service - the service and its clients: the port's API server on
              127.0.0.1 (a thread, a temporary SQLite run db, the local
              process provider); HTTPRunDB through MLT_DBPATH and
@@ -361,11 +357,21 @@ exits non-zero and never prints the final line):
              env; the resumed child trains steps 3-4, their losses equal
              to an uninterrupted in-process fit's; retry_count 1, the run
              completed, both attempts' log lines read over HTTP, each
-             child's flash launches 2 x 2 x 3 / 2 x 3.
+             child's flash launches 2 x 2 x 3 / 2 x 3. Then a serving
+             function (GATEWAY_SPEC's router, a user route class over
+             LLMModelServer at Llama-3-8B, 32 layers, its code in
+             spec.build.functionSourceCode) deployed through HTTPRunDB
+             and the service's DeploymentManager, which starts the port's
+             gateway as a child: ready with its address stored, the serve
+             traffic through fn.invoke within 5% of the argmax with its
+             kernels' launches as the engine counts them, a drain with a
+             request in flight, SIGINT and exit 0, the service's monitor
+             flipping the function to error; a second deploy of the same
+             graph and undeploy leave it offline with no process.
 
 Then one line {"kernels": [...]} (the serving kernels' launches summed
-over the serve, entry_points, observe, gateway, podfleet, runs, tuning
-and projects paths, the training flash's over the train, families,
+over the serve, entry_points, observe, gateway, podfleet, runs, tuning,
+projects and service paths, the training flash's over the train, families,
 entry_points, parallel, observe, runs, tuning, projects and service
 paths) and,
 last,
@@ -380,7 +386,8 @@ and the JobSet's env, ``--phases build,gateway`` the HTTP gateway,
 ``--phases build,podfleet`` the serving pod fleet and its autoscaler,
 ``--phases build,runs`` the run stack, ``--phases build,tuning`` the
 continuous-tuning loop, ``--phases build,projects`` the pod's program,
-``--phases build,service`` the service with a killed and resumed run);
+``--phases build,service`` the service with a killed and resumed run and
+a deployed serving function);
 the
 final lines are printed only when every phase ran. nvcc's build log (registers, shared
 memory and spills per kernel) goes to standard error.
@@ -8806,12 +8813,14 @@ def phase_tuning(seed: int, card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 20: projects — the pod's own program (the port's CLI) in child
-# processes: the tpujob JobSet's command under torchrun, a project's
-# two-step workflow through `project --run`, and `serve` at 8B over HTTP
+# processes: the tpujob JobSet's command under torchrun and a project's
+# two-step workflow through `project --run` (the 8B `serve` child is the
+# service phase's deployed gateway)
 # ---------------------------------------------------------------------------
 
 PROJ_PROJECT = "pods"
-PROJ_TRAIN_MODEL = "llama3-1b"  # (a): the tpujob run's model (full width)
+PROJ_TRAIN_MODEL = "llama3-1b"  # the runs' model (full width)
+PROJ_TPUJOB_LAYERS = 2      # (a): the tpujob pod's depth (the service's cut)
 PROJ_STEPS = 4              # (a): steps after the warmup pass
 PROJ_LORA_STEPS = 4         # (b): step 1's LoRA fit at B4 x 2048
 PROJ_LORA_RANK = 16
@@ -8893,58 +8902,6 @@ def pipeline(seed="0", steps="4"):
                                         "seed": int(seed)}).after(train)
 '''
 
-# (c): the serving pod's user code, carried by MLT_EXEC_CODE: the route
-# class wraps LLMModelServer and answers {"launch_counts": "reset"|"read"}
-# itself (the counts, the engine's counters and the process's torch
-# import and kernel load)
-PROJ_SERVE_CODE = '''
-import time
-
-_started = time.perf_counter()
-import torch  # noqa: E402
-_TORCH_IMPORT_S = time.perf_counter() - _started
-
-from mlrun_tpu_torch.ops import _build  # noqa: E402
-
-_KERNEL_LOAD_S = None
-if torch.cuda.is_available():
-    torch.cuda.init()
-    _started = time.perf_counter()
-    _build.library()
-    _KERNEL_LOAD_S = time.perf_counter() - _started
-
-
-class CountingLLM:
-    """LLMModelServer as a graph route, with the kernels' launch counts
-    behind the body {"launch_counts": "reset" | "read"}."""
-
-    def __init__(self, context=None, **class_args):
-        from mlrun_tpu_torch.serving.llm import LLMModelServer
-
-        self.server = LLMModelServer(context=context, **class_args)
-
-    def do_event(self, event, *args, **kwargs):
-        body = event.body if isinstance(event.body, dict) else {}
-        what = body.get("launch_counts")
-        if what is None:
-            return self.server.do_event(event, *args, **kwargs)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        if what == "reset":
-            _build.reset_launch_counts()
-        event.body = {"launches": _build.launch_counts(),
-                      "stats": self.server.engine.stats,
-                      "torch_import_s": _TORCH_IMPORT_S,
-                      "kernel_load_s": _KERNEL_LOAD_S}
-        return event
-
-    def __getattr__(self, name):
-        if name == "server":
-            raise AttributeError(name)
-        return getattr(self.server, name)
-'''
-
-
 def _proj_check(leg: str, row: dict):
     emit(row)
     bad = [name for name, ok in row["checks"].items() if not ok]
@@ -8996,7 +8953,9 @@ def _proj_cli(args: list, env: dict, leg: str, timeout=PROJ_CHILD_TIMEOUT):
 
 
 def _proj_train_params(seed: int, work: str) -> dict:
-    return {"model": PROJ_TRAIN_MODEL, "batch_size": TRAIN_BATCH,
+    return {"model": PROJ_TRAIN_MODEL,
+            "model_overrides": {"n_layers": PROJ_TPUJOB_LAYERS},
+            "batch_size": TRAIN_BATCH,
             "seq_len": TRAIN_SEQ, "steps": PROJ_STEPS, "log_every": 1,
             "seed": seed, "model_name": RUNS_MODEL,
             "checkpoint_dir": os.path.join(work, "checkpoints")}
@@ -9006,8 +8965,9 @@ def _proj_tpujob_leg(seed: int, card: str, work: str, db) -> dict:
     """(a) the tpujob JobSet's own container command, under /bin/sh with
     the JobSet's env resolved as pod 0 of slice 0 (one node, one GPU,
     MASTER_ADDR 127.0.0.1): torchrun runs ``python3 -m mlrun_tpu_torch
-    run --from-env``, which runs the 1B trainer; the run read back from
-    the SQLite db, its losses against an in-process fit of the seed."""
+    run --from-env``, which runs the 1B-width trainer at 2 layers; the run
+    read back from the SQLite db, its losses against an in-process fit of
+    the seed."""
     import base64
     import socket
 
@@ -9021,7 +8981,7 @@ def _proj_tpujob_leg(seed: int, card: str, work: str, db) -> dict:
     from mlrun_tpu_torch.models.llama import MODEL_PRESETS
     from mlrun_tpu_torch.ops import _build
 
-    config = MODEL_PRESETS["llama3-1b"]()
+    config = MODEL_PRESETS[PROJ_TRAIN_MODEL](n_layers=PROJ_TPUJOB_LAYERS)
     params = _proj_train_params(seed, work)
     fn = new_function("train", kind="tpujob", project=PROJ_PROJECT)
     fn.with_gpus(nodes=1, gpus_per_node=1)
@@ -9328,144 +9288,12 @@ def _proj_workflow_leg(seed: int, card: str, work: str, db) -> dict:
     return row
 
 
-def _proj_serve_leg(seed: int, card: str, work: str) -> dict:
-    """(c) ``python3 -m mlrun_tpu_torch serve --port <p>`` in a child, with
-    SERVING_SPEC_ENV holding the gateway phase's graph at 8B (its route
-    the phase's CountingLLM over LLMModelServer): /readyz polled, the
-    serve traffic over HTTP with every token held to a teacher-forced
-    forward of the seeded params, a drain with a request in flight, then
-    SIGINT: the child exits 0."""
-    import base64
-    import copy
-    import signal
-    import socket
-    import threading
-
-    import torch
-
-    from mlrun_tpu_torch.config import EXEC_CODE_ENV
-    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
-
-    spec = copy.deepcopy(GATEWAY_SPEC)
-    route = spec["graph"]["steps"]["router"]["routes"]["llm"]
-    route["class_name"] = "CountingLLM"
-    route["class_args"]["seed"] = seed
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    url = f"http://127.0.0.1:{port}"
-    env = _proj_env(work, SERVING_SPEC_ENV=json.dumps(spec), **{
-        EXEC_CODE_ENV: base64.b64encode(PROJ_SERVE_CODE.encode()).decode()})
-    started = time.perf_counter()
-    child = subprocess.Popen(
-        ["python3", "-m", "mlrun_tpu_torch", "serve", "--port", str(port),
-         "--host", "127.0.0.1"], env=env, cwd=HERE,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        # the teacher's params, built here while the child loads its own
-        config = MODEL_PRESETS["llama3-8b"]()
-        params = init_params(config, torch.Generator(
-            device="cuda").manual_seed(seed), "cuda")
-        prompts = _prompts(seed, config.vocab_size)
-        polls = 0
-        while True:
-            if child.poll() is not None:
-                fail(f"projects (serve): the child exited {child.returncode}"
-                     f" before ready\n{child.stderr.read()[-4000:]}")
-            try:
-                status = _http(url, "/readyz")[0]
-            except OSError:
-                status = None
-            polls += 1
-            if status == 200:
-                break
-            if time.perf_counter() - started > PROJ_CHILD_TIMEOUT:
-                fail("projects (serve): /readyz never answered 200")
-            time.sleep(0.05)
-        ready_s = time.perf_counter() - started
-        reset = _http(url, GW_INFER, "POST", {"launch_counts": "reset"})
-        before = json.loads(reset[2])
-        t = time.perf_counter()
-        first = _http(url, GW_INFER, "POST", {"inputs": prompts})
-        hit = _http(url, GW_INFER, "POST", {"inputs": [prompts[0]]})
-        traffic_s = time.perf_counter() - t
-        read = json.loads(_http(url, GW_INFER, "POST",
-                                {"launch_counts": "read"})[2])
-        launches = {k: v for k, v in read["launches"].items() if v}
-        counted = _gateway_launches(read["launches"], before["stats"],
-                                    read["stats"], config.n_layers,
-                                    path="projects (serve)")
-        outputs = _outputs(first, "the serve request") + \
-            _outputs(hit, "the prefix-hit request")
-        gaps = []
-        for prompt, tokens in zip(prompts + [prompts[0]], outputs):
-            logits = _teacher_logits(config, params, prompt, tokens)
-            gaps.append(max(float(row.max() - row[tok]) /
-                            float(row.abs().max())
-                            for row, tok in zip(logits, tokens)))
-            del logits
-        del params
-        torch.cuda.empty_cache()
-        # a drain with a request in flight
-        box = {}
-        long_prompts = _prompts(seed + 2, config.vocab_size)
-        inflight = threading.Thread(target=lambda: box.update(
-            answer=_http(url, GW_INFER, "POST", {"inputs": long_prompts})))
-        inflight.start()
-        t = time.perf_counter()
-        while json.loads(_http(url, "/healthz")[2]).get("inflight", 0) == 0:
-            if time.perf_counter() - t > 60:
-                fail("projects (serve): the long request never went in "
-                     "flight")
-            time.sleep(0.002)
-        drain = _http(url, "/__drain__", "POST")
-        inflight.join(timeout=GW_TIMEOUT)
-        drained = json.loads(drain[2])
-        answered = box["answer"]
-        child.send_signal(signal.SIGINT)
-        try:
-            out, err = child.communicate(timeout=120)
-        except subprocess.TimeoutExpired:
-            child.kill()
-            out, err = child.communicate()
-            fail("projects (serve): the child did not exit after SIGINT")
-    finally:
-        if child.poll() is None:
-            child.kill()
-            child.communicate()
-    sys.stderr.write(err[-4000:])
-    row = {
-        "phase": "projects", "leg": "serve", "card": card,
-        "model": "llama3-8b", "layers": config.n_layers,
-        "ready_s": ready_s, "readyz_polls": polls, "traffic_s": traffic_s,
-        "request_s": [first[3], hit[3]], "drain_s": drain[3],
-        "inflight_request_s": answered[3], "drained": drained,
-        "exit_code": child.returncode, "launches": launches, **counted,
-        "torch_import_s": read["torch_import_s"],
-        "kernel_load_s": read["kernel_load_s"],
-        "worst_argmax_gap_rel": max(gaps), "argmax_gap_tol": SPEC_REL_TOL,
-        "checks": {
-            "tokens": len(outputs) == 5
-            and all(len(o) == MAX_NEW for o in outputs),
-            "near_argmax": max(gaps) <= SPEC_REL_TOL,
-            "prefix_hit": read["stats"]["prefix_hits"]
-            > before["stats"]["prefix_hits"],
-            "drain_kept_the_inflight_request": answered[0] == 200
-            and drained == {"drained": True, "inflight": 0}
-            and [len(a) for a in json.loads(answered[2])["outputs"]]
-            == [MAX_NEW] * len(long_prompts),
-            "exit_0": child.returncode == 0,
-        }}
-    _proj_check("serve", row)
-    return row
-
-
 def phase_projects(seed: int, card: str) -> dict:
     """The pod's own program on the card, every leg a child process over
     the kernel build the build phase left (a temporary SQLite run db and
     MLT_HOME): (a) the tpujob JobSet's command, (b) a two-step workflow
-    through `project --run`, (c) `serve` at 8B. Returns the kernels'
-    launches summed over the children's main paths."""
+    through `project --run`. Returns the kernels' launches summed over the
+    children's main paths."""
     import shutil
     import tempfile
 
@@ -9486,8 +9314,6 @@ def phase_projects(seed: int, card: str) -> dict:
         _release()
         rows.append(_proj_workflow_leg(seed, card, work, db))
         _release()
-        rows.append(_proj_serve_leg(seed, card, work))
-        _release()
         for row in rows:
             for name, count in row["launches"].items():
                 launches[name] = launches.get(name, 0) + count
@@ -9495,14 +9321,11 @@ def phase_projects(seed: int, card: str) -> dict:
               "seconds": time.perf_counter() - started,
               "leg_seconds": {"tpujob_pod": rows[0]["pod_s"],
                               "tpujob_in_process": rows[0]["in_process_s"],
-                              "workflow": rows[1]["project_s"],
-                              "serve_ready": rows[2]["ready_s"]},
+                              "workflow": rows[1]["project_s"]},
               "child_torch_import_s": {
-                  "tpujob": rows[0]["torch_import_s"],
-                  "serve": rows[2]["torch_import_s"]},
+                  "tpujob": rows[0]["torch_import_s"]},
               "child_kernel_load_s": {
-                  "tpujob": rows[0]["kernel_load_s"],
-                  "serve": rows[2]["kernel_load_s"]},
+                  "tpujob": rows[0]["kernel_load_s"]},
               "tpujob_step_ms": rows[0]["step_ms"],
               "launches": launches})
     finally:
@@ -9619,6 +9442,244 @@ def train(context, steps: int = 4, park_after: int = 2,
 """.replace("MARK", SVC_MARK)
 
 
+# the deploy leg: a serving function deployed through the service. Its
+# route class travels as spec.build.functionSourceCode (MLT_EXEC_CODE in
+# the deployed gateway): it wraps LLMModelServer and answers
+# {"launch_counts": "reset" | "read"} itself (the counts, the engine's
+# counters, the card and the process's torch import and kernel load)
+SVC_DEPLOY_NAME = "llm-gw"
+SVC_DEPLOY_READY_S = 600.0   # the gateway's ready timeout, raised by env
+SVC_SERVE_CODE = """
+import time
+
+_started = time.perf_counter()
+import torch  # noqa: E402
+_TORCH_IMPORT_S = time.perf_counter() - _started
+
+from mlrun_tpu_torch.ops import _build  # noqa: E402
+
+_KERNEL_LOAD_S = None
+if torch.cuda.is_available():
+    torch.cuda.init()
+    _started = time.perf_counter()
+    _build.library()
+    _KERNEL_LOAD_S = time.perf_counter() - _started
+
+
+class CountingLLM:
+    \"\"\"LLMModelServer as a graph route, with the kernels' launch counts
+    behind the body {"launch_counts": "reset" | "read"}.\"\"\"
+
+    def __init__(self, context=None, **class_args):
+        from mlrun_tpu_torch.serving.llm import LLMModelServer
+
+        self.server = LLMModelServer(context=context, **class_args)
+
+    def do_event(self, event, *args, **kwargs):
+        body = event.body if isinstance(event.body, dict) else {}
+        what = body.get("launch_counts")
+        if what is None:
+            return self.server.do_event(event, *args, **kwargs)
+        torch.cuda.synchronize()
+        if what == "reset":
+            _build.reset_launch_counts()
+        event.body = {"launches": _build.launch_counts(),
+                      "stats": self.server.engine.stats,
+                      "device": torch.cuda.get_device_name(0),
+                      "torch_import_s": _TORCH_IMPORT_S,
+                      "kernel_load_s": _KERNEL_LOAD_S}
+        return event
+
+    def __getattr__(self, name):
+        if name == "server":
+            raise AttributeError(name)
+        return getattr(self.server, name)
+"""
+
+
+def _svc_serving_fn(seed: int, warmup: bool = True):
+    """The serving function the leg deploys: GATEWAY_SPEC's router with
+    one CountingLLM route over LLMModelServer at Llama-3-8B."""
+    import base64
+    import copy
+
+    from mlrun_tpu_torch import new_function
+
+    spec = copy.deepcopy(GATEWAY_SPEC)
+    route = spec["graph"]["steps"]["router"]["routes"]["llm"]
+    route["class_name"] = "CountingLLM"
+    route["class_args"].update(seed=seed, warmup=warmup)
+    fn = new_function(SVC_DEPLOY_NAME, project=SVC_PROJECT, kind="serving")
+    fn.spec.graph = spec["graph"]
+    fn.spec.build.functionSourceCode = base64.b64encode(
+        SVC_SERVE_CODE.encode()).decode()
+    return fn
+
+
+def _svc_gateway(state) -> dict | None:
+    for row in state.db.list_runtime_resources(kind="gateway"):
+        if row["uid"] == f"gateway-{SVC_DEPLOY_NAME}":
+            return row
+    return None
+
+
+def _svc_deploy_leg(seed: int, card: str, state, provider, client) -> dict:
+    """(deploy) a serving function at Llama-3-8B (32 layers, bf16, paged)
+    deployed through HTTPRunDB and the service's DeploymentManager, which
+    starts the port's gateway (``python3 -m mlrun_tpu_torch serve``) as a
+    child on the card: (a) deploy until ready, the address stored; (b) the
+    serve traffic through ``fn.invoke``, every token held to a
+    teacher-forced forward of the seeded params, the kernels' launches as
+    the engine counts them; (c) a drain with a request in flight, then
+    SIGINT: the child exits 0; (d) the service's monitor flips the
+    function to error, clears its address and drops its gateway; a second
+    deploy of the same 8B graph (no warmup pass) and ``undeploy()`` leave
+    it offline with no process of the gateway's tree."""
+    import signal
+    import threading
+
+    import torch
+
+    from mlrun_tpu_torch.models.llama import MODEL_PRESETS, init_params
+    from mlrun_tpu_torch.service.providers import _process_tree
+
+    config = MODEL_PRESETS["llama3-8b"]()
+    fn = _svc_serving_fn(seed)
+    started = time.perf_counter()
+    address = fn.deploy()
+    deploy_s = time.perf_counter() - started
+    stored = client.get_function(SVC_DEPLOY_NAME, SVC_PROJECT, tag="latest")
+    row = _svc_gateway(state)
+    if not address or row is None:
+        fail(f"service (deploy): no address or gateway ({address!r})")
+    child = provider._procs[row["resource_id"]]
+    tree = _process_tree(child.pid)
+    try:
+        # the teacher's params, built here while the gateway warms up
+        params = init_params(config, torch.Generator(
+            device="cuda").manual_seed(seed), "cuda")
+        prompts = _prompts(seed, config.vocab_size)
+        _svc_until("the deployed gateway's /readyz",
+                   lambda: _http(address, "/readyz")[0] == 200,
+                   timeout=SVC_DEPLOY_READY_S)
+        ready_s = time.perf_counter() - started
+        before = fn.invoke(GW_INFER, body={"launch_counts": "reset"})
+        t = time.perf_counter()
+        first = fn.invoke(GW_INFER, body={"inputs": prompts})
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        hit = fn.invoke(GW_INFER, body={"inputs": [prompts[0]]})
+        hit_s = time.perf_counter() - t
+        read = fn.invoke(GW_INFER, body={"launch_counts": "read"})
+        launches = {k: v for k, v in read["launches"].items() if v}
+        counted = _gateway_launches(read["launches"], before["stats"],
+                                    read["stats"], config.n_layers,
+                                    path="service (deploy)")
+        outputs = first["outputs"] + hit["outputs"]
+        gaps = []
+        for prompt, tokens in zip(prompts + [prompts[0]], outputs):
+            logits = _teacher_logits(config, params, prompt, tokens)
+            gaps.append(max(float(r.max() - r[tok]) / float(r.abs().max())
+                            for r, tok in zip(logits, tokens)))
+            del logits
+        del params
+        torch.cuda.empty_cache()
+        # (c) a drain with a request in flight, then SIGINT
+        box = {}
+        long_prompts = _prompts(seed + 2, config.vocab_size)
+        inflight = threading.Thread(target=lambda: box.update(
+            answer=fn.invoke(GW_INFER, body={"inputs": long_prompts})))
+        inflight.start()
+        _svc_until("the long request in flight", lambda: json.loads(
+            _http(address, "/healthz")[2]).get("inflight", 0) > 0,
+            timeout=60, every=0.002)
+        drain = _http(address, "/__drain__", "POST")
+        inflight.join(timeout=GW_TIMEOUT)
+        drained = json.loads(drain[2])
+        answered = box.get("answer") or {}
+        child.send_signal(signal.SIGINT)
+        try:
+            exit_code = child.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail("service (deploy): the gateway did not exit after SIGINT")
+        exited = time.perf_counter()
+        # (d) the service's own monitor loop notices the dead gateway
+        flipped = _svc_until("the monitor's flip to error", lambda: (
+            client.get_function(SVC_DEPLOY_NAME, SVC_PROJECT,
+                                tag="latest")["status"]["state"]
+            == "error") and client.get_function(
+                SVC_DEPLOY_NAME, SVC_PROJECT, tag="latest"))
+        flip_s = time.perf_counter() - exited
+        gateway_after_death = _svc_gateway(state)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    # a second deploy, then undeploy
+    again = _svc_serving_fn(seed, warmup=False)
+    t = time.perf_counter()
+    second_address = again.deploy()
+    second_deploy_s = time.perf_counter() - t
+    second_tree = _process_tree(int(_svc_gateway(state)["resource_id"].split(
+        "-")[1]))
+    t = time.perf_counter()
+    again.undeploy()
+    offline = client.get_function(SVC_DEPLOY_NAME, SVC_PROJECT,
+                                  tag="latest")["status"]
+    left = _svc_until("the undeployed gateway's processes to exit",
+                      lambda: not any(_pid_running(p)
+                                      for p in second_tree),
+                      timeout=60) and [p for p in second_tree
+                                       if _pid_running(p)]
+    undeploy_s = time.perf_counter() - t
+    row = {
+        "phase": "service", "leg": "deploy", "card": card,
+        "model": "llama3-8b", "layers": config.n_layers, "address": address,
+        "deploy_s": deploy_s, "ready_s": ready_s,
+        "request_s": [first_s, hit_s],
+        "torch_import_s": read["torch_import_s"],
+        "kernel_load_s": read["kernel_load_s"], "device": read["device"],
+        "launches": launches, **counted,
+        "worst_argmax_gap_rel": max(gaps), "argmax_gap_tol": SPEC_REL_TOL,
+        "drain_s": drain[3], "drained": drained, "exit_code": exit_code,
+        "monitor_flip_s": flip_s,
+        "second_deploy": {"layers": config.n_layers,
+                          "deploy_s": second_deploy_s,
+                          "undeploy_s": undeploy_s,
+                          "processes": len(second_tree)},
+        "checks": {
+            "deployed_ready": fn.status.state == "ready"
+            and address.startswith("http://127.0.0.1:"),
+            "stored_address": stored["status"]["state"] == "ready"
+            and stored["status"]["address"] == address,
+            "the_ports_gateway": provider.kind == "local-process"
+            and len(tree) >= 1,
+            "ran_on_the_card": read["device"] == _device_name(),
+            "tokens": len(outputs) == 5
+            and all(len(o) == MAX_NEW for o in outputs),
+            "near_argmax": max(gaps) <= SPEC_REL_TOL,
+            "prefix_hit": read["stats"]["prefix_hits"]
+            > before["stats"]["prefix_hits"],
+            "drain_kept_the_inflight_request":
+            drained == {"drained": True, "inflight": 0}
+            and [len(a) for a in answered.get("outputs", [])]
+            == [MAX_NEW] * len(long_prompts),
+            "exit_0": exit_code == 0,
+            "monitor_flipped_to_error": bool(flipped)
+            and flipped["status"]["address"] == ""
+            and flipped["status"].get("external_invocation_urls") == []
+            and gateway_after_death is None,
+            "second_deploy_ready": second_address.startswith(
+                "http://127.0.0.1:"),
+            "undeployed_offline": offline["state"] == "offline"
+            and offline["address"] == "" and _svc_gateway(state) is None
+            and again.status.state == "offline",
+            "no_process_left": left == [],
+        }}
+    _svc_check(row)
+    return row
+
+
 def _svc_check(row: dict):
     emit(row)
     bad = [name for name, ok in row["checks"].items() if not ok]
@@ -9686,8 +9747,10 @@ def phase_service(seed: int, card: str) -> dict:
     own command (torchrun, one process) on the card; after step 2's
     checkpoint the child's process group is SIGKILLed; the service's own
     monitor classifies the failure and resubmits <name>-r1 with the
-    resume env; the resumed child trains steps 3-4. Returns the kernels'
-    launches summed over both children."""
+    resume env; the resumed child trains steps 3-4. Then the deploy leg
+    (``_svc_deploy_leg``): a serving function at Llama-3-8B deployed
+    through the same service. Returns the kernels' launches summed over
+    both tpujob children and the deployed gateway."""
     import base64
     import shutil
     import signal
@@ -9715,7 +9778,8 @@ def phase_service(seed: int, card: str) -> dict:
     saved_env = {k: os.environ.get(k) for k in (
         "MLT_DBPATH", "MLT_HOME", "PATH", "PYTHONPATH", "RANK",
         "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
-        "MASTER_PORT")}
+        "MASTER_PORT", "MLT_FUNCTION__GATEWAY_READY_TIMEOUT",
+        "MLT_HTTPDB__TIMEOUT")}
     saved_conf = (SERVICE_DEFAULTS["httpdb"]["port"],
                   SERVICE_DEFAULTS["runs"]["monitoring_interval"])
     # the children's programs (python3, torchrun) are this interpreter's,
@@ -9724,6 +9788,12 @@ def phase_service(seed: int, card: str) -> dict:
     for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
                  "MASTER_ADDR", "MASTER_PORT"):
         os.environ.pop(name, None)
+    # an 8B gateway takes longer than the default 30 s to answer: the
+    # service's ready timeout and the client's request timeout, raised
+    # through their env names
+    os.environ["MLT_FUNCTION__GATEWAY_READY_TIMEOUT"] = str(
+        SVC_DEPLOY_READY_S)
+    os.environ["MLT_HTTPDB__TIMEOUT"] = str(SVC_DEPLOY_READY_S + 60)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -9791,6 +9861,9 @@ def phase_service(seed: int, card: str) -> dict:
         results = _svc_results(log)
         attempts = {r["attempt"]: r for r in results}
         first, second = attempts.get(0, {}), attempts.get(1, {})
+        deploy_started = time.perf_counter()
+        deployed = _svc_deploy_leg(seed, card, state, provider, client)
+        deploy_leg_s = time.perf_counter() - deploy_started
         server.stop()
         server = None
         _release()
@@ -9882,11 +9955,13 @@ def phase_service(seed: int, card: str) -> dict:
             }}
         _svc_check(row)
         launches = {}
-        for counts in (first.get("launches"), second.get("launches")):
+        for counts in (first.get("launches"), second.get("launches"),
+                       deployed["launches"]):
             for name, count in (counts or {}).items():
                 launches[name] = launches.get(name, 0) + count
         emit({"phase": "service", "card": card,
               "seconds": time.perf_counter() - started,
+              "deploy_leg_seconds": deploy_leg_s,
               "launches": launches})
         return launches
     finally:
@@ -10092,14 +10167,14 @@ def main(argv=None) -> int:
         with timed("projects"):
             # the training flash's launches in the tpujob pod and the
             # workflow's LoRA step, the serving kernels' in its decode step
-            # and in the serving pod
             for name, count in phase_projects(args.seed, card).items():
                 launches[name] = launches.get(name, 0) + count
             release()
     if "service" in phases:
         with timed("service"):
             # the training flash's launches in the tpujob run's two
-            # children (killed after step 2, resumed for steps 3-4)
+            # children (killed after step 2, resumed for steps 3-4), the
+            # serving kernels' in the deployed 8B gateway
             for name, count in phase_service(args.seed, card).items():
                 launches[name] = launches.get(name, 0) + count
             release()

@@ -12,9 +12,8 @@
 
 The commands, options, printed lines and exit codes are the reference's.
 An error the reference raises as a ``click.ClickException`` prints
-``Error: <message>`` to stderr and exits 1. ``build`` needs the image
-builder (part 14c of ROADMAP.md item 14, not ported): it prints the
-reason and exits 1.
+``Error: <message>`` to stderr and exits 1. ``build`` deploys a function
+through the service's builder (``fn.deploy``).
 """
 
 from __future__ import annotations
@@ -196,12 +195,19 @@ def _serve(args) -> int:
 
 # -- the service's commands -----------------------------------------------
 def _build(args) -> int:
-    """Build a function's image: ``fn.deploy`` through the service's image
-    builder (part 14c of ROADMAP.md item 14, not ported)."""
-    from .serving.resilience import not_ported
+    """Build/deploy a function image via the service (``fn.deploy``; a
+    kind whose deploy takes ``with_gpu`` gets ``--with-gpu``)."""
+    import inspect
 
-    raise CLIError(str(not_ported("the build command (the image builder, "
-                                  "part 14c)", 14)))
+    from .run import import_function
+
+    fn = import_function(args.func_url)
+    deploy_kwargs = {}
+    if "with_gpu" in inspect.signature(fn.deploy).parameters:
+        deploy_kwargs["with_gpu"] = args.with_gpu
+    ok = fn.deploy(**deploy_kwargs)
+    print(f"build {'succeeded' if ok else 'failed'}: {fn.spec.image}")
+    return 0 if ok else 1
 
 
 def _db(args) -> int:
@@ -310,7 +316,8 @@ def build_parser() -> argparse.ArgumentParser:
         "build", help="build/deploy a function image via the service")
     build.add_argument("func_url")
     build.add_argument("--tag", default="latest")
-    build.add_argument("--with-tpu", action="store_true")
+    build.add_argument("--with-gpu", "--with-tpu", dest="with_gpu",
+                       action="store_true")
     build.set_defaults(func=_build)
 
     db = commands.add_parser("db", help="start the metadata service")
@@ -347,10 +354,31 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _requirement_values_joined(argv: list[str]) -> list[str]:
+    """``bootstrap``'s ``-r VALUE`` pairs as ``--requirement=VALUE``, up
+    to its ``--``: a requirement may itself start with dashes (a pip flag
+    such as ``--no-index``), which click takes as the option's value and
+    argparse would read as an option."""
+    if argv[:1] != ["bootstrap"]:
+        return argv
+    out, i = [], 0
+    end = argv.index("--") if "--" in argv else len(argv)
+    while i < len(argv):
+        if i < end - 1 and argv[i] in ("-r", "--requirement"):
+            out.append(f"--requirement={argv[i + 1]}")
+            i += 2
+            continue
+        out.append(argv[i])
+        i += 1
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     """Run one command; returns its exit code."""
     parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
+    args, extra = parser.parse_known_args(
+        _requirement_values_joined(sys.argv[1:] if argv is None
+                                   else list(argv)))
     if extra and args.command != "run":
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     try:

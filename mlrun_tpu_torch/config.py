@@ -27,7 +27,7 @@ continuous-tuning loop's ``drift``, ``retrain`` and ``canary`` sections.
 
 ``SERVICE_DEFAULTS`` holds the reference's keys the service and its
 clients read (``api_base_path`` and the ``httpdb``, ``projects``,
-``runs`` and ``scheduler`` blocks); :func:`service_config` reads a dotted
+``runs``, ``scheduler`` and ``function`` blocks); :func:`service_config` reads a dotted
 key with the reference's nested env names (``MLT_HTTPDB__PORT``)."""
 
 from __future__ import annotations
@@ -476,6 +476,19 @@ SERVICE_DEFAULTS = {
         },
     },
     "scheduler": {"min_allowed_interval_seconds": 60, "tick_seconds": 5.0},
+    # the deployment manager and the builder (service/deployments.py,
+    # service/builder.py; the default and GPU images are RUN_DEFAULTS'
+    # default_image and K8S_DEFAULTS' image)
+    "function": {
+        # dask scheduler/worker pods need a dask-capable image
+        "dask_image": "daskdev/dask:latest",
+        # a deploy waits up to this long for the gateway to answer its
+        # readiness probe
+        "gateway_ready_timeout": 30.0,
+        # host recorded in local-gateway addresses (status.address): this
+        # host's reachable name when clients on other machines read it
+        "gateway_advertise_host": "127.0.0.1",
+    },
 }
 
 

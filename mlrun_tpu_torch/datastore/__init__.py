@@ -6,9 +6,11 @@
 in the process, ``store://`` artifact uris through the run db (the
 artifact's ``target_path``, its record as the item's ``meta``) and
 ``ds://<profile>/<path>`` through a datastore profile (the client-side
-registry, else the run db's ``get_datastore_profile``). The reference's
-object stores raise ``not_ported`` item 10. ``sources`` and ``targets``
-hold the feature store's sources and targets.
+registry, else the run db's ``get_datastore_profile``), and the object
+stores: ``gs`` / ``s3`` / ``az`` / ``hdfs`` ... through fsspec,
+``http(s)://`` read only and ``redis://``; ``register_store`` adds a
+scheme. ``sources`` and ``targets`` hold the feature store's sources and
+targets.
 """
 
 from __future__ import annotations
@@ -16,13 +18,8 @@ from __future__ import annotations
 from typing import Optional
 
 from .base import DataItem, DataStore, FileStats, parse_url  # noqa: F401
-from .stores import (  # noqa: F401
-    FileStore,
-    FsspecStore,
-    HttpStore,
-    InMemoryStore,
-    RedisStore,
-)
+from .redis import RedisStore
+from .stores import FileStore, FsspecStore, HttpStore, InMemoryStore
 
 schema_to_store: dict[str, type] = {
     "file": FileStore,
@@ -41,6 +38,10 @@ schema_to_store: dict[str, type] = {
     "redis": RedisStore,
     "rediss": RedisStore,
 }
+
+
+def register_store(scheme: str, cls: type):
+    schema_to_store[scheme] = cls
 
 
 class StoreManager:

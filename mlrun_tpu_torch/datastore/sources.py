@@ -3,8 +3,8 @@ the pandas-engine sources the feature store ingests from (CSV, Parquet,
 DataFrame, SQL on sqlite, Stream and any datastore url). BigQuery,
 Snowflake and Kafka stay gated on their client packages and raise
 ``ImportError`` without them, as the reference does; an ``http(s)://``
-source raises ``not_ported`` item 10 beside the http object store (the
-card's machine has no ``requests``). No source falls back to another."""
+source reads its url with ``requests``. No source falls back to
+another."""
 
 from __future__ import annotations
 
@@ -88,9 +88,24 @@ class HttpSource(BaseSource):
     kind = "http"
 
     def to_dataframe(self, columns=None, df_module=None, **kwargs):
-        from ..serving.resilience import not_ported
+        import io
 
-        raise not_ported(f"the http source ({self.path})", 10)
+        import pandas as pd
+        import requests
+
+        resp = requests.get(self.path, timeout=60,
+                            headers=self.attributes.get("headers"))
+        resp.raise_for_status()
+        fmt = self.attributes.get("format") or self.path.rsplit(
+            ".", 1)[-1].lower()
+        buf = io.BytesIO(resp.content)
+        if fmt == "csv":
+            df = pd.read_csv(buf)
+        elif fmt in ("parquet", "pq"):
+            df = pd.read_parquet(buf)
+        else:
+            df = pd.read_json(buf)
+        return df[columns] if columns else df
 
 
 class SQLSource(BaseSource):

@@ -611,10 +611,12 @@ class HTTPRunDB(RunDBInterface):
             "delete runtime resources", params=params or None)
         return resp.get("deleted", [])
 
-    def remote_builder(self, func, with_tpu: bool = False) -> dict:
+    def remote_builder(self, func, with_gpu: bool = False) -> dict:
+        # the wire keeps the reference's flag name: the service reads it
+        # as "build on the accelerator image"
         return self.api_call(
             "POST", "build/function", "remote build",
-            json_body={"function": func.to_dict(), "with_tpu": with_tpu})
+            json_body={"function": func.to_dict(), "with_tpu": with_gpu})
 
     def get_builder_status(self, func, offset=0, logs=True):
         # tag must travel: a function deployed as `mytag` keeps its build

@@ -3,8 +3,8 @@ feature_store/ingestion_service.py``.
 
 Here the ingestion service is a serving-graph step (``FeatureSetIngestStep``)
 that applies the feature set's transform graph per event and writes to the
-online KV + appends to the offline parquet. ``ingestion_service_function``
-(a serving function around it) waits for the port's serving runtime.
+online KV + appends to the offline parquet; ``ingestion_service_function``
+builds a serving function around it.
 """
 
 from __future__ import annotations
@@ -85,10 +85,20 @@ class FeatureSetIngestStep:
 def ingestion_service_function(feature_set: FeatureSet | str,
                                name: str = "", project: str = ""):
     """Build a serving function whose graph ingests posted events into the
-    feature set. Its ``kind="serving"`` runtime is not ported yet: this
-    raises ``not_ported`` item 14; a graph can run ``FeatureSetIngestStep``
-    directly (``GraphServer``)."""
-    from ..serving.resilience import not_ported
+    feature set (deploy with fn.deploy() or serve via the asgi gateway)."""
+    from ..run import new_function
 
-    raise not_ported("the serving runtime that hosts the ingestion "
-                     "service (kind='serving')", 14)
+    if isinstance(feature_set, FeatureSet):
+        feature_set.save()
+        fset_name = feature_set.name
+        project = project or getattr(feature_set.metadata, "project", "") \
+            or ""
+    else:
+        fset_name = feature_set
+    fn = new_function(
+        name or f"{fset_name}-ingest", kind="serving",
+        project=project or run_config("default_project"))
+    graph = fn.set_topology("flow")
+    graph.to(class_name=FeatureSetIngestStep, name="ingest",
+             feature_set=fset_name, project=project).respond()
+    return fn

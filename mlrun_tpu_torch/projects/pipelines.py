@@ -5,7 +5,7 @@ function's order; ``compile_kfp_pipeline`` emits the same DAG as a KFP v2
 ``PipelineSpec`` IR dict without the kfp package, each step an executor
 running the port's CLI (``python3 -m mlrun_tpu_torch run --from-env``).
 The kfp engine needs the kfp SDK (an ImportError without it); the remote
-engine submits to the service, which is not ported.
+engine submits the workflow to the service (``submit_pipeline``).
 """
 
 from __future__ import annotations
@@ -213,7 +213,8 @@ class _LocalRunner(_PipelineRunner):
 
 
 class _RemoteRunner(_PipelineRunner):
-    """Submit the workflow to the service (not ported)."""
+    """Submit the workflow to the service, whose workflow runner runs it
+    with the local engine."""
 
     engine = "remote"
 
@@ -221,10 +222,15 @@ class _RemoteRunner(_PipelineRunner):
     def run(cls, project, workflow_spec, name="", workflow_handler=None,
             secrets=None, artifact_path=None, namespace=None, source=None,
             args=None, local=False, watch=False) -> _PipelineRunStatus:
-        from ..serving.resilience import not_ported
+        from ..db import get_run_db
 
-        raise not_ported("the remote workflow engine (the service's "
-                         "workflow runner, part 14c)", 14)
+        db = get_run_db()
+        run_id = db.submit_pipeline(
+            project.name, workflow_spec if isinstance(workflow_spec, dict)
+            else workflow_spec.to_dict(),
+            arguments=args, artifact_path=artifact_path)
+        return _PipelineRunStatus(run_id, cls, project, workflow=workflow_spec,
+                                  state=RunStates.running)
 
     @classmethod
     def wait_for_completion(cls, run_status, timeout=3600,

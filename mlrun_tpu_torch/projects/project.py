@@ -3,8 +3,8 @@
 profiles, alert configs, model-monitoring params and workflows, its
 ``project.yaml`` and git remotes, and ``new_project`` / ``load_project``
 / ``get_or_create_project`` / ``get_current_project``. Building images and
-deploying serving functions need the image builder and the service, which
-are not ported."""
+deploying serving functions go through the service (its builder and its
+deployment manager)."""
 
 from __future__ import annotations
 
@@ -242,23 +242,28 @@ class MlrunProject(ModelObj):
             inputs=inputs, artifact_path=artifact_path or self.artifact_path,
             watch=watch, schedule=schedule, notifications=notifications,
             returns=returns,
-            # the port's run db is never a service (an http(s):// dbpath
-            # is not ported), so a run without local= runs here
+            # a run without local= runs here (the reference sends it to
+            # the service whenever a dbpath is set); local=False submits
             local=True if local is None else local)
         return run
 
-    def build_function(self, function, with_tpu: bool = False,
+    def build_function(self, function, with_gpu: bool = False,
                        skip_deployed: bool = False, **kwargs):
-        from ..serving.resilience import not_ported
-
-        raise not_ported("build_function (the image builder, part 14c)", 14)
+        function = self._resolve_function(function)
+        if hasattr(function, "deploy"):
+            function.deploy(skip_deployed=skip_deployed, with_gpu=with_gpu)
+        return function
 
     def deploy_function(self, function, models: list | None = None,
                         env: dict | None = None, tag: str = "", **kwargs):
-        from ..serving.resilience import not_ported
-
-        raise not_ported("deploy_function (the serving runtime and the "
-                         "service)", 14)
+        function = self._resolve_function(function)
+        if env:
+            function.set_envs(env)
+        if models:
+            for model in models:
+                function.add_model(**model)
+        address = function.deploy(project=self.name, tag=tag)
+        return function, address
 
     def _resolve_function(self, function):
         from ..runtimes.base import BaseRuntime
@@ -502,11 +507,21 @@ class MlrunProject(ModelObj):
     def build_image(self, image: str = "", base_image: str = "",
                     commands: list | None = None,
                     requirements: list | None = None,
-                    set_as_default: bool = True, with_tpu: bool = False):
-        """Build the project image (the image builder's)."""
-        from ..serving.resilience import not_ported
+                    set_as_default: bool = True, with_gpu: bool = False):
+        """Build the project image from the recorded and passed build
+        config through the service's builder."""
+        from ..run import new_function
 
-        raise not_ported("build_image (the image builder, part 14c)", 14)
+        build = self.build_config(image=image, base_image=base_image,
+                                  commands=commands,
+                                  requirements=requirements)
+        fn = new_function(f"{self.name}-image", project=self.name,
+                          kind="job", image=build.image or "")
+        fn.spec.build = build
+        deployed = fn.deploy(watch=True, with_gpu=with_gpu)
+        if deployed and set_as_default and fn.spec.image:
+            self.set_default_image(fn.spec.image)
+        return deployed
 
     # artifacts / store
     def get_artifact_uri(self, key: str, category: str = "artifact",
@@ -656,9 +671,12 @@ class MlrunProject(ModelObj):
 
     # api gateways
     def list_api_gateways(self) -> list:
-        from ..serving.resilience import not_ported
-
-        raise not_ported("api gateways (part 14c)", 14)
+        db = self._get_db()
+        lister = getattr(db, "list_api_gateways", None)
+        if lister:
+            return lister(self.name)
+        return [f for f in db.list_functions(project=self.name)
+                if f.get("kind") == "api-gateway"]
 
     # git remotes
     def _git(self, *args, check: bool = True):

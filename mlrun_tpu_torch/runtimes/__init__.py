@@ -1,8 +1,7 @@
 """Runtimes — the port's copy of ``mlrun_tpu/runtimes``: the function
-objects a run executes through (``local``, ``handler``, ``job`` and the
-GPU-sized ``tpujob``). The registry's other kinds (``dask``, ``spark``,
-``databricks``, ``serving``, ``remote``, ``application``) are the
-service's and raise ``not_ported`` item 14 from ``get_runtime_class``."""
+objects a run executes through (``local``, ``handler``, ``job``, the
+GPU-sized ``tpujob``, ``dask``, ``spark``, ``databricks``) and the ones
+the service deploys (``serving``, ``remote``, ``application``)."""
 
 from __future__ import annotations
 
@@ -11,14 +10,14 @@ from .base import BaseRuntime, FunctionMetadata, FunctionSpec, FunctionStatus  #
 from .generators import get_generator  # noqa: F401
 from .local import HandlerRuntime, LocalRuntime  # noqa: F401
 
-# kinds the reference registers whose runtimes the port has not yet
-_UNPORTED_KINDS = (RuntimeKinds.dask, RuntimeKinds.spark,
-                   RuntimeKinds.databricks, RuntimeKinds.serving,
-                   RuntimeKinds.remote, RuntimeKinds.application)
-
 
 def _registry() -> dict:
+    from .daskjob import DaskRuntime
+    from .databricks import DatabricksRuntime
     from .kubejob import KubejobRuntime
+    from .remote import ApplicationRuntime, RemoteRuntime
+    from .serving import ServingRuntime
+    from .sparkjob import SparkRuntime
     from .tpujob import TpuJobRuntime
 
     return {
@@ -27,14 +26,16 @@ def _registry() -> dict:
         RuntimeKinds.handler: HandlerRuntime,
         RuntimeKinds.job: KubejobRuntime,
         RuntimeKinds.tpujob: TpuJobRuntime,
+        RuntimeKinds.dask: DaskRuntime,
+        RuntimeKinds.spark: SparkRuntime,
+        RuntimeKinds.databricks: DatabricksRuntime,
+        RuntimeKinds.serving: ServingRuntime,
+        RuntimeKinds.remote: RemoteRuntime,
+        RuntimeKinds.application: ApplicationRuntime,
     }
 
 
 def get_runtime_class(kind: str) -> type:
-    if kind in _UNPORTED_KINDS:
-        from ..serving.resilience import not_ported
-
-        raise not_ported(f"the '{kind}' runtime (part 14c)", 14)
     registry = _registry()
     if kind not in registry:
         raise ValueError(

@@ -1,11 +1,12 @@
 """Kubernetes job runtime — the port's copy of
 ``mlrun_tpu/runtimes/kubejob.py`` (the client side; the service creates
-the pod and builds the image, ROADMAP.md item 14)."""
+the pod and builds the image)."""
 
 from __future__ import annotations
 
 from ..common.runtimes_constants import RuntimeKinds
 from ..model import RunObject
+from ..utils import logger
 from .pod import KubeResource
 
 
@@ -37,14 +38,45 @@ class KubejobRuntime(KubeResource):
 
     def deploy(self, watch: bool = True, with_gpu: bool = False,
                skip_deployed: bool = False) -> bool:
-        """Build the function's image through the service (its builder,
-        ROADMAP.md item 14); True at once when ``skip_deployed`` and the
-        image exists."""
+        """Request a build from the service (its ``service/builder.py``: a
+        pre-warm of the requirements overlay locally, a Kaniko pod on
+        kubernetes); ``with_gpu`` bases the image on the GPU image. With
+        ``watch`` the call follows ``/build/status``, printing the build
+        log, until the build ends. True when the image is ready."""
         if skip_deployed and self.is_deployed:
             return True
-        from ..serving.resilience import not_ported
+        db = self._get_db()
+        resp = db.remote_builder(self, with_gpu=with_gpu)
+        status = resp.get("data", {}).get("status", {})
+        self.spec.image = status.get("image") or self.spec.image
+        state = status.get("state", "ready")
+        if watch and state == "deploying":
+            state = self._watch_build(db)
+        logger.info("function build finished", image=self.spec.image,
+                    state=state)
+        return state == "ready"
 
-        raise not_ported("the service's image builder (deploy, part 14c)", 14)
+    def _watch_build(self, db, timeout: float = 1800.0) -> str:
+        import sys
+        import time
+
+        offset = 0
+        deadline = time.time() + timeout
+        state = "deploying"
+        while time.time() < deadline:
+            resp = db.get_builder_status(self, offset=offset)
+            data = resp.get("data", resp) if isinstance(resp, dict) else {}
+            log = data.get("log", "")
+            if log:
+                sys.stdout.write(log)
+                sys.stdout.flush()
+            offset = data.get("offset", offset)
+            state = data.get("state", state)
+            if state in ("ready", "error"):
+                self.spec.image = data.get("image") or self.spec.image
+                return state
+            time.sleep(1.0)
+        return state
 
     def _run(self, runobj: RunObject, execution) -> dict:
         # runs happen server-side; reaching here means misconfiguration

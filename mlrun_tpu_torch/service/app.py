@@ -10,9 +10,6 @@ Scheduler (utils/scheduler.py) is replaced by service/cron.py.
 This module keeps only the app assembly: ServiceState, middleware, the
 periodic loops, and run_app. Every route lives in a per-resource module
 under ``service/api/`` (the reference's endpoints/+crud/ layout).
-
-The service builds no deployment manager and no image builder (ROADMAP.md
-item 14, part 14c): the routes that would reach them answer 501.
 """
 
 from __future__ import annotations
@@ -62,6 +59,11 @@ class ServiceState:
         self.provider = provider or LocalProcessProvider(self.db)
         self.launcher = ServerSideLauncher(self.db, self.provider)
         self.launcher.recover()  # re-adopt resources from before a restart
+        from .builder import FunctionBuilder
+        from .deployments import DeploymentManager
+
+        self.deployments = DeploymentManager(self.db, self.provider)
+        self.builder = FunctionBuilder(self.db, self.provider)
         from .projects_sync import ProjectsFollower
 
         self.projects_follower = ProjectsFollower(self.db)
@@ -126,6 +128,18 @@ async def _start_periodic(app: web.Application):
             await asyncio.get_event_loop().run_in_executor(
                 None, state.launcher.monitor_all)
 
+    async def gateway_monitor_loop():
+        # dead gateways flip their function status to error
+        # (service/deployments.py monitor)
+        while True:
+            await asyncio.sleep(
+                min(float(service_config("runs.monitoring_interval")), 5.0))
+            try:
+                await asyncio.get_event_loop().run_in_executor(
+                    None, state.deployments.monitor)
+            except Exception as exc:  # noqa: BLE001 - keep the loop alive
+                logger.warning("gateway monitor failed", error=str(exc))
+
     async def scheduler_loop():
         fired: dict[tuple, str] = {}
         while True:
@@ -145,6 +159,7 @@ async def _start_periodic(app: web.Application):
 
     app["_periodic"] = [
         asyncio.create_task(monitor_loop()),
+        asyncio.create_task(gateway_monitor_loop()),
         asyncio.create_task(scheduler_loop()),
     ]
 

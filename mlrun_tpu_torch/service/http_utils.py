@@ -22,15 +22,6 @@ def error_response(message: str, status: int = 400):
     return web.json_response({"detail": message}, status=status)
 
 
-def not_ported_response(what: str):
-    """A route of a part the port does not have yet (the builder, the
-    deployments, the api gateways: ROADMAP.md item 14, part 14c): 501 with
-    the ``not_ported`` message in the service's JSON error form."""
-    from ..serving.resilience import not_ported
-
-    return error_response(str(not_ported(f"{what} (part 14c)", 14)), 501)
-
-
 def paginate(items: list, request) -> list:
     """limit/offset slicing for list endpoints (reference pagination
     analog — token-based pagination cache is R2)."""

@@ -12,9 +12,9 @@ mlrun_tpu_torch run --from-env``) as a child process, so the whole
 submit -> pod -> run -> logs path works on one machine. Each verb fires
 its ``provider.*`` chaos point first.
 
-Deployments (the serving gateways) and the spark-operator's
-SparkApplication belong to the builder and the other runtimes (ROADMAP.md
-item 14, part 14c) and raise ``not_ported``.
+The kubernetes provider also creates the serving gateways' Deployments
+(``service/deployments.py``) and the spark-operator's SparkApplication
+(``runtimes/sparkjob.py``).
 """
 
 from __future__ import annotations
@@ -35,20 +35,15 @@ from ..config import K8S_DEFAULTS
 
 
 # CRD kinds the kubernetes provider speaks: kind -> (group, version,
-# plural); _CRD_BY_LOWER keys by the resource-id prefix (the reference's
-# SparkApplication is part 14c's)
+# plural); _CRD_BY_LOWER keys by the resource-id prefix
 _CRD_KINDS = {
     "JobSet": ("jobset.x-k8s.io", "v1alpha2", "jobsets"),
+    "SparkApplication": ("sparkoperator.k8s.io", "v1beta2",
+                         "sparkapplications"),
 }
 _CRD_BY_LOWER = {k.lower(): v for k, v in _CRD_KINDS.items()}
 # the port's CLI under any of the names a container command may give it
 _CLI_HEADS = ("mlrun-tpu", "mlrun_tpu", "mlrun-tpu-torch")
-
-
-def _not_ported_14c(what: str) -> NotImplementedError:
-    from ..serving.resilience import not_ported
-
-    return not_ported(f"{what} (part 14c)", 14)
 
 
 def _extract_pod_spec(resource: dict) -> dict:
@@ -276,8 +271,8 @@ class LocalProcessProvider(Provider):
 
 
 class KubernetesProvider(Provider):
-    """Creates real pods / JobSet CRDs / Services (requires the
-    kubernetes package at construction)."""
+    """Creates real pods, JobSet and SparkApplication CRDs, Deployments
+    and Services (requires the kubernetes package at construction)."""
 
     kind = "kubernetes"
 
@@ -292,7 +287,9 @@ class KubernetesProvider(Provider):
         self.namespace = namespace or K8S_DEFAULTS["namespace"]
 
     # the ONE registry of CRD kinds the provider speaks (create/state/
-    # delete/list all read it): kind -> (group, version, plural)
+    # delete/list all read it): kind -> (group, version, plural).
+    # SparkApplication is the spark-operator contract
+    # (runtimes/sparkjob.py generate_spark_application)
     CRD_KINDS = _CRD_KINDS
 
     def create(self, resource: dict, run_uid: str) -> str:
@@ -304,8 +301,15 @@ class KubernetesProvider(Provider):
             self._custom.create_namespaced_custom_object(
                 group, version, self.namespace, plural, resource)
             return f"{kind.lower()}/{resource['metadata']['name']}"
-        if kind in ("Deployment", "SparkApplication"):
-            raise _not_ported_14c(f"KubernetesProvider.create of a '{kind}'")
+        if kind == "Deployment":
+            # long-running gateway Deployments (service/deployments.py) —
+            # replicas come from the function's min_replicas
+            import kubernetes
+
+            kubernetes.client.AppsV1Api(
+                self._core.api_client).create_namespaced_deployment(
+                self.namespace, resource)
+            return f"deployment/{resource['metadata']['name']}"
         self._core.create_namespaced_pod(self.namespace, resource)
         return f"pod/{resource['metadata']['name']}"
 
@@ -328,8 +332,40 @@ class KubernetesProvider(Provider):
         chaos_fire(FaultPoints.provider_state, kind=self.kind,
                    resource_id=resource_id)
         kind, _, name = resource_id.partition("/")
-        if kind in ("deployment", "sparkapplication"):
-            raise _not_ported_14c(f"KubernetesProvider.state of a '{kind}'")
+        if kind == "deployment":
+            import kubernetes
+
+            dep = kubernetes.client.AppsV1Api(
+                self._core.api_client).read_namespaced_deployment(
+                name, self.namespace)
+            status = dep.status
+            if (getattr(status, "available_replicas", 0) or 0) >= 1:
+                return PodPhases.running
+            # "rolling out" against "dead": a deployment whose pods are
+            # crash-looping still reports 0 available
+            for cond in getattr(status, "conditions", None) or []:
+                if (getattr(cond, "type", "") == "Progressing"
+                        and getattr(cond, "status", "") == "False"):
+                    return PodPhases.failed
+            return PodPhases.pending
+        if kind == "sparkapplication":
+            group, version, plural = _CRD_BY_LOWER["sparkapplication"]
+            obj = self._custom.get_namespaced_custom_object(
+                group, version, self.namespace, plural, name)
+            # spark-operator applicationState.state contract
+            app_state = (obj.get("status", {})
+                         .get("applicationState", {})
+                         .get("state", "")).upper()
+            return {
+                "COMPLETED": PodPhases.succeeded,
+                "FAILED": PodPhases.failed,
+                "SUBMISSION_FAILED": PodPhases.failed,
+                "FAILING": PodPhases.failed,
+                "": PodPhases.pending,
+                "NEW": PodPhases.pending,
+                "SUBMITTED": PodPhases.pending,
+                "PENDING_RERUN": PodPhases.pending,
+            }.get(app_state, PodPhases.running)
         if kind == "jobset":
             group, version, plural = _CRD_BY_LOWER["jobset"]
             obj = self._custom.get_namespaced_custom_object(
@@ -353,8 +389,18 @@ class KubernetesProvider(Provider):
             group, version, plural = crd
             self._custom.delete_namespaced_custom_object(
                 group, version, self.namespace, plural, name)
-        elif kind in ("deployment", "sparkapplication"):
-            raise _not_ported_14c(f"KubernetesProvider.delete of a '{kind}'")
+        elif kind == "deployment":
+            import kubernetes
+
+            kubernetes.client.AppsV1Api(
+                self._core.api_client).delete_namespaced_deployment(
+                name, self.namespace)
+            # the fronting Service shares the Deployment's name
+            try:
+                self._core.delete_namespaced_service(name, self.namespace)
+            except kubernetes.client.exceptions.ApiException as exc:
+                if exc.status != 404:
+                    raise
         else:
             self._core.delete_namespaced_pod(name, self.namespace)
 

@@ -17,8 +17,8 @@ submit→pod→run→logs path works on a single machine.
 The run monitor classifies each failed resource (``common/retry.py``) and
 resubmits the retryable ones within the run's policy; a resubmitted
 ``tpujob`` JobSet carries the resume env from ``status.checkpoint``
-(``TpuJobHandler._customize_retry_manifest``). The dask and spark handlers
-belong to part 14c of ROADMAP.md item 14 and raise ``not_ported``.
+(``TpuJobHandler._customize_retry_manifest``). A dask run's pod is a job
+pod; a spark run's SparkApplication needs the kubernetes provider.
 """
 
 from __future__ import annotations
@@ -988,29 +988,22 @@ class TpuJobHandler(BaseRuntimeHandler):
 
 
 class DaskHandler(KubeJobHandler):
-    """The dask runtime's resources (part 14c): a restarted service still
-    adopts and monitors them; building one raises."""
-
     kind = RuntimeKinds.dask
-
-    def build_resource(self, runtime, run: RunObject) -> dict:
-        from ..serving.resilience import not_ported
-
-        raise not_ported("the dask runtime's resources (part 14c)", 14)
 
 
 class SparkHandler(BaseRuntimeHandler):
-    """SparkApplication CRD (reference sparkjob handler; part 14c): a
-    restarted service still adopts and monitors them; building one
-    raises."""
+    """SparkApplication CRD. Requires the kubernetes provider — a local
+    process cannot materialize a spark cluster."""
 
     kind = RuntimeKinds.spark
 
     def build_resource(self, runtime, run: RunObject) -> dict:
-        from ..serving.resilience import not_ported
-
-        raise not_ported("the spark runtime's SparkApplication (part 14c)",
-                         14)
+        if isinstance(self.provider, LocalProcessProvider):
+            raise ValueError(
+                "the spark runtime needs a kubernetes provider with the "
+                "spark-operator installed; run with local=True for a local "
+                "SparkSession instead")
+        return runtime.generate_spark_application(run)
 
 
 def get_runtime_handler(kind: str, db, provider: Provider

@@ -376,11 +376,11 @@ def serve(function=None, spec: dict | None = None, host: str = "0.0.0.0",
     else:
         server = server_from_env(namespace)
     # preemptible replica: SIGTERM latches the guard, the watcher drains
-    # in-flight events and flips /readyz before the grace period ends
+    # in-flight events and flips /readyz before the grace period ends,
+    # then stops the server (below)
     from ..training.preemption import PreemptionGuard
 
     guard = PreemptionGuard().install()
-    server.drain_on_preemption(guard)
     # ready-means-warm: /readyz answers 503 until the warmup pass
     # finishes in the background — the pod serves probes immediately but
     # takes traffic only warm
@@ -389,10 +389,18 @@ def serve(function=None, spec: dict | None = None, host: str = "0.0.0.0",
                      daemon=True).start()
     logger.info("serving graph gateway starting", host=host, port=port)
     # http.server installs no signal handler: the guard keeps SIGTERM, so
-    # the first signal drains (readyz flips, in-flight finishes) and the
-    # second escalates to the default terminate
+    # the first signal drains (readyz flips, in-flight finishes) and then
+    # ends serve_forever — the process exits 0 with no request lost (the
+    # reference's gateway stays up drained until a second signal, which
+    # escalates to the default terminate here too)
     app = build_serving_app(server)
     httpd = app.bind(host, port)
+
+    def drain_and_stop():
+        server.drain()
+        httpd.shutdown()
+
+    guard.on_preempted(drain_and_stop, name="serving-drain-on-preemption")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -534,16 +534,11 @@ class DegradationLadder:
         return max_new_tokens
 
 
-# ROADMAP.md "Modules still to port", by item number (1-9, 11-13 and 15
-# landed; 10's tail is what the run stack left; item 14 queues the
-# reference's host packages that have no counterpart in the port yet:
-# its 14a surfaces and 14b service landed, 14c and 14d remain)
+# ROADMAP.md "Modules still to port", by item number (1-13 and 15
+# landed; item 14 queues the reference's host packages that have no
+# counterpart in the port yet: its parts 14a-14c landed, 14d remains)
 PORT_QUEUE = {
-    10: "item 10's tail: the object stores (datastore/stores.py: gs, s3, "
-        "az, hdfs, http and redis urls)",
-    14: "14c, the image builder, the deployments and the other runtimes "
-        "(serving, remote, api gateways, dask, spark, databricks); 14d, "
-        "analysis/",
+    14: "14d, analysis/ (the repo's static lint)",
 }
 
 

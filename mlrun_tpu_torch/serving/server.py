@@ -131,10 +131,15 @@ class GraphContext:
         return store_manager.object(url=uri)
 
     def get_remote_endpoint(self, name: str, external: bool = True) -> str:
-        """A deployed function's address from the run db; the port has no
-        run db (ROADMAP.md item 10), so no name resolves — ``""``, the
-        reference's answer for a name it cannot resolve."""
-        return ""
+        """A deployed function's address from the run db (``""`` for a
+        name that does not resolve)."""
+        try:
+            from ..db import get_run_db
+
+            function = get_run_db().get_function(name, self.project)
+            return function.get("status", {}).get("address", "")
+        except Exception:  # noqa: BLE001
+            return ""
 
     def push_error(self, event, message: str, source=None, **kwargs):
         self.logger.error(

@@ -11,9 +11,10 @@ prepended to ``PYTHONPATH``. An overlay (not a venv) because the runtime
 image's interpreter is often itself a venv — chaining venvs would lose the
 preinstalled torch/CUDA stack, while an overlay strictly adds to it.
 
-The reference's Kaniko path (`service/builder.py`) is part 14c of ROADMAP.md
-item 14; this module is the zero-registry route that works anywhere a pod
-can run pip.
+The service's builder (`service/builder.py`) takes the Kaniko path on a
+Kubernetes cluster; this module is the zero-registry route that works
+anywhere a pod can run pip (the builder's local path pre-warms its
+overlay).
 """
 
 from __future__ import annotations

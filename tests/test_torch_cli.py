@@ -313,12 +313,14 @@ def test_config_writes_the_same_env_file(tmp_path, capsys, homes,
 @pytest.mark.parametrize("args", [["build", "db://p/f"], ["db"],
                                   ["bootstrap", "-r", "numpy", "python3"]])
 def test_the_services_commands_exit_1_naming_item_14(args, capsys,
-                                                     monkeypatch):
-    """``build`` needs the image builder (part 14c): it exits 1 naming
-    item 14. ``db`` starts the service (``service.app.run_app``) and
-    ``bootstrap`` execs its command under the requirements overlay
-    (``utils.bootstrap.exec_with_requirements``), as the reference's
-    commands do; both are recorded here instead of run."""
+                                                     monkeypatch, homes):
+    """``build`` deploys the stored function through the service's
+    builder (``fn.deploy``): over a local run db, which has no builder,
+    both packages raise the db's NotImplementedError. ``db`` starts the
+    service (``service.app.run_app``) and ``bootstrap`` execs its command
+    under the requirements overlay (``utils.bootstrap.
+    exec_with_requirements``), as the reference's commands do; both are
+    recorded here instead of run."""
     from mlrun_tpu_torch.service import app
     from mlrun_tpu_torch.utils import bootstrap
 
@@ -328,13 +330,17 @@ def test_the_services_commands_exit_1_naming_item_14(args, capsys,
     monkeypatch.setattr(bootstrap, "exec_with_requirements",
                         lambda reqs, cmd, overlay_root=None: calls.append(
                             ("exec", reqs, cmd, overlay_root)))
-    code = tcli.main(args)
-    err = capsys.readouterr().err
     if args[0] == "build":
-        assert code == 1 and calls == []
-        assert err.startswith("Error: ") and "item 14" in err \
-            and "14c" in err
-    elif args[0] == "db":
+        for name, pkg in (("jax", mlrun_tpu), ("port", mlrun_tpu_torch)):
+            homes(name)
+            fn = pkg.new_function("f", project="p", kind="job", image="img")
+            fn.save()
+            with pytest.raises(NotImplementedError):
+                _invoke(name, args + ["--with-tpu"], capsys)
+        assert calls == []
+        return
+    code = tcli.main(args)
+    if args[0] == "db":
         assert code == 0 and calls == [("run_app", {"host": "",
                                                     "port": 0})]
     else:

@@ -2,8 +2,9 @@
 5) against the JAX package's: the ``file://`` and ``memory://`` stores on
 the same files, a ``file://`` tokens dataset through ``train``, adapters
 over ``file://`` urls across the two packages, ``get_model`` (a
-``store://`` uri through the run db among them), and the object stores
-the port refuses (ROADMAP.md item 10's tail).
+``store://`` uri through the run db among them), and the object stores'
+urls resolving alike (ROADMAP.md item 10's tail; their reads in
+tests/test_torch_object_stores.py).
 
 Tolerances: the ``train`` losses at the port's ``RUN_REL_TOL`` 1e-4
 relative (tests/test_torch_training.py); everything else is exact.
@@ -142,26 +143,46 @@ def test_datastore_fault_points_fire():
     "s3://bucket/tokens.npy", "gs://bucket/t.npy", "az://c/t.npy",
     "https://host/t.npy", "redis://host/key", "store://models/p/m",
     "ds://profile/key"])
-def test_unported_schemes_raise_item_10(url, tmp_path):
-    """The object stores raise item 10 (its tail). ``store://`` and
-    ``ds://`` resolve through the run db since the run stack landed: here
-    to an artifact and a profile on s3, whose store then raises."""
+def test_unported_schemes_raise_item_10(url, tmp_path, monkeypatch):
+    """The object stores (item 10's tail, landed) resolve in both packages
+    to the same store over the same endpoint and path; ``store://`` and
+    ``ds://`` reach them through the run db (an artifact and a profile on
+    s3). A read needs the scheme's client package (``s3fs``, ``gcsfs``,
+    ``adlfs``, ``redis``), hidden here so that nothing is fetched: both
+    raise ImportError. The http store is not read (no request leaves this
+    machine)."""
+    import sys
+
+    for module in ("s3fs", "gcsfs", "adlfs", "redis"):
+        monkeypatch.setitem(sys.modules, module, None)
+    from mlrun_tpu.datastore import StoreManager as JStoreManager
+    from mlrun_tpu.db.sqlitedb import SQLiteRunDB as JSQLiteRunDB
     from mlrun_tpu_torch.db import SQLiteRunDB
 
     scheme = url.split("://")[0]
-    manager = tds.StoreManager()
-    if scheme in ("store", "ds"):
-        db = SQLiteRunDB(str(tmp_path / "db.sqlite"),
-                         logs_dir=str(tmp_path / "logs"))
-        db.store_artifact("m", {"kind": "model", "spec": {
-            "target_path": "s3://bucket/m"}}, project="p")
-        db.store_datastore_profile({"name": "profile", "type": "s3",
-                                    "fields": {"bucket": "bucket"}})
-        manager.set(db=db)
-        scheme = "s3"
-    with pytest.raises(NotImplementedError, match="item 10") as err:
-        manager.object(url=url)
-    assert f"'{scheme}://'" in str(err.value)
+    got = []
+    for name, manager, dbcls in (("jax", JStoreManager(), JSQLiteRunDB),
+                                 ("port", tds.StoreManager(), SQLiteRunDB)):
+        if scheme in ("store", "ds"):
+            db = dbcls(str(tmp_path / f"{name}.sqlite"),
+                       logs_dir=str(tmp_path / f"logs-{name}"))
+            db.store_artifact("m", {"kind": "model", "spec": {
+                "target_path": "s3://bucket/m"}}, project="p")
+            db.store_datastore_profile({"name": "profile", "type": "s3",
+                                        "fields": {"bucket": "bucket"}})
+            manager.set(db=db)
+        item = manager.object(url=url)
+        store = item.store
+        out = [type(store).__name__, store.kind, store.endpoint,
+               item._path]
+        if scheme != "https":
+            with pytest.raises(ImportError) as err:
+                item.get()
+            out.append(type(err.value).__name__)
+        got.append(out)
+    assert got[1] == got[0]
+    assert got[1][0] == {"https": "HttpStore",
+                         "redis": "RedisStore"}.get(scheme, "FsspecStore")
 
 
 def _same_init(monkeypatch):

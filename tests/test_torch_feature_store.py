@@ -302,7 +302,8 @@ def test_resolvers_and_gated_sources(monkeypatch):
     """``resolve_source`` / ``resolve_target`` pick the same classes from
     frames, urls, dicts and kind names; the gated sources and targets
     raise ImportError without their client packages, as the reference's
-    do; the http source raises ``not_ported`` item 10."""
+    do; the http source reads its url with ``requests`` in both (here a
+    closed port on 127.0.0.1: the same connection error)."""
     from mlrun_tpu.datastore import sources as jsources
     from mlrun_tpu.datastore import targets as jtargets
     from mlrun_tpu_torch.datastore import sources as tsources
@@ -336,8 +337,17 @@ def test_resolvers_and_gated_sources(monkeypatch):
             source.to_dataframe()
     with pytest.raises(ImportError, match="redis-py"):
         ttargets.RedisNoSqlTarget(path="redis://h:1").get(["a"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsources.HttpSource(path="https://h/x.csv").to_dataframe()
+    import socket
+
+    import requests
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        closed = sock.getsockname()[1]
+    for module in (tsources, jsources):
+        with pytest.raises(requests.ConnectionError):
+            module.HttpSource(
+                path=f"http://127.0.0.1:{closed}/x.csv").to_dataframe()
     snow = tsources.SnowflakeSource(attributes={"account": "acc",
                                                 "user": "u"})
     assert snow.connection_kwargs() == jsources.SnowflakeSource(
@@ -441,8 +451,17 @@ def test_realtime_ingestion_step_like_reference(tmp_path, monkeypatch):
     assert online[0]["v"] == 3.0 and online[0]["tier_n"] == 2
     assert online[1]["tier_n"] == 1
     assert sorted(offline["user"]) == ["a", "b"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tfs.ingestion_service_function("live-events", project="rtproj")
+    # the serving function around the ingest step: the same graph spec
+    specs = [pkg.ingestion_service_function(
+        "live-events", project="rtproj")._get_serving_spec()
+        for pkg in (jfs, tfs)]
+    for spec in specs:
+        step = spec["graph"]["steps"]["ingest"]
+        step["class_name"] = step["class_name"].rsplit(".", 1)[-1]
+    assert specs[1] == specs[0]
+    assert specs[1]["function_uri"] == "rtproj/live-events-ingest:latest"
+    assert specs[1]["graph"]["steps"]["ingest"]["class_args"] == {
+        "feature_set": "live-events", "project": "rtproj"}
 
 
 @pytest.mark.parametrize("router", ["EnrichmentModelRouter",

@@ -437,12 +437,17 @@ def test_hub_drift_analysis(each, tmp_path):
 
 
 def test_hub_model_server_is_item_14():
-    """hub://model_server is a serving function: the port's serving
-    runtime is part 14c, so its import raises item 14; the reference
-    imports it."""
-    assert mlrun_tpu.import_function("hub://model_server").kind == "serving"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mlrun_tpu_torch.import_function("hub://model_server")
+    """hub://model_server is a serving function: both packages import it
+    as their serving runtime (part 14c landed) with the same graph and
+    deploy settings."""
+    got = [pkg.import_function("hub://model_server")
+           for pkg in (mlrun_tpu, mlrun_tpu_torch)]
+    assert [type(fn).__name__ for fn in got] == ["ServingRuntime"] * 2
+    assert got[1].kind == got[0].kind == "serving"
+    specs = [fn._get_serving_spec() for fn in got]
+    for spec in specs:
+        spec.pop("function_uri")
+    assert specs[1] == specs[0]
 
 
 def test_hub_sources_resolve_in_order(each, tmp_path, monkeypatch):

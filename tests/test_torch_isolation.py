@@ -22,7 +22,9 @@ functions) and the service with its clients (the API schemas, the
 aiohttp API server and its routes, the run monitor and its providers,
 the server-side launcher, project secrets, cron, the chief/worker roles,
 projects sync, the HTTP and server-SQL run dbs, the remote launcher, the
-log collector client and the requirements bootstrap) included, nor the
+log collector client and the requirements bootstrap), the image builder,
+the deployments, the serving / remote / api-gateway / dask / spark /
+databricks runtimes and the object stores included, nor the
 chip smoke script and the port's profile scripts) imports JAX or the
 reference package, and importing the serving, fleet, telemetry, model,
 training, datastore, parallel and run-stack paths pulls neither into the
@@ -31,8 +33,11 @@ process.
 ``aiohttp`` and ``requests`` are imported only by the service's HTTP
 layer and its clients: ``service/app.py``, ``service/api/*``,
 ``service/http_utils.py``, ``service/clusterization.py``,
-``service/projects_sync.py``, ``db/httpdb.py`` and ``launcher/remote.py``
-(the card's machine has both, and setup.py requires them). Every other
+``service/projects_sync.py``, ``db/httpdb.py``, ``launcher/remote.py``,
+``runtimes/remote.py`` (a deployed function's ``invoke``) and the
+datastore's http store and http source (``datastore/stores.py``,
+``datastore/sources.py``; inside the calls that read a url) — the card's
+machine has both, and setup.py requires them. Every other
 file imports neither, and importing the serving graph and its gateway,
 the training, serving and run-stack paths, or ``get_run_db()`` of a
 local path pulls neither in: the gateway and the remote steps stand on
@@ -62,7 +67,10 @@ HTTP_FILES = ("mlrun_tpu_torch/service/app.py",
               "mlrun_tpu_torch/service/clusterization.py",
               "mlrun_tpu_torch/service/projects_sync.py",
               "mlrun_tpu_torch/db/httpdb.py",
-              "mlrun_tpu_torch/launcher/remote.py")
+              "mlrun_tpu_torch/launcher/remote.py",
+              "mlrun_tpu_torch/runtimes/remote.py",
+              "mlrun_tpu_torch/datastore/stores.py",
+              "mlrun_tpu_torch/datastore/sources.py")
 HTTP_DIRS = ("mlrun_tpu_torch/service/api/",)
 # the reference CLI's framework: the port's CLI stands on argparse
 NOT_USED = ("click",)

@@ -335,7 +335,7 @@ def test_no_item_7_is_left_in_the_port():
     from mlrun_tpu_torch.frameworks import huggingface as thf
     from mlrun_tpu_torch.serving.resilience import PORT_QUEUE
 
-    assert 7 not in PORT_QUEUE and set(PORT_QUEUE) == {10, 14}
+    assert 7 not in PORT_QUEUE and set(PORT_QUEUE) == {14}
     root = Path(__file__).resolve().parents[1] / "mlrun_tpu_torch"
     for path in root.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):

@@ -623,7 +623,7 @@ def test_port_provider_jobset_surface(monkeypatch):
     """The port's provider speaks the reference's JobSet verbs over the
     same cluster: create / state / delete / list_serving_jobsets, its
     ``provider.*`` chaos points, a plain pod (the run stack's job kind),
-    and not_ported for a Deployment (the builder's part 14c)."""
+    and a serving gateway's Deployment (the deployment manager's)."""
     from mlrun_tpu_torch.k8s.jobset import build_serving_jobset
 
     cluster, provider = _cluster(PKGS["port"], monkeypatch)
@@ -646,9 +646,12 @@ def test_port_provider_jobset_surface(monkeypatch):
     assert provider.create({"kind": "Pod", "metadata": {"name": "p"}},
                            "p") == "pod/p"
     assert "p" in cluster.pods
-    with pytest.raises(NotImplementedError, match="item 14"):
-        provider.create({"kind": "Deployment", "metadata": {"name": "d"}},
-                        "d")
+    assert provider.create({"kind": "Deployment", "metadata": {"name": "d"},
+                            "spec": {}}, "d") == "deployment/d"
+    assert "d" in cluster.deployments
+    assert provider.state("deployment/d") == "Pending"
+    provider.delete("deployment/d")
+    assert cluster.deployments == {}
 
 
 # -- real paged engines -------------------------------------------------------

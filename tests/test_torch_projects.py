@@ -394,19 +394,35 @@ def test_workflow_failure_raises_like_reference(each):
 # -- what the port leaves to the service -------------------------------------
 
 def test_engines_and_commands_the_port_leaves_to_the_service(tmp_path):
-    proj = mlrun_tpu_torch.new_project("proj-s", context=str(tmp_path))
-    fn = mlrun_tpu_torch.new_function("f", kind="job", image="img")
-    proj.set_function(fn, name="f")
-    for call in (lambda: proj.build_function("f"),
-                 lambda: proj.build_image(image="x"),
-                 lambda: proj.deploy_function("f"),
-                 lambda: proj.list_api_gateways(),
-                 lambda: mlrun_tpu_torch.projects.build_function("f"),
-                 lambda: mlrun_tpu_torch.projects.deploy_function("f"),
-                 lambda: proj.run(workflow_handler=lambda: None,
-                                  engine="remote")):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            call()
+    """The calls that need the service (its builder, its deployments, its
+    workflow runner) fail alike in both packages over a local run db:
+    the local db has no builder or pipeline runner, a job kind has no
+    serving deploy; the api gateways list empty."""
+    got = {}
+    for name, pkg in PKGS.items():
+        proj = pkg.new_project("proj-s", context=str(tmp_path / name))
+        fn = pkg.new_function("f", kind="job", image="img")
+        proj.set_function(fn, name="f")
+        outcomes = []
+        for call in (lambda: proj.build_function("f"),
+                     lambda: proj.build_image(image="x"),
+                     lambda: proj.deploy_function("f"),
+                     lambda: proj.list_api_gateways(),
+                     lambda: pkg.projects.build_function("f"),
+                     lambda: pkg.projects.deploy_function("f"),
+                     lambda: proj.run(workflow_handler=lambda: None,
+                                      engine="remote")):
+            try:
+                outcomes.append(("returned", call()))
+            except Exception as exc:  # noqa: BLE001 - compared below
+                outcomes.append((type(exc).__name__, str(exc)))
+        got[name] = outcomes
+        _reset()
+    assert got["port"] == got["jax"]
+    assert [kind for kind, _ in got["port"]] == [
+        "NotImplementedError", "NotImplementedError", "TypeError",
+        "returned", "NotImplementedError", "TypeError", "AttributeError"]
+    assert "submit_pipeline" in got["port"][-1][1]
     # a run db with no service behind it never answers: both packages
     # poll until the timeout and return the state they started from
     for _, pipelines in MODULES.values():
@@ -419,3 +435,56 @@ def test_engines_and_commands_the_port_leaves_to_the_service(tmp_path):
             engine.run(proj, {}, workflow_handler=lambda: None)
         with pytest.raises(ValueError, match="unsupported workflow engine"):
             pkg.projects.pipelines.get_workflow_engine("argo")
+
+
+STEPS = '''def step1(context, v: int = 0):
+    context.log_result("a", v + 10)
+
+
+def step2(context, v: int = 0):
+    context.log_result("b", v * 2)
+'''
+
+
+def test_remote_engine_submits_the_workflow_to_the_service(each,
+                                                           monkeypatch):
+    """The remote workflow engine submits the workflow to the package's
+    service (``submit_pipeline``), whose workflow runner loads the
+    project from its context and runs it with the local engine; the
+    client's status polls the service to the end."""
+    from tests.torch_service import PKGS as SERVICE_PKGS
+    from tests.torch_service import Service
+
+    def scenario(name, pkg, directory):
+        svc = Service(SERVICE_PKGS[name], directory, monkeypatch)
+        try:
+            if name == "jax":
+                monkeypatch.setattr(mlconf, "dbpath", svc.url)
+            else:
+                monkeypatch.setenv("MLT_DBPATH", svc.url)
+            _reset()
+            (directory / "steps.py").write_text(STEPS)
+            (directory / "wf.py").write_text(WORKFLOW.format(
+                pkg=pkg.__name__))
+            proj = pkg.new_project("proj-r", context=str(directory))
+            for step in ("step1", "step2"):
+                proj.set_function("steps.py", name=step, kind="local",
+                                  handler=step).save()
+            proj.set_workflow("main", "wf.py", context=str(directory))
+            proj.save()
+            status = proj.run("main", engine="remote")
+            submitted = (status.state, bool(status.run_id))
+            final = status.wait_for_completion(timeout=60)
+            runs = sorted(
+                (r["metadata"]["name"], r["status"].get("results"))
+                for r in svc.db.list_runs(project="proj-r"))
+            return submitted, final, runs
+        finally:
+            svc.stop()
+            monkeypatch.delenv("MLT_DBPATH", raising=False)
+            _reset()
+
+    got = each(scenario)
+    assert got["port"] == got["jax"]
+    assert got["port"] == (("running", True), "completed",
+                           [("step1", {"a": 12}), ("step2", {"b": 24})])

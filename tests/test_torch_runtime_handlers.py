@@ -573,13 +573,29 @@ def test_tpujob_handler_creates_jobset(pkg, provider, cluster, db):
     assert name in cluster.jobsets
 
 
-def test_dask_and_spark_handlers_are_part_14c(provider, cluster, db):
-    """The dask and spark handlers exist (a restarted service adopts their
-    resources) and building their resources raises item 14."""
-    for kind in ("dask", "spark"):
-        handler = thandlers.get_runtime_handler(kind, db, provider)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            handler.build_resource(None, _run_obj(PKGS["port"]))
+def test_dask_and_spark_handlers_are_part_14c(pkg, provider, cluster, db):
+    """The dask and spark handlers build their resources (part 14c
+    landed): a dask run's is the job handler's pod, with the package's
+    own run command; a spark run's is its SparkApplication, which the
+    local process provider refuses."""
+    fn = pkg.top.new_function("dfn", project="kp", kind="dask", image="d")
+    pod = pkg.handlers.get_runtime_handler(
+        "dask", db, provider).build_resource(fn, _run_obj(pkg))
+    container = pod["spec"]["containers"][0]
+    assert pod["kind"] == "Pod" and container["image"] == "d"
+    assert pod["metadata"]["labels"]["mlrun-tpu/class"] == "dask"
+    want = (["mlrun-tpu", "run", "--from-env"] if pkg.name == "jax" else
+            ["python3", "-m", "mlrun_tpu_torch", "run", "--from-env"])
+    assert container["command"] + container.get("args", []) == want
+    spark = pkg.top.new_function("sj", project="kp", kind="spark",
+                                 image="spark-img")
+    manifest = pkg.handlers.get_runtime_handler(
+        "spark", db, provider).build_resource(spark, _run_obj(pkg))
+    assert manifest["kind"] == "SparkApplication"
+    local = pkg.handlers.get_runtime_handler(
+        "spark", db, pkg.handlers.LocalProcessProvider(db))
+    with pytest.raises(ValueError, match="kubernetes provider"):
+        local.build_resource(spark, _run_obj(pkg))
 
 
 # -- tests/test_runtime_recovery.py -------------------------------------------

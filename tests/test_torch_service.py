@@ -5,8 +5,7 @@ mlrun_tpu's.
 
 Each package runs its own service in a thread on an ephemeral localhost
 port (``tests/torch_service.py``) over its own SQLite run db. The bodies
-of ``tests/test_service.py``'s cases (all 22; the api gateways are part
-14c, so the port's routes answer 501 naming item 14), the over-HTTP cases
+of ``tests/test_service.py``'s cases (all 22), the over-HTTP cases
 of ``tests/test_secrets.py`` and ``tests/test_migrations_pagination.py``,
 and the Grafana proxy cases run on both packages with the same inputs;
 what each returns is compared modulo uids and timestamps. Cross-wired
@@ -326,25 +325,27 @@ def test_cron_parser(expr, when, matches):
 
 
 def test_api_gateway_roundtrip(services):
-    """The api gateways are part 14c: the reference stores and lists one,
-    the port's routes answer 501 in the service's JSON error form with the
-    ``not_ported`` message naming item 14."""
-    from mlrun_tpu.runtimes.api_gateway import APIGateway
+    """An api gateway with a canary, saved through each package's
+    service, fetched and listed alike (api gateways are stored as
+    ``api-gateway`` kind functions)."""
+    from mlrun_tpu.runtimes.api_gateway import APIGateway as JGateway
+    from mlrun_tpu_torch.runtimes.api_gateway import APIGateway as TGateway
 
-    ref = services["jax"].db
-    gateway = APIGateway("gw1", project="p1",
-                         functions=["p1/srv-a:latest", "p1/srv-b:latest"])
-    gateway.with_canary(["p1/srv-a:latest", "p1/srv-b:latest"], [80, 20])
-    gateway.save(db=ref)
-    assert ref.api_call("GET", "projects/p1/api-gateways/gw1")[
-        "data"]["spec"]["canary"] == [80, 20]
-    url = services["port"].url + "/api/v1/projects/p1/api-gateways"
-    for method, path, body in (("POST", "/gw1", {"kind": "api-gateway"}),
-                               ("GET", "/gw1", None), ("GET", "", None)):
-        resp = requests.request(method, url + path, json=body, timeout=10)
-        assert resp.status_code == 501
-        assert "item 14" in resp.json()["detail"]
-        assert "14c" in resp.json()["detail"]
+    def scenario(pkg, svc):
+        cls = JGateway if pkg.name == "jax" else TGateway
+        gateway = cls("gw1", project="p1",
+                      functions=["p1/srv-a:latest", "p1/srv-b:latest"])
+        gateway.with_canary(["p1/srv-a:latest", "p1/srv-b:latest"],
+                            [80, 20])
+        gateway.save(db=svc.db)
+        fetched = svc.db.api_call("GET", "projects/p1/api-gateways/gw1")
+        listed = svc.db.api_call("GET", "projects/p1/api-gateways")
+        picks = {gateway.pick_function() for _ in range(50)}
+        return (fetched["data"]["spec"], len(listed["api_gateways"]),
+                picks <= {"p1/srv-a:latest", "p1/srv-b:latest"})
+
+    spec, listed, picks_ok = _alike(services, scenario)
+    assert spec["canary"] == [80, 20] and listed == 1 and picks_ok
 
 
 @pytest.mark.parametrize("route", [
@@ -356,13 +357,35 @@ def test_api_gateway_roundtrip(services):
 ])
 def test_the_builder_and_deployment_routes_answer_501(services, route):
     """The routes that reach the image builder or the deployment manager
-    (part 14c) answer 501 naming item 14; deploying a batch kind, which
-    reaches neither, records it ready as the reference does."""
+    answer alike in both packages (none answers 501 any more): a build of
+    a prebuilt image is ready at once, the status of an unknown function
+    is 404 (the reference's run db error escapes as a 500 there), a
+    serving function with no graph fails its deploy with the gateway's
+    reason (400), and tearing down a function with no gateway removes
+    nothing. Deploying a batch kind, which reaches neither, records it
+    ready as the reference does."""
     method, path, body = route
-    resp = requests.request(method,
-                            f"{services['port'].url}/api/v1/{path}",
-                            json=body, timeout=10)
-    assert resp.status_code == 501 and "item 14" in resp.json()["detail"]
+    answers = {}
+    for name, svc in services.items():
+        resp = requests.request(method, f"{svc.url}/api/v1/{path}",
+                                json=body, timeout=60)
+        detail = resp.json().get("detail", "") if resp.headers.get(
+            "Content-Type", "").startswith("application/json") else ""
+        answers[name] = (resp.status_code, detail.split(":")[0],
+                         "gateway did not become ready" in detail,
+                         resp.json() if resp.ok else None)
+    if path.startswith("build/status"):
+        assert answers["jax"][0] == 500
+    else:
+        assert answers["port"] == answers["jax"]
+    assert answers["port"][0] != 501
+    assert answers["port"][:3] == {
+        "build/function": (200, "", False),
+        "build/status?name=f": (404, "function not found", False),
+        "projects/p1/functions/f/deploy": (
+            (400, "function deploy failed", True) if method == "POST"
+            else (200, "", False)),
+    }[path]
 
     def scenario(pkg, svc):
         return svc.db.api_call(

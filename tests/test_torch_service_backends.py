@@ -688,8 +688,9 @@ FOURTEEN_B = ["mlrun_tpu_torch/__main__.py",
 
 
 def test_no_14b_surface_raises_item_14_but_for_14c():
-    """Every ``not_ported(..., 14)`` left on a 14b surface names part 14c,
-    and the port queue's item 14 holds only 14c and 14d."""
+    """No ``not_ported(..., 14)`` is left on a 14b surface since part 14c
+    landed (the builder, the deployments, the other runtimes), and the
+    port queue's item 14 holds 14d alone."""
     import ast
 
     from mlrun_tpu_torch.serving.resilience import PORT_QUEUE
@@ -703,7 +704,6 @@ def test_no_14b_surface_raises_item_14_but_for_14c():
                     node.args) == 2 and getattr(node.args[1], "value",
                                                 None) == 14:
                 left.append((path, node.lineno, ast.unparse(node.args[0])))
-    assert left and all("14c" in what for _, _, what in left), left
-    assert "14c" in PORT_QUEUE[14] and "14d" in PORT_QUEUE[14]
-    assert "14b" not in PORT_QUEUE[14] and "service (its API" not in \
-        PORT_QUEUE[14]
+    assert left == []
+    assert set(PORT_QUEUE) == {14} and "14d" in PORT_QUEUE[14]
+    assert "14c" not in PORT_QUEUE[14] and "14b" not in PORT_QUEUE[14]

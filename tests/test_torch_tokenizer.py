@@ -13,6 +13,8 @@ run's per-step loss and grad_norm within 1e-4 relative (the bound of
 ``tests/test_torch_training.py``).
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -242,19 +244,20 @@ def test_text_dataset_needs_a_tokenizer_in_both(tmp_path):
                   steps=1, mesh_shape={"fsdp": 1}, **kw)
 
 
-def test_dataset_url_is_not_ported(tmp_path):
+def test_dataset_url_is_not_ported(tmp_path, monkeypatch):
     """Fault 3.4: a datastore url never reaches ``np.load`` as a path.
     Since item 10's entry 5 it resolves through the port's datastore: a
-    ``file://`` url trains exactly like its bare path, and a scheme the
-    port has no store for raises ROADMAP.md item 10 naming it."""
+    ``file://`` url trains exactly like its bare path, and an ``s3://``
+    url reaches the fsspec object store (item 10's tail), whose read
+    needs ``s3fs`` (hidden here: nothing is fetched)."""
     path = tmp_path / "tokens.npy"
     np.save(path, np.arange(400, dtype=np.int32))
     runs = [tauto.train(model="tiny", dataset=dataset, batch_size=2,
                         seq_len=16, steps=1, device="cpu", warmup=False)
             for dataset in (str(path), f"file://{path}")]
     assert runs[0]["loss"] == runs[1]["loss"]
-    with pytest.raises(NotImplementedError, match="item 10") as err:
+    monkeypatch.setitem(sys.modules, "s3fs", None)
+    with pytest.raises(ImportError, match="s3fs"):
         tauto.train(model="tiny", dataset="s3://bucket/tokens.npy",
                     batch_size=2, seq_len=16, steps=1, device="cpu",
                     warmup=False)
-    assert "'s3://' datastore" in str(err.value)

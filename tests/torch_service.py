@@ -7,7 +7,8 @@ leaves localhost.
 ``PKGS`` holds each package's service modules under one set of names, so
 one scenario runs on both: ``app``, ``sqlitedb``, ``httpdb``, ``base``
 (``RunDBError``), ``cron``, ``secrets``, ``handlers``
-(``service/runtime_handlers``), ``chaos``, ``obs`` and ``timeseries``.
+(``service/runtime_handlers``), ``deployments``, ``builder``, ``chaos``,
+``obs`` and ``timeseries``.
 """
 
 from __future__ import annotations
@@ -27,14 +28,18 @@ from mlrun_tpu.db import base as jbase
 from mlrun_tpu.db import httpdb as jhttpdb
 from mlrun_tpu.db import sqlitedb as jsqlitedb
 from mlrun_tpu.service import app as japp
+from mlrun_tpu.service import builder as jbuilder
 from mlrun_tpu.service import cron as jcron
+from mlrun_tpu.service import deployments as jdeployments
 from mlrun_tpu.service import runtime_handlers as jhandlers
 from mlrun_tpu.service import secrets as jsecrets
 from mlrun_tpu_torch.db import base as tbase
 from mlrun_tpu_torch.db import httpdb as thttpdb
 from mlrun_tpu_torch.db import sqlitedb as tsqlitedb
 from mlrun_tpu_torch.service import app as tapp
+from mlrun_tpu_torch.service import builder as tbuilder
 from mlrun_tpu_torch.service import cron as tcron
+from mlrun_tpu_torch.service import deployments as tdeployments
 from mlrun_tpu_torch.service import runtime_handlers as thandlers
 from mlrun_tpu_torch.service import secrets as tsecrets
 
@@ -42,11 +47,13 @@ PKGS = {
     "jax": types.SimpleNamespace(
         name="jax", app=japp, sqlitedb=jsqlitedb, httpdb=jhttpdb,
         base=jbase, cron=jcron, secrets=jsecrets, handlers=jhandlers,
-        chaos=jchaos, obs=jobs, timeseries=jtimeseries),
+        deployments=jdeployments, builder=jbuilder, chaos=jchaos, obs=jobs,
+        timeseries=jtimeseries),
     "port": types.SimpleNamespace(
         name="port", app=tapp, sqlitedb=tsqlitedb, httpdb=thttpdb,
         base=tbase, cron=tcron, secrets=tsecrets, handlers=thandlers,
-        chaos=tchaos, obs=tobs, timeseries=ttimeseries),
+        deployments=tdeployments, builder=tbuilder, chaos=tchaos, obs=tobs,
+        timeseries=ttimeseries),
 }
 
 
