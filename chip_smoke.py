@@ -5,7 +5,12 @@
 Phases, each printing JSON lines (any failed check raises, so the script
 exits non-zero and never prints the final line):
 
-1. build   - compiles the CUDA kernels from mlrun_tpu_torch/csrc (nvcc,
+1. build   - first, before any engine boots, runs the port's static lint
+             (``python -m mlrun_tpu_torch.analysis mlrun_tpu_torch``) in
+             a child and fails on any finding or parse error, then
+             ``python -m mlrun_tpu_torch version`` (the click CLI, under
+             the card's click) and checks its line; then
+             compiles the CUDA kernels from mlrun_tpu_torch/csrc (nvcc,
              sm_90a) and reports the build time, torch/CUDA versions and
              the card's name and power limit; counts the tensor-core
              instructions (HMMA/HGMMA in cuobjdump -sass) of every bf16
@@ -540,11 +545,56 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str):
 # phase 1: build
 # ---------------------------------------------------------------------------
 
+def _child(args: list, what: str) -> tuple[str, float]:
+    """``python -m <args>`` from the checkout: (stdout, seconds); fails the
+    phase on a non-zero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH", "")) if p)
+    started = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m"] + args, cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=120)
+    seconds = time.perf_counter() - started
+    if proc.returncode != 0:
+        fail(f"build ({what}): `python -m {' '.join(args)}` exited "
+             f"{proc.returncode}\n{proc.stdout[-4000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    return proc.stdout, seconds
+
+
+def _lint_and_cli():
+    """The port's lint over its own package (zero findings, no parse
+    error) and the click CLI's ``version``, each in a child."""
+    import importlib.metadata
+
+    import mlrun_tpu_torch
+
+    out, seconds = _child(["mlrun_tpu_torch.analysis", "mlrun_tpu_torch",
+                           "--format", "json"], "lint")
+    report = json.loads(out)
+    lint = {"files_checked": report["files_checked"],
+            "findings": len(report["findings"]),
+            "suppressed": len(report["suppressed"]),
+            "parse_errors": len(report["parse_errors"]),
+            "seconds": seconds}
+    emit({"phase": "build", "lint": lint})
+    if report["findings"] or report["parse_errors"] or not report["ok"]:
+        fail(f"build (lint): {report['findings'][:5]} "
+             f"{report['parse_errors'][:5]}")
+    out, seconds = _child(["mlrun_tpu_torch", "version"], "version")
+    version = {"line": out, "seconds": seconds,
+               "click": importlib.metadata.version("click")}
+    emit({"phase": "build", "cli_version": version})
+    if out != f"mlrun-tpu version {mlrun_tpu_torch.__version__}\n":
+        fail(f"build (version): {out!r}")
+
+
 def phase_build(card: str):
     import torch
 
     from mlrun_tpu_torch.ops import _build
 
+    _lint_and_cli()
     started = time.perf_counter()
     _build.library()
     seconds = time.perf_counter() - started

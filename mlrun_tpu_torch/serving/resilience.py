@@ -534,18 +534,7 @@ class DegradationLadder:
         return max_new_tokens
 
 
-# ROADMAP.md "Modules still to port", by item number (1-13 and 15
-# landed; item 14 queues the reference's host packages that have no
-# counterpart in the port yet: its parts 14a-14c landed, 14d remains)
-PORT_QUEUE = {
-    14: "14d, analysis/ (the repo's static lint)",
-}
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for a feature of the reference engines the port does not
-    have yet; ``item`` is its number in ROADMAP.md's port queue."""
-    return NotImplementedError(
-        f"{what} is not ported to mlrun_tpu_torch yet (ROADMAP.md, "
-        f"modules still to port, item {item}: {PORT_QUEUE[item]})")
-
+# ROADMAP.md "Modules still to port", by item number: items 1-15 have
+# all landed (item 14's last part, 14d, is the port's static lint,
+# analysis/), so no module is queued
+PORT_QUEUE: dict[int, str] = {}

@@ -1,10 +1,10 @@
-"""mlrun_tpu_torch's CLI (``python3 -m mlrun_tpu_torch``, on argparse)
-against mlrun_tpu's (click): the contracts of tests/test_cli.py, each
+"""mlrun_tpu_torch's CLI (``python3 -m mlrun_tpu_torch``) against
+mlrun_tpu's, both click groups: the contracts of tests/test_cli.py, each
 command driven in this process with the same arguments in both packages
-(the port through ``main(argv)``, the reference through click's runner),
-plus ``get_or_create_ctx`` under ``MLT_EXEC_CONFIG`` and the pod's
-program: the ``tpujob`` JobSet's own container command, run under
-torchrun on the CPU.
+through click's ``CliRunner`` (stdout, stderr and exit codes compared
+letter for letter, uids masked), plus ``get_or_create_ctx`` under
+``MLT_EXEC_CONFIG`` and the pod's program: the ``tpujob`` JobSet's own
+container command, run under torchrun on the CPU.
 
 Every package writes under its own ``MLT_HOME`` with a fresh run db.
 Three tests start a process: ``python -m mlrun_tpu_torch``, the in-pod
@@ -69,31 +69,25 @@ def homes(tmp_path, monkeypatch):
     return use
 
 
-def _invoke(name, args, capsys, env=None, monkeypatch=None):
+def _invoke(name, args, env=None, monkeypatch=None):
     """(exit code, stdout, stderr) of one command in this process."""
     for key, value in (env or {}).items():
         monkeypatch.setenv(key, value)
-    if name == "jax":
-        result = CliRunner().invoke(jcli.main, args, catch_exceptions=False)
-        code, out, err = result.exit_code, result.stdout, result.stderr
-    else:
-        capsys.readouterr()
-        code = tcli.main(args)
-        captured = capsys.readouterr()
-        out, err = captured.out, captured.err
+    cli = jcli if name == "jax" else tcli
+    result = CliRunner().invoke(cli.main, args, catch_exceptions=False)
     for key in env or {}:
         monkeypatch.delenv(key)
-    return code, out, err
+    return result.exit_code, result.stdout, result.stderr
 
 
-def _both(args, capsys, homes, monkeypatch, env=None, before=None):
+def _both(args, homes, monkeypatch, env=None, before=None):
     got = {}
     for name in ("jax", "port"):
         home = homes(name)
         if before is not None:
             before(name, home)
         got[name] = _invoke(name, args(home) if callable(args) else args,
-                            capsys, env, monkeypatch)
+                            env, monkeypatch)
     return got
 
 
@@ -103,22 +97,22 @@ def _masked(text: str) -> str:
 
 # -- tests/test_cli.py --------------------------------------------------------
 
-def test_version_like_reference(capsys, homes, monkeypatch):
-    got = _both(["version"], capsys, homes, monkeypatch)
+def test_version_like_reference(homes, monkeypatch):
+    got = _both(["version"], homes, monkeypatch)
     assert got["port"] == got["jax"]
     assert got["port"][0] == 0 and "mlrun-tpu version" in got["port"][1]
 
 
-def test_run_script_and_get_like_reference(tmp_path, capsys, homes,
+def test_run_script_and_get_like_reference(tmp_path, homes,
                                            monkeypatch):
     script = tmp_path / "job.py"
     script.write_text(HANDLER)
     runs = _both(["run", str(script), "--handler", "handler", "--param",
-                  "x=21", "--name", "cli-job"], capsys, homes, monkeypatch)
+                  "x=21", "--name", "cli-job"], homes, monkeypatch)
     listed = {}
     for name in ("jax", "port"):
         homes(name)
-        listed[name] = _invoke(name, ["get", "runs"], capsys, None,
+        listed[name] = _invoke(name, ["get", "runs"], None,
                                monkeypatch)
     for name in ("jax", "port"):
         assert runs[name][0] == 0, runs[name][2]
@@ -129,7 +123,7 @@ def test_run_script_and_get_like_reference(tmp_path, capsys, homes,
     assert _masked(listed["port"][1]) == _masked(listed["jax"][1])
 
 
-def test_run_from_env_contract_like_reference(tmp_path, capsys, homes,
+def test_run_from_env_contract_like_reference(tmp_path, homes,
                                               monkeypatch):
     code = ("def handler(context):\n"
             "    context.log_result('ok', context.get_param('p'))\n")
@@ -139,7 +133,7 @@ def test_run_from_env_contract_like_reference(tmp_path, capsys, homes,
     monkeypatch.chdir(tmp_path)
     env = {"MLT_EXEC_CONFIG": json.dumps(config),
            "MLT_EXEC_CODE": base64.b64encode(code.encode()).decode()}
-    got = _both(["run", "--from-env"], capsys, homes, monkeypatch, env=env)
+    got = _both(["run", "--from-env"], homes, monkeypatch, env=env)
     assert got["port"] == got["jax"]
     assert got["port"][0] == 0
     assert got["port"][1] == "run 0123456789abcdef finished: completed\n"
@@ -149,11 +143,11 @@ def test_run_from_env_contract_like_reference(tmp_path, capsys, homes,
     assert run["status"]["results"] == {"ok": 5}
 
 
-def test_run_failure_exit_code_like_reference(tmp_path, capsys, homes,
+def test_run_failure_exit_code_like_reference(tmp_path, homes,
                                               monkeypatch):
     script = tmp_path / "bad.py"
     script.write_text("def handler(context):\n    raise ValueError('no')\n")
-    got = _both(["run", str(script), "--handler", "handler"], capsys, homes,
+    got = _both(["run", str(script), "--handler", "handler"], homes,
                 monkeypatch)
     for name in ("jax", "port"):
         code, out, err = got[name]
@@ -165,17 +159,17 @@ def test_run_failure_exit_code_like_reference(tmp_path, capsys, homes,
         _masked(got["jax"][1].splitlines()[-1]) == "run <uid> finished: error"
 
 
-def test_from_env_missing_config_errors_like_reference(capsys, homes,
+def test_from_env_missing_config_errors_like_reference(homes,
                                                        monkeypatch):
     monkeypatch.delenv("MLT_EXEC_CONFIG", raising=False)
-    got = _both(["run", "--from-env"], capsys, homes, monkeypatch)
+    got = _both(["run", "--from-env"], homes, monkeypatch)
     assert got["port"] == got["jax"]
     assert got["port"] == (
         1, "", "Error: --from-env set but MLT_EXEC_CONFIG is empty\n")
 
 
 def test_from_env_writes_kfp_output_parameters_like_reference(
-        tmp_path, capsys, homes, monkeypatch):
+        tmp_path, homes, monkeypatch):
     code = ("def handler(context):\n"
             "    context.log_result('r', 7)\n"
             "    context.log_result('s', 'text')\n")
@@ -194,13 +188,11 @@ def test_from_env_writes_kfp_output_parameters_like_reference(
         env = dict(env_base, MLT_KFP_OUTPUTS=json.dumps(
             {"s": str(outs(name) / "s")}))
         got[name] = _invoke(name, ["run", "--from-env", "--kfp-output",
-                                   f"r={outs(name) / 'r'}"],
-                            capsys, env, monkeypatch)
+                                   f"r={outs(name) / 'r'}"], env, monkeypatch)
         missing[name] = _invoke(
             name, ["run", "--from-env", "--kfp-output",
                    f"r={outs(name) / 'r'}", "--kfp-output",
-                   f"missing={tmp_path / name / 'm'}"],
-            capsys, env, monkeypatch)
+                   f"missing={tmp_path / name / 'm'}"], env, monkeypatch)
     for name in ("jax", "port"):
         assert got[name][0] == 0, got[name][2]
         assert (outs(name) / "r").read_text() == "7"
@@ -212,7 +204,7 @@ def test_from_env_writes_kfp_output_parameters_like_reference(
     assert _masked(got["port"][1]) == _masked(got["jax"][1])
 
 
-def test_run_str_param_stays_string_like_reference(tmp_path, capsys, homes,
+def test_run_str_param_stays_string_like_reference(tmp_path, homes,
                                                    monkeypatch):
     script = tmp_path / "job.py"
     script.write_text(
@@ -221,12 +213,12 @@ def test_run_str_param_stays_string_like_reference(tmp_path, capsys, homes,
         "{type(b).__name__}')\n")
     got = _both(["run", str(script), "--handler", "handler", "--param",
                  "a=7", "--str-param", "b=7", "--name", "cli-types"],
-                capsys, homes, monkeypatch)
+                homes, monkeypatch)
     listed = {}
     for name in ("jax", "port"):
         homes(name)
         assert got[name][0] == 0
-        listed[name] = _invoke(name, ["get", "runs"], capsys, None,
+        listed[name] = _invoke(name, ["get", "runs"], None,
                                monkeypatch)[1]
         assert "'types': 'int,str'" in listed[name]
     assert _masked(listed["port"]) == _masked(listed["jax"])
@@ -254,7 +246,7 @@ def step2(context, v: int = 0):
 '''
 
 
-def test_project_run_get_and_logs_like_reference(tmp_path, capsys, homes,
+def test_project_run_get_and_logs_like_reference(tmp_path, homes,
                                                  monkeypatch):
     """``project <dir> --run main -x v=3`` runs a project's workflow on the
     local engine; ``get`` lists its runs, functions and project; ``logs``
@@ -277,17 +269,17 @@ def test_project_run_get_and_logs_like_reference(tmp_path, capsys, homes,
         proj.set_workflow("main", "workflow.py")
         proj.save()
         out = [_invoke(name, ["project", str(directory), "--run", "main",
-                              "-x", "v=3"], capsys, None, monkeypatch)]
+                              "-x", "v=3"], None, monkeypatch)]
         for kind in ("runs", "functions", "projects", "schedules"):
             out.append(_invoke(name, ["get", kind, "-p", "proj-cli"],
-                               capsys, None, monkeypatch))
+                               None, monkeypatch))
         runs = pkg.get_run_db().list_runs(project="proj-cli")
         first = [r for r in runs if r["metadata"]["name"] == "step1"][0]
         assert [r["status"]["results"] for r in sorted(
             runs, key=lambda r: r["metadata"]["name"])] == [
                 {"a": 13}, {"b": 26}]
         out.append(_invoke(name, ["logs", first["metadata"]["uid"], "-p",
-                                  "proj-cli"], capsys, None, monkeypatch))
+                                  "proj-cli"], None, monkeypatch))
         outs[name] = [(code, _masked(o), e) for code, o, e in out]
     assert outs["port"] == outs["jax"]
     assert outs["port"][0][1] == ("project loaded: proj-cli\n"
@@ -296,12 +288,12 @@ def test_project_run_get_and_logs_like_reference(tmp_path, capsys, homes,
     assert outs["port"][-1][1] == "step1 ran\n\nfinal state: completed\n"
 
 
-def test_config_writes_the_same_env_file(tmp_path, capsys, homes,
+def test_config_writes_the_same_env_file(tmp_path, homes,
                                          monkeypatch):
     got = _both(lambda home: ["config", "--api", "http://svc:8080",
                               "--artifact-path", "/data/{project}",
                               "--env-file", os.path.join(home, "c.env")],
-                capsys, homes, monkeypatch,
+                homes, monkeypatch,
                 before=lambda name, home: os.makedirs(home))
     texts = [open(os.path.join(str(tmp_path / f"home-{n}"), "c.env")).read()
              for n in ("jax", "port")]
@@ -310,49 +302,69 @@ def test_config_writes_the_same_env_file(tmp_path, capsys, homes,
     assert [c for c, _, _ in got.values()] == [0, 0]
 
 
-@pytest.mark.parametrize("args", [["build", "db://p/f"], ["db"],
-                                  ["bootstrap", "-r", "numpy", "python3"]])
-def test_the_services_commands_exit_1_naming_item_14(args, capsys,
-                                                     monkeypatch, homes):
+@pytest.mark.parametrize("args", [
+    ["build", "db://p/f"], ["db"], ["bootstrap", "-r", "numpy", "python3"],
+    ["bootstrap", "-r", "--no-index", "-r", "numpy", "--overlay-root",
+     "/o", "--", "python3", "-m", "job", "--flag"]])
+def test_build_db_and_bootstrap_reach_the_service_like_reference(
+        args, monkeypatch, homes):
     """``build`` deploys the stored function through the service's
     builder (``fn.deploy``): over a local run db, which has no builder,
     both packages raise the db's NotImplementedError. ``db`` starts the
     service (``service.app.run_app``) and ``bootstrap`` execs its command
     under the requirements overlay (``utils.bootstrap.
-    exec_with_requirements``), as the reference's commands do; both are
-    recorded here instead of run."""
+    exec_with_requirements``) — a requirement that is itself a pip flag
+    is the option's value, and ``--`` ends the options — as the
+    reference's commands do; both are recorded here instead of run."""
+    import mlrun_tpu.service.app
+    import mlrun_tpu.utils.bootstrap
     from mlrun_tpu_torch.service import app
     from mlrun_tpu_torch.utils import bootstrap
 
-    calls = []
-    monkeypatch.setattr(app, "run_app",
-                        lambda **kw: calls.append(("run_app", kw)))
-    monkeypatch.setattr(bootstrap, "exec_with_requirements",
-                        lambda reqs, cmd, overlay_root=None: calls.append(
-                            ("exec", reqs, cmd, overlay_root)))
+    calls = {"jax": [], "port": []}
+    for name, app_mod, boot_mod in (
+            ("jax", mlrun_tpu.service.app, mlrun_tpu.utils.bootstrap),
+            ("port", app, bootstrap)):
+        def run_app(_calls=calls[name], **kw):
+            _calls.append(("run_app", kw))
+
+        def exec_with_requirements(reqs, cmd, overlay_root=None,
+                                   _calls=calls[name]):
+            _calls.append(("exec", reqs, cmd, overlay_root))
+
+        monkeypatch.setattr(app_mod, "run_app", run_app)
+        monkeypatch.setattr(boot_mod, "exec_with_requirements",
+                            exec_with_requirements)
     if args[0] == "build":
-        for name, pkg in (("jax", mlrun_tpu), ("port", mlrun_tpu_torch)):
+        for name, pkg, flag in (("jax", mlrun_tpu, "--with-tpu"),
+                                ("port", mlrun_tpu_torch, "--with-tpu"),
+                                ("port", mlrun_tpu_torch, "--with-gpu")):
             homes(name)
             fn = pkg.new_function("f", project="p", kind="job", image="img")
             fn.save()
             with pytest.raises(NotImplementedError):
-                _invoke(name, args + ["--with-tpu"], capsys)
-        assert calls == []
+                _invoke(name, args + [flag])
+        assert calls == {"jax": [], "port": []}
         return
-    code = tcli.main(args)
+    got = _both(args, homes, monkeypatch)
+    assert got["port"] == got["jax"] == (0, "", "")
+    assert calls["port"] == calls["jax"]
     if args[0] == "db":
-        assert code == 0 and calls == [("run_app", {"host": "",
-                                                    "port": 0})]
+        assert calls["port"] == [("run_app", {"host": "", "port": 0})]
+    elif args[2] == "numpy":
+        assert calls["port"] == [("exec", ["numpy"], ["python3"], None)]
     else:
-        assert code == 0 and calls == [("exec", ["numpy"], ["python3"],
-                                        None)]
+        assert calls["port"] == [("exec", ["--no-index", "numpy"],
+                                  ["python3", "-m", "job", "--flag"],
+                                  "/o")]
 
 
-def test_usage_errors_exit_2_as_click_does(capsys):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(["get", "nothing"])
-    assert exc.value.code == CliRunner().invoke(
-        jcli.main, ["get", "nothing"]).exit_code == 2
+def test_usage_errors_exit_2_as_click_does(homes, monkeypatch):
+    got = _both(["get", "nothing"], homes, monkeypatch)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == 2
+    assert "Error: Invalid value" in got["port"][2]
+    assert "'nothing' is not one of" in got["port"][2]
 
 
 def test_serve_starts_the_env_gateway_and_sigint_returns(monkeypatch):
@@ -384,8 +396,8 @@ def test_serve_starts_the_env_gateway_and_sigint_returns(monkeypatch):
     monkeypatch.setenv("SERVING_SPEC_ENV", json.dumps(spec))
     monkeypatch.setattr("mlrun_tpu_torch.training.preemption."
                         "PreemptionGuard.install", lambda guard: guard)
-    assert tcli.main(["serve", "--port", "18123", "--host",
-                      "127.0.0.1"]) == 0
+    assert _invoke("port", ["serve", "--port", "18123", "--host",
+                            "127.0.0.1"]) == (0, "", "")
     assert seen == {"bind": ("127.0.0.1", 18123), "served": True,
                     "closed": True, "app_closed": True}
 
@@ -439,7 +451,8 @@ def test_python_m_runs_the_ports_cli(tmp_path):
 def test_run_from_env_in_a_process_imports_no_torch(tmp_path):
     """The pod's entry point as its own process: the run completes into
     the run db, and the CLI itself never imports torch or the
-    reference."""
+    reference; click, the CLI's own framework, is the one module of the
+    four it loads."""
     code = ("import sys\n"
             "def handler(context, p: int = 0):\n"
             "    context.log_result('ok', p)\n"
@@ -461,7 +474,7 @@ def test_run_from_env_in_a_process_imports_no_torch(tmp_path):
         "run 00112233445566778899aabbccddeeff finished: completed\n")
     run = tdb.SQLiteRunDB(db_path).read_run(
         "00112233445566778899aabbccddeeff", "default")
-    assert run["status"]["results"] == {"ok": 5, "loaded": []}
+    assert run["status"]["results"] == {"ok": 5, "loaded": ["click"]}
 
 
 def _shims(directory) -> str:

@@ -24,8 +24,8 @@ the server-side launcher, project secrets, cron, the chief/worker roles,
 projects sync, the HTTP and server-SQL run dbs, the remote launcher, the
 log collector client and the requirements bootstrap), the image builder,
 the deployments, the serving / remote / api-gateway / dask / spark /
-databricks runtimes and the object stores included, nor the
-chip smoke script and the port's profile scripts) imports JAX or the
+databricks runtimes and the object stores included, and the static
+lint (analysis/), nor the chip smoke script and the port's profile scripts) imports JAX or the
 reference package, and importing the serving, fleet, telemetry, model,
 training, datastore, parallel and run-stack paths pulls neither into the
 process.
@@ -42,7 +42,9 @@ file imports neither, and importing the serving graph and its gateway,
 the training, serving and run-stack paths, or ``get_run_db()`` of a
 local path pulls neither in: the gateway and the remote steps stand on
 the standard library's ``http.server`` and ``urllib``, which the port's
-tests drive. No file imports ``click``: the CLI stands on argparse. The multi-rank test
+tests drive. ``click`` is imported by the CLI alone
+(``mlrun_tpu_torch/__main__.py``, a click group as the reference's is), and
+``import mlrun_tpu_torch`` loads none of it. The multi-rank test
 helper (tests/torch_ranks.py), whose ranks run the port alone, is held to
 the same rule. No port source names a path under ``native/`` or the
 reference package: the token-shard loader builds the port's own copy of
@@ -72,8 +74,9 @@ HTTP_FILES = ("mlrun_tpu_torch/service/app.py",
               "mlrun_tpu_torch/datastore/stores.py",
               "mlrun_tpu_torch/datastore/sources.py")
 HTTP_DIRS = ("mlrun_tpu_torch/service/api/",)
-# the reference CLI's framework: the port's CLI stands on argparse
-NOT_USED = ("click",)
+# the CLI's framework: only the CLI module imports it
+CLI_LIBRARIES = ("click",)
+CLI_FILES = ("mlrun_tpu_torch/__main__.py",)
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "mlrun_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "tests/torch_ranks.py",
@@ -94,7 +97,8 @@ def _imported_roots(tree):
 def test_port_file_imports_no_jax_or_reference(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     http_ok = path in HTTP_FILES or path.startswith(HTTP_DIRS)
-    forbidden = FORBIDDEN + NOT_USED + (() if http_ok else HTTP_LIBRARIES)
+    forbidden = FORBIDDEN + (() if http_ok else HTTP_LIBRARIES) \
+        + (() if path in CLI_FILES else CLI_LIBRARIES)
     bad = sorted({m for m in _imported_roots(tree) if m in forbidden})
     assert not bad, f"{path} imports {bad}"
 
@@ -234,7 +238,7 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.feature_store.ingestion_service\n"
         "import mlrun_tpu_torch.datastore.sources\n"
         "import mlrun_tpu_torch.datastore.targets\n"
-        "import mlrun_tpu_torch.__main__, mlrun_tpu_torch.projects\n"
+        "import mlrun_tpu_torch.projects\n"
         "import mlrun_tpu_torch.projects.pipelines\n"
         "import mlrun_tpu_torch.frameworks, mlrun_tpu_torch.hub\n"
         "import mlrun_tpu_torch.frameworks.sklearn\n"
@@ -246,10 +250,15 @@ def test_serving_import_pulls_in_no_jax_or_reference():
         "import mlrun_tpu_torch.errors, mlrun_tpu_torch.platforms\n"
         "import mlrun_tpu_torch.render, mlrun_tpu_torch.track\n"
         "import mlrun_tpu_torch.utils.version\n"
+        "import mlrun_tpu_torch.analysis\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
+        "import mlrun_tpu_torch.__main__\n"
+        "bad += sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN + HTTP_LIBRARIES
-                                     + NOT_USED,))
+                                     + CLI_LIBRARIES,
+                                     FORBIDDEN + HTTP_LIBRARIES))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -322,26 +331,29 @@ def test_the_tuning_loop_needs_no_pandas():
 
 
 def test_the_cli_and_projects_need_no_click_or_kfp(tmp_path):
-    """With click and kfp not importable, the CLI, the projects and
-    run.py import, ``import mlrun_tpu_torch`` leaves the projects and
-    torch unloaded, a project saves and loads and the CLI answers; the
-    kfp engine alone needs kfp."""
+    """With kfp not importable, ``import mlrun_tpu_torch`` leaves click,
+    the projects and torch unloaded, the projects and run.py import, a
+    project saves and loads and the CLI (a click group: the one module
+    that imports click) answers; the kfp engine alone needs kfp."""
     code = (
         "import sys, tempfile\n"
-        "for name in ('click', 'kfp'):\n"
-        "    sys.modules[name] = None\n"
+        "sys.modules['kfp'] = None\n"
         "import mlrun_tpu_torch\n"
-        "light = [m for m in ('mlrun_tpu_torch.projects', 'torch')\n"
-        "         if m in sys.modules]\n"
-        "import mlrun_tpu_torch.__main__ as cli\n"
+        "light = [m for m in ('mlrun_tpu_torch.projects', 'torch',\n"
+        "                     'click') if m in sys.modules]\n"
         "import mlrun_tpu_torch.run, mlrun_tpu_torch.projects\n"
+        "no_click = 'click' not in sys.modules\n"
+        "import mlrun_tpu_torch.__main__ as cli\n"
+        "from click.testing import CliRunner\n"
         "d = tempfile.mkdtemp()\n"
         "p = mlrun_tpu_torch.new_project('p', context=d, save=False)\n"
         "p.set_workflow('main', 'wf.py')\n"
         "p.save(store=False)\n"
         "q = mlrun_tpu_torch.load_project(d, save=False)\n"
         "assert q.spec.get_workflow('main')['path'] == 'wf.py'\n"
-        "assert cli.main(['version']) == 0\n"
+        "answer = CliRunner().invoke(cli.main, ['version'])\n"
+        "assert answer.exit_code == 0, answer.output\n"
+        "assert answer.output.startswith('mlrun-tpu version '), answer\n"
         "try:\n"
         "    mlrun_tpu_torch.projects.pipelines.get_workflow_engine(\n"
         "        'kfp').run(q, {}, workflow_handler=lambda: None)\n"
@@ -349,10 +361,10 @@ def test_the_cli_and_projects_need_no_click_or_kfp(tmp_path):
         "    pass\n"
         "else:\n"
         "    raise AssertionError('the kfp engine ran without kfp')\n"
-        "print(light, sorted(m for m in ('click', 'kfp')\n"
-        "                    if sys.modules.get(m) is not None))\n")
+        "print(light, no_click, sorted(m for m in ('click', 'kfp')\n"
+        "                              if sys.modules.get(m) is not None))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT), MLT_HOME=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[] []"
+    assert out.stdout.strip().splitlines()[-1] == "[] True ['click']"

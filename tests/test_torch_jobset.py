@@ -98,7 +98,7 @@ def test_serving_pod_without_a_program_runs_the_ports_gateway():
     """A serving container that names no program (the pod fleet's default
     pod spec) runs the port's ``serve`` as one process, on the probes'
     port; a given program keeps its torchrun launch."""
-    from mlrun_tpu_torch.__main__ import build_parser
+    from mlrun_tpu_torch.__main__ import main as cli
 
     spec = tjobset.build_serving_jobset(
         "serve-a", "ns", {"containers": [{"name": "engine",
@@ -108,8 +108,10 @@ def test_serving_pod_without_a_program_runs_the_ports_gateway():
     assert main["command"] == ["python3", "-m", "mlrun_tpu_torch", "serve",
                                "--port", "9000"]
     assert "args" not in main
-    args = build_parser().parse_args(main["command"][3:])
-    assert (args.command, args.port) == ("serve", 9000)
+    ctx = cli.make_context("mlrun-tpu-torch", main["command"][3:])
+    serve = cli.get_command(ctx, main["command"][3])
+    args = serve.make_context("serve", main["command"][4:], parent=ctx)
+    assert (serve.name, args.params["port"]) == ("serve", 9000)
     assert main["readinessProbe"]["httpGet"]["port"] == 9000
     given = tjobset.build_serving_jobset(
         "serve-b", "ns", {"containers": [{"name": "engine", "image": "img",

@@ -690,7 +690,7 @@ FOURTEEN_B = ["mlrun_tpu_torch/__main__.py",
 def test_no_14b_surface_raises_item_14_but_for_14c():
     """No ``not_ported(..., 14)`` is left on a 14b surface since part 14c
     landed (the builder, the deployments, the other runtimes), and the
-    port queue's item 14 holds 14d alone."""
+    port queue is empty since 14d (the static lint) landed too."""
     import ast
 
     from mlrun_tpu_torch.serving.resilience import PORT_QUEUE
@@ -705,5 +705,4 @@ def test_no_14b_surface_raises_item_14_but_for_14c():
                                                 None) == 14:
                 left.append((path, node.lineno, ast.unparse(node.args[0])))
     assert left == []
-    assert set(PORT_QUEUE) == {14} and "14d" in PORT_QUEUE[14]
-    assert "14c" not in PORT_QUEUE[14] and "14b" not in PORT_QUEUE[14]
+    assert PORT_QUEUE == {}
