@@ -19,6 +19,11 @@ rank runs only its ``n_experts / n`` experts on those rows and the
 group sums the partial outputs (XLA's collectives in the reference,
 written out here). The aux loss takes its token fractions over the whole
 batch (:meth:`ExpertParallel.frac_tokens`), as the reference's does.
+
+Under phase capture (``utils.profiler.phase``) a layer shows as
+``moe.attention``, ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine``, the loss head as ``moe.head``; the same spans inside a
+checkpoint's recompute carry ``recompute``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_table
+from ..utils.profiler import phase
 from .llama import (
     LlamaConfig,
     _remat_context,
@@ -278,9 +284,10 @@ def route(config: MoEConfig, x: torch.Tensor, router: torch.Tensor,
     top k come from a stable descending sort (``torch.topk`` promises no
     order among equal values); ``argmax`` returns the first maximum in
     both packages."""
-    masks, gate_vals, aux_loss = _route_choices(config, x, router,
-                                                frac_tokens)
-    return (*_dispatch_combine(masks, gate_vals), aux_loss)
+    with phase("moe.route"):
+        masks, gate_vals, aux_loss = _route_choices(config, x, router,
+                                                    frac_tokens)
+        return (*_dispatch_combine(masks, gate_vals), aux_loss)
 
 
 def expert_partial(x: torch.Tensor, dispatch: torch.Tensor,
@@ -298,13 +305,17 @@ def expert_partial(x: torch.Tensor, dispatch: torch.Tensor,
     b, s, m = x.shape
     n, capacity = dispatch.shape[2], dispatch.shape[3]
     # [E', B, C, M] expert buffers, then [E', B*C, M] for the products
-    expert_in = torch.einsum("bsec,bsm->ebcm", dispatch,
-                             x.float()).to(x.dtype).reshape(n, b * capacity, m)
-    gate_h = torch.matmul(expert_in, gate_w)
-    up_h = torch.matmul(expert_in, up_w)
-    expert_out = torch.matmul(F.silu(gate_h) * up_h, down_w)
-    return torch.einsum("bsec,ebcm->bsm", combine,
-                        expert_out.float().reshape(n, b, capacity, m))
+    with phase("moe.dispatch"):
+        expert_in = torch.einsum(
+            "bsec,bsm->ebcm", dispatch,
+            x.float()).to(x.dtype).reshape(n, b * capacity, m)
+    with phase("moe.experts"):
+        gate_h = torch.matmul(expert_in, gate_w)
+        up_h = torch.matmul(expert_in, up_w)
+        expert_out = torch.matmul(F.silu(gate_h) * up_h, down_w)
+    with phase("moe.combine"):
+        return torch.einsum("bsec,ebcm->bsm", combine,
+                            expert_out.float().reshape(n, b, capacity, m))
 
 
 def _moe_mlp(config: MoEConfig, x: torch.Tensor, lp: Params,
@@ -327,10 +338,11 @@ def _moe_mlp(config: MoEConfig, x: torch.Tensor, lp: Params,
                                                 ep.frac_tokens)
         return expert_partial(x, dispatch, combine,
                               *experts).to(x.dtype), aux_loss
-    masks, gate_vals, aux_loss = _route_choices(config, x, lp["router"],
-                                                ep.frac_tokens)
-    dispatch, combine = _dispatch_combine(
-        masks, ep.enter(gate_vals), ep.lo, ep.lo + ep.per_rank)
+    with phase("moe.route"):
+        masks, gate_vals, aux_loss = _route_choices(config, x, lp["router"],
+                                                    ep.frac_tokens)
+        dispatch, combine = _dispatch_combine(
+            masks, ep.enter(gate_vals), ep.lo, ep.lo + ep.per_rank)
     partial = expert_partial(ep.enter(x), dispatch, combine,
                              *(ep.experts(w) for w in experts))
     return ep.leave(partial).to(x.dtype), aux_loss
@@ -338,14 +350,15 @@ def _moe_mlp(config: MoEConfig, x: torch.Tensor, lp: Params,
 
 def _layer_body(config: MoEConfig, x, lp, cos, sin, expert_parallel=None):
     b, s, _ = x.shape
-    h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
-    q = (h @ lp["wq"]).reshape(b, s, config.n_heads, config.head_dim)
-    k = (h @ lp["wk"]).reshape(b, s, config.n_kv_heads, config.head_dim)
-    v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    attn = attention(q, k, v, causal=True, impl=config.attention_impl)
-    x = x + attn.reshape(b, s, config.qkv_dim) @ lp["wo"]
+    with phase("moe.attention"):
+        h = rms_norm(x, lp["attn_norm_scale"], config.norm_eps)
+        q = (h @ lp["wq"]).reshape(b, s, config.n_heads, config.head_dim)
+        k = (h @ lp["wk"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        v = (h @ lp["wv"]).reshape(b, s, config.n_kv_heads, config.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn = attention(q, k, v, causal=True, impl=config.attention_impl)
+        x = x + attn.reshape(b, s, config.qkv_dim) @ lp["wo"]
     h2 = rms_norm(x, lp["mlp_norm_scale"], config.norm_eps)
     moe_out, aux = _moe_mlp(config, h2, lp, expert_parallel)
     return x + moe_out, aux
@@ -404,23 +417,24 @@ def loss_fn(config: MoEConfig, params: Params, tokens: torch.Tensor,
     ranks' losses (and aux losses) is the global batch's, since every
     rank's aux takes the global token fractions and is linear in its own
     mean router probabilities."""
-    if loss_chunk:
-        x, aux_loss = hidden_states(config, params, tokens, expert_parallel)
-        ce, accuracy, _ = chunked_ce(x, lm_head(params), targets, mask=mask,
-                                     chunk=loss_chunk)
-    else:
-        x, aux_loss = hidden_states(config, params, tokens, expert_parallel)
-        logits = logits_f32(x, lm_head(params))
-        log_probs = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(log_probs, -1, targets[..., None].long())[..., 0]
-        if mask is None:
-            mask = torch.ones(targets.shape, dtype=torch.float32,
-                              device=targets.device)
-        mask = mask.float()
-        total = torch.clamp_min(mask.sum(), 1.0)
-        ce = (nll * mask).sum() / total
-        accuracy = ((torch.argmax(logits, dim=-1) == targets).float()
-                    * mask).sum() / total
+    x, aux_loss = hidden_states(config, params, tokens, expert_parallel)
+    with phase("moe.head"):
+        if loss_chunk:
+            ce, accuracy, _ = chunked_ce(x, lm_head(params), targets,
+                                         mask=mask, chunk=loss_chunk)
+        else:
+            logits = logits_f32(x, lm_head(params))
+            log_probs = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(log_probs, -1,
+                                targets[..., None].long())[..., 0]
+            if mask is None:
+                mask = torch.ones(targets.shape, dtype=torch.float32,
+                                  device=targets.device)
+            mask = mask.float()
+            total = torch.clamp_min(mask.sum(), 1.0)
+            ce = (nll * mask).sum() / total
+            accuracy = ((torch.argmax(logits, dim=-1) == targets).float()
+                        * mask).sum() / total
     loss = ce + config.router_aux_weight * aux_loss
     return loss, {"loss": loss, "ce_loss": ce, "aux_loss": aux_loss,
                   "accuracy": accuracy}

@@ -11,7 +11,10 @@ header across hops (:func:`parse_trace_header`, :func:`format_trace_header`,
 ``span(trace_id=..., parent_id=...)`` joins a caller's trace). Spans land
 in a bounded in-memory ring and, when a path is configured, in a JSONL
 file (one span object a line, size-capped rotation with one ``.1``
-predecessor). Stdlib only.
+predecessor). A span may be emitted with a ``resolve`` callable for
+attrs that are known only later (a training phase's device time): it
+enters the ring at once, and its JSONL line waits until ``resolve``
+reports it final (:meth:`Tracer.settle`). Stdlib only.
 """
 
 from __future__ import annotations
@@ -132,11 +135,31 @@ class Tracer:
         self._file_lock = threading.Lock()
         self._local = threading.local()
         self._lock = threading.Lock()
+        # spans whose attrs await their ``resolve`` callable, oldest first
+        self._pending: deque = deque()
+        self._pending_lock = threading.Lock()
+        # the training phases' switch (utils/profiler.phase): on, they
+        # record with no torch.profiler session too
+        self.phases = False
 
     def configure(self, path: str | None = None, ring: int | None = None,
-                  max_bytes: int | None = None):
+                  max_bytes: int | None = None,
+                  phases: bool | None = None):
         """Set the JSONL path (``""`` turns the file export off), the
-        ring size and the rotation cap."""
+        ring size and the rotation cap.
+
+        ``phases=True`` turns on the training step's phase capture
+        (``utils.profiler.phase``) without a profiler: every step of
+        ``Trainer.fit`` then lands in the ring (and the JSONL file) as
+        ``train.step`` with its ``train.forward`` / ``train.backward`` /
+        ``train.optimizer`` children, the ``moe.*`` spans of an MoE
+        model, and ``train.data_wait`` / ``train.h2d`` /
+        ``train.callbacks`` / ``train.metric_flush``, each with
+        ``host_ns`` and, on a card, ``device_ms`` from CUDA events read
+        after the fact (never a synchronise). ``False`` leaves capture to
+        torch.profiler sessions alone (the default)."""
+        if phases is not None:
+            self.phases = bool(phases)
         if ring is not None:
             with self._lock:
                 self._ring = deque(self._ring, maxlen=max(1, int(ring)))
@@ -209,15 +232,20 @@ class Tracer:
 
     def emit(self, name: str, trace_id: str, parent_id: str | None = None,
              start: float | None = None, end: float | None = None,
-             status: str = "ok", attrs: dict | None = None) -> Span:
+             status: str = "ok", attrs: dict | None = None,
+             span_id: str | None = None, resolve=None) -> Span:
         """Record an already-finished span (scheduler phases resolve their
-        start and end after the fact)."""
+        start and end after the fact). ``resolve(span) -> bool`` fills
+        attrs known only later: the span is in the ring at once, and its
+        JSONL line is written once ``resolve`` returns True."""
         now = time.time()
         span = Span(name=name, trace_id=trace_id, parent_id=parent_id,
                     start=start if start is not None else now,
                     status=status, attrs=dict(attrs or {}))
+        if span_id is not None:
+            span.span_id = span_id
         span.end = end if end is not None else now
-        self._export(span)
+        self._export(span, resolve)
         return span
 
     def inject(self, headers: dict | None = None,
@@ -232,9 +260,40 @@ class Tracer:
                 span.trace_id, span.span_id)
         return headers
 
-    def _export(self, span: Span):
+    def _export(self, span: Span, resolve=None):
         with self._lock:
             self._ring.append(span)
+        if resolve is not None:
+            with self._pending_lock:
+                self._pending.append((span, resolve))
+        if self._pending:
+            self.settle()
+        if resolve is None:
+            self._write(span)
+
+    def settle(self) -> int:
+        """Run the pending spans' ``resolve`` in emission order until one
+        is not final yet, writing each final one's JSONL line; returns
+        how many still wait. Never blocks. More pending spans than the
+        ring holds are written as they are."""
+        done = []
+        with self._pending_lock:
+            while self._pending:
+                span, resolve = self._pending[0]
+                try:
+                    final = resolve(span)
+                except Exception:  # noqa: BLE001 - a failed read is final
+                    final = True
+                if not final and len(self._pending) <= self._ring.maxlen:
+                    break
+                self._pending.popleft()
+                done.append(span)
+            left = len(self._pending)
+        for span in done:
+            self._write(span)
+        return left
+
+    def _write(self, span: Span):
         path = self._path
         if not path:
             return
@@ -263,6 +322,10 @@ class Tracer:
 
     def spans(self, trace_id: str | None = None,
               name: str | None = None) -> list[Span]:
+        """The ring's spans (pending ones settled first, as far as they
+        can be)."""
+        if self._pending:
+            self.settle()
         with self._lock:
             snapshot = list(self._ring)
         return [s for s in snapshot
@@ -272,6 +335,8 @@ class Tracer:
     def clear(self):
         with self._lock:
             self._ring.clear()
+        with self._pending_lock:
+            self._pending.clear()
 
 
 # process-wide tracer the engines emit into

@@ -44,6 +44,7 @@ reshards onto the surviving slices and back.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -296,7 +297,13 @@ class AdamW:
         """Apply one update to ``params`` (in place) and ``state``; grads
         are in ``tree_leaves(params)`` order. Returns the global norm of
         ``grads`` before clipping. DTensor leaves update their local
-        shards."""
+        shards. Runs as the ``train.optimizer`` phase
+        (``utils.profiler.phase``)."""
+        with profiler_mod.phase("train.optimizer"):
+            return self._update(grads, state, params)
+
+    def _update(self, grads: list, state: AdamWState, params
+                ) -> torch.Tensor:
         leaves = tree_leaves(params)
         g_norm = global_norm(grads)
         if self.grad_clip:
@@ -447,12 +454,14 @@ def _layered_on_mesh(model_config, train_config: TrainConfig, mesh,
         lora_shards = None if lora is None else local(lora, True)
         view = {key: value if key == "layers" else outer(params[key], value)
                 for key, value in shards.items()}
-        loss, metrics = family_loss(
-            model_config, view, tokens, targets,
-            loss_chunk=train_config.loss_chunk, lora=lora_shards,
-            layer_parallel=layer_parallel)
-        grads = torch.autograd.grad(loss, tree_leaves(
-            shards if lora is None else lora_shards))
+        with profiler_mod.phase("train.forward"):
+            loss, metrics = family_loss(
+                model_config, view, tokens, targets,
+                loss_chunk=train_config.loss_chunk, lora=lora_shards,
+                layer_parallel=layer_parallel)
+        with profiler_mod.phase("train.backward"):
+            grads = torch.autograd.grad(loss, tree_leaves(
+                shards if lora is None else lora_shards))
         return list(grads), mean_metrics(
             {k: v.detach() for k, v in metrics.items()}, mesh)
 
@@ -506,11 +515,13 @@ def _moe_on_mesh(model_config, train_config: TrainConfig, mesh,
 
         view = _map_with_path(view_of, params)
         paths = tree_leaves(_map_with_path(lambda path, _: path, params))
-        loss, metrics = family_loss(
-            model_config, view, tokens, targets,
-            loss_chunk=train_config.loss_chunk,
-            expert_parallel=moe_mod.ExpertParallel(model_config, mesh))
-        grads = torch.autograd.grad(loss, [shards[p] for p in paths])
+        with profiler_mod.phase("train.forward"):
+            loss, metrics = family_loss(
+                model_config, view, tokens, targets,
+                loss_chunk=train_config.loss_chunk,
+                expert_parallel=moe_mod.ExpertParallel(model_config, mesh))
+        with profiler_mod.phase("train.backward"):
+            grads = torch.autograd.grad(loss, [shards[p] for p in paths])
         return list(grads), mean_metrics(
             {k: v.detach() for k, v in metrics.items()}, mesh)
 
@@ -691,10 +702,12 @@ def make_train_step(model_config: LlamaConfig, train_config: TrainConfig,
         """Gradients of the loss with respect to ``lora``'s leaves when an
         adapter is given (the base is frozen), else ``params``' leaves."""
         leaves = tree_leaves(params if lora is None else lora)
-        loss, metrics = family_loss(
-            model_config, params, tokens, targets,
-            loss_chunk=train_config.loss_chunk, lora=lora)
-        grads = torch.autograd.grad(loss, leaves)
+        with profiler_mod.phase("train.forward"):
+            loss, metrics = family_loss(
+                model_config, params, tokens, targets,
+                loss_chunk=train_config.loss_chunk, lora=lora)
+        with profiler_mod.phase("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
 
     def batch_grads(params, lora, tokens, targets):
@@ -1200,7 +1213,19 @@ class Trainer:
         ``h2d``, ``metric_flush``, ``checkpoint`` and ``reshard`` are
         badput; while degraded, the lost capacity's share of each step is
         ``degraded`` (all of a sitting-out rank's time);
-        ``goodput_fraction`` is its fraction at the log point."""
+        ``goodput_fraction`` is its fraction at the log point; the flight
+        recorder gets ``train.step`` there, ``train.preempt`` before a
+        preemption checkpoint and ``train.exception`` (with a
+        ``train-crash`` dump) when the loop raises.
+
+        While phase capture is on (a torch.profiler session records, or
+        ``obs.get_tracer().configure(phases=True)``) each step lands in
+        the process tracer as ``utils.profiler.phase`` spans sharing the
+        fit's trace id (``trace_id_for`` the run uid, else a fresh one):
+        ``train.data_wait``, ``train.h2d``, ``train.step`` (over the
+        step's forward, backward and optimizer phases, with ``gap_ms``
+        from the previous step and the allocator counters' change),
+        ``train.callbacks`` and ``train.metric_flush``."""
         from ..frameworks._common.callbacks import CallbackList
         from ..obs import (
             TRAIN_COMPILE_SECONDS,
@@ -1211,6 +1236,8 @@ class Trainer:
             GoodputLedger,
             flight_record,
             get_flight_recorder,
+            new_trace_id,
+            trace_id_for,
         )
         from ..parallel.mesh import axes_group
 
@@ -1223,6 +1250,17 @@ class Trainer:
         log_ctx = context if context is not None \
             and logging_worker(context) else None
         ledger = self.goodput = GoodputLedger(run=run_uid)
+        trace = trace_id_for(run_uid) if run_uid else new_trace_id()
+
+        @contextlib.contextmanager
+        def flushing():
+            """A metric flush: the ledger's ``metric_flush`` bucket and
+            the ``train.metric_flush`` phase."""
+            with ledger.phase("metric_flush"), profiler_mod.phase(
+                    "train.metric_flush", trace_id=trace,
+                    step=getattr(self.state, "step", None)):
+                yield
+
         with ledger.phase("checkpoint"):
             resumed = self._maybe_resume(checkpoint_manager, log_ctx)
         if self.compile_seconds is not None and not self._compile_attributed:
@@ -1360,7 +1398,7 @@ class Trainer:
                 degraded_mark
             # a staged log point lands before the world changes
             if pending is not None:
-                with ledger.phase("metric_flush"):
+                with flushing():
                     last = _drain(pending)
                 pending = None
             _degraded_tax()   # settle the tax at the old rate
@@ -1396,6 +1434,7 @@ class Trainer:
                 log_ctx.log_result("world_size", info["world_to"])
 
         hooks.on_train_begin()
+        prev_step = None   # the last step's phase, for the next one's gap
         epoch = 0
         stopped = False
         local_stop = False   # a pending stop vote, agreed at uniform points
@@ -1408,8 +1447,9 @@ class Trainer:
                     at = None if self.sitting_out else self.state.step
                     logger.warning("preempted — checkpointing before exit",
                                    step=at)
+                    flight_record("train.preempt", run=run_uid, step=at)
                     if pending is not None:
-                        with ledger.phase("metric_flush"):
+                        with flushing():
                             last = _drain(pending)
                         pending = None
                     if checkpoint_manager is not None and \
@@ -1445,19 +1485,32 @@ class Trainer:
                         ledger.enter("degraded")
                         next(data_iter)
                         continue
+                n = self.state.step
                 ledger.enter("data_wait")
-                t_input = time.perf_counter()
-                tokens, targets = next(data_iter)
-                input_wait += time.perf_counter() - t_input
+                with profiler_mod.phase("train.data_wait", trace_id=trace,
+                                        step=n):
+                    t_input = time.perf_counter()
+                    tokens, targets = next(data_iter)
+                    input_wait += time.perf_counter() - t_input
                 if prefetcher is None:
                     h2d_inline += (getattr(tokens, "nbytes", 0)
                                    + getattr(targets, "nbytes", 0))
                 ledger.enter("h2d")
-                tokens, targets = self.shard_batch(tokens, targets)
+                with profiler_mod.phase("train.h2d", trace_id=trace, step=n):
+                    tokens, targets = self.shard_batch(tokens, targets)
                 seq_len = tokens.shape[1]
                 ledger.enter("step")
                 t_dispatch = time.perf_counter()
-                metrics = self._dispatch(tokens, targets)
+                with profiler_mod.phase("train.step", trace_id=trace, step=n,
+                                        follows=prev_step) as step_phase:
+                    counts = (profiler_mod.allocator_counts(self.device)
+                              if step_phase is not None and cuda else None)
+                    metrics = self._dispatch(tokens, targets)
+                    if counts is not None:
+                        after = profiler_mod.allocator_counts(self.device)
+                        step_phase.attrs.update(
+                            {k: after[k] - v for k, v in counts.items()})
+                prev_step = step_phase
                 if step == 0 and self.compile_seconds is None:
                     # the first step builds the kernels (nvcc) inside its
                     # first launch — build-class time, kept out of goodput
@@ -1490,15 +1543,18 @@ class Trainer:
                     _degraded_tax()
                     extras = _extras(tokens.shape[0] * seq_len, seq_len)
                     _flush_obs()
+                    flight_record("train.step", run=run_uid, step=step + 1,
+                                  goodput_fraction=round(
+                                      extras["goodput_fraction"], 4))
                     if defer:
                         if pending is not None:
-                            with ledger.phase("metric_flush"):
+                            with flushing():
                                 last = _drain(pending)
                         pending = _stage(metrics, extras)
                     else:
                         # read first (a device sync), then log: the window
                         # then holds the finished steps only
-                        with ledger.phase("metric_flush"):
+                        with flushing():
                             step_metrics = {k: float(v)
                                             for k, v in metrics.items()}
                             step_metrics.update(extras)
@@ -1507,8 +1563,11 @@ class Trainer:
                     ledger.export()
                 if not hooks.callbacks:
                     continue
-                if not hooks.on_step_end(step, step_metrics,
-                                         log_point=log_point):
+                with profiler_mod.phase("train.callbacks", trace_id=trace,
+                                        step=n):
+                    voted = hooks.on_step_end(step, step_metrics,
+                                              log_point=log_point)
+                if not voted:
                     local_stop = True
                 if not multihost():
                     stopped = stopped or local_stop
@@ -1519,9 +1578,12 @@ class Trainer:
                 if epoch_steps and ((step + 1) % epoch_steps == 0
                                     or step == steps - 1 or stopped):
                     # epoch hooks always see host floats
-                    epoch_view = step_metrics if log_point else \
-                        {k: float(v) for k, v in metrics.items()}
-                    epoch_vote = not hooks.on_epoch_end(epoch, epoch_view)
+                    with profiler_mod.phase("train.callbacks",
+                                            trace_id=trace, step=n):
+                        epoch_view = step_metrics if log_point else \
+                            {k: float(v) for k, v in metrics.items()}
+                        epoch_vote = not hooks.on_epoch_end(epoch,
+                                                            epoch_view)
                     local_stop = local_stop or epoch_vote
                     if not multihost():
                         stopped = stopped or epoch_vote
@@ -1537,11 +1599,24 @@ class Trainer:
                     last.setdefault("step", self.state.step)
                     break
             if pending is not None:
-                with ledger.phase("metric_flush"):
+                with flushing():
                     last = _drain(pending)
                 pending = None
             hooks.on_train_end(last)
             return last
+        except BaseException as unwinding:
+            # the event sequence into the failure is the post-mortem
+            # artifact; guarded, so the original exception wins the unwind
+            try:
+                flight_record("train.exception", run=run_uid,
+                              error=str(unwinding),
+                              error_type=type(unwinding).__name__)
+                get_flight_recorder().dump(
+                    "train-crash", extra={"run": run_uid,
+                                          "error": str(unwinding)})
+            except Exception:  # noqa: BLE001
+                pass
+            raise
         finally:
             if pending is not None:
                 # exception exit with a staged log point: land it in the

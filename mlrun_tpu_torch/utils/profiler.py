@@ -37,6 +37,8 @@ import time
 from typing import Optional
 
 from ..obs import memory_sample  # noqa: F401  (re-exported)
+from ..obs.tracing import new_span_id, new_trace_id
+from ..obs.tracing import tracer as _TRACER
 from .helpers import now_iso
 from .logger import logger
 
@@ -390,22 +392,11 @@ def _flight(kind: str, **data):
 
 
 @contextlib.contextmanager
-def annotate(name: str):
-    """Named region in the trace (``torch.profiler.record_function``, plus
-    an NVTX range once CUDA is up). When a request span is active on this
-    thread the trace id is stamped into the region name
-    (``<name>|trace=<id16>``), so a device trace joins the span timeline
-    of the request that dispatched the compute."""
+def _named_range(name: str):
+    """A ``torch.profiler.record_function`` range, plus an NVTX range once
+    CUDA is up: the body ``annotate`` and ``phase`` share."""
     import torch
 
-    try:
-        from ..obs import get_tracer
-
-        current = get_tracer().current()
-        if current is not None:
-            name = f"{name}|trace={current.trace_id[:16]}"
-    except Exception:  # noqa: BLE001 - annotation is best-effort telemetry
-        pass
     nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
     with torch.profiler.record_function(name):
         if nvtx:
@@ -418,6 +409,242 @@ def annotate(name: str):
         finally:
             if nvtx:
                 torch.cuda.nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named region in the trace (``torch.profiler.record_function``, plus
+    an NVTX range once CUDA is up). When a request span is active on this
+    thread the trace id is stamped into the region name
+    (``<name>|trace=<id16>``), so a device trace joins the span timeline
+    of the request that dispatched the compute."""
+    try:
+        from ..obs import get_tracer
+
+        current = get_tracer().current()
+        if current is not None:
+            name = f"{name}|trace={current.trace_id[:16]}"
+    except Exception:  # noqa: BLE001 - annotation is best-effort telemetry
+        pass
+    with _named_range(name):
+        yield
+
+
+# -- step phases ----------------------------------------------------------------
+# ``phase(name)`` marks one phase of the training step. Off (no
+# torch.profiler session records and the process tracer's ``phases`` switch
+# is off) it costs one check and yields None. On, it opens a
+# ``mlt.<name>`` range on the profiler's clock, records a CUDA event pair
+# on the current stream (once CUDA is up) with perf_counter_ns stamps, and
+# at exit emits a finished span into the process tracer whose
+# ``device_ms`` (and ``gap_ms``) are read from the events later, when the
+# events have completed: never a synchronise.
+PHASE_PREFIX = "mlt."
+# the step's own phases; a step with each of them is complete
+STEP_PHASES = ("train.forward", "train.backward", "train.optimizer")
+# torch.cuda.memory_stats counters whose change over a step train.step
+# carries
+ALLOCATOR_COUNTERS = ("num_alloc_retries", "num_device_alloc",
+                      "num_device_free", "num_sync_all_streams")
+_OFF = contextlib.nullcontext()
+# the open phases of every thread, innermost last: a phase opened on a
+# thread with none open (autograd's worker running a checkpoint's
+# recompute) takes the innermost of any thread as its parent
+_OPEN: list = []
+_WALL_OFFSET_S = time.time() - time.perf_counter()
+_autograd_profiler = None
+
+
+def _import_autograd_profiler():
+    """``torch.autograd.profiler``, imported at the first phase: its
+    ``_is_profiler_enabled`` is torch's process-wide flag that a profiler
+    session records, set on whatever thread started it."""
+    global _autograd_profiler
+    import torch.autograd.profiler as autograd_profiler
+
+    _autograd_profiler = autograd_profiler
+    return autograd_profiler
+
+
+class _Phase:
+    """An open phase: the handle ``phase`` yields. ``attrs`` may gain
+    entries before the block ends; ``end_event`` is what a later phase's
+    ``follows`` measures its gap from."""
+
+    __slots__ = ("name", "attrs", "trace_id", "span_id", "parent_id",
+                 "thread", "in_backward", "start_event", "end_event",
+                 "prev_end")
+
+    def __init__(self, name: str, trace_id, follows, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.thread = threading.get_ident()
+        opened = list(_OPEN)
+        parent = next((p for p in reversed(opened)
+                       if p.thread == self.thread),
+                      opened[-1] if opened else None)
+        self.in_backward = parent is not None and (
+            parent.in_backward or parent.name == "train.backward")
+        if self.in_backward:
+            attrs["recompute"] = True
+        if parent is not None and "step" not in attrs \
+                and "step" in parent.attrs:
+            attrs["step"] = parent.attrs["step"]
+        attrs["thread"] = threading.current_thread().name
+        self.parent_id = parent.span_id if parent is not None else None
+        self.trace_id = trace_id or (parent.trace_id if parent is not None
+                                     else new_trace_id())
+        self.span_id = new_span_id()
+        self.prev_end = follows.end_event if follows is not None else None
+        self.start_event = self.end_event = None
+
+    def resolver(self):
+        """``resolve(span)`` for the tracer: fills ``device_ms`` (and
+        ``gap_ms``: the device's time from the followed phase's end to
+        this one's start) once the end event has completed."""
+        start, end, prev = self.start_event, self.end_event, self.prev_end
+        if end is None:
+            return None
+
+        def resolve(span) -> bool:
+            if not end.query():
+                return False
+            span.attrs["device_ms"] = start.elapsed_time(end)
+            if prev is not None:
+                span.attrs["gap_ms"] = prev.elapsed_time(start)
+            return True
+
+        return resolve
+
+
+def phase(name: str, trace_id: str | None = None, follows=None, **attrs):
+    """A phase of the training step, as a context manager.
+
+    Capture is on while a torch.profiler session records (the
+    benchmark's traced run, an ``arm_profile`` capture, ``profile_run``)
+    or while the process tracer's switch is on
+    (``obs.get_tracer().configure(phases=True)``); otherwise this is one
+    check and the block gets None. On, the block gets the open phase
+    (``attrs`` may gain entries before it ends) and the phase shows as:
+
+    - a ``mlt.<name>`` range in the profile (Perfetto / TensorBoard's
+      trace viewer: beside the kernels it launched, on the same clock;
+      autograd's worker thread shows its own ranges, inside
+      ``mlt.train.backward``'s time) and an NVTX range;
+    - a span ``<name>`` in the process tracer's ring (and JSONL file)
+      with the fit's trace id, the enclosing phase as ``parent_id``
+      (on a thread with none open, the innermost open phase of any
+      thread), and attrs ``step`` (inherited from the parent unless
+      given), ``thread``, ``host_ns`` [start, end] (perf_counter_ns),
+      ``recompute`` True inside ``train.backward`` (a checkpoint's
+      recompute), and on a card ``device_ms`` between a CUDA event pair
+      on the current stream, plus ``gap_ms`` from ``follows`` (an earlier
+      phase's handle) to this one. Its status is ``error`` where the
+      block raised, ``stopped`` where a recompute ended early inside it.
+      Device times are read when the events have completed (at a later
+      emit, or ``Tracer.spans()`` / ``settle()``); the JSONL line waits
+      for them.
+
+    The spans ``Trainer.fit`` and the models emit: ``train.step`` (attrs
+    ``gap_ms`` and the allocator counters' change, ``ALLOCATOR_COUNTERS``)
+    over ``train.forward``, ``train.backward`` and ``train.optimizer``;
+    ``train.data_wait``, ``train.h2d``, ``train.callbacks`` and
+    ``train.metric_flush`` between steps; in an MoE layer
+    ``moe.attention``, ``moe.route``, ``moe.dispatch``, ``moe.experts``,
+    ``moe.combine``, and the loss head ``moe.head``."""
+    if not (_TRACER.phases or (_autograd_profiler
+                               or _import_autograd_profiler()
+                               )._is_profiler_enabled):
+        return _OFF
+    return _phase(name, trace_id, follows, attrs)
+
+
+@contextlib.contextmanager
+def _phase(name: str, trace_id, follows, attrs: dict):
+    import torch
+
+    handle = _Phase(name, trace_id, follows, attrs)
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    status = "ok"
+    _OPEN.append(handle)
+    # the host stamps bracket the range (a session's first range takes a
+    # millisecond or more to open, after its own start stamp)
+    t0 = time.perf_counter_ns()
+    try:
+        with _named_range(PHASE_PREFIX + name):
+            if cuda:
+                handle.start_event = torch.cuda.Event(enable_timing=True)
+                handle.start_event.record()
+            try:
+                yield handle
+            finally:
+                if cuda:
+                    handle.end_event = torch.cuda.Event(enable_timing=True)
+                    handle.end_event.record()
+    except BaseException as exc:
+        # a checkpoint's recompute ends early by raising through the
+        # phases still open: no failure, but the phase was cut short
+        status = ("stopped" if type(exc).__name__ == "_StopRecomputationError"
+                  else "error")
+        raise
+    finally:
+        t1 = time.perf_counter_ns()
+        _OPEN.remove(handle)
+        attrs["host_ns"] = [t0, t1]
+        _TRACER.emit(name, handle.trace_id, handle.parent_id,
+                     start=t0 / 1e9 + _WALL_OFFSET_S,
+                     end=t1 / 1e9 + _WALL_OFFSET_S, status=status,
+                     attrs=attrs, span_id=handle.span_id,
+                     resolve=handle.resolver())
+
+
+def allocator_counts(device=None) -> dict:
+    """The ``ALLOCATOR_COUNTERS`` the installed torch's
+    ``torch.cuda.memory_stats`` has (a host read of the allocator's
+    counters; no synchronise)."""
+    import torch
+
+    stats = torch.cuda.memory_stats(device)
+    return {key: stats[key] for key in ALLOCATOR_COUNTERS if key in stats}
+
+
+def step_phases(spans, since: float, until: float) -> list[dict]:
+    """The complete steps among ``spans`` (a tracer's) whose phases lie
+    in [since, until] (perf_counter seconds): one dict a step, in step
+    order, with ``step``, ``trace_id``, ``host_ns`` (its ``train.step``
+    span's), ``step_ms`` (that span's device ms), ``gap_ms`` (None when
+    not measured), ``ms`` {span name: summed device ms of its spans
+    outside a recompute} and ``recompute_ms`` (the same inside one). A
+    step is complete when its ``train.step`` span and each of
+    ``STEP_PHASES`` lie in the window with device times read."""
+    lo, hi = since * 1e9, until * 1e9
+    groups: dict = {}
+    for span in spans:
+        host = span.attrs.get("host_ns")
+        if host is None or "step" not in span.attrs \
+                or not lo <= host[0] <= host[1] <= hi:
+            continue
+        groups.setdefault((span.trace_id, span.attrs["step"]),
+                          []).append(span)
+    out = []
+    for (trace_id, step), members in groups.items():
+        steps = [s for s in members if s.name == "train.step"]
+        ms: dict = {}
+        recompute: dict = {}
+        for span in members:
+            if span.attrs.get("device_ms") is None:
+                continue
+            into = recompute if span.attrs.get("recompute") else ms
+            into[span.name] = into.get(span.name, 0.0) \
+                + span.attrs["device_ms"]
+        if len(steps) != 1 or "train.step" not in ms \
+                or any(name not in ms for name in STEP_PHASES):
+            continue
+        out.append({"step": step, "trace_id": trace_id,
+                    "host_ns": steps[0].attrs["host_ns"],
+                    "step_ms": ms["train.step"],
+                    "gap_ms": steps[0].attrs.get("gap_ms"),
+                    "ms": ms, "recompute_ms": recompute})
+    return sorted(out, key=lambda s: s["host_ns"][0])
 
 
 class StepTimer:

@@ -1,0 +1,20 @@
+"""Median, over the traced window's complete training steps, of the
+device's time between the previous step's last event and the step's
+first (``train.step``'s ``gap_ms``: where the host, between steps, holds
+the device back). Read from the port's process tracer; None where the
+program emits no phase spans."""
+
+import statistics
+
+
+def read(run):
+    from mlrun_tpu_torch.obs import get_tracer
+    from mlrun_tpu_torch.utils import profiler
+
+    step_phases = getattr(profiler, "step_phases", None)
+    if step_phases is None or run.get("kind") != "train":
+        return None
+    values = [s["gap_ms"] for s in
+              step_phases(get_tracer().spans(), run["t0"], run["t1"])
+              if s["gap_ms"] is not None]
+    return statistics.median(values) if values else None

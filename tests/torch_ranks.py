@@ -492,7 +492,8 @@ def elastic(rank, world, init, batches, ckpt_dir):
                            callbacks=[save_at_2], checkpoint_manager=manager,
                            elastic_guard=guard)
     events = [e for e in recorder.events(kind="train.*")
-              if e["kind"] not in ("train.fit_begin", "train.resume")]
+              if e["kind"] not in ("train.fit_begin", "train.resume",
+                                   "train.step")]
     with open(recorder.last_dump_path) as fp:
         dump_header = json.loads(fp.readline())
     out = {"history": [{k: h[k] for k in ("world_size", "step", "loss",
