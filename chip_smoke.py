@@ -39,7 +39,11 @@ exits non-zero and never prints the final line):
              positions (a phase line, off the final line); then
              drives the op entry points ``_flash_fwd`` and
              ``rms_norm_pallas`` (no engine reaches them) once at each of
-             their shapes, counted.
+             their shapes, counted; last the fused AdamW (csrc/adamw.cu)
+             at train-8k's tree (Mixtral-8x7B's widths, 2 layers): clip
+             off bit for bit against the plain loop, clip triggered each
+             leaf within 1e-3, timed beside the plain loop and
+             torch.optim.AdamW(fused=True).
 3. serve   - serves Llama-3-8B (random weights from a seed, bf16, all 32
              layers) through LLMModelServer -> PagedContinuousBatchingEngine
              with the kernels, shows every serving kernel launched on that
@@ -81,7 +85,8 @@ exits non-zero and never prints the final line):
              layers, full width) through Trainer.fit for a few steps on a
              repeated synthetic batch (4 x 2048 tokens, loss chunks of
              512, per-layer remat), shows the flash forward and backward
-             kernels launched once per layer per pass, checks that the
+             kernels launched once per layer per pass and the optimizer's
+             two kernels once a step, checks that the
              loss is finite and falls, reports the Trainer's own
              tokens/s and MFU, and holds step 1's loss, gradient norm and
              attention-weight gradients against the reference attention;
@@ -458,6 +463,10 @@ ATTENTION_LEAVES = ("layers.wq", "layers.wk", "layers.wv", "layers.wo")
 SERVING_KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill")
 INT8_KERNELS = ("paged_decode_int8", "flash_fwd_cached", "paged_prefill_int8")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd")
+# the optimizer's kernels (csrc/adamw.cu), one launch each an update on
+# every training path: the train phase counts them; the other legs count
+# the attention kernels (_attention_launches)
+OPTIMIZER_KERNELS = ("grad_sqnorm", "adamw")
 # bf16 kernels on the tensor cores: the flash forward for D 32/64/128,
 # causal or not; the flash backward's dq and dkdv kernels for D 32/64/128;
 # the paged prefill and verify bodies for D 32/64/128, bf16 or int8 pages
@@ -470,6 +479,14 @@ def emit(obj):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def _attention_launches() -> dict:
+    """The launch counters without the optimizer's kernels."""
+    from mlrun_tpu_torch.ops import _build
+
+    return {k: v for k, v in _build.launch_counts().items()
+            if k not in OPTIMIZER_KERNELS}
 
 
 def gpu_name_and_limit() -> str:
@@ -1319,6 +1336,141 @@ def kernel_rms_norm(gen, kind, dtype, record):
     record.append(rows[0])  # the 8B hidden state
 
 
+# the fused AdamW's tree: train-8k's, Mixtral-8x7B's published widths at
+# 2 layers, 13 leaves of 3,164,688,384 weights (bf16, the router float32)
+ADAMW_LAYERS = 2
+# fused vs plain loop, clip 1.0 triggered (the norm's summation order
+# differs): each leaf's difference within 1e-3 of its norm (tests/
+# test_torch_kernels.py says why); the norm within 1e-6 relative
+ADAMW_CLIP_REL = 1e-3
+ADAMW_NORM_REL = 1e-6
+# float32 operations an element of the update (the bound is bytes)
+ADAMW_OPS = 20
+
+
+def _adamw_gap(got: list, want: list) -> tuple[float, float, float]:
+    """(widest element gap, widest leaf gap over the leaf's norm, share of
+    elements that differ) over pairs of leaves."""
+    import torch
+
+    worst, rel, differ, total = 0.0, 0.0, 0, 0
+    for a, b in zip(got, want):
+        diff = (a.float() - b.float()).abs()
+        worst = max(worst, float(diff.max()))
+        rel = max(rel, float(torch.linalg.vector_norm(diff)
+                             / torch.linalg.vector_norm(b.float())))
+        differ += int((a != b).sum())
+        total += a.numel()
+    return worst, rel, differ / total
+
+
+def kernel_adamw(gen, record):
+    """The fused AdamW (``ops/adamw.py``: ``mlt_grad_sqnorm`` then
+    ``mlt_adamw``; no Pallas kernel, XLA fuses optax's update) at
+    train-8k's tree, against ``AdamW``'s plain loop on a copy of the same
+    state: an update with clip off (bit for bit), then one with clip 1.0
+    triggered (the plain loop with its own norm). Times the fused update,
+    its norm pass alone, the plain loop and, as the yardstick only (the
+    port never calls it), ``torch.optim.AdamW(fused=True).step()`` on the
+    same tree (no norm or clip)."""
+    import torch
+
+    from mlrun_tpu_torch.models import moe
+    from mlrun_tpu_torch.ops import adamw as fused
+    from mlrun_tpu_torch.training.train import (
+        AdamW,
+        _clip_scale,
+        global_norm,
+        tree_leaves,
+    )
+
+    torch.cuda.empty_cache()
+    config = moe.mixtral_8x7b_like(n_layers=ADAMW_LAYERS)
+    shapes = [(leaf.shape, leaf.dtype) for leaf in tree_leaves(
+        moe.init_params(config, torch.Generator(), "meta"))]
+
+    def draw(scale, positive=False) -> dict:
+        tree = {}
+        for i, (shape, dtype) in enumerate(shapes):
+            t = torch.randn(shape, generator=gen, device="cuda",
+                            dtype=dtype).mul_(scale)
+            tree[f"{i:02d}"] = t.abs_() if positive else t
+        return tree
+
+    params = draw(0.02)
+    grads = tree_leaves(draw(1e-3))
+    off = AdamW(lambda count: 2e-4, b2=0.95, weight_decay=0.1)
+    on = AdamW(lambda count: 2e-4, b2=0.95, grad_clip=1.0)
+    state = off.init(params)
+    state.mu, state.nu = draw(1e-3), draw(1e-6, positive=True)
+    copy = {k: v.clone() for k, v in params.items()}
+    mu, nu = ({k: v.clone() for k, v in t.items()}
+              for t in (state.mu, state.nu))
+    leaves = [tree_leaves(t) for t in (params, state.mu, state.nu)]
+    plain = [tree_leaves(t) for t in (copy, mu, nu)]
+    elements = sum(p.numel() for p in leaves[0])
+    torch.cuda.synchronize()
+
+    # clip off: bit for bit
+    off.update(grads, state, params)
+    off._apply_plain(grads, *plain, *off._constants(0))
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a_list, b_list in zip(leaves, plain)
+                for a, b in zip(a_list, b_list))
+    if not exact:
+        fail(f"adamw, clip off: fused != plain loop "
+             f"{_adamw_gap(sum(leaves, []), sum(plain, []))}")
+    # clip 1.0, triggered: the plain loop with its own norm
+    g_norm = on.update(grads, state, params)
+    ref_norm = global_norm(grads)
+    on._apply_plain(grads, *plain, *on._constants(1),
+                    _clip_scale(ref_norm, 1.0))
+    torch.cuda.synchronize()
+    f64_norm = math.sqrt(sum(float(g.double().square().sum())
+                             for g in grads))
+    norm_rel = abs(float(g_norm) - float(ref_norm)) / float(ref_norm)
+    worst, rel, share = _adamw_gap(sum(leaves, []), sum(plain, []))
+    if not (float(ref_norm) >= 1.0 and norm_rel <= ADAMW_NORM_REL
+            and rel <= ADAMW_CLIP_REL):
+        fail(f"adamw, clip triggered: norm {float(g_norm)} vs "
+             f"{float(ref_norm)} ({norm_rel}), leaf gap {rel}")
+    del copy, mu, nu, plain
+    torch.cuda.empty_cache()
+
+    times = kernel_times(lambda: on.update(grads, state, params), iters=20)
+    norm = kernel_times(lambda: fused.grad_sqnorm(grads, 1.0), iters=20)
+    plain_ms = time_ms(lambda: on._apply_plain(
+        grads, *leaves, *on._constants(1),
+        _clip_scale(global_norm(grads), 1.0)), iters=3, warmup=1)
+    # the yardstick: PyTorch's fused AdamW over the same tree, its moments
+    # in the params' dtype
+    torch_params = [torch.nn.Parameter(p) for p in leaves[0]]
+    for p, g in zip(torch_params, grads):
+        p.grad = g
+    torch_opt = torch.optim.AdamW(torch_params, lr=2e-4, betas=(0.9, 0.95),
+                                  eps=1e-8, weight_decay=0.0, fused=True)
+    lib_ms = time_ms(torch_opt.step, iters=10)
+    n_bytes = sum(2 * g.element_size() * g.numel()
+                  + 6 * p.element_size() * p.numel()
+                  for p, g in zip(leaves[0], grads))
+    bound, by = bound_ms(n_bytes, ADAMW_OPS * elements, "f32")
+    row = {"name": "adamw", "dtype": "bf16", "shape": "train-8k",
+           "leaves": len(shapes), "elements": elements,
+           "clip_off_bit_identical": exact, "g_norm": float(g_norm),
+           "plain_g_norm": float(ref_norm), "f64_g_norm": f64_norm,
+           "norm_rel_err": norm_rel, "norm_rel_tol": ADAMW_NORM_REL,
+           "max_abs_err": worst, "leaf_rel_err": rel,
+           "leaf_rel_tol": ADAMW_CLIP_REL, "differing_share": share,
+           **times, "norm_ms": norm["ms"],
+           "norm_device_ms": norm["device_ms"], "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+           "library_ms": lib_ms,
+           "library": "torch.optim.AdamW(fused=True).step, no clip"}
+    del torch_opt, torch_params
+    emit({"phase": "kernels", **row})
+    record.append(row)
+
+
 def op_paths(gen) -> dict:
     """The path of the two kernels no engine or trainer reaches: their op
     entry points, driven once at each main-path shape in bf16 with the
@@ -1342,7 +1494,7 @@ def op_paths(gen) -> dict:
     outs = [at._flash_fwd(q, k, v, causal=c)[0] for q, k, v, c in inputs]
     outs += [norms.rms_norm_pallas(x, s, RMS_EPS) for x, s in rms_inputs]
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     _check_launches(launches, ("flash_v1", "rms_norm"), "op entry point")
     if launches["flash_v1"] != len(V1_SHAPES) \
             or launches["rms_norm"] != len(RMS_SHAPES):
@@ -1380,6 +1532,7 @@ def phase_kernels(seed: int) -> tuple[list, dict]:
         kernel_decode(gen, kind, dtype, record, SERVE_POS, extra=True)
     launches = op_paths(gen)
     kernel_train_flash_families(seed)
+    kernel_adamw(gen, record)
     return [r for r in record
             if r["dtype"] == "bf16" and not r.get("extra")], launches
 
@@ -1509,7 +1662,7 @@ def phase_serve(seed: int, card: str, kv_dtype: str = "native",
     kernel_out = _serve_events(submit_server, prompts)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     stats = server.engine.stats
     metrics = dict(server.metrics)
     params = server.engine.params
@@ -1543,7 +1696,7 @@ def phase_serve(seed: int, card: str, kv_dtype: str = "native",
     ref_out = _serve_events(_submit_engine(ref_engine), prompts)
     ref_stats = ref_engine.stats
     ref_engine.stop()
-    if _build.launch_counts() != launches:
+    if _attention_launches() != launches:
         fail("the reference engine launched a kernel")
 
     rel_err, first_same, share = _compare(kernel_logits, kernel_out,
@@ -1685,7 +1838,7 @@ def phase_spec(seed: int, card: str) -> dict:
             outs.append(_serve_events(_submit_engine(engine), prompts))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts = _build.launch_counts()
+            counts = _attention_launches()
             stats = engine.stats
             engine.stop()
         verify = "paged_verify" if kv_dtype == "native" else \
@@ -1740,7 +1893,7 @@ def phase_spec(seed: int, card: str) -> dict:
     spec_out = _serve_events(submit_server, prompts)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts = _attention_launches()
     stats = server.engine.stats
     params = server.engine.params
     server.close()
@@ -1857,7 +2010,7 @@ def _serve_dense_leg(seed: int, card: str, leg: str, config,
     out = _serve_events(submit_server, prompts)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     stats = {} if default else engine.stats
     metrics = dict(server.metrics)
     params = engine.params
@@ -1897,7 +2050,7 @@ def _serve_dense_leg(seed: int, card: str, leg: str, config,
         ref_out = _serve_events(_submit_engine(ref), prompts)
         ref.stop()
     del ref, params
-    if _build.launch_counts() != launches:
+    if _attention_launches() != launches:
         fail(f"serve_dense {leg}: the reference engine launched a kernel")
     rel_err, first_same, share = _compare(logits, out, ref_logits, ref_out)
     if default:
@@ -1976,7 +2129,7 @@ def phase_serve_dense(seed: int, card: str) -> dict:
             outs.append(_serve_events(_submit_engine(engine), prompts))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts = _build.launch_counts()
+            counts = _attention_launches()
             stats = engine.stats
             engine.stop()
             _check_launches(counts, ("flash_fwd_cached",),
@@ -2093,7 +2246,7 @@ def _lora_spec_leg(seed: int, card: str, prompts) -> dict:
             try:
                 outs.append(_serve_tenants(engine, prompts, tenants))
                 torch.cuda.synchronize()
-                counts = _build.launch_counts()
+                counts = _attention_launches()
                 stats = engine.stats
             finally:
                 engine.stop()
@@ -2169,7 +2322,7 @@ def phase_lora(seed: int, card: str, serve: dict | None) -> dict:
         cached.append(engine.stats["prefix_cached_tokens"])
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     stats = engine.stats
     params = engine.params
     server.close()
@@ -2351,12 +2504,12 @@ def phase_train(seed: int, card: str) -> dict:
                      / torch.linalg.vector_norm(ref))
 
     # step 1 on the reference attention, bf16 and float32 (no kernel)
-    before = _build.launch_counts()
+    before = _attention_launches()
     ref_grads, ref_step, ref_step_s = step1(
         dataclasses.replace(config, attention_impl="reference"))
     ref32_grads, ref32_step, _ = step1(dataclasses.replace(
         config, attention_impl="reference", dtype=torch.float32))
-    if _build.launch_counts() != before:
+    if _attention_launches() != before:
         fail("the reference-attention train step launched a kernel")
     # the kernel path in float32 (uncounted: before the reset)
     k32_grads, k32_step, _ = step1(
@@ -2408,7 +2561,8 @@ def phase_train(seed: int, card: str) -> dict:
     loss_rel = abs(losses[0] - ref_step["loss"]) / abs(ref_step["loss"])
     norm_rel = abs(norms[0] - ref_step["grad_norm"]) / ref_step["grad_norm"]
     per_pass = config.n_layers * TRAIN_STEPS
-    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass,
+            **dict.fromkeys(OPTIMIZER_KERNELS, TRAIN_STEPS)}
     last = history[-1]
     result = {
         "phase": "train", "model": "llama3-1b", "layers": config.n_layers,
@@ -2446,7 +2600,7 @@ def phase_train(seed: int, card: str) -> dict:
             fail(f"kernel {name} launched {launches[name]} times on the "
                  f"train path, expected {count}")
     for name, count in launches.items():
-        if name not in TRAINING_KERNELS and count != 0:
+        if name not in want and count != 0:
             fail(f"serving kernel {name} was launched on the train path")
     if not loss_rel <= TRAIN_LOSS_REL_TOL:
         fail(f"step 1 loss: kernel vs reference attention relative error "
@@ -2516,7 +2670,8 @@ def _train_lora_leg(seed: int, card: str, config, batch) -> dict:
     history = trainer.metrics_history
     losses = [view["loss"] for view in history]
     per_pass = config.n_layers * LORA_TRAIN_STEPS
-    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
+    want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass,
+            **dict.fromkeys(OPTIMIZER_KERNELS, LORA_TRAIN_STEPS)}
     unchanged = checksum() == base_sum
     trained = sum(leaf.numel() for leaf in tree_leaves(trainer.state.lora))
     b_max = max(float(parts["lora_b"].detach().abs().max())
@@ -2551,7 +2706,7 @@ def _train_lora_leg(seed: int, card: str, config, batch) -> dict:
             fail(f"kernel {name} launched {launches[name]} times on the "
                  f"LoRA train path, expected {count}")
     for name, count in launches.items():
-        if name not in TRAINING_KERNELS and count != 0:
+        if name not in want and count != 0:
             fail(f"serving kernel {name} was launched on the LoRA train "
                  "path")
     return result
@@ -2628,7 +2783,7 @@ def phase_resilience(seed: int, card: str) -> dict:
     _build.reset_launch_counts()
     with chaos.inject("llm.spec_verify", always(),
                       action=lambda point, ctx: snapshots.append(
-                          dict(_build.launch_counts()))):
+                          dict(_attention_launches()))):
         with chaos.inject("llm.spec_verify", fail_first(RES_PARKED),
                           error=RuntimeError("injected verify fault")):
             tokens, _ = engine.generate(lone[0], max_new_tokens=MAX_NEW)
@@ -2722,7 +2877,7 @@ def phase_resilience(seed: int, card: str) -> dict:
     expiry_rows = list(enqueued)
     stats = engine.stats
     ttft_count = LLM_TTFT.value(replica="", adapter="")["count"]
-    server_counts = _build.launch_counts()
+    server_counts = _attention_launches()
     server_tick_p50 = stats.get("decode_tick_p50_s")
     server.close()
 
@@ -2931,7 +3086,7 @@ def _tier_leg(config, params, seed, card, kv_dtype) -> dict:
     _build.reset_launch_counts()
     kernel_chunks = demoted["prefill_kernel_chunks"]
     promoted, rstats = engine.generate(p1, max_new_tokens=MAX_NEW)
-    counts = _build.launch_counts()
+    counts = _attention_launches()
     stats = engine.stats
     after = engine.fetch_prefix(p1).result(timeout=600)
     page_times = _page_copy_ms(engine)
@@ -2989,7 +3144,7 @@ def _handoff_leg(config, params, seed, card, kv_dtype, cold, hit,
     _build.reset_launch_counts()
     tokens, stats = decode.submit_prefilled(
         handoff, max_new_tokens=MAX_NEW).result(timeout=600)
-    decode_counts = _build.launch_counts()
+    decode_counts = _attention_launches()
     payload = prefill.fetch_prefix(p1).result(timeout=600)
     imported = decode.import_prefix(payload).result(timeout=600)
     fetched, fstats = decode.generate(p1, max_new_tokens=MAX_NEW)
@@ -3189,7 +3344,7 @@ def phase_fleet(seed: int, card: str) -> dict:
     fleet_mem = torch.cuda.memory_allocated() - mem0
     _build.reset_launch_counts()
     served = generate_all(fleet, prompts)
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     _check_launches(launches, SERVING_KERNELS, "fleet affinity")
     owners = [s["replica"] for _, s in served]
     cached = [s["timing"].get("cached_prefix", 0) for _, s in served]
@@ -3224,7 +3379,7 @@ def phase_fleet(seed: int, card: str) -> dict:
                         route_blocks=FLEET_ROUTE_BLOCKS)
     _build.reset_launch_counts()
     served = generate_all(split, prompts)
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     stats = split.stats
     split.stop()
     decode = next(v for v in stats["per_replica"].values()
@@ -3269,7 +3424,7 @@ def phase_fleet(seed: int, card: str) -> dict:
     chunks = target.engine.stats["prefill_kernel_chunks"]
     _build.reset_launch_counts()
     fetched, fstats = fleet.generate(movers[0], max_new_tokens=MAX_NEW)
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     tstats = target.engine.stats
     after = fleet.stats
     with chaos.inject(FaultPoints.llm_kv_fetch, fail_nth(1),
@@ -3420,7 +3575,7 @@ def phase_fleet(seed: int, card: str) -> dict:
             fail(f"LLMModelServer {shape} failed to load: {server.error}")
         _build.reset_launch_counts()
         reply = server.do_event(_Event(dict(body))).body
-        launches = _build.launch_counts()
+        launches = _attention_launches()
         kind = type(server.engine).__name__
         server.close()
         server = None
@@ -3453,7 +3608,7 @@ def phase_fleet(seed: int, card: str) -> dict:
     t0 = time.perf_counter()
     reply = tpu.do_event(_Event({"inputs": tpu_prompts})).body
     tpu_s = time.perf_counter() - t0
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     logits = torch.tensor(reply["outputs"])
     firsts = []
     for row_logits, want in zip(logits, engine_first):
@@ -3749,7 +3904,7 @@ def _families_moe(seed: int, card: str) -> dict:
               "peak_memory_gib": step_peak})
         batch //= 2
 
-    before = _build.launch_counts()
+    before = _attention_launches()
     ref_trainer = Trainer(config, train_config(attention_impl="reference"),
                           device="cuda")
     ref_trainer.init(seed)
@@ -3757,7 +3912,7 @@ def _families_moe(seed: int, card: str) -> dict:
                  tokens, targets)
     del ref_trainer
     _release()
-    if _build.launch_counts() != before:
+    if _attention_launches() != before:
         fail("families moe: the reference-attention step launched a kernel")
     checks = _step1_checks("moe", kernel, ref)
     del kernel, ref
@@ -3769,7 +3924,7 @@ def _families_moe(seed: int, card: str) -> dict:
                                batch_size=batch, seq_len=seq, steps=steps,
                                log_every=1, seed=seed)
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     # the warmup pass and every step: under remat "nothing" the flash
     # forward runs twice a layer (forward, then its recompute), the
@@ -3855,10 +4010,10 @@ def _families_encoder(seed: int, card: str, leg: str) -> dict:
     step = make(config, optimizer)
 
     kernel = _step1(step.compute_grads, params, *batch)   # builds, warms
-    before = _build.launch_counts()
+    before = _attention_launches()
     ref_config = dataclasses.replace(config, attention_impl="reference")
     ref = _step1(make(ref_config, optimizer).compute_grads, params, *batch)
-    if _build.launch_counts() != before:
+    if _attention_launches() != before:
         fail(f"families {leg}: the reference-attention step launched a "
              "kernel")
     # the same params in float32 (TF32 off): the float32 kernels against
@@ -3887,7 +4042,7 @@ def _families_encoder(seed: int, card: str, leg: str) -> dict:
         extra["mlm_logits"] = {"shape": list(logits.shape),
                                "finite": bool(torch.isfinite(logits).all())}
         del logits
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steady_ms = sum(ms[1:]) / len(ms[1:])
     row = {"phase": "families", "leg": leg, "card": card,
@@ -3961,7 +4116,7 @@ def _families_t5(seed: int, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     ms, history = _timed_steps(step, params, opt_state, batch, FAM_STEPS)
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steady_ms = sum(ms[1:]) / len(ms[1:])
     dec_tokens = FAM_T5_BATCH * FAM_T5_DEC
@@ -4294,7 +4449,7 @@ def _ep_serve_leg(seed: int, card: str) -> dict:
         hf_out = _serve_events(submit, prompts)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = _build.launch_counts()
+        launches = _attention_launches()
         stats = server.engine.stats
         leaves_equal = _same_bits(server.engine.params, params)
         loaded_config = server.engine.config
@@ -4303,7 +4458,7 @@ def _ep_serve_leg(seed: int, card: str) -> dict:
             _build.reset_launch_counts()
             texts = [" ".join(f"t{i}" for i in p) for p in prompts]
             replies = submit(texts)
-            tok_launches = _build.launch_counts()
+            tok_launches = _attention_launches()
             ids = [tokenizer(text)["input_ids"] for text in replies]
             tok_row = {
                 "phase": "entry_points", "leg": "tokenizer", "card": card,
@@ -4516,7 +4671,7 @@ def _ep_train_leg(seed: int, card: str, train_step_ms) -> dict:
             callbacks=[recorder], checkpoint_dir=checkpoints,
             checkpoint_every=EP_CHECKPOINT_EVERY, seed=seed)
         torch.cuda.synchronize()
-        launches = _build.launch_counts()
+        launches = _attention_launches()
         saved = sorted(int(p) for p in os.listdir(checkpoints)
                        if p.isdigit())
         stamps = recorder.stamps
@@ -4576,7 +4731,7 @@ def _ep_train_leg(seed: int, card: str, train_step_ms) -> dict:
                 dataset=dataset, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                 steps=EP_EVAL_STEPS, seed=seed)
             torch.cuda.synchronize()
-        eval_launches = _build.launch_counts()
+        eval_launches = _attention_launches()
         step_dir = os.path.join(checkpoints, str(saved[-1]))
         checkpoint_bytes = sum(os.path.getsize(os.path.join(step_dir, name))
                                for name in os.listdir(step_dir))
@@ -4690,7 +4845,7 @@ def _counted_fit(trainer, batches, batch: int, seq: int, want: dict,
     trainer.fit(iter(batches), len(batches), log_every=1, prefetch=2)
     torch.cuda.synchronize()
     run = {"history": trainer.metrics_history,
-           "launches": _build.launch_counts(),
+           "launches": _attention_launches(),
            "peak_bytes": torch.cuda.max_memory_allocated()}
     _exact_launches(path, run["launches"], want)
     return run
@@ -4743,7 +4898,7 @@ def _par_sharded_leg(seed: int, card: str, train_step_ms, work: str
         _build.reset_launch_counts()
         trainer.fit(iter(batches), PAR_STEPS, log_every=1, prefetch=2)
         torch.cuda.synchronize()
-        launches = _build.launch_counts()
+        launches = _attention_launches()
         history = trainer.metrics_history
         run = {
             "losses": [m["loss"] for m in history],
@@ -4822,7 +4977,7 @@ def _par_sharded_leg(seed: int, card: str, train_step_ms, work: str
     finally:
         os.environ.pop(RESUME_CHECKPOINT_ENV, None)
         os.environ.pop(RESUME_STEP_ENV, None)
-    resume_launches = _build.launch_counts()
+    resume_launches = _attention_launches()
     resumed = [m["loss"] for m in second.metrics_history]
     badput = second.goodput.summary()["badput"]
     ck_row = {"phase": "parallel", "leg": "sharded_checkpoint",
@@ -4877,7 +5032,7 @@ def _par_ring_leg(seed: int, card: str) -> dict:
     os_, lses = [o for o, _ in outs], [lse for _, lse in outs]
     dqs, dks, dvs = ring_hops_bwd(qs, ks, vs, os_, lses, dos)
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     hops = RING_SHARDS * (RING_SHARDS + 1) // 2
     want = {"flash_fwd": hops, "flash_bwd": hops}
     o, lse = torch.cat(os_, dim=1), torch.cat(lses, dim=2)
@@ -5074,7 +5229,7 @@ def _par_tensor_leg(seed: int, card: str) -> dict:
         _build.reset_launch_counts()
         sharded = _tp_graph(config, weights, x, dout, cos, sin, tensor)
         torch.cuda.synchronize()
-        counted = _build.launch_counts()
+        counted = _attention_launches()
         want = {"flash_fwd": tensor, "flash_bwd": tensor}
         _exact_launches(f"parallel tensor={tensor}", counted, want)
         sharded32 = _tp_graph(config32, weights32, x.float(), dout.float(),
@@ -5183,7 +5338,7 @@ def _par_pipe_leg(seed: int, card: str) -> dict:
     run_in_process(stages, PP_MICRO)
     end.record()
     torch.cuda.synchronize()
-    counted = _build.launch_counts()
+    counted = _attention_launches()
     per_pass = config.n_layers * PP_MICRO
     want = {"flash_fwd": 2 * per_pass, "flash_bwd": per_pass}
     sums = sum(stage.sums() for stage in stages)
@@ -5575,7 +5730,7 @@ def _par_families_leg(seed: int, card: str) -> dict:
             runs[key] = {"losses": [h["loss"] for h in history],
                          "grad_norms": [h.get("grad_norm")
                                         for h in history],
-                         "step_ms": ms, "launches": _build.launch_counts()}
+                         "step_ms": ms, "launches": _attention_launches()}
             del start, state, step
             _release()
         equal = all(runs["mesh"][k] == runs["no_mesh"][k]
@@ -5698,7 +5853,7 @@ def _par_lora_tensor_leg(seed: int, card: str) -> dict:
         sharded = _lora_graph(config, weights, lora, x, dout, cos, sin,
                               tensor)
         torch.cuda.synchronize()
-        counted = _build.launch_counts()
+        counted = _attention_launches()
         want = {"flash_fwd": tensor, "flash_bwd": tensor}
         _exact_launches(f"parallel lora tensor={tensor}", counted, want)
         sharded32 = _lora_graph(config32, weights32, lora, x.float(),
@@ -5814,7 +5969,7 @@ def _par_loader_leg(seed: int, card: str, train_step_ms, work: str) -> dict:
     _build.reset_launch_counts()
     trainer.fit(watched(), LOADER_STEPS, log_every=1)
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     final = loader.stats()
     loader.close()
     history = trainer.metrics_history
@@ -5928,15 +6083,14 @@ class _CaptureProbe:
     launches of exactly the captured window."""
 
     def __init__(self, engine=None):
-        from mlrun_tpu_torch.ops import _build
         from mlrun_tpu_torch.utils import profiler
 
-        self.profiler, self.build, self.engine = profiler, _build, engine
+        self.profiler, self.engine = profiler, engine
         self.start, self.stop = profiler._start_trace, profiler._stop_trace
         self.at = {}
 
     def _mark(self, key):
-        self.at[key] = (self.build.launch_counts(), time.perf_counter(),
+        self.at[key] = (_attention_launches(), time.perf_counter(),
                         _tick_mark(self.engine) if self.engine is not None
                         else None)
 
@@ -6102,7 +6256,7 @@ def _obs_serve_leg(seed: int, card: str, work: str) -> dict:
                     break
                 time.sleep(0.05)
             torch.cuda.synchronize()
-            burst_launches = _build.launch_counts()
+            burst_launches = _attention_launches()
         last = profiler.profile_status()["last"]
         if claimed is None or claimed["source"] != engine._obs_name \
                 or last is None or last.get("reason") != "bound":
@@ -6221,7 +6375,7 @@ def _obs_train_leg(seed: int, card: str, work: str) -> dict:
                     log_every=OBS_TRAIN_STEPS, prefetch=2,
                     callbacks=[clock.hook])
         torch.cuda.synchronize()
-        launches = _build.launch_counts()
+        launches = _attention_launches()
     last = profiler.profile_status()["last"]
     if last is None or last["source"] != trainer._profiler_source \
             or last["reason"] != "bound":
@@ -6311,7 +6465,7 @@ def _cache_child(mode: str):
                                             PAGE)
         torch.cuda.synchronize()
         out.update({
-            "launches": {k: v for k, v in _build.launch_counts().items()
+            "launches": {k: v for k, v in _attention_launches().items()
                          if v},
             "rms_norm_within_1_ulp": bool(
                 ((rms.float() - rms_ref.float()).abs()
@@ -6821,7 +6975,7 @@ def phase_gateway(seed: int, card: str) -> dict:
         first = _http(url, GW_INFER, "POST", {"inputs": prompts})
         hit = _http(url, GW_INFER, "POST", {"inputs": [prompts[0]]})
         torch.cuda.synchronize()
-        launches = _build.launch_counts()
+        launches = _attention_launches()
         after = engine.stats
         graph_runs += 2
         outputs = _outputs(first, "the serve request") + \
@@ -7154,9 +7308,9 @@ def phase_podfleet(seed: int, card: str) -> dict:
         inner = engine.warmup
 
         def counted_warmup():
-            before = _build.launch_counts()
+            before = _attention_launches()
             inner()
-            for name, count in _build.launch_counts().items():
+            for name, count in _attention_launches().items():
                 warm[name] = warm.get(name, 0) + count - before.get(name, 0)
 
         engine.warmup = counted_warmup
@@ -7277,12 +7431,12 @@ def phase_podfleet(seed: int, card: str) -> dict:
     prewarm = [e for e in get_flight_recorder().events(kind="pod.prewarm")
                if e.get("pod") == pod2][-1]
     prewarm_pages = engine2.stats["kv_imported_pages"]
-    before_launch = _build.launch_counts()
+    before_launch = _attention_launches()
     before_counters = _engine_counters(engine2)
     moved, moved_stats = fleet.generate(movers[0], max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
     moved_launch = {name: count - before_launch.get(name, 0)
-                    for name, count in _build.launch_counts().items()}
+                    for name, count in _attention_launches().items()}
     moved_counters = _counter_delta(engine2, before_counters)
     touched, touched_stats = fleet.generate(movers[1],
                                             max_new_tokens=MAX_NEW)
@@ -7449,7 +7603,7 @@ def phase_podfleet(seed: int, card: str) -> dict:
 
     # -- the launches of the whole window against the engines' counters ------
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     _check_launches(launches, SERVING_KERNELS, "podfleet")
     total = {"attn_kernel_ticks": 0, "prefill_kernel_chunks": 0,
              "prefill_chunks": 0}
@@ -7632,7 +7786,7 @@ def _runs_tpujob_leg(seed: int, card: str, db, work: str,
                  artifact_path=os.path.join(work, "artifacts"), local=True)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - started
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     uid = run.metadata.uid
     stored = db.read_run(uid, RUNS_PROJECT) or {}
     log_state, log = db.get_log(uid, RUNS_PROJECT)
@@ -7705,7 +7859,7 @@ def _runs_failing_leg(seed: int, card: str, db) -> dict:
     _build.reset_launch_counts()
     run = fn.run(handler=auto_trainer.train, params={
         "model": "llama3-1b-nope", "steps": 1, "seed": seed}, local=True)
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     event = {"entity_id": run.metadata.name, "uid": run.metadata.uid,
              "error": run.status.error}
     out = io.StringIO()
@@ -7853,7 +8007,7 @@ def _runs_hyper_leg(seed: int, card: str, db) -> dict:
         hyper_param_options={"selector": "min.loss"}, local=True)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - started
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     uid = run.metadata.uid
     children = [db.read_run(uid, RUNS_PROJECT, iter=i) or {}
                 for i in range(1, len(RUNS_LRS) + 1)]
@@ -7943,7 +8097,7 @@ def _runs_slo_leg(seed: int, card: str, db) -> dict:
     _build.reset_launch_counts()
     outputs = _serve_events(submit, prompts)
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
+    launches = _attention_launches()
     counted = _gateway_launches(launches, before, _engine_counters(engine),
                                 config.n_layers, path="runs (slo)")
     at = observe()
@@ -8289,7 +8443,7 @@ def _tuning_endpoint_leg(seed: int, card: str, db, prompts) -> dict:
                                body={"inputs": [p]})["outputs"][0]
                    for p in prompts]
         torch.cuda.synchronize()
-        launches = _build.launch_counts()
+        launches = _attention_launches()
         counted = _gateway_launches(launches, before,
                                     _engine_counters(engine),
                                     engine.config.n_layers,
@@ -8779,7 +8933,7 @@ def phase_tuning(seed: int, card: str) -> dict:
         _tune_check("restart", row_e)
         rows.append(row_e)
         torch.cuda.synchronize()
-        launches = _build.launch_counts()
+        launches = _attention_launches()
         delta = _counter_delta(engine, before)
         t1_path = _TUNE["runs"][0]["output_path"]
         engine_stats = engine.stats
@@ -8917,7 +9071,8 @@ def train(context, device_check: bool = True, **params):
         torch.cuda.synchronize()
     context.log_results({
         "losses": losses,
-        "launches": {k: v for k, v in _build.launch_counts().items() if v},
+        "launches": {k: v for k, v in _build.launch_counts().items()
+                     if v and k not in ("grad_sqnorm", "adamw")},
         "torch_import_s": None if preloaded else torch_import_s,
         "kernel_load_s": kernel_load_s,
         "device": torch.cuda.get_device_name(0) if device_check else "cpu"})
@@ -9164,7 +9319,7 @@ def _proj_train_adapter(context, seed: int, steps: int):
     trainer.warmup(TRAIN_BATCH, TRAIN_SEQ)
     trainer.fit(repeated(), steps, log_every=1)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    launches = {k: v for k, v in _attention_launches().items() if v}
     history = trainer.metrics_history
     os.makedirs(context.artifact_path, exist_ok=True)
     path = os.path.join(context.artifact_path, "adapter.npz")
@@ -9211,7 +9366,7 @@ def _proj_decode(context, adapter: str, seed: int):
                for p in prompts]
     out = [f.result(timeout=600)[0] for f in futures]
     torch.cuda.synchronize()
-    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    launches = {k: v for k, v in _attention_launches().items() if v}
     stats = engine.stats
     engine.stop()
     merged = merge_lora(params, tree)
@@ -9471,7 +9626,7 @@ def train(context, steps: int = 4, park_after: int = 2,
         if device_check:
             torch.cuda.synchronize()
         out["launches"] = {k: v for k, v in _build.launch_counts().items()
-                           if v}
+                           if v and k not in ("grad_sqnorm", "adamw")}
         out["restore_s"] = restore_s
         out["final"] = final
         print("MARK result " + json.dumps(out), file=sys.stderr,
@@ -10140,7 +10295,8 @@ def main(argv=None) -> int:
         with timed("train"):
             trained = phase_train(args.seed, card)
             launches.update({name: trained["launches"][name]
-                             for name in TRAINING_KERNELS})
+                             for name in TRAINING_KERNELS
+                             + OPTIMIZER_KERNELS})
             train_step_ms = trained["step_ms"]
             trained = None
             release()
@@ -10246,6 +10402,8 @@ def main(argv=None) -> int:
         "flash_bwd": "mlrun_tpu/ops/attention.py:447",
         "flash_v1": "mlrun_tpu/ops/attention.py:87",
         "rms_norm": "mlrun_tpu/ops/norms.py:26",
+        # XLA fuses optax's update on the TPU: no Pallas kernel
+        "adamw": "none (optax adamw, fused by XLA)",
     }
     sources = {
         "paged_decode": "mlrun_tpu_torch/csrc/paged_decode.cu",
@@ -10259,6 +10417,7 @@ def main(argv=None) -> int:
         "flash_bwd": "mlrun_tpu_torch/csrc/flash_bwd.cu",
         "flash_v1": "mlrun_tpu_torch/csrc/flash_fwd_cached.cu",
         "rms_norm": "mlrun_tpu_torch/csrc/rms_norm.cu",
+        "adamw": "mlrun_tpu_torch/csrc/adamw.cu",
     }
     line = [{"name": k["name"], "route": "cuda", "source": sources[k["name"]],
              "replaces": replaces[k["name"]],

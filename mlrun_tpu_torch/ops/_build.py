@@ -53,7 +53,8 @@ FLOAT16_CODE = 2
 # kernel names, one counter each
 KERNELS = ("paged_decode", "flash_fwd_cached", "paged_prefill", "flash_fwd",
            "flash_bwd", "paged_decode_int8", "paged_prefill_int8",
-           "paged_verify", "paged_verify_int8", "flash_v1", "rms_norm")
+           "paged_verify", "paged_verify_int8", "flash_v1", "rms_norm",
+           "grad_sqnorm", "adamw")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,6 +77,10 @@ _SIGNATURES = {
     "mlt_flash_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _I, _I, _F, _P],
     "mlt_rms_norm": [_I, _I, _P, _P, _P, _I, _I, _F, _P],
+    "mlt_grad_sqnorm_scratch": [_I],
+    "mlt_grad_sqnorm": [_I, _P, _P, _P, _P, _I, _P, _I, _F, _P],
+    "mlt_adamw": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
+                  _F, _F, _F, _I, _F, _P],
 }
 
 

@@ -61,6 +61,7 @@ from ..models import llama as llama_mod
 from ..models import moe as moe_mod
 from ..models.llama import LlamaConfig
 from ..models.moe import MoEConfig
+from ..ops import adamw as fused_adamw
 from ..parallel.mesh import make_mesh, mesh_shape
 from ..parallel.sharding import (
     _map_with_path,
@@ -211,28 +212,48 @@ def _local(leaf) -> torch.Tensor:
     return leaf.to_local() if isinstance(leaf, DTensor) else leaf
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32 (optax's
-    ``global_norm``). DTensor leaves (a sharded step's gradients) add
-    their local shards, each counted on one rank only (coordinate 0 along
-    every mesh axis that replicates it), and the sum is all-reduced once:
-    a norm of the rank's shards alone would clip each rank differently."""
+def _norm_terms(leaves) -> tuple[list, object]:
+    """(the tensors whose squares the global norm adds, the mesh whose
+    ranks' sums it all-reduces, or None). DTensor leaves (a sharded
+    step's gradients) give their local shards, each counted on one rank
+    only (coordinate 0 along every mesh axis that replicates it): a norm
+    of the rank's shards alone would clip each rank differently."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if not leaves or not isinstance(leaves[0], DTensor):
-        return torch.sqrt(sum(torch.sum(g.float() * g.float())
-                              for g in leaves))
+        return list(leaves), None
     mesh = leaves[0].device_mesh
     coordinate = mesh.get_coordinate()
+    return [g.to_local() for g in leaves
+            if all(c == 0 for c, p in zip(coordinate, g.placements)
+                   if isinstance(p, Replicate))], mesh
+
+
+def global_norm(leaves) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32 (optax's
+    ``global_norm``); a sharded step's DTensor leaves add their counted
+    local shards (``_norm_terms``), all-reduced once."""
+    terms, mesh = _norm_terms(leaves)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(g.float() * g.float())
+                              for g in terms))
     total = torch.zeros((), dtype=torch.float32,
                         device=leaves[0].to_local().device)
-    for g in leaves:
-        if all(c == 0 for c, p in zip(coordinate, g.placements)
-               if isinstance(p, Replicate)):
-            local = g.to_local().float()
-            total = total + torch.sum(local * local)
+    for g in terms:
+        local = g.float()
+        total = total + torch.sum(local * local)
     mesh_all_reduce(total, mesh)
     return torch.sqrt(total)
+
+
+def _clip_scale(g_norm: torch.Tensor, max_norm: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(divisor, factor) of ``clip_by_global_norm``: (g_norm, max_norm)
+    where ``g_norm >= max_norm``, else (1, 1); on the device, no sync."""
+    clip = g_norm >= max_norm
+    one = torch.ones_like(g_norm)
+    return (torch.where(clip, g_norm, one),
+            torch.where(clip, torch.full_like(g_norm, max_norm), one))
 
 
 # -- optimizer ----------------------------------------------------------------
@@ -278,7 +299,13 @@ class AdamW:
       on every leaf, with the moments rounded to their stored dtype before
       the bias correction, as optax keeps them in the params' dtype.
     All arithmetic is float32 whatever the storage dtype; nothing syncs
-    the host (the clip decision stays on the device)."""
+    the host (the clip decision stays on the device).
+
+    CUDA leaves take the fused kernels of ``ops/adamw.py``
+    (``csrc/adamw.cu``): one pass for the norm and the clip's scale, one
+    for the update, with the plain loop's float32 arithmetic in its order
+    and roundings; a leaf they do not take raises. CPU leaves take the
+    plain loop (``_apply_plain``)."""
 
     def __init__(self, schedule: Callable[[int], float], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -298,30 +325,45 @@ class AdamW:
         are in ``tree_leaves(params)`` order. Returns the global norm of
         ``grads`` before clipping. DTensor leaves update their local
         shards. Runs as the ``train.optimizer`` phase
-        (``utils.profiler.phase``)."""
-        with profiler_mod.phase("train.optimizer"):
-            return self._update(grads, state, params)
+        (``utils.profiler.phase``); on the fused route the phase's span
+        carries ``fused_leaves`` and ``fused_elements`` (the local
+        elements the kernels updated)."""
+        with profiler_mod.phase("train.optimizer") as span:
+            leaves = tree_leaves(params)
+            hyper = self._constants(state.count)
+            moments = (tree_leaves(state.mu), tree_leaves(state.nu))
+            if leaves and _local(leaves[0]).device.type == "cuda":
+                g_norm, elements = self._update_fused(grads, leaves,
+                                                      *moments, *hyper)
+                if span is not None:
+                    span.attrs.update(fused_leaves=len(leaves),
+                                      fused_elements=elements)
+            else:
+                g_norm = global_norm(grads)
+                self._apply_plain(
+                    grads, leaves, *moments, *hyper,
+                    _clip_scale(g_norm, self.grad_clip)
+                    if self.grad_clip else None)
+            state.count += 1
+            return g_norm
 
-    def _update(self, grads: list, state: AdamWState, params
-                ) -> torch.Tensor:
-        leaves = tree_leaves(params)
-        g_norm = global_norm(grads)
-        if self.grad_clip:
-            clip = g_norm >= self.grad_clip
-            one = torch.ones_like(g_norm)
-            divisor = torch.where(clip, g_norm, one)
-            factor = torch.where(clip, torch.full_like(g_norm,
-                                                       self.grad_clip), one)
-        lr = float(np.float32(self.schedule(state.count)))
-        count = state.count + 1
-        bc1 = float(np.float32(1.0 - self.b1 ** count))
-        bc2 = float(np.float32(1.0 - self.b2 ** count))
-        for p, g, mu, nu in zip(leaves, grads, tree_leaves(state.mu),
-                                tree_leaves(state.nu)):
+    def _constants(self, count: int) -> tuple[float, float, float]:
+        """(lr, bc1, bc2) of the update at ``count`` (before its
+        increment), each a float32 value."""
+        lr = float(np.float32(self.schedule(count)))
+        bc1 = float(np.float32(1.0 - self.b1 ** (count + 1)))
+        bc2 = float(np.float32(1.0 - self.b2 ** (count + 1)))
+        return lr, bc1, bc2
+
+    def _apply_plain(self, grads: list, leaves: list, mus: list, nus: list,
+                     lr: float, bc1: float, bc2: float, scale=None):
+        """The plain loop: each leaf's update from PyTorch ops; ``scale``
+        is the clip's (divisor, factor), or None for no clip."""
+        for p, g, mu, nu in zip(leaves, grads, mus, nus):
             p, g, mu, nu = _local(p), _local(g), _local(mu), _local(nu)
             g32 = g.float()
-            if self.grad_clip:
-                g32 = g32 / divisor * factor
+            if scale is not None:
+                g32 = g32 / scale[0] * scale[1]
             mu.copy_(g32 * (1.0 - self.b1) + mu.float() * self.b1)
             nu.copy_(g32 * g32 * (1.0 - self.b2) + nu.float() * self.b2)
             update = (mu.float() / bc1) / (torch.sqrt(nu.float() / bc2)
@@ -329,8 +371,31 @@ class AdamW:
             if self.weight_decay:
                 update = update + p.float() * self.weight_decay
             p.copy_(p.float() + update * -lr)
-        state.count = count
-        return g_norm
+
+    def _update_fused(self, grads: list, leaves: list, mus: list, nus: list,
+                      lr: float, bc1: float, bc2: float
+                      ) -> tuple[torch.Tensor, int]:
+        """(g_norm, local elements updated) of the kernel route."""
+        local = [[_local(t) for t in group]
+                 for group in (leaves, grads, mus, nus)]
+        fused_adamw.check_leaves(*local)
+        terms, mesh = _norm_terms(grads)
+        if mesh is None:
+            out = fused_adamw.grad_sqnorm(local[1], self.grad_clip)
+            g_norm, scale = out[1], out[2:]
+        else:
+            # a rank that counts no shard adds 0
+            total = (fused_adamw.grad_sqnorm(terms, finish=False)[:1]
+                     if terms else torch.zeros(1, dtype=torch.float32,
+                                               device=local[1][0].device))
+            mesh_all_reduce(total, mesh)
+            g_norm = torch.sqrt(total[0])
+            scale = torch.stack(_clip_scale(g_norm, self.grad_clip))
+        fused_adamw.adamw(*local, lr=lr, b1=self.b1, b2=self.b2,
+                          eps=self.eps, weight_decay=self.weight_decay,
+                          bc1=bc1, bc2=bc2,
+                          scale=scale if self.grad_clip else None)
+        return g_norm, sum(p.numel() for p in local[0])
 
 
 def make_optimizer(config: TrainConfig) -> AdamW:

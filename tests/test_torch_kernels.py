@@ -665,7 +665,12 @@ def test_trainer_kernel_path_matches_reference_path(dev):
         runs[impl] = (trainer.metrics_history, _build.launch_counts())
     (hist, counts), (ref_hist, ref_counts) = runs["auto"], runs["reference"]
     assert counts["flash_fwd"] == counts["flash_bwd"] == 3 * 2
-    assert not any(ref_counts.values())
+    # the optimizer's kernels run on both paths: one norm and one update a
+    # step; the reference attention launches no other kernel
+    for got in (counts, ref_counts):
+        assert got["grad_sqnorm"] == got["adamw"] == 3
+    assert not any(v for k, v in ref_counts.items()
+                   if k not in ("grad_sqnorm", "adamw"))
     for a, b in zip(hist, ref_hist):
         for key in ("loss", "grad_norm"):
             assert abs(a[key] - b[key]) <= 1e-5 * abs(b[key]), key
@@ -764,6 +769,171 @@ def test_rms_norm_kernel_refuses_bad_inputs(dev):
                                                                    device=dev))
     assert torch.equal(out, norms.rms_norm_pallas(x, torch.ones(64,
                                                                 device=dev)))
+
+
+# -- the fused AdamW (csrc/adamw.cu) ------------------------------------------------
+
+def _adamw_tree(seed: int):
+    """Params of every case the two kernels walk: bf16 leaves of 1 element,
+    sizes that are not a multiple of the 8-element vector, several 2048-
+    element tiles, whole tiles, a leaf 2 bytes off the 16-byte boundary
+    (element-by-element path), a float32 leaf and a bf16 leaf whose
+    gradient is float32. Returns (params, the gradient dtypes)."""
+    g = _gen(seed)
+
+    def normal(*shape, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(
+            dtype)
+
+    params = {"a": normal(1), "b": normal(4097), "c": normal(3, 1003),
+              "d": normal(70001), "e": normal(64, 2048),
+              "f": normal(4099, dtype=torch.float32), "g": normal(5000),
+              "h": normal(3002)[1:]}
+    grad_dtypes = {key: torch.float32 if key == "g" else leaf.dtype
+                   for key, leaf in params.items()}
+    return params, grad_dtypes
+
+
+def _adamw_grads(params, grad_dtypes, seed: int, scale: float) -> list:
+    from mlrun_tpu_torch.training.train import tree_leaves
+
+    g = _gen(seed)
+    return tree_leaves({key: (torch.randn(leaf.shape, generator=g,
+                                          device="cuda") * scale).to(
+        grad_dtypes[key]) for key, leaf in params.items()})
+
+
+def _clone_state(params, state):
+    from mlrun_tpu_torch.training.train import AdamWState, tree_map
+
+    clone = lambda t: t.clone()  # noqa: E731
+    return tree_map(clone, params), AdamWState(
+        state.count, tree_map(clone, state.mu), tree_map(clone, state.nu))
+
+
+@pytest.mark.parametrize("clip,weight_decay,grad_scale", [
+    (0.0, 0.0, 1.0), (0.0, 0.1, 1.0), (1.0, 0.1, 1e-5), (1.0, 0.0, 1.0),
+    (1.0, 0.1, 1.0)])
+def test_fused_adamw_matches_the_plain_loop(dev, clip, weight_decay,
+                                            grad_scale):
+    """Three updates through the kernels (CUDA leaves) against the plain
+    loop on copies of the same state, clip off, on and not triggered (its
+    norm about 3e-3), on and triggered (about 300):
+    - given the kernels' own clip scale, the plain loop's mu, nu and params
+      are the kernels' bit for bit, in every case;
+    - the norm is within 1e-6 relative of ``global_norm``'s (another
+      summation order);
+    - against the plain loop with its own norm: the same bits where the
+      clip is off or not triggered. Where it is triggered, its divisor
+      differs by that norm's rounding, and a float32 difference of an ulp
+      or two moves a stored bf16 value where it lies that close to a
+      rounding boundary, or where a moment cancels near 0; so there each
+      leaf's difference is held to 1e-3 of its norm (a bf16 ulp is 3.9e-3
+      of a value)."""
+    from mlrun_tpu_torch.training.train import (
+        AdamW,
+        _clip_scale,
+        global_norm,
+        tree_leaves,
+    )
+
+    params, grad_dtypes = _adamw_tree(30)
+    opt = AdamW(lambda count: 1e-3 * (count + 1), b2=0.95,
+                weight_decay=weight_decay, grad_clip=clip)
+    state = opt.init(params)
+    same = _clone_state(params, state)    # plain loop, the kernels' scale
+    own = _clone_state(params, state)     # plain loop, its own norm
+    for step in range(3):
+        grads = _adamw_grads(params, grad_dtypes, 31 + step, grad_scale)
+        before = _build.launch_counts()
+        g_norm = opt.update(grads, state, params)
+        after = _build.launch_counts()
+        assert after["adamw"] == before["adamw"] + 1
+        assert after["grad_sqnorm"] == before["grad_sqnorm"] + 1
+        hyper = opt._constants(step)
+        for (tree, st), norm in ((same, g_norm),
+                                 (own, global_norm(grads))):
+            opt._apply_plain(grads, tree_leaves(tree), tree_leaves(st.mu),
+                             tree_leaves(st.nu), *hyper,
+                             _clip_scale(norm, clip) if clip else None)
+        ref_norm = float(global_norm(grads))
+        assert abs(float(g_norm) - ref_norm) <= 1e-6 * ref_norm
+        triggered = bool(clip) and ref_norm >= clip
+        assert triggered == (bool(clip) and grad_scale == 1.0)
+        got = [tree_leaves(t) for t in (params, state.mu, state.nu)]
+        for other, exact in ((same, True), (own, not triggered)):
+            want = [tree_leaves(t) for t in (other[0], other[1].mu,
+                                             other[1].nu)]
+            for a_list, b_list in zip(got, want):
+                for a, b in zip(a_list, b_list):
+                    if exact:
+                        assert torch.equal(a, b), (step, float(
+                            (a.float() - b.float()).abs().max()))
+                    else:
+                        gap = torch.linalg.vector_norm(a.float() - b.float())
+                        assert gap <= 1e-3 * torch.linalg.vector_norm(
+                            b.float()), step
+    assert state.count == 3
+
+
+def test_fused_adamw_syncs_nothing_and_counts_its_leaves(dev):
+    """The fused update under ``set_sync_debug_mode("error")`` (no host
+    sync), one launch of each kernel an update and none of any other
+    kernel, and the ``train.optimizer`` span's ``fused_leaves`` /
+    ``fused_elements`` (every leaf's elements)."""
+    from mlrun_tpu_torch.obs import tracing
+    from mlrun_tpu_torch.training.train import AdamW, tree_leaves
+
+    params, grad_dtypes = _adamw_tree(40)
+    grads = _adamw_grads(params, grad_dtypes, 41, 1.0)
+    opt = AdamW(lambda count: 1e-3, weight_decay=0.1, grad_clip=1.0)
+    state = opt.init(params)
+    opt.update(grads, state, params)      # loads the kernels
+    torch.cuda.synchronize()
+    tracer = tracing.get_tracer()
+    tracer.clear()
+    tracer.configure(phases=True)
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            opt.update(grads, state, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        tracer.configure(phases=False)
+    counts = _build.launch_counts()
+    torch.cuda.synchronize()
+    spans = tracer.spans(name="train.optimizer")
+    tracer.clear()
+    assert counts == {**dict.fromkeys(counts, 0), "grad_sqnorm": 3,
+                      "adamw": 3}
+    leaves = tree_leaves(params)
+    assert len(spans) == 3
+    for span in spans:
+        assert span.attrs["fused_leaves"] == len(leaves) == 8
+        assert span.attrs["fused_elements"] == sum(p.numel() for p in leaves)
+        assert span.attrs["device_ms"] > 0
+
+
+def test_fused_adamw_refuses_leaves_it_does_not_take(dev):
+    from mlrun_tpu_torch.ops import adamw as fused_adamw
+    from mlrun_tpu_torch.training.train import AdamW
+
+    opt = AdamW(lambda count: 1e-3, grad_clip=1.0)
+    half = {"w": torch.zeros(64, device=dev, dtype=torch.float16)}
+    mixed = {"a": torch.zeros(64, device=dev), "b": torch.zeros(64)}
+    before = _build.launch_counts()
+    with pytest.raises(TypeError):
+        opt.update([torch.ones_like(half["w"])], opt.init(half), half)
+    with pytest.raises(ValueError):
+        opt.update([torch.ones_like(mixed["a"]), torch.ones_like(
+            mixed["b"])], opt.init(mixed), mixed)
+    p = torch.zeros((8, 8), device=dev).t()
+    with pytest.raises(ValueError):
+        fused_adamw.check_leaves([p], [torch.ones_like(p)],
+                                 [torch.zeros(8, 8, device=dev)],
+                                 [torch.zeros(8, 8, device=dev)])
+    assert _build.launch_counts() == before
 
 
 # -- the dense serving path ----------------------------------------------------

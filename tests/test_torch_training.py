@@ -282,6 +282,65 @@ def test_adamw_updates_match_optax(scale, weight_decay):
     _assert_trees_close(jstate[1][0].nu, tstate.nu, 1e-6)
 
 
+def _route_tree(device: str) -> dict:
+    g = torch.Generator().manual_seed(5)
+    tree = {"w": torch.randn((8, 33), generator=g).to(torch.bfloat16),
+            "r": torch.randn(7, generator=g)}
+    return {key: leaf.to(device) for key, leaf in tree.items()}
+
+
+@pytest.mark.parametrize("case", ["cpu_leaves_take_the_plain_loop",
+                                  "a_float16_cuda_leaf_raises"])
+def test_adamw_route_follows_device_and_dtype(case):
+    """CPU leaves take the plain loop: no kernel launches, no
+    ``fused_*`` attrs on the ``train.optimizer`` span, and the bits of
+    ``_apply_plain`` on a copy. A CUDA leaf takes the fused kernels, which
+    refuse float16 before anything runs (fake CUDA tensors, so no card is
+    needed to show it)."""
+    from mlrun_tpu_torch.obs import tracing
+    from mlrun_tpu_torch.ops import _build
+
+    opt = ttrain.AdamW(lambda count: 1e-2, weight_decay=0.1, grad_clip=1.0)
+    if case == "a_float16_cuda_leaf_raises":
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            params = {"w": torch.zeros(16, dtype=torch.float16,
+                                       device="cuda")}
+            state = opt.init(params)
+            with pytest.raises(TypeError, match="float16"):
+                opt.update([torch.ones_like(params["w"])], state, params)
+        assert state.count == 0
+        return
+    params, grads = _route_tree("cpu"), ttrain.tree_leaves(_route_tree("cpu"))
+    copy = {key: leaf.clone() for key, leaf in params.items()}
+    state, copy_state = opt.init(params), opt.init(copy)
+    tracer = tracing.get_tracer()
+    tracer.clear()
+    tracer.configure(phases=True)
+    _build.reset_launch_counts()
+    try:
+        g_norm = opt.update(grads, state, params)
+    finally:
+        tracer.configure(phases=False)
+    spans = tracer.spans(name="train.optimizer")
+    tracer.clear()
+    assert not any(_build.launch_counts().values())
+    assert len(spans) == 1 and "fused_elements" not in spans[0].attrs
+    assert torch.equal(g_norm, ttrain.global_norm(grads))
+    opt._apply_plain(grads, ttrain.tree_leaves(copy),
+                     ttrain.tree_leaves(copy_state.mu),
+                     ttrain.tree_leaves(copy_state.nu), *opt._constants(0),
+                     ttrain._clip_scale(g_norm, 1.0))
+    for got, want in zip(
+            ttrain.tree_leaves({"p": params, "mu": state.mu,
+                                "nu": state.nu}),
+            ttrain.tree_leaves({"p": copy, "mu": copy_state.mu,
+                                "nu": copy_state.nu})):
+        assert torch.equal(got, want)
+    assert state.count == 1
+
+
 # -- trainer -------------------------------------------------------------------
 
 def _train_cfg(cls, **kw):
